@@ -16,9 +16,25 @@ then:
    ``FrameTracker.track`` on 8 more frames, checking that every
    ``track_core`` output is finite and that each kernel was launched exactly
    as often as the path needs;
-3. runs mono inference and the asymmetric pair decode (both heads) at full
+3. runs the backend keyframe event at full width on that path's state:
+   three keyframes, ``FactorGraph.add_factors`` with the tracker's 5-tuple
+   hint (``match_oneway``) and without one (``match_symmetric``), the
+   measured channels and ``solve_GN_rays``, with exact K1 / K2 / K4 launch
+   counts;
+4. runs mono inference and the asymmetric pair decode (both heads) at full
    width and reduced depth in f32 on the card (kernels) and on the CPU
-   (plain versions) and compares the entry points' outputs.
+   (plain versions) and compares the entry points' outputs;
+5. holds K4 / K5 (the BA Gram) against their plain versions on channels
+   measured on oracle pointmaps at 384x512, over the edge counts, pixel
+   counts and types of the backend, with their times, each Gram entry
+   against the scale of its own rows (and shows that this comparison
+   rejects a Gram with its smallest residual dropped or flipped);
+6. runs the oracle SLAM harness at 384x512 (exact geometry plus noise in
+   place of the network) for the ray and the calibrated BA, checks that the
+   BA recovers the trajectory, cross-checks one Gram and one system build
+   on the card against the CPU, and reruns the BA's LM loop from kicked
+   keyframe poses on the card and on the CPU: several accepted steps, the
+   trajectory recovered, both runs ending at the same poses.
 
 Any failed check raises and the script exits non-zero. Its last three lines
 are the kernel table (JSON), the card's name and power limit as
@@ -27,6 +43,7 @@ are the kernel table (JSON), the card's name and power limit as
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -45,7 +62,32 @@ PEAK_BYTES = 3.35e12
 N_FRAMES = 9
 IMG_HW = (384, 512)
 K1_PER_PAIR = 48      # 24 encoder + 12 decoder self + 12 decoder cross
+K1_PER_DECODE = 24    # 12 decoder self + 12 decoder cross, any batch
 K2_PER_HEAD = 20      # rn0-rn3, 14 fusion-block convs, head_c1, head_c2
+# two-way edges of a BA system: a first edge, the keyframe event's (2
+# edges), the oracle BA's (5 edges), a 9-keyframe map, K4′'s production shape
+GRAM_EDGES = (2, 4, 10, 16, 128)
+GRAM_PIXELS = (98_304, 196_608)       # 384*512 / pixel_step 2 and 1
+GRAM_REPORT = (16, 98_304)            # the shape of the table's K4/K5 row
+ORACLE_FRAMES = 24
+# make_trajectory's amplitudes (0.45 / 0.3 / 0.12 m, 0.06 rad) scaled so
+# that keyframes 4 frames apart stay within the cold-start matcher's reach
+# at 384x512; at full amplitude every BA edge's match falls under
+# run_oracle_slam's 20% valid gate and the BA has no edges
+ORACLE_MOTION = 0.125
+# tests/test_oracle_modes.py FAST: config/base.yaml's matcher and BA cuts
+ORACLE_FAST = dict(refine_mode="plus", level_step=2, plateau_frac=0.001,
+                   radius=2, proj_step=2, track_dilation_max=1,
+                   ba_pixel_step=2, ba_meas_dtype="bfloat16",
+                   ba_compute_dtype="bfloat16", ba_delta_norm=1e-2)
+# K4 / K5 against their plain versions: ``ba_kernels.gram_error``, each
+# Gram entry against the scale of its own rows (the distance and log-depth
+# blocks sit orders of magnitude below max|G| with base.yaml's sigmas)
+GRAM_TOL = {"float32": 1e-4, "bfloat16": 1e-4}
+# the oracle BA's LM loop restarted from keyframe poses moved by this much
+# (per se(3)/scale coordinate, radians and metres), run to max_iter
+ORACLE_KICK = 0.02
+ORACLE_KICK_ITERS = 10
 
 
 class CheckFailed(RuntimeError):
@@ -83,6 +125,16 @@ def time_ms(fn, iters=20, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+def reset_counters(FA, C3, BA):
+    for c in (FA.counter, C3.counter, BA.rays_counter, BA.calib_counter):
+        c.launches = 0
+
+
+def sync_clock(torch):
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
 def bound_ms(flops, nbytes, dtype_name):
     t_ops = flops / PEAK_FLOPS[dtype_name]
     t_bytes = nbytes / PEAK_BYTES
@@ -106,9 +158,11 @@ def compare(out, ref, dtype_name, what):
 # ---------------------------------------------------------------------------
 
 def k1_cases():
-    """(batch, heads, label, calls per track_core) at 768 tokens, D = 64."""
-    return [(1, 16, "encoder", 24), (2, 12, "decoder", 24),
-            (4, 12, "batched pairs", 0)]
+    """(batch, heads, label, calls per track_core, calls per keyframe
+    event) at 768 tokens, D = 64: the event decodes one pair at batch 1
+    (``match_oneway``) and one at batch 2 (``match_symmetric``)."""
+    return [(1, 16, "encoder", 24, 0), (2, 12, "decoder", 24, 24),
+            (4, 12, "batched pairs", 0, 24)]
 
 
 def k2_cases():
@@ -141,7 +195,7 @@ def phase_kernels(torch):
                          err=0.0) for k in ("K1", "K2")}
     hp, wp = IMG_HW[0] // 16, IMG_HW[1] // 16
     n = hp * wp
-    for b, h, label, calls in k1_cases():
+    for b, h, label, calls, event_calls in k1_cases():
         pos = M.patch_positions(hp, wp, b, dev)
         cos, sin = FA.rope_tables(pos, 64)
         for dt in (torch.bfloat16, torch.float32):
@@ -166,7 +220,8 @@ def phase_kernels(torch):
             bnd, by = bound_ms(flops, nbytes, dn)
             log(f"K1 {label:13s} ({b},{h},{n},64) {dn:8s} err {err:.2e} "
                 f"kernel {t_k:.4f} ms plain {t_p:.4f} ms sdpa {t_l:.4f} ms "
-                f"bound {bnd * 1e3:.2f} us ({by}) calls/frame {calls}")
+                f"bound {bnd * 1e3:.2f} us ({by}) calls/frame {calls} "
+                f"calls/event {event_calls}")
             if dt == torch.bfloat16:
                 acc = per_frame["K1"]
                 for key, val in (("ms", t_k), ("plain_ms", t_p),
@@ -240,7 +295,7 @@ def synthetic_frames(n_frames, hw, seed=0):
     return frames
 
 
-def phase_main_path(torch, FA, C3):
+def phase_main_path(torch, FA, C3, BA):
     from mast3r_slam_tpu_torch.models import mast3r as M
     from mast3r_slam_tpu_torch.models.inference import MASt3RInference
     from mast3r_slam_tpu_torch.slam import tracker as T
@@ -257,7 +312,7 @@ def phase_main_path(torch, FA, C3):
     torch.cuda.synchronize()
     log(f"main path: ViT-L random init + prepare {time.perf_counter() - t0:.1f} s "
         f"(trunk {mcfg.dtype}, heads {mcfg.head_dtype})")
-    model = MASt3RInference(params, mcfg)
+    model = MASt3RInference(params, mcfg, cfg["matching"])
     H, W = IMG_HW
     keyframes = KeyframeBuffer(H, W, capacity=16,
                                feat_dim=mcfg.enc_embed_dim, device="cuda")
@@ -273,9 +328,8 @@ def phase_main_path(torch, FA, C3):
 
     T.track_core = recording_core
     imgs = synthetic_frames(N_FRAMES, IMG_HW)
-    frame_ms, modes = [], []
-    FA.counter.launches = 0
-    C3.counter.launches = 0
+    frame_ms, modes, frames = [], [], []
+    reset_counters(FA, C3, BA)
     try:
         mode = Mode.INIT
         last_T = None
@@ -283,6 +337,7 @@ def phase_main_path(torch, FA, C3):
             torch.cuda.synchronize()
             t = time.perf_counter()
             frame = create_frame(i, img, T_WC=last_T, device="cuda")
+            frames.append(frame)
             if mode == Mode.INIT:
                 X, C = model.inference_mono(frame)
                 frame.update_pointmap(X[0], C[0])
@@ -304,6 +359,8 @@ def phase_main_path(torch, FA, C3):
     finally:
         T.track_core = core
     k1, k2 = FA.counter.launches, C3.counter.launches
+    check(BA.rays_counter.launches == BA.calib_counter.launches == 0,
+          "a BA kernel ran on the tracking path")
 
     check(len(outputs) == N_FRAMES - 1,
           f"track_core ran {len(outputs)} times, expected {N_FRAMES - 1}")
@@ -325,9 +382,423 @@ def phase_main_path(torch, FA, C3):
         f"{tracked_ms:.1f}; modes {modes}; keyframes {len(keyframes)}; "
         f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del params, model, tracker, keyframes, outputs
+    state = dict(cfg=cfg, model=model, keyframes=keyframes, frames=frames,
+                 outputs=outputs)
+    return {"K1": k1, "K2": k2}, tracked_ms, state
+
+
+# ---------------------------------------------------------------------------
+# Phase: the backend keyframe event at full width
+# ---------------------------------------------------------------------------
+
+def phase_event(torch, FA, C3, BA, state):
+    """Frames 1 and 2 of the main path become keyframes 1 and 2; edge
+    (0, 1) reuses frame 1's recorded ``track_core`` match as the 5-tuple
+    hint (``match_oneway``), edge (1, 2) takes the symmetric path; then the
+    measured channels and ``solve_GN_rays``. Random weights leave every
+    confidence under ``Q_conf``, so K4 builds systems of zeros here; the
+    oracle phase gives it real input."""
+    from mast3r_slam_tpu_torch.slam.factor_graph import FactorGraph
+
+    cfg, keyframes, frames = state["cfg"], state["keyframes"], state["frames"]
+    out1 = state["outputs"][0]            # frame 1 tracked against kf 0
+    check(len(keyframes) == 1, "the main path added keyframes")
+    keyframes.append(frames[1])
+    keyframes.append(frames[2])
+    hint = (0, 1, out1["idx_f2k"][0], out1["valid_match"], out1["Qk"])
+    graph = FactorGraph(state["model"], keyframes, cfg)
+    min_frac = float(cfg["local_opt"]["min_match_frac"])
+    reset_counters(FA, C3, BA)
+    marks = [sync_clock(torch)]
+    check(graph.add_factors([0], [1], min_frac, init_hint=hint),
+          "edge (0, 1) was not added")
+    marks.append(sync_clock(torch))
+    check(graph.add_factors([1], [2], min_frac), "edge (1, 2) was not added")
+    marks.append(sync_clock(torch))
+    graph._ensure_meas("rays")
+    marks.append(sync_clock(torch))
+    graph.solve_GN_rays()
+    marks.append(sync_clock(torch))
+    launches = {"K1": FA.counter.launches, "K2": C3.counter.launches,
+                "K4": BA.rays_counter.launches,
+                "K5": BA.calib_counter.launches}
+    want = {"K1": 2 * K1_PER_DECODE, "K2": 2 * 2 * K2_PER_HEAD,
+            "K4": 1 + graph.last_solve_iters, "K5": 0}
+    log(f"event launches: {launches} (want {want}); "
+        f"LM iterations {graph.last_solve_iters}")
+    check(launches == want, "keyframe event launch counts")
+    check(graph.n_edges() == 2, f"{graph.n_edges()} edges, expected 2")
+    check(torch.equal(graph.idx_jj2ii[0], hint[2]),
+          "the hint's j->i match was not reused verbatim")
+    tensors = [graph.Q_ii2jj, graph.Q_jj2ii, keyframes.T_WC,
+               *graph._meas_ij, *graph._meas_ji]
+    for t in tensors:
+        check(bool(t.float().isfinite().all()), "event output not finite")
+    for idx in (graph.idx_ii2jj, graph.idx_jj2ii):
+        check(int(idx.min()) >= 0 and int(idx.max()) < IMG_HW[0] * IMG_HW[1],
+              "match index out of range")
+    ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    t0 = sync_clock(torch)
+    graph.solve_GN_rays()                 # again, with the solver warm
+    warm = (sync_clock(torch) - t0) * 1e3
+    log(f"event: decode+match {ms[0] + ms[1]:.1f} ms (hint edge, "
+        f"match_oneway {ms[0]:.1f}; symmetric edge {ms[1]:.1f}), premeas "
+        f"{ms[2]:.1f} ms, solve {ms[3]:.1f} ms (first call; {warm:.1f} ms "
+        f"on a second solve) ({graph.last_solve_iters} LM iterations, E = "
+        f"{2 * graph.n_edges()} two-way edges)")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase: K4 / K5 against their plain versions
+# ---------------------------------------------------------------------------
+
+def oracle_channels(torch):
+    """Measured channels of four edges among three oracle keyframes at
+    384x512 (ground-truth correspondences), at pixel_step 2 and 1, for the
+    ray and the calibrated residual, and the true poses."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.ops import geometry
+    from mast3r_slam_tpu_torch.slam import factor_graph as FG
+    from mast3r_slam_tpu_torch.utils.oracle_scene import OracleScene
+
+    scene = OracleScene(seed=0)
+    poses = oracle_trajectory()[0:9:4]
+    K = scene.intrinsics(IMG_HW)
+    maps = [scene.raycast(T, K, IMG_HW) for T in poses]
+    edges = [(0, 1), (1, 0), (1, 2), (2, 1)]
+    idx, valid = [], []
+    for i, j in edges:
+        p_, ok = scene.project(scene.world_to_cam(maps[j][1], poses[i]), K,
+                               IMG_HW)
+        idx.append(p_)
+        valid.append(ok[:, None])
+    dev = "cuda"
+    n = IMG_HW[0] * IMG_HW[1]
+    Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    X = torch.as_tensor(np.stack([m[0] for m in maps]), device=dev)
+    Xc = geometry.constrain_points_to_ray(IMG_HW, X, Kt)
+    args = dict(ii=torch.tensor([e[0] for e in edges], device=dev),
+                jj=torch.tensor([e[1] for e in edges], device=dev),
+                idx_ii2jj=torch.as_tensor(np.stack(idx), device=dev),
+                valid_match=torch.as_tensor(np.stack(valid), device=dev),
+                Q=torch.full((4, n, 1), 2.0, device=dev))
+    C = torch.ones(3, n, 1, device=dev)
+    meas = {}
+    for ps in (2, 1):
+        meas["rays", n // ps] = FG.precompute_meas_rays(
+            X, C, **args, C_thresh=0.0, Q_thresh=1.5, pixel_step=ps)
+        meas["calib", n // ps] = FG.precompute_meas_calib(
+            Xc, C, **args, W_img=IMG_HW[1], z_eps=1e-6, C_thresh=0.0,
+            Q_thresh=1.5, pixel_step=ps)
+    T = torch.as_tensor(np.stack(poses), device=dev)
+    return meas, T, args["ii"], args["jj"], Kt
+
+
+def compare_gram(BA, out, ref, dtype_name, what):
+    """``gram_error(out, ref) <= GRAM_TOL``; returns (max abs error, that
+    relative error)."""
+    check(bool(out.isfinite().all()), f"{what}: non-finite Gram")
+    rel = BA.gram_error(out, ref)
+    check(rel <= GRAM_TOL[dtype_name],
+          f"{what}: Gram entry error {rel:.3e} of its rows' scale > "
+          f"{GRAM_TOL[dtype_name]:.0e}")
+    return (out - ref).abs().max().item(), rel
+
+
+def planted_faults_caught(BA, kind, G):
+    """The comparison rejects a Gram whose smallest residual channel (the
+    distance rows 24-31 of K4, the log-depth rows 16-23 of K5) is dropped
+    or has its rho sign flipped; returns the smallest error it reported."""
+    lo = 24 if kind == "rays" else 16
+    errs = []
+    for fault in ("dropped", "rho negated"):
+        bad = G.clone()
+        if fault == "dropped":
+            bad[:, lo:lo + 8] = 0.0
+            bad[:, :, lo:lo + 8] = 0.0
+        else:
+            bad[:, lo + 7] *= -1.0
+            bad[:, :, lo + 7] *= -1.0
+        err = BA.gram_error(bad, G)
+        hidden = (bad - G).abs().max().item() / G.abs().max().item()
+        log(f"planted fault: {kind} rows {lo}-{lo + 7} {fault}: Gram error "
+            f"{err:.3e} (abs err / max|G| {hidden:.2e})")
+        check(err > 100 * max(GRAM_TOL.values()),
+              f"a {kind} Gram with rows {lo}-{lo + 7} {fault} passes")
+        errs.append(err)
+    return min(errs)
+
+
+def gram_case(torch, kind, base, T, ii, jj, K, E, dt, seed):
+    """Edges 0..E-1 cycle over the four base edges; each copy gets its own
+    perturbed poses, so every edge's relative pose differs."""
+    from mast3r_slam_tpu_torch.ops import geometry, lie
+    from mast3r_slam_tpu_torch.slam import factor_graph as FG
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    reps = -(-E // 4)
+    xi = 0.01 * torch.randn(reps, T.shape[0], 7, generator=g, device="cuda")
+    Tp = lie.retr(T[None].expand(reps, -1, -1), xi).reshape(-1, 8)
+    offs = (torch.arange(reps, device="cuda") * T.shape[0])[:, None]
+    ii_e = (ii[None] + offs).reshape(-1)[:E]
+    jj_e = (jj[None] + offs).reshape(-1)[:E]
+    mask = torch.ones(E, device="cuda")
+    extra = geometry.decompose_K(K) if kind == "calib" else ()
+    _, rts = FG._rel_pose_rows(Tp, ii_e, jj_e, mask, extra=extra)
+    sel = torch.arange(E, device="cuda") % 4
+    meas = tuple(ch[sel].to(dt).contiguous() for ch in base)
+    return rts.contiguous(), meas
+
+
+def phase_ba_kernels(torch, BA):
+    meas_all, T, ii, jj, K = oracle_channels(torch)
+    calib_args = (IMG_HW, -10.0, 1e-6, 1.0, 10.0)
+    report = {}
+    for kind in ("rays", "calib"):
+        fn, ref = ((BA.gram_rays, BA.gram_rays_ref) if kind == "rays"
+                   else (BA.gram_calib, BA.gram_calib_ref))
+        args = (0.003, 10.0) if kind == "rays" else calib_args
+        rows = 32 if kind == "rays" else 24
+        acc = dict(err=0.0)
+        for E in GRAM_EDGES:
+            for N in GRAM_PIXELS:
+                for mdt in (torch.bfloat16, torch.float32):
+                    rts, meas = gram_case(torch, kind, meas_all[kind, N], T,
+                                          ii, jj, K, E, mdt, seed=E + N)
+                    for cdt in (torch.bfloat16, torch.float32):
+                        cn = str(cdt).split(".")[-1]
+                        mn = str(mdt).split(".")[-1]
+                        out = fn(rts, meas, *args, compute_dtype=cdt)
+                        want = ref(rts, meas, *args, compute_dtype=cdt)
+                        torch.cuda.synchronize()
+                        tag = f"{kind} E={E} N={N} meas {mn} rows {cn}"
+                        err, rel = compare_gram(BA, out, want, cn, tag)
+                        check(torch.equal(out, fn(rts, meas, *args,
+                                                  compute_dtype=cdt)),
+                              f"{tag}: two launches differ")
+                        acc["err"] = max(acc["err"], err)
+                        acc["rel"] = max(acc.get("rel", 0.0), rel)
+                        t_k = time_ms(lambda: fn(rts, meas, *args,
+                                                 compute_dtype=cdt))
+                        t_p = time_ms(lambda: ref(rts, meas, *args,
+                                                  compute_dtype=cdt),
+                                      iters=5, warmup=1)
+                        S = torch.randn(E, 32, N, device="cuda").to(cdt)
+                        t_l = time_ms(lambda: torch.bmm(S, S.transpose(1, 2)))
+                        del S
+                        nbytes = (len(meas) * E * N * meas[0].element_size()
+                                  + rts.numel() * 4 + E * 32 * 32 * 4)
+                        bnd, by = bound_ms(2.0 * rows * rows * N * E, nbytes,
+                                           cn)
+                        log(f"{'K4' if kind == 'rays' else 'K5'} {tag:42s} "
+                            f"Gram err {rel:.2e} kernel {t_k:.4f} ms plain "
+                            f"{t_p:.4f} ms bmm (Gram only) {t_l:.4f} ms "
+                            f"bound {bnd * 1e3:.2f} us ({by})")
+                        if ((E, N) == GRAM_REPORT and mdt == cdt
+                                == torch.bfloat16):
+                            acc.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                                       bound_ms=bnd, by=by)
+                            planted_faults_caught(BA, kind, want)
+        log(f"{kind}: largest Gram error {acc['rel']:.3e} (tolerance "
+            f"{GRAM_TOL})")
+        report["K4" if kind == "rays" else "K5"] = acc
     torch.cuda.empty_cache()
-    return {"K1": k1, "K2": k2}, tracked_ms
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Phase: oracle SLAM at 384x512 (ray and calibrated BA)
+# ---------------------------------------------------------------------------
+
+def phase_oracle(torch, FA, C3, BA):
+    from mast3r_slam_tpu_torch.ops import geometry
+    from mast3r_slam_tpu_torch.slam import factor_graph as FG
+    from mast3r_slam_tpu_torch.utils.oracle_scene import (OracleScene,
+                                                          run_oracle_slam)
+
+    poses = oracle_trajectory()
+    launches = {}
+    for calib in (False, True):
+        kind = "calib" if calib else "rays"
+        name = "K5" if calib else "K4"
+        counter = BA.calib_counter if calib else BA.rays_counter
+        reset_counters(FA, C3, BA)
+        t0 = time.perf_counter()
+        r = run_oracle_slam(OracleScene(seed=0), poses, IMG_HW, ORACLE_FAST,
+                            kf_every=4, use_calib=calib, device="cuda")
+        t_run = time.perf_counter() - t0
+        p = r["ba_problem"]
+        launches[name] = counter.launches
+        log(f"oracle {kind}: {t_run:.1f} s, keyframes {r['kf_ids']}, "
+            f"skipped {r['n_skipped']}, relocs {r['n_relocs']}, ATE track "
+            f"{r['ate_track'] * 1e3:.3f} mm, ATE BA {r['ate_ba'] * 1e3:.3f} "
+            f"mm, mean pixel error {r['mean_pix_err']:.3f}, {name} launches "
+            f"{counter.launches}")
+        check(p is not None, f"oracle {kind}: no BA edges")
+        log(f"oracle {kind} BA: E = {p['ii'].numel()}, N = "
+            f"{p['meas'][0].shape[1]}, LM iterations {p['iters']}")
+        check(counter.launches == 1 + p["iters"],
+              f"oracle {kind}: {name} launched {counter.launches} times")
+        check(r["n_skipped"] == 0, f"oracle {kind}: skipped frames")
+        check(r["ate_ba"] < 0.03, f"oracle {kind}: ATE after BA "
+              f"{r['ate_ba']:.4f} m")
+        check(r["ate_ba"] <= 1.05 * r["ate_track"],
+              f"oracle {kind}: BA did not hold the tracked trajectory "
+              f"({r['ate_ba']:.4f} vs {r['ate_track']:.4f} m)")
+        check(bool(torch.isfinite(torch.as_tensor(r["T_kf_ba"])).all()),
+              f"oracle {kind}: poses not finite")
+
+        def system(dev, cdt):
+            return oracle_system(p, dev, cdt, p["T"].to(dev))
+
+        def gram(dev):
+            T, ii, jj, mask = (p[k].to(dev) for k in ("T", "ii", "jj", "mask"))
+            meas = tuple(ch.to(dev) for ch in p["meas"])
+            sig = p["sigmas"]
+            if calib:
+                extra = geometry.decompose_K(p["K"].to(dev))
+                _, rts = FG._rel_pose_rows(T, ii, jj, mask, extra=extra)
+                return BA.gram_calib(rts, meas, p["hw"], -10.0, 1e-6, *sig,
+                                     compute_dtype=torch.float32)
+            _, rts = FG._rel_pose_rows(T, ii, jj, mask)
+            return BA.gram_rays(rts, meas, *sig, compute_dtype=torch.float32)
+
+        with one_cpu_thread(torch):
+            g_cpu = gram("cpu")
+        _, rel = compare_gram(BA, gram("cuda").cpu(), g_cpu, "float32",
+                              f"oracle {kind} Gram card vs CPU")
+        log(f"oracle {kind} Gram card vs CPU (f32 rows): error {rel:.3e} "
+            f"of each entry's rows' scale")
+        gpu = system("cuda", torch.float32)
+        with one_cpu_thread(torch):
+            cpu = system("cpu", torch.float32)
+        for what, a, b in zip(("H", "g", "cost"), gpu, cpu):
+            a, b = a.cpu(), b.cpu()
+            err = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            log(f"oracle {kind} system card vs CPU (f32 rows): {what} max "
+                f"abs err {err:.3e}, max |cpu| {scale:.3e}")
+            check(err <= 1e-4 * scale, f"oracle {kind}: {what} card vs CPU")
+        oracle_lm_from_kick(torch, p, counter, kind,
+                            [poses[f] for f in r["kf_ids"]])
+        cdt = p["compute_dtype"]
+        t_build = time_ms(lambda: system("cuda", cdt))
+        t0 = sync_clock(torch)
+        if calib:
+            _, iters = FG.gauss_newton_calib(
+                p["T"], p["meas"], p["K"], p["ii"], p["jj"],
+                p["mask"], p["free"], p["hw"], -10.0, 1e-6, *p["sigmas"],
+                p["max_iter"], p["delta"], compute_dtype=cdt)
+        else:
+            _, iters = FG.gauss_newton_rays(
+                p["T"], p["meas"], p["ii"], p["jj"], p["mask"], p["free"],
+                *p["sigmas"], p["max_iter"], p["delta"], compute_dtype=cdt)
+        t_solve = (sync_clock(torch) - t0) * 1e3
+        log(f"oracle {kind}: system build {t_build:.3f} ms per LM iteration "
+            f"(rows {cdt}), whole solve {t_solve:.1f} ms ({iters} "
+            f"iterations)")
+        del r, p, gpu, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def one_cpu_thread(torch):
+    """The CPU side of a card-vs-CPU check on one torch thread: a
+    multi-threaded float32 ``torch.sqrt`` has been seen to return ~3e-4
+    relative errors in its first call on some hosts, which the per-entry
+    Gram comparison resolves."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def oracle_system(p, dev, cdt, T):
+    """``(H, g, cost)`` of the oracle BA problem ``p`` at poses ``T``."""
+    from mast3r_slam_tpu_torch.slam import factor_graph as FG
+
+    ii, jj, mask, free = (p[k].to(dev) for k in ("ii", "jj", "mask", "free"))
+    meas = tuple(ch.to(dev) for ch in p["meas"])
+    if p["kind"] == "calib":
+        return FG._accumulate_calib(T, meas, p["K"].to(dev), ii, jj, mask,
+                                    free, T.shape[0], p["hw"], -10.0, 1e-6,
+                                    *p["sigmas"], compute_dtype=cdt)
+    return FG._accumulate_rays(T, meas, ii, jj, mask, free, T.shape[0],
+                               *p["sigmas"], compute_dtype=cdt)
+
+
+def oracle_lm_from_kick(torch, p, counter, kind, gt_kf):
+    """The LM loop over the oracle BA's edges from keyframe poses moved
+    ``ORACLE_KICK`` off the tracked ones, for ``ORACLE_KICK_ITERS``
+    iterations with float32 rows, on the card and on the CPU. The card's run
+    must accept several steps, bring the keyframes back near the truth and
+    end where the CPU's run ends."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.ops import lie
+    from mast3r_slam_tpu_torch.slam import factor_graph as FG
+    from mast3r_slam_tpu_torch.utils.oracle_scene import ate_rmse_points
+
+    rng = np.random.default_rng(7)
+    free = p["free"].cpu()
+    xi = torch.as_tensor(rng.normal(size=(free.numel(), 7)) * ORACLE_KICK,
+                         dtype=torch.float32) * free[:, None].float()
+    T0 = lie.retr(p["T"].cpu(), xi)
+    cap = T0.shape[0]
+    ate0 = ate_rmse_points(list(T0.numpy()), gt_kf)
+    ends = {}
+    for dev in ("cuda", "cpu"):
+        costs = []
+
+        def system(T):
+            out = oracle_system(p, dev, torch.float32, T)
+            costs.append(float(out[2]))
+            return out
+
+        counter.launches = 0
+        t0 = time.perf_counter()
+        with one_cpu_thread(torch):
+            T_out, iters = FG._lm_loop(system, T0.to(dev),
+                                       p["free"].to(dev), cap,
+                                       ORACLE_KICK_ITERS, 1e-12, 1e-4)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t_run = (time.perf_counter() - t0) * 1e3
+        accepted = sum(c < min(costs[:k]) for k, c in enumerate(costs)
+                       if k > 0)
+        T_out = T_out.cpu()
+        ate = ate_rmse_points(list(T_out.numpy()), gt_kf)
+        log(f"oracle {kind} LM from a {ORACLE_KICK} kick on {dev}: "
+            f"{iters} iterations, {accepted} accepted, cost {costs[0]:.6e} "
+            f"-> {min(costs):.6e}, ATE {ate0 * 1e3:.3f} -> {ate * 1e3:.3f} "
+            f"mm, {t_run:.1f} ms")
+        if dev == "cuda":
+            check(counter.launches == 1 + iters,
+                  f"oracle {kind} kick: {counter.launches} launches for "
+                  f"{iters} iterations")
+            check(accepted >= 3, f"oracle {kind} kick: {accepted} accepted "
+                  f"LM steps")
+            check(ate < 0.03 and ate < 0.5 * ate0,
+                  f"oracle {kind} kick: ATE {ate0:.4f} -> {ate:.4f} m")
+        ends[dev] = T_out
+    err = (ends["cuda"] - ends["cpu"]).abs().max().item()
+    log(f"oracle {kind} LM from a kick: card vs CPU poses max abs err "
+        f"{err:.3e}")
+    check(err <= 1e-4, f"oracle {kind} kick: card and CPU solves end "
+          f"{err:.3e} apart")
+
+
+def oracle_trajectory():
+    from mast3r_slam_tpu_torch.utils.oracle_scene import make_trajectory
+
+    m = ORACLE_MOTION
+    return make_trajectory(ORACLE_FRAMES, rot_amp=0.06 * m,
+                           trans_amp=(0.45 * m, 0.3 * m, 0.12 * m))
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +859,7 @@ def main():
 
     from mast3r_slam_tpu_torch import _build
     from mast3r_slam_tpu_torch.models import mast3r as M
+    from mast3r_slam_tpu_torch.ops import ba_kernels as BA
     from mast3r_slam_tpu_torch.ops import conv3x3 as C3
     from mast3r_slam_tpu_torch.ops import flash_attention as FA
 
@@ -400,7 +872,7 @@ def main():
     M.use_full_f32()
     t0 = time.perf_counter()
     ptx = []
-    _build.build_all([FA.KERNEL, C3.KERNEL], log=ptx.append)
+    _build.build_all([FA.KERNEL, C3.KERNEL, BA.KERNEL], log=ptx.append)
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for block in ptx:
         for line in block.splitlines():
@@ -408,8 +880,20 @@ def main():
                 log("  " + line.strip())
 
     per_frame = phase_kernels(torch)
-    launches, tracked_ms = phase_main_path(torch, FA, C3)
+    launches, tracked_ms, state = phase_main_path(torch, FA, C3, BA)
+    t0 = time.perf_counter()
+    event = phase_event(torch, FA, C3, BA, state)
+    del state
+    torch.cuda.empty_cache()
+    log(f"phase event: {time.perf_counter() - t0:.1f} s")
     phase_cross_check(torch)
+    t0 = time.perf_counter()
+    gram = phase_ba_kernels(torch, BA)
+    log(f"phase K4/K5: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    oracle = phase_oracle(torch, FA, C3, BA)
+    log(f"phase oracle: {time.perf_counter() - t0:.1f} s")
+    launches.update(K4=event["K4"], K5=oracle["K5"])
 
     table = {"kernels": [
         {"name": "flash_attention_rope", "route": "cuda",
@@ -432,10 +916,27 @@ def main():
          "bound_ms": per_frame["K2"]["bound_ms"],
          "bound_by": per_frame["K2"]["by"],
          "library_ms": per_frame["K2"]["library_ms"]},
+    ] + [
+        {"name": name, "route": "cuda",
+         "source": "mast3r_slam_tpu_torch/csrc/ba_gram.cu",
+         "replaces": f"mast3r_slam_tpu/ops/ba_kernels.py:{line}",
+         "launches": launches[key],
+         "max_abs_err": gram[key]["err"],
+         "ms": gram[key]["ms"],
+         "plain_ms": gram[key]["plain_ms"],
+         "bound_ms": gram[key]["bound_ms"],
+         "bound_by": gram[key]["by"],
+         "library_ms": gram[key]["library_ms"]}
+        for key, name, line in (("K4", "gram_rays", 216),
+                                ("K5", "gram_calib", 232))
     ]}
-    log(f"kernel ms/plain_ms/bound_ms/library_ms are per tracked frame "
-        f"(the bf16 calls of one track_core); tracked frame "
-        f"{tracked_ms:.1f} ms")
+    log(f"K1/K2 ms/plain_ms/bound_ms/library_ms are per tracked frame "
+        f"(the bf16 calls of one track_core; tracked frame "
+        f"{tracked_ms:.1f} ms); K4/K5's are per system build at E = "
+        f"{GRAM_REPORT[0]}, N = {GRAM_REPORT[1]}, bf16 channels and rows "
+        f"(library: torch.bmm of a pre-built bf16 row stack, Gram only). "
+        f"Launches: K1/K2 on the main path, K4 in the keyframe event, K5 "
+        f"in the calibrated oracle BA")
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

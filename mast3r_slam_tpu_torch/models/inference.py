@@ -1,7 +1,10 @@
 """SLAM-facing MASt3R inference (counterpart of
 ``mast3r_slam_tpu/models/inference.py``): mono inference for keyframe
-initialization and the asymmetric frame↔keyframe decode. The symmetric,
-batched and multi-device paths belong to the backend slice.
+initialization, the asymmetric frame↔keyframe decode, and the backend's
+symmetric pair decode and match entry points. Both decode directions of B
+keyframe pairs run as one decoder call of batch 2B; the matcher then runs
+each direction as its own B = 1 call, as the JAX package does. The
+multi-device path has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -9,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from mast3r_slam_tpu_torch.models import mast3r as M
+from mast3r_slam_tpu_torch.ops import matching
 
 
 def _decimate(a, ds, h_axis=1):
@@ -35,15 +39,39 @@ def _mono_core(params, cfg, img, img_hw, ds=1):
     return feat, pos, pts.reshape(b, h * w, 3), conf.reshape(b, h * w, 1)
 
 
-class MASt3RInference:
-    """Holds prepared params + config and exposes the inference methods the
-    tracker needs. ``params`` should come from ``M.prepare_params``;
-    ``downsample`` (``dataset.img_downsample``) decimates the working
-    pointmaps, while the model still sees the full crop."""
+def _decode_symmetric_core(params, cfg, feat_i, pos_i, feat_j, pos_j,
+                           img_hw, ds=1):
+    """``(B, Np, C)`` features → stacked ``[ii, ji, jj, ij]`` head outputs
+    (leading dim 4, then B) from one decoder call of batch 2B."""
+    f1 = torch.cat([feat_i, feat_j])      # sources
+    f2 = torch.cat([feat_j, feat_i])      # cross streams
+    p1 = torch.cat([pos_i, pos_j])
+    p2 = torch.cat([pos_j, pos_i])
+    res1, res2 = M.decode_heads(params, cfg, f1, p1, f2, p2, tuple(img_hw))
+    b = feat_i.shape[0]
 
-    def __init__(self, params, cfg: M.MASt3RConfig, downsample: int = 1):
+    def stack(key):
+        a1, a2 = res1[key], res2[key]     # [ii; jj], [ji; ij]
+        return _decimate(torch.stack([a1[:b], a2[:b], a1[b:], a2[b:]]), ds,
+                         h_axis=2)
+
+    return (stack("pts3d"), stack("conf"), stack("desc"),
+            stack("desc_conf"))
+
+
+class MASt3RInference:
+    """Holds prepared params + config and exposes the SLAM-facing inference
+    methods. ``params`` should come from ``M.prepare_params``;
+    ``match_cfg`` is the config's ``matching`` section (the backend
+    matcher's settings); ``downsample`` (``dataset.img_downsample``)
+    decimates the working pointmaps, while the model still sees the full
+    crop."""
+
+    def __init__(self, params, cfg: M.MASt3RConfig, match_cfg=None,
+                 downsample: int = 1):
         self.params = params
         self.cfg = cfg
+        self.match_cfg = match_cfg or {}
         self.ds = int(downsample)
 
     def encode_frame(self, frame):
@@ -72,3 +100,79 @@ class MASt3RInference:
         out = [torch.cat([res_ii[k], res_ji[k]], dim=0)
                for k in ("pts3d", "conf", "desc", "desc_conf")]
         return tuple(_decimate(a, self.ds) for a in out)
+
+    def decode_symmetric_batch(self, feat_i, pos_i, feat_j, pos_j, img_hw):
+        """Both decode directions of B pairs in one batched call. Returns
+        (X, C, D, Q), each with leading dim 4 over [ii, ji, jj, ij] and
+        second dim B."""
+        return _decode_symmetric_core(self.params, self.cfg, feat_i, pos_i,
+                                      feat_j, pos_j, img_hw, self.ds)
+
+    def match_symmetric(self, feat_i, pos_i, feat_j, pos_j, img_hw,
+                        init_i2j=None, init_j2i=None):
+        """Symmetric matching of B keyframe pairs (backend edge creation).
+
+        Returns ``(idx_i2j, idx_j2i, valid_j, valid_i, Qii, Qjj, Qji,
+        Qij)``, the Q's ``(B, N, 1)``. Matcher inits, like its outputs, are
+        indexed by image-2 pixels and hold image-1 pixels: ``init_i2j``
+        maps j-pixels to i-pixels (e.g. keyframe j's points projected into
+        camera i), and vice versa; a missing one starts from identity."""
+        b = feat_i.shape[0]
+        n = (img_hw[0] // self.ds) * (img_hw[1] // self.ds)
+        ident = torch.arange(n, device=feat_i.device).expand(b, n)
+        i2j = ident if init_i2j is None else init_i2j.long()
+        j2i = ident if init_j2i is None else init_j2i.long()
+        init = torch.cat([i2j, j2i])
+        X, _, D, Q = self.decode_symmetric_batch(feat_i, pos_i, feat_j,
+                                                 pos_j, img_hw)
+        X11 = torch.cat([X[0], X[2]])
+        X21 = torch.cat([X[1], X[3]])
+        D11 = torch.cat([D[0], D[2]])
+        D21 = torch.cat([D[1], D[3]])
+        kw = self._match_kw()
+        rows = [matching.match(X11[r:r + 1], X21[r:r + 1], D11[r:r + 1],
+                               D21[r:r + 1], idx_1_to_2_init=init[r:r + 1],
+                               **kw)
+                for r in range(X11.shape[0])]
+        idx = torch.cat([r[0] for r in rows])
+        valid = torch.cat([r[1] for r in rows])
+        Qii, Qji, Qjj, Qij = (Q[k].reshape(b, n, 1) for k in range(4))
+        return (idx[:b], idx[b:], valid[:b], valid[b:], Qii, Qjj, Qji, Qij)
+
+    def match_oneway(self, feat_i, pos_i, feat_j, pos_j, img_hw,
+                     init_i2j=None):
+        """One direction of a symmetric edge: decode (i, j) and the i→j
+        matcher. The backend uses it when the j→i direction of a
+        consecutive edge is the tracker's own decode and match (the same
+        computation on the same features). Returns ``(idx_i2j (1, N),
+        valid_j (1, N, 1), Qii (1, N), Qji (1, N))``."""
+        res_ii, res_ji = M.decode_heads(self.params, self.cfg, feat_i, pos_i,
+                                        feat_j, pos_j, tuple(img_hw))
+        Xii, Xji, Dii, Dji, Qii, Qji = (
+            _decimate(r[k], self.ds) for r, k in (
+                (res_ii, "pts3d"), (res_ji, "pts3d"), (res_ii, "desc"),
+                (res_ji, "desc"), (res_ii, "desc_conf"),
+                (res_ji, "desc_conf")))
+        b, h, w, _ = Xii.shape
+        if init_i2j is None:
+            init_i2j = torch.arange(h * w, device=Xii.device).expand(b,
+                                                                     h * w)
+        idx, valid = matching.match(Xii, Xji, Dii, Dji,
+                                    idx_1_to_2_init=init_i2j.long(),
+                                    **self._match_kw())
+        return idx, valid, Qii.reshape(b, h * w), Qji.reshape(b, h * w)
+
+    def _match_kw(self):
+        c = self.match_cfg
+        return dict(
+            max_iter=int(c.get("max_iter", 10)),
+            lambda_init=float(c.get("lambda_init", 1e-8)),
+            convergence_thresh=float(c.get("convergence_thresh", 1e-6)),
+            dist_thresh=float(c.get("dist_thresh", 0.1)),
+            radius=int(c.get("radius", 3)),
+            dilation_max=int(c.get("dilation_max", 5)),
+            refine_mode=matching.resolve_refine_mode(c),
+            plateau_frac=float(c.get("plateau_frac", 0.001)),
+            level_step=int(c.get("level_step", 1)),
+            proj_step=int(c.get("proj_step", 1)),
+        )

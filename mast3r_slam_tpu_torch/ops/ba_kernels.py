@@ -1,0 +1,259 @@
+"""Per-edge Gram of the BA normal equations (kernels K4 and K5) and their
+plain versions.
+
+Counterpart of ``mast3r_slam_tpu/ops/ba_kernels.py``: :func:`gram_rays`
+(the ray residual) and :func:`gram_calib` (the calibrated pixel + log-depth
+residual) return ``G (E, 32, 32)`` float32 whose diagonal 8x8 blocks hold
+``[J_d ; rho_d]`` Gram products per residual channel d (H is the top-left
+7x7 of their sum, g its last column, the cost the (rho, rho) corner); the
+calibrated Gram's rows 24+ are zero. The measured channels come flat
+``(E, N)`` from ``slam/factor_graph.py``'s premeas, float32 or bfloat16,
+and are widened to float32 at load; the weighted rows are rounded to
+``compute_dtype`` and their products summed in float32 by the kernel (in
+float64 by the plain version, see :func:`_gram`).
+
+On CUDA tensors both launch the hand-written kernel in ``csrc/ba_gram.cu``
+(one build, two entry kinds); on CPU tensors they return the plain
+versions :func:`gram_rays_ref` / :func:`gram_calib_ref`; any other device
+raises. The TPU kernel's sublane-split layout has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from mast3r_slam_tpu_torch import _build
+
+KERNEL = "ba_gram"
+HUBER_K = 1.345
+THREADS = 256            # pixels per tile of the kernel
+BLOCKS_PER_SM = 4        # blocks the grid aims for per SM
+rays_counter = _build.LaunchCounter()
+calib_counter = _build.LaunchCounter()
+
+
+def as_dtype(dtype) -> torch.dtype:
+    """``torch.float32`` / ``torch.bfloat16`` from a dtype or its name."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[str(dtype)]
+
+
+def _huber_w(w_abs, k=HUBER_K):
+    return torch.where(w_abs < k, torch.ones_like(w_abs),
+                       k / w_abs.clamp_min(1e-30))
+
+
+def _jrow_entries(m1, m2, m3, px, py, pz):
+    """Closed-form local Sim3 J-row ``[m | X'xm | m.X']`` (7 channels)."""
+    return [m1, m2, m3,
+            py * m3 - pz * m2,
+            pz * m1 - px * m3,
+            px * m2 - py * m1,
+            px * m1 + py * m2 + pz * m3]
+
+
+def _transform(rts, xj, yj, zj):
+    """``sR X + t`` of the observer points; ``rts`` columns are per-edge
+    scalars broadcast over the pixels."""
+    c = [rts[:, i:i + 1] for i in range(12)]
+    px = c[0] * xj + c[1] * yj + c[2] * zj + c[9]
+    py = c[3] * xj + c[4] * yj + c[5] * zj + c[10]
+    pz = c[6] * xj + c[7] * yj + c[8] * zj + c[11]
+    return px, py, pz
+
+
+def _weighted_rows(rho, d_res, sqc, sigmas, px, py, pz):
+    rows = []
+    for dd in range(len(rho)):
+        hub = _huber_w(sqc * rho[dd].abs() / sigmas[dd])
+        sq = sqc / sigmas[dd] * torch.sqrt(hub)
+        for ch in _jrow_entries(*d_res[dd], px, py, pz) + [rho[dd]]:
+            rows.append(sq * ch)
+    return rows
+
+
+def _gram(rows, compute_dtype):
+    """``S Sᵀ`` of the rows rounded to ``compute_dtype``, summed in float64
+    and rounded to float32 once: the exact Gram of the rounded rows, which
+    every float32 summation order approaches. (cuBLAS's float32 ``bmm`` of
+    the same rows at E = 128, N = 196,608 was off by 1e-4 of the largest
+    entry on an H100.)"""
+    S = torch.stack([r.to(compute_dtype) for r in rows], dim=1).double()
+    return (S @ S.transpose(1, 2)).float()
+
+
+def gram_rays_ref(rts, meas, sigma_ray, sigma_dist,
+                  compute_dtype=torch.bfloat16):
+    """Plain version of :func:`gram_rays`."""
+    mx, my, mz, di, cf, xj, yj, zj = (ch.float() for ch in meas)
+    px, py, pz = _transform(rts, xj, yj, zj)
+    d = torch.sqrt(px * px + py * py + pz * pz).clamp_min(1e-12)
+    dinv = 1.0 / d
+    rx, ry, rz = px * dinv, py * dinv, pz * dinv
+    rho = [rx - mx, ry - my, rz - mz, d - di]
+    sqc = torch.sqrt(cf * rts[:, 12:13])
+    d_res = [
+        [dinv * (1.0 - rx * rx), -dinv * rx * ry, -dinv * rx * rz],
+        [-dinv * ry * rx, dinv * (1.0 - ry * ry), -dinv * ry * rz],
+        [-dinv * rz * rx, -dinv * rz * ry, dinv * (1.0 - rz * rz)],
+        [rx, ry, rz],
+    ]
+    sigmas = (sigma_ray, sigma_ray, sigma_ray, sigma_dist)
+    rows = _weighted_rows(rho, d_res, sqc, sigmas, px, py, pz)
+    return _gram(rows, as_dtype(compute_dtype))
+
+
+def gram_calib_ref(rts, meas, img_size, pixel_border, z_eps, sigma_pixel,
+                   sigma_depth, compute_dtype=torch.bfloat16):
+    """Plain version of :func:`gram_calib`."""
+    ui, vi, lz, cf, xj, yj, zj = (ch.float() for ch in meas)
+    fx, fy, cx, cy = (rts[:, i:i + 1] for i in range(13, 17))
+    H_img, W_img = img_size
+    px, py, pz = _transform(rts, xj, yj, zj)
+    valid_z = pz > z_eps
+    z_safe = torch.where(valid_z, pz, torch.ones_like(pz))
+    z_inv = 1.0 / z_safe
+    u = fx * px * z_inv + cx
+    v = fy * py * z_inv + cy
+    valid = (valid_z
+             & (u > pixel_border) & (u < W_img - 1 - pixel_border)
+             & (v > pixel_border) & (v < H_img - 1 - pixel_border))
+    zero = torch.zeros_like(z_inv)
+    rho = [u - ui, v - vi,
+           torch.where(valid_z, torch.log(z_safe), zero) - lz]
+    sqc = torch.sqrt(torch.where(valid, cf, zero) * rts[:, 12:13])
+    d_res = [
+        [fx * z_inv, zero, -fx * px * z_inv * z_inv],
+        [zero, fy * z_inv, -fy * py * z_inv * z_inv],
+        [zero, zero, z_inv],
+    ]
+    sigmas = (sigma_pixel, sigma_pixel, sigma_depth)
+    rows = _weighted_rows(rho, d_res, sqc, sigmas, px, py, pz) + [zero] * 8
+    return _gram(rows, as_dtype(compute_dtype))
+
+
+def gram_rays(rts, meas, sigma_ray, sigma_dist,
+              compute_dtype=torch.bfloat16):
+    """Per-edge Gram of the weighted ray-residual system.
+
+    ``rts (E, 13)``: ``[s*R (row-major 9) | t (3) | edge_mask]`` of the
+    relative pose ``T_i^{-1} T_j``; ``meas``: the 8 ray channels
+    ``(mx, my, mz, di, conf, xj, yj, zj)``, each ``(E, N)``."""
+    if rts.device.type == "cpu":
+        return gram_rays_ref(rts, meas, sigma_ray, sigma_dist, compute_dtype)
+    G = _launch(0, rts, meas, compute_dtype,
+                (sigma_ray, sigma_dist, 0.0, 0.0, 0.0, 0.0, 0.0))
+    rays_counter.launches += 1
+    return G
+
+
+def gram_calib(rts, meas, img_size, pixel_border, z_eps, sigma_pixel,
+               sigma_depth, compute_dtype=torch.bfloat16):
+    """Per-edge Gram of the weighted calibrated-residual system.
+
+    ``rts (E, 17)``: ``[s*R | t | edge_mask | fx fy cx cy]``; ``meas``: the
+    7 calib channels ``(ui, vi, logzi, conf, xj, yj, zj)``; ``img_size``
+    ``(H, W)``. Rows 24+ of the result are zero."""
+    if rts.device.type == "cpu":
+        return gram_calib_ref(rts, meas, img_size, pixel_border, z_eps,
+                              sigma_pixel, sigma_depth, compute_dtype)
+    H_img, W_img = img_size
+    G = _launch(1, rts, meas, compute_dtype,
+                (sigma_pixel, sigma_depth, z_eps, pixel_border,
+                 W_img - 1 - pixel_border, pixel_border,
+                 H_img - 1 - pixel_border))
+    calib_counter.launches += 1
+    return G
+
+
+def gram_error(G, G_ref):
+    """Largest entry-wise error of a Gram against a reference, each entry
+    relative to the scale of its own two rows, ``|G - G_ref|_ab / (s_a
+    s_b)``. A residual channel's rho row has the scale ``sqrt(G_ref_rr)``;
+    its seven J rows share ``sqrt(max_k G_ref_kk)`` over those rows (the
+    largest entry of the channel's J block), since some J rows are zero up
+    to rounding (the distance residual's ``X' x r``). By Cauchy-Schwarz
+    ``|G_ref_ab| <= s_a s_b``, so every channel's J block, its rho column
+    and its (rho, rho) corner are held to their own size: a small channel
+    (the distance or log-depth residual, orders of magnitude below the ray
+    or pixel rows once whitened) cannot hide under the largest entry. An
+    entry whose reference rows are zero must be exactly zero: else the
+    error is infinite. Used to check the kernels, never on the solve's
+    path."""
+    G, R = G.double(), G_ref.double()
+    diag = torch.diagonal(R, dim1=-2, dim2=-1).clamp_min(0.0)
+    blocks = diag.unflatten(-1, (-1, 8))
+    j_scale = blocks[..., :7].amax(-1, keepdim=True).expand_as(blocks[..., :7])
+    d = torch.cat([j_scale, blocks[..., 7:]], -1).flatten(-2).sqrt()
+    den = d[..., :, None] * d[..., None, :]
+    diff = (G - R).abs()
+    rel = torch.where(den > 0, diff / den.clamp_min(1e-300),
+                      torch.where(diff > 0, math.inf, 0.0))
+    return rel.max().item()
+
+
+def grid_shape(E, N, sm_count):
+    """``(blocks_per_edge, tiles_per_block)``: enough blocks to give every
+    SM ``BLOCKS_PER_SM`` at small E, each walking a contiguous run of
+    256-pixel tiles."""
+    n_tiles = math.ceil(N / THREADS)
+    want = max(1, min(n_tiles, math.ceil(BLOCKS_PER_SM * sm_count / E)))
+    tiles = math.ceil(n_tiles / want)
+    return math.ceil(n_tiles / tiles), tiles
+
+
+def _launch(kind, rts, meas, compute_dtype, scalars):
+    if rts.device.type != "cuda":
+        raise ValueError(f"unsupported device {rts.device}")
+    n_ch = 8 if kind == 0 else 7
+    cols = 13 if kind == 0 else 17
+    if len(meas) != n_ch:
+        raise ValueError(f"expected {n_ch} measured channels, got "
+                         f"{len(meas)}")
+    if rts.ndim != 2 or rts.shape[1] != cols:
+        raise ValueError(f"rts must be (E, {cols}), got {tuple(rts.shape)}")
+    E = rts.shape[0]
+    dt = meas[0].dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"channels must be float32 or bfloat16, got {dt}")
+    N = meas[0].shape[1] if meas[0].ndim == 2 else -1
+    for ch in meas:
+        if (ch.device != rts.device or ch.dtype != dt
+                or tuple(ch.shape) != (E, N)):
+            raise ValueError(
+                f"every channel must be ({E}, N) {dt} on {rts.device}")
+    if N <= 0:
+        raise ValueError("no pixels")
+    cdt = as_dtype(compute_dtype)
+    rts = rts.float().contiguous()
+    meas = [ch.contiguous() for ch in meas]
+    sm = torch.cuda.get_device_properties(rts.device).multi_processor_count
+    bpe, tiles = grid_shape(E, N, sm)
+    partial = torch.empty(E, bpe, 32 * 32, dtype=torch.float32,
+                          device=rts.device)
+    G = torch.empty(E, 32, 32, dtype=torch.float32, device=rts.device)
+    ptrs = [ch.data_ptr() for ch in meas] + [None] * (8 - n_ch)
+    lib = _lib()
+    err = lib.ba_gram(
+        kind, *ptrs, rts.data_ptr(), E, N, int(dt == torch.bfloat16),
+        int(cdt == torch.bfloat16), bpe, tiles,
+        *(float(s) for s in scalars), partial.data_ptr(), G.data_ptr(),
+        torch.cuda.current_stream(rts.device).cuda_stream)
+    _build.check(lib, KERNEL, err)
+    return G
+
+
+def _lib():
+    lib = _build.load(KERNEL)
+    fn = lib.ba_gram
+    if fn.argtypes is None:
+        p = ctypes.c_void_p
+        i = ctypes.c_int
+        f = ctypes.c_float
+        fn.argtypes = ([i] + [p] * 9 + [i] * 6 + [f] * 7 + [p, p, p])
+        fn.restype = ctypes.c_int
+    return lib

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from mast3r_slam_tpu_torch.ops import lie
+
 
 def point_to_ray_dist(X):
     """Points → unit-ray + distance residual space ``[r(3), d(1)]``."""
@@ -56,6 +58,56 @@ def get_pixel_coords(img_size, dtype=torch.float32, device=None):
     v = torch.arange(H, dtype=dtype, device=device)
     vv, uu = torch.meshgrid(v, u, indexing="ij")
     return torch.stack([uu, vv], dim=-1).reshape(-1, 2)
+
+
+def _nanmedian(x):
+    """Median over the last axis ignoring NaNs, as the mean of the two
+    middle values (``jnp.nanmedian``; ``torch.nanmedian`` returns the lower
+    one). NaN where a row has no finite value."""
+    s = x.sort(dim=-1).values                       # NaNs sort last
+    n = (~torch.isnan(x)).sum(-1, keepdim=True)
+    lo = ((n - 1) // 2).clamp_min(0)
+    med = 0.5 * (s.gather(-1, lo) + s.gather(-1, n // 2))
+    return torch.where(n > 0, med, torch.full_like(med, float("nan")))[..., 0]
+
+
+def estimate_focal(X, img_size, min_ratio=0.05):
+    """Median-based pinhole focal estimate of a canonical pointmap
+    ``X (..., H*W, 3)`` (principal point at the image center): the focal
+    ``(u - cx) / (x / z)`` over pixels with a ray slope above
+    ``min_ratio``, both axes pooled. It only warm-starts the backend
+    matcher, so its errors cost LM iterations, never correctness."""
+    H, W = img_size
+    uv = get_pixel_coords(img_size, dtype=X.dtype, device=X.device)
+    z = X[..., 2].clamp_min(1e-8)
+    r = torch.cat([X[..., 0] / z, X[..., 1] / z], dim=-1)
+    d = torch.cat([uv[..., 0] - (W - 1) / 2.0, uv[..., 1] - (H - 1) / 2.0],
+                  dim=-1).expand(r.shape)
+    ok = r.abs() > min_ratio
+    f = torch.where(ok, d / torch.where(ok, r, torch.ones_like(r)),
+                    torch.full_like(r, float("nan")))
+    return _nanmedian(f)
+
+
+def project_to_index(X_src, T_src, T_dst, focal, img_size):
+    """Project source-camera points ``X_src (..., N, 3)`` into the
+    destination keyframe's pixel grid through the Sim3 world-from-camera
+    poses ``T_src``, ``T_dst (..., 8)`` with the destination focal
+    ``focal (...)``. Returns the flat pixel indices ``(..., N)`` (int64),
+    clipped to the image: the geometric warm start of a backend edge. A
+    non-finite projection (a NaN focal) lands on pixel 0 rather than on an
+    undefined integer."""
+    H, W = img_size
+    T_rel = lie.compose(lie.inv(T_dst), T_src)
+    if T_rel.ndim == X_src.ndim - 1:
+        T_rel = T_rel[..., None, :]
+    P = lie.act(T_rel, X_src)
+    z = P[..., 2].clamp_min(1e-8)
+    u = focal[..., None] * (P[..., 0] / z) + (W - 1) / 2.0
+    v = focal[..., None] * (P[..., 1] / z) + (H - 1) / 2.0
+    ui = torch.nan_to_num(torch.round(u), nan=0.0).clamp(0, W - 1).long()
+    vi = torch.nan_to_num(torch.round(v), nan=0.0).clamp(0, H - 1).long()
+    return vi * W + ui
 
 
 def constrain_points_to_ray(img_size, Xs, K):

@@ -50,6 +50,20 @@ def quat_act(q, v):
     return v + qw * uv + _cross(qv, uv)
 
 
+def quat_to_matrix(q):
+    """Unit quaternion → rotation matrix ``(..., 3, 3)``."""
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
 def skew(v):
     """``(..., 3) → (..., 3, 3)`` cross-product matrix."""
     x, y, z = v.unbind(-1)
@@ -243,3 +257,28 @@ def log(T):
 def retr(T, xi):
     """Left-multiplicative retraction ``exp(xi) ∘ T``."""
     return compose(exp(xi), T)
+
+
+def matrix(T):
+    """Sim(3) → ``(..., 4, 4)`` homogeneous matrix with ``sR`` upper-left."""
+    sR = scale(T)[..., None] * quat_to_matrix(quaternion(T))
+    top = torch.cat([sR, translation(T)[..., None]], dim=-1)
+    bottom = T.new_tensor([0.0, 0.0, 0.0, 1.0]).expand(T.shape[:-1] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+def adjoint(T):
+    """Sim(3) adjoint ``(..., 7, 7)`` in [tau, phi, sigma] ordering:
+    ``[[sR, [t]x R, -t], [0, R, 0], [0, 0, 1]]``, so that
+    ``T exp(xi) T^-1 = exp(Adj(T) xi)``."""
+    R = quat_to_matrix(quaternion(T))
+    t = translation(T)
+    s = scale(T)[..., None]
+    batch = T.shape[:-1]
+    z33 = T.new_zeros(batch + (3, 3))
+    z31 = T.new_zeros(batch + (3, 1))
+    row0 = torch.cat([s * R, skew(t) @ R, -t[..., None]], dim=-1)
+    row1 = torch.cat([z33, R, z31], dim=-1)
+    row2 = torch.cat([T.new_zeros(batch + (1, 6)),
+                      T.new_ones(batch + (1, 1))], dim=-1)
+    return torch.cat([row0, row1, row2], dim=-2)

@@ -1,0 +1,667 @@
+"""Backend factor graph and global Sim(3) Levenberg-Marquardt bundle
+adjustment, on torch tensors.
+
+Counterpart of ``mast3r_slam_tpu/slam/factor_graph.py``, in two phases:
+
+1. **Measured-channel precompute** (:func:`precompute_meas_rays` /
+   :func:`precompute_meas_calib`): everything that depends on the matches
+   and the keyframe pointmaps but not on the poses — the scattered correspondence
+   gather ``X[ii][e, idx]``, the confidence gates and the observer rows
+   ``X[jj]`` — becomes flat ``(E, N)`` channels once per edge.
+   :class:`FactorGraph` caches them across solves and refreshes an edge
+   only when a touched keyframe's pointmap changed (``xc_version``).
+2. **LM iterations**: each builds the per-edge Gram with K4 / K5
+   (``ops/ba_kernels.py``: the kernel on the card, its plain version on the
+   CPU — the port's one system build), maps the 7x7 blocks to the world
+   frame, scatters them into a dense ``(7*cap, 7*cap)`` system, and takes a
+   damped Cholesky step with accept / reject on the whitened-Huber cost.
+
+Pose Jacobian convention: residuals are functions of ``X' = T_i^{-1} T_j X_j``;
+the local point Jacobian ``[I | -skew(X') | X']`` maps to world-frame
+perturbations of pose j through ``Adj(T_i^{-1})``, and ``J_i = -J_j``.
+
+What differs from the JAX package: the LM loop is a host loop with one sync
+per iteration (same accept / reject and exit rules, so the same iterate
+sequence); a Cholesky failure is read from ``cholesky_ex``'s ``info``; the
+edge buffers are not padded to power-of-two buckets (those existed for
+XLA's compile cache); the cache is updated in place. Mesh sharding and
+the XLA chunked scans have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mast3r_slam_tpu_torch.ops import ba_kernels, geometry, lie
+
+_F32 = np.float32
+
+
+# ---------------------------------------------------------------------------
+# Measured channels
+# ---------------------------------------------------------------------------
+
+def _decimate_queries(idx_ii2jj, valid_match, Q, pixel_step):
+    """BA residual decimation: keep every ``pixel_step``-th query pixel of
+    each edge (1 = every pixel, the reference)."""
+    if pixel_step > 1:
+        idx_ii2jj = idx_ii2jj[:, ::pixel_step]
+        valid_match = valid_match[:, ::pixel_step]
+        Q = Q[:, ::pixel_step]
+    return idx_ii2jj, valid_match, Q
+
+
+def _gather_edge(X, Cavg, ii, jj, idx_ii2jj, valid_match, pixel_step):
+    """The gather side ``X[ii][e, idx]`` / its confidence and the
+    observer rows ``X[jj]`` / their confidence of each edge."""
+    safe_idx = torch.where(valid_match[..., 0], idx_ii2jj,
+                           torch.zeros_like(idx_ii2jj)).long()
+    rows = ii.long()[:, None]
+    Xi = X[rows, safe_idx]                                  # (E, N, 3)
+    Ci = Cavg[rows, safe_idx, 0]
+    Cj = Cavg[jj.long()][:, ::pixel_step, 0]
+    Xj = X[jj.long()][:, ::pixel_step]
+    return safe_idx, Xi, Ci, Cj, Xj
+
+
+def precompute_meas_rays(X, Cavg, ii, jj, idx_ii2jj, valid_match, Q,
+                         C_thresh, Q_thresh, pixel_step=1):
+    """Pose-invariant channels of the ray residual for every edge,
+    ``(mx, my, mz, di, conf, xj, yj, zj)``, each ``(E, N)``: the unit
+    measurement ray and its length, the gated confidence, and the observer
+    points the iterations transform. (The JAX ``_premeas_rays``, run by an
+    8-edge chunked scan that fed XLA's gather; here one batched gather.)"""
+    idx_ii2jj, valid_match, Q = _decimate_queries(idx_ii2jj, valid_match, Q,
+                                                  pixel_step)
+    _, Xi, Ci, Cj, Xj = _gather_edge(X, Cavg, ii, jj, idx_ii2jj, valid_match,
+                                     pixel_step)
+    di = torch.linalg.norm(Xi, dim=-1)
+    di_safe = di.clamp_min(1e-12)
+    q = Q[..., 0]
+    valid = (valid_match[..., 0] & (q > Q_thresh) & (Ci > C_thresh)
+             & (Cj > C_thresh))
+    conf = torch.where(valid, q, torch.zeros_like(q))
+    return (Xi[..., 0] / di_safe, Xi[..., 1] / di_safe, Xi[..., 2] / di_safe,
+            di, conf, Xj[..., 0], Xj[..., 1], Xj[..., 2])
+
+
+def precompute_meas_calib(X, Cavg, ii, jj, idx_ii2jj, valid_match, Q, W_img,
+                          z_eps, C_thresh, Q_thresh, pixel_step=1):
+    """Pose-invariant channels of the calibrated residual for every edge
+    (the JAX ``_premeas_calib``), ``(ui, vi, logzi, conf, xj, yj, zj)``,
+    each ``(E, N)``. ``X`` must be
+    the ray-constrained pointmap: the measured pixel of the constrained
+    point is the grid position of the match index, so ``ui, vi`` come
+    straight from ``idx``; only z of the measured side is read."""
+    idx_ii2jj, valid_match, Q = _decimate_queries(idx_ii2jj, valid_match, Q,
+                                                  pixel_step)
+    safe_idx, Xi, Ci, Cj, Xj = _gather_edge(X, Cavg, ii, jj, idx_ii2jj,
+                                            valid_match, pixel_step)
+    zi = Xi[..., 2]
+    valid_zi = zi > z_eps
+    zi_safe = torch.where(valid_zi, zi, torch.ones_like(zi))
+    fidx = safe_idx.to(zi.dtype)
+    ui = torch.remainder(fidx, float(W_img))
+    vi = torch.floor(fidx / float(W_img))
+    q = Q[..., 0]
+    valid = (valid_match[..., 0] & (q > Q_thresh) & (Ci > C_thresh)
+             & (Cj > C_thresh) & valid_zi)
+    conf = torch.where(valid, q, torch.zeros_like(q))
+    logz = torch.where(valid_zi, torch.log(zi_safe), torch.zeros_like(zi))
+    return (ui, vi, logz, conf, Xj[..., 0], Xj[..., 1], Xj[..., 2])
+
+
+# ---------------------------------------------------------------------------
+# System build and solve
+# ---------------------------------------------------------------------------
+
+def _rel_pose_rows(T, ii, jj, edge_mask, extra=()):
+    """``(Ti, [s*R | t | mask | extra...] (E, 13+len(extra)))``."""
+    Ti = T[ii.long()]
+    Tij = lie.compose(lie.inv(Ti), T[jj.long()])
+    sR = lie.quat_to_matrix(lie.quaternion(Tij)) * lie.scale(Tij)[..., None]
+    cols = [sR.reshape(-1, 9), lie.translation(Tij),
+            edge_mask.to(sR.dtype)[:, None]]
+    if extra:
+        row = torch.stack([torch.as_tensor(v, dtype=sR.dtype,
+                                           device=sR.device)
+                           for v in extra])
+        cols.append(row[None].expand(ii.shape[0], len(extra)))
+    return Ti, torch.cat(cols, dim=-1)
+
+
+def _edge_blocks_from_gram(G, D, Ti):
+    """Per-edge world-frame ``H (E, 7, 7)``, ``g (E, 7)`` and the total
+    whitened-Huber cost (the Gram's (rho, rho) corners) from the Gram."""
+    H_local = sum(G[:, d * 8:d * 8 + 7, d * 8:d * 8 + 7] for d in range(D))
+    g_local = sum(G[:, d * 8:d * 8 + 7, d * 8 + 7] for d in range(D))
+    cost = sum(G[:, d * 8 + 7, d * 8 + 7].sum() for d in range(D))
+    adj_inv = lie.adjoint(lie.inv(Ti))
+    H = adj_inv.transpose(1, 2) @ H_local @ adj_inv
+    g = (adj_inv.transpose(1, 2) @ g_local[..., None])[..., 0]
+    return H, g, cost
+
+
+def _scatter_blocks(H, g, He, ge, ii, jj, free_mask, cap):
+    """Add the per-edge blocks into the dense system ``H (cap+1, 7, cap+1,
+    7)``, ``g (cap+1, 7)`` in place (slot ``cap`` takes fixed poses).
+
+    With ``J_i = -J_j`` the blocks are (ii: +He, jj: +He, ij: -He,
+    ji: -Heᵀ) and ``g_i = +ge``, ``g_j = -ge``. Repeated keyframe pairs
+    accumulate (``index_put_`` with ``accumulate=True`` on the
+    ``(cap+1, cap+1, 7, 7)`` view; plain advanced-index ``+=`` would keep
+    only one of the duplicates)."""
+    trash = torch.full_like(ii, cap)
+    slot_i = torch.where(free_mask[ii], ii, trash)
+    slot_j = torch.where(free_mask[jj], jj, trash)
+    Hb = H.permute(0, 2, 1, 3)
+    Hb.index_put_((slot_i, slot_i), He, accumulate=True)
+    Hb.index_put_((slot_j, slot_j), He, accumulate=True)
+    Hb.index_put_((slot_i, slot_j), -He, accumulate=True)
+    Hb.index_put_((slot_j, slot_i), -He.transpose(1, 2), accumulate=True)
+    g.index_put_((slot_i,), ge, accumulate=True)
+    g.index_put_((slot_j,), -ge, accumulate=True)
+    return H, g
+
+
+def _assemble(G, D, Ti, ii, jj, free_mask, cap):
+    He, ge, cost = _edge_blocks_from_gram(G, D, Ti)
+    H = G.new_zeros(cap + 1, 7, cap + 1, 7)
+    g = G.new_zeros(cap + 1, 7)
+    _scatter_blocks(H, g, He, ge, ii.long(), jj.long(), free_mask, cap)
+    return H, g, cost
+
+
+def _accumulate_rays(T, meas, ii, jj, edge_mask, free_mask, cap,
+                     sigma_ray, sigma_dist, compute_dtype=torch.bfloat16):
+    """Dense normal equations ``(H, g, cost)`` of the ray residual at
+    poses ``T`` (one K4 launch on the card)."""
+    Ti, rts = _rel_pose_rows(T, ii, jj, edge_mask)
+    G = ba_kernels.gram_rays(rts, meas, sigma_ray, sigma_dist,
+                             compute_dtype=compute_dtype)
+    return _assemble(G, 4, Ti, ii, jj, free_mask, cap)
+
+
+def _accumulate_calib(T, meas, K, ii, jj, edge_mask, free_mask, cap,
+                      img_size, pixel_border, z_eps, sigma_pixel,
+                      sigma_depth, compute_dtype=torch.bfloat16):
+    """Dense normal equations of the calibrated residual (one K5 launch)."""
+    fx, fy, cx, cy = geometry.decompose_K(K)
+    Ti, rts = _rel_pose_rows(T, ii, jj, edge_mask, extra=(fx, fy, cx, cy))
+    G = ba_kernels.gram_calib(rts, meas, img_size, pixel_border, z_eps,
+                              sigma_pixel, sigma_depth,
+                              compute_dtype=compute_dtype)
+    return _assemble(G, 3, Ti, ii, jj, free_mask, cap)
+
+
+def _solve_system(H, g, free_mask, cap, damping):
+    """Damped dense Cholesky step. Returns ``(dx (cap, 7), ok)``.
+
+    ``damping`` is Marquardt-style relative damping ``H + λ·diag(H)``;
+    poses that may not move get identity rows. ``ok`` is False when the
+    factorization fails (``cholesky_ex``'s ``info``) or is not finite; dx
+    is then 0."""
+    n = cap * 7
+    Hd = H[:cap, :, :cap, :].reshape(n, n)
+    gd = g[:cap].reshape(n)
+    diag_free = free_mask[:cap].repeat_interleave(7)
+    Hd = torch.where(diag_free[:, None] & diag_free[None, :], Hd,
+                     torch.zeros_like(Hd))
+    # bf16-Gram rounding leaves H slightly asymmetric along weak directions
+    Hd = 0.5 * (Hd + Hd.T)
+    diag = torch.diagonal(Hd)
+    Hd = Hd + torch.diag(torch.where(diag_free,
+                                     damping * diag.clamp_min(1e-6),
+                                     torch.ones_like(diag)))
+    gd = torch.where(diag_free, gd, torch.zeros_like(gd))
+    Lc, info = torch.linalg.cholesky_ex(Hd)
+    ok = (info == 0) & torch.isfinite(Lc).all()
+    eye = torch.eye(n, dtype=Hd.dtype, device=Hd.device)
+    Lc_safe = torch.where(ok, Lc, eye)
+    dx = torch.cholesky_solve(gd[:, None], Lc_safe)[:, 0]
+    dx = torch.where(ok, dx, torch.zeros_like(dx))
+    return dx.reshape(cap, 7), ok
+
+
+def _lm_loop(system, T_WC, free_mask, cap, max_iter, delta_thresh, damping):
+    """Levenberg-Marquardt accept / reject loop of the BA solvers.
+
+    Each iteration solves the damped system, builds the system at the
+    candidate (its whitened-Huber cost is the Gram's (rho, rho) corner) and:
+    - accepts when the Cholesky succeeded and the cost fell: keep the
+      candidate, λ ← max(damping, λ/4);
+    - rejects otherwise: keep the iterate, λ ← 10λ, re-solve the same
+      system.
+    It stops after ``max_iter`` iterations, after an accepted step with
+    ``‖dx‖ < delta_thresh``, or once λ passes 1e8. The scalar decisions are
+    made on the host in float32 (one sync per iteration), in the JAX
+    ``while_loop``'s order. Returns ``(T, iterations)``."""
+    H, g, cost = system(T_WC)
+    T_ref = T_WC
+    cost_ref = _F32(cost.item())
+    lam = _F32(damping)
+    delta = _F32(np.inf)
+    it = 0
+    while it < max_iter and delta >= _F32(delta_thresh):
+        dx, chol_ok = _solve_system(H, g, free_mask, cap, float(lam))
+        T_cand = lie.retr(T_ref, dx)
+        H_c, g_c, cost_c = system(T_cand)
+        vals = torch.stack([chol_ok.float(), cost_c.float(),
+                            torch.linalg.norm(dx)]).cpu().numpy()
+        ok, cost_c_h, dx_norm = bool(vals[0]), vals[1], vals[2]
+        accept = ok and bool(cost_c_h < cost_ref)
+        if accept:
+            T_ref, cost_ref, H, g = T_cand, cost_c_h, H_c, g_c
+            lam = max(_F32(damping), lam * _F32(0.25))
+        else:
+            lam = lam * _F32(10.0)
+        # only a small ACCEPTED step means converged; the λ cap ends a
+        # reject-only stall
+        delta = dx_norm if accept else _F32(np.inf)
+        if lam > 1e8:
+            delta = _F32(0.0)
+        it += 1
+    return T_ref, it
+
+
+def gauss_newton_rays(T_WC, meas, ii, jj, edge_mask, free_mask, sigma_ray,
+                      sigma_dist, max_iter, delta_thresh, damping=1e-4,
+                      compute_dtype="bfloat16"):
+    """Global ray-alignment BA over two-way edges ``ii, jj (E,)``.
+
+    ``T_WC (cap, 8)``; ``meas``: channels from :func:`precompute_meas_rays`
+    (float32 or bfloat16); ``edge_mask (E,)``; ``free_mask (cap,)`` bool.
+    Returns ``(T (cap, 8), iterations)``; one K4 launch per system build
+    (1 + iterations)."""
+    cap = T_WC.shape[0]
+    cdt = ba_kernels.as_dtype(compute_dtype)
+
+    def system(T):
+        return _accumulate_rays(T, meas, ii, jj, edge_mask, free_mask, cap,
+                                sigma_ray, sigma_dist, compute_dtype=cdt)
+
+    return _lm_loop(system, T_WC, free_mask, cap, max_iter, delta_thresh,
+                    damping)
+
+
+def gauss_newton_calib(T_WC, meas, K, ii, jj, edge_mask, free_mask, img_size,
+                       pixel_border, z_eps, sigma_pixel, sigma_depth,
+                       max_iter, delta_thresh, damping=1e-4,
+                       compute_dtype="bfloat16"):
+    """Global calibrated BA (pixel + log-depth residuals); as
+    :func:`gauss_newton_rays` with K5."""
+    cap = T_WC.shape[0]
+    cdt = ba_kernels.as_dtype(compute_dtype)
+
+    def system(T):
+        return _accumulate_calib(T, meas, K, ii, jj, edge_mask, free_mask,
+                                 cap, img_size, pixel_border, z_eps,
+                                 sigma_pixel, sigma_depth, compute_dtype=cdt)
+
+    return _lm_loop(system, T_WC, free_mask, cap, max_iter, delta_thresh,
+                    damping)
+
+
+# ---------------------------------------------------------------------------
+# Host-side factor graph
+# ---------------------------------------------------------------------------
+
+def _geo_match_init(X_i, X_j, T_i, T_j, img_hw):
+    """Pose-projected matcher inits for both directions of B edges.
+
+    ``match(X11, X21, init)`` takes one init entry per image-2 pixel naming
+    a pixel of image 1, so the init of the direction whose output is
+    ``idx_ii2jj`` is keyframe j's points projected into camera i, and vice
+    versa. ``X (B, N, 3)``, ``T (B, 8)``. Returns
+    ``(init_ii2jj, init_jj2ii)``."""
+    f_i = geometry.estimate_focal(X_i, img_hw)
+    f_j = geometry.estimate_focal(X_j, img_hw)
+    init_ii2jj = geometry.project_to_index(X_j, T_j, T_i, f_i, img_hw)
+    init_jj2ii = geometry.project_to_index(X_i, T_i, T_j, f_j, img_hw)
+    return init_ii2jj, init_jj2ii
+
+
+class FactorGraph:
+    """Edge store and BA solves (the reference's global_opt.py): edges are
+    created by a symmetric decode + match and accepted by bidirectional
+    coverage; the pose-invariant measured channels of every edge are cached
+    across solves and refreshed only for edges whose keyframes' pointmaps
+    changed."""
+
+    def __init__(self, model, keyframes, cfg, K=None):
+        self.model = model
+        self.keyframes = keyframes
+        self.cfg = cfg["local_opt"]
+        self.K = K
+        n_pix = keyframes.h * keyframes.w
+        self.n_pix = n_pix
+        dev = keyframes.device
+        self.ii = np.zeros((0,), np.int64)
+        self.jj = np.zeros((0,), np.int64)
+        self.idx_ii2jj = torch.zeros(0, n_pix, dtype=torch.long, device=dev)
+        self.idx_jj2ii = torch.zeros(0, n_pix, dtype=torch.long, device=dev)
+        self.valid_match_j = torch.zeros(0, n_pix, 1, dtype=torch.bool,
+                                         device=dev)
+        self.valid_match_i = torch.zeros(0, n_pix, 1, dtype=torch.bool,
+                                         device=dev)
+        self.Q_ii2jj = torch.zeros(0, n_pix, 1, device=dev)
+        self.Q_jj2ii = torch.zeros(0, n_pix, 1, device=dev)
+        self.last_unique_kf_idx: np.ndarray | None = None
+        self.last_solve_iters = 0
+        # local_opt.pixel_step: BA residual decimation (1 = every pixel)
+        self.pixel_step = int(self.cfg.get("pixel_step", 1))
+        # local_opt.meas_dtype: channel storage type; the math widens to f32
+        self.meas_dtype = ba_kernels.as_dtype(
+            self.cfg.get("meas_dtype", "float32"))
+        # cache per one-way edge and direction, with the (gather-side,
+        # row-side) keyframe xc_versions it was computed at
+        self._meas_kind: str | None = None
+        self._meas_ij: tuple | None = None        # dir i->j (gather side ii)
+        self._meas_ji: tuple | None = None        # dir j->i (gather side jj)
+        self._meas_ver_ij = np.zeros((0, 2), np.int64)
+        self._meas_ver_ji = np.zeros((0, 2), np.int64)
+
+    def n_edges(self):
+        return int(self.ii.shape[0])
+
+    def add_factors(self, ii_new, jj_new, min_match_frac, is_reloc=False,
+                    init_hint=None, allow_geo_init=True):
+        """Symmetric-decode candidate edges; accept by bidirectional
+        coverage (consecutive edges always). Returns True when an edge was
+        added; in strict-reloc mode one invalid edge rejects the batch.
+
+        ``init_hint`` carries the tracker's converged frame→keyframe match
+        of the consecutive edge ``(i, j)``:
+        - 5-tuple ``(i, j, idx_j2i, valid_i, Q_i)`` is reused verbatim as
+          the edge's j→i direction (``idx_j2i (N,)``, ``valid_i (N, 1)``,
+          ``Q_i (N, 1)`` the fused confidence); the event then decodes only
+          (i, j) and runs one matcher (``model.match_oneway``);
+        - legacy 3-tuple ``(i, j, idx_j2i)`` warm-starts the symmetric
+          matcher's j→i direction instead."""
+        if len(ii_new) == 0:
+            return False
+        kf = self.keyframes
+        use_geo = (allow_geo_init and not is_reloc
+                   and bool(self.cfg.get("warm_start_geo", True)))
+        ii_t = torch.as_tensor(np.asarray(ii_new), dtype=torch.long,
+                               device=kf.device)
+        jj_t = torch.as_tensor(np.asarray(jj_new), dtype=torch.long,
+                               device=kf.device)
+        with kf.lock:
+            feat_i, feat_j = kf.feat[ii_t], kf.feat[jj_t]
+            pos_i, pos_j = kf.pos[ii_t], kf.pos[jj_t]
+            if use_geo:
+                X_i, X_j = kf.X[ii_t], kf.X[jj_t]
+                T_i, T_j = kf.T_WC[ii_t], kf.T_WC[jj_t]
+        img_hw = kf.img_shapes[int(ii_new[0])][1]
+        n = self.n_pix
+
+        init_i2j = init_j2i = None
+        if use_geo:
+            # pointmaps live at the working resolution
+            init_i2j, init_j2i = _geo_match_init(X_i, X_j, T_i, T_j,
+                                                 (kf.h, kf.w))
+
+        reuse_row = None
+        if init_hint is not None and not is_reloc:
+            hi, hj = int(init_hint[0]), int(init_hint[1])
+            rows = [r for r in range(len(ii_new))
+                    if int(ii_new[r]) == hi and int(jj_new[r]) == hj]
+            if rows and len(init_hint) == 5:
+                reuse_row = rows[0]
+            elif rows:
+                if init_j2i is None:
+                    init_j2i = torch.arange(n, device=kf.device).expand(
+                        len(ii_new), n).clone()
+                # the tracker's converged correspondence (i-pixels →
+                # j-pixels) initializes the matcher whose output is idx_jj2ii
+                init_j2i[rows[0]] = torch.as_tensor(
+                    init_hint[2], device=kf.device).reshape(-1)[:n].long()
+
+        if reuse_row is not None:
+            r = reuse_row
+            full = [k for k in range(len(ii_new)) if k != r]
+            idx1, vj1, Qii1, Qji1 = self.model.match_oneway(
+                feat_i[r:r + 1], pos_i[r:r + 1], feat_j[r:r + 1],
+                pos_j[r:r + 1], img_hw,
+                init_i2j=None if init_i2j is None else init_i2j[r:r + 1])
+            Qj1 = torch.sqrt(Qii1[0][idx1[0]] * Qji1[0])[None, :, None]
+            idx2 = torch.as_tensor(init_hint[2], device=kf.device).reshape(
+                1, n).long()
+            vi1 = torch.as_tensor(init_hint[3], device=kf.device).reshape(
+                1, n, 1).bool()
+            Qi1 = torch.as_tensor(init_hint[4], dtype=torch.float32,
+                                  device=kf.device).reshape(1, n, 1)
+            if full:
+                fj = torch.as_tensor(full, device=kf.device)
+                (fidx_i2j, fidx_j2i, fvalid_j, fvalid_i, fQii, fQjj, fQji,
+                 fQij) = self.model.match_symmetric(
+                    feat_i[fj], pos_i[fj], feat_j[fj], pos_j[fj], img_hw,
+                    init_i2j=None if init_i2j is None else init_i2j[fj],
+                    init_j2i=None if init_j2i is None else init_j2i[fj])
+                fb = torch.arange(fidx_i2j.shape[0],
+                                  device=kf.device)[:, None]
+                fQj = torch.sqrt(fQii[fb, fidx_i2j] * fQji)
+                fQi = torch.sqrt(fQjj[fb, fidx_j2i] * fQij)
+
+                def merge(hint_v, full_v):
+                    out = [None] * len(ii_new)
+                    out[r] = hint_v[0]
+                    for k, row in enumerate(full):
+                        out[row] = full_v[k]
+                    return torch.stack(out)
+
+                idx_i2j = merge(idx1, fidx_i2j)
+                idx_j2i = merge(idx2, fidx_j2i)
+                valid_j = merge(vj1, fvalid_j)
+                valid_i = merge(vi1, fvalid_i)
+                Qj = merge(Qj1, fQj)
+                Qi = merge(Qi1, fQi)
+            else:
+                idx_i2j, idx_j2i = idx1, idx2
+                valid_j, valid_i = vj1, vi1
+                Qj, Qi = Qj1, Qi1
+        else:
+            (idx_i2j, idx_j2i, valid_j, valid_i, Qii, Qjj, Qji, Qij) = (
+                self.model.match_symmetric(feat_i, pos_i, feat_j, pos_j,
+                                           img_hw, init_i2j=init_i2j,
+                                           init_j2i=init_j2i))
+            b_idx = torch.arange(idx_i2j.shape[0], device=kf.device)[:, None]
+            Qj = torch.sqrt(Qii[b_idx, idx_i2j] * Qji)
+            Qi = torch.sqrt(Qjj[b_idx, idx_j2i] * Qij)
+
+        Q_conf = self.cfg["Q_conf"]
+        frac = torch.stack([
+            (valid_j & (Qj > Q_conf)).float().mean(dim=(1, 2)),
+            (valid_i & (Qi > Q_conf)).float().mean(dim=(1, 2)),
+        ]).cpu().numpy()
+        ii_arr = np.asarray(ii_new, np.int64)
+        jj_arr = np.asarray(jj_new, np.int64)
+        invalid = np.minimum(frac[0], frac[1]) < min_match_frac
+        consecutive = ii_arr == (jj_arr - 1)
+        invalid = (~consecutive) & invalid
+        if invalid.any() and is_reloc:
+            return False
+        keep = ~invalid
+        if not keep.any():
+            return False
+        kidx = np.where(keep)[0]
+        self.ii = np.concatenate([self.ii, ii_arr[kidx]])
+        self.jj = np.concatenate([self.jj, jj_arr[kidx]])
+        kj = torch.as_tensor(kidx, device=kf.device)
+        self.idx_ii2jj = torch.cat([self.idx_ii2jj, idx_i2j[kj].long()])
+        self.idx_jj2ii = torch.cat([self.idx_jj2ii, idx_j2i[kj].long()])
+        self.valid_match_j = torch.cat([self.valid_match_j, valid_j[kj]])
+        self.valid_match_i = torch.cat([self.valid_match_i, valid_i[kj]])
+        self.Q_ii2jj = torch.cat([self.Q_ii2jj, Qj[kj].float()])
+        self.Q_jj2ii = torch.cat([self.Q_jj2ii, Qi[kj].float()])
+        return True
+
+    def get_unique_kf_idx(self):
+        return np.unique(np.concatenate([self.ii, self.jj]))
+
+    # -- measured-channel cache ---------------------------------------------
+
+    def _kf_versions(self):
+        """Pointmap-content versions: pose-only updates (this graph's own
+        solves included) must not invalidate the cache."""
+        return np.asarray(self.keyframes.xc_version, np.int64).copy()
+
+    def _premeas_rows(self, kind, rows, direction, X, Cavg):
+        """Channels of one-way edges ``rows`` in one direction, in the
+        storage type ``meas_dtype``."""
+        rj = torch.as_tensor(np.asarray(rows, np.int64),
+                             device=self.keyframes.device)
+        if direction == "ij":
+            g_kf, r_kf = self.ii[rows], self.jj[rows]
+            idx, valid, Q = (self.idx_ii2jj[rj], self.valid_match_j[rj],
+                             self.Q_ii2jj[rj])
+        else:
+            g_kf, r_kf = self.jj[rows], self.ii[rows]
+            idx, valid, Q = (self.idx_jj2ii[rj], self.valid_match_i[rj],
+                             self.Q_jj2ii[rj])
+        g_kf = torch.as_tensor(g_kf, device=rj.device)
+        r_kf = torch.as_tensor(r_kf, device=rj.device)
+        C_thresh = float(self.cfg["C_conf"])
+        Q_thresh = float(self.cfg["Q_conf"])
+        if kind == "rays":
+            meas = precompute_meas_rays(X, Cavg, g_kf, r_kf, idx, valid, Q,
+                                        C_thresh, Q_thresh,
+                                        pixel_step=self.pixel_step)
+        else:
+            meas = precompute_meas_calib(
+                X, Cavg, g_kf, r_kf, idx, valid, Q, self.keyframes.w,
+                float(self.cfg["depth_eps"]), C_thresh, Q_thresh,
+                pixel_step=self.pixel_step)
+        return tuple(ch.to(self.meas_dtype).contiguous() for ch in meas)
+
+    def _ensure_meas(self, kind):
+        """Create or refresh the per-edge channel cache: new edges are
+        appended; cached edges are recomputed (in place) only when the
+        ``xc_version`` of either touched keyframe moved."""
+        E = self.n_edges()
+        if E == 0:
+            return
+        kf = self.keyframes
+        ver = self._kf_versions()
+        want_ij = np.stack([ver[self.ii], ver[self.jj]], 1)
+        want_ji = np.stack([ver[self.jj], ver[self.ii]], 1)
+        cache = []
+
+        def inputs():
+            # built once per call, and only when a row is (re)computed
+            if not cache:
+                X = kf.X
+                Cavg = kf.C / torch.as_tensor(
+                    kf.N, dtype=torch.float32,
+                    device=kf.device).clamp_min(1.0)[:, None, None]
+                if kind == "calib":
+                    # both solve sides use ray-constrained points
+                    X = geometry.constrain_points_to_ray(
+                        (kf.h, kf.w), X.reshape(-1, self.n_pix, 3), self.K)
+                cache.append((X, Cavg))
+            return cache[0]
+
+        if self._meas_kind != kind or self._meas_ij is None:
+            rows = np.arange(E)
+            X, Cavg = inputs()
+            self._meas_ij = self._premeas_rows(kind, rows, "ij", X, Cavg)
+            self._meas_ji = self._premeas_rows(kind, rows, "ji", X, Cavg)
+            self._meas_kind = kind
+            self._meas_ver_ij = want_ij
+            self._meas_ver_ji = want_ji
+            return
+
+        E0 = self._meas_ver_ij.shape[0]
+        if E0 < E:
+            rows = np.arange(E0, E)
+            X, Cavg = inputs()
+            new_ij = self._premeas_rows(kind, rows, "ij", X, Cavg)
+            new_ji = self._premeas_rows(kind, rows, "ji", X, Cavg)
+            self._meas_ij = tuple(torch.cat([a, b]) for a, b in
+                                  zip(self._meas_ij, new_ij))
+            self._meas_ji = tuple(torch.cat([a, b]) for a, b in
+                                  zip(self._meas_ji, new_ji))
+            self._meas_ver_ij = np.concatenate(
+                [self._meas_ver_ij, want_ij[E0:]])
+            self._meas_ver_ji = np.concatenate(
+                [self._meas_ver_ji, want_ji[E0:]])
+
+        for direction, cached, ver_cached, want in (
+            ("ij", self._meas_ij, self._meas_ver_ij, want_ij),
+            ("ji", self._meas_ji, self._meas_ver_ji, want_ji),
+        ):
+            stale = np.where((ver_cached != want).any(axis=1))[0]
+            if stale.size == 0:
+                continue
+            X, Cavg = inputs()
+            fresh = self._premeas_rows(kind, stale, direction, X, Cavg)
+            sj = torch.as_tensor(stale, device=kf.device)
+            for ch, f in zip(cached, fresh):
+                ch[sj] = f
+            ver_cached[stale] = want[stale]
+
+    # -- solves --------------------------------------------------------------
+
+    def _two_way(self):
+        """Two-way edges and channels ``(ii2, jj2, mask, meas)``: every
+        one-way edge in both directions (the JAX ``_two_way_padded`` without
+        its power-of-two padding, which only fed XLA's compile cache)."""
+        dev = self.keyframes.device
+        ii2 = torch.as_tensor(np.concatenate([self.ii, self.jj]), device=dev)
+        jj2 = torch.as_tensor(np.concatenate([self.jj, self.ii]), device=dev)
+        meas = tuple(torch.cat([a, b]) for a, b in
+                     zip(self._meas_ij, self._meas_ji))
+        mask = torch.ones(ii2.shape[0], device=dev)
+        return ii2, jj2, mask, meas
+
+    def _free_mask(self, unique_kf_idx):
+        pin = int(self.cfg["pin"])
+        mask = np.zeros(self.keyframes.capacity, bool)
+        mask[unique_kf_idx[pin:]] = True
+        return torch.as_tensor(mask, device=self.keyframes.device)
+
+    def _solve(self, kind, solver):
+        unique = self.get_unique_kf_idx()
+        if unique.size <= int(self.cfg["pin"]):
+            self.last_unique_kf_idx = None
+            return
+        self.last_unique_kf_idx = unique
+        kf = self.keyframes
+        with kf.lock:
+            self._ensure_meas(kind)
+            ii2, jj2, mask, meas = self._two_way()
+            T_new, self.last_solve_iters = solver(
+                kf.T_WC, meas, ii2, jj2, mask, self._free_mask(unique))
+            kf.T_WC = T_new
+            for i in unique[int(self.cfg["pin"]):]:
+                kf.version[int(i)] += 1
+
+    def _compute_dtype(self):
+        return str(self.cfg.get("ba_compute_dtype", "bfloat16"))
+
+    def solve_GN_rays(self):
+        c = self.cfg
+
+        def solver(T, meas, ii2, jj2, mask, free):
+            return gauss_newton_rays(
+                T, meas, ii2, jj2, mask, free, float(c["sigma_ray"]),
+                float(c["sigma_dist"]), int(c["max_iters"]),
+                float(c["delta_norm"]), compute_dtype=self._compute_dtype())
+
+        self._solve("rays", solver)
+
+    def solve_GN_calib(self):
+        c = self.cfg
+        kf = self.keyframes
+
+        def solver(T, meas, ii2, jj2, mask, free):
+            return gauss_newton_calib(
+                T, meas, self.K, ii2, jj2, mask, free, (kf.h, kf.w),
+                float(c["pixel_border"]), float(c["depth_eps"]),
+                float(c["sigma_pixel"]), float(c["sigma_depth"]),
+                int(c["max_iters"]), float(c["delta_norm"]),
+                compute_dtype=self._compute_dtype())
+
+        self._solve("calib", solver)

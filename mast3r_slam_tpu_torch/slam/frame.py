@@ -202,21 +202,74 @@ class KeyframeBuffer:
         with self.lock:
             self[self.n_size] = frame
 
+    def pop_last(self):
+        with self.lock:
+            self.n_size -= 1
+
+    def update_T_WCs(self, T_WCs, idx) -> None:
+        """Pose-only write: bumps ``version``, not ``xc_version``."""
+        with self.lock:
+            idx = np.atleast_1d(np.asarray(idx))
+            self.T_WC[torch.as_tensor(idx, device=self.device)] = (
+                torch.as_tensor(T_WCs, dtype=self.T_WC.dtype,
+                                device=self.device).reshape(-1, 8))
+            for i in idx:
+                self.version[int(i)] += 1
+
 
 class States:
-    """Controller-wide mutable state: the mode machine, the reloc signal and
-    the backend queue, guarded by one lock."""
+    """Controller-wide mutable state: the mode machine, the reloc signal,
+    the backend queue and the keyframe match hint, guarded by one lock."""
 
     def __init__(self):
         self.lock = threading.RLock()
         self.mode = Mode.INIT
         self.reloc_sem = 0
         self.global_optimizer_tasks: list[int] = []
+        self.edges_ii: list[int] = []
+        self.edges_jj: list[int] = []
         self.current_frame: Optional[Frame] = None
+        # (i, j, idx_j2i[, valid_i, Q_i]): the tracker's converged match at
+        # keyframe creation, consumed once by the backend; the 5-tuple lets
+        # add_factors reuse it as the consecutive edge's j→i direction
+        self.kf_match_hint: Optional[tuple] = None
 
     def set_frame(self, frame: Frame):
         with self.lock:
             self.current_frame = frame
+
+    def set_kf_match_hint(self, i: int, j: int, idx_j2i, valid_i=None,
+                          Q_i=None) -> None:
+        with self.lock:
+            if valid_i is not None and Q_i is not None:
+                self.kf_match_hint = (i, j, idx_j2i, valid_i, Q_i)
+            else:
+                self.kf_match_hint = (i, j, idx_j2i)
+
+    def take_kf_match_hint(self, i=None, j=None):
+        """Pop the stored hint. With ``(i, j)`` given, pop it only if it is
+        for that edge: a lagging backend must not consume keyframe N+1's
+        hint while it still processes keyframe N."""
+        with self.lock:
+            hint = self.kf_match_hint
+            if hint is None:
+                return None
+            if i is not None and (int(hint[0]) != int(i)
+                                  or int(hint[1]) != int(j)):
+                return None
+            self.kf_match_hint = None
+            return hint
+
+    def pop_global_optimization(self) -> Optional[int]:
+        with self.lock:
+            if self.global_optimizer_tasks:
+                return self.global_optimizer_tasks.pop(0)
+            return None
+
+    def set_edges(self, ii, jj):
+        with self.lock:
+            self.edges_ii = list(ii)
+            self.edges_jj = list(jj)
 
     def get_frame(self) -> Optional[Frame]:
         with self.lock:

@@ -403,6 +403,8 @@ class FrameTracker:
         self.use_calib = cfg["use_calib"]
         self.idx_f2k = None             # warm-start correspondence
         self._warm_kf_idx = None        # which keyframe idx_f2k converged on
+        # (kf_idx, idx_f2k, valid_match, Qk) at the last keyframe creation
+        self.last_kf_match = None
 
     def reset_idx_f2k(self):
         self.idx_f2k = None
@@ -471,6 +473,11 @@ class FrameTracker:
         new_kf = min(float(out["match_frac_k"]),
                      float(out["unique_frac_f"])) < cfg["match_frac_thresh"]
         if new_kf:
+            # when this frame becomes keyframe kf_idx+1, the backend reuses
+            # its converged match as the consecutive edge's whole j→i
+            # direction; the fused Qk is that direction's Q channel
+            self.last_kf_match = (kf_idx, out["idx_f2k"], out["valid_match"],
+                                  out["Qk"])
             self.reset_idx_f2k()
         return (new_kf,
                 [out["X_k_new"], out["C_k_new"], frame.X_canon, frame.C,

@@ -86,3 +86,40 @@ def test_img_gradient_matches_jax():
     for got, want in zip(TI.img_gradient(t_(img)),
                          JI.img_gradient(jnp.asarray(img))):
         _close(got, want)
+
+
+def _pointmap(h, w, seed):
+    rng = np.random.default_rng(seed)
+    uv = np.stack(np.meshgrid(np.arange(w), np.arange(h), indexing="xy"),
+                  -1).reshape(-1, 2).astype(np.float32)
+    z = (2.0 + rng.random((h * w, 1))).astype(np.float32)
+    f = 40.0 + 5.0 * seed
+    xy = (uv - [(w - 1) / 2.0, (h - 1) / 2.0]) / f * z
+    return np.concatenate([xy, z], -1).astype(np.float32)
+
+
+def test_estimate_focal_matches_jax():
+    """Median focal of pointmaps, an even and an odd count of usable
+    slopes, plus a map with no usable slope (NaN in both)."""
+    X = np.stack([_pointmap(12, 16, s) for s in (1, 2)])
+    X[1, :5, 2] = 1e6                     # changes the sample count parity
+    flat = X[:1].copy()
+    flat[..., :2] = 0.0
+    for arr in (X, flat):
+        got = TG.estimate_focal(t_(arr), (12, 16))
+        want = np.asarray(JG.estimate_focal(jnp.asarray(arr), (12, 16)))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+    assert np.isnan(TG.estimate_focal(t_(flat), (12, 16)).numpy()).all()
+
+
+def test_project_to_index_matches_jax():
+    from mast3r_slam_tpu.ops import lie as JL
+
+    X = np.stack([_pointmap(12, 16, s) for s in (1, 2)])
+    xi = RNG.normal(size=(2, 2, 7)).astype(np.float32) * 0.05
+    T_src, T_dst = (np.array(JL.exp(jnp.asarray(xi[:, k]))) for k in (0, 1))
+    f = np.asarray([41.0, 47.5], np.float32)
+    got = TG.project_to_index(t_(X), t_(T_src), t_(T_dst), t_(f), (12, 16))
+    want = JG.project_to_index(jnp.asarray(X), jnp.asarray(T_src),
+                               jnp.asarray(T_dst), jnp.asarray(f), (12, 16))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

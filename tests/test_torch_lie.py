@@ -88,3 +88,21 @@ def test_compose_chain_stays_unit():
         T = TL.compose(TL.inv(steps[i]), TL.compose(T, steps[i]))
         T = TL.compose(T, steps[(i + 7) % 64])
     assert abs(float(torch.linalg.norm(T[3:7])) - 1.0) < 1e-5
+
+
+@pytest.mark.parametrize("op", ["quat_to_matrix", "matrix", "adjoint"])
+def test_matrix_forms_match_jax(op):
+    T = _poses()
+    arg = T[:, 3:7] if op == "quat_to_matrix" else T
+    _close(getattr(TL, op)(torch.from_numpy(np.ascontiguousarray(arg))),
+           getattr(JL, op)(jnp.asarray(arg)), tol=2e-6)
+
+
+def test_adjoint_moves_tangents_through_the_group():
+    """``T exp(xi) T⁻¹ = exp(Adj(T) xi)``, the identity the BA's world-frame
+    blocks rest on."""
+    T = torch.from_numpy(_poses(16))
+    xi = torch.from_numpy(RNG.normal(size=(16, 7)).astype(np.float32) * 0.05)
+    lhs = TL.compose(TL.compose(T, TL.exp(xi)), TL.inv(T))
+    rhs = TL.exp((TL.adjoint(T) @ xi[..., None])[..., 0])
+    _close(TL.matrix(lhs), TL.matrix(rhs), tol=2e-5)

@@ -11,9 +11,11 @@ import torch
 
 from mast3r_slam_tpu_torch import _build
 from mast3r_slam_tpu_torch.models import convert, mast3r
+from mast3r_slam_tpu_torch.ops import ba_kernels as BA
 from mast3r_slam_tpu_torch.ops import conv3x3 as C3
 from mast3r_slam_tpu_torch.ops import flash_attention as FA
 from mast3r_slam_tpu_torch.slam import frame, pipeline
+from mast3r_slam_tpu_torch.utils import oracle_scene
 
 ROOT = Path(__file__).resolve().parents[1]
 _FORBIDDEN = re.compile(
@@ -36,7 +38,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 @pytest.mark.parametrize("fn,arg", [
     (mast3r.init_params, "device"), (convert.params_from_jax, "device"),
-    (pipeline.create_frame, "device"), (frame.KeyframeBuffer, "device")])
+    (pipeline.create_frame, "device"), (frame.KeyframeBuffer, "device"),
+    (oracle_scene.run_oracle_slam, "device")])
 def test_entry_points_default_to_cuda(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
 
@@ -50,15 +53,15 @@ def test_builder_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_libs", {})
     if Path("/usr/local/cuda/bin/nvcc").exists():
         pytest.skip("this machine has nvcc")
-    for name in (FA.KERNEL, C3.KERNEL):
+    for name in (FA.KERNEL, C3.KERNEL, BA.KERNEL):
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.load(name)
     with pytest.raises(RuntimeError, match="nvcc"):
-        _build.build_all([FA.KERNEL, C3.KERNEL])
+        _build.build_all([FA.KERNEL, C3.KERNEL, BA.KERNEL])
 
 
 def test_kernel_sources_exist_and_build_names_are_content_keyed():
-    for name in (FA.KERNEL, C3.KERNEL):
+    for name in (FA.KERNEL, C3.KERNEL, BA.KERNEL):
         src = _build.CSRC / f"{name}.cu"
         assert src.is_file()
         text = src.read_text()
@@ -102,3 +105,39 @@ def test_wrappers_refuse_other_devices():
     w = torch.empty(3, 3, 8, 8, device="meta")
     with pytest.raises(ValueError, match="device"):
         C3.conv3x3(x, w)
+
+
+def _ba_inputs(device, kind):
+    n_ch, cols = (8, 13) if kind == "rays" else (7, 17)
+    rng = np.random.default_rng(63)
+    rts = rng.normal(size=(2, cols)).astype(np.float32)
+    rts[:, 12] = 1.0                          # the edge mask
+    rts = torch.from_numpy(rts)
+    meas = [torch.from_numpy(rng.uniform(0.5, 2, (2, 300)).astype(
+        np.float32)) for _ in range(n_ch)]
+    return rts.to(device), [m.to(device) for m in meas]
+
+
+@pytest.mark.parametrize("kind", ["rays", "calib"])
+def test_k4_k5_wrappers_on_cpu_are_the_plain_versions(kind):
+    rts, meas = _ba_inputs("cpu", kind)
+    before = (BA.rays_counter.launches, BA.calib_counter.launches)
+    if kind == "rays":
+        got = BA.gram_rays(rts, meas, 0.003, 10.0)
+        want = BA.gram_rays_ref(rts, meas, 0.003, 10.0)
+    else:
+        args = ((24, 32), -10.0, 1e-6, 1.0, 10.0)
+        got = BA.gram_calib(rts, meas, *args)
+        want = BA.gram_calib_ref(rts, meas, *args)
+    assert torch.equal(got, want)
+    assert (BA.rays_counter.launches, BA.calib_counter.launches) == before
+
+
+@pytest.mark.parametrize("kind", ["rays", "calib"])
+def test_k4_k5_wrappers_refuse_other_devices(kind):
+    rts, meas = _ba_inputs("meta", kind)
+    with pytest.raises(ValueError, match="device"):
+        if kind == "rays":
+            BA.gram_rays(rts, meas, 0.003, 10.0)
+        else:
+            BA.gram_calib(rts, meas, (24, 32), -10.0, 1e-6, 1.0, 10.0)

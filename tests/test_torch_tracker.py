@@ -329,3 +329,33 @@ def test_frame_tracker_drives_track_core_on_cpu():
     if not new_kf:
         assert tracker.idx_f2k is not None and tracker._warm_kf_idx == 0
     assert len(info) == 6
+
+
+def test_new_keyframe_records_the_backend_match_hint():
+    """A frame that becomes a keyframe leaves its converged match as
+    ``last_kf_match`` (the backend's 5-tuple hint) and drops the warm
+    start; a frame that does not leaves no hint."""
+    _, _, ct, pt = tiny_weights(tie_streams=True)
+    model = MASt3RInference(TM.prepare_params(pt, ct), ct)
+    imgs = _frames(2)
+    for thresh, want_kf in ((2.0, True), (-1.0, False)):
+        cfg = _track_cfg()
+        cfg["tracking"]["match_frac_thresh"] = thresh
+        kfs = KeyframeBuffer(*HW, capacity=4, feat_dim=ct.enc_embed_dim,
+                             device="cpu")
+        tracker = TT.FrameTracker(model, kfs, cfg)
+        f0 = create_frame(0, imgs[0], device="cpu")
+        X, C = model.inference_mono(f0)
+        f0.update_pointmap(X[0], C[0])
+        kfs.append(f0)
+        f1 = create_frame(1, imgs[1], T_WC=f0.T_WC, device="cpu")
+        new_kf, _, reloc = tracker.track(f1)
+        assert not reloc and new_kf == want_kf
+        if not want_kf:
+            assert tracker.last_kf_match is None
+            continue
+        kf_idx, idx_f2k, valid, Qk = tracker.last_kf_match
+        n = HW[0] * HW[1]
+        assert kf_idx == 0 and tracker.idx_f2k is None
+        assert idx_f2k.shape == (1, n) and valid.shape == (n, 1)
+        assert Qk.shape == (n, 1) and bool(Qk.isfinite().all())

@@ -80,3 +80,25 @@ def tiny_weights(tie_streams: bool = False, **cfg_kw):
         JC.save_params_npz(pj, path)
         pt = TC.params_from_jax(TC.load_npz(path), ct, device="cpu")
     return cj, pj, ct, pt
+
+
+def ba_edges(seed, E=5, N=2048, cap=6):
+    """Numpy-seeded BA edges (the ``tests/test_ba_fused.py`` recipe): poses
+    ``T (cap, 8)``, pointmaps in front of the cameras, confidences, edge
+    ends, random matches, valid masks, Q and an edge mask (edge 0 on)."""
+    from mast3r_slam_tpu.ops import lie as JL
+
+    rng = np.random.default_rng(seed)
+    T = np.array(JL.exp(jax.numpy.asarray(
+        rng.normal(size=(cap, 7)).astype(np.float32) * 0.1)))
+    X = rng.uniform(-1, 1, (cap, N, 3)).astype(np.float32)
+    X[..., 2] += 2.5
+    Cavg = rng.uniform(0.0, 3.0, (cap, N, 1)).astype(np.float32)
+    ii = rng.integers(0, cap, E).astype(np.int32)
+    jj = ((ii + 1) % cap).astype(np.int32)
+    idx = rng.integers(0, N, (E, N)).astype(np.int32)
+    valid = rng.random((E, N, 1)) < 0.8
+    Q = rng.uniform(0.0, 3.0, (E, N, 1)).astype(np.float32)
+    mask = (rng.random(E) < 0.85).astype(np.float32)
+    mask[0] = 1.0
+    return T, X, Cavg, ii, jj, idx, valid, Q, mask
