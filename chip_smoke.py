@@ -8,7 +8,8 @@ It builds the port's CUDA kernels from ``mast3r_slam_tpu_torch/csrc``,
 then:
 
 1. holds each kernel against its plain PyTorch version on the card at every
-   shape the tracking path gives it, timing kernel, plain version, one
+   shape the tracking path gives it (K3 at the encoder, decoder,
+   batched-decode and cross shapes), timing kernel, plain version, one
    PyTorch library call of the same function (a yardstick the port never
    calls) and the least time the card could take;
 2. drives the port's main path at full ViT-L width with random weights and
@@ -34,7 +35,22 @@ then:
    BA recovers the trajectory, cross-checks one Gram and one system build
    on the card against the CPU, and reruns the BA's LM loop from kicked
    keyframe poses on the card and on the CPU: several accepted steps, the
-   trajectory recovered, both runs ending at the same poses.
+   trajectory recovered, both runs ending at the same poses;
+7. runs the port's CLI (``mast3r_slam_tpu_torch.main.main``) at full ViT-L
+   width on a 24-frame TUM clip it writes (an out-and-back pan), checking
+   every frame processed, at least 8 keyframes, a retrieval edge, the
+   exported trajectory, PLYs and keyframe PNGs, and each kernel's launches
+   against the run's own model calls and LM iterations; then a calibrated
+   run (K5), a checkpoint restored bit for bit and resumed, and a threaded
+   run that drains;
+8. runs the CLI with one reduced-depth f32 model on the card and on the
+   CPU: the same modes, keyframes and edges, and the same poses;
+9. runs the relocalization episode of ``tests/test_oracle_reloc.py`` at
+   384x512: a teleport recovered within the JAX test's bounds, an impostor
+   rejected and rolled back.
+
+K3 (flash attention without RoPE, which no path calls) is held against its
+plain version in phase 1. ``--phases`` runs a subset (no kernel table).
 
 Any failed check raises and the script exits non-zero. Its last three lines
 are the kernel table (JSON), the card's name and power limit as
@@ -49,6 +65,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -126,8 +143,15 @@ def time_ms(fn, iters=20, warmup=3):
 
 
 def reset_counters(FA, C3, BA):
-    for c in (FA.counter, C3.counter, BA.rays_counter, BA.calib_counter):
+    for c in (FA.counter, FA.attn_counter, C3.counter, BA.rays_counter,
+              BA.calib_counter):
         c.launches = 0
+
+
+def launch_counts(FA, C3, BA):
+    return {"K1": FA.counter.launches, "K2": C3.counter.launches,
+            "K3": FA.attn_counter.launches, "K4": BA.rays_counter.launches,
+            "K5": BA.calib_counter.launches}
 
 
 def sync_clock(torch):
@@ -182,6 +206,54 @@ def k2_cases():
     ]
 
 
+def k3_cases():
+    """(batch, heads, Nq, Nk, label): the encoder's and the decoder's
+    self-attention shapes at 384x512, a batched backend decode, and cross
+    shapes with Nq != Nk. The first one is the kernel table's row."""
+    return [(1, 16, 768, 768, "encoder"), (1, 12, 768, 768, "decoder"),
+            (8, 12, 768, 768, "batched decode"),
+            (1, 2, 128, 384, "cross"), (1, 2, 384, 128, "cross")]
+
+
+def phase_k3(torch, g):
+    """K3 (flash attention without RoPE) against its plain version at
+    every shape of ``k3_cases`` in f32 and bf16, with times. No path of the
+    system calls it (its launches on the main path are 0)."""
+    import torch.nn.functional as F
+
+    from mast3r_slam_tpu_torch.models import mast3r as M
+    from mast3r_slam_tpu_torch.ops import flash_attention as FA
+
+    row = dict(err=0.0)
+    for b, h, nq, nk, label in k3_cases():
+        for dt in (torch.bfloat16, torch.float32):
+            dn = str(dt).split(".")[-1]
+            q = torch.randn(b, h, nq, 64, generator=g, device="cuda").to(dt)
+            k, v = (torch.randn(b, h, nk, 64, generator=g, device="cuda")
+                    .to(dt) for _ in range(2))
+            before = FA.attn_counter.launches
+            out = M.attention(q, k, v)
+            check(FA.attn_counter.launches == before + 1,
+                  "models/mast3r.py::attention did not launch K3")
+            ref = FA.flash_attention_ref(q, k, v)
+            torch.cuda.synchronize()
+            err = compare(out, ref, dn, f"K3 {label} ({b},{h},{nq},{nk}) {dn}")
+            row["err"] = max(row["err"], err)
+            t_k = time_ms(lambda: FA.flash_attention(q, k, v))
+            t_p = time_ms(lambda: FA.flash_attention_ref(q, k, v))
+            t_l = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            flops = 4.0 * b * h * nq * nk * 64
+            nbytes = (2 * b * h * nq + 2 * b * h * nk) * 64 * q.element_size()
+            bnd, by = bound_ms(flops, nbytes, dn)
+            log(f"K3 {label:14s} ({b},{h},{nq},{nk},64) {dn:8s} err "
+                f"{err:.2e} kernel {t_k:.4f} ms plain {t_p:.4f} ms sdpa "
+                f"{t_l:.4f} ms bound {bnd * 1e3:.2f} us ({by})")
+            if "ms" not in row and dt == torch.bfloat16:
+                row.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                           bound_ms=bnd, by=by)
+    return row
+
+
 def phase_kernels(torch):
     import torch.nn.functional as F
 
@@ -229,6 +301,8 @@ def phase_kernels(torch):
                     acc[key] += calls * val
                 acc["by"] = by
             per_frame["K1"]["err"] = max(per_frame["K1"]["err"], err)
+
+    per_frame["K3"] = phase_k3(torch, g)
 
     for hh, ww, cin, cout, has_bias, calls in k2_cases():
         for dt in (torch.bfloat16, torch.float32):
@@ -336,7 +410,8 @@ def phase_main_path(torch, FA, C3, BA):
         for i, img in enumerate(imgs):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            frame = create_frame(i, img, T_WC=last_T, device="cuda")
+            frame = create_frame(i, (img + 1.0) * 0.5, T_WC=last_T,
+                                 img_size=IMG_HW[1], device="cuda")
             frames.append(frame)
             if mode == Mode.INIT:
                 X, C = model.inference_mono(frame)
@@ -384,7 +459,8 @@ def phase_main_path(torch, FA, C3, BA):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     state = dict(cfg=cfg, model=model, keyframes=keyframes, frames=frames,
                  outputs=outputs)
-    return {"K1": k1, "K2": k2}, tracked_ms, state
+    return ({"K1": k1, "K2": k2, "K3": FA.attn_counter.launches}, tracked_ms,
+            state)
 
 
 # ---------------------------------------------------------------------------
@@ -823,8 +899,10 @@ def phase_cross_check(torch):
     results = {}
     for dev, p in (("cuda", params), ("cpu", params_cpu)):
         model = MASt3RInference(p, mcfg)
-        frame_a = create_frame(0, img_a, device=dev)
-        frame_b = create_frame(1, img_b, device=dev)
+        frame_a = create_frame(0, (img_a + 1.0) * 0.5, img_size=IMG_HW[1],
+                               device=dev)
+        frame_b = create_frame(1, (img_b + 1.0) * 0.5, img_size=IMG_HW[1],
+                               device=dev)
         X, C = model.inference_mono(frame_a)
         pts, conf, desc, desc_conf = model.asymmetric_inference(frame_a,
                                                                 frame_b)
@@ -848,7 +926,595 @@ def phase_cross_check(torch):
         check(close, f"cross-check {key}: card and CPU disagree")
 
 
+# ---------------------------------------------------------------------------
+# Phases: the port's CLI end to end
+# ---------------------------------------------------------------------------
+
+CLI_FRAMES = 24                 # the clip: out 11 steps and back to the start
+CLI_SRC_HW = (480, 640)         # TUM frames
+CLI_STEP = (12.0, 4.0)          # pan per step, pixels (x, y)
+CLI_CALIB_FRAMES = 8
+CLI_THREADED_FRAMES = 12
+CLI_CKPT_FRAMES = 8
+# tests/test_e2e_smoke.py's cuts for random weights
+CLI_CUTS = {
+    "single_thread": True,
+    "quality": {"enabled": False},
+    "tsdf_refine": {"enabled": False},
+    "tsdf_global": {"enabled": False},
+    "tracking": {"Q_conf": 0.0, "min_match_frac": 0.0,
+                 "match_frac_thresh": 0.9},
+    "local_opt": {"Q_conf": 0.0, "min_match_frac": 0.0},
+}
+# card-vs-CPU run: encoder depth 2 and decoder depth 4, the shallowest
+# decoder whose four DPT hooks (0, d/2, 3d/4, d) are distinct
+CROSS_DEPTH = (2, 4)
+CROSS_IMG_SIZE = 128            # 96x128 crops
+CROSS_FRAMES = 8
+CROSS_POSE_TOL = 1e-3
+CROSS_DRIFT_TOL = 0.1
+RELOC_HW = (384, 512)
+RELOC_KF_X = (0.0, 0.6, 1.2, 1.8, 2.4, 3.0)
+RELOC_WORDS = 64
+
+
+def write_clip(root, n_frames, seed=0):
+    """A TUM-format directory of ``n_frames`` 480x640 PNGs (the
+    ``synthetic_frames`` texture) panning ``CLI_STEP`` per frame out and
+    back, so the last frame revisits the first."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.data import png
+
+    root = Path(root)
+    (root / "rgb").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    H, W = CLI_SRC_HW
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    freqs = rng.uniform(0.01, 0.05, (3, 2))
+    phases = rng.uniform(0, 2 * np.pi, 3)
+    rows = []
+    for i in range(n_frames):
+        p = min(i, n_frames - 1 - i)
+        x, y = xx + CLI_STEP[0] * p, yy + CLI_STEP[1] * p
+        chans = [np.sin(fx * x + fy * y + ph)
+                 for (fx, fy), ph in zip(freqs, phases)]
+        img = ((0.9 * np.stack(chans, -1) + 1.0) * 127.5).astype(np.uint8)
+        png.write_png(root / "rgb" / f"{i:04d}.png", img)
+        rows.append(f"{1e9 + i / 30.0:.6f} rgb/{i:04d}.png")
+    (root / "rgb.txt").write_text("# timestamp filename\n"
+                                  + "\n".join(rows) + "\n")
+    return root
+
+
+def write_config(path, **over):
+    """A config inheriting config/base.yaml with ``CLI_CUTS`` and
+    ``over`` merged in."""
+    import yaml
+
+    from mast3r_slam_tpu_torch.utils.config import merge_config
+
+    cfg = merge_config({"inherit": str(ROOT / "config" / "base.yaml")},
+                       merge_config(CLI_CUTS, over))
+    Path(path).write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def tied_model(cfg, device, seed=0, **mcfg_over):
+    """MASt3R at ``config/base.yaml``'s dtypes (or ``mcfg_over``) with
+    random weights from ``seed``; the second decoder stream and head take
+    the first's weights, so that a frame decoded against its keyframe
+    predicts consistent geometry and tracking has input to work on."""
+    from mast3r_slam_tpu_torch.models import mast3r as M
+    from mast3r_slam_tpu_torch.models.inference import MASt3RInference
+
+    kw = dict(dtype=cfg["model"]["dtype"], head_dtype=cfg["model"]["head_dtype"])
+    kw.update(mcfg_over)
+    mcfg = M.MASt3RConfig(**kw)
+    p = M.init_params(mcfg, seed=seed, device=device)
+    p["dec_blocks2"] = p["dec_blocks"]
+    p["head2"] = p["head1"]
+    return MASt3RInference(M.prepare_params(p, mcfg), mcfg,
+                           cfg.get("matching", {}))
+
+
+@contextlib.contextmanager
+def instrumented(torch, model):
+    """Counts the model calls that launch K1/K2 and the BA's LM iterations
+    (K4/K5 launch 1 + iterations per solve), and times tracked frames and
+    the backend step's parts with a device sync around each."""
+    from mast3r_slam_tpu_torch.slam import factor_graph as FG
+    from mast3r_slam_tpu_torch.slam import tracker as T
+    from mast3r_slam_tpu_torch.slam.pipeline import Backend
+    from mast3r_slam_tpu_torch.slam.retrieval import RetrievalDatabase
+
+    rec = {"calls": {k: 0 for k in ("mono", "track", "oneway", "symmetric",
+                                    "solves", "lm_iters")},
+           "ms": {k: [] for k in ("track", "step", "retrieval",
+                                  "add_factors", "solve")}}
+    saved = []
+
+    def patch(owner, name, wrapper):
+        orig = getattr(owner, name)
+        saved.append((owner, name, orig))
+        setattr(owner, name, wrapper(orig))
+
+    def counted(key):
+        def wrap(fn):
+            def inner(*a, **kw):
+                rec["calls"][key] += 1
+                return fn(*a, **kw)
+            return inner
+        return wrap
+
+    def timed(key):
+        def wrap(fn):
+            def inner(*a, **kw):
+                t0 = sync_clock(torch)
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    rec["ms"][key].append((sync_clock(torch) - t0) * 1e3)
+            return inner
+        return wrap
+
+    def lm(fn):
+        def inner(*a, **kw):
+            T_out, iters = fn(*a, **kw)
+            rec["calls"]["solves"] += 1
+            rec["calls"]["lm_iters"] += iters
+            return T_out, iters
+        return inner
+
+    patch(model, "inference_mono", counted("mono"))
+    patch(model, "match_oneway", counted("oneway"))
+    patch(model, "match_symmetric", counted("symmetric"))
+    patch(T, "track_core", counted("track"))
+    patch(T.FrameTracker, "track", timed("track"))
+    patch(FG, "_lm_loop", lm)
+    patch(Backend, "step", timed("step"))
+    patch(RetrievalDatabase, "update", timed("retrieval"))
+    patch(FG.FactorGraph, "add_factors", timed("add_factors"))
+    patch(FG.FactorGraph, "solve_GN_rays", timed("solve"))
+    patch(FG.FactorGraph, "solve_GN_calib", timed("solve"))
+    try:
+        yield rec
+    finally:
+        for owner, name, orig in reversed(saved):
+            setattr(owner, name, orig)
+
+
+def expected_launches(calls, calib):
+    c = calls
+    k1 = K1_PER_PAIR * (c["mono"] + c["track"]) + K1_PER_DECODE * (
+        c["oneway"] + c["symmetric"])
+    k2 = K2_PER_HEAD * c["mono"] + 2 * K2_PER_HEAD * (
+        c["track"] + c["oneway"] + c["symmetric"])
+    ba = c["solves"] + c["lm_iters"]
+    return {"K1": k1, "K2": k2, "K3": 0, "K4": 0 if calib else ba,
+            "K5": ba if calib else 0}
+
+
+def check_ply(path):
+    """A binary PLY's header names its vertex count and properties, and the
+    file holds exactly that many records. Returns the vertex count."""
+    data = Path(path).read_bytes()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    header = data[:end].decode("ascii").splitlines()
+    n = int(next(l for l in header if l.startswith("element vertex")).split()[-1])
+    sizes = {"float": 4, "int": 4, "uchar": 1}
+    row = sum(sizes[l.split()[1]] for l in header if l.startswith("property"))
+    check(header[0] == "ply" and "binary_little_endian" in header[1],
+          f"{path}: not a binary PLY")
+    check(len(data) - end == n * row,
+          f"{path}: {len(data) - end} bytes of records, expected {n} x {row}")
+    check(n > 0, f"{path}: no vertices")
+    return n
+
+
+def check_outputs(out, savedir, name, n_frames, img_hw):
+    """The exported trajectory, PLYs and keyframe PNGs of one CLI run."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.data import png
+
+    n_kf = len(out["keyframes"])
+    rows = [l.split() for l in (savedir / f"{name}.txt").read_text()
+            .splitlines() if l.strip()]
+    traj = np.asarray(rows, np.float64)
+    check(out["frames_processed"] == n_frames,
+          f"{out['frames_processed']} of {n_frames} frames processed")
+    check(traj.shape == (n_kf, 8),
+          f"trajectory {traj.shape}, expected ({n_kf}, 8)")
+    check(bool(np.isfinite(traj).all()), "non-finite exported pose")
+    qn = np.linalg.norm(traj[:, 4:8], axis=1)
+    check(bool(np.abs(qn - 1.0).max() < 1e-3),
+          f"exported quaternion norms {qn.min():.6f}-{qn.max():.6f}")
+    n_pts = check_ply(savedir / f"{name}.ply")
+    n_q = check_ply(savedir / f"{name}_quality.ply")
+    check(n_pts == n_q, "the two PLYs hold different point counts")
+    pngs = sorted((savedir / "keyframes").glob("*.png"))
+    check(len(pngs) == n_kf, f"{len(pngs)} keyframe PNGs for {n_kf} keyframes")
+    for p_ in pngs:
+        im = png.read_png(p_)
+        check(im.shape == (*img_hw, 3), f"{p_.name}: shape {im.shape}")
+    return traj, n_pts
+
+
+def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False):
+    """``main(argv)`` on the card with every launch counter at 0 before and
+    read after; checks the launches against the run's own model calls and
+    LM iterations. Returns (summary, launches, instrumentation record)."""
+    import os
+
+    from mast3r_slam_tpu_torch import main as cli
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        with instrumented(torch, model) as rec:
+            reset_counters(FA, C3, BA)
+            t0 = time.perf_counter()
+            out = cli.main(argv, device="cuda", model=model)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts(FA, C3, BA)
+    finally:
+        os.chdir(cwd)
+    want = expected_launches(rec["calls"], calib)
+    g = out["graph"]
+    log(f"cli {tag}: {out['frames_processed']} frames in {wall:.1f} s, "
+        f"keyframes {len(out['keyframes'])}, edges {g.n_edges()}, modes "
+        f"{''.join(m[0] for m in out['modes'])}; model calls {rec['calls']}; "
+        f"launches {launches} (want {want})")
+    check(launches == want, f"cli {tag}: launch counts {launches} != {want}")
+    return out, launches, rec
+
+
+def phase_cli(torch, FA, C3, BA, workdir):
+    """The port's CLI at full ViT-L width on a clip it writes: a 24-frame
+    out-and-back pan (retrieval has a revisit), then a calibrated run on a
+    freiburg3 directory, a checkpoint / resume pair and a threaded run."""
+    from mast3r_slam_tpu_torch.slam.factor_graph import FactorGraph
+    from mast3r_slam_tpu_torch.slam.frame import KeyframeBuffer
+    from mast3r_slam_tpu_torch.utils.checkpoint import load_state
+    from mast3r_slam_tpu_torch.utils.config import load_config
+
+    work = Path(workdir)
+    clip = write_clip(work / "smoke_tum_clip", CLI_FRAMES)
+    calib_clip = write_clip(work / "smoke_tum_freiburg3", CLI_CALIB_FRAMES)
+    cfg_path = write_config(work / "cli.yaml")
+    cfg = load_config(cfg_path)
+    t0 = time.perf_counter()
+    model = tied_model(cfg, "cuda")
+    torch.cuda.synchronize()
+    log(f"cli: ViT-L random init (tied streams) + prepare "
+        f"{time.perf_counter() - t0:.1f} s")
+    H, W = IMG_HW
+    base = ["--config", cfg_path, "--no-viz"]
+
+    out, launches, rec = run_cli(torch, FA, C3, BA, model, work,
+                                 ["--dataset", str(clip), "--save-as", "main",
+                                  *base], "main")
+    g = out["graph"]
+    kf = out["keyframes"]
+    check(len(kf) >= 8, f"cli main: {len(kf)} keyframes, need >= 8")
+    loop = sorted({(int(i), int(j)) for i, j in zip(g.ii, g.jj)
+                   if abs(int(i) - int(j)) > 1})
+    check(loop, "cli main: no non-consecutive (retrieval) edge")
+    check(rec["calls"]["lm_iters"] > 0, "cli main: no BA iterations")
+    check_outputs(out, work / "logs" / "main" / clip.name, clip.name,
+                  CLI_FRAMES, IMG_HW)
+    ms = rec["ms"]
+    parts = {k: statistics.median(v) if v else 0.0 for k, v in ms.items()}
+    summary = dict(tracked_ms=parts["track"], step_ms=parts["step"],
+                   retrieval_ms=parts["retrieval"],
+                   add_factors_ms=parts["add_factors"],
+                   solve_ms=parts["solve"], keyframes=len(kf),
+                   edges=g.n_edges(), loop_edges=len(loop),
+                   launches=launches, steps=len(ms["step"]))
+    log(f"cli main: median tracked frame {parts['track']:.1f} ms over "
+        f"{len(ms['track'])} frames; median backend step {parts['step']:.1f} "
+        f"ms over {len(ms['step'])} steps (retrieval {parts['retrieval']:.1f}"
+        f", add_factors {parts['add_factors']:.1f}, solve "
+        f"{parts['solve']:.1f}); keyframes {len(kf)}, edges {g.n_edges()}, "
+        f"retrieval edges {loop}")
+    del out, g, kf
+
+    # calibrated: freiburg3 has no distortion; K5 carries the BA
+    calib_cfg = write_config(work / "cli_calib.yaml", use_calib=True)
+    out, launches, _ = run_cli(
+        torch, FA, C3, BA, model, work,
+        ["--dataset", str(calib_clip), "--config", calib_cfg, "--no-viz",
+         "--save-as", "calib"], "calibrated", calib=True)
+    check(launches["K5"] > 0 and launches["K4"] == 0,
+          "cli calibrated: the BA did not run on K5")
+    check_outputs(out, work / "logs" / "calib" / calib_clip.name,
+                  calib_clip.name, CLI_CALIB_FRAMES, IMG_HW)
+    summary["calib_K5"] = launches["K5"]
+    del out
+
+    # checkpoint, then the restored tensors against the saved run's
+    ckpt = work / "state.npz"
+    out, _, _ = run_cli(torch, FA, C3, BA, model, work,
+                        ["--dataset", str(clip), "--save-as", "ck1",
+                         "--max-frames", str(CLI_CKPT_FRAMES), "--checkpoint",
+                         str(ckpt), *base], "checkpoint")
+    kf, g = out["keyframes"], out["graph"]
+    n = len(kf)
+    kf2 = KeyframeBuffer(kf.h, kf.w, capacity=kf.capacity,
+                         feat_dim=kf.feat_dim, device="cuda",
+                         model_hw=kf.model_hw)
+    g2 = FactorGraph(model, kf2, cfg)
+    frame_idx = load_state(str(ckpt), kf2, g2)
+    check(frame_idx == CLI_CKPT_FRAMES and len(kf2) == n,
+          "checkpoint: frame index or keyframe count")
+    for key in ("T_WC", "X", "C", "feat", "pos"):
+        check(torch.equal(getattr(kf, key)[:n], getattr(kf2, key)[:n]),
+              f"checkpoint: restored {key} differs")
+    for key in ("idx_ii2jj", "idx_jj2ii", "valid_match_j", "valid_match_i",
+                "Q_ii2jj", "Q_jj2ii"):
+        check(torch.equal(getattr(g, key), getattr(g2, key)),
+              f"checkpoint: restored graph {key} differs")
+    for i in range(n):
+        check(torch.equal(kf.img[i], kf2.img[i])
+              and (kf.uimg[i] == kf2.uimg[i]).all(),
+              f"checkpoint: keyframe {i} images differ")
+    check((kf.N[:n] == kf2.N[:n]).all()
+          and (kf.dataset_idx[:n] == kf2.dataset_idx[:n]).all(),
+          "checkpoint: counters differ")
+    del out, kf, g, kf2, g2
+    out, _, _ = run_cli(torch, FA, C3, BA, model, work,
+                        ["--dataset", str(clip), "--save-as", "ck2",
+                         "--resume", str(ckpt), *base], "resume")
+    check(out["frames_processed"] == CLI_FRAMES
+          and len(out["keyframes"]) > n, "resume: the run did not continue")
+    log(f"cli checkpoint/resume: {n} keyframes restored bit for bit; the "
+        f"resumed run ended with {len(out['keyframes'])}")
+    del out
+
+    # threaded backend: drains and exits
+    thr_cfg = write_config(work / "cli_threaded.yaml", single_thread=False)
+    t0 = time.perf_counter()
+    out, _, _ = run_cli(torch, FA, C3, BA, model, work,
+                        ["--dataset", str(clip), "--config", thr_cfg,
+                         "--no-viz", "--save-as", "threaded", "--max-frames",
+                         str(CLI_THREADED_FRAMES)], "threaded")
+    check(out["frames_processed"] == CLI_THREADED_FRAMES,
+          "threaded: frames")
+    check(out["states"].global_optimizer_tasks == []
+          and out["states"].reloc_sem == 0, "threaded: backend not drained")
+    log(f"cli threaded: {time.perf_counter() - t0:.1f} s, keyframes "
+        f"{len(out['keyframes'])}, edges {out['graph'].n_edges()}")
+    del out, model
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_cli_cross(torch, workdir):
+    """The CLI with one model on the card and on the CPU: full width, depth
+    ``CROSS_DEPTH`` (encoder, decoder), f32, 96x128 crops, ``CROSS_FRAMES``
+    frames. The same mode sequence, keyframes and edges; every tracked pose
+    within ``CROSS_POSE_TOL`` while the two runs' valid matches agree index
+    for index (a random-weight matcher can put a pixel on a near-singular
+    LM step, after which the chains part: then the first frames must agree
+    and the final poses are reported and bounded by ``CROSS_DRIFT_TOL``)."""
+    import os
+
+    import numpy as np
+
+    from mast3r_slam_tpu_torch import main as cli
+    from mast3r_slam_tpu_torch.models import mast3r as M
+    from mast3r_slam_tpu_torch.models.inference import MASt3RInference
+    from mast3r_slam_tpu_torch.slam import tracker as T
+    from mast3r_slam_tpu_torch.utils.config import load_config
+
+    work = Path(workdir)
+    clip = work / "smoke_tum_cross"
+    # one frame more than the run reads: positions 0, 1, 2, 3, 4, 3, 2, 1,
+    # no two alike in a row (tracking a frame against an identical
+    # keyframe is the matcher's most degenerate case)
+    write_clip(clip, CROSS_FRAMES + 1)
+    # sigma_dist 0.1 pins the Sim(3) scale (at 10 the distance rows weigh
+    # ~1e-7 of the ray rows); f32 channels and BA rows, as the model
+    cfg_path = write_config(work / "cli_cross.yaml",
+                            dataset={"img_size": CROSS_IMG_SIZE},
+                            model={"dtype": "float32",
+                                   "head_dtype": "float32"},
+                            tracking={"sigma_dist": 0.1},
+                            local_opt={"sigma_dist": 0.1,
+                                       "meas_dtype": "float32",
+                                       "ba_compute_dtype": "float32"})
+    cfg = load_config(cfg_path)
+    gpu_model = tied_model(cfg, "cuda", seed=1, enc_depth=CROSS_DEPTH[0],
+                           dec_depth=CROSS_DEPTH[1])
+    cpu_model = MASt3RInference(M.tree_map(lambda t: t.cpu(),
+                                           gpu_model.params),
+                                gpu_model.cfg, gpu_model.match_cfg)
+    argv = ["--dataset", str(clip), "--config", cfg_path, "--no-viz",
+            "--max-frames", str(CROSS_FRAMES)]
+    res = {}
+    core = T.track_core
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+            tracked = []
+
+            def rec(*a, **kw):
+                out = core(*a, **kw)
+                valid = out["valid_match"].reshape(-1).bool()
+                idx = out["idx_f2k"].reshape(-1)
+                tracked.append((torch.where(valid, idx, -1).cpu(),
+                                out["T_WCf"].cpu()))
+                return out
+
+            T.track_core = rec
+            t0 = time.perf_counter()
+            with one_cpu_thread(torch):
+                out = cli.main(argv + ["--save-as", f"cross_{dev}"],
+                               device=dev, model=model)
+            kf = out["keyframes"]
+            n = len(kf)
+            res[dev] = dict(modes=out["modes"],
+                            kfs=[int(x) for x in kf.dataset_idx[:n]],
+                            ii=[int(x) for x in out["graph"].ii],
+                            jj=[int(x) for x in out["graph"].jj],
+                            T=kf.T_WC[:n].cpu().numpy(), tracked=tracked)
+            log(f"cli card vs CPU, {dev}: {time.perf_counter() - t0:.1f} s, "
+                f"modes {''.join(m[0] for m in out['modes'])}, keyframes "
+                f"{res[dev]['kfs']}, edges "
+                f"{list(zip(res[dev]['ii'], res[dev]['jj']))}")
+    finally:
+        T.track_core = core
+        os.chdir(cwd)
+    a, b = res["cuda"], res["cpu"]
+    for key in ("modes", "kfs", "ii", "jj"):
+        check(a[key] == b[key], f"cli card vs CPU: {key} differ: "
+              f"{a[key]} vs {b[key]}")
+    check(len(a["kfs"]) >= 2, "cli card vs CPU: no keyframe after the first")
+    agree = [torch.equal(x[0], y[0])
+             for x, y in zip(a["tracked"], b["tracked"])]
+    first = agree.index(False) if False in agree else len(agree)
+    pose_err = [float((x[1] - y[1]).abs().max())
+                for x, y in zip(a["tracked"], b["tracked"])]
+    share = [float((x[0] == y[0]).float().mean())
+             for x, y in zip(a["tracked"], b["tracked"])]
+    err = float(np.abs(a["T"] - b["T"]).max())
+    log(f"cli card vs CPU: same modes, keyframes and edges; tracked frames "
+        f"with identical valid matches: {first} of {len(agree)} (match "
+        f"agreement per frame {['%.5f' % v for v in share]}); tracked pose "
+        f"err per frame {['%.2e' % v for v in pose_err]}; keyframe poses max "
+        f"abs err {err:.3e}")
+    check(max(pose_err[:first], default=0.0) <= CROSS_POSE_TOL,
+          "cli card vs CPU: tracked poses differ while the matches agree")
+    if first == len(agree):
+        check(err <= CROSS_POSE_TOL,
+              f"cli card vs CPU: keyframe poses {err:.3e} apart")
+    else:
+        check(first >= 2 and min(share) >= 0.995,
+              f"cli card vs CPU: matches part at tracked frame {first}")
+        check(err <= CROSS_DRIFT_TOL,
+              f"cli card vs CPU: keyframe poses {err:.3e} apart")
+    del gpu_model, cpu_model
+    torch.cuda.empty_cache()
+    return dict(err=err, first=first, n=len(agree))
+
+
+class _ForcedRetrieval:
+    """Retrieval stand-in that always proposes keyframes 0 and 1, so that
+    the strict geometric check is what rejects an impostor."""
+
+    def update(self, frame, add_after_query, k, min_thresh=0.0,
+               kf_idx=None, skip_query=False):
+        return [] if skip_query else [0, 1]
+
+
+def phase_reloc(torch, FA, C3, BA):
+    """``tests/test_oracle_reloc.py``'s episode on the card at 384x512:
+    six oracle keyframes walking +x, a teleport back to the start that
+    relocalization recovers through the real ``RetrievalDatabase``,
+    ``FactorGraph`` and matcher, and an impostor that the strict check
+    rejects and rolls back."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.ops import lie
+    from mast3r_slam_tpu_torch.slam.factor_graph import FactorGraph
+    from mast3r_slam_tpu_torch.slam.frame import KeyframeBuffer
+    from mast3r_slam_tpu_torch.slam.pipeline import relocalization
+    from mast3r_slam_tpu_torch.slam.retrieval import RetrievalDatabase
+    from mast3r_slam_tpu_torch.utils.oracle_scene import OracleWorld
+
+    cfg = {
+        "use_calib": False,
+        "local_opt": {"pin": 1, "C_conf": 0.0, "Q_conf": 0.0,
+                      "min_match_frac": 0.0, "max_iters": 30,
+                      "sigma_ray": 0.003, "sigma_dist": 10.0,
+                      "delta_norm": 1e-8},
+        "retrieval": {"k": 3, "min_thresh": 5e-3},
+        "reloc": {"min_match_frac": 0.3, "strict": True},
+    }
+    H, W = RELOC_HW
+
+    def pose(x, yaw=0.0):
+        return lie.exp(torch.tensor([x, 0.0, 0.0, 0.0, yaw, 0.0, 0.0])).numpy()
+
+    t0 = time.perf_counter()
+    world = OracleWorld(RELOC_HW, seed=0, device="cuda")
+    kfs = KeyframeBuffer(H, W, capacity=16, feat_dim=world.desc_dim,
+                         device="cuda")
+    rng = np.random.default_rng(4)
+    for i, x in enumerate(RELOC_KF_X):
+        T = pose(x, yaw=0.02 * i)
+        world.observe(i, T)
+        T_est = None
+        if i > 0:
+            xi = torch.as_tensor((rng.normal(size=7) * 0.004).astype(np.float32))
+            T_est = lie.compose(lie.exp(xi), torch.as_tensor(T)).numpy()
+        kfs.append(world.make_frame(i, T_est=T_est))
+    # the JAX test's codebook is 16 scene descriptors for 12 tokens a frame
+    # at 48x64; at 384x512 (768 tokens) 16 words rank keyframes 1-3 over
+    # keyframe 0 and the strict check rejects the batch on keyframe 3, so
+    # the codebook grows to RELOC_WORDS, sampled the same way
+    db = RetrievalDatabase(cfg, codebook_size=RELOC_WORDS,
+                           nfeat=world.n_tokens, desc_dim=world.desc_dim)
+    n = H * W
+    samp = world.frames[0]["hits"][:: n // (4 * RELOC_WORDS)][:4 * RELOC_WORDS]
+    db.set_codebook(world.scene.descriptors(samp)[:RELOC_WORDS])
+    for i in range(len(RELOC_KF_X)):
+        db.update(kfs[i], add_after_query=True, k=0, kf_idx=i)
+    log(f"reloc: oracle episode built in {time.perf_counter() - t0:.1f} s "
+        f"({len(RELOC_KF_X)} keyframes at {H}x{W})")
+
+    T_tele = pose(0.05, yaw=0.01)
+    world.observe(100, T_tele)
+    frame = world.make_frame(100, T_est=pose(1.5))
+    graph = FactorGraph(world, kfs, cfg)
+    reset_counters(FA, C3, BA)
+    t0 = sync_clock(torch)
+    ok = relocalization(frame, kfs, graph, db, cfg)
+    t_rel = (sync_clock(torch) - t0) * 1e3
+    check(ok, "reloc: relocalization failed on a genuine revisit")
+    check(len(kfs) == len(RELOC_KF_X) + 1 and graph.n_edges() >= 1,
+          "reloc: keyframe or edge missing")
+    T_rec = kfs.T_WC[len(kfs) - 1].cpu().numpy()
+    t_err = float(np.linalg.norm(T_rec[:3] - T_tele[:3]))
+    q_err = float(min(np.linalg.norm(T_rec[3:7] - T_tele[3:7]),
+                      np.linalg.norm(T_rec[3:7] + T_tele[3:7])))
+    s_err = abs(float(T_rec[7]) - 1.0)
+    log(f"reloc: recovered in {t_rel:.1f} ms, edges "
+        f"{[(int(i), int(j)) for i, j in zip(graph.ii, graph.jj)]}, "
+        f"translation err {t_err:.4f}, quaternion err {q_err:.4f}, scale err "
+        f"{s_err:.4f}; K4 launches {BA.rays_counter.launches}")
+    check(t_err < 0.05 and q_err < 0.05 and s_err < 0.12,
+          "reloc: pose outside the JAX test's bounds")
+    check(BA.rays_counter.launches >= 2, "reloc: the global solve skipped K4")
+
+    world.observe(200, pose(8.0))
+    impostor = world.make_frame(200)
+    n_kf, n_edges = len(kfs), graph.n_edges()
+    ok = relocalization(impostor, kfs, graph, _ForcedRetrieval(), cfg)
+    check(not ok, "reloc: strict check accepted an impostor")
+    check(len(kfs) == n_kf and graph.n_edges() == n_edges,
+          "reloc: impostor not rolled back")
+    log("reloc: impostor rejected and rolled back")
+    del world, kfs, graph, db
+    torch.cuda.empty_cache()
+    return dict(t_err=t_err, q_err=q_err, s_err=s_err, ms=t_rel)
+
+
+PHASES = ("kernels", "main", "event", "cross", "ba_kernels", "oracle",
+          "cli", "cli_cross", "reloc")
+
+
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default="all",
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (a partial run prints no kernel table)")
+    args = ap.parse_args()
     if not (ROOT / "mast3r_slam_tpu_torch" / "csrc").is_dir():
         raise CheckFailed(f"the port's package is not beside {__file__}")
     sys.path.insert(0, str(ROOT))
@@ -879,21 +1545,46 @@ def main():
             if "registers" in line or line.startswith("[nvcc"):
                 log("  " + line.strip())
 
-    per_frame = phase_kernels(torch)
-    launches, tracked_ms, state = phase_main_path(torch, FA, C3, BA)
-    t0 = time.perf_counter()
-    event = phase_event(torch, FA, C3, BA, state)
-    del state
-    torch.cuda.empty_cache()
-    log(f"phase event: {time.perf_counter() - t0:.1f} s")
-    phase_cross_check(torch)
-    t0 = time.perf_counter()
-    gram = phase_ba_kernels(torch, BA)
-    log(f"phase K4/K5: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    oracle = phase_oracle(torch, FA, C3, BA)
-    log(f"phase oracle: {time.perf_counter() - t0:.1f} s")
+    phases = set(PHASES if args.phases == "all" else args.phases.split(","))
+    unknown = phases - set(PHASES)
+    if unknown:
+        raise CheckFailed(f"unknown phases {sorted(unknown)}")
+    timings = {}
+
+    def run(name, fn, *a):
+        if name not in phases:
+            return None
+        t0 = time.perf_counter()
+        out = fn(*a)
+        timings[name] = time.perf_counter() - t0
+        log(f"phase {name}: {timings[name]:.1f} s")
+        return out
+
+    per_frame = run("kernels", phase_kernels, torch)
+    main_path = run("main", phase_main_path, torch, FA, C3, BA)
+    if main_path is not None:
+        launches, tracked_ms, state = main_path
+        event = run("event", phase_event, torch, FA, C3, BA, state)
+        del state, main_path
+        torch.cuda.empty_cache()
+    run("cross", phase_cross_check, torch)
+    gram = run("ba_kernels", phase_ba_kernels, torch, BA)
+    oracle = run("oracle", phase_oracle, torch, FA, C3, BA)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
+        cli = run("cli", phase_cli, torch, FA, C3, BA, work)
+        run("cli_cross", phase_cli_cross, torch, work)
+    reloc = run("reloc", phase_reloc, torch, FA, C3, BA)
+    log(f"phase times (s): {timings}")
+    if phases != set(PHASES):
+        log("partial run: no kernel table")
+        return
     launches.update(K4=event["K4"], K5=oracle["K5"])
+    log(f"cli: median tracked frame {cli['tracked_ms']:.1f} ms, median "
+        f"backend step {cli['step_ms']:.1f} ms (retrieval "
+        f"{cli['retrieval_ms']:.1f}, add_factors {cli['add_factors_ms']:.1f},"
+        f" solve {cli['solve_ms']:.1f}; {cli['steps']} steps), keyframes "
+        f"{cli['keyframes']}, edges {cli['edges']} ({cli['loop_edges']} "
+        f"from retrieval); reloc {reloc['ms']:.1f} ms; on {smi}")
 
     table = {"kernels": [
         {"name": "flash_attention_rope", "route": "cuda",
@@ -906,6 +1597,16 @@ def main():
          "bound_ms": per_frame["K1"]["bound_ms"],
          "bound_by": per_frame["K1"]["by"],
          "library_ms": per_frame["K1"]["library_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "mast3r_slam_tpu_torch/csrc/flash_attention_rope.cu",
+         "replaces": "mast3r_slam_tpu/ops/flash_attention.py:200",
+         "launches": launches["K3"],
+         "max_abs_err": per_frame["K3"]["err"],
+         "ms": per_frame["K3"]["ms"],
+         "plain_ms": per_frame["K3"]["plain_ms"],
+         "bound_ms": per_frame["K3"]["bound_ms"],
+         "bound_by": per_frame["K3"]["by"],
+         "library_ms": per_frame["K3"]["library_ms"]},
         {"name": "conv3x3", "route": "cuda",
          "source": "mast3r_slam_tpu_torch/csrc/conv3x3.cu",
          "replaces": "mast3r_slam_tpu/ops/conv3x3.py:119",
@@ -930,7 +1631,10 @@ def main():
         for key, name, line in (("K4", "gram_rays", 216),
                                 ("K5", "gram_calib", 232))
     ]}
-    log(f"K1/K2 ms/plain_ms/bound_ms/library_ms are per tracked frame "
+    log(f"K3's numbers are one call at the encoder shape (1, 16, 768, "
+        f"768), bf16 (library: F.scaled_dot_product_attention); no path "
+        f"calls K3. "
+        f"K1/K2 ms/plain_ms/bound_ms/library_ms are per tracked frame "
         f"(the bf16 calls of one track_core; tracked frame "
         f"{tracked_ms:.1f} ms); K4/K5's are per system build at E = "
         f"{GRAM_REPORT[0]}, N = {GRAM_REPORT[1]}, bf16 channels and rows "

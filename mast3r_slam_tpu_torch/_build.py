@@ -105,11 +105,18 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
 
 
 class LaunchCounter:
-    """Plain launch counter of one kernel: its wrapper adds one per launch
-    of the kernel, and nothing else touches it but a reset to 0."""
+    """Launch counter of one kernel: its wrapper calls :meth:`add` once per
+    launch of the kernel, and nothing else touches it but a reset of
+    ``launches`` to 0. The add holds a lock: the CLI's backend thread
+    launches kernels beside the frontend."""
 
     def __init__(self):
         self.launches = 0
+        self._lock = threading.Lock()
+
+    def add(self):
+        with self._lock:
+            self.launches += 1
 
 
 def aligned(t):

@@ -1,8 +1,14 @@
-// Flash attention with 2D RoPE applied inside the kernel, for sm_90a.
+// Flash attention, with or without 2D RoPE applied inside the kernel, for
+// sm_90a.
 //
-// Replaces the TPU kernel mast3r_slam_tpu/ops/flash_attention.py::
-// flash_attention_rope (body _flash_rope_kernel, rotation _rope_rotate).
-// It computes exactly what that kernel computes: q and k arrive un-rotated;
+// Replaces two TPU kernels of mast3r_slam_tpu/ops/flash_attention.py:
+// flash_attention_rope (K1: body _flash_rope_kernel, rotation _rope_rotate)
+// and flash_attention (K3: body _flash_kernel). One kernel source serves
+// both: the template flag ROPE switches the rotation off at compile time, and
+// the entry points flash_attention_rope / flash_attention launch the two
+// instances. Without RoPE the q rows are only scaled by sm_scale and the k
+// rows are loaded as they are; everything else is shared. With RoPE it
+// computes exactly what the K1 TPU kernel computes: q and k arrive un-rotated;
 // each row is rotated in f32 against (B, N, D) cos/sin tables laid out as
 // quarters [y, y, x, x] with rotate-half pairing inside each D/2 half
 // (rot = [-t2, t1, -t4, t3]); q is then scaled by sm_scale; the softmax runs
@@ -46,7 +52,9 @@ constexpr int LD = D + 1;    // padded shared-memory row stride (floats)
 constexpr size_t SMEM_BYTES = size_t(3) * 64 * LD * sizeof(float);
 
 // Rows [row0, row0 + 64) of an (n, D) slab into shared memory (stride LD),
-// rotated by the RoPE tables and multiplied by `scale`; rows past n are 0.
+// rotated by the RoPE tables (when ROPE) and multiplied by `scale`; rows past
+// n are 0.
+template <bool ROPE>
 __device__ void load_rotated(const float* __restrict__ src,
                              const float* __restrict__ cosb,
                              const float* __restrict__ sinb, int row0, int n,
@@ -58,12 +66,16 @@ __device__ void load_rotated(const float* __restrict__ src,
     float val = 0.f;
     if (row < n) {
       const size_t base = size_t(row) * D;
-      const bool first = ((c / QT) & 1) == 0;
-      const int partner = first ? c + QT : c - QT;
       const float t = src[base + c];
-      const float p = src[base + partner];
-      const float rot = first ? -p : p;
-      val = (t * cosb[base + c] + rot * sinb[base + c]) * scale;
+      if constexpr (ROPE) {
+        const bool first = ((c / QT) & 1) == 0;
+        const int partner = first ? c + QT : c - QT;
+        const float p = src[base + partner];
+        const float rot = first ? -p : p;
+        val = (t * cosb[base + c] + rot * sinb[base + c]) * scale;
+      } else {
+        val = t * scale;
+      }
     }
     dst[r * LD + c] = val;
   }
@@ -78,6 +90,7 @@ __device__ void load_plain(const float* __restrict__ src, int row0, int n,
   }
 }
 
+template <bool ROPE>
 __global__ void __launch_bounds__(THREADS)
 flash_rope_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ cos_q,
@@ -99,8 +112,9 @@ flash_rope_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* qb = q + size_t(bh) * nq * D;
   const float* kb = k + size_t(bh) * nk * D;
   const float* vb = v + size_t(bh) * nk * D;
-  load_rotated(qb, cos_q + size_t(b) * nq * D, sin_q + size_t(b) * nq * D,
-               q0, nq, sm_scale, Qs);
+  const size_t tq = ROPE ? size_t(b) * nq * D : 0;
+  const size_t tk = ROPE ? size_t(b) * nk * D : 0;
+  load_rotated<ROPE>(qb, cos_q + tq, sin_q + tq, q0, nq, sm_scale, Qs);
 
   float acc[4][4];
   float m[4], l[4];
@@ -114,8 +128,7 @@ flash_rope_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = 0; k0 < nk; k0 += BK) {
     __syncthreads();  // the previous tile's P and V are no longer read
-    load_rotated(kb, cos_k + size_t(b) * nk * D, sin_k + size_t(b) * nk * D,
-                 k0, nk, 1.f, Ks);
+    load_rotated<ROPE>(kb, cos_k + tk, sin_k + tk, k0, nk, 1.f, Ks);
     load_plain(vb, k0, nk, Vs);
     __syncthreads();
 
@@ -238,6 +251,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // load_rotated for bf16 rows with 16-byte accesses: each step rotates 8
 // consecutive channels from one vector of t, one of its RoPE partner (a
 // quarter away, so also contiguous) and two float4 each of cos and sin.
+// Without ROPE the 8 channels are only scaled (and copied as they are when
+// scale is 1).
+template <bool ROPE>
 __device__ void load_rotated_vec(const __nv_bfloat16* __restrict__ src,
                                  const float* __restrict__ cosb,
                                  const float* __restrict__ sinb, int row0,
@@ -247,7 +263,19 @@ __device__ void load_rotated_vec(const __nv_bfloat16* __restrict__ src,
     const int r = e / (D / 8), c = (e % (D / 8)) * 8;
     const int row = row0 + r;
     uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n) {
+    if (row < n && !ROPE) {
+      const uint4 tv =
+          *reinterpret_cast<const uint4*>(src + size_t(row) * D + c);
+      if (scale == 1.f) {
+        out = tv;
+      } else {
+        const __nv_bfloat16* t = reinterpret_cast<const __nv_bfloat16*>(&tv);
+        __nv_bfloat16* o = reinterpret_cast<__nv_bfloat16*>(&out);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          o[j] = __float2bfloat16(__bfloat162float(t[j]) * scale);
+      }
+    } else if (row < n) {
       const size_t base = size_t(row) * D;
       const bool first = ((c / QT) & 1) == 0;
       const int partner = first ? c + QT : c - QT;
@@ -277,6 +305,7 @@ __device__ void load_rotated_vec(const __nv_bfloat16* __restrict__ src,
   }
 }
 
+template <bool ROPE>
 __global__ void __launch_bounds__(MTHREADS)
 flash_rope_mma_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
@@ -301,8 +330,10 @@ flash_rope_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const __nv_bfloat16* kb = k + size_t(bh) * nk * D;
   const __nv_bfloat16* vb = v + size_t(bh) * nk * D;
-  load_rotated_vec(q + size_t(bh) * nq * D, cos_q + size_t(b) * nq * D,
-                   sin_q + size_t(b) * nq * D, q0, nq, sm_scale, Qs);
+  const size_t tq = ROPE ? size_t(b) * nq * D : 0;
+  const size_t tk = ROPE ? size_t(b) * nk * D : 0;
+  load_rotated_vec<ROPE>(q + size_t(bh) * nq * D, cos_q + tq, sin_q + tq, q0,
+                         nq, sm_scale, Qs);
   __syncthreads();
   uint32_t qa[D / 16][4];
 #pragma unroll
@@ -324,8 +355,7 @@ flash_rope_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   for (int k0 = 0; k0 < nk; k0 += BK) {
     __syncthreads();  // the previous tile is no longer read
-    load_rotated_vec(kb, cos_k + size_t(b) * nk * D,
-                     sin_k + size_t(b) * nk * D, k0, nk, 1.f, Ks);
+    load_rotated_vec<ROPE>(kb, cos_k + tk, sin_k + tk, k0, nk, 1.f, Ks);
     for (int e = threadIdx.x; e < BK * D / 8; e += MTHREADS) {
       const int r = e / (D / 8), c = (e % (D / 8)) * 8;
       const int row = k0 + r;
@@ -424,12 +454,13 @@ flash_rope_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <bool ROPE>
 int launch_mma(const void* q, const void* k, const void* v, const void* cq,
                const void* sq, const void* ck, const void* sk, void* o,
                int bh, int n_heads, int nq, int nk, float sm_scale,
                cudaStream_t stream) {
   const dim3 grid((nq + BQ - 1) / BQ, bh);
-  flash_rope_mma_kernel<<<grid, MTHREADS, 0, stream>>>(
+  flash_rope_mma_kernel<ROPE><<<grid, MTHREADS, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(cq),
@@ -439,6 +470,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* cq,
   return int(cudaGetLastError());
 }
 
+template <bool ROPE>
 int launch_f32(const void* q, const void* k, const void* v, const void* cq,
                const void* sq, const void* ck, const void* sk, void* o, int bh,
                int n_heads, int nq, int nk, float sm_scale,
@@ -446,13 +478,13 @@ int launch_f32(const void* q, const void* k, const void* v, const void* cq,
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_rope_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_rope_kernel<ROPE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         int(SMEM_BYTES));
     if (e != cudaSuccess) return int(e);
     configured = true;
   }
   const dim3 grid((nq + BQ - 1) / BQ, bh);
-  flash_rope_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+  flash_rope_kernel<ROPE><<<grid, THREADS, SMEM_BYTES, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(cq),
       static_cast<const float*>(sq), static_cast<const float*>(ck),
@@ -476,11 +508,28 @@ extern "C" int flash_attention_rope(int dtype, const void* q, const void* k,
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_f32(q, k, v, cos_q, sin_q, cos_k, sin_k, o, bh, n_heads, nq,
-                      nk, sm_scale, s);
+    return launch_f32<true>(q, k, v, cos_q, sin_q, cos_k, sin_k, o, bh,
+                            n_heads, nq, nk, sm_scale, s);
   if (dtype == 1)
-    return launch_mma(q, k, v, cos_q, sin_q, cos_k, sin_k, o, bh, n_heads, nq,
-                      nk, sm_scale, s);
+    return launch_mma<true>(q, k, v, cos_q, sin_q, cos_k, sin_k, o, bh,
+                            n_heads, nq, nk, sm_scale, s);
+  return int(cudaErrorInvalidValue);
+}
+
+// K3: the same kernel with RoPE switched off. q (BH, nq, D), k/v (BH, nk, D)
+// and o (BH, nq, D) contiguous; no tables. Returns a cudaError_t.
+extern "C" int flash_attention(int dtype, const void* q, const void* k,
+                               const void* v, void* o, int bh, int nq, int nk,
+                               int d, float sm_scale, void* stream) {
+  if (d != D || bh <= 0 || nq <= 0 || nk <= 0 || bh > 65535)
+    return int(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_f32<false>(q, k, v, nullptr, nullptr, nullptr, nullptr, o,
+                             bh, 1, nq, nk, sm_scale, s);
+  if (dtype == 1)
+    return launch_mma<false>(q, k, v, nullptr, nullptr, nullptr, nullptr, o,
+                             bh, 1, nq, nk, sm_scale, s);
   return int(cudaErrorInvalidValue);
 }
 

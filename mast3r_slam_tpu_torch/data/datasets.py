@@ -1,0 +1,408 @@
+"""Dataset readers (host-side IO), counterpart of
+``mast3r_slam_tpu/data/datasets.py``.
+
+Every reader yields ``(timestamp, img)`` with ``img (H, W, 3) float32 RGB``
+in [0, 1] at the source resolution; ``slam/pipeline.py::create_frame``
+resizes to the model crop. Images are read with ``data/png.py`` (no OpenCV
+or PIL on the card machine).
+
+The port's modules take the config dict as an argument: the readers and
+:class:`Intrinsics` read ``dataset.subsample``, ``dataset.img_size``,
+``dataset.center_principle_point`` and ``use_calib`` from the ``cfg`` they
+are given, where the JAX package reads its process-global config.
+
+Not ported yet (ROADMAP queue 1):
+- undistortion: the JAX package builds its rectification with
+  ``cv2.getOptimalNewCameraMatrix`` / ``initUndistortRectifyMap``; here a
+  calibration with nonzero distortion raises ``NotImplementedError`` when
+  it is used (``remap``, or ``K_frame``). EuRoC always undistorts, so its
+  frames raise when read;
+- the video, webcam and RealSense readers (a video decoder and camera
+  drivers): :func:`load_dataset` raises for them.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import re
+
+import numpy as np
+
+from mast3r_slam_tpu_torch.data import png
+from mast3r_slam_tpu_torch.data.image_ops import resize_img
+
+_UNDISTORT = ("undistortion (cv2.getOptimalNewCameraMatrix / "
+              "initUndistortRectifyMap) is not ported yet (ROADMAP queue 1): "
+              "this calibration has nonzero distortion")
+
+
+def natsorted(paths):
+    """Natural-order sort (replacement for the natsort dependency)."""
+
+    def key(p):
+        s = str(p)
+        return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", s)]
+
+    return sorted(paths, key=key)
+
+
+def _dataset_cfg(cfg):
+    return (cfg or {}).get("dataset", {}) or {}
+
+
+# ---------------------------------------------------------------------------
+# Intrinsics
+# ---------------------------------------------------------------------------
+
+class Intrinsics:
+    """Camera calibration and the intrinsics of the model crop.
+
+    ``K_frame`` maps ``K`` through ``resize_img``'s resize and crop at
+    ``dataset.img_size``. A calibration with distortion raises
+    ``NotImplementedError`` from ``K_frame`` and ``remap`` (see the module
+    docstring)."""
+
+    def __init__(self, W, H, fx, fy, cx, cy, distortion=None, cfg=None):
+        self.W, self.H = int(W), int(H)
+        self.cfg = cfg or {}
+        self.K_orig = np.array(
+            [[fx, 0, cx], [0, fy, cy], [0, 0, 1]], dtype=np.float32
+        )
+        self.distortion = (
+            np.zeros(5, np.float32) if distortion is None
+            else np.asarray(distortion, np.float32)
+        )
+        self.has_distortion = bool(np.abs(self.distortion).sum() > 0)
+        self._K_frame = (None if self.has_distortion
+                         else self._rescale_to_crop(self.K_orig))
+
+    @property
+    def K_frame(self):
+        if self.has_distortion:
+            raise NotImplementedError(_UNDISTORT)
+        return self._K_frame
+
+    def _rescale_to_crop(self, K):
+        img_size = int(_dataset_cfg(self.cfg).get("img_size", 512))
+        probe = np.zeros((self.H, self.W, 3), np.float32)
+        _, (scale_w, scale_h, half_w, half_h) = resize_img(
+            probe, img_size, return_transformation=True
+        )
+        K2 = K.copy().astype(np.float32)
+        K2[0, 0] /= scale_w
+        K2[1, 1] /= scale_h
+        K2[0, 2] = K2[0, 2] / scale_w - half_w
+        K2[1, 2] = K2[1, 2] / scale_h - half_h
+        return K2
+
+    def remap(self, img):
+        if self.has_distortion:
+            raise NotImplementedError(_UNDISTORT)
+        return img
+
+
+# ---------------------------------------------------------------------------
+# Base class
+# ---------------------------------------------------------------------------
+
+class MonocularDataset:
+    """Base reader: index → (timestamp, float32 RGB [0, 1])."""
+
+    dtype = np.float32
+
+    def __init__(self, cfg=None):
+        self.cfg = cfg or {}
+        self.timestamps: list | np.ndarray = []
+        self.use_calibration = False
+        self.camera_intrinsics: Intrinsics | None = None
+        self.save_results = True
+        self.subsample = int(_dataset_cfg(self.cfg).get("subsample", 1))
+
+    def read_img(self, idx):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def __len__(self):
+        raise NotImplementedError
+
+    def __getitem__(self, idx):
+        img = self.read_img(idx)
+        if img.dtype == np.uint8:
+            img = img.astype(self.dtype) / 255.0
+        if self.use_calibration and self.camera_intrinsics is not None:
+            img = self.camera_intrinsics.remap(img)
+        ts = self.timestamps[idx] if idx < len(self.timestamps) else float(idx)
+        return float(ts), img
+
+    def get_img_shape(self, img_size: int = 0):
+        """(display_shape, true_shape) of the model crop for frame 0."""
+        if not img_size:
+            img_size = int(_dataset_cfg(self.cfg).get("img_size", 512))
+        _, img = self[0]
+        res = resize_img(img, img_size)
+        hw = tuple(int(v) for v in res["true_shape"][0])
+        return hw, hw
+
+    def set_calibration(self, intr: Intrinsics):
+        self.camera_intrinsics = intr
+        self.use_calibration = True
+
+    def has_calib(self):
+        return self.use_calibration and self.camera_intrinsics is not None
+
+    def _intrinsics(self, *args):
+        return Intrinsics(*args, cfg=self.cfg)
+
+    def _use_calib(self):
+        return bool(self.cfg.get("use_calib", False))
+
+
+def _read_rgb_txt(path, subsample):
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            ts, rel = line.split()[:2]
+            rows.append((float(ts), rel))
+    return rows[::subsample]
+
+
+# ---------------------------------------------------------------------------
+# TUM RGB-D
+# ---------------------------------------------------------------------------
+
+# Standard TUM freiburg camera parameters (fx fy cx cy k1 k2 p1 p2 k3).
+_TUM_CALIB = {
+    "freiburg1": (517.3, 516.5, 318.6, 255.3,
+                  (0.2624, -0.9531, -0.0054, 0.0026, 1.1633)),
+    "freiburg2": (520.9, 521.0, 325.1, 249.7,
+                  (0.2312, -0.7849, -0.0033, -0.0001, 0.9172)),
+    "freiburg3": (535.4, 539.2, 320.1, 247.6, None),
+}
+
+
+class TUMDataset(MonocularDataset):
+    """TUM RGB sequences: ``rgb.txt`` index + per-freiburg fixed
+    calibration."""
+
+    def __init__(self, path, cfg=None):
+        super().__init__(cfg)
+        self.path = pathlib.Path(path)
+        rows = _read_rgb_txt(self.path / "rgb.txt", self.subsample)
+        self.timestamps = np.asarray([r[0] for r in rows], np.float64)
+        self.files = [self.path / r[1] for r in rows]
+
+        seq = str(self.path).lower()
+        for token, (fx, fy, cx, cy, dist) in _TUM_CALIB.items():
+            if token in seq:
+                self.camera_intrinsics = self._intrinsics(640, 480, fx, fy,
+                                                          cx, cy, dist)
+                self.use_calibration = self._use_calib()
+                break
+
+    def __len__(self):
+        return len(self.files)
+
+    def read_img(self, idx):
+        return png.read_rgb(self.files[idx])
+
+
+# ---------------------------------------------------------------------------
+# EuRoC MAV
+# ---------------------------------------------------------------------------
+
+class EurocDataset(MonocularDataset):
+    """EuRoC cam0 grayscale stream (gray → RGB); always undistorted, so its
+    frames raise until undistortion is ported."""
+
+    def __init__(self, path, cfg=None):
+        super().__init__(cfg)
+        self.path = pathlib.Path(path)
+        cam = self.path / "mav0" / "cam0"
+        files = natsorted((cam / "data").glob("*.png"))
+        files = files[:: self.subsample]
+        self.files = files
+        self.timestamps = np.asarray(
+            [float(f.stem) * 1e-9 for f in files], np.float64
+        )
+        fx, fy, cx, cy, dist, (w, h) = self._read_sensor_yaml(
+            cam / "sensor.yaml")
+        self.camera_intrinsics = self._intrinsics(w, h, fx, fy, cx, cy, dist)
+        self.use_calibration = True
+
+    @staticmethod
+    def _read_sensor_yaml(path):
+        import yaml
+
+        with open(path) as f:
+            d = yaml.safe_load(f)
+        fx, fy, cx, cy = d["intrinsics"]
+        k1, k2, p1, p2 = d["distortion_coefficients"]
+        w, h = d["resolution"]
+        return fx, fy, cx, cy, (k1, k2, p1, p2, 0.0), (w, h)
+
+    def __len__(self):
+        return len(self.files)
+
+    def read_img(self, idx):
+        return png.read_rgb(self.files[idx])
+
+
+# ---------------------------------------------------------------------------
+# ETH3D
+# ---------------------------------------------------------------------------
+
+class ETH3DDataset(MonocularDataset):
+    """ETH3D SLAM sequences: rgb.txt + calibration.txt."""
+
+    def __init__(self, path, cfg=None):
+        super().__init__(cfg)
+        self.path = pathlib.Path(path)
+        rows = _read_rgb_txt(self.path / "rgb.txt", self.subsample)
+        self.timestamps = np.asarray([r[0] for r in rows], np.float64)
+        self.files = [self.path / r[1] for r in rows]
+
+        calib_file = self.path / "calibration.txt"
+        if calib_file.exists():
+            fx, fy, cx, cy = np.loadtxt(calib_file).reshape(-1)[:4]
+            h, w = png.read_rgb(self.files[0]).shape[:2]
+            self.camera_intrinsics = self._intrinsics(w, h, fx, fy, cx, cy,
+                                                      None)
+            self.use_calibration = self._use_calib()
+
+    def __len__(self):
+        return len(self.files)
+
+    def read_img(self, idx):
+        return png.read_rgb(self.files[idx])
+
+
+# ---------------------------------------------------------------------------
+# 7-Scenes
+# ---------------------------------------------------------------------------
+
+class SevenScenesDataset(MonocularDataset):
+    """7-Scenes seq-01 color PNGs with the fixed 585/585/320/240
+    intrinsics."""
+
+    def __init__(self, path, cfg=None):
+        super().__init__(cfg)
+        self.path = pathlib.Path(path)
+        seq = (self.path / "seq-01" if (self.path / "seq-01").exists()
+               else self.path)
+        self.files = natsorted(seq.glob("*.color.png"))[:: self.subsample]
+        self.timestamps = np.arange(len(self.files), dtype=np.float64) / 30.0
+        self.camera_intrinsics = self._intrinsics(640, 480, 585, 585, 320,
+                                                  240, None)
+        self.use_calibration = self._use_calib()
+
+    def __len__(self):
+        return len(self.files)
+
+    def read_img(self, idx):
+        return png.read_rgb(self.files[idx])
+
+
+# ---------------------------------------------------------------------------
+# Replica
+# ---------------------------------------------------------------------------
+
+class ReplicaDataset(MonocularDataset):
+    """Replica renders: results/frame*.png + cam_params.json in any of 3
+    layouts. Only PNG frames are read (JPEG needs a decoder the port does
+    not have)."""
+
+    def __init__(self, path, cfg=None):
+        super().__init__(cfg)
+        self.path = pathlib.Path(path)
+        frames_dir = self.path / "results"
+        if not frames_dir.exists():
+            frames_dir = self.path
+        self.files = natsorted(
+            list(frames_dir.glob("frame*.jpg"))
+            + list(frames_dir.glob("frame*.png")))[:: self.subsample]
+        self.timestamps = np.arange(len(self.files), dtype=np.float64) / 30.0
+        cam = self._find_cam_params()
+        if cam is not None:
+            w, h, fx, fy, cx, cy = cam
+            self.camera_intrinsics = self._intrinsics(w, h, fx, fy, cx, cy,
+                                                      None)
+            self.use_calibration = self._use_calib()
+
+    def _find_cam_params(self):
+        for cand in (
+            self.path / "cam_params.json",
+            self.path.parent / "cam_params.json",
+            self.path.parent.parent / "cam_params.json",
+        ):
+            if cand.exists():
+                with open(cand) as f:
+                    d = json.load(f)
+                cam = d.get("camera", d.get("params", d))
+                try:
+                    return (cam["w"], cam["h"], cam["fx"], cam["fy"],
+                            cam["cx"], cam["cy"])
+                except KeyError:
+                    continue
+        return None
+
+    def __len__(self):
+        return len(self.files)
+
+    def read_img(self, idx):
+        return png.read_rgb(self.files[idx])
+
+
+# ---------------------------------------------------------------------------
+# Image folder
+# ---------------------------------------------------------------------------
+
+class RGBFiles(MonocularDataset):
+    """Folder of PNG frames at an assumed 30 FPS."""
+
+    def __init__(self, path, cfg=None):
+        super().__init__(cfg)
+        self.path = pathlib.Path(path)
+        self.files = natsorted(self.path.glob("*.png"))[:: self.subsample]
+        self.timestamps = np.arange(len(self.files), dtype=np.float64) / 30.0
+
+    def __len__(self):
+        return len(self.files)
+
+    def read_img(self, idx):
+        return png.read_rgb(self.files[idx])
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+def load_dataset(path: str, cfg=None) -> MonocularDataset:
+    """Path-token dispatch, as the JAX ``load_dataset``."""
+    p = str(path).lower()
+    if (p in ("realsense", "rs", "webcam", "cam") or p.startswith("webcam:")
+            or p.endswith((".mp4", ".avi", ".mov", ".mkv"))):
+        raise NotImplementedError(
+            f"{path}: the video, webcam and RealSense readers are not ported "
+            "yet (ROADMAP queue 1): they need a video decoder and camera "
+            "drivers that the port does not have")
+    if "tum" in p or "freiburg" in p:
+        return TUMDataset(path, cfg)
+    if "euroc" in p or os.path.exists(os.path.join(path, "mav0")):
+        return EurocDataset(path, cfg)
+    if "7-scenes" in p or "7scenes" in p:
+        return SevenScenesDataset(path, cfg)
+    if "eth3d" in p:
+        return ETH3DDataset(path, cfg)
+    if "replica" in p or os.path.exists(os.path.join(path, "results")):
+        return ReplicaDataset(path, cfg)
+    if os.path.isdir(path):
+        if list(pathlib.Path(path).glob("*.color.png")):
+            return SevenScenesDataset(path, cfg)
+        if os.path.exists(os.path.join(path, "rgb.txt")):
+            return TUMDataset(path, cfg)
+        return RGBFiles(path, cfg)
+    raise ValueError(f"unrecognized dataset path: {path}")

@@ -6,7 +6,8 @@ stacked two-stream chain, DPT + catMLP heads and the postprocess. Parameters
 are nested dicts of tensors with the JAX pytree's structure and layouts, so
 ``models/convert.py::params_from_jax`` carries JAX weights over unchanged.
 
-Every attention goes through :func:`attention_rope` → kernel K1; every
+Every attention goes through :func:`attention_rope` → kernel K1
+(:func:`attention`, kernel K3 without RoPE, has no call site); every
 stride-1 3x3 conv of the DPT heads through ``layers.conv2d`` → kernel K2.
 
 Precision: f32 matmuls and convs run in true f32. :func:`init_params` and
@@ -98,6 +99,17 @@ def attention_rope(q, k, v, qtabs, ktabs):
     share the tables across a program; here the encoder and the decoder
     build them once per pass and hand them to every block."""
     return FA.flash_attention_rope(q, k, v, *qtabs, *ktabs)
+
+
+def attention(q, k, v):
+    """Softmax attention without RoPE: ``q (B, H, Nq, D)``, ``k, v (B, H,
+    Nk, D)``. On CUDA tensors it launches kernel K3 at any shape the kernel
+    takes (D = 64, any Nq and Nk); on CPU tensors it returns K3's plain
+    version. The JAX ``attention`` chose between the Pallas kernel and XLA by
+    ``b·h >= 32``, a single-block config and Nq, Nk multiples of 128: that
+    was tuning for the TPU grid and is not ported. No model call site uses
+    it; every attention of the model is :func:`attention_rope`."""
+    return FA.flash_attention(q, k, v)
 
 
 def _split_heads(x, n_heads):

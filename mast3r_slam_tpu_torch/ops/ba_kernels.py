@@ -147,7 +147,7 @@ def gram_rays(rts, meas, sigma_ray, sigma_dist,
         return gram_rays_ref(rts, meas, sigma_ray, sigma_dist, compute_dtype)
     G = _launch(0, rts, meas, compute_dtype,
                 (sigma_ray, sigma_dist, 0.0, 0.0, 0.0, 0.0, 0.0))
-    rays_counter.launches += 1
+    rays_counter.add()
     return G
 
 
@@ -166,7 +166,7 @@ def gram_calib(rts, meas, img_size, pixel_border, z_eps, sigma_pixel,
                 (sigma_pixel, sigma_depth, z_eps, pixel_border,
                  W_img - 1 - pixel_border, pixel_border,
                  H_img - 1 - pixel_border))
-    calib_counter.launches += 1
+    calib_counter.add()
     return G
 
 

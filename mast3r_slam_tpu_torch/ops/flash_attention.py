@@ -1,12 +1,15 @@
-"""Flash attention with in-kernel 2D RoPE (kernel K1) and its plain version.
+"""Flash attention with in-kernel 2D RoPE (kernel K1), flash attention
+without RoPE (kernel K3), and their plain versions.
 
 Counterpart of ``mast3r_slam_tpu/ops/flash_attention.py::
-flash_attention_rope``. On a CUDA tensor :func:`flash_attention_rope`
-launches the hand-written kernel in ``csrc/flash_attention_rope.cu``; on a
-CPU tensor it returns :func:`flash_attention_rope_ref`, which does the same
-f32 rotation and softmax with ordinary torch ops. The TPU kernel's tiling
-(single-block vs 128x128 configs) is not carried over: the CUDA kernel tiles
-64 q rows per block and masks ragged lengths.
+flash_attention_rope`` and ``flash_attention``. On a CUDA tensor
+:func:`flash_attention_rope` and :func:`flash_attention` launch the
+hand-written kernel in ``csrc/flash_attention_rope.cu`` (K3 is its instance
+with RoPE switched off at compile time); on a CPU tensor they return
+:func:`flash_attention_rope_ref` / :func:`flash_attention_ref`, which do the
+same f32 math with ordinary torch ops. The TPU kernels' tiling (single-block
+vs 128x128 configs) is not carried over: the CUDA kernel tiles 64 q rows per
+block and masks ragged lengths, so any Nq and Nk work.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from mast3r_slam_tpu_torch import _build
 
 KERNEL = "flash_attention_rope"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-counter = _build.LaunchCounter()
+counter = _build.LaunchCounter()          # K1
+attn_counter = _build.LaunchCounter()     # K3
 
 
 def rope_tables(pos, d, base=100.0):
@@ -91,7 +95,57 @@ def flash_attention_rope(q, k, v, cos_q, sin_q, cos_k, sin_k):
         b * h, h, nq, nk, d, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, KERNEL, err)
-    counter.launches += 1
+    counter.add()
+    return out
+
+
+def flash_attention_ref(q, k, v):
+    """Plain version of K3 (the TPU ``_flash_kernel``'s math): ``q (B, H,
+    Nq, D)``, ``k, v (B, H, Nk, D)``; q is scaled by 1/sqrt(D) before
+    ``q kᵀ``, softmax and ``p v`` run in f32, the output is in q's dtype."""
+    d = q.shape[-1]
+    s = (q.float() * (1.0 / math.sqrt(d))) @ k.float().transpose(-1, -2)
+    p = torch.softmax(s, dim=-1)
+    return (p @ v.float()).to(q.dtype)
+
+
+def attention_reference(q, k, v):
+    """Plain softmax attention as the JAX ``attention_reference``: logits
+    accumulate in f32, the softmax weights are cast to v's dtype before
+    ``p v`` (so in bf16 this is not :func:`flash_attention_ref`)."""
+    d = q.shape[-1]
+    logits = (q.float() @ k.float().transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    return (weights.float() @ v.float()).to(v.dtype)
+
+
+def flash_attention(q, k, v):
+    """Flash attention without RoPE, kernel K3 (see module docstring):
+    ``q (B, H, Nq, D)``, ``k, v (B, H, Nk, D)`` → ``(B, H, Nq, D)``."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if d != 64:
+        raise ValueError(f"the CUDA kernel takes head dim 64, got {d}")
+    if k.shape != (b, h, nk, d) or v.shape != k.shape:
+        raise ValueError(f"bad k/v shapes {tuple(k.shape)}/{tuple(v.shape)}")
+    tensors = [_build.aligned(t.contiguous()) for t in (q, k, v)]
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("all inputs must be on one device")
+    out = torch.empty_like(tensors[0])
+    lib = _lib()
+    err = lib.flash_attention(
+        _DTYPES[q.dtype], *(t.data_ptr() for t in tensors), out.data_ptr(),
+        b * h, nq, nk, d, 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, KERNEL, err)
+    attn_counter.add()
     return out
 
 
@@ -104,4 +158,8 @@ def _lib():
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_float, p]
         fn.restype = ctypes.c_int
+        p3 = lib.flash_attention
+        p3.argtypes = [ctypes.c_int, p, p, p, p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_float, p]
+        p3.restype = ctypes.c_int
     return lib

@@ -371,14 +371,15 @@ class FactorGraph:
         coverage (consecutive edges always). Returns True when an edge was
         added; in strict-reloc mode one invalid edge rejects the batch.
 
-        ``init_hint`` carries the tracker's converged frame→keyframe match
-        of the consecutive edge ``(i, j)``:
-        - 5-tuple ``(i, j, idx_j2i, valid_i, Q_i)`` is reused verbatim as
-          the edge's j→i direction (``idx_j2i (N,)``, ``valid_i (N, 1)``,
-          ``Q_i (N, 1)`` the fused confidence); the event then decodes only
-          (i, j) and runs one matcher (``model.match_oneway``);
-        - legacy 3-tuple ``(i, j, idx_j2i)`` warm-starts the symmetric
-          matcher's j→i direction instead."""
+        ``init_hint`` ``(i, j, idx_j2i, valid_i, Q_i)`` is the tracker's
+        converged frame→keyframe match of the consecutive edge ``(i, j)``,
+        reused verbatim as that edge's j→i direction (``idx_j2i (N,)``,
+        ``valid_i (N, 1)``, ``Q_i (N, 1)`` the fused confidence); the edge
+        then decodes only (i, j) and runs one matcher
+        (``model.match_oneway``). A hint for an edge not in the batch is not
+        used. (The JAX package also takes a 3-tuple ``(i, j, idx_j2i)`` that
+        warm-starts the symmetric matcher; nothing produces it, so the port
+        has no such branch.)"""
         if len(ii_new) == 0:
             return False
         kf = self.keyframes
@@ -406,18 +407,13 @@ class FactorGraph:
         reuse_row = None
         if init_hint is not None and not is_reloc:
             hi, hj = int(init_hint[0]), int(init_hint[1])
+            if len(init_hint) != 5:
+                raise ValueError("init_hint must be (i, j, idx_j2i, valid_i, "
+                                 f"Q_i), got {len(init_hint)} entries")
             rows = [r for r in range(len(ii_new))
                     if int(ii_new[r]) == hi and int(jj_new[r]) == hj]
-            if rows and len(init_hint) == 5:
+            if rows:
                 reuse_row = rows[0]
-            elif rows:
-                if init_j2i is None:
-                    init_j2i = torch.arange(n, device=kf.device).expand(
-                        len(ii_new), n).clone()
-                # the tracker's converged correspondence (i-pixels →
-                # j-pixels) initializes the matcher whose output is idx_jj2ii
-                init_j2i[rows[0]] = torch.as_tensor(
-                    init_hint[2], device=kf.device).reshape(-1)[:n].long()
 
         if reuse_row is not None:
             r = reuse_row
@@ -601,6 +597,14 @@ class FactorGraph:
             for ch, f in zip(cached, fresh):
                 ch[sj] = f
             ver_cached[stale] = want[stale]
+
+    def drop_meas_cache(self):
+        """Invalidate the measured-channel cache (a checkpoint restore
+        replaced the keyframe pointmaps)."""
+        self._meas_kind = None
+        self._meas_ij = self._meas_ji = None
+        self._meas_ver_ij = np.zeros((0, 2), np.int64)
+        self._meas_ver_ji = np.zeros((0, 2), np.int64)
 
     # -- solves --------------------------------------------------------------
 

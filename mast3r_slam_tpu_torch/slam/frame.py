@@ -218,33 +218,33 @@ class KeyframeBuffer:
 
 
 class States:
-    """Controller-wide mutable state: the mode machine, the reloc signal,
-    the backend queue and the keyframe match hint, guarded by one lock."""
+    """Controller-wide mutable state: the mode machine, the reloc signal
+    (``reloc_sem`` counts queued reloc requests), the backend queue, the
+    keyframe match hint and ``paused`` (the viewer's pause, which the CLI
+    loop waits on), guarded by one lock."""
 
     def __init__(self):
         self.lock = threading.RLock()
         self.mode = Mode.INIT
+        self.paused = False
         self.reloc_sem = 0
         self.global_optimizer_tasks: list[int] = []
         self.edges_ii: list[int] = []
         self.edges_jj: list[int] = []
         self.current_frame: Optional[Frame] = None
-        # (i, j, idx_j2i[, valid_i, Q_i]): the tracker's converged match at
-        # keyframe creation, consumed once by the backend; the 5-tuple lets
-        # add_factors reuse it as the consecutive edge's j→i direction
+        # (i, j, idx_j2i, valid_i, Q_i): the tracker's converged match at
+        # keyframe creation, consumed once by the backend, which reuses it
+        # as the consecutive edge's j→i direction
         self.kf_match_hint: Optional[tuple] = None
 
     def set_frame(self, frame: Frame):
         with self.lock:
             self.current_frame = frame
 
-    def set_kf_match_hint(self, i: int, j: int, idx_j2i, valid_i=None,
-                          Q_i=None) -> None:
+    def set_kf_match_hint(self, i: int, j: int, idx_j2i, valid_i,
+                          Q_i) -> None:
         with self.lock:
-            if valid_i is not None and Q_i is not None:
-                self.kf_match_hint = (i, j, idx_j2i, valid_i, Q_i)
-            else:
-                self.kf_match_hint = (i, j, idx_j2i)
+            self.kf_match_hint = (i, j, idx_j2i, valid_i, Q_i)
 
     def take_kf_match_hint(self, i=None, j=None):
         """Pop the stored hint. With ``(i, j)`` given, pop it only if it is
@@ -282,6 +282,19 @@ class States:
     def queue_reloc(self):
         with self.lock:
             self.reloc_sem += 1
+
+    def clear_reloc(self):
+        """Drop every queued reloc count: after a successful
+        relocalization the rest are stale attempts of the same lost-tracking
+        episode, and a leaked count would keep the backend busy forever and
+        fire a spurious relocalization on the next tracking failure."""
+        with self.lock:
+            self.reloc_sem = 0
+
+    def dequeue_reloc(self):
+        with self.lock:
+            if self.reloc_sem > 0:
+                self.reloc_sem -= 1
 
     def get_mode(self) -> Mode:
         with self.lock:

@@ -1,36 +1,192 @@
-"""SLAM pipeline pieces (counterpart of ``mast3r_slam_tpu/slam/pipeline.py``).
+"""SLAM pipeline orchestration: frame staging, relocalization and the
+backend loop (counterpart of ``mast3r_slam_tpu/slam/pipeline.py``).
 
-Only frame creation is ported so far. It takes an image already at the
-model crop: the JAX package's resize (``data/image_ops.py``) needs OpenCV,
-and resizing joins the port with the CLI.
+The backend runs as a host thread (default) or inline via
+:meth:`Backend.step` in ``single_thread`` mode. The thread shares the
+frontend's CUDA device and its default stream (separate streams are ROADMAP
+queue 1 item 12); every read or write of keyframe tensors goes under
+``keyframes.lock``.
 """
 
 from __future__ import annotations
 
+import threading
+import time
+
 import numpy as np
 import torch
 
+from mast3r_slam_tpu_torch.data.image_ops import resize_img
 from mast3r_slam_tpu_torch.ops import lie
-from mast3r_slam_tpu_torch.slam.frame import Frame
+from mast3r_slam_tpu_torch.slam.frame import Frame, KeyframeBuffer, Mode, States
 
 
-def create_frame(frame_id: int, img, T_WC=None, device="cuda") -> Frame:
-    """Model-crop image → Frame on ``device``.
+def create_frame(frame_id: int, img_np: np.ndarray, T_WC=None,
+                 img_size: int = 512, *, downsample: int = 1,
+                 device="cuda") -> Frame:
+    """Host image ``(H, W, 3) float32 [0, 1]`` → model-crop Frame on
+    ``device``, resized and cropped by ``data/image_ops.py::resize_img``.
 
-    ``img (H, W, 3)`` (numpy or tensor) with ``H, W`` multiples of 16,
-    ImgNorm'd to [-1, 1]; the [0, 1] display image ``uimg`` is derived from
-    it on the host.
-    """
-    img = torch.as_tensor(img, dtype=torch.float32, device=device)
-    if img.ndim != 3 or img.shape[2] != 3 or img.shape[0] % 16 \
-            or img.shape[1] % 16:
-        raise ValueError(f"expected an (H, W, 3) image with H, W multiples "
-                         f"of 16, got {tuple(img.shape)}")
-    h, w = int(img.shape[0]), int(img.shape[1])
-    uimg = ((img.cpu().numpy() + 1.0) * 0.5).astype(np.float32)
+    ``downsample`` (``dataset.img_downsample``) decimates the display image
+    ``uimg`` and ``img_shape``; the working pointmaps are decimated by the
+    same stride at the inference layer, and ``img_true_shape`` stays the
+    model crop."""
+    res = resize_img(img_np, img_size)
+    h, w = (int(v) for v in res["true_shape"][0])
+    img = torch.as_tensor(res["img"][0], device=device)
+    uimg = res["unnormalized_img"].astype(np.float32) / 255.0
+    img_shape = (h, w)
+    if downsample > 1:
+        uimg = uimg[::downsample, ::downsample]
+        img_shape = (h // downsample, w // downsample)
     if T_WC is None:
         T_WC = lie.identity(device=device)
-    return Frame(frame_id=frame_id, img=img, img_shape=(h, w),
+    return Frame(frame_id=frame_id, img=img, img_shape=img_shape,
                  img_true_shape=(h, w), uimg=uimg,
                  T_WC=torch.as_tensor(T_WC, dtype=torch.float32,
                                       device=device))
+
+
+def _retrieval_args(cfg):
+    r = cfg.get("retrieval", {})
+    return int(r.get("k", 3)), float(r.get("min_thresh", 5e-3))
+
+
+def relocalization(frame: Frame, keyframes: KeyframeBuffer, factor_graph,
+                   retrieval_database, cfg) -> bool:
+    """Query retrieval → tentative keyframe append → strict factor check →
+    adopt the best candidate's pose and solve globally, else roll back."""
+    rcfg = cfg.get("reloc", {})
+    k, min_thresh = _retrieval_args(cfg)
+    with keyframes.lock:
+        candidates = retrieval_database.update(
+            frame, add_after_query=False, k=k, min_thresh=min_thresh)
+        if not candidates:
+            return False
+        keyframes.append(frame)
+        n_kf = len(keyframes)
+        kf_idx = [c for c in candidates if c != n_kf - 1]
+        frame_idx = [n_kf - 1] * len(kf_idx)
+        if not kf_idx:
+            keyframes.pop_last()
+            return False
+        # the NEW keyframe goes first (as ii), so the consecutive-edge
+        # exemption (ii == jj - 1) can never let a candidate at n_kf - 2
+        # bypass the strict check
+        added = factor_graph.add_factors(
+            frame_idx, kf_idx,
+            float(rcfg.get("min_match_frac", 0.3)),
+            is_reloc=bool(rcfg.get("strict", True)),
+            allow_geo_init=False,   # candidate poses are what is in question
+        )
+        if not added:
+            keyframes.pop_last()
+            print("Relocalization failed")
+            return False
+        # the signature is cached from the query above
+        retrieval_database.update(frame, add_after_query=True, k=k,
+                                  min_thresh=min_thresh, kf_idx=n_kf - 1,
+                                  skip_query=True)
+        print(f"Relocalized against keyframe(s) {kf_idx}")
+        best_T = keyframes.T_WC[kf_idx[0]].clone()
+        frame.T_WC = best_T
+        keyframes.T_WC[n_kf - 1] = best_T
+    if cfg.get("use_calib", False):
+        factor_graph.solve_GN_calib()
+    else:
+        factor_graph.solve_GN_rays()
+    return True
+
+
+class Backend:
+    """Keyframe-graph backend: retrieval, factor growth, global BA. Runs as
+    a thread (:meth:`start`) or inline through :meth:`step`."""
+
+    def __init__(self, model, keyframes: KeyframeBuffer, states: States,
+                 factor_graph, retrieval_database, cfg):
+        self.model = model
+        self.keyframes = keyframes
+        self.states = states
+        self.graph = factor_graph
+        self.retrieval = retrieval_database
+        self.cfg = cfg
+        self.stop_flag = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="slam-backend")
+        self._started = False
+        self.error: BaseException | None = None
+
+    def start(self):
+        if not self._started:
+            self._thread.start()
+            self._started = True
+        return self
+
+    def stop(self, timeout=30.0):
+        self.stop_flag.set()
+        if self._started:
+            self._thread.join(timeout=timeout)
+
+    def idle(self) -> bool:
+        with self.states.lock:
+            return (not self.states.global_optimizer_tasks
+                    and self.states.reloc_sem == 0)
+
+    def _loop(self):
+        try:
+            while not self.stop_flag.is_set():
+                if not self.step():
+                    time.sleep(0.005)
+        except BaseException as e:    # surfaced by the CLI at shutdown
+            self.error = e
+            raise
+
+    def step(self) -> bool:
+        """One backend action; returns True if any work was done."""
+        mode = self.states.get_mode()
+        if mode == Mode.INIT:
+            return False
+        if mode == Mode.RELOC:
+            frame = self.states.get_frame()
+            if frame is None or self.states.reloc_sem == 0:
+                return False
+            ok = relocalization(frame, self.keyframes, self.graph,
+                                self.retrieval, self.cfg)
+            if ok:
+                # clear BEFORE the mode flip: once TRACKING is visible the
+                # frontend may queue a new episode's first request
+                self.states.clear_reloc()
+                self.states.set_mode(Mode.TRACKING)
+            else:
+                self.states.dequeue_reloc()
+            return True
+
+        idx = self.states.pop_global_optimization()
+        if idx is None:
+            return False
+        k, min_thresh = _retrieval_args(self.cfg)
+        frame = self.keyframes[idx]
+        retr = self.retrieval.update(frame, add_after_query=True, k=k,
+                                     min_thresh=min_thresh, kf_idx=idx)
+        kf_idx = set(int(r) for r in retr)
+        if idx - 1 >= 0:
+            kf_idx.add(idx - 1)              # consecutive edge
+        kf_idx.discard(idx)
+        kf_idx = sorted(kf_idx)
+        if kf_idx:
+            if retr:
+                print(f"Database retrieval {idx}: {kf_idx}")
+            self.graph.add_factors(
+                kf_idx, [idx] * len(kf_idx),
+                float(self.cfg.get("local_opt", {}).get("min_match_frac",
+                                                        0.1)),
+                # only the hint of THIS keyframe's consecutive edge: a
+                # lagging backend must not burn keyframe N+1's hint
+                init_hint=self.states.take_kf_match_hint(idx - 1, idx),
+            )
+        self.states.set_edges(list(self.graph.ii), list(self.graph.jj))
+        if self.cfg.get("use_calib", False):
+            self.graph.solve_GN_calib()
+        else:
+            self.graph.solve_GN_rays()
+        return True

@@ -451,3 +451,103 @@ def ate_rmse_points(est, gt, with_scale=True):
     s, R, t = umeyama_alignment(P, G, with_scale=with_scale)
     P2 = s * (P @ R.T) + t
     return float(np.sqrt(np.mean(np.sum((P2 - G) ** 2, axis=-1))))
+
+
+# ---------------------------------------------------------------------------
+# Relocalization episode on the oracle scene
+# ---------------------------------------------------------------------------
+
+class OracleWorld:
+    """Per-frame oracle observations and a stand-in for the model's
+    ``match_symmetric``, for the relocalization episode of the JAX
+    package's ``tests/test_oracle_reloc.py``: exact pointmaps and
+    descriptors replace the network, and the real matcher, factor graph and
+    retrieval run on them. A frame's retrieval tokens are the scene
+    descriptors at its 16x16 patch centres; a keyframe is recognised by its
+    tokens."""
+
+    def __init__(self, hw, seed=0, desc_dim=24, device="cuda"):
+        self.hw = tuple(hw)
+        self.desc_dim = desc_dim
+        self.device = device
+        self.scene = OracleScene(seed=seed, desc_dim=desc_dim)
+        self.K = self.scene.intrinsics(self.hw)
+        self.frames = {}
+
+    @property
+    def n_tokens(self):
+        return (self.hw[0] // 16) * (self.hw[1] // 16)
+
+    def observe(self, fid, T_WC):
+        H, W = self.hw
+        X_cam, hits = self.scene.raycast(T_WC, self.K, self.hw)
+        D = self.scene.descriptors(hits)
+        centers = [(r * 16 + 8) * W + (c * 16 + 8)
+                   for r in range(H // 16) for c in range(W // 16)]
+        self.frames[fid] = dict(pose=np.asarray(T_WC), X_cam=X_cam,
+                                hits=hits, D=D, tokens=D[centers])
+        return self.frames[fid]
+
+    def make_frame(self, fid, T_est=None):
+        import torch
+
+        from mast3r_slam_tpu_torch.slam.frame import Frame
+
+        H, W = self.hw
+        dev = self.device
+        ob = self.frames[fid]
+        fr = Frame(frame_id=fid, img=torch.zeros(H, W, 3, device=dev),
+                   img_shape=self.hw, img_true_shape=self.hw,
+                   uimg=np.zeros((H, W, 3), np.float32))
+        fr.X_canon = torch.as_tensor(ob["X_cam"], device=dev)
+        fr.C = torch.ones(H * W, 1, device=dev)
+        fr.feat = torch.as_tensor(ob["tokens"], device=dev)[None]
+        fr.pos = torch.zeros(1, self.n_tokens, 2, dtype=torch.int32,
+                             device=dev)
+        fr.N = 1
+        fr.T_WC = torch.as_tensor(
+            np.array(ob["pose"] if T_est is None else T_est, np.float32),
+            device=dev)
+        return fr
+
+    def _lookup(self, feat):
+        f = feat.detach().float().cpu().numpy()
+        best, best_d = None, np.inf
+        for fid, ob in self.frames.items():
+            d = float(np.abs(f - ob["tokens"]).sum())
+            if d < best_d:
+                best, best_d = fid, d
+        return best
+
+    def match_symmetric(self, feat_i, pos_i, feat_j, pos_j, img_hw,
+                        init_i2j=None, init_j2i=None):
+        """The model interface ``FactorGraph.add_factors`` calls: the cross
+        pointmaps are the other frame's surface seen in this camera; Q is 2
+        everywhere."""
+        import torch
+
+        from mast3r_slam_tpu_torch.ops import matching
+
+        H, W = self.hw
+        b = feat_i.shape[0]
+        X11, X21, D11, D21 = [], [], [], []
+        pairs = [(self._lookup(feat_i[e]), self._lookup(feat_j[e]))
+                 for e in range(b)]
+        for own, other in pairs + [(j, i) for i, j in pairs]:
+            oo, ot = self.frames[own], self.frames[other]
+            X11.append(oo["X_cam"])
+            X21.append(self.scene.world_to_cam(ot["hits"], oo["pose"])
+                       .astype(np.float32))
+            D11.append(oo["D"])
+            D21.append(ot["D"])
+
+        def dev(a, c):
+            return torch.as_tensor(np.stack(a), device=self.device).reshape(
+                2 * b, H, W, c)
+
+        idx, valid = matching.match(dev(X11, 3), dev(X21, 3),
+                                    dev(D11, self.desc_dim),
+                                    dev(D21, self.desc_dim), radius=2,
+                                    level_step=2)
+        Q = torch.full((b, H * W, 1), 2.0, device=self.device)
+        return (idx[:b], idx[b:], valid[:b], valid[b:], Q, Q, Q, Q)

@@ -1,0 +1,103 @@
+"""Device-aware tic/toc timers (counterpart of
+``mast3r_slam_tpu/utils/tictoc.py``): :func:`sync` waits for the card,
+:func:`section` accumulates named timings (with ``sync_device=True`` it
+times the enclosed device work with CUDA events), and :func:`trace` wraps
+``torch.profiler``.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import time
+
+import torch
+
+_stack: list[float] = []
+# name → [total seconds, calls, pending (start, end) CUDA event pairs]
+_sections: dict[str, list] = collections.defaultdict(lambda: [0.0, 0, []])
+
+
+def sync(device=None):
+    """Block until all outstanding work on the card is complete (no-op
+    without one)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize(device)
+
+
+def tic():
+    sync()
+    _stack.append(time.perf_counter())
+
+
+def toc(tag: str = "") -> float:
+    sync()
+    dt = time.perf_counter() - _stack.pop()
+    print(f"[tictoc] {tag}: {dt:.6f}s")
+    return dt
+
+
+@contextlib.contextmanager
+def section(name: str, sync_device: bool = False):
+    """Accumulating timer: ``with section("track"): ...``; see report().
+    With ``sync_device`` and a card, the section is timed by CUDA events
+    recorded around it (read at :func:`report`); otherwise by the host
+    clock."""
+    s = _sections[name]
+    if sync_device and torch.cuda.is_available():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            s[2].append((start, end))
+            s[1] += 1
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        s[0] += time.perf_counter() - t0
+        s[1] += 1
+
+
+def _settle():
+    for s in _sections.values():
+        if s[2]:
+            sync()
+            s[0] += sum(a.elapsed_time(b) for a, b in s[2]) * 1e-3
+            s[2].clear()
+
+
+def report() -> dict:
+    _settle()
+    out = {}
+    for name, (total, n, _) in sorted(_sections.items()):
+        out[name] = {"total_s": total, "calls": n,
+                     "mean_ms": 1e3 * total / max(n, 1)}
+        print(f"[tictoc] {name:24s} {total:8.3f}s / {n:6d} calls "
+              f"= {1e3 * total / max(n, 1):8.2f} ms")
+    return out
+
+
+def reset():
+    _sections.clear()
+
+
+@contextlib.contextmanager
+def trace(logdir: str = "torch-trace"):
+    """Profile the enclosed block with ``torch.profiler`` (CPU and, with a
+    card, CUDA activity) and write a Chrome trace under ``logdir``."""
+    import os
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        yield prof
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"[tictoc] trace written to {path}")

@@ -71,7 +71,8 @@ def main():
 
     n_warm = 2
     imgs = chip_smoke.synthetic_frames(1 + n_warm + 2 * args.frames, (H, W))
-    f0 = create_frame(0, imgs[0])
+    # the frames are at the model crop in [-1, 1]: create_frame takes [0, 1]
+    f0 = create_frame(0, (imgs[0] + 1.0) * 0.5, img_size=W)
     X, C = model.inference_mono(f0)
     f0.update_pointmap(X[0], C[0])
     kfs.append(f0)
@@ -79,7 +80,8 @@ def main():
 
     def track_next():
         i, img = next(frames)
-        frame = create_frame(i, img, T_WC=kfs.T_WC[len(kfs) - 1])
+        frame = create_frame(i, (img + 1.0) * 0.5,
+                             T_WC=kfs.T_WC[len(kfs) - 1], img_size=W)
         new_kf, _, _ = tracker.track(frame)
         if new_kf:
             kfs.append(frame)

@@ -1,0 +1,476 @@
+"""The port's CLI (``mast3r_slam_tpu_torch/main.py``) on the CPU against the
+JAX CLI (``main.py``): the same tiny weights (npz) on the same synthetic
+TUM clip must give the same per-frame mode sequence, keyframes and edges,
+and trajectories within ``TRAJ_TOL``. Further runs of the port's CLI
+(calibrated, ``img_downsample 2``, threaded, retrieval artifacts,
+checkpoint / resume) are checked as tests/test_e2e_smoke.py checks the JAX
+CLI, and the ATE / RPE scorers against the JAX ones.
+
+The weights are JAX ``init_params`` of ``tiny_config`` with the second
+decoder stream and head tied to the first (``torch_parity.tiny_weights``):
+a frame decoded against its keyframe then predicts consistent geometry,
+so tracking succeeds and the clip exercises keyframing, retrieval edges and
+the BA instead of falling into RELOC at frame 1.
+"""
+
+import os
+import pathlib
+
+import jax
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from mast3r_slam_tpu_torch import evaluation as TE
+from mast3r_slam_tpu_torch import main as tcli
+from mast3r_slam_tpu_torch.data import png
+from mast3r_slam_tpu_torch.slam import tracker as TT
+from torch_parity import tiny_weights, torch_one_thread  # noqa: F401
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+N_FRAMES = 11              # out 5 steps and back: no two frames alike in a row
+# The clip is made at the model crop (64x96 at img_size 96), so that both
+# packages' resize is the identity and both models see the same input bits:
+# with random weights a 1e-6 input difference (the port's resize against
+# cv2's) grows into 0.1-2 pose differences within a few frames.
+CLIP_HW = (64, 96)
+CLIP_STEP = (2.0, 0.7)
+# While every tracked frame's matches agree index for index, the poses agree
+# to f32 rounding of the solves (POSE_TOL). A random-weight matcher puts a
+# few pixels on near-singular LM steps (ROADMAP queue 3: >= 99.5% index
+# agreement); on this clip one flips at the sixth tracked frame (steps of
+# 1.5 or 3.0 px flip at the second), and from there each pose solve and BA
+# starts from a slightly different state and the random, inconsistent
+# geometry carries the difference along the chain (0.02 read at the end).
+# TRAJ_TOL bounds the exported trajectories at the end of the clip; the
+# decisions (modes, keyframes, edges) are held exactly.
+POSE_TOL = 1e-4
+MIN_AGREEING_FRAMES = 4
+TRAJ_TOL = 0.05
+# keyframe decisions: min(match_frac_k, unique_frac_f) against
+# tracking.match_frac_thresh
+KF_THRESH = 0.9
+
+
+def _clip(root, n, hw=(480, 640), step=(12.0, 4.0), seed=0):
+    """A TUM-format clip of smooth texture panning out and back."""
+    (root / "rgb").mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:hw[0], 0:hw[1]].astype(np.float64)
+    freqs = rng.uniform(0.01, 0.05, (3, 2))
+    phases = rng.uniform(0, 2 * np.pi, 3)
+    rows = []
+    for i in range(n):
+        p = min(i, n - 1 - i)
+        x, y = xx + step[0] * p, yy + step[1] * p
+        img = np.stack([np.sin(fx * x + fy * y + ph)
+                        for (fx, fy), ph in zip(freqs, phases)], -1)
+        png.write_png(root / "rgb" / f"{i:04d}.png",
+                      ((0.9 * img + 1.0) * 127.5).astype(np.uint8))
+        rows.append(f"{1e9 + i / 30.0:.6f} rgb/{i:04d}.png")
+    (root / "rgb.txt").write_text("# ts file\n" + "\n".join(rows) + "\n")
+    return root
+
+
+@pytest.fixture(scope="module")
+def setup(tmp_path_factory):
+    """The clip, the tied tiny weights as a JAX npz, and the config (the
+    unported services off, tests/test_e2e_smoke.py's cuts)."""
+    from mast3r_slam_tpu.models import convert as JC
+
+    base = tmp_path_factory.mktemp("cli")
+    clip = _clip(base / "synth_tum_clip", N_FRAMES, hw=CLIP_HW,
+                 step=CLIP_STEP)
+    _, pj, _, _ = tiny_weights(tie_streams=True)
+    weights = base / "tiny_tied.npz"
+    JC.save_params_npz(pj, weights)
+    cfg = {
+        "inherit": str(REPO / "config" / "base.yaml"),
+        "single_thread": True,
+        "dataset": {"img_size": 96},
+        "model": {"preset": "tiny"},
+        # sigma_dist 0.1 pins the Sim(3) scale: at base.yaml's 10 the
+        # distance rows weigh ~1e-7 of the ray rows and f32 rounding moves
+        # the solved scale (tests/test_torch_tracker.py::_track_cfg)
+        "tracking": {"min_match_frac": 0.0, "match_frac_thresh": KF_THRESH,
+                     "Q_conf": 0.0, "sigma_dist": 0.1},
+        # f32 channels and BA rows: bf16 row rounding alone moves a BA
+        # solve by ~1e-4 between XLA and torch
+        "local_opt": {"min_match_frac": 0.0, "Q_conf": 0.0,
+                      "sigma_dist": 0.1, "meas_dtype": "float32",
+                      "ba_compute_dtype": "float32"},
+        "quality": {"enabled": False},
+        "tsdf_refine": {"enabled": False},
+        "tsdf_global": {"enabled": False},
+    }
+    cfg_path = base / "tiny.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    return base, clip, weights, cfg, cfg_path
+
+
+def _write_cfg(setup, name, **over):
+    from mast3r_slam_tpu_torch.utils.config import merge_config
+
+    base, _, _, cfg, _ = setup
+    path = base / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(merge_config(cfg, over)))
+    return path
+
+
+def _valid_idx(idx, valid):
+    """A frame's matches as the pose solve sees them: the match index where
+    the match is valid, -1 elsewhere."""
+    idx = np.asarray(idx).reshape(-1)
+    valid = np.asarray(valid).reshape(-1).astype(bool)
+    return np.where(valid, idx, -1)
+
+
+def _traj(path):
+    return np.asarray([[float(v) for v in l.split()]
+                       for l in pathlib.Path(path).read_text().splitlines()
+                       if l.strip()])
+
+
+@pytest.fixture(scope="module")
+def both_runs(setup):
+    """One run of each CLI on the clip; the JAX one's per-frame modes are
+    read from its ``States`` at each ``create_frame``; the port's
+    keyframe-decision margins from its ``track_core`` outputs."""
+    import main as jcli
+    from mast3r_slam_tpu.parallel import topology
+    from mast3r_slam_tpu.slam import tracker as JT
+
+    base, clip, weights, _, cfg_path = setup
+    argv = ["--dataset", str(clip), "--config", str(cfg_path), "--no-viz",
+            "--weights", str(weights)]
+    cwd = os.getcwd()
+    os.chdir(base)
+    saved = (jcli.States, jcli.create_frame, TT.track_core, JT.track_core,
+             topology.plan_topology)
+    j_track, t_track = [], []
+    try:
+        states, j_modes = [], []
+
+        # the port runs on one device (multi-device is ROADMAP item 12):
+        # the JAX CLI gets the single-device topology, not the test
+        # process's 8 virtual CPU devices
+        topology.plan_topology = lambda devices=None: saved[4](
+            jax.devices()[:1])
+
+        def rec_jtrack(*a, **kw):
+            out = saved[3](*a, **kw)
+            j_track.append((_valid_idx(out["idx_f2k"], out["valid_match"]),
+                            np.asarray(out["T_WCf"])))
+            return out
+
+        class RecStates(jcli.States):
+            def __init__(self):
+                super().__init__()
+                states.append(self)
+
+        def rec_create(*a, **kw):
+            j_modes.append(states[-1].get_mode().name)
+            return saved[1](*a, **kw)
+
+        jcli.States, jcli.create_frame = RecStates, rec_create
+        JT.track_core = rec_jtrack
+        j_out = jcli.main(argv + ["--save-as", "jax"])
+        jcli.States, jcli.create_frame = saved[0], saved[1]
+
+        margins = []
+
+        def rec_core(*a, **kw):
+            out = saved[2](*a, **kw)
+            margins.append(min(float(out["match_frac_k"]),
+                               float(out["unique_frac_f"])) - KF_THRESH)
+            t_track.append((_valid_idx(out["idx_f2k"], out["valid_match"]),
+                            out["T_WCf"].numpy()))
+            return out
+
+        TT.track_core = rec_core
+        t_out = tcli.main(argv + ["--save-as", "port"], device="cpu")
+    finally:
+        (jcli.States, jcli.create_frame, TT.track_core, JT.track_core,
+         topology.plan_topology) = saved
+        os.chdir(cwd)
+    name = clip.name
+    return dict(j=j_out, t=t_out, j_modes=j_modes, margins=margins,
+                j_track=j_track, t_track=t_track,
+                j_traj=_traj(base / "logs" / "jax" / name / f"{name}.txt"),
+                t_traj=_traj(base / "logs" / "port" / name / f"{name}.txt"))
+
+
+def test_cli_mode_sequence_matches_jax(both_runs):
+    r = both_runs
+    assert r["t"]["modes"] == r["j_modes"]
+    assert r["t"]["modes"][0] == "INIT"
+    assert r["t"]["frames_processed"] == r["j"]["frames_processed"] \
+        == N_FRAMES
+    # every keyframe decision sits clear of the threshold (the smallest
+    # margin is printed on failure)
+    assert min(abs(m) for m in r["margins"]) > 0.02, r["margins"]
+
+
+def test_cli_keyframes_and_edges_match_jax(both_runs):
+    kj, kt = both_runs["j"]["keyframes"], both_runs["t"]["keyframes"]
+    n = len(kt)
+    assert n == len(kj) >= 4
+    np.testing.assert_array_equal(kt.dataset_idx[:n], kj.dataset_idx[:n])
+    gj, gt = both_runs["j"]["graph"], both_runs["t"]["graph"]
+    np.testing.assert_array_equal(np.asarray(gt.ii), np.asarray(gj.ii))
+    np.testing.assert_array_equal(np.asarray(gt.jj), np.asarray(gj.jj))
+    assert any(abs(int(i) - int(j)) > 1 for i, j in zip(gt.ii, gt.jj)), \
+        "no retrieval edge"
+
+
+def test_cli_tracked_poses_match_jax_while_matches_agree(both_runs):
+    """Frame by frame: the same matches give the same pose (POSE_TOL); the
+    first frame whose matches differ anywhere is where the chains part, and
+    it comes after at least ``MIN_AGREEING_FRAMES`` tracked frames."""
+    jt, tt = both_runs["j_track"], both_runs["t_track"]
+    assert len(jt) == len(tt) == N_FRAMES - 1
+    agree = [np.array_equal(a[0], b[0]) for a, b in zip(jt, tt)]
+    first = agree.index(False) if False in agree else len(agree)
+    assert first >= MIN_AGREEING_FRAMES, agree
+    for (_, Ta), (_, Tb) in list(zip(jt, tt))[:first]:
+        np.testing.assert_allclose(Tb, Ta, rtol=0, atol=POSE_TOL)
+    # the frame where the chains part still agrees on nearly every match
+    if first < len(agree):
+        assert (jt[first][0] == tt[first][0]).mean() >= 0.995
+
+
+def test_cli_trajectories_match_jax(both_runs):
+    tj, tt = both_runs["j_traj"], both_runs["t_traj"]
+    assert tt.shape == tj.shape and tt.shape[1] == 8
+    np.testing.assert_array_equal(tt[:, 0], tj[:, 0])
+    np.testing.assert_allclose(tt[:, 1:], tj[:, 1:], rtol=0, atol=TRAJ_TOL)
+
+
+# ---------------------------------------------------------------------------
+# Further runs of the port's CLI, checked as tests/test_e2e_smoke.py checks
+# the JAX CLI
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def big_clip(setup):
+    """480x640 frames: these runs go through the resize and crop."""
+    base = setup[0]
+    return _clip(base / "synth_tum_big", 6)
+
+
+def _run(setup, clip, save_as, cfg_path=None, extra=(), frames=None):
+    base, _, weights, _, default_cfg = setup
+    argv = ["--dataset", str(clip), "--config", str(cfg_path or default_cfg),
+            "--no-viz", "--weights", str(weights), "--save-as", save_as,
+            *extra]
+    if frames:
+        argv += ["--max-frames", str(frames)]
+    cwd = os.getcwd()
+    os.chdir(base)
+    try:
+        out = tcli.main(argv, device="cpu")
+    finally:
+        os.chdir(cwd)
+    return out, base / "logs" / save_as / clip.name
+
+
+def _check_outputs(out, savedir, name, n_kf_min=1):
+    """Trajectory rows finite with unit quaternions, one per keyframe; both
+    PLYs well formed (the quality one with zero quality fields); the
+    keyframe PNGs read back."""
+    traj = _traj(savedir / f"{name}.txt")
+    n = len(out["keyframes"])
+    assert n >= n_kf_min and traj.shape == (n, 8)
+    assert np.isfinite(traj).all()
+    np.testing.assert_allclose(np.linalg.norm(traj[:, 4:8], axis=1), 1.0,
+                               atol=1e-3)
+    ply = (savedir / f"{name}.ply").read_bytes()
+    assert ply.startswith(b"ply\nformat binary_little_endian 1.0\n")
+    qply = (savedir / f"{name}_quality.ply").read_bytes()
+    header = qply[:qply.index(b"end_header")].decode()
+    assert "property float priority" in header
+    assert "property int class_id" in header
+    pngs = sorted((savedir / "keyframes").glob("*.png"))
+    assert len(pngs) == n
+    h, w = out["keyframes"].img_shapes[0][0]
+    for p in pngs:
+        assert png.read_png(p).shape[:2] == (h, w)
+    return traj
+
+
+def test_cli_runs_on_resized_frames(setup, big_clip):
+    out, savedir = _run(setup, big_clip, "big")
+    assert out["frames_processed"] == 6 and out["modes"][0] == "INIT"
+    assert out["keyframes"].model_hw == (64, 96)
+    _check_outputs(out, savedir, big_clip.name, n_kf_min=2)
+
+
+def test_cli_calibrated(setup, big_clip):
+    """--calib with use_calib: constrain-to-ray and the calibrated BA, K
+    rescaled to the crop."""
+    base = setup[0]
+    cfg = _write_cfg(setup, "calib", use_calib=True)
+    intr = base / "intr.yaml"
+    intr.write_text(yaml.safe_dump({"width": 640, "height": 480, "fx": 500.0,
+                                    "fy": 500.0, "cx": 320.0, "cy": 240.0}))
+    out, savedir = _run(setup, big_clip, "calib", cfg, ["--calib", str(intr)],
+                        frames=4)
+    K = out["keyframes"].K
+    assert K is not None
+    np.testing.assert_allclose(K[0, 0].item(), 500.0 * 96 / 640, rtol=1e-5)
+    _check_outputs(out, savedir, big_clip.name)
+
+
+def test_cli_downsampled(setup, big_clip):
+    """dataset.img_downsample 2: pointmaps and matches at 32x48, the model
+    at 64x96, the display image decimated."""
+    cfg = _write_cfg(setup, "ds2", dataset={"img_downsample": 2})
+    out, savedir = _run(setup, big_clip, "ds2", cfg)
+    kf = out["keyframes"]
+    assert (kf.h, kf.w) == (32, 48) and kf.model_hw == (64, 96)
+    assert kf.uimg[0].shape == (32, 48, 3)
+    _check_outputs(out, savedir, big_clip.name)
+
+
+def test_cli_threaded_drains(setup, big_clip):
+    cfg = _write_cfg(setup, "threaded", single_thread=False)
+    out, savedir = _run(setup, big_clip, "threaded", cfg)
+    st = out["states"]
+    assert out["frames_processed"] == 6
+    assert st.global_optimizer_tasks == [] and st.reloc_sem == 0
+    _check_outputs(out, savedir, big_clip.name)
+
+
+def test_cli_with_retrieval_artifacts(setup, big_clip):
+    """A JAX-saved retrieval head (residual flag included) and a codebook
+    .npy load, and the run uses them."""
+    from mast3r_slam_tpu.models.convert import save_params_npz
+
+    base = setup[0]
+    rng = np.random.default_rng(9)
+    D = 64
+    head = {
+        "prewhiten_m": rng.normal(size=D).astype(np.float32) * 0.1,
+        "prewhiten_P": np.eye(D, dtype=np.float32)
+        + 0.05 * rng.normal(size=(D, D)).astype(np.float32),
+        "postwhiten_m": np.zeros(D, np.float32),
+        "postwhiten_P": np.eye(D, dtype=np.float32),
+        "projector": [{"w": np.eye(D, dtype=np.float32)
+                       + 0.05 * rng.normal(size=(D, D)).astype(np.float32),
+                       "b": np.zeros(D, np.float32)}],
+        "residual": True,
+    }
+    save_params_npz(head, base / "head.npz")
+    cb = rng.normal(size=(32, D)).astype(np.float32)
+    np.save(base / "codebook.npy", cb / np.linalg.norm(cb, axis=1,
+                                                       keepdims=True))
+    out, savedir = _run(setup, big_clip, "retr", extra=[
+        "--retrieval-weights", str(base / "head.npz"),
+        "--retrieval-codebook", str(base / "codebook.npy")], frames=5)
+    db = out["retrieval"]
+    assert db.head_residual and db.codebook.shape == (32, D)
+    assert db.kf_counter == len(out["keyframes"])
+    _check_outputs(out, savedir, big_clip.name)
+
+
+def test_cli_checkpoint_resume(setup, big_clip):
+    """--checkpoint writes a snapshot whose restore equals the run's
+    keyframes bit for bit; --resume continues from it."""
+    from mast3r_slam_tpu_torch.slam.factor_graph import FactorGraph
+    from mast3r_slam_tpu_torch.slam.frame import KeyframeBuffer
+    from mast3r_slam_tpu_torch.utils.checkpoint import load_state
+
+    base = setup[0]
+    ckpt = base / "state.npz"
+    out, _ = _run(setup, big_clip, "ck1", extra=["--checkpoint", str(ckpt)],
+                  frames=3)
+    kf, g = out["keyframes"], out["graph"]
+    n = len(kf)
+    kf2 = KeyframeBuffer(kf.h, kf.w, capacity=kf.capacity,
+                         feat_dim=kf.feat_dim, device="cpu",
+                         model_hw=kf.model_hw)
+    g2 = FactorGraph(None, kf2, {"local_opt": {}})
+    assert load_state(ckpt, kf2, g2) == 3 and len(kf2) == n
+    for key in ("T_WC", "X", "C", "feat", "pos"):
+        assert torch.equal(getattr(kf, key)[:n], getattr(kf2, key)[:n]), key
+    for key in ("idx_ii2jj", "idx_jj2ii", "valid_match_j", "Q_jj2ii"):
+        assert torch.equal(getattr(g, key), getattr(g2, key)), key
+    assert (kf2.xc_version[:n] >= 1).all()      # restored content bumped
+    out2, savedir = _run(setup, big_clip, "ck2",
+                         extra=["--resume", str(ckpt)])
+    assert out2["frames_processed"] == 6
+    assert len(out2["keyframes"]) >= n
+    assert out2["retrieval"].kf_counter + len(
+        out2["retrieval"]._pending) == len(out2["keyframes"])
+    _check_outputs(out2, savedir, big_clip.name)
+
+
+def test_cli_refuses_unported_services_and_needs_a_card(setup):
+    """A config that turns on an unported service, or a run with the
+    viewer, stops naming its ROADMAP item; without a card the default
+    device raises instead of falling back to the CPU."""
+    _, clip, _, _, cfg_path = setup
+    for name, over, item in (("q", {"quality": {"enabled": True}}, "item 9"),
+                             ("tl", {"tsdf_refine": {"enabled": True}},
+                              "item 10"),
+                             ("tg", {"tsdf_global": {"enabled": True}},
+                              "item 11")):
+        path = _write_cfg(setup, f"refuse_{name}", **over)
+        with pytest.raises(SystemExit, match=item):
+            tcli.main(["--dataset", str(clip), "--config", str(path),
+                       "--no-viz"], device="cpu")
+    with pytest.raises(SystemExit, match="item 13"):
+        tcli.main(["--dataset", str(clip), "--config", str(cfg_path)],
+                  device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            tcli.main(["--dataset", str(clip), "--config", str(cfg_path),
+                       "--no-viz"])
+
+
+# ---------------------------------------------------------------------------
+# ATE / RPE against the JAX scorers
+# ---------------------------------------------------------------------------
+
+def test_ate_and_rpe_match_jax(tmp_path):
+    from mast3r_slam_tpu import evaluation as JE
+
+    rng = np.random.default_rng(1)
+    ts = np.arange(40, dtype=np.float64) / 10
+    pts = np.cumsum(rng.normal(size=(40, 3)) * 0.05, axis=0)
+    qs = rng.normal(size=(40, 4))
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+
+    def write(path, t, p, q):
+        with open(path, "w") as f:
+            for row in zip(t, p, q):
+                f.write(" ".join(f"{v:.9f}" for v in
+                                 [row[0], *row[1], *row[2]]) + "\n")
+
+    gt, est = tmp_path / "gt.txt", tmp_path / "est.txt"
+    write(gt, ts, pts, qs)
+    noisy = 1.7 * pts + [1.0, -2.0, 0.5] + rng.normal(size=pts.shape) * 0.01
+    write(est, ts[::2] + 0.004, noisy[::2], qs[::2])
+    for align, scale in ((True, True), (True, False), (False, False)):
+        got = TE.ate_rmse(gt, est, align=align, scale=scale)
+        want = JE.ate_rmse(gt, est, align=align, scale=scale)
+        assert got == pytest.approx(want, rel=1e-12, abs=1e-12)
+    for delta in (1, 3):
+        got = TE.rpe_rmse(gt, est, delta=delta)
+        want = JE.rpe_rmse(gt, est, delta=delta)
+        assert got == pytest.approx(want, rel=1e-12, abs=1e-12)
+    assert TE.ate_rmse(gt, gt)["rmse"] < 1e-9
+    res = TE.main_ape([str(gt), str(est), "-as", "--rpe", "2"])
+    assert res["rmse"] == pytest.approx(
+        JE.main_ape([str(gt), str(est), "-as", "--rpe", "2"])["rmse"])
+    # EuRoC's csv layout: nanoseconds and w-first quaternions
+    csv = tmp_path / "data.csv"
+    with open(csv, "w") as f:
+        f.write("#timestamp,x,y,z,qw,qx,qy,qz\n")
+        for t, p, q in zip(ts, pts, qs):
+            f.write(",".join(str(v) for v in
+                             [int(t * 1e9), *p, q[3], q[0], q[1], q[2]])
+                    + "\n")
+    for a, b in zip(TE.load_tum_traj(csv), JE.load_tum_traj(csv)):
+        np.testing.assert_array_equal(a, b)

@@ -1,0 +1,277 @@
+"""Port parity of the data layer: the stdlib PNG codec against OpenCV, the
+cv2-free ``resize_img`` against the JAX package's (which calls
+``cv2.resize``), and the dataset readers against the JAX package's on the
+fixtures of tests/test_datasets.py."""
+
+import numpy as np
+import pytest
+import yaml
+
+cv2 = pytest.importorskip("cv2")
+
+from mast3r_slam_tpu.data import datasets as JD  # noqa: E402
+from mast3r_slam_tpu.data import image_ops as JI  # noqa: E402
+from mast3r_slam_tpu.utils import config as JCfg  # noqa: E402
+from mast3r_slam_tpu_torch.data import datasets as TD  # noqa: E402
+from mast3r_slam_tpu_torch.data import image_ops as TI  # noqa: E402
+from mast3r_slam_tpu_torch.data import png  # noqa: E402
+
+RNG = np.random.default_rng(31)
+FILTERS = ["NONE", "SUB", "UP", "AVG", "PAETH"]
+
+
+def _img(h=48, w=64, c=3):
+    shape = (h, w) if c == 1 else (h, w, c)
+    return (RNG.random(shape) * 255).astype(np.uint8)
+
+
+def _smooth(h=40, w=56):
+    yy, xx = np.mgrid[0:h, 0:w]
+    return np.stack([(xx + yy) % 256, (2 * xx) % 256, (3 * yy) % 256],
+                    -1).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["rgb", "gray", "rgba"])
+@pytest.mark.parametrize("filt", FILTERS)
+def test_png_decode_matches_cv2(tmp_path, kind, filt):
+    """Files cv2 writes with each of the five scanline filters forced."""
+    img = {"rgb": _smooth(), "gray": _smooth()[..., 0],
+           "rgba": np.concatenate([_smooth(), _img(40, 56, 1)[..., None]],
+                                  -1)}[kind]
+    path = tmp_path / "a.png"
+    cv2.imwrite(str(path), img if img.ndim == 2 else img[..., ::-1].copy()
+                if kind == "rgb" else img[..., [2, 1, 0, 3]].copy(),
+                [cv2.IMWRITE_PNG_FILTER,
+                 getattr(cv2, f"IMWRITE_PNG_FILTER_{filt}")])
+    got = png.read_png(path)
+    want = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    if want.ndim == 3:
+        want = want[..., [2, 1, 0, 3][:want.shape[2]]]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, img)
+    rgb = png.read_rgb(path)
+    assert rgb.shape == (40, 56, 3) and rgb.dtype == np.uint8
+
+
+def test_png_decode_noise_all_filters_mixed(tmp_path):
+    """cv2's own adaptive filter choice on noise and on a gradient."""
+    for img in (_img(33, 47), _smooth(64, 96)):
+        path = tmp_path / "b.png"
+        cv2.imwrite(str(path), img[..., ::-1].copy())
+        np.testing.assert_array_equal(png.read_rgb(path), img)
+
+
+def test_png_writer_read_back_by_cv2(tmp_path):
+    img = _img(37, 53)
+    png.write_png(tmp_path / "c.png", img)
+    back = cv2.imread(str(tmp_path / "c.png"), cv2.IMREAD_COLOR)[..., ::-1]
+    np.testing.assert_array_equal(back, img)
+    np.testing.assert_array_equal(png.read_png(tmp_path / "c.png"), img)
+
+
+def test_png_refuses_16_bit_and_interlaced(tmp_path):
+    path = tmp_path / "d.png"
+    cv2.imwrite(str(path), (RNG.random((8, 8, 3)) * 65535).astype(np.uint16))
+    with pytest.raises(ValueError, match="8-bit"):
+        png.read_png(path)
+    data = bytearray(png.encode_png(_img(8, 8)))
+    data[28] = 1                      # IHDR interlace byte (CRC not checked)
+    with pytest.raises(ValueError, match="interlaced"):
+        png.decode_png(bytes(data))
+
+
+@pytest.mark.parametrize("n_in,n_out", [
+    (640, 512), (480, 384), (640, 96), (480, 72), (640, 299),   # TUM
+    (752, 512), (480, 327),                                     # EuRoC
+    (739, 512), (458, 317),                                     # ETH3D
+    (1200, 512), (680, 290),                                    # Replica
+    (500, 512), (333, 341), (400, 512)])                        # enlarging
+def test_resize_weights_match_cv2(n_in, n_out):
+    """The (out, in) weight matrices against cv2.resize of one-hot rows:
+    INTER_AREA when shrinking, INTER_LANCZOS4 when enlarging (cv2 rounds
+    its weights to f32)."""
+    interp = cv2.INTER_AREA if n_out < n_in else cv2.INTER_LANCZOS4
+    eye = np.eye(n_in, dtype=np.float32)
+    want = cv2.resize(eye, (n_out, n_in), interpolation=interp).T
+    np.testing.assert_allclose(TI.resize_weights(n_in, n_out), want,
+                               rtol=0, atol=3e-7)
+
+
+@pytest.mark.parametrize("hw,size", [
+    ((480, 640), 512), ((480, 640), 96), ((480, 640), 224),
+    ((333, 500), 512), ((400, 400), 512), ((480, 752), 512),
+    ((458, 739), 512), ((680, 1200), 512)])
+def test_resize_img_matches_jax(hw, size):
+    """Same crop, true_shape and transformation; img within 1e-5; the uint8
+    display image within one level (both truncate, and a value on an
+    integer may land either side)."""
+    img = RNG.random((*hw, 3)).astype(np.float32)
+    got, gt = TI.resize_img(img, size, return_transformation=True)
+    want, wt = JI.resize_img(img, size, return_transformation=True)
+    np.testing.assert_array_equal(got["true_shape"], want["true_shape"])
+    assert got["img"].shape == want["img"].shape
+    assert got["img"].dtype == np.float32
+    np.testing.assert_allclose(got["img"], want["img"], rtol=0, atol=1e-5)
+    diff = np.abs(got["unnormalized_img"].astype(int)
+                  - want["unnormalized_img"].astype(int))
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+    assert gt == pytest.approx(wt)
+
+
+# ---------------------------------------------------------------------------
+# Datasets: the fixtures of tests/test_datasets.py
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def jax_config():
+    """The JAX readers read the process-global config; set what the port's
+    readers are handed, and restore it after."""
+    saved = dict(JCfg.config)
+    JCfg.config.clear()
+    JCfg.config.update({"dataset": {"img_size": 512}, "use_calib": False})
+    yield {"dataset": {"img_size": 512}, "use_calib": False}
+    JCfg.config.clear()
+    JCfg.config.update(saved)
+
+
+@pytest.fixture
+def tum_dir(tmp_path):
+    d = tmp_path / "rgbd_dataset_freiburg3_desk"
+    (d / "rgb").mkdir(parents=True)
+    rows = []
+    for i in range(4):
+        cv2.imwrite(str(d / "rgb" / f"{i}.png"), _img(480, 640))
+        rows.append(f"{100.0 + i / 30:.6f} rgb/{i}.png")
+    (d / "rgb.txt").write_text("# header\n# header2\n" + "\n".join(rows)
+                               + "\n")
+    return d
+
+
+def _same_dataset(dt, dj):
+    assert type(dt).__name__ == type(dj).__name__
+    assert len(dt) == len(dj)
+    np.testing.assert_array_equal(np.asarray(dt.timestamps),
+                                  np.asarray(dj.timestamps))
+    for i in range(len(dj)):
+        (tt, it), (tj, ij) = dt[i], dj[i]
+        assert tt == tj and it.dtype == np.float32
+        np.testing.assert_array_equal(it, ij)
+    assert dt.get_img_shape() == dj.get_img_shape()
+
+
+def test_tum_matches_jax(tum_dir, jax_config):
+    dt = TD.load_dataset(str(tum_dir), jax_config)
+    dj = JD.load_dataset(str(tum_dir))
+    _same_dataset(dt, dj)
+    np.testing.assert_array_equal(dt.camera_intrinsics.K_orig,
+                                  dj.camera_intrinsics.K_orig)
+    np.testing.assert_allclose(dt.camera_intrinsics.K_frame,
+                               dj.camera_intrinsics.K_frame, rtol=1e-6)
+
+
+@pytest.mark.parametrize("cfg_calib", [False, True])
+def test_calibrated_tum_k_frame(tum_dir, jax_config, cfg_calib):
+    """freiburg3 has no distortion: use_calib turns calibration on, and
+    K_frame is the JAX one at img_size 512 and 96."""
+    for size in (512, 96):
+        cfg = {"dataset": {"img_size": size}, "use_calib": cfg_calib}
+        JCfg.config.clear()
+        JCfg.config.update(cfg)
+        dt = TD.load_dataset(str(tum_dir), cfg)
+        dj = JD.load_dataset(str(tum_dir))
+        assert dt.has_calib() == dj.has_calib() == cfg_calib
+        np.testing.assert_allclose(dt.camera_intrinsics.K_frame,
+                                   dj.camera_intrinsics.K_frame, rtol=1e-6)
+        _same_dataset(dt, dj)
+
+
+def test_distortion_raises_when_used(tmp_path, jax_config):
+    """freiburg1 has distortion: reading without use_calib works; using the
+    calibration (K_frame, remap) raises until undistortion is ported."""
+    d = tmp_path / "rgbd_dataset_freiburg1_xyz"
+    (d / "rgb").mkdir(parents=True)
+    cv2.imwrite(str(d / "rgb" / "0.png"), _img(480, 640))
+    (d / "rgb.txt").write_text("0.0 rgb/0.png\n")
+    ds = TD.load_dataset(str(d), jax_config)
+    assert ds.camera_intrinsics.has_distortion and not ds.has_calib()
+    assert ds[0][1].shape == (480, 640, 3)
+    with pytest.raises(NotImplementedError, match="undistortion"):
+        ds.camera_intrinsics.K_frame
+    ds.use_calibration = True
+    with pytest.raises(NotImplementedError, match="undistortion"):
+        ds[0]
+
+
+def test_euroc_layout_and_gray(tmp_path, jax_config):
+    """EuRoC: gray PNGs, nanosecond stems, sensor.yaml; always undistorts,
+    so a frame read raises in the port."""
+    d = tmp_path / "euroc_MH01"
+    cam = d / "mav0" / "cam0"
+    (cam / "data").mkdir(parents=True)
+    for i in range(3):
+        cv2.imwrite(str(cam / "data" / f"{int(1e18) + i * int(5e7)}.png"),
+                    _img(48, 64, 1))
+    (cam / "sensor.yaml").write_text(yaml.safe_dump({
+        "intrinsics": [458.6, 457.3, 367.2, 248.4],
+        "distortion_coefficients": [-0.28, 0.07, 2e-5, 1.8e-5],
+        "resolution": [64, 48],
+    }))
+    dt = TD.load_dataset(str(d), jax_config)
+    dj = JD.load_dataset(str(d))
+    assert isinstance(dt, TD.EurocDataset) and dt.use_calibration
+    np.testing.assert_array_equal(dt.timestamps, dj.timestamps)
+    gray = dt.read_img(1)
+    np.testing.assert_array_equal(gray, dj.read_img(1))
+    with pytest.raises(NotImplementedError):
+        dt[0]
+
+
+def test_seven_scenes_rgbfiles_eth3d_replica(tmp_path, jax_config):
+    d = tmp_path / "7scenes_chess"
+    (d / "seq-01").mkdir(parents=True)
+    for i in range(3):
+        cv2.imwrite(str(d / "seq-01" / f"frame-{i:06d}.color.png"), _img())
+    _same_dataset(TD.load_dataset(str(d), jax_config),
+                  JD.load_dataset(str(d)))
+
+    f = tmp_path / "frames"
+    f.mkdir()
+    for i in (10, 2, 1):
+        cv2.imwrite(str(f / f"img{i}.png"), _img())
+    dt = TD.load_dataset(str(f), jax_config)
+    _same_dataset(dt, JD.load_dataset(str(f)))
+    assert [p.name for p in dt.files] == ["img1.png", "img2.png",
+                                          "img10.png"]
+
+    e = tmp_path / "eth3d_table"
+    (e / "rgb").mkdir(parents=True)
+    for i in range(2):
+        cv2.imwrite(str(e / "rgb" / f"{i}.png"), _img(45, 67))
+    (e / "rgb.txt").write_text("1.0 rgb/0.png\n2.0 rgb/1.png\n")
+    (e / "calibration.txt").write_text("50 51 33 22\n")
+    dt, dj = TD.load_dataset(str(e), jax_config), JD.load_dataset(str(e))
+    _same_dataset(dt, dj)
+    np.testing.assert_allclose(dt.camera_intrinsics.K_frame,
+                               dj.camera_intrinsics.K_frame, rtol=1e-6)
+
+    r = tmp_path / "replica_room0"
+    (r / "results").mkdir(parents=True)
+    for i in range(2):
+        cv2.imwrite(str(r / "results" / f"frame{i:06d}.png"), _img(68, 120))
+    (r / "cam_params.json").write_text(
+        '{"camera": {"w": 120, "h": 68, "fx": 60, "fy": 60, "cx": 60, '
+        '"cy": 34}}')
+    dt, dj = TD.load_dataset(str(r), jax_config), JD.load_dataset(str(r))
+    _same_dataset(dt, dj)
+    np.testing.assert_allclose(dt.camera_intrinsics.K_frame,
+                               dj.camera_intrinsics.K_frame, rtol=1e-6)
+
+
+def test_natsorted_and_unported_readers():
+    assert [str(p) for p in TD.natsorted(["f10.png", "f2.png", "f1.png"])] \
+        == [str(p) for p in JD.natsorted(["f10.png", "f2.png", "f1.png"])]
+    for path in ("clip.mp4", "webcam", "webcam:1", "realsense"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            TD.load_dataset(path)
+    with pytest.raises(ValueError, match="unrecognized"):
+        TD.load_dataset("/nonexistent/path")

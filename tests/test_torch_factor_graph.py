@@ -413,8 +413,9 @@ def test_backend_states_queue_and_hint():
     assert s.take_kf_match_hint(2, 3) is None     # not this edge: kept
     assert s.take_kf_match_hint(3, 4) == (3, 4, "idx", "valid", "Q")
     assert s.take_kf_match_hint() is None
-    s.set_kf_match_hint(3, 4, "idx")
-    assert s.take_kf_match_hint() == (3, 4, "idx")
+    s.set_kf_match_hint(4, 5, "idx", "valid", "Q")
+    s.set_kf_match_hint(5, 6, "idx2", "valid2", "Q2")   # the newest wins
+    assert s.take_kf_match_hint() == (5, 6, "idx2", "valid2", "Q2")
     s.set_edges([0, 1], [1, 2])
     assert (s.edges_ii, s.edges_jj) == ([0, 1], [1, 2])
     assert s.pop_global_optimization() == 4
@@ -517,17 +518,22 @@ def test_hint_path_matches_symmetric_path(model_graphs):
                                rtol=1e-4, atol=1e-5)
 
 
-def test_legacy_hint_warm_starts_the_symmetric_matcher(model_graphs):
-    """A 3-tuple hint only initializes the j→i matcher: the edge is still
-    the symmetric path's, and equals it when the init is the identity."""
+def test_hint_for_another_edge_is_not_used(model_graphs):
+    """A hint whose (i, j) is not an edge of the batch leaves the edge to
+    the symmetric path; a hint that is not the 5-tuple raises."""
     _, _, mt, kt, *_ = model_graphs
     g_full = TFG.FactorGraph(mt, kt, LOCAL_CFG)
     g_full.add_factors([0], [1], 0.0)
-    g_leg = TFG.FactorGraph(mt, kt, LOCAL_CFG)
-    g_leg.add_factors([0], [1], 0.0,
-                      init_hint=(0, 1, torch.arange(H_M * W_M)))
-    assert torch.equal(g_leg.idx_jj2ii, g_full.idx_jj2ii)
-    assert torch.equal(g_leg.idx_ii2jj, g_full.idx_ii2jj)
+    n = H_M * W_M
+    hint = (1, 2, torch.zeros(n, dtype=torch.long),
+            torch.zeros(n, 1, dtype=torch.bool), torch.zeros(n, 1))
+    g_other = TFG.FactorGraph(mt, kt, LOCAL_CFG)
+    g_other.add_factors([0], [1], 0.0, init_hint=hint)
+    assert torch.equal(g_other.idx_jj2ii, g_full.idx_jj2ii)
+    assert torch.equal(g_other.idx_ii2jj, g_full.idx_ii2jj)
+    with pytest.raises(ValueError, match="init_hint"):
+        TFG.FactorGraph(mt, kt, LOCAL_CFG).add_factors(
+            [0], [1], 0.0, init_hint=(0, 1, torch.arange(n)))
 
 
 def test_geometric_warm_start_matches_jax(model_graphs):

@@ -16,9 +16,8 @@ from mast3r_slam_tpu.models.inference import _mono_core as j_mono_core
 from mast3r_slam_tpu_torch.models import layers as TL
 from mast3r_slam_tpu_torch.models import mast3r as TM
 from mast3r_slam_tpu_torch.models.inference import MASt3RInference
-from mast3r_slam_tpu_torch.slam.pipeline import create_frame
 from torch_parity import torch_one_thread  # noqa: F401
-from torch_parity import assert_close, tiny_weights, to_np
+from torch_parity import assert_close, crop_frame, tiny_weights, to_np
 
 HW = (64, 96)
 RNG = np.random.default_rng(41)
@@ -90,7 +89,7 @@ def test_inference_mono_matches_jax():
     pj, pt = JM.prepare_params(pj, cj), TM.prepare_params(pt, ct)
     fj, _, Xj, Cj = j_mono_core(pj, cj, jnp.asarray(IMG1), HW)
     model = MASt3RInference(pt, ct)
-    frame = create_frame(0, IMG1[0], device="cpu")
+    frame = crop_frame(0, IMG1[0])
     Xt, Ct = model.inference_mono(frame)
     assert Xt.shape == (1, HW[0] * HW[1], 3) and Ct.shape[-1] == 1
     assert_close(Xt, Xj)
@@ -104,7 +103,7 @@ def test_asymmetric_inference_matches_jax():
     the same decode, stacked [ii, ji]."""
     _, _, ct, pt = tiny_weights()
     pt = TM.prepare_params(pt, ct)
-    frames = [create_frame(i, im[0], device="cpu")
+    frames = [crop_frame(i, im[0])
               for i, im in enumerate((IMG1, IMG2))]
     got = MASt3RInference(pt, ct).asymmetric_inference(*frames)
     rj = _forward("float32")["heads"][1]

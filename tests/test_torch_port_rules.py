@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from mast3r_slam_tpu_torch import _build
+from mast3r_slam_tpu_torch import main as cli
 from mast3r_slam_tpu_torch.models import convert, mast3r
 from mast3r_slam_tpu_torch.ops import ba_kernels as BA
 from mast3r_slam_tpu_torch.ops import conv3x3 as C3
@@ -19,7 +20,7 @@ from mast3r_slam_tpu_torch.utils import oracle_scene
 
 ROOT = Path(__file__).resolve().parents[1]
 _FORBIDDEN = re.compile(
-    r"^\s*(import|from)\s+jax\b|^\s*import\s+mast3r_slam_tpu\b"
+    r"^\s*(import|from)\s+(jax|cv2|PIL)\b|^\s*import\s+mast3r_slam_tpu\b"
     r"|^\s*from\s+mast3r_slam_tpu\s+import|mast3r_slam_tpu\.", re.M)
 
 
@@ -29,8 +30,15 @@ def _port_sources():
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    """Nor OpenCV or PIL, which the card machine lacks."""
     files = _port_sources()
-    assert len(files) > 15
+    assert len(files) > 25
+    names = {str(f.relative_to(ROOT)) for f in files}
+    for mod in ("main.py", "evaluation.py", "data/png.py",
+                "data/image_ops.py", "data/datasets.py",
+                "slam/retrieval.py", "slam/pipeline.py",
+                "utils/checkpoint.py", "utils/tictoc.py"):
+        assert f"mast3r_slam_tpu_torch/{mod}" in names, mod
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert not hits, hits
@@ -39,7 +47,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 @pytest.mark.parametrize("fn,arg", [
     (mast3r.init_params, "device"), (convert.params_from_jax, "device"),
     (pipeline.create_frame, "device"), (frame.KeyframeBuffer, "device"),
-    (oracle_scene.run_oracle_slam, "device")])
+    (oracle_scene.run_oracle_slam, "device"), (cli.main, "device"),
+    (cli.build_model, "device"), (oracle_scene.OracleWorld, "device")])
 def test_entry_points_default_to_cuda(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
 
@@ -94,6 +103,18 @@ def test_k2_wrapper_on_cpu_is_the_plain_version():
     assert C3.counter.launches == before
 
 
+def test_k3_wrapper_on_cpu_is_the_plain_version():
+    rng = np.random.default_rng(64)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 2, n, 64))
+                                .astype(np.float32)) for n in (20, 33, 33))
+    before = (FA.attn_counter.launches, FA.counter.launches)
+    assert torch.equal(FA.flash_attention(q, k, v),
+                       FA.flash_attention_ref(q, k, v))
+    assert torch.equal(mast3r.attention(q, k, v),
+                       FA.flash_attention_ref(q, k, v))
+    assert (FA.attn_counter.launches, FA.counter.launches) == before
+
+
 def test_wrappers_refuse_other_devices():
     """Only CPU tensors take the plain version; anything else launches the
     kernel or raises (here: tensors on the meta device)."""
@@ -101,6 +122,8 @@ def test_wrappers_refuse_other_devices():
     tab = torch.empty(1, 8, 64, device="meta")
     with pytest.raises(ValueError, match="device"):
         FA.flash_attention_rope(q, q, q, tab, tab, tab, tab)
+    with pytest.raises(ValueError, match="device"):
+        FA.flash_attention(q, q, q)
     x = torch.empty(1, 4, 4, 8, device="meta")
     w = torch.empty(3, 3, 8, 8, device="meta")
     with pytest.raises(ValueError, match="device"):

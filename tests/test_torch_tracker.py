@@ -20,9 +20,8 @@ from mast3r_slam_tpu_torch.models.inference import (MASt3RInference,
 from mast3r_slam_tpu_torch.ops import lie as TL
 from mast3r_slam_tpu_torch.slam import tracker as TT
 from mast3r_slam_tpu_torch.slam.frame import KeyframeBuffer, median
-from mast3r_slam_tpu_torch.slam.pipeline import create_frame
 from torch_parity import torch_one_thread  # noqa: F401
-from torch_parity import assert_close, tiny_weights, to_np
+from torch_parity import assert_close, crop_frame, tiny_weights, to_np
 
 RNG = np.random.default_rng(51)
 t_ = torch.from_numpy
@@ -315,12 +314,12 @@ def test_frame_tracker_drives_track_core_on_cpu():
                          device="cpu")
     tracker = TT.FrameTracker(model, kfs, cfg)
     imgs = _frames(3)
-    f0 = create_frame(0, imgs[0], device="cpu")
+    f0 = crop_frame(0, imgs[0])
     X, C = model.inference_mono(f0)
     f0.update_pointmap(X[0], C[0])
     kfs.append(f0)
     X0 = kfs.X[0].clone()
-    f1 = create_frame(1, imgs[1], T_WC=f0.T_WC, device="cpu")
+    f1 = crop_frame(1, imgs[1], T_WC=f0.T_WC)
     new_kf, info, reloc = tracker.track(f1)
     assert not reloc
     assert kfs.N[0] == 2 and kfs.version[0] == 1
@@ -344,11 +343,11 @@ def test_new_keyframe_records_the_backend_match_hint():
         kfs = KeyframeBuffer(*HW, capacity=4, feat_dim=ct.enc_embed_dim,
                              device="cpu")
         tracker = TT.FrameTracker(model, kfs, cfg)
-        f0 = create_frame(0, imgs[0], device="cpu")
+        f0 = crop_frame(0, imgs[0])
         X, C = model.inference_mono(f0)
         f0.update_pointmap(X[0], C[0])
         kfs.append(f0)
-        f1 = create_frame(1, imgs[1], T_WC=f0.T_WC, device="cpu")
+        f1 = crop_frame(1, imgs[1], T_WC=f0.T_WC)
         new_kf, _, reloc = tracker.track(f1)
         assert not reloc and new_kf == want_kf
         if not want_kf:

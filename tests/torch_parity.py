@@ -82,6 +82,22 @@ def tiny_weights(tie_streams: bool = False, **cfg_kw):
     return cj, pj, ct, pt
 
 
+def crop_frame(frame_id, img, T_WC=None):
+    """A CPU Frame of an image already at the model crop, ``img (H, W, 3)``
+    ImgNorm'd to [-1, 1] (H, W multiples of 16): the model input is the
+    image itself, bit for bit, with no resize. The display image is
+    derived from it."""
+    from mast3r_slam_tpu_torch.ops import lie
+    from mast3r_slam_tpu_torch.slam.frame import Frame
+
+    img = torch.as_tensor(np.asarray(img), dtype=torch.float32)
+    h, w = int(img.shape[0]), int(img.shape[1])
+    return Frame(frame_id=frame_id, img=img, img_shape=(h, w),
+                 img_true_shape=(h, w),
+                 uimg=((img.numpy() + 1.0) * 0.5).astype(np.float32),
+                 T_WC=lie.identity() if T_WC is None else T_WC)
+
+
 def ba_edges(seed, E=5, N=2048, cap=6):
     """Numpy-seeded BA edges (the ``tests/test_ba_fused.py`` recipe): poses
     ``T (cap, 8)``, pointmaps in front of the cameras, confidences, edge
