@@ -30,22 +30,28 @@ then:
    counts and types of the backend, with their times, each Gram entry
    against the scale of its own rows (and shows that this comparison
    rejects a Gram with its smallest residual dropped or flipped);
-6. runs the oracle SLAM harness at 384x512 (exact geometry plus noise in
+6. holds K4', the Gram microbenchmark's four kernels (the channel sum, the
+   row sum, the diagonal blocks and the full Gram as one product), against
+   their plain versions on the benchmark's inputs at 16 and 128 edges with
+   their times, then runs the benchmark itself
+   (``mast3r_slam_tpu_torch.bench.gram_kernel_bench``, its default run and
+   ``--r2``) with exact launch counts and its agreement lines in tolerance;
+7. runs the oracle SLAM harness at 384x512 (exact geometry plus noise in
    place of the network) for the ray and the calibrated BA, checks that the
    BA recovers the trajectory, cross-checks one Gram and one system build
    on the card against the CPU, and reruns the BA's LM loop from kicked
    keyframe poses on the card and on the CPU: several accepted steps, the
    trajectory recovered, both runs ending at the same poses;
-7. runs the port's CLI (``mast3r_slam_tpu_torch.main.main``) at full ViT-L
+8. runs the port's CLI (``mast3r_slam_tpu_torch.main.main``) at full ViT-L
    width on a 24-frame TUM clip it writes (an out-and-back pan), checking
    every frame processed, at least 8 keyframes, a retrieval edge, the
    exported trajectory, PLYs and keyframe PNGs, and each kernel's launches
    against the run's own model calls and LM iterations; then a calibrated
    run (K5), a checkpoint restored bit for bit and resumed, and a threaded
    run that drains;
-8. runs the CLI with one reduced-depth f32 model on the card and on the
+9. runs the CLI with one reduced-depth f32 model on the card and on the
    CPU: the same modes, keyframes and edges, and the same poses;
-9. runs the relocalization episode of ``tests/test_oracle_reloc.py`` at
+10. runs the relocalization episode of ``tests/test_oracle_reloc.py`` at
    384x512: a teleport recovered within the JAX test's bounds, an impostor
    rejected and rolled back.
 
@@ -142,16 +148,28 @@ def time_ms(fn, iters=20, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
 
 
+K4P = (("K4'a", "load"), ("K4'b", "rows"), ("K4'c", "diag"),
+       ("K4'd", "one_product"))
+
+
+def k4p_counters():
+    from mast3r_slam_tpu_torch.ops import gram_variants as GV
+
+    return {key: getattr(GV, f"{name}_counter") for key, name in K4P}
+
+
 def reset_counters(FA, C3, BA):
     for c in (FA.counter, FA.attn_counter, C3.counter, BA.rays_counter,
-              BA.calib_counter):
+              BA.calib_counter, *k4p_counters().values()):
         c.launches = 0
 
 
 def launch_counts(FA, C3, BA):
-    return {"K1": FA.counter.launches, "K2": C3.counter.launches,
-            "K3": FA.attn_counter.launches, "K4": BA.rays_counter.launches,
-            "K5": BA.calib_counter.launches}
+    out = {"K1": FA.counter.launches, "K2": C3.counter.launches,
+           "K3": FA.attn_counter.launches, "K4": BA.rays_counter.launches,
+           "K5": BA.calib_counter.launches}
+    out.update({k: c.launches for k, c in k4p_counters().items()})
+    return out
 
 
 def sync_clock(torch):
@@ -436,6 +454,8 @@ def phase_main_path(torch, FA, C3, BA):
     k1, k2 = FA.counter.launches, C3.counter.launches
     check(BA.rays_counter.launches == BA.calib_counter.launches == 0,
           "a BA kernel ran on the tracking path")
+    check(not any(c.launches for c in k4p_counters().values()),
+          "a K4' kernel ran on the tracking path")
 
     check(len(outputs) == N_FRAMES - 1,
           f"track_core ran {len(outputs)} times, expected {N_FRAMES - 1}")
@@ -495,11 +515,11 @@ def phase_event(torch, FA, C3, BA, state):
     marks.append(sync_clock(torch))
     graph.solve_GN_rays()
     marks.append(sync_clock(torch))
-    launches = {"K1": FA.counter.launches, "K2": C3.counter.launches,
-                "K4": BA.rays_counter.launches,
-                "K5": BA.calib_counter.launches}
+    launches = {k: v for k, v in launch_counts(FA, C3, BA).items()
+                if k != "K3"}
     want = {"K1": 2 * K1_PER_DECODE, "K2": 2 * 2 * K2_PER_HEAD,
             "K4": 1 + graph.last_solve_iters, "K5": 0}
+    want.update({key: 0 for key, _ in K4P})
     log(f"event launches: {launches} (want {want}); "
         f"LM iterations {graph.last_solve_iters}")
     check(launches == want, "keyframe event launch counts")
@@ -685,6 +705,131 @@ def phase_ba_kernels(torch, BA):
 
 
 # ---------------------------------------------------------------------------
+# Phase: K4', the Gram microbenchmark's four kernels, and the benchmark
+# ---------------------------------------------------------------------------
+
+# (E, N) of the K4' checks; the second is the production shape, the table's
+K4P_SHAPES = ((16, 98_304), (128, 98_304))
+# f32 operations a pixel of K4's 32 rows take on the CUDA cores: transform
+# 18, norm and rays 10, residuals and sqrt(conf) 6, per residual channel
+# Huber and weight 7 and the 8 rows 19 (x 4), the rows' sum 31
+ROWS_FLOPS = 169
+K4P_SUM_TOL = 1e-5      # of the sum of |terms|, float64
+
+
+def k4p_case(torch, GV, BA, name, rts, meas, sig):
+    """One K4' kernel against its plain version; returns (max abs error,
+    kernel ms, plain ms, library ms or None, bound ms, bound by)."""
+    bf16 = torch.bfloat16
+    E, N = meas[0].shape
+    fn = getattr(GV, f"gram_{name}")
+    ref = getattr(GV, f"gram_{name}_ref")
+    args = (rts, meas) if name == "load" else (rts, meas, *sig)
+    kw = {} if name in ("load", "rows") else dict(compute_dtype=bf16)
+    out = fn(*args, **kw)
+    want = ref(*args, **kw)
+    torch.cuda.synchronize()
+    tag = f"K4' {name} E={E} N={N}"
+    check(bool(out.isfinite().all()), f"{tag}: non-finite output")
+    if name in ("load", "rows"):
+        scale = GV.abs_sum(*args)
+        rel = ((out.double() - want.double()).abs() / scale).max().item()
+        check(rel <= K4P_SUM_TOL, f"{tag}: error {rel:.3e} of the sum of "
+              f"|terms| > {K4P_SUM_TOL:.0e}")
+        err = (out.double() - want.double()).abs().max().item()
+        del scale
+    else:
+        err, rel = compare_gram(BA, out, want, "bfloat16", tag)
+    check(torch.equal(out, fn(*args, **kw)), f"{tag}: two launches differ")
+    t_k = time_ms(lambda: fn(*args, **kw))
+    t_p = time_ms(lambda: ref(*args, **kw), iters=5, warmup=1)
+    t_l = None
+    if name == "load":
+        stack = torch.stack(meas)
+        t_l = time_ms(lambda: torch.sum(stack, dim=(0, 2),
+                                        dtype=torch.float32))
+        del stack
+    elif name in ("diag", "one_product"):
+        rows, k = (8, 4 * N) if name == "diag" else (32, N)
+        S = torch.randn(E, rows, k, device="cuda").to(bf16)
+        t_l = time_ms(lambda: torch.bmm(S, S.transpose(1, 2)))
+        del S
+    out_floats = out.numel()
+    nbytes = (8 * E * N * meas[0].element_size() + rts.numel() * 4
+              + out_floats * 4)
+    t_bytes = nbytes / PEAK_BYTES
+    t_f32 = (8 if name == "load" else ROWS_FLOPS) * E * N / PEAK_FLOPS[
+        "float32"]
+    mma = {"diag": 4 * 2 * 8 * 8, "one_product": 2 * 32 * 32}.get(name, 0)
+    t_mma = mma * E * N / PEAK_FLOPS["bfloat16"]
+    bnd = max(t_bytes, t_f32, t_mma) * 1e3
+    by = "bytes" if t_bytes >= max(t_f32, t_mma) else "operations"
+    lib = "none" if t_l is None else f"{t_l:.4f} ms"
+    what = "of sum|terms|" if name in ("load", "rows") else "Gram"
+    log(f"{tag:30s} error {rel:.2e} ({what}; abs {err:.3e}) kernel "
+        f"{t_k:.4f} ms plain {t_p:.4f} "
+        f"ms library {lib} bound {bnd * 1e3:.2f} us ({by})")
+    return err, t_k, t_p, t_l, bnd, by
+
+
+def phase_gram_bench(torch, FA, C3, BA):
+    """K4' (``ops/gram_variants.py``) against its plain versions on the
+    benchmark's inputs at ``K4P_SHAPES`` with bf16 channels and rows, with
+    times; then the benchmark itself (its default run and ``--r2``) with
+    every launch counter at 0 before and read after, and its agreement
+    lines against ``GRAM_TOL``."""
+    from mast3r_slam_tpu_torch.bench import gram_kernel_bench as GB
+    from mast3r_slam_tpu_torch.ops import gram_variants as GV
+
+    sig = (GB.SIGMA_RAY, GB.SIGMA_DIST)
+    report = {}
+    for E, N in K4P_SHAPES:
+        rts, meas = GB.make_inputs(E, N, "cuda")
+        for key, name in K4P:
+            err, t_k, t_p, t_l, bnd, by = k4p_case(torch, GV, BA, name, rts,
+                                                   meas, sig)
+            row = report.setdefault(key, dict(err=0.0))
+            row["err"] = max(row["err"], err)
+            if (E, N) == K4P_SHAPES[-1]:
+                row.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                           bound_ms=bnd, by=by)
+        del rts, meas
+        torch.cuda.empty_cache()
+
+    reset_counters(FA, C3, BA)
+    default = GB.main([])
+    r2 = GB.main(["--r2"])
+    torch.cuda.synchronize()
+    launches = launch_counts(FA, C3, BA)
+    per_call = 3 + 20                     # the benchmark's warm-up + reps
+    want = {"K1": 0, "K2": 0, "K3": 0, "K5": 0,
+            "K4'a": per_call, "K4'b": per_call, "K4'c": per_call + 1,
+            "K4'd": per_call + 1,
+            "K4": 2 * (per_call + 1) + per_call * len(r2.get("grid", {}))}
+    log(f"gram bench launches: {launches} (want {want})")
+    check(launches == want, "gram bench launch counts")
+    for what, a in (("v3 vs v0", default["v3_vs_v0"]),
+                    ("v2c vs v0", r2["v2c_vs_v0"])):
+        check(a["gram_error"] <= GRAM_TOL["bfloat16"],
+              f"gram bench {what}: Gram error {a['gram_error']:.3e} > "
+              f"{GRAM_TOL['bfloat16']:.0e}")
+    sweep = {f"{g[0]}x{g[1]}": round(t, 4)
+             for g, t in r2.get("grid", {}).items()}
+    log(f"gram bench (E = {GB.EDGES}, N = {GB.PIXELS}, bf16): v1 load "
+        f"{default['ms']['v1']:.4f} ms, v2 rows {default['ms']['v2']:.4f}, "
+        f"v3 diag {default['ms']['v3']:.4f}, v0 (K4) "
+        f"{default['ms']['v0']:.4f}; v2c one product "
+        f"{r2['ms']['v2c']:.4f} vs v0 {r2['ms']['v0']:.4f}; K4 grid sweep "
+        f"{sweep}; agreement v3 vs v0 "
+        f"{default['v3_vs_v0']['gram_error']:.2e}, "
+        f"v2c vs v0 {r2['v2c_vs_v0']['gram_error']:.2e} (gram_error)")
+    for key, _ in K4P:
+        report[key]["launches"] = launches[key]
+    torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
 # Phase: oracle SLAM at 384x512 (ray and calibrated BA)
 # ---------------------------------------------------------------------------
 
@@ -707,6 +852,8 @@ def phase_oracle(torch, FA, C3, BA):
         t_run = time.perf_counter() - t0
         p = r["ba_problem"]
         launches[name] = counter.launches
+        check(not any(c.launches for c in k4p_counters().values()),
+              f"oracle {kind}: a K4' kernel ran")
         log(f"oracle {kind}: {t_run:.1f} s, keyframes {r['kf_ids']}, "
             f"skipped {r['n_skipped']}, relocs {r['n_relocs']}, ATE track "
             f"{r['ate_track'] * 1e3:.3f} mm, ATE BA {r['ate_ba'] * 1e3:.3f} "
@@ -1091,8 +1238,10 @@ def expected_launches(calls, calib):
     k2 = K2_PER_HEAD * c["mono"] + 2 * K2_PER_HEAD * (
         c["track"] + c["oneway"] + c["symmetric"])
     ba = c["solves"] + c["lm_iters"]
-    return {"K1": k1, "K2": k2, "K3": 0, "K4": 0 if calib else ba,
-            "K5": ba if calib else 0}
+    out = {"K1": k1, "K2": k2, "K3": 0, "K4": 0 if calib else ba,
+           "K5": ba if calib else 0}
+    out.update({key: 0 for key, _ in K4P})      # the benchmark's alone
+    return out
 
 
 def check_ply(path):
@@ -1489,6 +1638,8 @@ def phase_reloc(torch, FA, C3, BA):
     check(t_err < 0.05 and q_err < 0.05 and s_err < 0.12,
           "reloc: pose outside the JAX test's bounds")
     check(BA.rays_counter.launches >= 2, "reloc: the global solve skipped K4")
+    check(not any(c.launches for c in k4p_counters().values()),
+          "reloc: a K4' kernel ran")
 
     world.observe(200, pose(8.0))
     impostor = world.make_frame(200)
@@ -1503,8 +1654,8 @@ def phase_reloc(torch, FA, C3, BA):
     return dict(t_err=t_err, q_err=q_err, s_err=s_err, ms=t_rel)
 
 
-PHASES = ("kernels", "main", "event", "cross", "ba_kernels", "oracle",
-          "cli", "cli_cross", "reloc")
+PHASES = ("kernels", "main", "event", "cross", "ba_kernels", "gram_bench",
+          "oracle", "cli", "cli_cross", "reloc")
 
 
 def main():
@@ -1569,6 +1720,7 @@ def main():
         torch.cuda.empty_cache()
     run("cross", phase_cross_check, torch)
     gram = run("ba_kernels", phase_ba_kernels, torch, BA)
+    k4p = run("gram_bench", phase_gram_bench, torch, FA, C3, BA)
     oracle = run("oracle", phase_oracle, torch, FA, C3, BA)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
         cli = run("cli", phase_cli, torch, FA, C3, BA, work)
@@ -1630,6 +1782,18 @@ def main():
          "library_ms": gram[key]["library_ms"]}
         for key, name, line in (("K4", "gram_rays", 216),
                                 ("K5", "gram_calib", 232))
+    ] + [
+        {"name": f"gram_{name}", "route": "cuda",
+         "source": "mast3r_slam_tpu_torch/csrc/ba_gram.cu",
+         "replaces": f"scripts/gram_kernel_bench.py:{line}",
+         "launches": k4p[key]["launches"],
+         "max_abs_err": k4p[key]["err"],
+         "ms": k4p[key]["ms"],
+         "plain_ms": k4p[key]["plain_ms"],
+         "bound_ms": k4p[key]["bound_ms"],
+         "bound_by": k4p[key]["by"],
+         "library_ms": k4p[key]["library_ms"]}
+        for (key, name), line in zip(K4P, (62, 75, 115, 256))
     ]}
     log(f"K3's numbers are one call at the encoder shape (1, 16, 768, "
         f"768), bf16 (library: F.scaled_dot_product_attention); no path "
@@ -1640,7 +1804,15 @@ def main():
         f"{GRAM_REPORT[0]}, N = {GRAM_REPORT[1]}, bf16 channels and rows "
         f"(library: torch.bmm of a pre-built bf16 row stack, Gram only). "
         f"Launches: K1/K2 on the main path, K4 in the keyframe event, K5 "
-        f"in the calibrated oracle BA")
+        f"in the calibrated oracle BA. K4'a-d (the Gram microbenchmark's "
+        f"bodies, scripts/gram_kernel_bench.py's run_variant at :165): ms "
+        f"at E = {K4P_SHAPES[-1][0]}, N = {K4P_SHAPES[-1][1]}, bf16 "
+        f"channels and rows (library: torch.sum of an (8, E, N) bf16 stack "
+        f"for K4'a, none for K4'b, torch.bmm of an (E, 8, 4N) / (E, 32, N) "
+        f"bf16 stack for K4'c / K4'd); launches are the benchmark's own run "
+        f"(python -m mast3r_slam_tpu_torch.bench.gram_kernel_bench, default "
+        f"and --r2), 0 on every SLAM path (main, event, oracle, cli, reloc "
+        f"checked)")
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

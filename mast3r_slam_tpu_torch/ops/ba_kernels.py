@@ -86,9 +86,9 @@ def _gram(rows, compute_dtype):
     return (S @ S.transpose(1, 2)).float()
 
 
-def gram_rays_ref(rts, meas, sigma_ray, sigma_dist,
-                  compute_dtype=torch.bfloat16):
-    """Plain version of :func:`gram_rays`."""
+def rays_rows(rts, meas, sigma_ray, sigma_dist):
+    """The 32 weighted float32 rows ``[J_d ; rho_d]`` of the ray residual,
+    each ``(E, N)``, unrounded (K4's per-pixel arithmetic)."""
     mx, my, mz, di, cf, xj, yj, zj = (ch.float() for ch in meas)
     px, py, pz = _transform(rts, xj, yj, zj)
     d = torch.sqrt(px * px + py * py + pz * pz).clamp_min(1e-12)
@@ -103,8 +103,14 @@ def gram_rays_ref(rts, meas, sigma_ray, sigma_dist,
         [rx, ry, rz],
     ]
     sigmas = (sigma_ray, sigma_ray, sigma_ray, sigma_dist)
-    rows = _weighted_rows(rho, d_res, sqc, sigmas, px, py, pz)
-    return _gram(rows, as_dtype(compute_dtype))
+    return _weighted_rows(rho, d_res, sqc, sigmas, px, py, pz)
+
+
+def gram_rays_ref(rts, meas, sigma_ray, sigma_dist,
+                  compute_dtype=torch.bfloat16):
+    """Plain version of :func:`gram_rays`."""
+    return _gram(rays_rows(rts, meas, sigma_ray, sigma_dist),
+                 as_dtype(compute_dtype))
 
 
 def gram_calib_ref(rts, meas, img_size, pixel_border, z_eps, sigma_pixel,
@@ -137,16 +143,18 @@ def gram_calib_ref(rts, meas, img_size, pixel_border, z_eps, sigma_pixel,
 
 
 def gram_rays(rts, meas, sigma_ray, sigma_dist,
-              compute_dtype=torch.bfloat16):
+              compute_dtype=torch.bfloat16, grid=None):
     """Per-edge Gram of the weighted ray-residual system.
 
     ``rts (E, 13)``: ``[s*R (row-major 9) | t (3) | edge_mask]`` of the
     relative pose ``T_i^{-1} T_j``; ``meas``: the 8 ray channels
-    ``(mx, my, mz, di, conf, xj, yj, zj)``, each ``(E, N)``."""
+    ``(mx, my, mz, di, conf, xj, yj, zj)``, each ``(E, N)``. ``grid``
+    overrides the kernel's ``(blocks_per_edge, tiles_per_block)`` (the
+    Gram microbenchmark's sweep; the solver never passes it)."""
     if rts.device.type == "cpu":
         return gram_rays_ref(rts, meas, sigma_ray, sigma_dist, compute_dtype)
     G = _launch(0, rts, meas, compute_dtype,
-                (sigma_ray, sigma_dist, 0.0, 0.0, 0.0, 0.0, 0.0))
+                (sigma_ray, sigma_dist, 0.0, 0.0, 0.0, 0.0, 0.0), grid)
     rays_counter.add()
     return G
 
@@ -196,21 +204,22 @@ def gram_error(G, G_ref):
     return rel.max().item()
 
 
-def grid_shape(E, N, sm_count):
+def grid_shape(E, N, sm_count, tile=THREADS):
     """``(blocks_per_edge, tiles_per_block)``: enough blocks to give every
     SM ``BLOCKS_PER_SM`` at small E, each walking a contiguous run of
-    256-pixel tiles."""
-    n_tiles = math.ceil(N / THREADS)
+    ``tile``-pixel tiles."""
+    n_tiles = math.ceil(N / tile)
     want = max(1, min(n_tiles, math.ceil(BLOCKS_PER_SM * sm_count / E)))
     tiles = math.ceil(n_tiles / want)
     return math.ceil(n_tiles / tiles), tiles
 
 
-def _launch(kind, rts, meas, compute_dtype, scalars):
+def check_inputs(rts, meas, n_ch, cols):
+    """``(E, N, channel dtype, rts, meas)`` of a Gram kernel's inputs, made
+    contiguous (float32 ``rts``); raises on a device other than CUDA, a
+    wrong count, shape or type."""
     if rts.device.type != "cuda":
         raise ValueError(f"unsupported device {rts.device}")
-    n_ch = 8 if kind == 0 else 7
-    cols = 13 if kind == 0 else 17
     if len(meas) != n_ch:
         raise ValueError(f"expected {n_ch} measured channels, got "
                          f"{len(meas)}")
@@ -228,11 +237,17 @@ def _launch(kind, rts, meas, compute_dtype, scalars):
                 f"every channel must be ({E}, N) {dt} on {rts.device}")
     if N <= 0:
         raise ValueError("no pixels")
+    return (E, N, dt, rts.float().contiguous(),
+            [ch.contiguous() for ch in meas])
+
+
+def _launch(kind, rts, meas, compute_dtype, scalars, grid=None):
+    n_ch = 8 if kind == 0 else 7
+    E, N, dt, rts, meas = check_inputs(rts, meas, n_ch,
+                                       13 if kind == 0 else 17)
     cdt = as_dtype(compute_dtype)
-    rts = rts.float().contiguous()
-    meas = [ch.contiguous() for ch in meas]
     sm = torch.cuda.get_device_properties(rts.device).multi_processor_count
-    bpe, tiles = grid_shape(E, N, sm)
+    bpe, tiles = grid or grid_shape(E, N, sm)
     partial = torch.empty(E, bpe, 32 * 32, dtype=torch.float32,
                           device=rts.device)
     G = torch.empty(E, 32, 32, dtype=torch.float32, device=rts.device)

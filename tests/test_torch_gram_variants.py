@@ -1,0 +1,192 @@
+"""Port parity of K4′, the BA Gram microbenchmark's four bodies
+(mast3r_slam_tpu_torch/ops/gram_variants.py): each plain version against
+the JAX script's Pallas body (``scripts/gram_kernel_bench.py``) run through
+its ``run_variant`` in interpret mode, on the script's random channels and
+on premeas channels, float32 and bfloat16.
+
+Tolerances: the scalar sums within 1e-5 of Σ|terms| (float64; the TPU body
+sums in float32 per tile); the Grams entry by entry against their rows'
+scale (``ba_kernels.gram_error``), 1e-5 with float32 rows and 1e-4 with
+bfloat16 rows (a weight one float32 ulp apart can round its row to the
+neighbouring bfloat16 value), as K4's test. One exception: float32 rows on
+the script's random channels are held to 1e-4. There a ray channel's
+``m·X'`` row, ``dinv (px - rx d)``, is zero up to rounding, and on the
+random points XLA's rounding of that cancellation and torch's part by up to
+1.2x the row's own size; the Gram of those rows then reads 2.3e-5 (diag)
+and 4.4e-5 (one product) against the float64 Gram of the port's rows, while
+a float32 product of the port's rows reads 8e-8 / 3e-7. On premeas
+channels the same rows meet 1e-5."""
+
+import functools
+import importlib.util
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mast3r_slam_tpu.ops import ba_kernels as JK
+from mast3r_slam_tpu.ops import lie as JL
+from mast3r_slam_tpu.slam import factor_graph as JFG
+from mast3r_slam_tpu_torch.bench import gram_kernel_bench as TB
+from mast3r_slam_tpu_torch.ops import ba_kernels as TK
+from mast3r_slam_tpu_torch.ops import gram_variants as GV
+from torch_parity import torch_one_thread  # noqa: F401
+from torch_parity import ba_edges
+
+ROOT = Path(__file__).resolve().parents[1]
+E, N = 2, 2048
+SCRIPT_SIGMAS = (TB.SIGMA_RAY, TB.SIGMA_DIST)
+PREMEAS_SIGMAS = (0.003, 10.0)
+GRAM_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
+# float32 rows on the script's random channels (see the module docstring)
+SCRIPT_F32_TOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def script():
+    """``scripts/gram_kernel_bench.py`` loaded by path (``scripts/`` is not
+    a package)."""
+    spec = importlib.util.spec_from_file_location(
+        "gram_kernel_bench_script", ROOT / "scripts" / "gram_kernel_bench.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture
+def interpret(script, monkeypatch):
+    """The script's ``pallas_call`` in interpret mode, 128-lane tiles."""
+    monkeypatch.setattr(script.pl, "pallas_call",
+                        functools.partial(script.pl.pallas_call,
+                                          interpret=True))
+    monkeypatch.setattr(script.BK, "_TNL", 128)
+    return script
+
+
+def _script_channels(meas_dtype):
+    """The bench's inputs (the script's draws) as numpy, channels in
+    ``meas_dtype``."""
+    rts, meas = TB.make_inputs(E, N)
+    return (rts.numpy(), [ch.float().numpy() for ch in meas], meas_dtype,
+            SCRIPT_SIGMAS)
+
+
+def _premeas_channels(meas_dtype):
+    """Measured ray channels of ``torch_parity.ba_edges`` (JAX premeas)."""
+    T, X, Cavg, ii, jj, idx, valid, Q, mask = (jnp.asarray(a) for a in
+                                                ba_edges(5, E=3, N=N))
+    meas = JFG._premeas_rays(X, Cavg, ii, jj, idx, valid, Q, 0.5, 0.5)
+    _, rts = JFG._rel_pose_rows(T, ii, jj, mask)
+    return (np.array(rts), [np.array(ch, np.float32) for ch in meas],
+            meas_dtype, PREMEAS_SIGMAS)
+
+
+SOURCES = {"script": _script_channels, "premeas": _premeas_channels}
+
+
+def _both(inputs):
+    """The same numbers for both packages: JAX channels in the script's
+    sublane-split layout, torch channels flat."""
+    rts, meas, dtype, sig = inputs
+    jm = JK.view_sublane_split(tuple(jnp.asarray(ch).astype(dtype)
+                                     for ch in meas))
+    tm = [torch.from_numpy(ch).to(TK.as_dtype(dtype)) for ch in meas]
+    return jnp.asarray(rts), jm, torch.from_numpy(rts), tm, sig
+
+
+@pytest.mark.parametrize("meas_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("source", list(SOURCES))
+@pytest.mark.parametrize("name", ["load", "rows"])
+def test_sum_plain_version_matches_pallas_body(interpret, name, source,
+                                               meas_dtype):
+    jrts, jm, trts, tm, sig = _both(SOURCES[source](meas_dtype))
+    if name == "load":
+        body, args = interpret._load_kernel, (trts, tm)
+        got = GV.gram_load(*args)
+    else:
+        body = functools.partial(interpret._rows_kernel, sigma_ray=sig[0],
+                                 sigma_dist=sig[1])
+        args = (trts, tm, *sig)
+        got = GV.gram_rows(*args)
+    want = np.asarray(interpret.run_variant(body, jrts, jm, 1,
+                                            scalar_out=True))
+    assert got.shape == want.shape == (trts.shape[0], 1, 1)
+    scale = GV.abs_sum(*args).numpy()
+    assert np.all(scale > 0)
+    err = np.abs(got.double().numpy() - want.astype(np.float64))
+    assert np.all(err <= 1e-5 * scale), (err / scale).max()
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("meas_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("source", list(SOURCES))
+@pytest.mark.parametrize("name", ["diag", "one_product"])
+def test_gram_plain_version_matches_pallas_body(interpret, name, source,
+                                                meas_dtype, compute):
+    jrts, jm, trts, tm, sig = _both(SOURCES[source](meas_dtype))
+    kw = dict(sigma_ray=sig[0], sigma_dist=sig[1],
+              compute_dtype=jnp.dtype(compute))
+    if name == "diag":
+        body, rows = functools.partial(interpret._diag_kernel, **kw), 8
+        got = GV.gram_diag(trts, tm, *sig, compute_dtype=compute)
+    else:
+        body, rows = functools.partial(interpret._gram32_kernel_2c, **kw), 32
+        got = GV.gram_one_product(trts, tm, *sig, compute_dtype=compute)
+    want = torch.from_numpy(np.array(interpret.run_variant(body, jrts, jm,
+                                                           rows)))
+    assert got.shape == want.shape == (trts.shape[0], rows, rows)
+    assert want.abs().max() > 0
+    err = TK.gram_error(got, want)
+    tol = (SCRIPT_F32_TOL if (source, compute) == ("script", "float32")
+           else GRAM_TOL[compute])
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("source", list(SOURCES))
+def test_script_identities(source, compute):
+    """The script's own identities: v3 is the sum of v0's diagonal blocks,
+    v2c is v0."""
+    *_, trts, tm, sig = _both(SOURCES[source]("bfloat16"))
+    G = TK.gram_rays_ref(trts, tm, *sig, compute_dtype=compute)
+    diag = GV.gram_diag_ref(trts, tm, *sig, compute_dtype=compute)
+    assert TK.gram_error(diag, TB.diag_blocks(G)) <= 1e-6
+    assert torch.equal(GV.gram_one_product_ref(trts, tm, *sig,
+                                               compute_dtype=compute), G)
+
+
+def test_bench_inputs_match_the_script():
+    """``make_inputs`` draws what the JAX script's ``main`` draws from seed
+    0: the same bf16 channels and ``rts`` within 1e-6."""
+    e, n = 6, 256
+    rng = np.random.default_rng(0)
+    meas = [jnp.abs(jnp.asarray(rng.normal(size=(e, n)).astype(np.float32)
+                                * 0.3 + 1.0)).astype(jnp.bfloat16)
+            for _ in range(8)]
+    T = jax.vmap(JL.exp)(jnp.asarray(
+        rng.normal(size=(110, 7)).astype(np.float32) * 0.02))
+    ii = jnp.asarray(rng.integers(0, 110, e).astype(np.int32))
+    jj = jnp.asarray((np.asarray(ii) + 1) % 110)
+    _, rts = JFG._rel_pose_rows(T, ii, jj, jnp.ones(e, jnp.float32))
+    t_rts, t_meas = TB.make_inputs(e, n)
+    np.testing.assert_allclose(t_rts.numpy(), np.asarray(rts), rtol=0,
+                               atol=1e-6)
+    for a, b in zip(t_meas, meas):
+        assert np.array_equal(a.float().numpy(), np.asarray(b, np.float32))
+
+
+@pytest.mark.parametrize("r2", [False, True])
+def test_bench_main_runs_on_the_cpu_when_asked(r2, capsys):
+    """``main`` with ``device="cpu"``: the plain versions, every time
+    labelled cpu, and the script's agreement lines."""
+    argv = ["--edges", "2", "--pixels", "1024"]
+    out = TB.main(argv + (["--r2"] if r2 else []), device="cpu")
+    text = capsys.readouterr().out
+    assert out["device"] == "cpu" and "ms (cpu)" in text
+    key = "v2c_vs_v0" if r2 else "v3_vs_v0"
+    assert out[key]["gram_error"] <= 1e-6
+    assert set(out["ms"]) == ({"v2c", "v0"} if r2 else
+                              {"v1", "v2", "v3", "v0"})

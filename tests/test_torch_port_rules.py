@@ -11,8 +11,10 @@ import torch
 
 from mast3r_slam_tpu_torch import _build
 from mast3r_slam_tpu_torch import main as cli
+from mast3r_slam_tpu_torch.bench import gram_kernel_bench
 from mast3r_slam_tpu_torch.models import convert, mast3r
 from mast3r_slam_tpu_torch.ops import ba_kernels as BA
+from mast3r_slam_tpu_torch.ops import gram_variants as GV
 from mast3r_slam_tpu_torch.ops import conv3x3 as C3
 from mast3r_slam_tpu_torch.ops import flash_attention as FA
 from mast3r_slam_tpu_torch.slam import frame, pipeline
@@ -37,7 +39,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for mod in ("main.py", "evaluation.py", "data/png.py",
                 "data/image_ops.py", "data/datasets.py",
                 "slam/retrieval.py", "slam/pipeline.py",
-                "utils/checkpoint.py", "utils/tictoc.py"):
+                "utils/checkpoint.py", "utils/tictoc.py",
+                "ops/gram_variants.py", "bench/gram_kernel_bench.py"):
         assert f"mast3r_slam_tpu_torch/{mod}" in names, mod
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
@@ -48,7 +51,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     (mast3r.init_params, "device"), (convert.params_from_jax, "device"),
     (pipeline.create_frame, "device"), (frame.KeyframeBuffer, "device"),
     (oracle_scene.run_oracle_slam, "device"), (cli.main, "device"),
-    (cli.build_model, "device"), (oracle_scene.OracleWorld, "device")])
+    (cli.build_model, "device"), (oracle_scene.OracleWorld, "device"),
+    (gram_kernel_bench.main, "device")])
 def test_entry_points_default_to_cuda(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
 
@@ -78,6 +82,9 @@ def test_kernel_sources_exist_and_build_names_are_content_keyed():
         p = _build.library_path(name)
         assert p.parent == _build.BUILD and p.name.startswith(f"lib{name}-")
         assert p == _build.library_path(name)
+    assert GV.KERNEL == BA.KERNEL
+    assert 'extern "C" int ba_gram_variant' in (
+        _build.CSRC / f"{BA.KERNEL}.cu").read_text()
 
 
 def test_k1_wrapper_on_cpu_is_the_plain_version():
@@ -164,3 +171,39 @@ def test_k4_k5_wrappers_refuse_other_devices(kind):
             BA.gram_rays(rts, meas, 0.003, 10.0)
         else:
             BA.gram_calib(rts, meas, (24, 32), -10.0, 1e-6, 1.0, 10.0)
+
+
+_K4P = ("load", "rows", "diag", "one_product")
+
+
+def _k4p_call(name, rts, meas, plain=False):
+    fn = getattr(GV, f"gram_{name}" + ("_ref" if plain else ""))
+    return fn(rts, meas) if name == "load" else fn(rts, meas, 0.003, 10.0)
+
+
+def _k4p_counts():
+    return tuple(getattr(GV, f"{n}_counter").launches for n in _K4P)
+
+
+@pytest.mark.parametrize("name", _K4P)
+def test_k4_prime_wrappers_on_cpu_are_the_plain_versions(name):
+    rts, meas = _ba_inputs("cpu", "rays")
+    before = _k4p_counts()
+    assert torch.equal(_k4p_call(name, rts, meas),
+                       _k4p_call(name, rts, meas, plain=True))
+    assert _k4p_counts() == before
+
+
+@pytest.mark.parametrize("name", _K4P)
+def test_k4_prime_wrappers_refuse_other_devices(name):
+    rts, meas = _ba_inputs("meta", "rays")
+    with pytest.raises(ValueError, match="device"):
+        _k4p_call(name, rts, meas)
+
+
+def test_gram_bench_without_a_card_raises(monkeypatch):
+    """The benchmark's default device is the card; without one it raises
+    and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gram_kernel_bench.main(["--edges", "1", "--pixels", "8"])
