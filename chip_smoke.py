@@ -8,15 +8,18 @@ It builds the port's CUDA kernels from ``mast3r_slam_tpu_torch/csrc``,
 then:
 
 1. holds each kernel against its plain PyTorch version on the card at every
-   shape the tracking path gives it (K3 at the encoder, decoder,
-   batched-decode and cross shapes), timing kernel, plain version, one
-   PyTorch library call of the same function (a yardstick the port never
-   calls) and the least time the card could take;
+   shape the tracking path gives it (K1 on the model's own head-split
+   views, checking its token-major output; K3 at the encoder, decoder,
+   batched-decode and cross shapes; K2 with the path and split count each
+   shape takes), checks that two launches are bitwise equal, and times
+   kernel, first (PR 1) design, plain version, one PyTorch library call of
+   the same function (a yardstick the port never calls) and the least time
+   the card could take;
 2. drives the port's main path at full ViT-L width with random weights and
    ``config/base.yaml`` settings: one mono-inference keyframe, then
    ``FrameTracker.track`` on 8 more frames, checking that every
    ``track_core`` output is finite and that each kernel was launched exactly
-   as often as the path needs;
+   as often as the path needs (every K2 launch on the implicit GEMM);
 3. runs the backend keyframe event at full width on that path's state:
    three keyframes, ``FactorGraph.add_factors`` with the tracker's 5-tuple
    hint (``match_oneway``) and without one (``match_symmetric``), the
@@ -160,7 +163,8 @@ def k4p_counters():
 
 def reset_counters(FA, C3, BA):
     for c in (FA.counter, FA.attn_counter, C3.counter, BA.rays_counter,
-              BA.calib_counter, *k4p_counters().values()):
+              BA.calib_counter, *k4p_counters().values(),
+              *C3.path_counters.values()):
         c.launches = 0
 
 
@@ -170,6 +174,12 @@ def launch_counts(FA, C3, BA):
            "K5": BA.calib_counter.launches}
     out.update({k: c.launches for k, c in k4p_counters().items()})
     return out
+
+
+def _build_sms(torch):
+    from mast3r_slam_tpu_torch import _build
+
+    return _build.sm_count(torch.device("cuda"))
 
 
 def sync_clock(torch):
@@ -256,20 +266,38 @@ def phase_k3(torch, g):
             ref = FA.flash_attention_ref(q, k, v)
             torch.cuda.synchronize()
             err = compare(out, ref, dn, f"K3 {label} ({b},{h},{nq},{nk}) {dn}")
+            check(torch.equal(out, FA.flash_attention(q, k, v)),
+                  f"K3 {label} {dn}: two launches differ")
             row["err"] = max(row["err"], err)
             t_k = time_ms(lambda: FA.flash_attention(q, k, v))
             t_p = time_ms(lambda: FA.flash_attention_ref(q, k, v))
             t_l = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            t_f = (time_ms(lambda: FA.first_design_attention(q, k, v))
+                   if dt == torch.bfloat16 else t_k)
             flops = 4.0 * b * h * nq * nk * 64
             nbytes = (2 * b * h * nq + 2 * b * h * nk) * 64 * q.element_size()
             bnd, by = bound_ms(flops, nbytes, dn)
             log(f"K3 {label:14s} ({b},{h},{nq},{nk},64) {dn:8s} err "
-                f"{err:.2e} kernel {t_k:.4f} ms plain {t_p:.4f} ms sdpa "
-                f"{t_l:.4f} ms bound {bnd * 1e3:.2f} us ({by})")
+                f"{err:.2e} kernel {t_k:.4f} ms (first design {t_f:.4f}) "
+                f"plain {t_p:.4f} ms sdpa {t_l:.4f} ms bound "
+                f"{bnd * 1e3:.2f} us ({by})")
             if "ms" not in row and dt == torch.bfloat16:
-                row.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                           bound_ms=bnd, by=by)
+                row.update(ms=t_k, first_ms=t_f, plain_ms=t_p,
+                           library_ms=t_l, bound_ms=bnd, by=by)
     return row
+
+
+def model_qkv(torch, M, b, h, n, dt, g):
+    """q, k, v as the model builds them: the head-split views of one qkv
+    projection's output, ``_split_heads`` for the encoder's batch 1 and
+    ``_heads_s`` of the stacked two-stream decoder otherwise (b = 2 x the
+    decoder batch)."""
+    c = h * 64
+    if b == 1:
+        x = torch.randn(1, n, 3 * c, generator=g, device="cuda").to(dt)
+        return tuple(M._split_heads(t, h) for t in x.chunk(3, dim=-1))
+    x = torch.randn(2, b // 2, n, 3 * c, generator=g, device="cuda").to(dt)
+    return tuple(M._heads_s(t, h) for t in x.chunk(3, dim=-1))
 
 
 def phase_kernels(torch):
@@ -281,8 +309,8 @@ def phase_kernels(torch):
 
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(1234)
-    per_frame = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                         err=0.0) for k in ("K1", "K2")}
+    per_frame = {k: dict(ms=0.0, first_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                         library_ms=0.0, err=0.0) for k in ("K1", "K2")}
     hp, wp = IMG_HW[0] // 16, IMG_HW[1] // 16
     n = hp * wp
     for b, h, label, calls, event_calls in k1_cases():
@@ -290,32 +318,49 @@ def phase_kernels(torch):
         cos, sin = FA.rope_tables(pos, 64)
         for dt in (torch.bfloat16, torch.float32):
             dn = str(dt).split(".")[-1]
-            q, k, v = (torch.randn(b, h, n, 64, generator=g, device=dev)
-                       .to(dt) for _ in range(3))
+            q, k, v = model_qkv(torch, M, b, h, n, dt, g)
+            check(not q.is_contiguous(), "the model's q view is contiguous")
             out = FA.flash_attention_rope(q, k, v, cos, sin, cos, sin)
             ref = FA.flash_attention_rope_ref(q, k, v, cos, sin, cos, sin)
             torch.cuda.synchronize()
             err = compare(out, ref, dn, f"K1 {label} {dn}")
+            check(torch.equal(out, FA.flash_attention_rope(
+                q, k, v, cos, sin, cos, sin)),
+                f"K1 {label} {dn}: two launches differ")
+            merged = M._merge_heads(out)
+            if dt == torch.bfloat16:
+                check(out.transpose(1, 2).is_contiguous()
+                      and merged.data_ptr() == out.data_ptr(),
+                      f"K1 {label}: output not token-major, or merging "
+                      f"the heads copied it")
             t_k = time_ms(lambda: FA.flash_attention_rope(
                 q, k, v, cos, sin, cos, sin))
             t_p = time_ms(lambda: FA.flash_attention_rope_ref(
                 q, k, v, cos, sin, cos, sin))
+            qc, kc, vc = (t.contiguous() for t in (q, k, v))
+            t_f = (time_ms(lambda: FA.first_design_rope(
+                qc, kc, vc, cos, sin, cos, sin))
+                if dt == torch.bfloat16 else t_k)
             qr = (FA.rope_rotate(q.float(), cos[:, None], sin[:, None])
                   .to(dt))
             kr = (FA.rope_rotate(k.float(), cos[:, None], sin[:, None])
                   .to(dt))
-            t_l = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, v))
+            t_l = time_ms(lambda: F.scaled_dot_product_attention(qr, kr, vc))
             flops = 4.0 * b * h * n * n * 64
             nbytes = 4 * b * h * n * 64 * q.element_size() + 4 * b * n * 64 * 4
             bnd, by = bound_ms(flops, nbytes, dn)
+            rows = FA.BLOCK_Q
             log(f"K1 {label:13s} ({b},{h},{n},64) {dn:8s} err {err:.2e} "
-                f"kernel {t_k:.4f} ms plain {t_p:.4f} ms sdpa {t_l:.4f} ms "
-                f"bound {bnd * 1e3:.2f} us ({by}) calls/frame {calls} "
-                f"calls/event {event_calls}")
+                f"kernel {t_k:.4f} ms (first design {t_f:.4f}) plain "
+                f"{t_p:.4f} ms sdpa {t_l:.4f} ms bound {bnd * 1e3:.2f} us "
+                f"({by}) calls/frame {calls} calls/event {event_calls}"
+                + (f" blocks {b * h * -(-n // rows)} of {rows} q rows"
+                   if dt == torch.bfloat16 else ""))
             if dt == torch.bfloat16:
                 acc = per_frame["K1"]
-                for key, val in (("ms", t_k), ("plain_ms", t_p),
-                                 ("library_ms", t_l), ("bound_ms", bnd)):
+                for key, val in (("ms", t_k), ("first_ms", t_f),
+                                 ("plain_ms", t_p), ("library_ms", t_l),
+                                 ("bound_ms", bnd)):
                     acc[key] += calls * val
                 acc["by"] = by
             per_frame["K1"]["err"] = max(per_frame["K1"]["err"], err)
@@ -331,15 +376,26 @@ def phase_kernels(torch):
                 w = w * (1.0 / math.sqrt(9 * cin))
                 x, w = x.to(dt), w.to(dt)
                 bvec = torch.randn(cout, generator=g, device=dev).to(dt)
+                path = C3.conv3x3_path(dt, cin, cout)
+                splits = (C3.plan(bsz, hh, ww, cin, cout, _build_sms(torch))
+                          .splits if path == "igemm" else 1)
                 for bias in (None, bvec):
+                    before = C3.path_counters[path].launches
                     out = C3.conv3x3(x, w, bias)
                     ref = C3.conv3x3_ref(x, w, bias)
                     torch.cuda.synchronize()
                     tag = (f"K2 ({bsz},{hh},{ww},{cin}->{cout}) {dn} "
                            f"bias={bias is not None}")
+                    check(C3.path_counters[path].launches == before + 1,
+                          f"{tag}: did not take the {path} path")
                     err = compare(out, ref, dn, tag)
+                    check(torch.equal(out, C3.conv3x3(x, w, bias)),
+                          f"{tag}: two launches differ")
                     per_frame["K2"]["err"] = max(per_frame["K2"]["err"], err)
                     t_k = time_ms(lambda: C3.conv3x3(x, w, bias))
+                    t_f = (time_ms(lambda: C3.conv3x3(x, w, bias,
+                                                      path="mma"))
+                           if dt == torch.bfloat16 else t_k)
                     t_p = time_ms(lambda: C3.conv3x3_ref(x, w, bias))
                     xc = x.permute(0, 3, 1, 2)
                     wc = w.permute(3, 2, 0, 1).contiguous(
@@ -351,12 +407,15 @@ def phase_kernels(torch):
                               ) * x.element_size()
                     bnd, by = bound_ms(flops, nbytes, dn)
                     log(f"{tag:45s} err {err:.2e} kernel {t_k:.4f} ms "
-                        f"plain {t_p:.4f} ms cudnn {t_l:.4f} ms "
-                        f"bound {bnd * 1e3:.2f} us ({by})")
+                        f"(first design {t_f:.4f}) plain {t_p:.4f} ms "
+                        f"cudnn {t_l:.4f} ms bound {bnd * 1e3:.2f} us ({by}) "
+                        f"path {path} splits {splits} "
+                        f"{flops / t_k * 1e-9:.0f} TFLOP/s")
                     if (dt == torch.bfloat16 and bsz == 1
                             and (bias is not None) == has_bias):
                         acc = per_frame["K2"]
-                        for key, val in (("ms", t_k), ("plain_ms", t_p),
+                        for key, val in (("ms", t_k), ("first_ms", t_f),
+                                         ("plain_ms", t_p),
                                          ("library_ms", t_l),
                                          ("bound_ms", bnd)):
                             acc[key] += 2 * calls * val   # two heads
@@ -472,6 +531,10 @@ def phase_main_path(torch, FA, C3, BA):
         f"K2 {k2} (want {want_k2})")
     check(k1 == want_k1, f"K1 launched {k1} times, expected {want_k1}")
     check(k2 == want_k2, f"K2 launched {k2} times, expected {want_k2}")
+    paths = {p: c.launches for p, c in C3.path_counters.items()}
+    log(f"main path K2 launches by path: {paths}")
+    check(paths["igemm"] == k2, "a main-path conv did not take the "
+          "implicit GEMM")
     tracked_ms = statistics.median(frame_ms[2:])
     log(f"main path: median ms/frame over frames 2-{N_FRAMES - 1} "
         f"{tracked_ms:.1f}; modes {modes}; keyframes {len(keyframes)}; "
@@ -1693,7 +1756,8 @@ def main():
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for block in ptx:
         for line in block.splitlines():
-            if "registers" in line or line.startswith("[nvcc"):
+            if ("registers" in line or "spill" in line
+                    or line.startswith("[nvcc")):
                 log("  " + line.strip())
 
     phases = set(PHASES if args.phases == "all" else args.phases.split(","))
@@ -1745,6 +1809,7 @@ def main():
          "launches": launches["K1"],
          "max_abs_err": per_frame["K1"]["err"],
          "ms": per_frame["K1"]["ms"],
+         "first_ms": per_frame["K1"]["first_ms"],
          "plain_ms": per_frame["K1"]["plain_ms"],
          "bound_ms": per_frame["K1"]["bound_ms"],
          "bound_by": per_frame["K1"]["by"],
@@ -1755,6 +1820,7 @@ def main():
          "launches": launches["K3"],
          "max_abs_err": per_frame["K3"]["err"],
          "ms": per_frame["K3"]["ms"],
+         "first_ms": per_frame["K3"]["first_ms"],
          "plain_ms": per_frame["K3"]["plain_ms"],
          "bound_ms": per_frame["K3"]["bound_ms"],
          "bound_by": per_frame["K3"]["by"],
@@ -1765,6 +1831,7 @@ def main():
          "launches": launches["K2"],
          "max_abs_err": per_frame["K2"]["err"],
          "ms": per_frame["K2"]["ms"],
+         "first_ms": per_frame["K2"]["first_ms"],
          "plain_ms": per_frame["K2"]["plain_ms"],
          "bound_ms": per_frame["K2"]["bound_ms"],
          "bound_by": per_frame["K2"]["by"],

@@ -6,7 +6,8 @@ compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``ctypes``. Nothing is compiled or loaded when this module is imported: the
 first call that needs a kernel builds it, and :func:`build_all` builds
 several at once in parallel ``nvcc`` processes. The wrappers also share
-their launch counter and input-alignment helpers from here.
+their launch counter, SM count and input-alignment helpers from
+here.
 """
 
 from __future__ import annotations
@@ -82,13 +83,19 @@ def build_all(names, log=None) -> dict[str, Path]:
     return paths
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+def load(name: str, entries=None) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if needed.
+    ``entries`` maps C entry names to their ctypes argument types; they are
+    bound (returning a C ``int``) when the library is first loaded."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             path = build_all([name])[name]
             lib = ctypes.CDLL(str(path))
+            for entry, argtypes in (entries or {}).items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 
@@ -117,6 +124,21 @@ class LaunchCounter:
     def add(self):
         with self._lock:
             self.launches += 1
+
+
+_sms: dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of CUDA ``device`` (cached): the kernels'
+    grid planners spread their blocks over them."""
+    import torch
+
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def aligned(t):

@@ -4,21 +4,27 @@
 // (_conv3x3_impl / _kernel): the nine shifted (pixels, Cin) @ (Cin, Cout)
 // products accumulated in f32, the bias added in f32, one cast to x's type.
 //
-// Two paths, one per input type, with the same arithmetic: products
-// accumulated in f32, the bias (in x's type) added in f32, one cast.
+// Three paths with the same arithmetic: products accumulated in f32, the
+// bias (in x's type) added in f32, one cast. ops/conv3x3.py picks one by
+// type and shape, never on failure:
 //
-// float32 — CUDA cores. One block of 256 threads computes an 8x16 tile of
-// output pixels for a 64-wide slice of Cout, walking Cin in chunks of 8:
-// each chunk stages the (8+2) x (16+2) x 8 halo tile of x and the 3x3x8x64
-// slice of the weights in shared memory. Thread (ty, tx) owns output column
-// ty of the tile for all 8 rows and output channels 4tx..4tx+3 (32 f32
-// accumulators), fed by float4 shared-memory reads and plain FMAs.
+// float32 — CUDA cores (conv3x3_kernel). One block of 256 threads computes
+// an 8x16 tile of output pixels for a 64-wide slice of Cout, walking Cin in
+// chunks of 8: each chunk stages the (8+2) x (16+2) x 8 halo tile of x and
+// the 3x3x8x64 slice of the weights in shared memory. Thread (ty, tx) owns
+// output column ty of the tile for all 8 rows and output channels
+// 4tx..4tx+3 (32 f32 accumulators), fed by float4 shared-memory reads and
+// plain FMAs.
 //
-// bfloat16 — tensor cores (mma.sync.m16n8k16, see conv3x3_mma_kernel).
+// bfloat16, Cin and Cout multiples of 8 — the implicit GEMM on Hopper
+// (conv3x3_igemm_kernel, below): every DPT shape.
 //
-// Both zero the halo outside the image while staging it (no padded copy of
+// bfloat16, other channel counts — the first tensor-core design
+// (conv3x3_mma_kernel, mma.sync with synchronous staging).
+//
+// All zero the halo outside the image while staging it (no padded copy of
 // x in device memory, unlike the TPU kernel, which padded once in HBM) and
-// mask channels past Cin and outputs past Cout, so every shape works.
+// mask channels past Cin and outputs past Cout.
 //
 // Bound on an H100: at the DPT shapes (Cin, Cout >= 128) a conv does
 // 18*Cin*Cout flops per output pixel against ~(Cin + Cout) bytes moved,
@@ -28,6 +34,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -341,6 +348,336 @@ int launch_mma(const void* x, const void* w, const void* bias, void* y,
   return int(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 implicit GEMM for Hopper (cp.async ring, ldmatrix gather, wgmma).
+//
+// M = the batch's output pixels, N = Cout, K = 9 * Cin, walked chunk-major:
+// K step it = 9 * chunk + tap covers 64 input channels (one chunk) of one
+// tap. One block is one warpgroup (4 warps) and computes an 8 x 16-pixel x
+// 128-channel output tile as two m64n128 wgmma tiles (tile rows 0-3 and
+// 4-7); warp w owns tile rows w and 4 + w (128 f32 accumulators a thread).
+//
+// A (activations), in registers: per channel chunk the block stages the
+// (8+2) x (16+2) halo of its tile once and reads all nine taps from it:
+// ldmatrix takes one row address a lane, so the A fragment of tap (ky, kx)
+// gathers halo rows (y + ky) * 18 + x + kx. Pixels outside the image and
+// channels past Cin are zero-filled by cp.async (src-size 0): SAME padding
+// without a padded copy. Each activation is read ~1.4 times from L2 (the
+// halo's overlap), not nine times as an im2col tile per tap would. Two halo
+// buffers: the next chunk's halo lands while the last taps of this one run.
+// A wgmma shared-memory descriptor cannot express this per-lane gather,
+// which is why A comes from registers.
+// B (weights), in shared memory: read as they lie, w[tap][c0..c0+63]
+// [n0..n0+127] (K x N with N contiguous, MN-major), through a ring of 3
+// cp.async stages, one per K step, stored in the 128-byte-swizzle MN-major
+// layout (each K row's 64-channel half one 128-byte row, its 16-byte chunks
+// XOR-permuted by the row within 8) that the wgmma descriptor reads with
+// trans-b = 1: no transpose in memory, and the tensor cores' reads and the
+// cp.async writes both hit distinct banks. Halo rows are padded by 16 bytes
+// (144-byte rows) so ldmatrix's eight row addresses hit eight bank groups.
+// One barrier and one wgmma group a K step (measured: keeping a group in
+// flight across steps gained < 1%); the loads of step i+2 overlap step i.
+// Against the same loop on mma.sync (ldmatrix.trans for B, 4 warps of
+// 64 x 64), this runs 13% faster per frame (PERF.md).
+//
+// Split K: when the output tiles alone give fewer blocks than the card has
+// SMs (the 12x16 to 48x64 convs; ops/conv3x3.py::plan), blockIdx.y cuts the
+// K steps into `splits` contiguous ranges, steps [s*kiters/splits,
+// (s+1)*kiters/splits). Each block writes its f32 partial tile to a
+// workspace (splits, M, Cout); conv3x3_split_sum_kernel then adds the
+// partials in split order, adds the bias and casts once: two launches give
+// the same bits, and no float atomics are used. With one split the
+// epilogue adds the bias and casts directly.
+// ---------------------------------------------------------------------------
+
+constexpr int IG_TH = 8;                   // output rows of a tile
+constexpr int IG_TW = 16;                  // output columns of a tile
+constexpr int IG_BN = 128;                 // output channels of a tile
+constexpr int IG_BK = 64;                  // input channels a K step
+constexpr int IG_STAGES = 3;               // weight ring depth
+constexpr int IG_THREADS = 128;            // one warpgroup
+constexpr int IG_HW = IG_TW + 2;           // halo row length (pixels)
+constexpr int IG_HROWS = (IG_TH + 2) * IG_HW;
+constexpr int IG_HS = IG_BK + 8;           // halo pixel stride (bf16)
+constexpr int IG_HALO = IG_HROWS * IG_HS;
+constexpr int IG_B_STAGE = IG_BK * IG_BN;  // dense, swizzled
+constexpr size_t IG_SMEM =
+    size_t(IG_STAGES * IG_B_STAGE + 2 * IG_HALO) * sizeof(__nv_bfloat16);
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// d += A (64 x 16, registers: this warp's 16 rows as an m16k16 fragment) x
+// B (16 x 128, shared memory via `desc`, MN-major)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// Descriptor of a 16 x 128 B slice: 128-byte swizzle, 1024 bytes between
+// the two 64-channel atoms (LBO), 2048 between 8-row groups (SBO).
+__device__ __forceinline__ uint64_t b_desc(const __nv_bfloat16* p) {
+  const uint64_t addr = static_cast<uint64_t>(__cvta_generic_to_shared(p));
+  uint64_t desc = (addr & 0x3FFFF) >> 4;       // start address
+  desc |= uint64_t(1024 >> 4) << 16;           // LBO: next 64 channels
+  desc |= uint64_t(2048 >> 4) << 32;           // SBO: next 8 K rows
+  desc |= uint64_t(1) << 62;                   // 128-byte swizzle
+  return desc;
+}
+
+__global__ void __launch_bounds__(IG_THREADS, 2)
+conv3x3_igemm_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ w,
+                     const __nv_bfloat16* __restrict__ bias,
+                     __nv_bfloat16* __restrict__ y, float* __restrict__ ws,
+                     int H, int W, int cin, int cout, int m_total,
+                     int tiles_h, int tiles_w, int kiters, int splits) {
+  // the weight ring first: the swizzle atoms need 1024-byte alignment
+  extern __shared__ __align__(1024) unsigned char ig_smem[];
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(ig_smem);
+  __nv_bfloat16* Hs = Bs + IG_STAGES * IG_B_STAGE;
+
+  const int tiles_m = m_total / (H * W) * tiles_h * tiles_w;
+  const int mt = blockIdx.x % tiles_m;
+  const int n0 = (blockIdx.x / tiles_m) * IG_BN;
+  const int img = mt / (tiles_h * tiles_w);
+  const int oy0 = (mt / tiles_w) % tiles_h * IG_TH;
+  const int ox0 = mt % tiles_w * IG_TW;
+  const int split = blockIdx.y;
+  const int k_lo = int((long long)split * kiters / splits);
+  const int k_hi = int((long long)(split + 1) * kiters / splits);
+  const int nk = k_hi - k_lo;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const __nv_bfloat16* xb = x + size_t(img) * H * W * cin;
+
+  // the weights: thread t copies channel chunk t%16 of K rows t/16 + 8i;
+  // a K row's 64-channel half is one 128-byte swizzle row
+  const int b_chunk = tid & 15, b_row = tid >> 4;
+  const bool b_col_ok = n0 + b_chunk * 8 < cout;
+
+  // K step it: chunk it / 9 (channels c0..c0+63) of tap it % 9; the halo
+  // of its chunk comes with a split's first step and with every tap 0
+  auto load_step = [&](int slot, int it, bool first) {
+    const int chunk = it / 9, tap = it - 9 * (it / 9);
+    const int c0 = chunk * IG_BK;
+    if (first || tap == 0) {
+      __nv_bfloat16* hs = Hs + (chunk & 1) * IG_HALO;
+      for (int e = tid; e < IG_HROWS * (IG_BK / 8); e += IG_THREADS) {
+        const int hr = e / (IG_BK / 8), cv = e % (IG_BK / 8) * 8;
+        const int c = c0 + cv;
+        const int gy = oy0 - 1 + hr / IG_HW, gx = ox0 - 1 + hr % IG_HW;
+        const bool ok = gy >= 0 && gy < H && gx >= 0 && gx < W && c < cin;
+        const __nv_bfloat16* src =
+            ok ? xb + (size_t(gy) * W + gx) * cin + c : x;
+        cp_async16(hs + hr * IG_HS + cv, src, ok ? 16 : 0);
+      }
+    }
+    __nv_bfloat16* bs = Bs + slot * IG_B_STAGE;
+#pragma unroll
+    for (int i = 0; i < IG_BK / 8; ++i) {
+      const int c = c0 + 8 * i + b_row;
+      const bool ok = b_col_ok && c < cin;
+      const __nv_bfloat16* src =
+          ok ? w + (size_t(tap) * cin + c) * cout + n0 + b_chunk * 8 : w;
+      // 8-row group i, 64-channel atom b_chunk / 8, row b_row, 16-byte
+      // chunk (b_chunk % 8) ^ b_row within the row
+      cp_async16(bs + i * 1024 + (b_chunk >> 3) * 512 + b_row * 64 +
+                     (((b_chunk & 7) ^ b_row) << 3),
+                 src, ok ? 16 : 0);
+    }
+  };
+
+  float acc[2][64];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int j = 0; j < 64; ++j) acc[t][j] = 0.f;
+  // ldmatrix row of this lane: pixel (w, lane & 15) under tap (0, 0); the
+  // second m64 tile is 4 tile rows further
+  const int a_lane = (warp * IG_HW + (lane & 15)) * IG_HS + (lane >> 4) * 8;
+
+#pragma unroll
+  for (int s = 0; s < IG_STAGES - 1; ++s) {
+    if (s < nk) load_step(s, k_lo + s, s == 0);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nk; ++i) {
+    cp_async_wait<IG_STAGES - 2>();   // step i has landed
+    // cp.async wrote through the generic proxy; wgmma reads through the
+    // async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();                  // ... for every thread; slot i-1 free
+    const int nxt = i + IG_STAGES - 1;
+    if (nxt < nk) load_step(nxt % IG_STAGES, k_lo + nxt, false);
+    cp_async_commit();
+
+    const int it = k_lo + i;
+    const int chunk = it / 9, tap = it - 9 * (it / 9);
+    const int ky = tap / 3, kx = tap - 3 * (tap / 3);
+    const int ksteps = min(IG_BK, cin - chunk * IG_BK + 15) / 16;
+    const __nv_bfloat16* hs =
+        Hs + (chunk & 1) * IG_HALO + a_lane + (ky * IG_HW + kx) * IG_HS;
+    const __nv_bfloat16* bs = Bs + (i % IG_STAGES) * IG_B_STAGE;
+    uint32_t a[IG_BK / 16][2][4];
+#pragma unroll
+    for (int ks = 0; ks < IG_BK / 16; ++ks)
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+        ldmatrix_x4(a[ks][t], hs + t * 4 * IG_HW * IG_HS + ks * 16);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int ks = 0; ks < IG_BK / 16; ++ks) {
+      if (ks >= ksteps) break;   // past Cin (a partial last chunk)
+      const uint64_t desc = b_desc(bs + ks * 2 * 1024);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) wgmma_m64n128k16(acc[t], a[ks][t], desc);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  }
+  cp_async_wait<0>();
+
+  // accumulator j of n8 chunk ni: row g + 8 (j / 2), column 8 ni + 2 tg +
+  // j % 2 of the warp's 16 rows
+  const int g = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int ni = 0; ni < 16; ++ni) {
+    const int co = n0 + ni * 8 + 2 * tg;
+    if (co >= cout) continue;   // cout % 8 == 0: co + 1 < cout as well
+    float b0 = 0.f, b1 = 0.f;
+    if (splits == 1 && bias != nullptr) {
+      b0 = __bfloat162float(bias[co]);
+      b1 = __bfloat162float(bias[co + 1]);
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int oy = oy0 + 4 * t + warp;
+      if (oy >= H) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int ox = ox0 + g + 8 * half;
+        if (ox >= W) continue;
+        const size_t p = (size_t(img) * H + oy) * W + ox;
+        const float v0 = acc[t][4 * ni + 2 * half];
+        const float v1 = acc[t][4 * ni + 2 * half + 1];
+        if (splits == 1) {
+          *reinterpret_cast<__nv_bfloat162*>(y + p * cout + co) =
+              __floats2bfloat162_rn(v0 + b0, v1 + b1);
+        } else {
+          *reinterpret_cast<float2*>(
+              ws + (size_t(split) * m_total + p) * cout + co) =
+              make_float2(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+// y = bf16(sum over splits, in split order, of ws[s] + bias): four outputs
+// a thread step (cout % 8 == 0, so a float4 never straddles a pixel).
+__global__ void conv3x3_split_sum_kernel(const float* __restrict__ ws,
+                                         const __nv_bfloat16* __restrict__ bias,
+                                         __nv_bfloat16* __restrict__ y,
+                                         int splits, size_t n4, int cout) {
+  const size_t plane = n4 * 4;
+  for (size_t i = size_t(blockIdx.x) * blockDim.x + threadIdx.x; i < n4;
+       i += size_t(gridDim.x) * blockDim.x) {
+    float4 s = reinterpret_cast<const float4*>(ws)[i];
+    for (int k = 1; k < splits; ++k) {
+      const float4 t = reinterpret_cast<const float4*>(ws + k * plane)[i];
+      s.x += t.x;
+      s.y += t.y;
+      s.z += t.z;
+      s.w += t.w;
+    }
+    if (bias != nullptr) {
+      const int co = int((i * 4) % size_t(cout));
+      s.x += __bfloat162float(bias[co]);
+      s.y += __bfloat162float(bias[co + 1]);
+      s.z += __bfloat162float(bias[co + 2]);
+      s.w += __bfloat162float(bias[co + 3]);
+    }
+    __nv_bfloat162 lo = __floats2bfloat162_rn(s.x, s.y);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(s.z, s.w);
+    uint2 out;
+    out.x = *reinterpret_cast<uint32_t*>(&lo);
+    out.y = *reinterpret_cast<uint32_t*>(&hi);
+    reinterpret_cast<uint2*>(y)[i] = out;
+  }
+}
+
+int launch_igemm(const void* x, const void* w, const void* bias, void* y,
+                 void* ws, int B, int H, int W, int cin, int cout,
+                 int splits, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        conv3x3_igemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(IG_SMEM));
+    if (e != cudaSuccess) return int(e);
+    configured = true;
+  }
+  if (cin % 8 != 0 || cout % 8 != 0) return int(cudaErrorInvalidValue);
+  const long long m_total = (long long)B * H * W;
+  const int tiles_h = (H + IG_TH - 1) / IG_TH;
+  const int tiles_w = (W + IG_TW - 1) / IG_TW;
+  const long long tiles_m = (long long)B * tiles_h * tiles_w;
+  const int tiles_n = (cout + IG_BN - 1) / IG_BN;
+  const int kiters = 9 * ((cin + IG_BK - 1) / IG_BK);
+  if (m_total > (1LL << 30) || tiles_m * tiles_n > (1LL << 30) ||
+      splits < 1 || splits > kiters || splits > 65535 ||
+      (splits > 1 && ws == nullptr))
+    return int(cudaErrorInvalidValue);
+  const dim3 grid(unsigned(tiles_m * tiles_n), splits);
+  conv3x3_igemm_kernel<<<grid, IG_THREADS, IG_SMEM, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w),
+      static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(y), static_cast<float*>(ws), H, W, cin,
+      cout, int(m_total), tiles_h, tiles_w, kiters, splits);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return int(e);
+  const size_t n4 = size_t(m_total) * cout / 4;
+  const int blocks = int(std::min<size_t>((n4 + 255) / 256, 132 * 16));
+  conv3x3_split_sum_kernel<<<blocks, 256, 0, stream>>>(
+      static_cast<const float*>(ws), static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(y), splits, n4, cout);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. x (B, H, W, cin), w (3, 3, cin, cout),
@@ -355,6 +692,19 @@ extern "C" int conv3x3_nhwc(int dtype, const void* x, const void* w,
   if (dtype == 0) return launch_f32(x, w, bias, y, B, H, W, cin, cout, s);
   if (dtype == 1) return launch_mma(x, w, bias, y, B, H, W, cin, cout, s);
   return int(cudaErrorInvalidValue);
+}
+
+// The implicit GEMM (bf16). x (B, H, W, cin), w (3, 3, cin, cout), bias
+// (cout,) or null, y (B, H, W, cout): contiguous, 16-byte aligned bf16 with
+// cin and cout multiples of 8. ws: f32 (splits, B*H*W, cout) when splits >
+// 1, else unused. Returns a cudaError_t (0 on success).
+extern "C" int conv3x3_igemm(const void* x, const void* w, const void* bias,
+                             void* y, void* ws, int B, int H, int W, int cin,
+                             int cout, int splits, void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || cin <= 0 || cout <= 0)
+    return int(cudaErrorInvalidValue);
+  return launch_igemm(x, w, bias, y, ws, B, H, W, cin, cout, splits,
+                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* conv3x3_error_string(int err) {

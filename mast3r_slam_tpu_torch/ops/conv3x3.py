@@ -3,15 +3,24 @@
 Counterpart of ``mast3r_slam_tpu/ops/conv3x3.py::conv3x3``: NHWC
 activations, HWIO weights ``(3, 3, Cin, Cout)``, optional bias, f32
 accumulation, the result cast to x's dtype. On a CUDA tensor
-:func:`conv3x3` launches the hand-written kernel in ``csrc/conv3x3.cu``
-for any channel counts (the TPU kernel's lane-alignment gate does not
-apply): CUDA cores for float32, tensor cores for bfloat16. On a CPU tensor
-it returns :func:`conv3x3_ref`.
+:func:`conv3x3` launches a hand-written kernel in ``csrc/conv3x3.cu`` for
+any channel counts (the TPU kernel's lane-alignment gate does not apply),
+on one of three paths picked by type and shape (:func:`conv3x3_path`):
+
+- ``"igemm"``: bfloat16 with Cin and Cout multiples of 8 (every DPT conv),
+  the implicit GEMM on ``wgmma`` with a cp.async ring, split over K by
+  :func:`plan` where the output tiles alone do not fill the card;
+- ``"mma"``: other bfloat16 shapes, the first tensor-core design;
+- ``"fma"``: float32, CUDA cores.
+
+On a CPU tensor it returns :func:`conv3x3_ref`. :func:`conv3x3_split_ref`
+is the plain version of the split-K order.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -19,8 +28,57 @@ import torch.nn.functional as F
 from mast3r_slam_tpu_torch import _build
 
 KERNEL = "conv3x3"
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+PATHS = ("igemm", "mma", "fma")
 counter = _build.LaunchCounter()
+path_counters = {p: _build.LaunchCounter() for p in PATHS}
+
+# the implicit GEMM's output tile (rows x columns x Cout) and K step (input
+# channels of one tap), as in csrc/conv3x3.cu
+TILE_H, TILE_W, TILE_N, TILE_K = 8, 16, 128, 64
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Grid of the implicit GEMM: ``tiles_m x tiles_n`` output tiles, each
+    split into ``splits`` blocks over the ``kiters`` K chunks."""
+
+    tiles_m: int
+    tiles_n: int
+    kiters: int
+    splits: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles_m * self.tiles_n * self.splits
+
+    def k_range(self, split: int) -> tuple[int, int]:
+        """K chunks ``[lo, hi)`` of split ``split`` (the kernel's formula)."""
+        return (split * self.kiters // self.splits,
+                (split + 1) * self.kiters // self.splits)
+
+
+def plan(bsz, h, w, cin, cout, n_sm) -> Plan:
+    """Split K only where the output tiles give fewer blocks than the card
+    has SMs: then aim at 4/3 blocks an SM (one wave at two resident blocks
+    an SM) with at least 6 K steps a block, and never fall under one block
+    an SM."""
+    tiles_m = bsz * -(-h // TILE_H) * -(-w // TILE_W)
+    tiles_n = -(-cout // TILE_N)
+    kiters = 9 * -(-cin // TILE_K)
+    tiles = tiles_m * tiles_n
+    splits = 1
+    if tiles < n_sm:
+        splits = min(-(-4 * n_sm // (3 * tiles)), max(1, kiters // 6))
+        if tiles * splits < n_sm:
+            splits = min(-(-n_sm // tiles), kiters)
+    return Plan(tiles_m, tiles_n, kiters, splits)
+
+
+def conv3x3_path(dtype, cin, cout) -> str:
+    """The kernel path a CUDA call takes, by type and channel counts."""
+    if dtype == torch.float32:
+        return "fma"
+    return "igemm" if cin % 8 == 0 and cout % 8 == 0 else "mma"
 
 
 def conv3x3_ref(x, w, b=None):
@@ -42,19 +100,53 @@ def conv3x3_ref(x, w, b=None):
     return acc.to(x.dtype).reshape(bsz, h, wd, cout)
 
 
-def conv3x3(x, w, b=None):
-    """NHWC 3x3 stride-1 SAME conv (see module docstring)."""
+def conv3x3_split_ref(x, w, b, p: Plan):
+    """Plain version of the split-K order: the K steps (step ``9 * chunk +
+    tap``: ``TILE_K`` input channels of one tap) cut as ``p.k_range``; each
+    split's f32 partial sum, the partials added in split order, the bias in
+    f32, one cast."""
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    wf = w.to(x.dtype).float()
+    total = None
+    for s in range(p.splits):
+        part = torch.zeros(bsz * h * wd, cout, dtype=torch.float32,
+                           device=x.device)
+        for it in range(*p.k_range(s)):
+            chunk, tap = divmod(it, 9)
+            dy, dx = divmod(tap, 3)
+            c0 = chunk * TILE_K
+            c1 = min(c0 + TILE_K, cin)
+            xs = xp[:, dy:dy + h, dx:dx + wd, c0:c1].reshape(-1, c1 - c0)
+            part = part + xs @ wf[dy, dx, c0:c1]
+        total = part if total is None else total + part
+    if b is not None:
+        total = total + b.to(x.dtype).float()
+    return total.to(x.dtype).reshape(bsz, h, wd, cout)
+
+
+def conv3x3(x, w, b=None, *, path=None):
+    """NHWC 3x3 stride-1 SAME conv (see module docstring). ``path`` forces
+    one kernel path (kernel timing and tests); by default the shape picks
+    it."""
     if x.device.type == "cpu":
         return conv3x3_ref(x, w, b)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype not in _DTYPES:
+    if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     bsz, h, wd, cin = x.shape
     if w.ndim != 4 or tuple(w.shape[:3]) != (3, 3, cin):
         raise ValueError(f"w must be (3, 3, {cin}, Cout), got "
                          f"{tuple(w.shape)}")
     cout = w.shape[-1]
+    path = path or conv3x3_path(x.dtype, cin, cout)
+    if (path == "fma") != (x.dtype == torch.float32) or path not in PATHS:
+        raise ValueError(f"path {path!r} does not take {x.dtype}")
+    if path == "igemm" and (cin % 8 or cout % 8):
+        raise ValueError(f"the implicit GEMM takes Cin, Cout multiples of "
+                         f"8, got {cin}, {cout}")
     x = x.contiguous()
     w = w.to(x.dtype).contiguous()
     if b is not None:
@@ -66,21 +158,33 @@ def conv3x3(x, w, b=None):
     x, w, b = (_build.aligned(t) for t in (x, w, b))
     y = torch.empty(bsz, h, wd, cout, dtype=x.dtype, device=x.device)
     lib = _lib()
-    err = lib.conv3x3_nhwc(
-        _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
-        None if b is None else b.data_ptr(), y.data_ptr(), bsz, h, wd, cin,
-        cout, torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    bias = None if b is None else b.data_ptr()
+    if path == "igemm":
+        p = plan(bsz, h, wd, cin, cout, _build.sm_count(x.device))
+        ws = (torch.empty(p.splits, bsz * h * wd, cout, dtype=torch.float32,
+                          device=x.device) if p.splits > 1 else None)
+        err = lib.conv3x3_igemm(
+            x.data_ptr(), w.data_ptr(), bias, y.data_ptr(),
+            None if ws is None else ws.data_ptr(), bsz, h, wd, cin, cout,
+            p.splits, stream)
+    else:
+        err = lib.conv3x3_nhwc(
+            0 if path == "fma" else 1, x.data_ptr(), w.data_ptr(), bias,
+            y.data_ptr(), bsz, h, wd, cin, cout, stream)
     _build.check(lib, KERNEL, err)
     counter.add()
+    path_counters[path].add()
     return y
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# ctypes signatures of csrc/conv3x3.cu's C entries
+ENTRIES = {
+    "conv3x3_nhwc": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "conv3x3_igemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+
 def _lib():
-    lib = _build.load(KERNEL)
-    fn = lib.conv3x3_nhwc
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.load(KERNEL, ENTRIES)

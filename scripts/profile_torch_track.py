@@ -9,8 +9,8 @@ by mono inference, tracks a few warm-up frames, then times ``--frames``
 tracked frames stage by stage (host clock around each stage, with a
 device sync at its end) and once more under ``torch.profiler`` for the
 device-side breakdown: device busy time per frame (the device events'
-own times, summed), the share of the two ported kernels, and the top
-kernels.
+own times, summed), the share of the two ported kernels (K1 with its RoPE
+pre-pass, K2 with its split-K sum), and the top kernels.
 """
 
 from __future__ import annotations
@@ -137,7 +137,8 @@ def main():
           f"under the profiler), {launches / args.frames:.0f} kernel "
           f"launches/frame")
     ported_us = sum(e.self_device_time_total for e in events
-                    if "flash_rope" in e.key or "conv3x3" in e.key)
+                    if any(name in e.key for name in
+                           ("flash_", "rope_rotate_rows", "conv3x3")))
     print(f"  ported kernels (K1 + K2): {ported_us / 1e3 / args.frames:.2f} "
           f"ms/frame, {ported_us / dev_us:.1%} of device time")
     events.sort(key=lambda e: -e.self_device_time_total)
