@@ -32,11 +32,16 @@ then:
    measured on oracle pointmaps at 384x512, over the edge counts, pixel
    counts and types of the backend, with their times, each Gram entry
    against the scale of its own rows (and shows that this comparison
-   rejects a Gram with its smallest residual dropped or flipped);
+   rejects a Gram with its smallest residual dropped or flipped); bf16
+   rows take the tensor-core path, and the first, FMA design (``path="fma"``)
+   is held and timed beside it; every launch is counted on its path, here
+   and in phases 3, 7, 8 and 10 (every bf16-row launch on the tensor
+   cores);
 6. holds K4', the Gram microbenchmark's four kernels (the channel sum, the
-   row sum, the diagonal blocks and the full Gram as one product), against
-   their plain versions on the benchmark's inputs at 16 and 128 edges with
-   their times, then runs the benchmark itself
+   row sum, the diagonal blocks and the full Gram as one product), and the
+   row sum on K4's tensor-core arithmetic, against their plain versions on
+   the benchmark's inputs at 16 and 128 edges with their times, then runs
+   the benchmark itself
    (``mast3r_slam_tpu_torch.bench.gram_kernel_bench``, its default run and
    ``--r2``) with exact launch counts and its agreement lines in tolerance;
 7. runs the oracle SLAM harness at 384x512 (exact geometry plus noise in
@@ -95,6 +100,7 @@ K2_PER_HEAD = 20      # rn0-rn3, 14 fusion-block convs, head_c1, head_c2
 GRAM_EDGES = (2, 4, 10, 16, 128)
 GRAM_PIXELS = (98_304, 196_608)       # 384*512 / pixel_step 2 and 1
 GRAM_REPORT = (16, 98_304)            # the shape of the table's K4/K5 row
+GRAM_REPORT_EDGES = (16, 128)         # ... and its E = 128 set (ms_e128, ...)
 ORACLE_FRAMES = 24
 # make_trajectory's amplitudes (0.45 / 0.3 / 0.12 m, 0.06 rad) scaled so
 # that keyframes 4 frames apart stay within the cold-start matcher's reach
@@ -153,25 +159,31 @@ def time_ms(fn, iters=20, warmup=3):
 
 K4P = (("K4'a", "load"), ("K4'b", "rows"), ("K4'c", "diag"),
        ("K4'd", "one_product"))
+# K4' and the benchmark's row-stage probe on K4's tensor-core arithmetic
+K4P_ALL = K4P + (("K4'b-fast", "rows_fast"),)
 
 
 def k4p_counters():
     from mast3r_slam_tpu_torch.ops import gram_variants as GV
 
-    return {key: getattr(GV, f"{name}_counter") for key, name in K4P}
+    return {key: getattr(GV, f"{name}_counter") for key, name in K4P_ALL}
 
 
 def reset_counters(FA, C3, BA):
     for c in (FA.counter, FA.attn_counter, C3.counter, BA.rays_counter,
               BA.calib_counter, *k4p_counters().values(),
-              *C3.path_counters.values()):
+              *C3.path_counters.values(), *BA.path_counters.values()):
         c.launches = 0
 
 
 def launch_counts(FA, C3, BA):
+    """Launches per kernel; "BA mma" / "BA fma" count K4 and K5 together
+    by path (bf16 rows on the tensor cores, or the FMA design)."""
     out = {"K1": FA.counter.launches, "K2": C3.counter.launches,
            "K3": FA.attn_counter.launches, "K4": BA.rays_counter.launches,
-           "K5": BA.calib_counter.launches}
+           "K5": BA.calib_counter.launches,
+           "BA mma": BA.path_counters["mma"].launches,
+           "BA fma": BA.path_counters["fma"].launches}
     out.update({k: c.launches for k, c in k4p_counters().items()})
     return out
 
@@ -511,7 +523,8 @@ def phase_main_path(torch, FA, C3, BA):
     finally:
         T.track_core = core
     k1, k2 = FA.counter.launches, C3.counter.launches
-    check(BA.rays_counter.launches == BA.calib_counter.launches == 0,
+    check(BA.rays_counter.launches == BA.calib_counter.launches == 0
+          and not any(c.launches for c in BA.path_counters.values()),
           "a BA kernel ran on the tracking path")
     check(not any(c.launches for c in k4p_counters().values()),
           "a K4' kernel ran on the tracking path")
@@ -581,8 +594,9 @@ def phase_event(torch, FA, C3, BA, state):
     launches = {k: v for k, v in launch_counts(FA, C3, BA).items()
                 if k != "K3"}
     want = {"K1": 2 * K1_PER_DECODE, "K2": 2 * 2 * K2_PER_HEAD,
-            "K4": 1 + graph.last_solve_iters, "K5": 0}
-    want.update({key: 0 for key, _ in K4P})
+            "K4": 1 + graph.last_solve_iters, "K5": 0,
+            "BA mma": 1 + graph.last_solve_iters, "BA fma": 0}
+    want.update({key: 0 for key, _ in K4P_ALL})
     log(f"event launches: {launches} (want {want}); "
         f"LM iterations {graph.last_solve_iters}")
     check(launches == want, "keyframe event launch counts")
@@ -729,10 +743,14 @@ def phase_ba_kernels(torch, BA):
                     for cdt in (torch.bfloat16, torch.float32):
                         cn = str(cdt).split(".")[-1]
                         mn = str(mdt).split(".")[-1]
+                        path = BA.gram_path(cdt)
+                        before = BA.path_counters[path].launches
                         out = fn(rts, meas, *args, compute_dtype=cdt)
                         want = ref(rts, meas, *args, compute_dtype=cdt)
                         torch.cuda.synchronize()
                         tag = f"{kind} E={E} N={N} meas {mn} rows {cn}"
+                        check(BA.path_counters[path].launches == before + 1,
+                              f"{tag}: not launched on path {path}")
                         err, rel = compare_gram(BA, out, want, cn, tag)
                         check(torch.equal(out, fn(rts, meas, *args,
                                                   compute_dtype=cdt)),
@@ -741,6 +759,15 @@ def phase_ba_kernels(torch, BA):
                         acc["rel"] = max(acc.get("rel", 0.0), rel)
                         t_k = time_ms(lambda: fn(rts, meas, *args,
                                                  compute_dtype=cdt))
+                        t_f = None    # the first (FMA) design, bf16 rows
+                        if cdt == torch.bfloat16:
+                            compare_gram(BA, fn(rts, meas, *args,
+                                                compute_dtype=cdt,
+                                                path="fma"),
+                                         want, cn, f"{tag} path fma")
+                            t_f = time_ms(lambda: fn(rts, meas, *args,
+                                                     compute_dtype=cdt,
+                                                     path="fma"))
                         t_p = time_ms(lambda: ref(rts, meas, *args,
                                                   compute_dtype=cdt),
                                       iters=5, warmup=1)
@@ -751,15 +778,22 @@ def phase_ba_kernels(torch, BA):
                                   + rts.numel() * 4 + E * 32 * 32 * 4)
                         bnd, by = bound_ms(2.0 * rows * rows * N * E, nbytes,
                                            cn)
+                        first = ("" if t_f is None else
+                                 f" first (fma) {t_f:.4f} ms")
                         log(f"{'K4' if kind == 'rays' else 'K5'} {tag:42s} "
-                            f"Gram err {rel:.2e} kernel {t_k:.4f} ms plain "
-                            f"{t_p:.4f} ms bmm (Gram only) {t_l:.4f} ms "
-                            f"bound {bnd * 1e3:.2f} us ({by})")
-                        if ((E, N) == GRAM_REPORT and mdt == cdt
-                                == torch.bfloat16):
-                            acc.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                       bound_ms=bnd, by=by)
-                            planted_faults_caught(BA, kind, want)
+                            f"Gram err {rel:.2e} kernel ({path}) {t_k:.4f} "
+                            f"ms{first} plain {t_p:.4f} ms bmm (Gram only) "
+                            f"{t_l:.4f} ms bound {bnd * 1e3:.2f} us ({by})")
+                        if (N == GRAM_REPORT[1] and mdt == cdt
+                                == torch.bfloat16 and E in GRAM_REPORT_EDGES):
+                            sfx = "" if E == GRAM_REPORT[0] else f"_e{E}"
+                            acc.update({f"ms{sfx}": t_k,
+                                        f"first_ms{sfx}": t_f,
+                                        f"plain_ms{sfx}": t_p,
+                                        f"library_ms{sfx}": t_l,
+                                        f"bound_ms{sfx}": bnd, "by": by})
+                            if E == GRAM_REPORT[0]:
+                                planted_faults_caught(BA, kind, want)
         log(f"{kind}: largest Gram error {acc['rel']:.3e} (tolerance "
             f"{GRAM_TOL})")
         report["K4" if kind == "rays" else "K5"] = acc
@@ -788,13 +822,14 @@ def k4p_case(torch, GV, BA, name, rts, meas, sig):
     fn = getattr(GV, f"gram_{name}")
     ref = getattr(GV, f"gram_{name}_ref")
     args = (rts, meas) if name == "load" else (rts, meas, *sig)
-    kw = {} if name in ("load", "rows") else dict(compute_dtype=bf16)
+    sums = name in ("load", "rows", "rows_fast")
+    kw = {} if sums else dict(compute_dtype=bf16)
     out = fn(*args, **kw)
     want = ref(*args, **kw)
     torch.cuda.synchronize()
     tag = f"K4' {name} E={E} N={N}"
     check(bool(out.isfinite().all()), f"{tag}: non-finite output")
-    if name in ("load", "rows"):
+    if sums:
         scale = GV.abs_sum(*args)
         rel = ((out.double() - want.double()).abs() / scale).max().item()
         check(rel <= K4P_SUM_TOL, f"{tag}: error {rel:.3e} of the sum of "
@@ -828,7 +863,7 @@ def k4p_case(torch, GV, BA, name, rts, meas, sig):
     bnd = max(t_bytes, t_f32, t_mma) * 1e3
     by = "bytes" if t_bytes >= max(t_f32, t_mma) else "operations"
     lib = "none" if t_l is None else f"{t_l:.4f} ms"
-    what = "of sum|terms|" if name in ("load", "rows") else "Gram"
+    what = "of sum|terms|" if sums else "Gram"
     log(f"{tag:30s} error {rel:.2e} ({what}; abs {err:.3e}) kernel "
         f"{t_k:.4f} ms plain {t_p:.4f} "
         f"ms library {lib} bound {bnd * 1e3:.2f} us ({by})")
@@ -848,7 +883,7 @@ def phase_gram_bench(torch, FA, C3, BA):
     report = {}
     for E, N in K4P_SHAPES:
         rts, meas = GB.make_inputs(E, N, "cuda")
-        for key, name in K4P:
+        for key, name in K4P_ALL:
             err, t_k, t_p, t_l, bnd, by = k4p_case(torch, GV, BA, name, rts,
                                                    meas, sig)
             row = report.setdefault(key, dict(err=0.0))
@@ -865,10 +900,12 @@ def phase_gram_bench(torch, FA, C3, BA):
     torch.cuda.synchronize()
     launches = launch_counts(FA, C3, BA)
     per_call = 3 + 20                     # the benchmark's warm-up + reps
+    # v0 and v3's check (default); the sweep and v0 with v2c's check (--r2)
+    mma = 2 * (per_call + 1) + per_call * len(r2.get("grid", {}))
     want = {"K1": 0, "K2": 0, "K3": 0, "K5": 0,
-            "K4'a": per_call, "K4'b": per_call, "K4'c": per_call + 1,
-            "K4'd": per_call + 1,
-            "K4": 2 * (per_call + 1) + per_call * len(r2.get("grid", {}))}
+            "K4'a": per_call, "K4'b": per_call, "K4'b-fast": per_call,
+            "K4'c": per_call + 1, "K4'd": per_call + 1,
+            "K4": per_call + mma, "BA fma": per_call, "BA mma": mma}
     log(f"gram bench launches: {launches} (want {want})")
     check(launches == want, "gram bench launch counts")
     for what, a in (("v3 vs v0", default["v3_vs_v0"]),
@@ -880,7 +917,9 @@ def phase_gram_bench(torch, FA, C3, BA):
              for g, t in r2.get("grid", {}).items()}
     log(f"gram bench (E = {GB.EDGES}, N = {GB.PIXELS}, bf16): v1 load "
         f"{default['ms']['v1']:.4f} ms, v2 rows {default['ms']['v2']:.4f}, "
-        f"v3 diag {default['ms']['v3']:.4f}, v0 (K4) "
+        f"v2f rows on the mma path's arithmetic "
+        f"{default['ms']['v2f']:.4f}, v3 diag {default['ms']['v3']:.4f}, "
+        f"v0f (K4, fma) {default['ms']['v0f']:.4f}, v0 (K4, mma) "
         f"{default['ms']['v0']:.4f}; v2c one product "
         f"{r2['ms']['v2c']:.4f} vs v0 {r2['ms']['v0']:.4f}; K4 grid sweep "
         f"{sweep}; agreement v3 vs v0 "
@@ -927,6 +966,9 @@ def phase_oracle(torch, FA, C3, BA):
             f"{p['meas'][0].shape[1]}, LM iterations {p['iters']}")
         check(counter.launches == 1 + p["iters"],
               f"oracle {kind}: {name} launched {counter.launches} times")
+        paths = {k: c.launches for k, c in BA.path_counters.items()}
+        check(paths == {"mma": counter.launches, "fma": 0},
+              f"oracle {kind}: bf16-row {name} launches by path {paths}")
         check(r["n_skipped"] == 0, f"oracle {kind}: skipped frames")
         check(r["ate_ba"] < 0.03, f"oracle {kind}: ATE after BA "
               f"{r['ate_ba']:.4f} m")
@@ -1301,9 +1343,10 @@ def expected_launches(calls, calib):
     k2 = K2_PER_HEAD * c["mono"] + 2 * K2_PER_HEAD * (
         c["track"] + c["oneway"] + c["symmetric"])
     ba = c["solves"] + c["lm_iters"]
+    # base.yaml's bf16 BA rows: every K4 / K5 launch on the tensor cores
     out = {"K1": k1, "K2": k2, "K3": 0, "K4": 0 if calib else ba,
-           "K5": ba if calib else 0}
-    out.update({key: 0 for key, _ in K4P})      # the benchmark's alone
+           "K5": ba if calib else 0, "BA mma": ba, "BA fma": 0}
+    out.update({key: 0 for key, _ in K4P_ALL})  # the benchmark's alone
     return out
 
 
@@ -1701,6 +1744,10 @@ def phase_reloc(torch, FA, C3, BA):
     check(t_err < 0.05 and q_err < 0.05 and s_err < 0.12,
           "reloc: pose outside the JAX test's bounds")
     check(BA.rays_counter.launches >= 2, "reloc: the global solve skipped K4")
+    paths = {k: c.launches for k, c in BA.path_counters.items()}
+    check(BA.calib_counter.launches == 0
+          and paths == {"mma": BA.rays_counter.launches, "fma": 0},
+          f"reloc: bf16-row K4 launches by path {paths}")
     check(not any(c.launches for c in k4p_counters().values()),
           "reloc: a K4' kernel ran")
 
@@ -1843,10 +1890,13 @@ def main():
          "launches": launches[key],
          "max_abs_err": gram[key]["err"],
          "ms": gram[key]["ms"],
+         "first_ms": gram[key]["first_ms"],
          "plain_ms": gram[key]["plain_ms"],
          "bound_ms": gram[key]["bound_ms"],
          "bound_by": gram[key]["by"],
-         "library_ms": gram[key]["library_ms"]}
+         "library_ms": gram[key]["library_ms"],
+         **{f"{m}_e128": gram[key][f"{m}_e128"] for m in (
+             "ms", "first_ms", "plain_ms", "library_ms", "bound_ms")}}
         for key, name, line in (("K4", "gram_rays", 216),
                                 ("K5", "gram_calib", 232))
     ] + [
@@ -1868,8 +1918,10 @@ def main():
         f"K1/K2 ms/plain_ms/bound_ms/library_ms are per tracked frame "
         f"(the bf16 calls of one track_core; tracked frame "
         f"{tracked_ms:.1f} ms); K4/K5's are per system build at E = "
-        f"{GRAM_REPORT[0]}, N = {GRAM_REPORT[1]}, bf16 channels and rows "
-        f"(library: torch.bmm of a pre-built bf16 row stack, Gram only). "
+        f"{GRAM_REPORT[0]} (and, suffixed _e128, E = 128), N = "
+        f"{GRAM_REPORT[1]}, bf16 channels and rows on the tensor-core path "
+        f"(first_ms: the first, FMA design, path fma, in the same run; "
+        f"library: torch.bmm of a pre-built bf16 row stack, Gram only). "
         f"Launches: K1/K2 on the main path, K4 in the keyframe event, K5 "
         f"in the calibrated oracle BA. K4'a-d (the Gram microbenchmark's "
         f"bodies, scripts/gram_kernel_bench.py's run_variant at :165): ms "

@@ -85,18 +85,20 @@ def build_all(names, log=None) -> dict[str, Path]:
 
 def load(name: str, entries=None) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed.
-    ``entries`` maps C entry names to their ctypes argument types; they are
-    bound (returning a C ``int``) when the library is first loaded."""
+    ``entries`` maps C entry names to their ctypes argument types; each is
+    bound (returning a C ``int``) the first time a caller names it, so
+    several wrapper modules can bind their own entries of one library."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             path = build_all([name])[name]
             lib = ctypes.CDLL(str(path))
-            for entry, argtypes in (entries or {}).items():
-                fn = getattr(lib, entry)
+            _libs[name] = lib
+        for entry, argtypes in (entries or {}).items():
+            fn = getattr(lib, entry)
+            if fn.argtypes is None:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _libs[name] = lib
         return lib
 
 

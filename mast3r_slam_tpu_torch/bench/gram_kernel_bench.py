@@ -7,15 +7,20 @@ Counterpart of ``scripts/gram_kernel_bench.py``. At the production shape
 (E = 128 edges, N = 98,304 pixels, bf16 channels and rows) it times
 
   v1 load   the sum of the 8 channels (the memory-read floor),
-  v2 rows   K4's 32 weighted rows, summed without a Gram,
+  v2 rows   K4's 32 weighted rows on the first design's IEEE arithmetic,
+            summed without a Gram,
+  v2f rows  the same on the tensor-core path's arithmetic (MUFU ops,
+            reciprocal sigmas; ``gram_variants.gram_rows_fast``),
   v3 diag   the rows rounded to bf16 and only the four diagonal 8x8
             blocks that the solver reads,
-  v0 full   the production K4 (``ba_kernels.gram_rays``),
+  v0f full  K4 on its first design (``path="fma"``, the Gram as f32 FMAs),
+  v0 full   the production K4 (``ba_kernels.gram_rays``, path "mma"),
 
 then prints how far v3 is from the sum of v0's diagonal blocks. ``--r2``
-sweeps K4's grid (blocks per edge x tiles per block; the TPU's lane tile
-has no meaning here), then times v2c, the full Gram as one product on the
-tensor cores, against v0 and prints their agreement.
+sweeps K4's grid (blocks per edge x tiles per block of the "mma" path; the
+TPU's lane tile has no meaning here) and times v2c, the full Gram as one
+product on the tensor cores (K4′d), against v0, and prints their
+agreement.
 
 Inputs are drawn as the JAX script draws them, from
 ``numpy.random.default_rng(0)`` in the same order: the 8 channels
@@ -132,9 +137,13 @@ def main(argv=None, device="cuda"):
             rts, meas))
         out["ms"]["v2"] = timed("v2 rows", lambda: GV.gram_rows(
             rts, meas, *sig))
+        out["ms"]["v2f"] = timed("v2f rows (mma arithmetic)",
+                                 lambda: GV.gram_rows_fast(rts, meas, *sig))
         out["ms"]["v3"] = timed("v3 diag 4x8x8", lambda: GV.gram_diag(
             rts, meas, *sig, compute_dtype=bf16))
-        out["ms"]["v0"] = timed("v0 full 32x32", lambda: BA.gram_rays(
+        out["ms"]["v0f"] = timed("v0f full 32x32 (fma)", lambda: BA.gram_rays(
+            rts, meas, *sig, compute_dtype=bf16, path="fma"))
+        out["ms"]["v0"] = timed("v0 full 32x32 (mma)", lambda: BA.gram_rays(
             rts, meas, *sig, compute_dtype=bf16))
         H0 = diag_blocks(BA.gram_rays(rts, meas, *sig, compute_dtype=bf16))
         H3 = GV.gram_diag(rts, meas, *sig, compute_dtype=bf16)
@@ -146,7 +155,7 @@ def main(argv=None, device="cuda"):
 
     if dev.type == "cuda":
         sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        prod = BA.grid_shape(E, N, sm)
+        prod = BA.grid_mma(E, N, sm, BA.mma_blocks_per_sm(dev, 0, True))
         n_tiles = math.ceil(N / BA.THREADS)
         out["grid"] = {}
         for bpe in sorted({1, 2, max(1, prod[0] // 2), prod[0], 2 * prod[0],
@@ -166,7 +175,7 @@ def main(argv=None, device="cuda"):
               flush=True)
     out["ms"]["v2c"] = timed("v2c one product", lambda: GV.gram_one_product(
         rts, meas, *sig, compute_dtype=bf16))
-    out["ms"]["v0"] = timed("v0 full 32x32", lambda: BA.gram_rays(
+    out["ms"]["v0"] = timed("v0 full 32x32 (mma)", lambda: BA.gram_rays(
         rts, meas, *sig, compute_dtype=bf16))
     G0 = BA.gram_rays(rts, meas, *sig, compute_dtype=bf16)
     G2 = GV.gram_one_product(rts, meas, *sig, compute_dtype=bf16)

@@ -12,10 +12,19 @@ and are widened to float32 at load; the weighted rows are rounded to
 ``compute_dtype`` and their products summed in float32 by the kernel (in
 float64 by the plain version, see :func:`_gram`).
 
-On CUDA tensors both launch the hand-written kernel in ``csrc/ba_gram.cu``
-(one build, two entry kinds); on CPU tensors they return the plain
-versions :func:`gram_rays_ref` / :func:`gram_calib_ref`; any other device
-raises. The TPU kernel's sublane-split layout has no counterpart here.
+On CUDA tensors both launch a hand-written kernel in ``csrc/ba_gram.cu``,
+on one of two paths (:func:`gram_path`):
+
+- ``"mma"``: bfloat16 rows, the Gram on the tensor cores (``mma.sync``)
+  after a row stage on cheaper operations (MUFU reciprocal square roots,
+  reciprocal sigmas from the host); :func:`rays_rows_kernel_order` and
+  :func:`calib_rows_kernel_order` are its row arithmetic in plain form;
+- ``"fma"``: float32 rows, or bfloat16 rows when the caller asks for it
+  (the first design, kept for timing), the Gram as f32 FMAs.
+
+On CPU tensors they return the plain versions :func:`gram_rays_ref` /
+:func:`gram_calib_ref`; any other device raises. The TPU kernel's
+sublane-split layout has no counterpart here.
 """
 
 from __future__ import annotations
@@ -29,10 +38,13 @@ from mast3r_slam_tpu_torch import _build
 
 KERNEL = "ba_gram"
 HUBER_K = 1.345
+SQRT_HUBER_K = 1.15974135    # the "mma" path's constant, rounded to f32
 THREADS = 256            # pixels per tile of the kernel
-BLOCKS_PER_SM = 4        # blocks the grid aims for per SM
+BLOCKS_PER_SM = 4        # blocks the "fma" grid aims for per SM
+PATHS = ("mma", "fma")
 rays_counter = _build.LaunchCounter()
 calib_counter = _build.LaunchCounter()
+path_counters = {p: _build.LaunchCounter() for p in PATHS}
 
 
 def as_dtype(dtype) -> torch.dtype:
@@ -86,24 +98,59 @@ def _gram(rows, compute_dtype):
     return (S @ S.transpose(1, 2)).float()
 
 
-def rays_rows(rts, meas, sigma_ray, sigma_dist):
-    """The 32 weighted float32 rows ``[J_d ; rho_d]`` of the ray residual,
-    each ``(E, N)``, unrounded (K4's per-pixel arithmetic)."""
-    mx, my, mz, di, cf, xj, yj, zj = (ch.float() for ch in meas)
-    px, py, pz = _transform(rts, xj, yj, zj)
-    d = torch.sqrt(px * px + py * py + pz * pz).clamp_min(1e-12)
-    dinv = 1.0 / d
-    rx, ry, rz = px * dinv, py * dinv, pz * dinv
+def _ray_terms(rts, meas, p, dinv, d):
+    """Residuals, J factors and ``sqrt(conf)`` of the ray residual at the
+    transformed points ``p`` with ``1/d`` and ``d`` given."""
+    mx, my, mz, di, cf = (ch.float() for ch in meas[:5])
+    rx, ry, rz = (c * dinv for c in p)
     rho = [rx - mx, ry - my, rz - mz, d - di]
-    sqc = torch.sqrt(cf * rts[:, 12:13])
     d_res = [
         [dinv * (1.0 - rx * rx), -dinv * rx * ry, -dinv * rx * rz],
         [-dinv * ry * rx, dinv * (1.0 - ry * ry), -dinv * ry * rz],
         [-dinv * rz * rx, -dinv * rz * ry, dinv * (1.0 - rz * rz)],
         [rx, ry, rz],
     ]
+    return rho, d_res, torch.sqrt(cf * rts[:, 12:13])
+
+
+def rays_rows(rts, meas, sigma_ray, sigma_dist):
+    """The 32 weighted float32 rows ``[J_d ; rho_d]`` of the ray residual,
+    each ``(E, N)``, unrounded (K4's per-pixel arithmetic)."""
+    p = _transform(rts, *(ch.float() for ch in meas[5:]))
+    d = torch.sqrt(sum(c * c for c in p)).clamp_min(1e-12)
+    dinv = 1.0 / d
+    rho, d_res, sqc = _ray_terms(rts, meas, p, dinv, d)
     sigmas = (sigma_ray, sigma_ray, sigma_ray, sigma_dist)
-    return _weighted_rows(rho, d_res, sqc, sigmas, px, py, pz)
+    return _weighted_rows(rho, d_res, sqc, sigmas, *p)
+
+
+def _weighted_rows_kernel_order(rho, d_res, sqc, sigmas, px, py, pz):
+    """:func:`_weighted_rows` as the "mma" path orders it: ``ws =
+    sqrt(conf) * (1 / sigma)``, ``w = ws |rho|`` and the Huber weight's
+    square root ``1`` below k, ``sqrt(k) * rsqrt(w)`` above."""
+    rows = []
+    for dd in range(len(rho)):
+        ws = sqc * (1.0 / sigmas[dd])
+        w = ws * rho[dd].abs()
+        sq = torch.where(w < HUBER_K, ws,
+                         ws * (SQRT_HUBER_K * torch.rsqrt(w)))
+        for ch in _jrow_entries(*d_res[dd], px, py, pz) + [rho[dd]]:
+            rows.append(sq * ch)
+    return rows
+
+
+def rays_rows_kernel_order(rts, meas, sigma_ray, sigma_dist):
+    """:func:`rays_rows` in the "mma" path's order: ``1/d =
+    rsqrt(max(|X'|², 1e-24))`` and ``d = max(|X'|² / d, 1e-12)`` (the
+    clamp of ``max(|X'|, 1e-12)`` kept), the weights as
+    :func:`_weighted_rows_kernel_order`."""
+    p = _transform(rts, *(ch.float() for ch in meas[5:]))
+    n2 = sum(c * c for c in p)
+    dinv = torch.rsqrt(n2.clamp_min(1e-24))
+    d = (n2 * dinv).clamp_min(1e-12)
+    rho, d_res, sqc = _ray_terms(rts, meas, p, dinv, d)
+    sigmas = (sigma_ray, sigma_ray, sigma_ray, sigma_dist)
+    return _weighted_rows_kernel_order(rho, d_res, sqc, sigmas, *p)
 
 
 def gram_rays_ref(rts, meas, sigma_ray, sigma_dist,
@@ -113,9 +160,7 @@ def gram_rays_ref(rts, meas, sigma_ray, sigma_dist,
                  as_dtype(compute_dtype))
 
 
-def gram_calib_ref(rts, meas, img_size, pixel_border, z_eps, sigma_pixel,
-                   sigma_depth, compute_dtype=torch.bfloat16):
-    """Plain version of :func:`gram_calib`."""
+def _calib_terms(rts, meas, img_size, pixel_border, z_eps):
     ui, vi, lz, cf, xj, yj, zj = (ch.float() for ch in meas)
     fx, fy, cx, cy = (rts[:, i:i + 1] for i in range(13, 17))
     H_img, W_img = img_size
@@ -137,40 +182,76 @@ def gram_calib_ref(rts, meas, img_size, pixel_border, z_eps, sigma_pixel,
         [zero, fy * z_inv, -fy * py * z_inv * z_inv],
         [zero, zero, z_inv],
     ]
+    return rho, d_res, sqc, (px, py, pz), zero
+
+
+def calib_rows(rts, meas, img_size, pixel_border, z_eps, sigma_pixel,
+               sigma_depth):
+    """The 32 weighted float32 rows of the calibrated residual, each
+    ``(E, N)``, unrounded; rows 24+ are zero (K5's per-pixel
+    arithmetic)."""
+    rho, d_res, sqc, p, zero = _calib_terms(rts, meas, img_size,
+                                            pixel_border, z_eps)
     sigmas = (sigma_pixel, sigma_pixel, sigma_depth)
-    rows = _weighted_rows(rho, d_res, sqc, sigmas, px, py, pz) + [zero] * 8
-    return _gram(rows, as_dtype(compute_dtype))
+    return _weighted_rows(rho, d_res, sqc, sigmas, *p) + [zero] * 8
+
+
+def calib_rows_kernel_order(rts, meas, img_size, pixel_border, z_eps,
+                            sigma_pixel, sigma_depth):
+    """:func:`calib_rows` with the weights in the "mma" path's order
+    (:func:`_weighted_rows_kernel_order`)."""
+    rho, d_res, sqc, p, zero = _calib_terms(rts, meas, img_size,
+                                            pixel_border, z_eps)
+    sigmas = (sigma_pixel, sigma_pixel, sigma_depth)
+    return (_weighted_rows_kernel_order(rho, d_res, sqc, sigmas, *p)
+            + [zero] * 8)
+
+
+def gram_calib_ref(rts, meas, img_size, pixel_border, z_eps, sigma_pixel,
+                   sigma_depth, compute_dtype=torch.bfloat16):
+    """Plain version of :func:`gram_calib`."""
+    return _gram(calib_rows(rts, meas, img_size, pixel_border, z_eps,
+                            sigma_pixel, sigma_depth),
+                 as_dtype(compute_dtype))
+
+
+def gram_path(compute_dtype) -> str:
+    """The kernel path a CUDA call takes by default: ``"mma"`` for bfloat16
+    rows, ``"fma"`` for float32."""
+    return "mma" if as_dtype(compute_dtype) == torch.bfloat16 else "fma"
 
 
 def gram_rays(rts, meas, sigma_ray, sigma_dist,
-              compute_dtype=torch.bfloat16, grid=None):
+              compute_dtype=torch.bfloat16, grid=None, path=None):
     """Per-edge Gram of the weighted ray-residual system.
 
     ``rts (E, 13)``: ``[s*R (row-major 9) | t (3) | edge_mask]`` of the
     relative pose ``T_i^{-1} T_j``; ``meas``: the 8 ray channels
     ``(mx, my, mz, di, conf, xj, yj, zj)``, each ``(E, N)``. ``grid``
-    overrides the kernel's ``(blocks_per_edge, tiles_per_block)`` (the
-    Gram microbenchmark's sweep; the solver never passes it)."""
+    overrides the kernel's ``(blocks_per_edge, tiles_per_block)`` and
+    ``path`` the kernel path (the Gram microbenchmark's sweeps and kernel
+    timing; the solver passes neither)."""
     if rts.device.type == "cpu":
         return gram_rays_ref(rts, meas, sigma_ray, sigma_dist, compute_dtype)
-    G = _launch(0, rts, meas, compute_dtype,
+    G = _launch(0, rts, meas, compute_dtype, path,
                 (sigma_ray, sigma_dist, 0.0, 0.0, 0.0, 0.0, 0.0), grid)
     rays_counter.add()
     return G
 
 
 def gram_calib(rts, meas, img_size, pixel_border, z_eps, sigma_pixel,
-               sigma_depth, compute_dtype=torch.bfloat16):
+               sigma_depth, compute_dtype=torch.bfloat16, path=None):
     """Per-edge Gram of the weighted calibrated-residual system.
 
     ``rts (E, 17)``: ``[s*R | t | edge_mask | fx fy cx cy]``; ``meas``: the
     7 calib channels ``(ui, vi, logzi, conf, xj, yj, zj)``; ``img_size``
-    ``(H, W)``. Rows 24+ of the result are zero."""
+    ``(H, W)``. Rows 24+ of the result are zero. ``path`` as
+    :func:`gram_rays`'."""
     if rts.device.type == "cpu":
         return gram_calib_ref(rts, meas, img_size, pixel_border, z_eps,
                               sigma_pixel, sigma_depth, compute_dtype)
     H_img, W_img = img_size
-    G = _launch(1, rts, meas, compute_dtype,
+    G = _launch(1, rts, meas, compute_dtype, path,
                 (sigma_pixel, sigma_depth, z_eps, pixel_border,
                  W_img - 1 - pixel_border, pixel_border,
                  H_img - 1 - pixel_border))
@@ -205,11 +286,23 @@ def gram_error(G, G_ref):
 
 
 def grid_shape(E, N, sm_count, tile=THREADS):
-    """``(blocks_per_edge, tiles_per_block)``: enough blocks to give every
-    SM ``BLOCKS_PER_SM`` at small E, each walking a contiguous run of
-    ``tile``-pixel tiles."""
+    """``(blocks_per_edge, tiles_per_block)`` of the "fma" path and K4′:
+    enough blocks to give every SM ``BLOCKS_PER_SM`` at small E, each
+    walking a contiguous run of ``tile``-pixel tiles."""
     n_tiles = math.ceil(N / tile)
     want = max(1, min(n_tiles, math.ceil(BLOCKS_PER_SM * sm_count / E)))
+    tiles = math.ceil(n_tiles / want)
+    return math.ceil(n_tiles / tiles), tiles
+
+
+def grid_mma(E, N, sm_count, blocks_per_sm):
+    """``(blocks_per_edge, tiles_per_block)`` of the "mma" path: as many
+    blocks per edge as one wave of ``blocks_per_sm * sm_count`` resident
+    blocks holds (a second, part-filled wave would leave SMs idle while it
+    runs), at least one; each walks a contiguous run of 256-pixel
+    tiles."""
+    n_tiles = math.ceil(N / THREADS)
+    want = max(1, min(n_tiles, blocks_per_sm * sm_count // E))
     tiles = math.ceil(n_tiles / want)
     return math.ceil(n_tiles / tiles), tiles
 
@@ -241,34 +334,67 @@ def check_inputs(rts, meas, n_ch, cols):
             [ch.contiguous() for ch in meas])
 
 
-def _launch(kind, rts, meas, compute_dtype, scalars, grid=None):
+_mma_blocks: dict[tuple, int] = {}
+
+
+def mma_blocks_per_sm(device, kind, meas_bf16) -> int:
+    """Blocks of the "mma" kernel for (kind, channel type) that one SM of
+    ``device`` holds at once, as the CUDA occupancy calculator reports it
+    for the built kernel (cached)."""
+    key = (torch.device(device).index, kind, meas_bf16)
+    if key not in _mma_blocks:
+        lib = _lib()
+        n = lib.ba_gram_mma_blocks_per_sm(kind, int(meas_bf16))
+        if n <= 0:
+            _build.check(lib, KERNEL, -n or 1)
+        _mma_blocks[key] = n
+    return _mma_blocks[key]
+
+
+def _launch(kind, rts, meas, compute_dtype, path, scalars, grid=None):
     n_ch = 8 if kind == 0 else 7
     E, N, dt, rts, meas = check_inputs(rts, meas, n_ch,
                                        13 if kind == 0 else 17)
     cdt = as_dtype(compute_dtype)
-    sm = torch.cuda.get_device_properties(rts.device).multi_processor_count
-    bpe, tiles = grid or grid_shape(E, N, sm)
-    partial = torch.empty(E, bpe, 32 * 32, dtype=torch.float32,
-                          device=rts.device)
-    G = torch.empty(E, 32, 32, dtype=torch.float32, device=rts.device)
+    path = path or gram_path(cdt)
+    if path not in PATHS or (path == "mma" and cdt != torch.bfloat16):
+        raise ValueError(f"path {path!r} does not take {cdt} rows")
+    dev = rts.device
+    mb = dt == torch.bfloat16
+    sm = _build.sm_count(dev)
+    if grid is None:
+        grid = (grid_mma(E, N, sm, mma_blocks_per_sm(dev, kind, mb))
+                if path == "mma" else grid_shape(E, N, sm))
+    bpe, tiles = grid
+    partial = torch.empty(E, bpe, 32 * 32, dtype=torch.float32, device=dev)
+    G = torch.empty(E, 32, 32, dtype=torch.float32, device=dev)
     ptrs = [ch.data_ptr() for ch in meas] + [None] * (8 - n_ch)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _lib()
-    err = lib.ba_gram(
-        kind, *ptrs, rts.data_ptr(), E, N, int(dt == torch.bfloat16),
-        int(cdt == torch.bfloat16), bpe, tiles,
-        *(float(s) for s in scalars), partial.data_ptr(), G.data_ptr(),
-        torch.cuda.current_stream(rts.device).cuda_stream)
+    sig0, sig1, *geom = (float(s) for s in scalars)
+    if path == "mma":
+        err = lib.ba_gram_mma(
+            kind, *ptrs, rts.data_ptr(), E, N, int(mb), bpe, tiles,
+            1.0 / sig0, 1.0 / sig1, *geom,
+            partial.data_ptr(), G.data_ptr(), stream)
+    else:
+        err = lib.ba_gram(
+            kind, *ptrs, rts.data_ptr(), E, N, int(mb),
+            int(cdt == torch.bfloat16), bpe, tiles, sig0, sig1, *geom,
+            partial.data_ptr(), G.data_ptr(), stream)
     _build.check(lib, KERNEL, err)
+    path_counters[path].add()
     return G
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# ctypes signatures of csrc/ba_gram.cu's K4 / K5 entries
+ENTRIES = {
+    "ba_gram": [_I] + [_P] * 9 + [_I] * 6 + [_F] * 7 + [_P] * 3,
+    "ba_gram_mma": [_I] + [_P] * 9 + [_I] * 5 + [_F] * 7 + [_P] * 3,
+    "ba_gram_mma_blocks_per_sm": [_I, _I],
+}
+
+
 def _lib():
-    lib = _build.load(KERNEL)
-    fn = lib.ba_gram
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        f = ctypes.c_float
-        fn.argtypes = ([i] + [p] * 9 + [i] * 6 + [f] * 7 + [p, p, p])
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.load(KERNEL, ENTRIES)

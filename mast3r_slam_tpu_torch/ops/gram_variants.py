@@ -19,6 +19,11 @@ TPU's sublane-split layout has no counterpart here).
 - :func:`gram_one_product` (``_gram32_kernel_2c``): the full 32x32 Gram of
   the rounded rows as one product, ``(E, 32, 32)``: K4's function.
 
+Beside them, :func:`gram_rows_fast` (no TPU counterpart) is
+:func:`gram_rows` on the row arithmetic of K4's tensor-core path: the two
+rows floors side by side show what the IEEE divisions and square roots
+cost.
+
 On CUDA tensors each launches its kernel in ``csrc/ba_gram.cu`` (entry
 ``ba_gram_variant``, the library K4 and K5 live in); on CPU tensors it
 returns its plain version; any other device raises. The plain versions
@@ -39,8 +44,10 @@ load_counter = _build.LaunchCounter()
 rows_counter = _build.LaunchCounter()
 diag_counter = _build.LaunchCounter()
 one_product_counter = _build.LaunchCounter()
+rows_fast_counter = _build.LaunchCounter()
 _KINDS = {"load": (0, load_counter), "rows": (1, rows_counter),
-          "diag": (2, diag_counter), "one_product": (3, one_product_counter)}
+          "diag": (2, diag_counter), "one_product": (3, one_product_counter),
+          "rows_fast": (4, rows_fast_counter)}
 
 
 def gram_load_ref(rts, meas):
@@ -56,11 +63,18 @@ def gram_rows_ref(rts, meas, sigma_ray, sigma_dist):
     return total.sum(-1).float().reshape(-1, 1, 1)
 
 
+def gram_rows_fast_ref(rts, meas, sigma_ray, sigma_dist):
+    """Plain version of :func:`gram_rows_fast`."""
+    rows = BA.rays_rows_kernel_order(rts, meas, sigma_ray, sigma_dist)
+    total = sum(r.double() for r in rows)
+    return total.sum(-1).float().reshape(-1, 1, 1)
+
+
 def abs_sum(rts, meas, *sigmas):
     """Σ|terms| in float64, ``(E, 1, 1)``, of :func:`gram_load` (no sigmas:
-    the channels) or :func:`gram_rows` (``sigma_ray, sigma_dist``: the 32
-    rows): the scale their float32 sums are held to, since the order of a
-    float32 sum is the kernel's own."""
+    the channels) or :func:`gram_rows` / :func:`gram_rows_fast`
+    (``sigma_ray, sigma_dist``: the 32 rows): the scale their float32 sums
+    are held to, since the order of a float32 sum is the kernel's own."""
     terms = BA.rays_rows(rts, meas, *sigmas) if sigmas else meas
     return sum(t.double().abs() for t in terms).sum(-1).reshape(-1, 1, 1)
 
@@ -97,6 +111,17 @@ def gram_rows(rts, meas, sigma_ray, sigma_dist):
     return _launch("rows", rts, meas, sigma_ray, sigma_dist, torch.float32)
 
 
+def gram_rows_fast(rts, meas, sigma_ray, sigma_dist):
+    """:func:`gram_rows` on the "mma" path's row arithmetic
+    (``ba_kernels.rays_rows_kernel_order``): the floor of that path's row
+    stage, ``(E, 1, 1)``. Not a TPU kernel: the benchmark's probe of where
+    the row stage's time goes."""
+    if rts.device.type == "cpu":
+        return gram_rows_fast_ref(rts, meas, sigma_ray, sigma_dist)
+    return _launch("rows_fast", rts, meas, sigma_ray, sigma_dist,
+                   torch.float32)
+
+
 def gram_diag(rts, meas, sigma_ray, sigma_dist, compute_dtype=torch.bfloat16):
     """``sum_d S_d S_dᵀ`` of the rows rounded to ``compute_dtype``,
     ``(E, 8, 8)``: the sum of K4's four diagonal 8x8 blocks."""
@@ -119,7 +144,7 @@ def _tile_pixels(kind, N, meas_dtype):
     """Pixels of one tile of kind ``kind``'s kernel: the reductions read 16
     bytes of each channel a thread (8 bf16 or 4 f32 pixels) when N is a
     multiple of that, else one pixel; the Gram kernels one pixel."""
-    if kind in ("load", "rows"):
+    if kind in ("load", "rows", "rows_fast"):
         vw = 8 if meas_dtype == torch.bfloat16 else 4
         if N % vw == 0:
             return BA.THREADS * vw
@@ -135,8 +160,8 @@ def _launch(name, rts, meas, sigma_ray, sigma_dist, compute_dtype):
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     bpe, tiles = BA.grid_shape(E, N, sm, _tile_pixels(name, N, dt))
     partial = torch.empty(E, bpe, 32 * 32, dtype=torch.float32, device=dev)
-    shape = {"load": (E, 1, 1), "rows": (E, 1, 1), "diag": (E, 8, 8),
-             "one_product": (E, 32, 32)}[name]
+    shape = {"load": (E, 1, 1), "rows": (E, 1, 1), "rows_fast": (E, 1, 1),
+             "diag": (E, 8, 8), "one_product": (E, 32, 32)}[name]
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     scratch = (torch.empty(E, 32, 32, dtype=torch.float32, device=dev)
                if name == "diag" and cdt == torch.float32 else None)
@@ -152,13 +177,11 @@ def _launch(name, rts, meas, sigma_ray, sigma_dist, compute_dtype):
     return out
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# ctypes signature of csrc/ba_gram.cu's K4′ entry
+ENTRIES = {"ba_gram_variant": [_I] + [_P] * 9 + [_I] * 6 + [_F] * 2
+           + [_P] * 4}
+
+
 def _lib():
-    lib = _build.load(KERNEL)
-    fn = lib.ba_gram_variant
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        f = ctypes.c_float
-        fn.argtypes = [i] + [p] * 9 + [i] * 6 + [f] * 2 + [p] * 4
-        fn.restype = ctypes.c_int
-    return lib
+    return _build.load(KERNEL, ENTRIES)

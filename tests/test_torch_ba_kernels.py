@@ -88,6 +88,29 @@ def test_gram_plain_version_matches_pallas_kernel(kind, meas_dtype, compute,
         assert not G_t[:, 24:].any() and not G_t[:, :, 24:].any()
 
 
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("meas_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["rays", "calib"])
+def test_kernel_order_rows_match_pallas_kernel(kind, meas_dtype, compute,
+                                               monkeypatch):
+    """The "mma" path's row arithmetic in plain form (rsqrt norm, reciprocal
+    sigmas, the Huber weight's square root as ``sqrt(k) rsqrt(w)``): its
+    Gram holds to the JAX kernel at the plain version's tolerances, so a
+    slip in the rewrite fails here."""
+    *_, meas, _, rts = _problem(kind, 3, jnp.dtype(meas_dtype))
+    G_j = torch.from_numpy(np.asarray(_jax_gram(
+        kind, rts, meas, jnp.dtype(compute), monkeypatch)))
+    tm, trts = _to_torch(meas, rts)
+    if kind == "rays":
+        rows = TK.rays_rows_kernel_order(trts, tm, *SIGMAS_RAYS)
+    else:
+        rows = TK.calib_rows_kernel_order(trts, tm, *CALIB_ARGS)
+    G_t = TK._gram(rows, TK.as_dtype(compute))
+    assert TK.gram_error(G_t, G_j) <= TOL[compute]
+    if kind == "calib":
+        assert not G_t[:, 24:].any() and not G_t[:, :, 24:].any()
+
+
 def _xla_system(kind, T, ii, jj, mask, meas, compute):
     if kind == "rays":
         rho, d_res, Xp, sw, adj_inv = JFG._edge_terms_rays(
@@ -171,3 +194,44 @@ def test_grid_covers_every_tile():
             n_tiles = -(-N // 256)
             assert bpe * tiles >= n_tiles > (bpe - 1) * tiles
             assert bpe >= 1 and tiles >= 1
+
+
+def _mma_pixels(bpe, tiles, N):
+    """Pixels each block of the "mma" kernel visits, by its loop bounds
+    (csrc/ba_gram.cu, gram_tc_kernel): tile t gives warp w the 32 pixels
+    from 256 t + 32 w, for t below the block's end and below the first
+    tile whose chunk for w starts at or past N."""
+    seen = np.zeros(N, np.int64)
+    for b in range(bpe):
+        for w in range(8):
+            t_lim = int((N - 32 * w + 255) / 256)   # C division truncates
+            for t in range(b * tiles, min(t_lim, b * tiles + tiles)):
+                p = np.arange(t * 256 + 32 * w, t * 256 + 32 * w + 32)
+                np.add.at(seen, p[p < N], 1)
+    return seen
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2, 3, 4])
+def test_mma_grid_covers_every_pixel_once(blocks_per_sm):
+    """The "mma" path's planner: no block is empty, the blocks cover every
+    256-pixel tile, and the kernel's per-warp bounds visit every pixel
+    exactly once; at most one wave of resident blocks where the edges
+    allow it; E up to 65,535 (CUDA's grid y limit) fits."""
+    for E in (1, 2, 5, 16, 128, 300, 1000, 65_535):
+        for N in (1, 7, 255, 256, 257, 1000, 98_304, 196_608):
+            bpe, tiles = TK.grid_mma(E, N, 132, blocks_per_sm)
+            n_tiles = -(-N // 256)
+            assert bpe >= 1 and tiles >= 1
+            assert bpe * tiles >= n_tiles > (bpe - 1) * tiles
+            assert E * bpe <= max(E, blocks_per_sm * 132)
+            assert bpe < 2**31 and E <= 65_535
+            if N <= 1000 and E <= 16:
+                assert (_mma_pixels(bpe, tiles, N) == 1).all()
+    assert TK.grid_mma(128, 98_304, 132, 2) == (2, 192)
+
+
+def test_gram_path_by_row_type():
+    """bf16 rows take the tensor-core path, f32 rows the FMA one."""
+    assert TK.gram_path(torch.bfloat16) == TK.gram_path("bfloat16") == "mma"
+    assert TK.gram_path(torch.float32) == "fma"
+    assert set(TK.path_counters) == set(TK.PATHS) == {"mma", "fma"}

@@ -99,7 +99,8 @@ def _both(inputs):
 
 @pytest.mark.parametrize("meas_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("source", list(SOURCES))
-@pytest.mark.parametrize("name", ["load", "rows"])
+# rows_fast (K4's tensor-core row arithmetic) has the rows body's function
+@pytest.mark.parametrize("name", ["load", "rows", "rows_fast"])
 def test_sum_plain_version_matches_pallas_body(interpret, name, source,
                                                meas_dtype):
     jrts, jm, trts, tm, sig = _both(SOURCES[source](meas_dtype))
@@ -110,7 +111,7 @@ def test_sum_plain_version_matches_pallas_body(interpret, name, source,
         body = functools.partial(interpret._rows_kernel, sigma_ray=sig[0],
                                  sigma_dist=sig[1])
         args = (trts, tm, *sig)
-        got = GV.gram_rows(*args)
+        got = getattr(GV, f"gram_{name}")(*args)
     want = np.asarray(interpret.run_variant(body, jrts, jm, 1,
                                             scalar_out=True))
     assert got.shape == want.shape == (trts.shape[0], 1, 1)
@@ -189,4 +190,31 @@ def test_bench_main_runs_on_the_cpu_when_asked(r2, capsys):
     key = "v2c_vs_v0" if r2 else "v3_vs_v0"
     assert out[key]["gram_error"] <= 1e-6
     assert set(out["ms"]) == ({"v2c", "v0"} if r2 else
-                              {"v1", "v2", "v3", "v0"})
+                              {"v1", "v2", "v2f", "v3", "v0f", "v0"})
+
+
+def test_sass_count_finds_the_loop_body():
+    """``bench/sass_count.py`` on a made-up listing: the loop is the
+    labelled target through its backward branch, a branch to itself is no
+    loop, and the body's ops are sorted into classes."""
+    from mast3r_slam_tpu_torch.bench import sass_count as SC
+
+    sass = """
+        Function : _ZN12_GLOBAL__N_114gram_tc_kernelILb0ELb1EEEv6Params
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+.L_x_3:
+        /*0010*/                   MUFU.RSQ R5, R4 ;
+        /*0020*/                   FFMA R6, R5, R5, R4 ;
+        /*0030*/              @!P0 CALL.REL.NOINC `($_slowpath) ;
+        /*0040*/                   HMMA.16816.F32.BF16 R8, R12, R14, R8 ;
+        /*0050*/                   NOP ;
+        /*0060*/               @P1 BRA `(.L_x_3) ;
+        /*0070*/                   EXIT ;
+        /*0080*/                   BRA 0x80 ;
+"""
+    (name, insns), = SC.parse(sass).items()
+    assert "gram_tc_kernel" in name and len(insns) == 9
+    assert SC.loops(insns) == [(1, 6)]
+    ops = [SC.opcode(t) for _, t, _ in insns[1:7] if SC.opcode(t) != "NOP"]
+    assert SC.classify(ops) == {"MUFU": 1, "fp32": 1, "mma": 1,
+                                "branch/sync": 2}

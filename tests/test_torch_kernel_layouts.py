@@ -20,8 +20,10 @@ from mast3r_slam_tpu.ops import conv3x3 as JC3
 from mast3r_slam_tpu.ops import flash_attention as JFA
 from mast3r_slam_tpu_torch import _build
 from mast3r_slam_tpu_torch.models import mast3r as TM
+from mast3r_slam_tpu_torch.ops import ba_kernels as TBA
 from mast3r_slam_tpu_torch.ops import conv3x3 as TC3
 from mast3r_slam_tpu_torch.ops import flash_attention as TFA
+from mast3r_slam_tpu_torch.ops import gram_variants as TGV
 from torch_parity import torch_one_thread  # noqa: F401
 
 RNG = np.random.default_rng(57)
@@ -212,7 +214,7 @@ _CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
            "const long long*": ctypes.POINTER(ctypes.c_longlong)}
 
 
-@pytest.mark.parametrize("module", [TC3, TFA])
+@pytest.mark.parametrize("module", [TC3, TFA, TBA, TGV])
 def test_ctypes_signatures_match_the_c_entries(module):
     """Every C entry a wrapper binds has the parameter list the wrapper's
     ctypes signature declares (a mismatch passes garbage, e.g. as the
