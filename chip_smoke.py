@@ -40,7 +40,9 @@ then:
 6. holds K4', the Gram microbenchmark's four kernels (the channel sum, the
    row sum, the diagonal blocks and the full Gram as one product), and the
    row sum on K4's tensor-core arithmetic, against their plain versions on
-   the benchmark's inputs at 16 and 128 edges with their times, then runs
+   the benchmark's inputs at 16 and 128 edges with their times, the
+   diagonal blocks and the one product (K4's tensor-core kernel with other
+   tiles) against K4's diagonal-block sum and K4 itself, then runs
    the benchmark itself
    (``mast3r_slam_tpu_torch.bench.gram_kernel_bench``, its default run and
    ``--r2``) with exact launch counts and its agreement lines in tolerance;
@@ -873,7 +875,8 @@ def k4p_case(torch, GV, BA, name, rts, meas, sig):
 def phase_gram_bench(torch, FA, C3, BA):
     """K4' (``ops/gram_variants.py``) against its plain versions on the
     benchmark's inputs at ``K4P_SHAPES`` with bf16 channels and rows, with
-    times; then the benchmark itself (its default run and ``--r2``) with
+    times, and K4'c / K4'd against K4 on the same inputs; then the
+    benchmark itself (its default run and ``--r2``) with
     every launch counter at 0 before and read after, and its agreement
     lines against ``GRAM_TOL``."""
     from mast3r_slam_tpu_torch.bench import gram_kernel_bench as GB
@@ -891,7 +894,23 @@ def phase_gram_bench(torch, FA, C3, BA):
             if (E, N) == K4P_SHAPES[-1]:
                 row.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
                            bound_ms=bnd, by=by)
-        del rts, meas
+        # K4'c / K4'd with bf16 rows run K4's kernel on K4's rows with other
+        # tiles: against K4's diagonal-block sum and K4 itself
+        G4 = BA.gram_rays(rts, meas, *sig)
+        for key, name, want in (("K4'c", "diag", GB.diag_blocks(G4)),
+                                ("K4'd", "one_product", G4)):
+            a = GB.agreement(getattr(GV, f"gram_{name}")(rts, meas, *sig),
+                             want)
+            what = "diagonal-block sum" if name == "diag" else "Gram"
+            log(f"K4' {name} E={E} N={N} vs K4's {what}: gram_error "
+                f"{a['gram_error']:.3e} (max abs {a['max_abs']:.3e} of "
+                f"{a['scale']:.3e})")
+            check(a["gram_error"] <= GRAM_TOL["bfloat16"],
+                  f"K4' {name} E={E} vs K4: Gram error "
+                  f"{a['gram_error']:.3e} > {GRAM_TOL['bfloat16']:.0e}")
+            report[key]["vs_k4"] = max(report[key].get("vs_k4", 0.0),
+                                       a["gram_error"])
+        del rts, meas, G4
         torch.cuda.empty_cache()
 
     reset_counters(FA, C3, BA)
@@ -1909,7 +1928,9 @@ def main():
          "plain_ms": k4p[key]["plain_ms"],
          "bound_ms": k4p[key]["bound_ms"],
          "bound_by": k4p[key]["by"],
-         "library_ms": k4p[key]["library_ms"]}
+         "library_ms": k4p[key]["library_ms"],
+         **({"gram_error_vs_k4": k4p[key]["vs_k4"]}
+            if "vs_k4" in k4p[key] else {})}
         for (key, name), line in zip(K4P, (62, 75, 115, 256))
     ]}
     log(f"K3's numbers are one call at the encoder shape (1, 16, 768, "
@@ -1931,7 +1952,9 @@ def main():
         f"bf16 stack for K4'c / K4'd); launches are the benchmark's own run "
         f"(python -m mast3r_slam_tpu_torch.bench.gram_kernel_bench, default "
         f"and --r2), 0 on every SLAM path (main, event, oracle, cli, reloc "
-        f"checked)")
+        f"checked); gram_error_vs_k4: K4'c against K4's diagonal-block sum, "
+        f"K4'd against K4, on the same inputs (both K4's tensor-core kernel "
+        f"with other tiles)")
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

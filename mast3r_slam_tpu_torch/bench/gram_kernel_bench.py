@@ -1,7 +1,7 @@
 """Where the BA Gram kernel's time goes on the card: K4 against the floors
 of its stages (kernel K4′, ``ops/gram_variants.py``).
 
-    python -m mast3r_slam_tpu_torch.bench.gram_kernel_bench [--r2]
+    python -m mast3r_slam_tpu_torch.bench.gram_kernel_bench [--r2 | --grids]
 
 Counterpart of ``scripts/gram_kernel_bench.py``. At the production shape
 (E = 128 edges, N = 98,304 pixels, bf16 channels and rows) it times
@@ -11,16 +11,22 @@ Counterpart of ``scripts/gram_kernel_bench.py``. At the production shape
             summed without a Gram,
   v2f rows  the same on the tensor-core path's arithmetic (MUFU ops,
             reciprocal sigmas; ``gram_variants.gram_rows_fast``),
-  v3 diag   the rows rounded to bf16 and only the four diagonal 8x8
-            blocks that the solver reads,
+  v3 diag   only the four diagonal 8x8 blocks that the solver reads,
   v0f full  K4 on its first design (``path="fma"``, the Gram as f32 FMAs),
   v0 full   the production K4 (``ba_kernels.gram_rays``, path "mma"),
 
 then prints how far v3 is from the sum of v0's diagonal blocks. ``--r2``
 sweeps K4's grid (blocks per edge x tiles per block of the "mma" path; the
 TPU's lane tile has no meaning here) and times v2c, the full Gram as one
-product on the tensor cores (K4′d), against v0, and prints their
-agreement.
+product (K4′d), against v0, and prints their agreement.
+
+v3 and v2c run K4's tensor-core kernel with K4's rows, staging, sums and
+one-wave grid; only the n8 tiles of a k step differ: 4 for v3, 8 for v2c
+(every entry its own product), 6 for v0 (the upper tiles, 2 mirrored). So
+v3 − v0 is what a Gram of the diagonal blocks alone would save the solver,
+and v2c − v0 what v0's symmetric tiles save. ``--grids`` times v3 and v2c
+on the grids of such a sweep around their own production grid and on the
+grid the first design's planner gives (``ba_kernels.grid_shape``).
 
 Inputs are drawn as the JAX script draws them, from
 ``numpy.random.default_rng(0)`` in the same order: the 8 channels
@@ -100,6 +106,22 @@ def agreement(got, want):
                 gram_error=BA.gram_error(got.cpu(), want.cpu()))
 
 
+def sweep_grids(prod, N):
+    """The grids of a sweep around the production grid ``prod`` of an "mma"
+    kernel: 1, 2, half, 1x, 2x and 4x its blocks per edge, each walking
+    contiguous runs of 256-pixel tiles."""
+    n_tiles = math.ceil(N / BA.THREADS)
+    grids = []
+    for bpe in sorted({1, 2, max(1, prod[0] // 2), prod[0], 2 * prod[0],
+                       4 * prod[0]}):
+        bpe = min(bpe, n_tiles)
+        grid = (math.ceil(n_tiles / math.ceil(n_tiles / bpe)),
+                math.ceil(n_tiles / bpe))
+        if grid not in grids:
+            grids.append(grid)
+    return grids
+
+
 def _device(device):
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -113,6 +135,10 @@ def main(argv=None, device="cuda"):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--r2", action="store_true",
                     help="sweep K4's grid, then time v2c against v0")
+    ap.add_argument("--grids", action="store_true",
+                    help="time v3 and v2c on the grids of a sweep around "
+                    "their production grid and on the first design's "
+                    "planner's (ba_kernels.grid_shape)")
     ap.add_argument("--edges", type=int, default=EDGES)
     ap.add_argument("--pixels", type=int, default=PIXELS)
     args = ap.parse_args(argv)
@@ -132,6 +158,25 @@ def main(argv=None, device="cuda"):
         return t
 
     out = dict(device=name, ms={})
+    if args.grids:
+        if dev.type != "cuda":
+            raise RuntimeError("--grids times the card's grids only")
+        sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        first = BA.grid_shape(E, N, sm)
+        out["grids"] = {}
+        for label, fn, kind in (("v3", GV.gram_diag, 2),
+                                ("v2c", GV.gram_one_product, 3)):
+            prod = BA.grid_mma(E, N, sm,
+                               BA.mma_blocks_per_sm(dev, kind, True))
+            grids = sweep_grids(prod, N)
+            for grid in grids + ([first] if first not in grids else []):
+                tag = (" (production)" if grid == prod else
+                       " (grid_shape)" if grid == first else "")
+                out["grids"][label, grid] = timed(
+                    f"{label} grid {grid[0]}x{grid[1]}{tag}",
+                    lambda g=grid, f=fn: f(rts, meas, *sig,
+                                           compute_dtype=bf16, grid=g))
+        return out
     if not args.r2:
         out["ms"]["v1"] = timed("v1 load floor", lambda: GV.gram_load(
             rts, meas))
@@ -156,15 +201,8 @@ def main(argv=None, device="cuda"):
     if dev.type == "cuda":
         sm = torch.cuda.get_device_properties(dev).multi_processor_count
         prod = BA.grid_mma(E, N, sm, BA.mma_blocks_per_sm(dev, 0, True))
-        n_tiles = math.ceil(N / BA.THREADS)
         out["grid"] = {}
-        for bpe in sorted({1, 2, max(1, prod[0] // 2), prod[0], 2 * prod[0],
-                           4 * prod[0]}):
-            bpe = min(bpe, n_tiles)
-            grid = (math.ceil(n_tiles / math.ceil(n_tiles / bpe)),
-                    math.ceil(n_tiles / bpe))
-            if grid in out["grid"]:
-                continue
+        for grid in sweep_grids(prod, N):
             label = f"v0 grid {grid[0]}x{grid[1]}"
             out["grid"][grid] = timed(
                 label + (" (production)" if grid == prod else ""),

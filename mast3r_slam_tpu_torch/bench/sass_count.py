@@ -7,14 +7,16 @@ Builds the library (``nvcc``, as the wrappers do), disassembles it with
 carries) and prints, for each kernel of K4 / K5 and K4′ (every kernel with
 ``--all``), its static instruction count and its loops: each backward
 branch, the instructions between its target and itself, and their mix by
-opcode class. A loop body runs once per pixel (K4 / K5's tensor-core path,
-K4′b at one pixel a thread), per 8 pixels (K4′b with bf16 vectors) or per
-tile (the FMA path, whose inner loop runs once per pixel of the tile), so
-its length is the instruction count per pixel that the kernel's note
-quotes. Slow paths (IEEE division and square root) are subroutines outside
-the loop; ``CALL`` counts their call sites in it. Static counts only: no
-profiler runs on the card machine. ``--dump NAME`` also prints the SASS
-of the longest loop of each kernel whose name contains NAME.
+opcode class. ``gram_tc_kernel``'s first template argument, its tile set, is
+the kind of its C entries: 0 K4, 1 K5, 2 K4′c, 3 K4′d. A loop body runs once
+per pixel (the tensor-core kernel, K4′b at one pixel a thread), per 8
+pixels (K4′b with bf16 vectors) or per tile (the FMA path, whose inner loop
+runs once per pixel of the tile), so its length is the instruction count per
+pixel that the kernel's note quotes. Slow paths (IEEE division and square
+root) are subroutines outside the loop; ``CALL`` counts their call sites in
+it. Static counts only: no profiler runs on the card machine. ``--dump
+NAME`` also prints the SASS of the longest loop of each kernel whose name
+contains NAME.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from pathlib import Path
 from mast3r_slam_tpu_torch import _build
 
 KERNELS = ("gram_tc_kernel", "gram_kernel", "reduce_kernel",
-           "gram_mma_kernel", "gram_sum_kernel")
+           "gram_sum_kernel")
 CLASSES = (
     ("MUFU", re.compile(r"^MUFU")),
     ("fp32", re.compile(r"^(FFMA|FMUL|FADD|FMNMX|FSEL|FSETP|FSET|FCHK)")),

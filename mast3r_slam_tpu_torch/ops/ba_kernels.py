@@ -338,9 +338,10 @@ _mma_blocks: dict[tuple, int] = {}
 
 
 def mma_blocks_per_sm(device, kind, meas_bf16) -> int:
-    """Blocks of the "mma" kernel for (kind, channel type) that one SM of
-    ``device`` holds at once, as the CUDA occupancy calculator reports it
-    for the built kernel (cached)."""
+    """Blocks of the tensor-core kernel for (kind, channel type) that one SM
+    of ``device`` holds at once, as the CUDA occupancy calculator reports it
+    for the built instance (cached). kind: 0 = K4, 1 = K5 (the "mma"
+    path), 2 = K4′c, 3 = K4′d (``gram_variants`` with bfloat16 rows)."""
     key = (torch.device(device).index, kind, meas_bf16)
     if key not in _mma_blocks:
         lib = _lib()

@@ -26,8 +26,14 @@ cost.
 
 On CUDA tensors each launches its kernel in ``csrc/ba_gram.cu`` (entry
 ``ba_gram_variant``, the library K4 and K5 live in); on CPU tensors it
-returns its plain version; any other device raises. The plain versions
-reuse ``ba_kernels``' row arithmetic and sum in float64.
+returns its plain version; any other device raises. With bfloat16 rows,
+:func:`gram_diag` and :func:`gram_one_product` run K4's tensor-core kernel
+with their own tile sets: K4's rows (``ba_kernels.rays_rows_kernel_order``
+is their plain form), staging, sums and one-wave grid, so that they differ
+from K4 in the tiles they compute alone. With float32 rows they run K4's
+FMA kernel. The plain versions take ``ba_kernels``' IEEE row arithmetic, as
+the JAX bodies do, and sum in float64; :func:`diag_of_rows` is the
+diagonal-block Gram of any 32 rows.
 """
 
 from __future__ import annotations
@@ -79,15 +85,20 @@ def abs_sum(rts, meas, *sigmas):
     return sum(t.double().abs() for t in terms).sum(-1).reshape(-1, 1, 1)
 
 
-def gram_diag_ref(rts, meas, sigma_ray, sigma_dist,
-                  compute_dtype=torch.bfloat16):
-    """Plain version of :func:`gram_diag`: ``sum_d S_d S_dᵀ`` in float64,
-    rounded to float32 once."""
+def diag_of_rows(rows, compute_dtype):
+    """``sum_d S_d S_dᵀ`` of the 32 rows rounded to ``compute_dtype``, in
+    float64 and rounded to float32 once, ``(E, 8, 8)``."""
     cdt = BA.as_dtype(compute_dtype)
-    rows = BA.rays_rows(rts, meas, sigma_ray, sigma_dist)
     S = torch.stack([r.to(cdt) for r in rows], dim=1).double()
     S = S.unflatten(1, (4, 8))
     return (S @ S.transpose(-1, -2)).sum(1).float()
+
+
+def gram_diag_ref(rts, meas, sigma_ray, sigma_dist,
+                  compute_dtype=torch.bfloat16):
+    """Plain version of :func:`gram_diag`."""
+    return diag_of_rows(BA.rays_rows(rts, meas, sigma_ray, sigma_dist),
+                        compute_dtype)
 
 
 def gram_one_product_ref(rts, meas, sigma_ray, sigma_dist,
@@ -100,7 +111,7 @@ def gram_load(rts, meas):
     """Sum of the 8 channels over each edge's pixels, ``(E, 1, 1)``."""
     if rts.device.type == "cpu":
         return gram_load_ref(rts, meas)
-    return _launch("load", rts, meas, 0.0, 0.0, torch.float32)
+    return _launch("load", rts, meas, 1.0, 1.0, torch.float32)  # no sigmas
 
 
 def gram_rows(rts, meas, sigma_ray, sigma_dist):
@@ -122,22 +133,27 @@ def gram_rows_fast(rts, meas, sigma_ray, sigma_dist):
                    torch.float32)
 
 
-def gram_diag(rts, meas, sigma_ray, sigma_dist, compute_dtype=torch.bfloat16):
+def gram_diag(rts, meas, sigma_ray, sigma_dist, compute_dtype=torch.bfloat16,
+              grid=None):
     """``sum_d S_d S_dᵀ`` of the rows rounded to ``compute_dtype``,
-    ``(E, 8, 8)``: the sum of K4's four diagonal 8x8 blocks."""
+    ``(E, 8, 8)``: the sum of K4's four diagonal 8x8 blocks. ``grid``
+    overrides the kernel's ``(blocks_per_edge, tiles_per_block)``, as
+    ``ba_kernels.gram_rays``' does."""
     if rts.device.type == "cpu":
         return gram_diag_ref(rts, meas, sigma_ray, sigma_dist, compute_dtype)
-    return _launch("diag", rts, meas, sigma_ray, sigma_dist, compute_dtype)
+    return _launch("diag", rts, meas, sigma_ray, sigma_dist, compute_dtype,
+                   grid)
 
 
 def gram_one_product(rts, meas, sigma_ray, sigma_dist,
-                     compute_dtype=torch.bfloat16):
-    """The full Gram ``S Sᵀ`` of the rounded rows, ``(E, 32, 32)``."""
+                     compute_dtype=torch.bfloat16, grid=None):
+    """The full Gram ``S Sᵀ`` of the rounded rows, ``(E, 32, 32)``, every
+    entry its own product. ``grid`` as :func:`gram_diag`'s."""
     if rts.device.type == "cpu":
         return gram_one_product_ref(rts, meas, sigma_ray, sigma_dist,
                                     compute_dtype)
     return _launch("one_product", rts, meas, sigma_ray, sigma_dist,
-                   compute_dtype)
+                   compute_dtype, grid)
 
 
 def _tile_pixels(kind, N, meas_dtype):
@@ -151,14 +167,22 @@ def _tile_pixels(kind, N, meas_dtype):
     return BA.THREADS
 
 
-def _launch(name, rts, meas, sigma_ray, sigma_dist, compute_dtype):
+def _launch(name, rts, meas, sigma_ray, sigma_dist, compute_dtype,
+            grid=None):
     kind, counter = _KINDS[name]
     E, N, dt, rts, meas = BA.check_inputs(rts, meas, 8, 13)
     meas = [_build.aligned(ch) for ch in meas]
     cdt = BA.as_dtype(compute_dtype)
     dev = rts.device
-    sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    bpe, tiles = BA.grid_shape(E, N, sm, _tile_pixels(name, N, dt))
+    mb = dt == torch.bfloat16
+    sm = _build.sm_count(dev)
+    if grid is None:
+        if name in ("diag", "one_product") and cdt == torch.bfloat16:
+            # K4's tensor-core kernel: one wave of its resident blocks
+            grid = BA.grid_mma(E, N, sm, BA.mma_blocks_per_sm(dev, kind, mb))
+        else:
+            grid = BA.grid_shape(E, N, sm, _tile_pixels(name, N, dt))
+    bpe, tiles = grid
     partial = torch.empty(E, bpe, 32 * 32, dtype=torch.float32, device=dev)
     shape = {"load": (E, 1, 1), "rows": (E, 1, 1), "rows_fast": (E, 1, 1),
              "diag": (E, 8, 8), "one_product": (E, 32, 32)}[name]
@@ -168,8 +192,9 @@ def _launch(name, rts, meas, sigma_ray, sigma_dist, compute_dtype):
     lib = _lib()
     err = lib.ba_gram_variant(
         kind, *(ch.data_ptr() for ch in meas), rts.data_ptr(), E, N,
-        int(dt == torch.bfloat16), int(cdt == torch.bfloat16), bpe, tiles,
-        float(sigma_ray), float(sigma_dist), partial.data_ptr(),
+        int(mb), int(cdt == torch.bfloat16), bpe, tiles,
+        float(sigma_ray), float(sigma_dist), 1.0 / float(sigma_ray),
+        1.0 / float(sigma_dist), partial.data_ptr(),
         None if scratch is None else scratch.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, KERNEL, err)
@@ -179,7 +204,7 @@ def _launch(name, rts, meas, sigma_ray, sigma_dist, compute_dtype):
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # ctypes signature of csrc/ba_gram.cu's K4′ entry
-ENTRIES = {"ba_gram_variant": [_I] + [_P] * 9 + [_I] * 6 + [_F] * 2
+ENTRIES = {"ba_gram_variant": [_I] + [_P] * 9 + [_I] * 6 + [_F] * 4
            + [_P] * 4}
 
 

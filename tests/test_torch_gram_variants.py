@@ -146,6 +146,34 @@ def test_gram_plain_version_matches_pallas_body(interpret, name, source,
     assert err <= tol, err
 
 
+@pytest.mark.parametrize("meas_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("source", list(SOURCES))
+@pytest.mark.parametrize("name", ["diag", "one_product"])
+def test_kernel_order_gram_matches_pallas_body(interpret, name, source,
+                                               meas_dtype):
+    """What K4′c and K4′d compute with bfloat16 rows on the card: the rows
+    on K4's tensor-core arithmetic (``ba_kernels.rays_rows_kernel_order``:
+    rsqrt norm, reciprocal sigmas, ``sqrt(k) rsqrt(w)`` Huber), rounded to
+    bfloat16, their diagonal-block and full Grams against the JAX bodies
+    (IEEE rows) at the bfloat16 rows' tolerance."""
+    jrts, jm, trts, tm, sig = _both(SOURCES[source](meas_dtype))
+    kw = dict(sigma_ray=sig[0], sigma_dist=sig[1],
+              compute_dtype=jnp.dtype("bfloat16"))
+    rows = TK.rays_rows_kernel_order(trts, tm, *sig)
+    if name == "diag":
+        body, n = functools.partial(interpret._diag_kernel, **kw), 8
+        got = GV.diag_of_rows(rows, torch.bfloat16)
+    else:
+        body, n = functools.partial(interpret._gram32_kernel_2c, **kw), 32
+        got = TK._gram(rows, torch.bfloat16)
+    want = torch.from_numpy(np.array(interpret.run_variant(body, jrts, jm,
+                                                           n)))
+    assert got.shape == want.shape == (trts.shape[0], n, n)
+    assert want.abs().max() > 0
+    err = TK.gram_error(got, want)
+    assert err <= GRAM_TOL["bfloat16"], err
+
+
 @pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("source", list(SOURCES))
 def test_script_identities(source, compute):
@@ -191,6 +219,24 @@ def test_bench_main_runs_on_the_cpu_when_asked(r2, capsys):
     assert out[key]["gram_error"] <= 1e-6
     assert set(out["ms"]) == ({"v2c", "v0"} if r2 else
                               {"v1", "v2", "v2f", "v3", "v0f", "v0"})
+
+
+def test_bench_grids_need_the_card():
+    """``--grids`` times the card's grids: on the CPU it raises."""
+    with pytest.raises(RuntimeError, match="card"):
+        TB.main(["--grids", "--edges", "2", "--pixels", "256"], device="cpu")
+
+
+@pytest.mark.parametrize("prod,N", [((2, 192), 98_304), ((1, 4), 1_000),
+                                    ((64, 6), 98_304), ((1, 1), 7)])
+def test_sweep_grids_cover_the_tiles(prod, N):
+    """Every grid of a sweep covers the 256-pixel tiles without a block
+    that has none, holds the production grid and no duplicate."""
+    grids = TB.sweep_grids(prod, N)
+    n_tiles = -(-N // TK.THREADS)
+    assert prod in grids and len(set(grids)) == len(grids)
+    for bpe, tiles in grids:
+        assert bpe * tiles >= n_tiles > (bpe - 1) * tiles
 
 
 def test_sass_count_finds_the_loop_body():
