@@ -42,7 +42,9 @@ then:
    row sum on K4's tensor-core arithmetic, against their plain versions on
    the benchmark's inputs at 16 and 128 edges with their times, the
    diagonal blocks and the one product (K4's tensor-core kernel with other
-   tiles) against K4's diagonal-block sum and K4 itself, then runs
+   tiles) against K4's diagonal-block sum and K4 itself, the row sum
+   against its first kernel bit for bit on edges of one live pixel
+   and timed beside it, with its SASS a pixel, then runs
    the benchmark itself
    (``mast3r_slam_tpu_torch.bench.gram_kernel_bench``, its default run and
    ``--r2``) with exact launch counts and its agreement lines in tolerance;
@@ -872,6 +874,40 @@ def k4p_case(torch, GV, BA, name, rts, meas, sig):
     return err, t_k, t_p, t_l, bnd, by
 
 
+def rows_sass_per_pixel(GV):
+    """SASS instructions a pixel of K4'b's loop (bf16 channels, vector
+    path) and of its first design's, and the new loop's slow-path call
+    sites (``bench/sass_count.py``)."""
+    from mast3r_slam_tpu_torch import _build
+    from mast3r_slam_tpu_torch.bench import sass_count as SC
+
+    rows = SC.report(_build.library_path(GV.KERNEL))
+    vp = GV.vec_pixels(1, True)
+    out = {}
+    for key, name, pixels in (
+            ("new", f"rows_kernel<(bool)1, (int){vp}, (bool)0>", vp),
+            ("first", "reduce_kernel<(bool)1, (bool)1, (int)8>", 8)):
+        (r,) = [r for r in rows if name in r["kernel"]]
+        loop = max(r["loops"], key=lambda lp: lp["length"])
+        out[key] = loop["length"] / pixels
+        out[f"{key}_slow"] = loop["slow"]
+    return out
+
+
+def rows_bitwise(torch, GV, rts, meas, sig):
+    """K4'b against its first kernel on the benchmark's inputs with every
+    confidence 0 but one random pixel an edge: each edge's sum is that
+    pixel's 32 rows, so the two must be equal whatever their order."""
+    E = meas[0].shape[0]
+    one, _ = GV.one_live_pixel(meas, seed=8)
+    out = GV.gram_rows(rts, one, *sig)
+    first = GV.gram_rows_first(rts, one, *sig)
+    torch.cuda.synchronize()
+    check(bool((out != 0).all()), f"K4'b one live pixel E={E}: a zero sum")
+    check(torch.equal(out, first), f"K4'b one live pixel E={E}: "
+          f"{int((out != first).sum())} edges differ from the first kernel")
+
+
 def phase_gram_bench(torch, FA, C3, BA):
     """K4' (``ops/gram_variants.py``) against its plain versions on the
     benchmark's inputs at ``K4P_SHAPES`` with bf16 channels and rows, with
@@ -894,6 +930,13 @@ def phase_gram_bench(torch, FA, C3, BA):
             if (E, N) == K4P_SHAPES[-1]:
                 row.update(ms=t_k, plain_ms=t_p, library_ms=t_l,
                            bound_ms=bnd, by=by)
+        # K4'b's first kernel in the same run, and their rows bit for bit
+        t_first = time_ms(lambda: GV.gram_rows_first(rts, meas, *sig))
+        log(f"K4' rows E={E} N={N}: first kernel {t_first:.4f} ms")
+        report["K4'b"]["first_ms"] = t_first
+        rows_bitwise(torch, GV, rts, meas, sig)
+        log(f"K4' rows E={E} N={N}: one live pixel an edge, equal to the "
+            f"first kernel bit for bit")
         # K4'c / K4'd with bf16 rows run K4's kernel on K4's rows with other
         # tiles: against K4's diagonal-block sum and K4 itself
         G4 = BA.gram_rays(rts, meas, *sig)
@@ -946,6 +989,12 @@ def phase_gram_bench(torch, FA, C3, BA):
         f"v2c vs v0 {r2['v2c_vs_v0']['gram_error']:.2e} (gram_error)")
     for key, _ in K4P:
         report[key]["launches"] = launches[key]
+    sass = rows_sass_per_pixel(GV)
+    log(f"K4'b SASS a pixel (bf16 channels): {sass['new']:.1f} "
+        f"({sass['new_slow']} slow-path call sites in the loop), first "
+        f"kernel {sass['first']:.1f} ({sass['first_slow']})")
+    check(sass["new_slow"] == 0, "K4'b's loop has slow-path call sites")
+    report["K4'b"]["sass"] = sass["new"]
     torch.cuda.empty_cache()
     return report
 
@@ -1930,7 +1979,10 @@ def main():
          "bound_by": k4p[key]["by"],
          "library_ms": k4p[key]["library_ms"],
          **({"gram_error_vs_k4": k4p[key]["vs_k4"]}
-            if "vs_k4" in k4p[key] else {})}
+            if "vs_k4" in k4p[key] else {}),
+         **({"first_ms": k4p[key]["first_ms"],
+             "sass_per_pixel": k4p[key]["sass"]}
+            if "first_ms" in k4p[key] else {})}
         for (key, name), line in zip(K4P, (62, 75, 115, 256))
     ]}
     log(f"K3's numbers are one call at the encoder shape (1, 16, 768, "
@@ -1954,7 +2006,9 @@ def main():
         f"and --r2), 0 on every SLAM path (main, event, oracle, cli, reloc "
         f"checked); gram_error_vs_k4: K4'c against K4's diagonal-block sum, "
         f"K4'd against K4, on the same inputs (both K4's tensor-core kernel "
-        f"with other tiles)")
+        f"with other tiles); K4'b's first_ms: its first kernel in the "
+        f"same run, sass_per_pixel: its loop's SASS a pixel, bf16 "
+        f"channels")
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

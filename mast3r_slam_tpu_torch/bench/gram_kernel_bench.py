@@ -7,10 +7,14 @@ Counterpart of ``scripts/gram_kernel_bench.py``. At the production shape
 (E = 128 edges, N = 98,304 pixels, bf16 channels and rows) it times
 
   v1 load   the sum of the 8 channels (the memory-read floor),
-  v2 rows   K4's 32 weighted rows on the first design's IEEE arithmetic,
-            summed without a Gram,
-  v2f rows  the same on the tensor-core path's arithmetic (MUFU ops,
-            reciprocal sigmas; ``gram_variants.gram_rows_fast``),
+  v2 rows   K4's 32 weighted rows, correctly rounded as the JAX body's
+            (IEEE division and square root), summed without a Gram: nvcc's
+            fast sequences with one range guard a pixel, one-wave grid,
+  v2 first  the same function on the first kernel, with a check
+            and a slow-path branch per operation (on the card only),
+  v2f rows  v2's kernel on the tensor-core path's arithmetic (MUFU ops,
+            reciprocal sigmas; ``gram_variants.gram_rows_fast``), so that
+            v2 − v2f is what correct rounding costs the row stage,
   v3 diag   only the four diagonal 8x8 blocks that the solver reads,
   v0f full  K4 on its first design (``path="fma"``, the Gram as f32 FMAs),
   v0 full   the production K4 (``ba_kernels.gram_rays``, path "mma"),
@@ -24,9 +28,9 @@ v3 and v2c run K4's tensor-core kernel with K4's rows, staging, sums and
 one-wave grid; only the n8 tiles of a k step differ: 4 for v3, 8 for v2c
 (every entry its own product), 6 for v0 (the upper tiles, 2 mirrored). So
 v3 − v0 is what a Gram of the diagonal blocks alone would save the solver,
-and v2c − v0 what v0's symmetric tiles save. ``--grids`` times v3 and v2c
-on the grids of such a sweep around their own production grid and on the
-grid the first design's planner gives (``ba_kernels.grid_shape``).
+and v2c − v0 what v0's symmetric tiles save. ``--grids`` times v2, v2f, v3
+and v2c on the grids of a sweep around their own production grid and on
+the grid the first designs' planner gives (``ba_kernels.grid_shape``).
 
 Inputs are drawn as the JAX script draws them, from
 ``numpy.random.default_rng(0)`` in the same order: the 8 channels
@@ -106,11 +110,11 @@ def agreement(got, want):
                 gram_error=BA.gram_error(got.cpu(), want.cpu()))
 
 
-def sweep_grids(prod, N):
-    """The grids of a sweep around the production grid ``prod`` of an "mma"
-    kernel: 1, 2, half, 1x, 2x and 4x its blocks per edge, each walking
-    contiguous runs of 256-pixel tiles."""
-    n_tiles = math.ceil(N / BA.THREADS)
+def sweep_grids(prod, N, tile=BA.THREADS):
+    """The grids of a sweep around the production grid ``prod`` of a
+    one-wave kernel: 1, 2, half, 1x, 2x and 4x its blocks per edge, each
+    walking contiguous runs of ``tile``-pixel tiles."""
+    n_tiles = math.ceil(N / tile)
     grids = []
     for bpe in sorted({1, 2, max(1, prod[0] // 2), prod[0], 2 * prod[0],
                        4 * prod[0]}):
@@ -136,9 +140,9 @@ def main(argv=None, device="cuda"):
     ap.add_argument("--r2", action="store_true",
                     help="sweep K4's grid, then time v2c against v0")
     ap.add_argument("--grids", action="store_true",
-                    help="time v3 and v2c on the grids of a sweep around "
-                    "their production grid and on the first design's "
-                    "planner's (ba_kernels.grid_shape)")
+                    help="time v2, v2f, v3 and v2c on the grids of a sweep "
+                    "around their production grid and on the first "
+                    "designs' planner's (ba_kernels.grid_shape)")
     ap.add_argument("--edges", type=int, default=EDGES)
     ap.add_argument("--pixels", type=int, default=PIXELS)
     args = ap.parse_args(argv)
@@ -162,26 +166,43 @@ def main(argv=None, device="cuda"):
         if dev.type != "cuda":
             raise RuntimeError("--grids times the card's grids only")
         sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        first = BA.grid_shape(E, N, sm)
         out["grids"] = {}
-        for label, fn, kind in (("v3", GV.gram_diag, 2),
+        vp = GV.vec_pixels(1, True)
+        tile = GV.tile_pixels("rows", N, vp)
+        for label, fn, kind in (("v2", GV.gram_rows, 1),
+                                ("v2f", GV.gram_rows_fast, 4),
+                                ("v3", GV.gram_diag, 2),
                                 ("v2c", GV.gram_one_product, 3)):
-            prod = BA.grid_mma(E, N, sm,
-                               BA.mma_blocks_per_sm(dev, kind, True))
-            grids = sweep_grids(prod, N)
+            if kind in (1, 4):
+                prod = GV.grid_rows(E, N, sm, GV.rows_blocks_per_sm(
+                    dev, kind, True, N % vp == 0), vp)
+                first, t, kw = BA.grid_shape(E, N, sm, tile), tile, {}
+            else:
+                prod = BA.grid_mma(E, N, sm,
+                                   BA.mma_blocks_per_sm(dev, kind, True))
+                first, t = BA.grid_shape(E, N, sm), BA.THREADS
+                kw = dict(compute_dtype=bf16)
+            grids = sweep_grids(prod, N, t)
             for grid in grids + ([first] if first not in grids else []):
                 tag = (" (production)" if grid == prod else
                        " (grid_shape)" if grid == first else "")
                 out["grids"][label, grid] = timed(
                     f"{label} grid {grid[0]}x{grid[1]}{tag}",
-                    lambda g=grid, f=fn: f(rts, meas, *sig,
-                                           compute_dtype=bf16, grid=g))
+                    lambda g=grid, f=fn, kw=kw: f(rts, meas, *sig, grid=g,
+                                                  **kw))
         return out
     if not args.r2:
         out["ms"]["v1"] = timed("v1 load floor", lambda: GV.gram_load(
             rts, meas))
         out["ms"]["v2"] = timed("v2 rows", lambda: GV.gram_rows(
             rts, meas, *sig))
+        if dev.type == "cuda":
+            out["ms"]["v2 first"] = timed(
+                "v2 first (first kernel)",
+                lambda: GV.gram_rows_first(rts, meas, *sig))
+        else:
+            print("v2 first: the card's only (no kernel on the CPU)",
+                  flush=True)
         out["ms"]["v2f"] = timed("v2f rows (mma arithmetic)",
                                  lambda: GV.gram_rows_fast(rts, meas, *sig))
         out["ms"]["v3"] = timed("v3 diag 4x8x8", lambda: GV.gram_diag(

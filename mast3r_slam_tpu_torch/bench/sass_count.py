@@ -9,14 +9,19 @@ carries) and prints, for each kernel of K4 / K5 and K4′ (every kernel with
 branch, the instructions between its target and itself, and their mix by
 opcode class. ``gram_tc_kernel``'s first template argument, its tile set, is
 the kind of its C entries: 0 K4, 1 K5, 2 K4′c, 3 K4′d. A loop body runs once
-per pixel (the tensor-core kernel, K4′b at one pixel a thread), per 8
-pixels (K4′b with bf16 vectors) or per tile (the FMA path, whose inner loop
-runs once per pixel of the tile), so its length is the instruction count per
-pixel that the kernel's note quotes. Slow paths (IEEE division and square
-root) are subroutines outside the loop; ``CALL`` counts their call sites in
-it. Static counts only: no profiler runs on the card machine. ``--dump
-NAME`` also prints the SASS of the longest loop of each kernel whose name
-contains NAME.
+per pixel (the tensor-core kernel, the reductions at one pixel a thread),
+per tile of a thread's vector pixels (``rows_kernel``, K4′b and K4′b-fast:
+its second template argument, 8 a thread; ``reduce_kernel``, K4′a and K4′b's
+first design: 8 bf16 or 4 f32) or per tile (the FMA path, whose inner loop
+runs once per pixel of the tile); divided by those pixels, its length is
+the instruction count per pixel that the kernel's note quotes. The IEEE
+division's and square root's slow paths are leaf subroutines of the
+kernel: a loop's ``slow`` counts its call sites of them (one per operation
+in K4′b's first design), ``CALL`` every call site (K4′b's one a pixel to
+its out-of-line fallback, ``rays_rows_sum_ieee``, which ptxas also makes
+a subroutine of the kernel and which calls the slow paths itself). Static counts only:
+no profiler runs on the card machine. ``--dump NAME`` also prints the SASS
+of the longest loop of each kernel whose name contains NAME.
 """
 
 from __future__ import annotations
@@ -30,8 +35,8 @@ from pathlib import Path
 
 from mast3r_slam_tpu_torch import _build
 
-KERNELS = ("gram_tc_kernel", "gram_kernel", "reduce_kernel",
-           "gram_sum_kernel")
+KERNELS = ("gram_tc_kernel", "gram_kernel", "reduce_kernel", "rows_kernel",
+           "rays_rows_sum_ieee", "gram_sum_kernel")
 CLASSES = (
     ("MUFU", re.compile(r"^MUFU")),
     ("fp32", re.compile(r"^(FFMA|FMUL|FADD|FMNMX|FSEL|FSETP|FSET|FCHK)")),
@@ -48,6 +53,7 @@ CLASSES = (
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _TARGET = re.compile(r"(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
+_CALL = re.compile(r"^CALL\S*\s+(?:(0x[0-9a-f]+)|`\(([^)]*)\))")
 
 
 def find_tool(name: str) -> str:
@@ -75,12 +81,47 @@ def demangle(names):
     return dict(zip(names, out))
 
 
-def opcode(text: str) -> str:
-    """The opcode of one SASS line's instruction (predicate dropped)."""
+def _unpredicated(text: str) -> str:
     words = text.split()
     if words and words[0].startswith("@"):
         words = words[1:]
+    return " ".join(words)
+
+
+def opcode(text: str) -> str:
+    """The opcode of one SASS line's instruction (predicate dropped)."""
+    words = _unpredicated(text).split()
     return words[0] if words else ""
+
+
+def _leaf(insns, target):
+    """Whether the subroutine at ``target`` (an address or a label of the
+    function ``insns``) returns without a call of its own."""
+    start = next((i for i, (a, _, lab) in enumerate(insns)
+                  if target in (hex(a), lab)), None)
+    if start is None:
+        return False
+    for _, text, _ in insns[start:]:
+        op = opcode(text)
+        if op.startswith("CALL"):
+            return False
+        if op.startswith("RET"):
+            return True
+    return False
+
+
+def calls(texts, insns=()):
+    """``(call sites, slow-path call sites)`` among SASS lines of the
+    function ``insns``: every ``CALL``, and those to a leaf subroutine of
+    it (the IEEE division's and square root's slow paths; K4′b's
+    out-of-line fallback calls those itself)."""
+    slow = n = 0
+    for t in texts:
+        m = _CALL.match(_unpredicated(t))
+        if m:
+            n += 1
+            slow += _leaf(insns, m.group(1) or m.group(2))
+    return n, slow
 
 
 def classify(ops):
@@ -151,10 +192,11 @@ def report(lib: Path, keep_all=False, dump=None):
             for _, text, _ in insns[s:e + 1]:
                 print("   ", text)
         for s, e in spans:
-            lops = [opcode(t) for _, t, _ in insns[s:e + 1]
-                    if opcode(t) != "NOP"]
+            texts = [t for _, t, _ in insns[s:e + 1] if opcode(t) != "NOP"]
+            lops = [opcode(t) for t in texts]
+            n_calls, n_slow = calls(texts, insns)
             body.append(dict(length=len(lops), mix=classify(lops),
-                             calls=sum(op == "CALL" for op in lops)))
+                             calls=n_calls, slow=n_slow))
         rows.append(dict(kernel=name, instructions=len(ops),
                          mix=classify(ops), loops=body))
     return rows
@@ -175,7 +217,8 @@ def main(argv=None):
         print(f"{r['kernel']}: {r['instructions']} instructions {r['mix']}")
         for k, lp in enumerate(r["loops"]):
             print(f"    loop {k}: {lp['length']} instructions, "
-                  f"{lp['calls']} CALL, {lp['mix']}")
+                  f"{lp['calls']} CALL ({lp['slow']} slow-path), "
+                  f"{lp['mix']}")
     print(json.dumps(rows))
     return rows
 

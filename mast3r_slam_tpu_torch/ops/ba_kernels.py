@@ -295,16 +295,23 @@ def grid_shape(E, N, sm_count, tile=THREADS):
     return math.ceil(n_tiles / tiles), tiles
 
 
-def grid_mma(E, N, sm_count, blocks_per_sm):
-    """``(blocks_per_edge, tiles_per_block)`` of the "mma" path: as many
+def grid_wave(E, N, sm_count, blocks_per_sm, tile=THREADS):
+    """``(blocks_per_edge, tiles_per_block)`` of a one-wave kernel: as many
     blocks per edge as one wave of ``blocks_per_sm * sm_count`` resident
     blocks holds (a second, part-filled wave would leave SMs idle while it
-    runs), at least one; each walks a contiguous run of 256-pixel
-    tiles."""
-    n_tiles = math.ceil(N / THREADS)
+    runs), at least one; each walks a contiguous run of ``tile``-pixel
+    tiles. The "mma" path's (:func:`grid_mma`) and K4′b's rows kernels'
+    (``gram_variants``)."""
+    n_tiles = math.ceil(N / tile)
     want = max(1, min(n_tiles, blocks_per_sm * sm_count // E))
     tiles = math.ceil(n_tiles / want)
     return math.ceil(n_tiles / tiles), tiles
+
+
+def grid_mma(E, N, sm_count, blocks_per_sm):
+    """``(blocks_per_edge, tiles_per_block)`` of the "mma" path:
+    :func:`grid_wave` on 256-pixel tiles."""
+    return grid_wave(E, N, sm_count, blocks_per_sm)
 
 
 def check_inputs(rts, meas, n_ch, cols):

@@ -264,3 +264,89 @@ def test_sass_count_finds_the_loop_body():
     ops = [SC.opcode(t) for _, t, _ in insns[1:7] if SC.opcode(t) != "NOP"]
     assert SC.classify(ops) == {"MUFU": 1, "fp32": 1, "mma": 1,
                                 "branch/sync": 2}
+
+
+@pytest.mark.parametrize("meas_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("source", list(SOURCES))
+def test_one_live_pixel_sum_matches_pallas_body(interpret, source,
+                                                meas_dtype):
+    """The construction K4′b's bitwise GPU tests take
+    (``gram_variants.one_live_pixel``: one pixel of nonzero confidence an
+    edge): its plain float32 row sums against the JAX body's within 1e-6
+    of the live pixel's Σ|rows| (float64), each edge's sum that one pixel's
+    32 rows. Relative to the sum itself the premeas rows read 6e-6: their
+    float32 rounding differs between XLA and torch (module docstring)."""
+    rts, meas, dtype, sig = SOURCES[source](meas_dtype)
+    one, live = GV.one_live_pixel([torch.from_numpy(m) for m in meas], 3)
+    jrts, jm, trts, tm, sig = _both((rts, [m.numpy() for m in one], dtype,
+                                     sig))
+    assert [int((m[4] != 0).sum()) for m in [tm]] == [trts.shape[0]]
+    got = GV.gram_rows(trts, tm, *sig).double().numpy()
+    body = functools.partial(interpret._rows_kernel, sigma_ray=sig[0],
+                             sigma_dist=sig[1])
+    want = np.asarray(interpret.run_variant(body, jrts, jm, 1,
+                                            scalar_out=True), np.float64)
+    scale = GV.abs_sum(trts, tm, *sig).numpy()
+    assert np.all(want != 0)
+    assert np.all(np.abs(got - want) <= 1e-6 * scale), (
+        np.abs(got - want) / scale).max()
+
+
+@pytest.mark.parametrize("sigmas", ["bench", "seeded"])
+def test_host_reciprocal_is_the_float32_quotient(sigmas):
+    """The reciprocal sigmas the rows kernels are passed are ``RN(1 /
+    sigma)`` in float32 from the float32 sigma, which the kernel's x /
+    sigma sequence needs (and its C entry checks), for the benchmark's
+    sigmas and 1,000 seeded ones; a float64 quotient rounded to float32
+    misses it for some of them."""
+    if sigmas == "bench":
+        sig = [TB.SIGMA_RAY, TB.SIGMA_DIST, *PREMEAS_SIGMAS]
+    else:
+        sig = list(10 ** np.random.default_rng(0).uniform(-5, 3, 1000))
+    got = np.array([GV.host_reciprocal(s) for s in sig])
+    want = np.float32(1) / np.array(sig, np.float32)
+    assert np.array_equal(got, want.astype(np.float64))
+    if sigmas == "seeded":
+        via_f64 = (1.0 / np.array(sig)).astype(np.float32)
+        assert np.any(via_f64 != want)
+
+
+@pytest.mark.parametrize("vp", [1, 4])
+@pytest.mark.parametrize("bps", [1, 2, 3])
+@pytest.mark.parametrize("E,N", [(1, 98_304), (16, 98_304), (128, 98_304),
+                                 (5, 1_000), (300, 7), (2, 1_001)])
+def test_rows_grid_covers_the_tiles(E, N, bps, vp):
+    """K4′b's one-wave planner (``gram_variants.grid_rows``) covers its
+    tiles (``vp`` pixels a thread when N is a multiple, else one) without a
+    block that has none, and fills at most one wave of ``bps`` blocks on
+    each of 132 SMs where the edges leave room."""
+    bpe, tiles = GV.grid_rows(E, N, 132, bps, vp)
+    n_tiles = -(-N // GV.tile_pixels("rows", N, vp))
+    assert bpe * tiles >= n_tiles > (bpe - 1) * tiles
+    assert bpe * E <= max(bps * 132, E)
+
+
+def test_sass_count_tells_slow_paths_from_the_fallback():
+    """A call to a leaf subroutine (an IEEE slow path) counts as a
+    slow-path call site; a call to a subroutine that calls others (K4′b's
+    out-of-line fallback) counts as a call only."""
+    from mast3r_slam_tpu_torch.bench import sass_count as SC
+
+    sass = """
+        Function : _ZN12_GLOBAL__N_111rows_kernelILb1ELi4ELb0EEEv6Params
+        /*0000*/                   MOV R1, R2 ;
+.L_x_1:
+        /*0010*/              @!P0 CALL.REL.NOINC 0x60 ;
+        /*0020*/              @!P1 CALL.REL.NOINC 0x90 ;
+        /*0030*/               @P2 BRA `(.L_x_1) ;
+        /*0040*/                   EXIT ;
+        /*0050*/                   BRA 0x50 ;
+        /*0060*/                   CALL.REL.NOINC 0x90 ;
+        /*0070*/                   FADD R4, R4, R5 ;
+        /*0080*/                   RET.REL.NODEC R6 0x0 ;
+        /*0090*/                   MUFU.RSQ R4, R4 ;
+        /*00a0*/                   RET.REL.NODEC R8 0x0 ;
+"""
+    (insns,) = SC.parse(sass).values()
+    ((s, e),) = [lp for lp in SC.loops(insns) if lp[0] < lp[1]]
+    assert SC.calls([t for _, t, _ in insns[s:e + 1]], insns) == (2, 1)
