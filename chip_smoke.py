@@ -55,17 +55,32 @@ then:
    keyframe poses on the card and on the CPU: several accepted steps, the
    trajectory recovered, both runs ending at the same poses;
 8. runs the port's CLI (``mast3r_slam_tpu_torch.main.main``) at full ViT-L
-   width on a 24-frame TUM clip it writes (an out-and-back pan), checking
-   every frame processed, at least 8 keyframes, a retrieval edge, the
-   exported trajectory, PLYs and keyframe PNGs, and each kernel's launches
-   against the run's own model calls and LM iterations; then a calibrated
-   run (K5), a checkpoint restored bit for bit and resumed, and a threaded
-   run that drains;
+   width on a 24-frame TUM clip it writes (an out-and-back pan) with
+   ``config/base.yaml``'s quality service and local TSDF refiner as
+   shipped, checking every frame processed, at least 8 keyframes, a
+   retrieval edge, the exported trajectory, PLYs (the quality one with
+   non-zero fields) and keyframe PNGs, each kernel's launches against the
+   run's own model calls and LM iterations, every quality job processed
+   or dropped and every refiner task ended; then the same clip with the
+   services off (their cost to the tracked frame and the backend step), a
+   calibrated run (K5), a checkpoint restored bit for bit and resumed, and
+   a threaded run with the global TSDF on as well that drains;
 9. runs the CLI with one reduced-depth f32 model on the card and on the
-   CPU: the same modes, keyframes and edges, and the same poses;
+   CPU (services off): the same modes, keyframes and edges, and the same
+   poses;
 10. runs the relocalization episode of ``tests/test_oracle_reloc.py`` at
    384x512: a teleport recovered within the JAX test's bounds, an impostor
-   rejected and rolled back.
+   rejected and rolled back;
+11. runs the services on the oracle scene's keyframes at 384x512 with
+   base.yaml's settings: the quality service fed seeded jobs, the refiner
+   refining at least one block at G = 64, the global TSDF's pose optimizer
+   pulling a 3 cm offset back onto the surface, and
+   ``compute_quality_batch``, ``refine_blocks_core`` and one integrate and
+   query on the card against the CPU, with their times.
+
+In every phase that runs a service, an exception in a service worker (which
+prints it and carries on) fails the run, and the global TSDF must run on
+the native voxel hash.
 
 K3 (flash attention without RoPE, which no path calls) is held against its
 plain version in phase 1. ``--phases`` runs a subset (no kernel table).
@@ -1256,16 +1271,16 @@ CLI_STEP = (12.0, 4.0)          # pan per step, pixels (x, y)
 CLI_CALIB_FRAMES = 8
 CLI_THREADED_FRAMES = 12
 CLI_CKPT_FRAMES = 8
-# tests/test_e2e_smoke.py's cuts for random weights
+# what random weights force (tests/test_e2e_smoke.py's cuts; the decoder
+# streams are tied in tied_model); base.yaml's services stay as shipped
 CLI_CUTS = {
     "single_thread": True,
-    "quality": {"enabled": False},
-    "tsdf_refine": {"enabled": False},
-    "tsdf_global": {"enabled": False},
     "tracking": {"Q_conf": 0.0, "min_match_frac": 0.0,
                  "match_frac_thresh": 0.9},
     "local_opt": {"Q_conf": 0.0, "min_match_frac": 0.0},
 }
+SERVICES_OFF = {"quality": {"enabled": False},
+                "tsdf_refine": {"enabled": False}}
 # card-vs-CPU run: encoder depth 2 and decoder depth 4, the shallowest
 # decoder whose four DPT hooks (0, d/2, 3d/4, d) are distinct
 CROSS_DEPTH = (2, 4)
@@ -1341,15 +1356,18 @@ def tied_model(cfg, device, seed=0, **mcfg_over):
 @contextlib.contextmanager
 def instrumented(torch, model):
     """Counts the model calls that launch K1/K2 and the BA's LM iterations
-    (K4/K5 launch 1 + iterations per solve), and times tracked frames and
-    the backend step's parts with a device sync around each."""
+    (K4/K5 launch 1 + iterations per solve) and the quality jobs submitted,
+    and times tracked frames and the backend step's parts with a device
+    sync around each."""
+    from mast3r_slam_tpu_torch.services.quality_async import (
+        AsynchronousQualityService)
     from mast3r_slam_tpu_torch.slam import factor_graph as FG
     from mast3r_slam_tpu_torch.slam import tracker as T
     from mast3r_slam_tpu_torch.slam.pipeline import Backend
     from mast3r_slam_tpu_torch.slam.retrieval import RetrievalDatabase
 
     rec = {"calls": {k: 0 for k in ("mono", "track", "oneway", "symmetric",
-                                    "solves", "lm_iters")},
+                                    "solves", "lm_iters", "quality_jobs")},
            "ms": {k: [] for k in ("track", "step", "retrieval",
                                   "add_factors", "solve")}}
     saved = []
@@ -1397,6 +1415,7 @@ def instrumented(torch, model):
     patch(FG.FactorGraph, "add_factors", timed("add_factors"))
     patch(FG.FactorGraph, "solve_GN_rays", timed("solve"))
     patch(FG.FactorGraph, "solve_GN_calib", timed("solve"))
+    patch(AsynchronousQualityService, "submit", counted("quality_jobs"))
     try:
         yield rec
     finally:
@@ -1464,6 +1483,44 @@ def check_outputs(out, savedir, name, n_frames, img_hw):
     return traj, n_pts
 
 
+def check_services(out, rec, tag):
+    """The CLI run's services ended cleanly: every quality job processed or
+    dropped, every refiner task ended, every worker stopped, and the global
+    TSDF (when on) on the native hash with voxels in its volume."""
+    from mast3r_slam_tpu_torch.services.native_tsdf import NativeVoxelHash
+
+    q, ref, m = out["quality"], out["refiner"], out["tsdf_manager"]
+    if q is not None:
+        check(q.processed_jobs + q.dropped_jobs
+              == rec["calls"]["quality_jobs"] and not q.is_alive(),
+              f"cli {tag}: quality {q.processed_jobs} processed + "
+              f"{q.dropped_jobs} dropped of {rec['calls']['quality_jobs']}")
+    if ref.enabled:
+        s = ref.stats
+        check(s["refined_blocks"] + s["rejected_blocks"] == s["scheduled"]
+              and not ref.is_alive(), f"cli {tag}: refiner tasks {s}")
+    if m.enabled:
+        check(isinstance(m.volume.hash, NativeVoxelHash),
+              f"cli {tag}: the global TSDF is not on the native hash")
+        check(m.volume.stats()["voxels"] > 0
+              and not m.integrator.is_alive()
+              and not m.opt_thread.is_alive(),
+              f"cli {tag}: global TSDF {m.volume.stats()}")
+
+
+def quality_fields(path):
+    """The quality PLY's per-vertex fields r / delta_cov / u / priority /
+    class_id."""
+    import numpy as np
+
+    data = Path(path).read_bytes()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    types = {"float": "<f4", "int": "<i4", "uchar": "u1"}
+    props = [l.split()[1:] for l in data[:end].decode().splitlines()
+             if l.startswith("property")]
+    return np.frombuffer(data[end:], dtype=[(n, types[t]) for t, n in props])
+
+
 def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False):
     """``main(argv)`` on the card with every launch counter at 0 before and
     read after; checks the launches against the run's own model calls and
@@ -1475,7 +1532,7 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False):
     cwd = os.getcwd()
     os.chdir(workdir)
     try:
-        with instrumented(torch, model) as rec:
+        with instrumented(torch, model) as rec, worker_faults() as faults:
             reset_counters(FA, C3, BA)
             t0 = time.perf_counter()
             out = cli.main(argv, device="cuda", model=model)
@@ -1484,6 +1541,8 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False):
             launches = launch_counts(FA, C3, BA)
     finally:
         os.chdir(cwd)
+    check_no_faults(faults, f"cli {tag}")
+    check_services(out, rec, tag)
     want = expected_launches(rec["calls"], calib)
     g = out["graph"]
     log(f"cli {tag}: {out['frames_processed']} frames in {wall:.1f} s, "
@@ -1494,10 +1553,18 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False):
     return out, launches, rec
 
 
+def cli_parts(rec):
+    return {k: statistics.median(v) if v else 0.0
+            for k, v in rec["ms"].items()}
+
+
 def phase_cli(torch, FA, C3, BA, workdir):
     """The port's CLI at full ViT-L width on a clip it writes: a 24-frame
-    out-and-back pan (retrieval has a revisit), then a calibrated run on a
-    freiburg3 directory, a checkpoint / resume pair and a threaded run."""
+    out-and-back pan (retrieval has a revisit) with base.yaml's quality
+    service and local TSDF refiner, the same clip with them off (their cost
+    to the tracked frame and the backend step), then a calibrated run on a
+    freiburg3 directory, a checkpoint / resume pair and a threaded run with
+    the global TSDF on as well."""
     from mast3r_slam_tpu_torch.slam.factor_graph import FactorGraph
     from mast3r_slam_tpu_torch.slam.frame import KeyframeBuffer
     from mast3r_slam_tpu_torch.utils.checkpoint import load_state
@@ -1526,23 +1593,51 @@ def phase_cli(torch, FA, C3, BA, workdir):
                    if abs(int(i) - int(j)) > 1})
     check(loop, "cli main: no non-consecutive (retrieval) edge")
     check(rec["calls"]["lm_iters"] > 0, "cli main: no BA iterations")
-    check_outputs(out, work / "logs" / "main" / clip.name, clip.name,
-                  CLI_FRAMES, IMG_HW)
+    savedir = work / "logs" / "main" / clip.name
+    check_outputs(out, savedir, clip.name, CLI_FRAMES, IMG_HW)
+    qf = quality_fields(savedir / f"{clip.name}_quality.ply")
+    for field in ("r", "delta_cov"):
+        check(bool((qf[field] != 0).any()),
+              f"cli main: the quality PLY's {field} is all zero")
+    rs = out["refiner"].stats
+    check(out["quality"].processed_jobs > 0 and rs["scheduled"] > 0,
+          f"cli main: services idle (quality "
+          f"{out['quality'].processed_jobs} jobs, refiner {rs})")
     ms = rec["ms"]
-    parts = {k: statistics.median(v) if v else 0.0 for k, v in ms.items()}
+    parts = cli_parts(rec)
     summary = dict(tracked_ms=parts["track"], step_ms=parts["step"],
                    retrieval_ms=parts["retrieval"],
                    add_factors_ms=parts["add_factors"],
                    solve_ms=parts["solve"], keyframes=len(kf),
                    edges=g.n_edges(), loop_edges=len(loop),
-                   launches=launches, steps=len(ms["step"]))
+                   launches=launches, steps=len(ms["step"]),
+                   quality_jobs=out["quality"].processed_jobs,
+                   quality_dropped=out["quality"].dropped_jobs,
+                   refined=rs["refined_blocks"],
+                   rejected=rs["rejected_blocks"])
     log(f"cli main: median tracked frame {parts['track']:.1f} ms over "
         f"{len(ms['track'])} frames; median backend step {parts['step']:.1f} "
         f"ms over {len(ms['step'])} steps (retrieval {parts['retrieval']:.1f}"
         f", add_factors {parts['add_factors']:.1f}, solve "
         f"{parts['solve']:.1f}); keyframes {len(kf)}, edges {g.n_edges()}, "
-        f"retrieval edges {loop}")
+        f"retrieval edges {loop}; quality {out['quality'].processed_jobs} "
+        f"jobs ({out['quality'].dropped_jobs} dropped), refiner {rs}")
     del out, g, kf
+
+    # the same clip with the services off: their cost to the frame and step
+    off_cfg = write_config(work / "cli_off.yaml", **SERVICES_OFF)
+    out, _, rec = run_cli(torch, FA, C3, BA, model, work,
+                          ["--dataset", str(clip), "--config", off_cfg,
+                           "--no-viz", "--save-as", "off"], "services off")
+    check(out["quality"] is None and not out["refiner"].enabled,
+          "cli services off: a service ran")
+    off = cli_parts(rec)
+    summary.update(tracked_ms_off=off["track"], step_ms_off=off["step"])
+    log(f"cli services on / off: median tracked frame "
+        f"{parts['track']:.1f} / {off['track']:.1f} ms, median backend step "
+        f"{parts['step']:.1f} / {off['step']:.1f} ms (solve "
+        f"{parts['solve']:.1f} / {off['solve']:.1f})")
+    del out
 
     # calibrated: freiburg3 has no distortion; K5 carries the BA
     calib_cfg = write_config(work / "cli_calib.yaml", use_calib=True)
@@ -1596,8 +1691,9 @@ def phase_cli(torch, FA, C3, BA, workdir):
         f"resumed run ended with {len(out['keyframes'])}")
     del out
 
-    # threaded backend: drains and exits
-    thr_cfg = write_config(work / "cli_threaded.yaml", single_thread=False)
+    # threaded backend with the global TSDF on as well: drains and exits
+    thr_cfg = write_config(work / "cli_threaded.yaml", single_thread=False,
+                           tsdf_global={"enabled": True})
     t0 = time.perf_counter()
     out, _, _ = run_cli(torch, FA, C3, BA, model, work,
                         ["--dataset", str(clip), "--config", thr_cfg,
@@ -1607,8 +1703,11 @@ def phase_cli(torch, FA, C3, BA, workdir):
           "threaded: frames")
     check(out["states"].global_optimizer_tasks == []
           and out["states"].reloc_sem == 0, "threaded: backend not drained")
+    m = out["tsdf_manager"]
+    check(m.enabled, "threaded: the global TSDF is off")
     log(f"cli threaded: {time.perf_counter() - t0:.1f} s, keyframes "
-        f"{len(out['keyframes'])}, edges {out['graph'].n_edges()}")
+        f"{len(out['keyframes'])}, edges {out['graph'].n_edges()}; global "
+        f"TSDF {m.volume.stats()}, {m.optimizer.refined} poses refined")
     del out, model
     torch.cuda.empty_cache()
     return summary
@@ -1639,8 +1738,10 @@ def phase_cli_cross(torch, workdir):
     # keyframe is the matcher's most degenerate case)
     write_clip(clip, CROSS_FRAMES + 1)
     # sigma_dist 0.1 pins the Sim(3) scale (at 10 the distance rows weigh
-    # ~1e-7 of the ray rows); f32 channels and BA rows, as the model
-    cfg_path = write_config(work / "cli_cross.yaml",
+    # ~1e-7 of the ray rows); f32 channels and BA rows, as the model; the
+    # services off, since the refiner's write-backs land at times that the
+    # worker threads decide, which differ between two runs
+    cfg_path = write_config(work / "cli_cross.yaml", **SERVICES_OFF,
                             dataset={"img_size": CROSS_IMG_SIZE},
                             model={"dtype": "float32",
                                    "head_dtype": "float32"},
@@ -1832,8 +1933,382 @@ def phase_reloc(torch, FA, C3, BA):
     return dict(t_err=t_err, q_err=q_err, s_err=s_err, ms=t_rel)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the services on the card
+# ---------------------------------------------------------------------------
+
+SERVICES_HW = (384, 512)
+SERVICES_KF_X = (0.0, 0.05, 0.1)        # three keyframes stepping +x
+SERVICES_DEPTH_NOISE = 0.004            # relative, ~1 cm at 2.5 m
+SERVICES_LOW_CONF = (slice(128, 256), slice(192, 320))
+SERVICES_OFFSET = 0.03                  # the pose optimizer's z offset, m
+SERVICES_WAIT_S = 60.0
+QUALITY_TOL = 1e-6                      # tests/test_torch_quality.py's
+TSDF_TOL = 1e-5                         # tests/test_torch_tsdf_local.py's
+MAX_PARTING = 1e-3
+HASH_TOL = 1e-6                         # tests/test_torch_tsdf_global.py's
+
+
+@contextlib.contextmanager
+def worker_faults():
+    """The service workers print an exception and carry on: record every
+    exception that ``_process_group``, ``_process``, ``_refine_blocks`` and
+    ``optimize_single`` raise (and re-raise it, so the workers behave as
+    they do), for the caller to fail on."""
+    import traceback
+
+    from mast3r_slam_tpu_torch.services import quality_async as QA
+    from mast3r_slam_tpu_torch.services import tsdf_global as TG
+    from mast3r_slam_tpu_torch.services import tsdf_local as TLo
+
+    faults = []
+    saved = []
+    for owner, name in ((QA.AsynchronousQualityService, "_process_group"),
+                        (QA.AsynchronousQualityService, "_process"),
+                        (TLo.TSDFRefiner, "_refine_blocks"),
+                        (TG.TSDFPoseOptimizer, "optimize_single")):
+        orig = getattr(owner, name)
+        saved.append((owner, name, orig))
+
+        def wrapped(*a, _orig=orig, _name=name, **kw):
+            try:
+                return _orig(*a, **kw)
+            except Exception:
+                faults.append(f"{_name}: {traceback.format_exc()}")
+                raise
+
+        setattr(owner, name, wrapped)
+    try:
+        yield faults
+    finally:
+        for owner, name, orig in saved:
+            setattr(owner, name, orig)
+
+
+def check_no_faults(faults, what):
+    check(not faults, f"{what}: a service worker raised:\n"
+          + "\n".join(faults))
+
+
+def oracle_keyframes(torch, device, seed=0):
+    """The oracle scene's keyframes at ``SERVICES_HW`` in a keyframe buffer
+    on ``device``: noisy depth, confidence 1 with a low-confidence region
+    of 0.05. Returns (scene, K, buffer, clean pointmaps, true poses)."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.slam.frame import Frame, KeyframeBuffer
+    from mast3r_slam_tpu_torch.utils.oracle_scene import OracleScene
+
+    H, W = SERVICES_HW
+    scene = OracleScene(seed=seed)
+    K = scene.intrinsics(SERVICES_HW)
+    rng = np.random.default_rng(seed)
+    kfs = KeyframeBuffer(H, W, capacity=8, feat_dim=8, device=device)
+    clean, poses = [], []
+    for i, x in enumerate(SERVICES_KF_X):
+        T = np.array([x, 0, 0, 0, 0, 0, 1, 1], np.float32)
+        X, _ = scene.raycast(T, K, SERVICES_HW)
+        noisy = X * (1.0 + SERVICES_DEPTH_NOISE * rng.normal(
+            size=(H * W, 1))).astype(np.float32)
+        C = np.ones((H, W), np.float32)
+        C[SERVICES_LOW_CONF] = 0.05
+        fr = Frame(frame_id=i, img=torch.zeros(H, W, 3, device=device),
+                   img_shape=SERVICES_HW, img_true_shape=SERVICES_HW,
+                   uimg=np.zeros((H, W, 3), np.float32),
+                   T_WC=torch.as_tensor(T, device=device))
+        fr.X_canon = torch.as_tensor(noisy, device=device)
+        fr.C = torch.as_tensor(C.reshape(-1, 1), device=device)
+        fr.feat = torch.zeros(1, kfs.num_patches, 8, device=device)
+        fr.pos = torch.zeros(1, kfs.num_patches, 2, dtype=torch.int32,
+                             device=device)
+        fr.N = 1
+        kfs.append(fr)
+        clean.append(X)
+        poses.append(T)
+    return scene, K, kfs, clean, poses
+
+
+def quality_jobs(torch, device, n_kf, per_kf=2, seed=0):
+    """Seeded tracker-form quality jobs (tensors on ``device``): residuals
+    and uncertainty high in the low-confidence region."""
+    import numpy as np
+
+    H, W = SERVICES_HW
+    rng = np.random.default_rng(seed)
+    bad = np.zeros((H, W), bool)
+    bad[SERVICES_LOW_CONF] = True
+    jobs = []
+    for f in range(n_kf * per_kf):
+        r = rng.uniform(0.0, 0.05, (H, W)).astype(np.float32)
+        r[bad] += 0.3
+        Q = rng.uniform(1.5, 3.0, (H, W)).astype(np.float32)
+        Q[bad] = 0.2
+        C = np.ones((H, W), np.float32)
+        C[bad] = 0.05
+        arrays = dict(valid_kf=rng.random(H * W) > 0.1,
+                      r_pix=r.reshape(-1), Ck=C.reshape(-1),
+                      Qk=Q.reshape(-1))
+        job = {k: torch.as_tensor(v, device=device)
+               for k, v in arrays.items()}
+        job.update(kf_id=f // per_kf, frame_id=f, H=H, W=W,
+                   t_norm=torch.tensor(0.05 + 0.01 * f, device=device),
+                   theta=torch.tensor(0.02, device=device))
+        jobs.append(job)
+    return jobs
+
+
+def wait_until(cond, timeout=SERVICES_WAIT_S):
+    deadline = time.monotonic() + timeout
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    return cond()
+
+
+def parting(got, want, atol):
+    """Fraction of entries that part: NaN in one only, or unequal and
+    further apart than ``atol``."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    with np.errstate(invalid="ignore"):
+        same = ((got == want) | (np.isnan(got) & np.isnan(want))
+                | (np.abs(got - want) <= atol))
+    return float((~same).mean())
+
+
+def phase_services(torch, device="cuda"):
+    """The quality service, the local TSDF refiner and the global TSDF on
+    the card, on the oracle scene's keyframes at 384x512 with base.yaml's
+    settings: the quality service fed seeded jobs, the refiner refining at
+    least one block at G = 64, the pose optimizer pulling back a 3 cm
+    offset; ``compute_quality_batch``, ``refine_blocks_core`` and one
+    integrate and query on the card against the same port functions on the
+    CPU (within the CPU tests' tolerances). No worker may raise; the global
+    TSDF must run on the native hash."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.ops import lie
+    from mast3r_slam_tpu_torch.services import quality_core as QC
+    from mast3r_slam_tpu_torch.services import tsdf_local as TLo
+    from mast3r_slam_tpu_torch.services.native_tsdf import NativeVoxelHash
+    from mast3r_slam_tpu_torch.services.quality_async import (
+        AsynchronousQualityService)
+    from mast3r_slam_tpu_torch.services.tsdf_global import (
+        TSDFGlobalIntegrator, TSDFPoseOptimizer, TSDFVolume)
+    from mast3r_slam_tpu_torch.slam.frame import KeyframeBuffer
+    from mast3r_slam_tpu_torch.utils.config import load_config
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = load_config(str(ROOT / "config" / "base.yaml"))
+    H, W = SERVICES_HW
+    out = {}
+    scene, K, kfs, clean, poses = oracle_keyframes(torch, device)
+    n_kf = len(SERVICES_KF_X)
+
+    with worker_faults() as faults:
+        # -- the quality service, fed seeded jobs -------------------------
+        svc = AsynchronousQualityService(cfg, device=device).start()
+        jobs = quality_jobs(torch, device, n_kf)
+        try:
+            for j in jobs:
+                check(svc.submit(j), "quality: a job was dropped")
+            check(wait_until(lambda: svc.processed_jobs == len(jobs)),
+                  f"quality: {svc.processed_jobs} of {len(jobs)} jobs "
+                  "processed")
+            for k in range(n_kf):
+                res = svc.get_by_kf_id(k)
+                pr = res["priority"]
+                gy, gx = np.unravel_index(int(pr.argmax()), pr.shape)
+                check(8 <= gy < 16 and 12 <= gx < 20 and pr.max() > 0.5,
+                      f"quality: keyframe {k}'s top priority at patch "
+                      f"({gy}, {gx}), not in the low-confidence region")
+
+            # compute_quality_batch: time on the card, card vs CPU
+            ps = svc.ps
+            B = cfg["quality"]["batch_size"]
+            batch = jobs[:B]
+            args = (svc.alpha, svc.b0, svc.theta0, svc.C_thr, svc.Q_thr,
+                    svc.thr_zr, svc.thr_zu, svc.thr_dc)
+
+            def stacked(dev):
+                st = {k: torch.stack([j[k].reshape(-1) for j in batch]).to(dev)
+                      for k in ("valid_kf", "r_pix", "Ck", "Qk")}
+                sc = {k: torch.stack([j[k] for j in batch]).to(dev)
+                      for k in ("t_norm", "theta")}
+                prev = torch.zeros(B, H // ps, W // ps, device=dev)
+                chain = np.array([False] + [batch[i]["kf_id"]
+                                            == batch[i - 1]["kf_id"]
+                                            for i in range(1, B)])
+                return (st["valid_kf"], st["r_pix"], st["Ck"], st["Qk"],
+                        sc["t_norm"], sc["theta"], prev, chain, H, W, ps,
+                        *args)
+
+            on_dev = stacked(device)
+            got = QC.compute_quality_batch(*on_dev)
+            with one_cpu_thread(torch):
+                want = QC.compute_quality_batch(*stacked("cpu"))
+            for k, v in want.items():
+                g = got[k].cpu()
+                if k == "class_id":
+                    check(torch.equal(g, v), "quality card vs CPU: class_id")
+                else:
+                    err = (g - v).abs().max().item()
+                    check(err <= QUALITY_TOL,
+                          f"quality card vs CPU: {k} off by {err:.2e}")
+            if cuda:
+                out["quality_ms"] = time_ms(
+                    lambda: QC.compute_quality_batch(*on_dev), iters=10)
+            log(f"services: quality batch of {B} at {H}x{W} "
+                f"{out.get('quality_ms', float('nan')):.3f} ms; card vs CPU "
+                f"within {QUALITY_TOL} (class_id equal)")
+
+            # -- the refiner at base.yaml's settings ----------------------
+            captured = []
+            orig_core = TLo.refine_blocks_core
+
+            def capture(*a, **kw):
+                captured.append((a, kw))
+                return orig_core(*a, **kw)
+
+            TLo.refine_blocks_core = capture
+            ref = TLo.TSDFRefiner(kfs, cfg, quality_service=svc,
+                                  device=device)
+            try:
+                ref.start()
+                ref.schedule_final_pass(n_kf - 1)
+                check(ref.stats["scheduled"] > 0, "refiner: nothing "
+                      f"scheduled ({ref.stats})")
+                check(wait_until(
+                    lambda: ref.stats["refined_blocks"]
+                    + ref.stats["rejected_blocks"] >= ref.stats["scheduled"]
+                    and ref.task_q.empty() and not ref._retry),
+                    f"refiner: tasks left after {SERVICES_WAIT_S} s "
+                    f"({ref.stats})")
+            finally:
+                ref.stop()
+                TLo.refine_blocks_core = orig_core
+            st = ref.stats
+            check(st["refined_blocks"] >= 1,
+                  f"refiner: no block refined ({st})")
+            check(st["refined_blocks"] + st["rejected_blocks"]
+                  == st["scheduled"], f"refiner: tasks unaccounted ({st})")
+            out.update(refined=st["refined_blocks"],
+                       rejected=st["rejected_blocks"],
+                       scheduled=st["scheduled"],
+                       events=len(captured))
+        finally:
+            svc.shutdown()
+        check(not svc.is_alive(), "quality: the worker did not stop")
+
+        # refine_blocks_core: time one keyframe event at G = 64, card vs CPU
+        a, kw = captured[0]
+        Bk, P = a[4].shape
+        new_d, ok_d = TLo.refine_blocks_core(*a, **kw)
+        with one_cpu_thread(torch):
+            a_cpu = [x.cpu() if torch.is_tensor(x) else x for x in a]
+            new_c, ok_c = TLo.refine_blocks_core(*a_cpu, **kw)
+        ok_part = float((ok_d.cpu() != ok_c).float().mean())
+        pt_part = parting(new_d.cpu().numpy(), new_c.numpy(), TSDF_TOL)
+        check(ok_part <= MAX_PARTING and pt_part <= MAX_PARTING,
+              f"refine_blocks_core card vs CPU: {ok_part:.2e} of the masks "
+              f"and {pt_part:.2e} of the points part")
+        check(int(ok_c.sum()) > 0, "refine_blocks_core: nothing refined")
+        if cuda:
+            out["refine_ms"] = time_ms(lambda: TLo.refine_blocks_core(*a, **kw),
+                                       iters=10)
+        log(f"services: refiner (base.yaml: G {a[12]}, {a[14]} ray "
+            f"samples, {cfg['tsdf_refine']['max_rois_per_kf']} blocks a "
+            f"keyframe) refined {out['refined']} and rejected "
+            f"{out['rejected']} of {out['scheduled']} blocks in "
+            f"{out['events']} keyframe events; refine_blocks_core "
+            f"{out.get('refine_ms', float('nan')):.3f} ms per keyframe event "
+            f"({Bk} blocks, {P} pixels a block); card vs CPU partings "
+            f"{ok_part:.1e} (masks), {pt_part:.1e} (points)")
+
+        # -- the global TSDF: integrate, query, pose optimizer --------------
+        gcfg = {"tsdf_global": dict(cfg["tsdf_global"], enabled=True)}
+        vol = TSDFVolume(gcfg)
+        check(isinstance(vol.hash, NativeVoxelHash),
+              "global TSDF: not on the native hash")
+        integ = TSDFGlobalIntegrator(vol, kfs, gcfg)
+        ms = []
+        for i in range(n_kf):
+            t0 = sync_clock(torch) if cuda else time.perf_counter()
+            integ._integrate_kf(i)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["integrate_ms"] = statistics.median(ms)
+        # the same keyframes (as the refiner left them) from a CPU buffer:
+        # the same volume
+        kfs_cpu = KeyframeBuffer(H, W, capacity=kfs.capacity, feat_dim=8,
+                                 device="cpu")
+        with kfs.lock:
+            for key in ("X", "C", "T_WC"):
+                getattr(kfs_cpu, key).copy_(getattr(kfs, key).cpu())
+            kfs_cpu.N[:] = kfs.N
+            kfs_cpu.n_size = kfs.n_size
+        vol_cpu = TSDFVolume(gcfg)
+        integ_cpu = TSDFGlobalIntegrator(vol_cpu, kfs_cpu, gcfg)
+        for i in range(n_kf):
+            integ_cpu._integrate_kf(i)
+        check(vol.stats() == vol_cpu.stats(),
+              f"global TSDF card vs CPU: {vol.stats()} != {vol_cpu.stats()}")
+        q = clean[0][::97] + np.random.default_rng(1).normal(
+            size=(clean[0][::97].shape[0], 3)).astype(np.float32) * 0.02
+        t_d, g_d, v_d = vol.query(q)
+        t_c, g_c, v_c = vol_cpu.query(q)
+        check(np.array_equal(v_d, v_c) and v_d.sum() > 100
+              and np.abs(t_d - t_c).max() <= HASH_TOL,
+              "global TSDF card vs CPU: queries differ")
+        log(f"services: integrate {statistics.median(ms):.1f} ms per "
+            f"keyframe ({H}x{W}, max {integ.max_points} points; host hash), "
+            f"{vol.stats()['voxels']} voxels; card vs CPU equal")
+
+        # the pose optimizer pulls a 3 cm z offset back onto the surface
+        dense_vol = TSDFVolume(gcfg)
+        Kd = scene.intrinsics((2 * H, 2 * W))
+        _, hits = scene.raycast(poses[0], Kd, (2 * H, 2 * W))
+        dense_vol.integrate(hits.astype(np.float32), np.ones(hits.shape[0]),
+                            poses[0][:3])
+        T_true = torch.as_tensor(poses[0])
+        T_off = lie.compose(lie.exp(torch.tensor(
+            [0, 0, SERVICES_OFFSET, 0, 0, 0, 0.0])), T_true)
+        kfs.update_T_WCs(T_off[None], [0])
+        opt = TSDFPoseOptimizer(dense_vol, kfs, gcfg)
+
+        def surf_res(T):
+            Xw = lie.act(torch.as_tensor(T).cpu()[None],
+                         torch.as_tensor(clean[0])).numpy()
+            return float(np.mean(np.abs(
+                Xw[:, 2] - scene.height(Xw[:, 0], Xw[:, 1]))))
+
+        def pose_err(T):
+            rel = lie.compose(lie.inv(T_true), torch.as_tensor(T).cpu())
+            return float(torch.linalg.norm(lie.log(rel)))
+
+        # the contract is surface agreement (tests/test_tsdf.py's curved
+        # oracle test): the keyframe's points back on the true surface, the
+        # pose error along the surface's sliding directions bounded
+        r0, e0 = surf_res(T_off), pose_err(T_off)
+        t0 = time.perf_counter()
+        check(opt.optimize_single(0), "pose optimizer: no pose written")
+        opt_ms = (time.perf_counter() - t0) * 1e3
+        T_new = kfs.T_WC[0].cpu()
+        r1, e1 = surf_res(T_new), pose_err(T_new)
+        check(r1 < 0.5 * r0 and e1 < 2.0 * e0,
+              f"pose optimizer: surface residual {r0:.4f} -> {r1:.4f} m, "
+              f"pose error {e0:.4f} -> {e1:.4f}")
+        out.update(pose_r0=r0, pose_r1=r1, pose_e0=e0, pose_e1=e1,
+                   opt_ms=opt_ms)
+        log(f"services: pose optimizer (base.yaml: {opt.samples} samples, "
+            f"{opt.max_iters} LM steps) from a {SERVICES_OFFSET} m z offset:"
+            f" surface residual {r0 * 1e3:.2f} -> {r1 * 1e3:.2f} mm, pose "
+            f"error |log| {e0:.4f} -> {e1:.4f}, {opt_ms:.0f} ms")
+    check_no_faults(faults, "services")
+    return out
+
+
 PHASES = ("kernels", "main", "event", "cross", "ba_kernels", "gram_bench",
-          "oracle", "cli", "cli_cross", "reloc")
+          "oracle", "cli", "cli_cross", "reloc", "services")
 
 
 def main():
@@ -1905,6 +2380,7 @@ def main():
         cli = run("cli", phase_cli, torch, FA, C3, BA, work)
         run("cli_cross", phase_cli_cross, torch, work)
     reloc = run("reloc", phase_reloc, torch, FA, C3, BA)
+    services = run("services", phase_services, torch)
     log(f"phase times (s): {timings}")
     if phases != set(PHASES):
         log("partial run: no kernel table")
@@ -1916,6 +2392,17 @@ def main():
         f" solve {cli['solve_ms']:.1f}; {cli['steps']} steps), keyframes "
         f"{cli['keyframes']}, edges {cli['edges']} ({cli['loop_edges']} "
         f"from retrieval); reloc {reloc['ms']:.1f} ms; on {smi}")
+    log(f"services (base.yaml): CLI median tracked frame "
+        f"{cli['tracked_ms']:.1f} ms on / {cli['tracked_ms_off']:.1f} off, "
+        f"median backend step {cli['step_ms']:.1f} / {cli['step_ms_off']:.1f}"
+        f" ms; CLI quality jobs {cli['quality_jobs']} ({cli['quality_dropped']}"
+        f" dropped), blocks refined / rejected {cli['refined']} / "
+        f"{cli['rejected']}; oracle keyframes at 384x512: quality batch of 4 "
+        f"{services['quality_ms']:.3f} ms, refine_blocks_core "
+        f"{services['refine_ms']:.3f} ms per keyframe event (G 64), "
+        f"integrate {services['integrate_ms']:.1f} ms per keyframe (host), "
+        f"blocks refined / rejected {services['refined']} / "
+        f"{services['rejected']}; on {smi}")
 
     table = {"kernels": [
         {"name": "flash_attention_rope", "route": "cuda",

@@ -85,6 +85,39 @@ def resize_weights(n_in: int, n_out: int) -> np.ndarray:
     return lanczos4_weights(n_in, n_out)
 
 
+def linear_weights(n_in: int, n_out: int) -> np.ndarray:
+    """``(n_out, n_in)`` INTER_LINEAR weights: source position
+    ``f = (d + 0.5)·s - 0.5`` rounded to float32, two taps ``floor(f)``
+    and ``floor(f) + 1``; a position left of the first pixel or right of
+    the last takes the edge pixel alone (OpenCV's ``resizeGeneric`` set-up
+    for ``INTER_LINEAR``)."""
+    scale = 1.0 / (n_out / n_in)
+    W = np.zeros((n_out, n_in), np.float64)
+    for d in range(n_out):
+        f = float(np.float32((d + 0.5) * scale - 0.5))
+        s = math.floor(f)
+        f -= s
+        if s < 0:
+            s, f = 0, 0.0
+        if s >= n_in - 1:
+            s, f = n_in - 1, 0.0
+        W[d, s] += 1.0 - f
+        if f:
+            W[d, s + 1] += f
+    return W
+
+
+def nearest_weights(n_in: int, n_out: int) -> np.ndarray:
+    """``(n_out, n_in)`` INTER_NEAREST one-hot weights: source
+    ``min(floor(d·s), n_in - 1)`` (OpenCV's ``resizeNN``, no half-pixel
+    shift)."""
+    scale = 1.0 / (n_out / n_in)
+    W = np.zeros((n_out, n_in), np.float64)
+    for d in range(n_out):
+        W[d, min(math.floor(d * scale), n_in - 1)] = 1.0
+    return W
+
+
 def _resized_shape(h, w, size):
     """The (h', w') the JAX package asks ``cv2.resize`` for."""
     if size == 224:

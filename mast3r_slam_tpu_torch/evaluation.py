@@ -3,7 +3,8 @@
 
 ``prepare_savedir`` / ``save_traj`` / ``save_reconstruction`` /
 ``save_ply_with_quality`` / ``save_keyframes`` write the CLI's results
-(PLY written directly as binary little-endian; keyframe PNGs through
+(PLY written directly as binary little-endian, the quality grids resized
+by ``data/image_ops.py``'s weights; keyframe PNGs through
 ``data/png.py``), and ``ate_rmse`` / ``rpe_rmse`` / ``main_ape`` are the
 ``evo_ape tum <gt> <est> -as`` equivalent: timestamp association, Umeyama
 Sim(3) alignment and translational RMSE. Host numpy.
@@ -16,7 +17,7 @@ import pathlib
 import numpy as np
 import torch
 
-from mast3r_slam_tpu_torch.data import png
+from mast3r_slam_tpu_torch.data import image_ops, png
 from mast3r_slam_tpu_torch.ops import lie
 
 _QUALITY_FIELDS = ("r", "delta_cov", "u", "class_id", "priority")
@@ -133,24 +134,38 @@ def save_reconstruction(savedir, filename, keyframes, conf_threshold=0.0):
     return path
 
 
+def upsample_quality_grid(grid, h, w, nearest=False):
+    """A quality grid ``(gh, gw)`` resized to the pointmap's ``(h, w)`` as
+    ``cv2.resize`` does it: ``INTER_LINEAR``, or ``INTER_NEAREST`` for the
+    categorical class id, applied as float32 weight matrices."""
+    g = np.asarray(grid, np.float32)
+    weights = image_ops.nearest_weights if nearest else image_ops.linear_weights
+    Wy = weights(g.shape[0], h).astype(np.float32)
+    Wx = weights(g.shape[1], w).astype(np.float32)
+    return Wy @ (g @ Wx.T)
+
+
 def save_ply_with_quality(savedir, filename, keyframes, quality_service,
                           conf_threshold=0.0):
     """Dense PLY with per-vertex quality fields ``r/delta_cov/u/class_id/
-    priority``. The quality service is not ported yet (ROADMAP queue 1
-    item 9): ``quality_service`` must be None, and the fields are written
-    as zeros, as the JAX package does without a service."""
-    if quality_service is not None:
-        raise NotImplementedError("the quality service is not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
+    priority``, upsampled from each keyframe's latest quality grids
+    (zeros for a keyframe without a result, or without a service)."""
     pts, cols = [], []
     extras = {k: [] for k in _QUALITY_FIELDS}
     with keyframes.lock:
+        h, w = keyframes.h, keyframes.w
         for i in range(len(keyframes)):
             Xw, rgb, keep = _world_points(keyframes, i, conf_threshold)
             pts.append(Xw)
             cols.append(rgb)
+            q = quality_service.get_by_kf_id(i) if quality_service else None
             for k in extras:
-                extras[k].append(np.zeros(int(keep.sum()), np.float32))
+                if q is None:
+                    full = np.zeros(h * w, np.float32)
+                else:
+                    full = upsample_quality_grid(
+                        q[k], h, w, nearest=k == "class_id").reshape(-1)
+                extras[k].append(full[keep])
     if not pts:
         return None
     path = pathlib.Path(savedir) / filename

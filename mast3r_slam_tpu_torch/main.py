@@ -1,7 +1,7 @@
 """MASt3R-SLAM on PyTorch/CUDA — the command-line entry point.
 
     python -m mast3r_slam_tpu_torch.main --dataset <path> \\
-        --config <config with the unported services off> --no-viz \\
+        --config config/base.yaml --no-viz \\
         [--calib intrinsics.yaml] [--save-as default] [--weights <.npz>] \\
         [--retrieval-weights <.pth|.npz>] [--retrieval-codebook <.pkl|.npy|.npz>] \\
         [--max-frames N] [--checkpoint state.npz] [--resume state.npz] \\
@@ -10,14 +10,14 @@
 Counterpart of the repository's ``main.py`` with the same flags: the
 INIT / TRACKING / RELOC frontend loop, the backend (retrieval, factor
 growth, global BA) inline (``single_thread: true``) or as a thread, the
-shutdown drain, checkpoint / resume, and the export (trajectory, PLYs,
-keyframe PNGs). It runs on the CUDA card; :func:`main` takes
+services as threads (the quality service, the local TSDF refiner and the
+global TSDF, each as the config turns it on), the shutdown drain,
+checkpoint / resume, and the export (trajectory, PLYs with the quality
+fields, keyframe PNGs). It runs on the CUDA card; :func:`main` takes
 ``device="cpu"`` from Python (the tests), and there is no CPU fallback.
 
-Refused until ported, each with its ROADMAP queue 1 item: the quality
-service (``quality.enabled``, item 9), the local TSDF refiner
-(``tsdf_refine.enabled``, item 10), the global TSDF (``tsdf_global.enabled``,
-item 11) and the viewer (a run without ``--no-viz``, item 13).
+Refused until ported: the viewer (a run without ``--no-viz``, ROADMAP
+queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -33,6 +33,10 @@ from mast3r_slam_tpu_torch.models import convert
 from mast3r_slam_tpu_torch.models import mast3r as M
 from mast3r_slam_tpu_torch.models.inference import MASt3RInference
 from mast3r_slam_tpu_torch.ops import lie
+from mast3r_slam_tpu_torch.services.quality_async import (
+    AsynchronousQualityService)
+from mast3r_slam_tpu_torch.services.tsdf_global import TSDFGlobalManager
+from mast3r_slam_tpu_torch.services.tsdf_local import TSDFRefiner
 from mast3r_slam_tpu_torch.slam.factor_graph import FactorGraph
 from mast3r_slam_tpu_torch.slam.frame import KeyframeBuffer, Mode, States
 from mast3r_slam_tpu_torch.slam.pipeline import Backend, create_frame
@@ -68,22 +72,12 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def refuse_unported(cfg, no_viz):
-    """Stop on a service the port does not have yet, naming its ROADMAP
-    queue 1 item."""
-    off = []
-    if cfg.get("quality", {}).get("enabled", True):
-        off.append("quality.enabled (the quality service, item 9)")
-    if cfg.get("tsdf_refine", {}).get("enabled", True):
-        off.append("tsdf_refine.enabled (the local TSDF refiner, item 10)")
-    if cfg.get("tsdf_global", {}).get("enabled", False):
-        off.append("tsdf_global.enabled (the global TSDF, item 11)")
+def refuse_unported(no_viz):
+    """Stop on what the port does not have yet, naming its ROADMAP queue 1
+    item: the viewer."""
     if not no_viz:
-        off.append("the viewer (item 13): pass --no-viz")
-    if off:
-        raise SystemExit(
-            "not ported yet (ROADMAP queue 1): " + "; ".join(off)
-            + ". Turn them off in the config.")
+        raise SystemExit("not ported yet (ROADMAP queue 1): the viewer "
+                         "(item 7). Pass --no-viz.")
 
 
 def model_config(cfg) -> M.MASt3RConfig:
@@ -126,11 +120,11 @@ def main(argv=None, device="cuda", model=None):
     """Run the CLI. ``device`` is ``"cuda"`` (the card) or ``"cpu"``;
     ``model`` (a ``MASt3RInference``) replaces :func:`build_model`. Returns
     a summary dict (keyframes, graph, frames processed, the per-frame mode
-    sequence)."""
+    sequence, the services)."""
     args = parse_args(argv)
     device = _check_device(device)
     cfg = load_config(args.config)
-    refuse_unported(cfg, args.no_viz)
+    refuse_unported(args.no_viz)
     single_thread = bool(cfg.get("single_thread", False))
 
     dataset = load_dataset(args.dataset, cfg)
@@ -186,7 +180,11 @@ def main(argv=None, device="cuda", model=None):
                                  device=device)
         keyframes.set_intrinsics(K)
 
-    tracker = FrameTracker(model, keyframes, cfg)
+    quality = (AsynchronousQualityService(cfg, device=device).start()
+               if cfg.get("quality", {}).get("enabled", True) else None)
+    tracker = FrameTracker(model, keyframes, cfg, quality_service=quality)
+    refiner = TSDFRefiner(keyframes, cfg, quality_service=quality,
+                          device=device).start()
     graph = FactorGraph(model, keyframes, cfg, K=K)
     head_params, nfeat = None, 256
     if args.retrieval_weights:
@@ -204,7 +202,9 @@ def main(argv=None, device="cuda", model=None):
             args.retrieval_codebook))
         print(f"loaded retrieval codebook: {args.retrieval_codebook} "
               f"({retrieval.codebook.shape[0]} words)")
-    backend = Backend(model, keyframes, states, graph, retrieval, cfg)
+    tsdf_manager = TSDFGlobalManager(keyframes, cfg).start()
+    backend = Backend(model, keyframes, states, graph, retrieval, cfg,
+                      tsdf_manager=tsdf_manager)
     if not single_thread:
         backend.start()
 
@@ -275,6 +275,8 @@ def main(argv=None, device="cuda", model=None):
                                              vmatch, Qk)
                     tracker.last_kf_match = None
                 states.queue_global_optimization(new_idx)
+                if refiner.is_alive():  # health gate
+                    refiner.maybe_schedule_sliding_window(new_idx)
 
             if single_thread:
                 while not backend.idle():
@@ -284,9 +286,12 @@ def main(argv=None, device="cuda", model=None):
             i += 1
             if i % 30 == 0:
                 dt = time.time() - fps_t0
+                rs = refiner.stats
                 print(f"frame {i}/{n_frames}  FPS "
                       f"{(i - fps_i0) / max(dt, 1e-9):5.2f}  "
-                      f"kfs {len(keyframes)}  edges {graph.n_edges()}")
+                      f"kfs {len(keyframes)}  edges {graph.n_edges()}  "
+                      f"tsdf ok/rej {rs['refined_blocks']}/"
+                      f"{rs['rejected_blocks']}")
                 fps_t0, fps_i0 = time.time(), i
     except KeyboardInterrupt:
         print("interrupted")
@@ -301,6 +306,14 @@ def main(argv=None, device="cuda", model=None):
         backend.stop()
         if backend.error is not None:
             raise RuntimeError("the backend thread failed") from backend.error
+    tcfg = cfg.get("tsdf_refine", {})
+    refiner.schedule_final_pass(len(keyframes) - 1)
+    refiner.drain(max_wait_s=float(tcfg.get("max_shutdown_wait_s", 60)),
+                  min_wait_s=float(tcfg.get("min_shutdown_wait_s", 2)))
+    refiner.print_stats()
+    tsdf_manager.shutdown()
+    if quality:
+        quality.shutdown()
 
     if args.checkpoint:
         save_state(args.checkpoint, keyframes, graph, frame_idx=i)
@@ -314,14 +327,16 @@ def main(argv=None, device="cuda", model=None):
         evaluation.save_reconstruction(savedir, f"{seq_name}.ply", keyframes,
                                        conf_threshold=0.0)
         evaluation.save_ply_with_quality(savedir, f"{seq_name}_quality.ply",
-                                         keyframes, None)
+                                         keyframes, quality)
         evaluation.save_keyframes(savedir, dataset.timestamps, keyframes)
         print(f"saved results → {savedir} (traj: {traj})")
     if args.profile:
         tictoc.report()
     print("done")
     return {"keyframes": keyframes, "graph": graph, "frames_processed": i,
-            "modes": modes, "states": states, "retrieval": retrieval}
+            "modes": modes, "states": states, "retrieval": retrieval,
+            "quality": quality, "refiner": refiner,
+            "tsdf_manager": tsdf_manager}
 
 
 if __name__ == "__main__":

@@ -216,6 +216,24 @@ class KeyframeBuffer:
             for i in idx:
                 self.version[int(i)] += 1
 
+    def update_pointmap_inplace(self, idx, X, C, expected_version=None) -> bool:
+        """Optimistic-concurrency pointmap write (the TSDF refiner's).
+
+        Returns False and writes nothing if the keyframe's version changed
+        since ``expected_version`` was read; otherwise writes X and C, marks
+        the keyframe dirty and bumps ``version`` and ``xc_version`` (the BA
+        channel cache's key)."""
+        with self.lock:
+            if (expected_version is not None
+                    and self.version[idx] != expected_version):
+                return False
+            self.X[idx] = X
+            self.C[idx] = C
+            self.is_dirty[idx] = True
+            self.version[idx] += 1
+            self.xc_version[idx] += 1
+            return True
+
 
 class States:
     """Controller-wide mutable state: the mode machine, the reloc signal

@@ -3,9 +3,9 @@ backend loop (counterpart of ``mast3r_slam_tpu/slam/pipeline.py``).
 
 The backend runs as a host thread (default) or inline via
 :meth:`Backend.step` in ``single_thread`` mode. The thread shares the
-frontend's CUDA device and its default stream (separate streams are ROADMAP
-queue 1 item 12); every read or write of keyframe tensors goes under
-``keyframes.lock``.
+frontend's CUDA device and its default stream, as do the service threads
+(separate streams are ROADMAP queue 1 item 6); every read or write of
+keyframe tensors goes under ``keyframes.lock``.
 """
 
 from __future__ import annotations
@@ -100,16 +100,19 @@ def relocalization(frame: Frame, keyframes: KeyframeBuffer, factor_graph,
 
 class Backend:
     """Keyframe-graph backend: retrieval, factor growth, global BA. Runs as
-    a thread (:meth:`start`) or inline through :meth:`step`."""
+    a thread (:meth:`start`) or inline through :meth:`step`; after each
+    solve it hands the graph to ``tsdf_manager`` (the global TSDF), when
+    there is one."""
 
     def __init__(self, model, keyframes: KeyframeBuffer, states: States,
-                 factor_graph, retrieval_database, cfg):
+                 factor_graph, retrieval_database, cfg, tsdf_manager=None):
         self.model = model
         self.keyframes = keyframes
         self.states = states
         self.graph = factor_graph
         self.retrieval = retrieval_database
         self.cfg = cfg
+        self.tsdf_manager = tsdf_manager
         self.stop_flag = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="slam-backend")
@@ -189,4 +192,6 @@ class Backend:
             self.graph.solve_GN_calib()
         else:
             self.graph.solve_GN_rays()
+        if self.tsdf_manager is not None:
+            self.tsdf_manager.on_after_backend_solve(self.graph)
         return True

@@ -395,12 +395,13 @@ class FrameTracker:
     """Drives per-frame tracking. ``track(frame)`` returns
     ``(new_kf, match_info, try_reloc)``, as the reference FrameTracker."""
 
-    def __init__(self, model, keyframes, cfg):
+    def __init__(self, model, keyframes, cfg, quality_service=None):
         self.model = model              # models.inference.MASt3RInference
         self.keyframes = keyframes
         self.cfg = cfg["tracking"]
         self.match_cfg = cfg.get("matching", {})
         self.use_calib = cfg["use_calib"]
+        self.quality_service = quality_service
         self.idx_f2k = None             # warm-start correspondence
         self._warm_kf_idx = None        # which keyframe idx_f2k converged on
         # (kf_idx, idx_f2k, valid_match, Qk) at the last keyframe creation
@@ -421,6 +422,7 @@ class FrameTracker:
             C_k = kfs.C[kf_idx].clone()
             N_k = float(kfs.N[kf_idx])
             T_WCk = kfs.T_WC[kf_idx].clone()
+            kf_frame_id = int(kfs.dataset_idx[kf_idx])
             ver_k = int(kfs.version[kf_idx])
 
         n = kfs.h * kfs.w
@@ -455,6 +457,8 @@ class FrameTracker:
             print(f"Cholesky failed {frame.frame_id}")
             return False, [], True
 
+        self._submit_quality(out, kf_idx, kf_frame_id, img_hw)
+
         frame.T_WC = out["T_WCf"]
 
         # fusion write-back, version-checked: a write that landed between
@@ -483,3 +487,23 @@ class FrameTracker:
                 [out["X_k_new"], out["C_k_new"], frame.X_canon, frame.C,
                  out["Qkf"], out["Qff"]],
                 False)
+
+    def _submit_quality(self, out, kf_idx, kf_frame_id, img_hw):
+        """Enqueue the quality job from :func:`track_core`'s outputs; no-op
+        without a quality service. The job holds the device tensors
+        themselves, with no host sync: they are this frame's own outputs,
+        which nothing writes afterwards."""
+        if self.quality_service is None:
+            return
+        try:
+            H, W = img_hw
+            self.quality_service.submit({
+                "kf_id": kf_idx, "frame_id": kf_frame_id, "H": H, "W": W,
+                "valid_kf": out["valid_submit"],
+                "r_pix": out["r_pix"].reshape(-1),
+                "Ck": out["Ck_avg"].reshape(-1),
+                "Qk": out["Qk"].reshape(-1),
+                "t_norm": out["t_norm"], "theta": out["theta"],
+            })
+        except Exception as e:  # quality is best-effort; never break tracking
+            print(f"ERROR in quality submission: {e}")

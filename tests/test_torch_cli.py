@@ -152,7 +152,7 @@ def both_runs(setup):
     try:
         states, j_modes = [], []
 
-        # the port runs on one device (multi-device is ROADMAP item 12):
+        # the port runs on one device (multi-device is ROADMAP queue 1 item 6):
         # the JAX CLI gets the single-device topology, not the test
         # process's 8 virtual CPU devices
         topology.plan_topology = lambda devices=None: saved[4](
@@ -277,7 +277,7 @@ def _run(setup, clip, save_as, cfg_path=None, extra=(), frames=None):
 
 def _check_outputs(out, savedir, name, n_kf_min=1):
     """Trajectory rows finite with unit quaternions, one per keyframe; both
-    PLYs well formed (the quality one with zero quality fields); the
+    PLYs well formed (the quality one with its quality fields); the
     keyframe PNGs read back."""
     traj = _traj(savedir / f"{name}.txt")
     n = len(out["keyframes"])
@@ -406,27 +406,136 @@ def test_cli_checkpoint_resume(setup, big_clip):
     _check_outputs(out2, savedir, big_clip.name)
 
 
-def test_cli_refuses_unported_services_and_needs_a_card(setup):
-    """A config that turns on an unported service, or a run with the
-    viewer, stops naming its ROADMAP item; without a card the default
-    device raises instead of falling back to the CPU."""
+# ---------------------------------------------------------------------------
+# The services: config/base.yaml's quality service and local TSDF refiner,
+# and the global TSDF, in the port's CLI
+# ---------------------------------------------------------------------------
+
+# the JAX CLI's end-to-end smoke config's service settings
+# (tests/test_e2e_smoke.py)
+E2E_SERVICES = {
+    "quality": {"enabled": True},
+    "tsdf_refine": {"enabled": True, "window_size": 1, "ray_samples": 8,
+                    "max_grid_dim": 16},
+    "tsdf_global": {"enabled": True, "samples_per_kf": 64,
+                    "max_points_per_kf": 256, "table_capacity": 65536},
+}
+BASE_SERVICES = {"quality": {"enabled": True},
+                 "tsdf_refine": {"enabled": True}}
+
+
+def _read_ply(path):
+    """A binary little-endian PLY's vertex records as a structured array."""
+    data = pathlib.Path(path).read_bytes()
+    end = data.index(b"end_header\n") + len(b"end_header\n")
+    types = {"float": "<f4", "int": "<i4", "uchar": "u1"}
+    props = [l.split()[1:] for l in data[:end].decode().splitlines()
+             if l.startswith("property")]
+    return np.frombuffer(data[end:], dtype=[(n, types[t]) for t, n in props])
+
+
+def _run_services(setup, clip, name, over, monkeypatch):
+    """The port's CLI with ``over`` merged into the test config, counting
+    the quality jobs the tracker submits."""
+    from mast3r_slam_tpu_torch.services import quality_async as QA
+
+    submitted = []
+    orig = QA.AsynchronousQualityService.submit
+
+    def counted(self, job):
+        submitted.append(job["frame_id"])
+        return orig(self, job)
+
+    monkeypatch.setattr(QA.AsynchronousQualityService, "submit", counted)
+    out, savedir = _run(setup, clip, name, _write_cfg(setup, name, **over))
+    return out, savedir, len(submitted)
+
+
+def _check_services(out, savedir, name, submitted):
+    """Every quality job processed or dropped, every refiner task ended,
+    every worker stopped, and the quality PLY carrying non-zero fields."""
+    q, ref = out["quality"], out["refiner"]
+    assert submitted > 0
+    assert q.processed_jobs + q.dropped_jobs == submitted
+    assert not q.is_alive()
+    s = ref.stats
+    assert s["scheduled"] > 0
+    assert s["refined_blocks"] + s["rejected_blocks"] == s["scheduled"], s
+    assert not ref.is_alive()
+    rec = _read_ply(savedir / f"{name}_quality.ply")
+    assert rec.size > 0
+    for field in ("r", "delta_cov", "u", "priority"):
+        assert np.isfinite(rec[field]).all(), field
+    # u is 0 here: the test config's C_conf = Q_conf = 0 saturate the
+    # normalized confidences
+    for field in ("r", "delta_cov"):
+        assert (rec[field] != 0).any(), field
+
+
+def test_cli_runs_base_yaml_services(setup, big_clip, monkeypatch):
+    """config/base.yaml's quality service and local TSDF refiner (its
+    shipped settings: patch 16, batch 4, G 64, 64 ray samples, 3 blocks a
+    keyframe) in the tiny CLI run."""
+    out, savedir, n = _run_services(setup, big_clip, "svc_base",
+                                    BASE_SERVICES, monkeypatch)
+    assert out["frames_processed"] == 6
+    assert out["refiner"].max_grid_dim == 64
+    assert not out["tsdf_manager"].enabled
+    _check_services(out, savedir, big_clip.name, n)
+    _check_outputs(out, savedir, big_clip.name)
+
+
+def test_cli_runs_e2e_smoke_services_with_global_tsdf(setup, big_clip,
+                                                      monkeypatch):
+    """The JAX CLI's end-to-end smoke services, the global TSDF included:
+    its volume holds voxels and its threads stop."""
+    from mast3r_slam_tpu_torch.services.native_tsdf import NativeVoxelHash
+
+    out, savedir, n = _run_services(setup, big_clip, "svc_e2e",
+                                    E2E_SERVICES, monkeypatch)
+    m = out["tsdf_manager"]
+    assert m.enabled and isinstance(m.volume.hash, NativeVoxelHash)
+    assert m.volume.stats()["voxels"] > 0
+    assert m.integrator.integrated_until == len(out["keyframes"])
+    assert not m.integrator.is_alive() and not m.opt_thread.is_alive()
+    _check_services(out, savedir, big_clip.name, n)
+
+
+def test_cli_threaded_with_services_drains(setup, big_clip, monkeypatch):
+    over = dict(E2E_SERVICES, single_thread=False)
+    out, savedir, n = _run_services(setup, big_clip, "svc_thr", over,
+                                    monkeypatch)
+    st = out["states"]
+    assert out["frames_processed"] == 6
+    assert st.global_optimizer_tasks == [] and st.reloc_sem == 0
+    _check_services(out, savedir, big_clip.name, n)
+
+
+@pytest.mark.parametrize("service", ["quality", "tsdf_refine", "tsdf_global",
+                                     "viewer"])
+def test_cli_refuses_only_the_viewer_and_needs_a_card(setup, service):
+    """Each service config runs (two frames); a run with the viewer stops
+    naming its ROADMAP item; without a card the default device raises
+    instead of falling back to the CPU."""
     _, clip, _, _, cfg_path = setup
-    for name, over, item in (("q", {"quality": {"enabled": True}}, "item 9"),
-                             ("tl", {"tsdf_refine": {"enabled": True}},
-                              "item 10"),
-                             ("tg", {"tsdf_global": {"enabled": True}},
-                              "item 11")):
-        path = _write_cfg(setup, f"refuse_{name}", **over)
-        with pytest.raises(SystemExit, match=item):
-            tcli.main(["--dataset", str(clip), "--config", str(path),
-                       "--no-viz"], device="cpu")
-    with pytest.raises(SystemExit, match="item 13"):
-        tcli.main(["--dataset", str(clip), "--config", str(cfg_path)],
-                  device="cpu")
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA card"):
-            tcli.main(["--dataset", str(clip), "--config", str(cfg_path),
-                       "--no-viz"])
+    if service == "viewer":
+        with pytest.raises(SystemExit, match="viewer .item 7"):
+            tcli.main(["--dataset", str(clip), "--config", str(cfg_path)],
+                      device="cpu")
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="no CUDA card"):
+                tcli.main(["--dataset", str(clip), "--config", str(cfg_path),
+                           "--no-viz"])
+        return
+    over = {service: dict(E2E_SERVICES[service],
+                          min_shutdown_wait_s=0)}
+    out, _ = _run(setup, clip, f"one_{service}",
+                  _write_cfg(setup, f"one_{service}", **over), frames=2)
+    assert out["frames_processed"] == 2
+    on = {"quality": out["quality"] is not None,
+          "tsdf_refine": out["refiner"].enabled,
+          "tsdf_global": out["tsdf_manager"].enabled}
+    assert on == {k: k == service for k in on}
 
 
 # ---------------------------------------------------------------------------

@@ -97,6 +97,30 @@ def test_resize_weights_match_cv2(n_in, n_out):
                                rtol=0, atol=3e-7)
 
 
+@pytest.mark.parametrize("n_in,n_out", [
+    (24, 384), (32, 512), (4, 64), (6, 96), (3, 48), (5, 80),  # quality grids
+    (2, 32), (7, 100), (30, 17), (12, 384)])
+@pytest.mark.parametrize("kind", ["linear", "nearest"])
+def test_quality_resize_matches_cv2(n_in, n_out, kind):
+    """The quality PLY's upsampling: INTER_LINEAR and INTER_NEAREST weight
+    matrices against cv2.resize of one-hot rows, and a whole grid resized
+    by the export's float32 weights against cv2.resize of it, within
+    1e-6."""
+    from mast3r_slam_tpu_torch.evaluation import upsample_quality_grid
+
+    interp = cv2.INTER_LINEAR if kind == "linear" else cv2.INTER_NEAREST
+    fn = TI.linear_weights if kind == "linear" else TI.nearest_weights
+    eye = np.eye(n_in, dtype=np.float32)
+    want = cv2.resize(eye, (n_out, n_in), interpolation=interp).T
+    np.testing.assert_allclose(fn(n_in, n_out), want, rtol=0, atol=1e-6)
+    grid = np.random.default_rng(n_in).random((n_in, n_in)).astype(
+        np.float32)
+    want = cv2.resize(grid, (n_out, n_out), interpolation=interp)
+    got = upsample_quality_grid(grid, n_out, n_out,
+                                nearest=kind == "nearest")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
 @pytest.mark.parametrize("hw,size", [
     ((480, 640), 512), ((480, 640), 96), ((480, 640), 224),
     ((333, 500), 512), ((400, 400), 512), ((480, 752), 512),

@@ -17,6 +17,7 @@ from mast3r_slam_tpu_torch.ops import ba_kernels as BA
 from mast3r_slam_tpu_torch.ops import gram_variants as GV
 from mast3r_slam_tpu_torch.ops import conv3x3 as C3
 from mast3r_slam_tpu_torch.ops import flash_attention as FA
+from mast3r_slam_tpu_torch.services import quality_async, tsdf_local
 from mast3r_slam_tpu_torch.slam import frame, pipeline
 from mast3r_slam_tpu_torch.utils import oracle_scene
 
@@ -40,7 +41,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "data/image_ops.py", "data/datasets.py",
                 "slam/retrieval.py", "slam/pipeline.py",
                 "utils/checkpoint.py", "utils/tictoc.py",
-                "ops/gram_variants.py", "bench/gram_kernel_bench.py"):
+                "ops/gram_variants.py", "bench/gram_kernel_bench.py",
+                "services/quality_core.py", "services/quality_async.py",
+                "services/tsdf_local.py", "services/tsdf_global.py",
+                "services/native_tsdf.py"):
         assert f"mast3r_slam_tpu_torch/{mod}" in names, mod
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
@@ -52,7 +56,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     (pipeline.create_frame, "device"), (frame.KeyframeBuffer, "device"),
     (oracle_scene.run_oracle_slam, "device"), (cli.main, "device"),
     (cli.build_model, "device"), (oracle_scene.OracleWorld, "device"),
-    (gram_kernel_bench.main, "device")])
+    (gram_kernel_bench.main, "device"),
+    (quality_async.AsynchronousQualityService, "device"),
+    (tsdf_local.TSDFRefiner, "device")])
 def test_entry_points_default_to_cuda(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
 

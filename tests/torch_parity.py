@@ -118,3 +118,36 @@ def ba_edges(seed, E=5, N=2048, cap=6):
     mask = (rng.random(E) < 0.85).astype(np.float32)
     mask[0] = 1.0
     return T, X, Cavg, ii, jj, idx, valid, Q, mask
+
+
+def keyframe_pair(X, C, T_WC, h, w):
+    """One keyframe with the same pointmap ``X (h*w, 3)``, confidence ``C``
+    and pose ``T_WC (8,)`` in a JAX and a port (CPU) ``KeyframeBuffer``."""
+    import jax.numpy as jnp
+
+    from mast3r_slam_tpu.slam.frame import Frame as JF, KeyframeBuffer as JK
+    from mast3r_slam_tpu_torch.slam.frame import Frame as TF
+    from mast3r_slam_tpu_torch.slam.frame import KeyframeBuffer as TK
+
+    n = h * w
+    jk = JK(h, w, capacity=4, feat_dim=8)
+    tk = TK(h, w, capacity=4, feat_dim=8, device="cpu")
+    jf = JF(frame_id=0, img=jnp.zeros((h, w, 3)), img_shape=(h, w),
+            img_true_shape=(h, w), uimg=np.zeros((h, w, 3), np.float32))
+    jf.X_canon = jnp.asarray(X)
+    jf.C = jnp.asarray(C.reshape(n, 1))
+    jf.feat = jnp.zeros((1, jk.num_patches, 8))
+    jf.pos = jnp.zeros((1, jk.num_patches, 2), jnp.int32)
+    jf.N = 1
+    jf.T_WC = jnp.asarray(T_WC)
+    jk.append(jf)
+    tf = TF(frame_id=0, img=torch.zeros(h, w, 3), img_shape=(h, w),
+            img_true_shape=(h, w), uimg=np.zeros((h, w, 3), np.float32),
+            T_WC=torch.tensor(np.asarray(T_WC, np.float32)))
+    tf.X_canon = torch.from_numpy(np.ascontiguousarray(X, np.float32))
+    tf.C = torch.from_numpy(np.ascontiguousarray(C, np.float32).reshape(n, 1))
+    tf.feat = torch.zeros(1, tk.num_patches, 8)
+    tf.pos = torch.zeros(1, tk.num_patches, 2, dtype=torch.int32)
+    tf.N = 1
+    tk.append(tf)
+    return jk, tk
