@@ -76,7 +76,21 @@ then:
    refining at least one block at G = 64, the global TSDF's pose optimizer
    pulling a 3 cm offset back onto the surface, and
    ``compute_quality_batch``, ``refine_blocks_core`` and one integrate and
-   query on the card against the CPU, with their times.
+   query on the card against the CPU, with their times;
+12. (first, before any kernel: phase ``data``) builds the JPEG decoder on
+   this machine, decodes the committed fixtures (``tests/data/jpeg``) to
+   the SHA-256 digests of cv2's decode recorded beside them, checks
+   EuRoC cam0's and TUM freiburg1/2's ``K_undist`` against cv2's numbers
+   to 1e-6, and times one EuRoC remap and one 1200x680 Replica decode on
+   the host;
+13. (phase ``cli_datasets``) runs the CLI at full ViT-L width on three
+   12-frame clips it writes in the evaluation datasets' layouts, each
+   under its evaluation script's config: EuRoC (gray 752x480 PNGs,
+   undistorted on read, ``eval_no_calib``: K4's FMA path), TUM freiburg1
+   under calibration (undistorted, ``eval_calib``: K5's FMA path) and
+   Replica (680x1200 JPEGs written by ``tests/torch_jpeg_writer.py``,
+   ``eval_replica``: K5), checking outputs, launches per kernel and
+   path, and K_frame's principal point.
 
 In every phase that runs a service, an exception in a service worker (which
 prints it and carries on) fails the run, and the global TSDF must run on
@@ -118,6 +132,13 @@ K2_PER_HEAD = 20      # rn0-rn3, 14 fusion-block convs, head_c1, head_c2
 # edges), the oracle BA's (5 edges), a 9-keyframe map, K4′'s production shape
 GRAM_EDGES = (2, 4, 10, 16, 128)
 GRAM_PIXELS = (98_304, 196_608)       # 384*512 / pixel_step 2 and 1
+# the evaluation layouts' crops at img_size 512 besides IMG_HW (TUM's):
+# EuRoC's 752x480 and Replica's 1200x680 frames. Their token grids (20x32,
+# 18x32), DPT shapes (down to 10x16 and 9x16) and BA pixel counts at
+# pixel_step 1 (163,840, 147,456) are checked on their own, with a first
+# edge and a three-edge system for the Gram
+EVAL_CROPS = ((320, 512), (288, 512))
+EVAL_GRAM_EDGES = (1, 3)
 GRAM_REPORT = (16, 98_304)            # the shape of the table's K4/K5 row
 GRAM_REPORT_EDGES = (16, 128)         # ... and its E = 128 set (ms_e128, ...)
 ORACLE_FRAMES = 24
@@ -248,21 +269,81 @@ def k1_cases():
             (4, 12, "batched pairs", 0, 24)]
 
 
-def k2_cases():
-    """The ten distinct 3x3 conv shapes of one DPT head at 384x512:
-    (H, W, Cin, Cout, has_bias, calls per head)."""
+def k2_cases(hw=IMG_HW):
+    """The ten distinct 3x3 conv shapes of one DPT head at ``hw``
+    (96x128 ... 384x512 at 384x512): (H, W, Cin, Cout, has_bias, calls per
+    head)."""
+    H, W = hw
     return [
-        (96, 128, 96, 256, False, 1),     # rn0
-        (48, 64, 192, 256, False, 1),     # rn1
-        (24, 32, 384, 256, False, 1),     # rn2
-        (12, 16, 768, 256, False, 1),     # rn3
-        (12, 16, 256, 256, True, 2),      # ref4 rcu2
-        (24, 32, 256, 256, True, 4),      # ref3
-        (48, 64, 256, 256, True, 4),      # ref2
-        (96, 128, 256, 256, True, 4),     # ref1
-        (192, 256, 256, 128, True, 1),    # head_c1
-        (384, 512, 128, 128, True, 1),    # head_c2
+        (H // 4, W // 4, 96, 256, False, 1),      # rn0
+        (H // 8, W // 8, 192, 256, False, 1),     # rn1
+        (H // 16, W // 16, 384, 256, False, 1),   # rn2
+        (H // 32, W // 32, 768, 256, False, 1),   # rn3
+        (H // 32, W // 32, 256, 256, True, 2),    # ref4 rcu2
+        (H // 16, W // 16, 256, 256, True, 4),    # ref3
+        (H // 8, W // 8, 256, 256, True, 4),      # ref2
+        (H // 4, W // 4, 256, 256, True, 4),      # ref1
+        (H // 2, W // 2, 256, 128, True, 1),      # head_c1
+        (H, W, 128, 128, True, 1),                # head_c2
     ]
+
+
+def crop_kernel_checks(torch, g):
+    """K1 and K2 against their plain versions at the token grids and DPT
+    shapes of ``EVAL_CROPS`` (checks only, no times): K1 in bf16 (the
+    trunk's dtype) and f32, K2 in f32 (the evaluation configs' head_dtype,
+    the "fma" path) and bf16. Returns the largest error of each."""
+    from mast3r_slam_tpu_torch.models import mast3r as M
+    from mast3r_slam_tpu_torch.ops import conv3x3 as C3
+    from mast3r_slam_tpu_torch.ops import flash_attention as FA
+
+    dev = "cuda"
+    errs = {"K1": 0.0, "K2": 0.0}
+    n_checks = 0
+    for hw in EVAL_CROPS:
+        hp, wp = hw[0] // 16, hw[1] // 16
+        for b, h, label, _, _ in k1_cases():
+            pos = M.patch_positions(hp, wp, b, dev)
+            cos, sin = FA.rope_tables(pos, 64)
+            for dt in (torch.bfloat16, torch.float32):
+                dn = str(dt).split(".")[-1]
+                q, k, v = model_qkv(torch, M, b, h, hp * wp, dt, g)
+                before = FA.counter.launches
+                out = FA.flash_attention_rope(q, k, v, cos, sin, cos, sin)
+                ref = FA.flash_attention_rope_ref(q, k, v, cos, sin, cos, sin)
+                torch.cuda.synchronize()
+                tag = (f"K1 {label} at {hw[0]}x{hw[1]} "
+                       f"({b},{h},{hp * wp},64) {dn}")
+                check(FA.counter.launches == before + 1,
+                      f"{tag}: not launched")
+                errs["K1"] = max(errs["K1"], compare(out, ref, dn, tag))
+                n_checks += 1
+        for hh, ww, cin, cout, _, _ in k2_cases(hw):
+            for dt in (torch.float32, torch.bfloat16):
+                dn = str(dt).split(".")[-1]
+                path = C3.conv3x3_path(dt, cin, cout)
+                for bsz in (1, 2):
+                    x = torch.randn(bsz, hh, ww, cin, generator=g, device=dev)
+                    w = torch.randn(3, 3, cin, cout, generator=g, device=dev)
+                    w = w * (1.0 / math.sqrt(9 * cin))
+                    x, w = x.to(dt), w.to(dt)
+                    bvec = torch.randn(cout, generator=g, device=dev).to(dt)
+                    for bias in (None, bvec):
+                        before = C3.path_counters[path].launches
+                        out = C3.conv3x3(x, w, bias)
+                        ref = C3.conv3x3_ref(x, w, bias)
+                        torch.cuda.synchronize()
+                        tag = (f"K2 ({bsz},{hh},{ww},{cin}->{cout}) {dn} "
+                               f"bias={bias is not None}")
+                        check(C3.path_counters[path].launches == before + 1,
+                              f"{tag}: did not take the {path} path")
+                        errs["K2"] = max(errs["K2"],
+                                         compare(out, ref, dn, tag))
+                        n_checks += 1
+    log(f"K1 / K2 at the evaluation crops {EVAL_CROPS}: {n_checks} checks "
+        f"against the plain versions, largest errors K1 {errs['K1']:.2e}, "
+        f"K2 {errs['K2']:.2e}")
+    return errs
 
 
 def k3_cases():
@@ -451,6 +532,8 @@ def phase_kernels(torch):
                                          ("bound_ms", bnd)):
                             acc[key] += 2 * calls * val   # two heads
                         acc["by"] = by
+    for key, err in crop_kernel_checks(torch, g).items():
+        per_frame[key]["err"] = max(per_frame[key]["err"], err)
     return per_frame
 
 
@@ -645,10 +728,11 @@ def phase_event(torch, FA, C3, BA, state):
 # Phase: K4 / K5 against their plain versions
 # ---------------------------------------------------------------------------
 
-def oracle_channels(torch):
+def oracle_channels(torch, hw=IMG_HW, steps=(2, 1)):
     """Measured channels of four edges among three oracle keyframes at
-    384x512 (ground-truth correspondences), at pixel_step 2 and 1, for the
-    ray and the calibrated residual, and the true poses."""
+    ``hw`` (ground-truth correspondences), at each pixel_step of
+    ``steps``, for the ray and the calibrated residual, and the true
+    poses."""
     import numpy as np
 
     from mast3r_slam_tpu_torch.ops import geometry
@@ -657,20 +741,20 @@ def oracle_channels(torch):
 
     scene = OracleScene(seed=0)
     poses = oracle_trajectory()[0:9:4]
-    K = scene.intrinsics(IMG_HW)
-    maps = [scene.raycast(T, K, IMG_HW) for T in poses]
+    K = scene.intrinsics(hw)
+    maps = [scene.raycast(T, K, hw) for T in poses]
     edges = [(0, 1), (1, 0), (1, 2), (2, 1)]
     idx, valid = [], []
     for i, j in edges:
         p_, ok = scene.project(scene.world_to_cam(maps[j][1], poses[i]), K,
-                               IMG_HW)
+                               hw)
         idx.append(p_)
         valid.append(ok[:, None])
     dev = "cuda"
-    n = IMG_HW[0] * IMG_HW[1]
+    n = hw[0] * hw[1]
     Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
     X = torch.as_tensor(np.stack([m[0] for m in maps]), device=dev)
-    Xc = geometry.constrain_points_to_ray(IMG_HW, X, Kt)
+    Xc = geometry.constrain_points_to_ray(hw, X, Kt)
     args = dict(ii=torch.tensor([e[0] for e in edges], device=dev),
                 jj=torch.tensor([e[1] for e in edges], device=dev),
                 idx_ii2jj=torch.as_tensor(np.stack(idx), device=dev),
@@ -678,11 +762,11 @@ def oracle_channels(torch):
                 Q=torch.full((4, n, 1), 2.0, device=dev))
     C = torch.ones(3, n, 1, device=dev)
     meas = {}
-    for ps in (2, 1):
+    for ps in steps:
         meas["rays", n // ps] = FG.precompute_meas_rays(
             X, C, **args, C_thresh=0.0, Q_thresh=1.5, pixel_step=ps)
         meas["calib", n // ps] = FG.precompute_meas_calib(
-            Xc, C, **args, W_img=IMG_HW[1], z_eps=1e-6, C_thresh=0.0,
+            Xc, C, **args, W_img=hw[1], z_eps=1e-6, C_thresh=0.0,
             Q_thresh=1.5, pixel_step=ps)
     T = torch.as_tensor(np.stack(poses), device=dev)
     return meas, T, args["ii"], args["jj"], Kt
@@ -816,8 +900,57 @@ def phase_ba_kernels(torch, BA):
         log(f"{kind}: largest Gram error {acc['rel']:.3e} (tolerance "
             f"{GRAM_TOL})")
         report["K4" if kind == "rays" else "K5"] = acc
+    for key, (err, rel) in gram_crop_checks(torch, BA).items():
+        report[key]["err"] = max(report[key]["err"], err)
+        report[key]["rel"] = max(report[key]["rel"], rel)
     torch.cuda.empty_cache()
     return report
+
+
+def gram_crop_checks(torch, BA):
+    """K4 and K5 against their plain versions at the pixel counts of
+    ``EVAL_CROPS`` at pixel_step 1 with ``EVAL_GRAM_EDGES`` edges, on
+    oracle channels rendered at each crop, in every channel and row dtype
+    (the evaluation configs take f32 and f32, the FMA path). Checks only;
+    returns (max abs error, Gram error) of each kernel."""
+    errs = {"K4": (0.0, 0.0), "K5": (0.0, 0.0)}
+    n_checks = 0
+    for hw in EVAL_CROPS:
+        meas_all, T, ii, jj, K = oracle_channels(torch, hw, steps=(1,))
+        N = hw[0] * hw[1]
+        for kind in ("rays", "calib"):
+            key = "K4" if kind == "rays" else "K5"
+            fn, ref = ((BA.gram_rays, BA.gram_rays_ref) if kind == "rays"
+                       else (BA.gram_calib, BA.gram_calib_ref))
+            args = ((0.003, 10.0) if kind == "rays"
+                    else (hw, -10.0, 1e-6, 1.0, 10.0))
+            for E in EVAL_GRAM_EDGES:
+                for mdt in (torch.float32, torch.bfloat16):
+                    rts, meas = gram_case(torch, kind, meas_all[kind, N], T,
+                                          ii, jj, K, E, mdt, seed=E + N)
+                    for cdt in (torch.float32, torch.bfloat16):
+                        cn = str(cdt).split(".")[-1]
+                        mn = str(mdt).split(".")[-1]
+                        path = BA.gram_path(cdt)
+                        before = BA.path_counters[path].launches
+                        out = fn(rts, meas, *args, compute_dtype=cdt)
+                        want = ref(rts, meas, *args, compute_dtype=cdt)
+                        torch.cuda.synchronize()
+                        tag = f"{key} {kind} E={E} N={N} meas {mn} rows {cn}"
+                        check(BA.path_counters[path].launches == before + 1,
+                              f"{tag}: not launched on path {path}")
+                        err, rel = compare_gram(BA, out, want, cn, tag)
+                        check(torch.equal(out, fn(rts, meas, *args,
+                                                  compute_dtype=cdt)),
+                              f"{tag}: two launches differ")
+                        errs[key] = (max(errs[key][0], err),
+                                     max(errs[key][1], rel))
+                        n_checks += 1
+    log(f"K4 / K5 at the evaluation crops {EVAL_CROPS}, E in "
+        f"{EVAL_GRAM_EDGES}: {n_checks} checks against the plain versions, "
+        f"largest Gram errors K4 {errs['K4'][1]:.2e}, K5 {errs['K5'][1]:.2e} "
+        f"(tolerance {GRAM_TOL})")
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -1293,28 +1426,35 @@ RELOC_KF_X = (0.0, 0.6, 1.2, 1.8, 2.4, 3.0)
 RELOC_WORDS = 64
 
 
-def write_clip(root, n_frames, seed=0):
-    """A TUM-format directory of ``n_frames`` 480x640 PNGs (the
-    ``synthetic_frames`` texture) panning ``CLI_STEP`` per frame out and
-    back, so the last frame revisits the first."""
+def pan_frames(n_frames, hw, step, seed=0):
+    """uint8 RGB frames ``hw`` of the ``synthetic_frames`` texture panning
+    ``step`` pixels per frame out and back, so the last frame revisits the
+    first."""
     import numpy as np
 
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    freqs = rng.uniform(0.01, 0.05, (3, 2))
+    phases = rng.uniform(0, 2 * np.pi, 3)
+    for i in range(n_frames):
+        p = min(i, n_frames - 1 - i)
+        x, y = xx + step[0] * p, yy + step[1] * p
+        chans = [np.sin(fx * x + fy * y + ph)
+                 for (fx, fy), ph in zip(freqs, phases)]
+        yield ((0.9 * np.stack(chans, -1) + 1.0) * 127.5).astype(np.uint8)
+
+
+def write_clip(root, n_frames, seed=0):
+    """A TUM-format directory of ``n_frames`` 480x640 PNGs panning
+    ``CLI_STEP`` per frame out and back."""
     from mast3r_slam_tpu_torch.data import png
 
     root = Path(root)
     (root / "rgb").mkdir(parents=True, exist_ok=True)
-    rng = np.random.default_rng(seed)
-    H, W = CLI_SRC_HW
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
-    freqs = rng.uniform(0.01, 0.05, (3, 2))
-    phases = rng.uniform(0, 2 * np.pi, 3)
     rows = []
-    for i in range(n_frames):
-        p = min(i, n_frames - 1 - i)
-        x, y = xx + CLI_STEP[0] * p, yy + CLI_STEP[1] * p
-        chans = [np.sin(fx * x + fy * y + ph)
-                 for (fx, fy), ph in zip(freqs, phases)]
-        img = ((0.9 * np.stack(chans, -1) + 1.0) * 127.5).astype(np.uint8)
+    for i, img in enumerate(pan_frames(n_frames, CLI_SRC_HW, CLI_STEP,
+                                       seed)):
         png.write_png(root / "rgb" / f"{i:04d}.png", img)
         rows.append(f"{1e9 + i / 30.0:.6f} rgb/{i:04d}.png")
     (root / "rgb.txt").write_text("# timestamp filename\n"
@@ -1322,14 +1462,14 @@ def write_clip(root, n_frames, seed=0):
     return root
 
 
-def write_config(path, **over):
-    """A config inheriting config/base.yaml with ``CLI_CUTS`` and
+def write_config(path, inherit="base.yaml", **over):
+    """A config inheriting ``config/<inherit>`` with ``CLI_CUTS`` and
     ``over`` merged in."""
     import yaml
 
     from mast3r_slam_tpu_torch.utils.config import merge_config
 
-    cfg = merge_config({"inherit": str(ROOT / "config" / "base.yaml")},
+    cfg = merge_config({"inherit": str(ROOT / "config" / inherit)},
                        merge_config(CLI_CUTS, over))
     Path(path).write_text(yaml.safe_dump(cfg))
     return str(path)
@@ -1423,16 +1563,20 @@ def instrumented(torch, model):
             setattr(owner, name, orig)
 
 
-def expected_launches(calls, calib):
+def expected_launches(calls, calib, ba_path="mma"):
+    """Launches per kernel from the run's model calls and LM iterations.
+    ``ba_path``: base.yaml's bf16 BA rows take the tensor cores
+    (``"mma"``), the eval configs' float32 rows the FMA design."""
     c = calls
     k1 = K1_PER_PAIR * (c["mono"] + c["track"]) + K1_PER_DECODE * (
         c["oneway"] + c["symmetric"])
     k2 = K2_PER_HEAD * c["mono"] + 2 * K2_PER_HEAD * (
         c["track"] + c["oneway"] + c["symmetric"])
     ba = c["solves"] + c["lm_iters"]
-    # base.yaml's bf16 BA rows: every K4 / K5 launch on the tensor cores
     out = {"K1": k1, "K2": k2, "K3": 0, "K4": 0 if calib else ba,
-           "K5": ba if calib else 0, "BA mma": ba, "BA fma": 0}
+           "K5": ba if calib else 0,
+           "BA mma": ba if ba_path == "mma" else 0,
+           "BA fma": ba if ba_path == "fma" else 0}
     out.update({key: 0 for key, _ in K4P_ALL})  # the benchmark's alone
     return out
 
@@ -1521,7 +1665,8 @@ def quality_fields(path):
     return np.frombuffer(data[end:], dtype=[(n, types[t]) for t, n in props])
 
 
-def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False):
+def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
+            ba_path="mma"):
     """``main(argv)`` on the card with every launch counter at 0 before and
     read after; checks the launches against the run's own model calls and
     LM iterations. Returns (summary, launches, instrumentation record)."""
@@ -1543,7 +1688,7 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False):
         os.chdir(cwd)
     check_no_faults(faults, f"cli {tag}")
     check_services(out, rec, tag)
-    want = expected_launches(rec["calls"], calib)
+    want = expected_launches(rec["calls"], calib, ba_path)
     g = out["graph"]
     log(f"cli {tag}: {out['frames_processed']} frames in {wall:.1f} s, "
         f"keyframes {len(out['keyframes'])}, edges {g.n_edges()}, modes "
@@ -1823,6 +1968,241 @@ def phase_cli_cross(torch, workdir):
     del gpu_model, cpu_model
     torch.cuda.empty_cache()
     return dict(err=err, first=first, n=len(agree))
+
+
+# ---------------------------------------------------------------------------
+# Phases: the data layer (undistortion, the JPEG reader) and the CLI on the
+# evaluation datasets' layouts
+# ---------------------------------------------------------------------------
+
+JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
+K_UNDIST_RTOL = 1e-6
+HOST_REPEATS = 20
+DATA_FRAMES = 12
+# EuRoC MH cam0 (mav0/cam0/sensor.yaml): 752x480, radial-tangential
+EUROC_CAM0 = dict(intrinsics=[458.654, 457.296, 367.215, 248.375],
+                  distortion_coefficients=[-0.28340811, 0.07395907,
+                                           0.00019359, 1.76187114e-05],
+                  resolution=[752, 480])
+# Replica (the fork's renders): 1200x680 JPEG frames, cam_params.json
+REPLICA_HW = (680, 1200)
+REPLICA_CAM = dict(w=1200, h=680, fx=600.0, fy=600.0, cx=599.5, cy=339.5,
+                   scale=6553.5)
+REPLICA_QUALITY = 95
+NOISE_LEVELS = 16       # sigma of the noisy decode timing frame
+
+
+def _host_ms(fn):
+    """Median host milliseconds of ``HOST_REPEATS`` calls of ``fn``."""
+    ts = []
+    for _ in range(HOST_REPEATS):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def _jpeg_writer():
+    """The test encoder (tests/torch_jpeg_writer.py): the card machine has
+    no cv2 or PIL to write JPEGs with."""
+    tests = str(ROOT / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_jpeg_writer
+
+    return torch_jpeg_writer
+
+
+def phase_data():
+    """The host data layer on this machine: the JPEG decoder built here
+    decodes the committed fixtures to the SHA-256 digests of cv2's decode
+    recorded beside them; EuRoC cam0's and TUM freiburg1/2's K_undist
+    equal the numbers cv2 gave; then the host ms of one EuRoC remap
+    (752x480 gray float32, and a colour frame of that size) and of one
+    1200x680 Replica decode (a smooth frame and a noisy one)."""
+    import hashlib
+
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.data import jpeg
+    from mast3r_slam_tpu_torch.data.datasets import Intrinsics
+
+    t0 = time.perf_counter()
+    jpeg.load_library()
+    build_s = time.perf_counter() - t0
+    rec = json.loads((JPEG_FIXTURES / "fixtures.json").read_text())
+    for name, want in sorted(rec["decoded_sha256"].items()):
+        img = jpeg.read_jpeg(JPEG_FIXTURES / name)
+        got = hashlib.sha256(img.tobytes()).hexdigest()
+        check(list(img.shape) == rec["shape"][name] and got == want,
+              f"data: {name} decodes to {img.shape} {got[:16]}, cv2 "
+              f"{rec['shape'][name]} {want[:16]}")
+    for name, cam in sorted(rec["cameras"].items()):
+        W, H, fx, fy, cx, cy, *dist = cam["calib"]
+        K = Intrinsics(W, H, fx, fy, cx, cy, dist, cfg={}).K_undist
+        want = np.asarray(cam["K_undist"], np.float32)
+        err = float(np.abs(K - want).max() / np.abs(want).max())
+        check(err <= K_UNDIST_RTOL, f"data: {name} K_undist {K.tolist()} "
+              f"!= cv2's {want.tolist()} (relative {err:.2e})")
+    log(f"data: JPEG decoder built in {build_s:.1f} s; "
+        f"{len(rec['decoded_sha256'])} fixtures equal cv2 {rec['opencv']} "
+        f"bit for bit; K_undist of {sorted(rec['cameras'])} within "
+        f"{K_UNDIST_RTOL:g}")
+
+    e = EUROC_CAM0
+    t0 = time.perf_counter()
+    intr = Intrinsics(*e["resolution"], *e["intrinsics"],
+                      (*e["distortion_coefficients"], 0.0), cfg={})
+    maps_ms = (time.perf_counter() - t0) * 1e3
+    # EuRoC's frames are gray and remapped once; a colour frame of the same
+    # size takes three channels
+    rgb = np.random.default_rng(0).random((480, 752, 3)).astype(np.float32)
+    for frame in (rgb[..., 0], rgb):
+        out = intr.remap(frame)
+        check(out.shape == frame.shape and bool(np.isfinite(out).all()),
+              f"data: EuRoC remap output of {frame.shape}")
+    remap_ms = _host_ms(lambda: intr.remap(rgb[..., 0]))
+    remap_rgb_ms = _host_ms(lambda: intr.remap(rgb))
+    img = next(pan_frames(1, REPLICA_HW, (0, 0), seed=5))
+    data = _jpeg_writer().encode_jpeg(img, REPLICA_QUALITY)
+    dec = jpeg.decode_jpeg(data)
+    check(dec.shape == (*REPLICA_HW, 3), "data: Replica decode shape")
+    err = float(np.abs(dec.astype(np.float64) - img).mean())
+    check(err < 3.0, f"data: Replica frame decoded {err:.2f} levels off")
+    decode_ms = _host_ms(lambda: jpeg.decode_jpeg(data))
+    # Huffman decoding time grows with the entropy-coded bytes: the same
+    # frame with seeded noise is a textured render's upper side
+    noise = np.random.default_rng(6).normal(0.0, NOISE_LEVELS, img.shape)
+    noisy = np.clip(img + noise, 0, 255).astype(np.uint8)
+    data_noisy = _jpeg_writer().encode_jpeg(noisy, REPLICA_QUALITY)
+    check(jpeg.decode_jpeg(data_noisy).shape == (*REPLICA_HW, 3),
+          "data: noisy Replica decode shape")
+    decode_noisy_ms = _host_ms(lambda: jpeg.decode_jpeg(data_noisy))
+    log(f"data: EuRoC maps + tables {maps_ms:.1f} ms; host ms per EuRoC "
+        f"remap (752x480 gray) {remap_ms:.2f} (752x480x3: {remap_rgb_ms:.2f}"
+        f"), per 1200x680 Replica decode "
+        f"(4:2:0, q{REPLICA_QUALITY}) {decode_ms:.2f} for a smooth frame "
+        f"of {len(data)} bytes, {decode_noisy_ms:.2f} with noise of "
+        f"sigma {NOISE_LEVELS} levels, {len(data_noisy)} bytes (median of "
+        f"{HOST_REPEATS})")
+    return dict(remap_ms=remap_ms, remap_rgb_ms=remap_rgb_ms,
+                decode_ms=decode_ms, maps_ms=maps_ms,
+                decode_bytes=len(data), decode_noisy_ms=decode_noisy_ms,
+                decode_noisy_bytes=len(data_noisy))
+
+
+def write_euroc_clip(root, n_frames):
+    """EuRoC's layout: mav0/cam0/data/<ns>.png gray 752x480 frames and
+    sensor.yaml with MH cam0's calibration."""
+    import yaml
+
+    from mast3r_slam_tpu_torch.data import png
+
+    cam = Path(root) / "mav0" / "cam0"
+    (cam / "data").mkdir(parents=True, exist_ok=True)
+    W, H = EUROC_CAM0["resolution"]
+    step = (CLI_STEP[0] * W / CLI_SRC_HW[1], CLI_STEP[1] * W / CLI_SRC_HW[1])
+    for i, img in enumerate(pan_frames(n_frames, (H, W), step, seed=1)):
+        png.write_png(cam / "data" / f"{1403636579763555584 + i * 50_000_000}"
+                      ".png", img[..., 1])
+    (cam / "sensor.yaml").write_text(yaml.safe_dump(EUROC_CAM0))
+    return Path(root)
+
+
+def write_replica_clip(root, n_frames):
+    """Replica's layout: results/frame%06d.jpg at 680x1200 (written by the
+    test encoder) and cam_params.json."""
+    root = Path(root)
+    (root / "results").mkdir(parents=True, exist_ok=True)
+    W = REPLICA_HW[1]
+    step = (CLI_STEP[0] * W / CLI_SRC_HW[1], CLI_STEP[1] * W / CLI_SRC_HW[1])
+    writer = _jpeg_writer()
+    for i, img in enumerate(pan_frames(n_frames, REPLICA_HW, step, seed=2)):
+        writer.write_jpeg(root / "results" / f"frame{i:06d}.jpg", img,
+                          REPLICA_QUALITY)
+    (root / "cam_params.json").write_text(json.dumps({"camera":
+                                                      REPLICA_CAM}))
+    return root
+
+
+def phase_cli_datasets(torch, FA, C3, BA, workdir):
+    """The CLI at full ViT-L width on three ``DATA_FRAMES``-frame clips in
+    the evaluation datasets' layouts, each under its evaluation script's
+    config with ``CLI_CUTS``: EuRoC (gray, undistorted on read;
+    eval_no_calib, the ray BA on K4's FMA path), TUM freiburg1 under
+    calibration (undistorted; eval_calib, K5's FMA path) and Replica (JPEG
+    frames; eval_replica, K5). Each checks its outputs, its launches per
+    kernel and path, and K_frame's principal point at the crop's centre."""
+    from mast3r_slam_tpu_torch.data.datasets import load_dataset
+    from mast3r_slam_tpu_torch.utils.config import load_config
+
+    work = Path(workdir)
+    runs = (
+        ("euroc", "eval_no_calib.yaml", False,
+         write_euroc_clip(work / "euroc" / "MH_01_easy", DATA_FRAMES)),
+        ("tum_fr1_calib", "eval_calib.yaml", True,
+         write_clip(work / "rgbd_dataset_freiburg1_desk", DATA_FRAMES)),
+        ("replica", "eval_replica.yaml", True,
+         write_replica_clip(work / "replica" / "office0", DATA_FRAMES)),
+    )
+    model, summary = None, {}
+    for tag, inherit, calib, clip in runs:
+        cfg_path = write_config(work / f"cli_{tag}.yaml", inherit=inherit)
+        cfg = load_config(cfg_path)
+        check(cfg["local_opt"]["ba_compute_dtype"] == "float32"
+              and int(cfg["local_opt"]["pixel_step"]) == 1
+              and bool(cfg.get("use_calib")) == calib,
+              f"cli {tag}: {inherit} is not the evaluation config")
+        if model is None:   # the eval configs share model.head_dtype f32
+            t0 = time.perf_counter()
+            model = tied_model(cfg, "cuda")
+            torch.cuda.synchronize()
+            log(f"cli datasets: ViT-L random init (tied streams, "
+                f"{cfg['model']['head_dtype']} heads) "
+                f"{time.perf_counter() - t0:.1f} s")
+        ds = load_dataset(str(clip), cfg)
+        intr = ds.camera_intrinsics
+        (h, w), _ = ds.get_img_shape()
+        pp = (float(intr.K_frame[0, 2]), float(intr.K_frame[1, 2]))
+        check(abs(pp[0] - w / 2) <= 0.5 and abs(pp[1] - h / 2) <= 0.5,
+              f"cli {tag}: K_frame principal point {pp}, crop {w}x{h}")
+        check(intr.has_distortion == (tag != "replica")
+              and ds.has_calib() == (tag == "euroc" or calib),
+              f"cli {tag}: undistortion / calibration not in use")
+        out, launches, rec = run_cli(
+            torch, FA, C3, BA, model, work,
+            ["--dataset", str(clip), "--config", cfg_path, "--no-viz",
+             "--save-as", tag], tag, calib=calib, ba_path="fma")
+        kernel = "K5" if calib else "K4"
+        check(launches[kernel] > 0 and launches["BA fma"] > 0
+              and launches["BA mma"] == 0,
+              f"cli {tag}: the BA did not run on {kernel}'s FMA path")
+        if calib:
+            K = out["keyframes"].K
+            check(K is not None and bool(torch.allclose(
+                K.cpu(), torch.as_tensor(intr.K_frame))),
+                f"cli {tag}: the BA's K is not K_frame")
+        seq = clip.name
+        check_outputs(out, work / "logs" / tag / seq, seq, DATA_FRAMES,
+                      (h, w))
+        parts = cli_parts(rec)
+        summary[tag] = dict(tracked_ms=parts["track"], step_ms=parts["step"],
+                            keyframes=len(out["keyframes"]),
+                            edges=out["graph"].n_edges(),
+                            launches={k: launches[k] for k in (
+                                "K1", "K2", kernel, "BA fma")},
+                            crop=(h, w), pp=pp)
+        log(f"cli {tag}: {w}x{h} crop, K_frame principal point "
+            f"({pp[0]:.3f}, {pp[1]:.3f}); median tracked frame "
+            f"{parts['track']:.1f} ms over {len(rec['ms']['track'])} "
+            f"frames, median backend step {parts['step']:.1f} ms over "
+            f"{len(rec['ms']['step'])} steps; keyframes "
+            f"{len(out['keyframes'])}, edges {out['graph'].n_edges()}; "
+            f"{kernel} fma launches {launches[kernel]}")
+        del out
+    del model
+    torch.cuda.empty_cache()
+    return summary
 
 
 class _ForcedRetrieval:
@@ -2307,8 +2687,9 @@ def phase_services(torch, device="cuda"):
     return out
 
 
-PHASES = ("kernels", "main", "event", "cross", "ba_kernels", "gram_bench",
-          "oracle", "cli", "cli_cross", "reloc", "services")
+PHASES = ("data", "kernels", "main", "event", "cross", "ba_kernels",
+          "gram_bench", "oracle", "cli", "cli_cross", "cli_datasets", "reloc",
+          "services")
 
 
 def main():
@@ -2365,6 +2746,7 @@ def main():
         log(f"phase {name}: {timings[name]:.1f} s")
         return out
 
+    data = run("data", phase_data)
     per_frame = run("kernels", phase_kernels, torch)
     main_path = run("main", phase_main_path, torch, FA, C3, BA)
     if main_path is not None:
@@ -2379,6 +2761,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
         cli = run("cli", phase_cli, torch, FA, C3, BA, work)
         run("cli_cross", phase_cli_cross, torch, work)
+        datasets = run("cli_datasets", phase_cli_datasets, torch, FA, C3, BA,
+                       work)
     reloc = run("reloc", phase_reloc, torch, FA, C3, BA)
     services = run("services", phase_services, torch)
     log(f"phase times (s): {timings}")
@@ -2403,6 +2787,15 @@ def main():
         f"integrate {services['integrate_ms']:.1f} ms per keyframe (host), "
         f"blocks refined / rejected {services['refined']} / "
         f"{services['rejected']}; on {smi}")
+    log(f"data: host ms per EuRoC remap {data['remap_ms']:.2f} (gray; "
+        f"x3 {data['remap_rgb_ms']:.2f}), per "
+        f"1200x680 Replica decode {data['decode_ms']:.2f} (smooth, "
+        f"{data['decode_bytes']} bytes) / {data['decode_noisy_ms']:.2f} "
+        f"(noisy, {data['decode_noisy_bytes']} bytes); CLI on the "
+        f"evaluation layouts (median tracked frame / backend step ms): "
+        + "; ".join(f"{t} {d['tracked_ms']:.1f} / {d['step_ms']:.1f} "
+                    f"({d['keyframes']} keyframes, launches {d['launches']})"
+                    for t, d in datasets.items()) + f"; on {smi}")
 
     table = {"kernels": [
         {"name": "flash_attention_rope", "route": "cuda",

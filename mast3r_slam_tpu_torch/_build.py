@@ -1,4 +1,4 @@
-"""Build and load the package's CUDA kernels.
+"""Build and load the package's CUDA kernels and its host C++ libraries.
 
 Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
@@ -7,7 +7,8 @@ compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 first call that needs a kernel builds it, and :func:`build_all` builds
 several at once in parallel ``nvcc`` processes. The wrappers also share
 their launch counter, SM count and input-alignment helpers from
-here.
+here. :func:`build_host` compiles one of ``native/*.cpp`` (the global
+TSDF's voxel hash, the JPEG decoder) with ``g++`` the same way.
 """
 
 from __future__ import annotations
@@ -81,6 +82,28 @@ def build_all(names, log=None) -> dict[str, Path]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def build_host(src: Path, build_dir: Path, what: str) -> Path:
+    """Compile host C++ source ``src`` with ``g++ -O2`` (no ``-march``: the
+    library is never committed or carried between machines) into
+    ``build_dir``, named by a hash of the source, unless it is built
+    already. Raises, naming ``what``, when it cannot be built."""
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    so = build_dir / f"lib{src.stem}-{digest}.so"
+    if so.exists():
+        return so
+    build_dir.mkdir(parents=True, exist_ok=True)
+    # a name of its own per process: test workers may build at once
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = ["g++", "-O2", "-shared", "-fPIC", str(src), "-o", str(tmp)]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+    except (subprocess.CalledProcessError, FileNotFoundError) as e:
+        msg = getattr(e, "stderr", None) or str(e)
+        raise RuntimeError(f"building the {what} failed: {msg}")
+    tmp.replace(so)
+    return so
 
 
 def load(name: str, entries=None) -> ctypes.CDLL:

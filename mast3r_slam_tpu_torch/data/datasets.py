@@ -2,23 +2,19 @@
 ``mast3r_slam_tpu/data/datasets.py``.
 
 Every reader yields ``(timestamp, img)`` with ``img (H, W, 3) float32 RGB``
-in [0, 1] at the source resolution; ``slam/pipeline.py::create_frame``
-resizes to the model crop. Images are read with ``data/png.py`` (no OpenCV
-or PIL on the card machine).
+in [0, 1] at the source resolution, undistorted when its calibration is in
+use; ``slam/pipeline.py::create_frame`` resizes to the model crop. Images
+are read with ``data/imread.py`` (PNG and baseline JPEG, told apart by
+their first bytes) and undistorted with ``data/undistort.py``: no OpenCV or
+PIL on the card machine.
 
 The port's modules take the config dict as an argument: the readers and
 :class:`Intrinsics` read ``dataset.subsample``, ``dataset.img_size``,
 ``dataset.center_principle_point`` and ``use_calib`` from the ``cfg`` they
 are given, where the JAX package reads its process-global config.
 
-Not ported yet (ROADMAP queue 1):
-- undistortion: the JAX package builds its rectification with
-  ``cv2.getOptimalNewCameraMatrix`` / ``initUndistortRectifyMap``; here a
-  calibration with nonzero distortion raises ``NotImplementedError`` when
-  it is used (``remap``, or ``K_frame``). EuRoC always undistorts, so its
-  frames raise when read;
-- the video, webcam and RealSense readers (a video decoder and camera
-  drivers): :func:`load_dataset` raises for them.
+Not ported (ROADMAP): the video, webcam and RealSense readers (a video
+decoder and camera libraries): :func:`load_dataset` raises for them.
 """
 
 from __future__ import annotations
@@ -30,12 +26,9 @@ import re
 
 import numpy as np
 
-from mast3r_slam_tpu_torch.data import png
+from mast3r_slam_tpu_torch.data import undistort
 from mast3r_slam_tpu_torch.data.image_ops import resize_img
-
-_UNDISTORT = ("undistortion (cv2.getOptimalNewCameraMatrix / "
-              "initUndistortRectifyMap) is not ported yet (ROADMAP queue 1): "
-              "this calibration has nonzero distortion")
+from mast3r_slam_tpu_torch.data.imread import gray_to_rgb, read_image, read_rgb
 
 
 def natsorted(paths):
@@ -57,12 +50,16 @@ def _dataset_cfg(cfg):
 # ---------------------------------------------------------------------------
 
 class Intrinsics:
-    """Camera calibration and the intrinsics of the model crop.
+    """Camera calibration: the undistortion and the intrinsics of the model
+    crop.
 
-    ``K_frame`` maps ``K`` through ``resize_img``'s resize and crop at
-    ``dataset.img_size``. A calibration with distortion raises
-    ``NotImplementedError`` from ``K_frame`` and ``remap`` (see the module
-    docstring)."""
+    With distortion, ``K_undist`` is ``data/undistort.py``'s new camera
+    matrix (alpha 0; its principal point moved to the image centre unless
+    ``dataset.center_principle_point`` is false) and :meth:`remap`
+    undistorts a frame onto it. ``K_frame`` maps ``K_undist`` through
+    ``resize_img``'s resize and crop at ``dataset.img_size``. Where the
+    JAX package skips undistortion when ``cv2`` is missing, the port
+    always undistorts a calibration with distortion."""
 
     def __init__(self, W, H, fx, fy, cx, cy, distortion=None, cfg=None):
         self.W, self.H = int(W), int(H)
@@ -75,14 +72,21 @@ class Intrinsics:
             else np.asarray(distortion, np.float32)
         )
         self.has_distortion = bool(np.abs(self.distortion).sum() > 0)
-        self._K_frame = (None if self.has_distortion
-                         else self._rescale_to_crop(self.K_orig))
-
-    @property
-    def K_frame(self):
+        self.tables = None
+        self.K_undist = self.K_orig.copy()
         if self.has_distortion:
-            raise NotImplementedError(_UNDISTORT)
-        return self._K_frame
+            wh = (self.W, self.H)
+            new_K = undistort.optimal_new_camera_matrix(
+                self.K_orig, self.distortion, wh)
+            if bool(_dataset_cfg(self.cfg).get("center_principle_point",
+                                               True)):
+                new_K[0, 2] = self.W / 2.0
+                new_K[1, 2] = self.H / 2.0
+            self.K_undist = new_K.astype(np.float32)
+            mapx, mapy = undistort.undistort_rectify_map(
+                self.K_orig, self.distortion, self.K_undist, wh)
+            self.tables = undistort.RemapTables(mapx, mapy, (self.H, self.W))
+        self.K_frame = self._rescale_to_crop(self.K_undist)
 
     def _rescale_to_crop(self, K):
         img_size = int(_dataset_cfg(self.cfg).get("img_size", 512))
@@ -98,9 +102,9 @@ class Intrinsics:
         return K2
 
     def remap(self, img):
-        if self.has_distortion:
-            raise NotImplementedError(_UNDISTORT)
-        return img
+        if self.tables is None:
+            return img
+        return undistort.remap_bilinear(img, self.tables)
 
 
 # ---------------------------------------------------------------------------
@@ -123,15 +127,21 @@ class MonocularDataset:
     def read_img(self, idx):  # pragma: no cover - abstract
         raise NotImplementedError
 
+    def read_frame(self, idx):
+        """The frame as stored: gray ``(H, W)`` where the reader has it so,
+        which is undistorted once and then repeated into RGB."""
+        return self.read_img(idx)
+
     def __len__(self):
         raise NotImplementedError
 
     def __getitem__(self, idx):
-        img = self.read_img(idx)
+        img = self.read_frame(idx)
         if img.dtype == np.uint8:
             img = img.astype(self.dtype) / 255.0
         if self.use_calibration and self.camera_intrinsics is not None:
             img = self.camera_intrinsics.remap(img)
+        img = gray_to_rgb(img)
         ts = self.timestamps[idx] if idx < len(self.timestamps) else float(idx)
         return float(ts), img
 
@@ -207,7 +217,7 @@ class TUMDataset(MonocularDataset):
         return len(self.files)
 
     def read_img(self, idx):
-        return png.read_rgb(self.files[idx])
+        return read_rgb(self.files[idx])
 
 
 # ---------------------------------------------------------------------------
@@ -215,8 +225,7 @@ class TUMDataset(MonocularDataset):
 # ---------------------------------------------------------------------------
 
 class EurocDataset(MonocularDataset):
-    """EuRoC cam0 grayscale stream (gray → RGB); always undistorted, so its
-    frames raise until undistortion is ported."""
+    """EuRoC cam0 grayscale stream (gray → RGB); always undistorted."""
 
     def __init__(self, path, cfg=None):
         super().__init__(cfg)
@@ -248,7 +257,10 @@ class EurocDataset(MonocularDataset):
         return len(self.files)
 
     def read_img(self, idx):
-        return png.read_rgb(self.files[idx])
+        return read_rgb(self.files[idx])
+
+    def read_frame(self, idx):
+        return read_image(self.files[idx])
 
 
 # ---------------------------------------------------------------------------
@@ -268,7 +280,7 @@ class ETH3DDataset(MonocularDataset):
         calib_file = self.path / "calibration.txt"
         if calib_file.exists():
             fx, fy, cx, cy = np.loadtxt(calib_file).reshape(-1)[:4]
-            h, w = png.read_rgb(self.files[0]).shape[:2]
+            h, w = read_rgb(self.files[0]).shape[:2]
             self.camera_intrinsics = self._intrinsics(w, h, fx, fy, cx, cy,
                                                       None)
             self.use_calibration = self._use_calib()
@@ -277,7 +289,7 @@ class ETH3DDataset(MonocularDataset):
         return len(self.files)
 
     def read_img(self, idx):
-        return png.read_rgb(self.files[idx])
+        return read_rgb(self.files[idx])
 
 
 # ---------------------------------------------------------------------------
@@ -303,7 +315,7 @@ class SevenScenesDataset(MonocularDataset):
         return len(self.files)
 
     def read_img(self, idx):
-        return png.read_rgb(self.files[idx])
+        return read_rgb(self.files[idx])
 
 
 # ---------------------------------------------------------------------------
@@ -311,9 +323,8 @@ class SevenScenesDataset(MonocularDataset):
 # ---------------------------------------------------------------------------
 
 class ReplicaDataset(MonocularDataset):
-    """Replica renders: results/frame*.png + cam_params.json in any of 3
-    layouts. Only PNG frames are read (JPEG needs a decoder the port does
-    not have)."""
+    """Replica renders: results/frame*.jpg (or .png) + cam_params.json in
+    any of 3 layouts; baseline JPEGs are read by ``data/jpeg.py``."""
 
     def __init__(self, path, cfg=None):
         super().__init__(cfg)
@@ -353,7 +364,7 @@ class ReplicaDataset(MonocularDataset):
         return len(self.files)
 
     def read_img(self, idx):
-        return png.read_rgb(self.files[idx])
+        return read_rgb(self.files[idx])
 
 
 # ---------------------------------------------------------------------------
@@ -373,7 +384,7 @@ class RGBFiles(MonocularDataset):
         return len(self.files)
 
     def read_img(self, idx):
-        return png.read_rgb(self.files[idx])
+        return read_rgb(self.files[idx])
 
 
 # ---------------------------------------------------------------------------

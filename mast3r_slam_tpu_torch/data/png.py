@@ -2,7 +2,8 @@
 
 The port's datasets and exports need no OpenCV or PIL: this module decodes
 8-bit gray, RGB and RGBA PNGs (non-interlaced, all five scanline filters)
-and writes 8-bit RGB PNGs. An interlaced, 16-bit or palette file raises.
+and writes 8-bit gray and RGB PNGs. An interlaced, 16-bit or palette file
+raises.
 
 The None, Sub and Up filters are undone with whole-row numpy operations;
 Average and Paeth depend on the pixel to the left and run as a loop over
@@ -17,12 +18,12 @@ import zlib
 
 import numpy as np
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 6: 4}          # color type → samples per pixel
 
 
 def _chunks(data: bytes):
-    pos = len(_SIGNATURE)
+    pos = len(SIGNATURE)
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
@@ -69,7 +70,7 @@ def _unfilter_row(ftype, row, prev, bpp):
 
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes → uint8 array ``(H, W)`` (gray) or ``(H, W, 3|4)``."""
-    if data[:8] != _SIGNATURE:
+    if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file")
     header, idat = None, []
     for kind, body in _chunks(data):
@@ -107,23 +108,17 @@ def read_png(path) -> np.ndarray:
         return decode_png(f.read())
 
 
-def read_rgb(path) -> np.ndarray:
-    """An image file as uint8 RGB ``(H, W, 3)``: gray is repeated into the
-    three channels, alpha is dropped."""
-    img = read_png(path)
-    if img.ndim == 2:
-        return np.repeat(img[..., None], 3, axis=-1)
-    return np.ascontiguousarray(img[..., :3])
-
-
-def encode_png(rgb: np.ndarray, level: int = 6) -> bytes:
-    """uint8 ``(H, W, 3)`` RGB → PNG bytes (Up filter on every row)."""
-    rgb = np.ascontiguousarray(rgb)
-    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"expected uint8 (H, W, 3), got {rgb.dtype} "
-                         f"{rgb.shape}")
-    h, w, _ = rgb.shape
-    rows = rgb.reshape(h, w * 3)
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """uint8 ``(H, W, 3)`` RGB or ``(H, W)`` gray → PNG bytes (Up filter
+    on every row)."""
+    img = np.ascontiguousarray(img)
+    gray = img.ndim == 2
+    if img.dtype != np.uint8 or not (gray or img.ndim == 3
+                                     and img.shape[2] == 3):
+        raise ValueError(f"expected uint8 (H, W, 3) or (H, W), got "
+                         f"{img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    rows = img.reshape(h, -1)
     up = np.diff(rows.astype(np.int16), axis=0, prepend=0).astype(np.uint8)
     raw = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
 
@@ -131,12 +126,12 @@ def encode_png(rgb: np.ndarray, level: int = 6) -> bytes:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
-    return (_SIGNATURE + chunk(b"IHDR", ihdr)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0 if gray else 2, 0, 0, 0)
+    return (SIGNATURE + chunk(b"IHDR", ihdr)
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
             + chunk(b"IEND", b""))
 
 
-def write_png(path, rgb: np.ndarray) -> None:
+def write_png(path, img: np.ndarray) -> None:
     with open(path, "wb") as f:
-        f.write(encode_png(rgb))
+        f.write(encode_png(img))

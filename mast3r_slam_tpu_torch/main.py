@@ -17,7 +17,7 @@ fields, keyframe PNGs). It runs on the CUDA card; :func:`main` takes
 ``device="cpu"`` from Python (the tests), and there is no CPU fallback.
 
 Refused until ported: the viewer (a run without ``--no-viz``, ROADMAP
-queue 1 item 7).
+queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -77,7 +77,7 @@ def refuse_unported(no_viz):
     item: the viewer."""
     if not no_viz:
         raise SystemExit("not ported yet (ROADMAP queue 1): the viewer "
-                         "(item 7). Pass --no-viz.")
+                         "(item 5). Pass --no-viz.")
 
 
 def model_config(cfg) -> M.MASt3RConfig:

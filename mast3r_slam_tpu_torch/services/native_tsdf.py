@@ -13,13 +13,12 @@ the tests hold the native hash against.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import subprocess
 import threading
 
 import numpy as np
+
+from mast3r_slam_tpu_torch import _build
 
 _F32 = np.float32
 _PKG = pathlib.Path(__file__).resolve().parents[1]
@@ -29,37 +28,14 @@ _BUILD_LOCK = threading.Lock()
 _lib = None
 
 
-def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return _BUILD / f"libtsdf_hash-{digest}.so"
-
-
-def _build_library() -> pathlib.Path:
-    """Compile the voxel hash on this machine (``-O2`` without ``-march``:
-    the library is never committed or carried between machines)."""
-    so = library_path()
-    if so.exists():
-        return so
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    # a name of its own per process: test workers may build at once
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = ["g++", "-O2", "-shared", "-fPIC", str(_SRC), "-o", str(tmp)]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
-    except (subprocess.CalledProcessError, FileNotFoundError) as e:
-        msg = getattr(e, "stderr", None) or str(e)
-        raise RuntimeError(f"building the native TSDF hash failed: {msg}")
-    tmp.replace(so)
-    return so
-
-
 def load_library() -> ctypes.CDLL:
     """The compiled hash, built at first use; raises when it cannot be
     built."""
     global _lib
     with _BUILD_LOCK:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build_library()))
+            lib = ctypes.CDLL(str(_build.build_host(
+                _SRC, _BUILD, "native TSDF hash")))
             f32p = ctypes.POINTER(ctypes.c_float)
             lib.tsdf_create.restype = ctypes.c_void_p
             lib.tsdf_create.argtypes = [ctypes.c_int64, ctypes.c_float,

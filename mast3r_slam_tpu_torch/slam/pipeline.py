@@ -4,7 +4,7 @@ backend loop (counterpart of ``mast3r_slam_tpu/slam/pipeline.py``).
 The backend runs as a host thread (default) or inline via
 :meth:`Backend.step` in ``single_thread`` mode. The thread shares the
 frontend's CUDA device and its default stream, as do the service threads
-(separate streams are ROADMAP queue 1 item 6); every read or write of
+(separate streams are ROADMAP queue 1 item 4); every read or write of
 keyframe tensors goes under ``keyframes.lock``.
 """
 

@@ -1,7 +1,8 @@
 """The port's CLI (``mast3r_slam_tpu_torch/main.py``) on the CPU against the
 JAX CLI (``main.py``): the same tiny weights (npz) on the same synthetic
-TUM clip must give the same per-frame mode sequence, keyframes and edges,
-and trajectories within ``TRAJ_TOL``. Further runs of the port's CLI
+TUM clip, and on a EuRoC-layout clip (gray, undistorted as it is read) and
+a Replica clip of JPEG frames, must give the same per-frame mode sequence,
+keyframes and edges, and trajectories within ``TRAJ_TOL``. Further runs of the port's CLI
 (calibrated, ``img_downsample 2``, threaded, retrieval artifacts,
 checkpoint / resume) are checked as tests/test_e2e_smoke.py checks the JAX
 CLI, and the ATE / RPE scorers against the JAX ones.
@@ -26,6 +27,7 @@ from mast3r_slam_tpu_torch import evaluation as TE
 from mast3r_slam_tpu_torch import main as tcli
 from mast3r_slam_tpu_torch.data import png
 from mast3r_slam_tpu_torch.slam import tracker as TT
+from torch_jpeg_writer import write_jpeg
 from torch_parity import tiny_weights, torch_one_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -53,23 +55,62 @@ TRAJ_TOL = 0.05
 KF_THRESH = 0.9
 
 
-def _clip(root, n, hw=(480, 640), step=(12.0, 4.0), seed=0):
-    """A TUM-format clip of smooth texture panning out and back."""
-    (root / "rgb").mkdir(parents=True, exist_ok=True)
+def _frames(n, hw, step, seed):
+    """Smooth texture panning out and back: uint8 RGB ``(H, W, 3)``."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:hw[0], 0:hw[1]].astype(np.float64)
     freqs = rng.uniform(0.01, 0.05, (3, 2))
     phases = rng.uniform(0, 2 * np.pi, 3)
-    rows = []
     for i in range(n):
         p = min(i, n - 1 - i)
         x, y = xx + step[0] * p, yy + step[1] * p
         img = np.stack([np.sin(fx * x + fy * y + ph)
                         for (fx, fy), ph in zip(freqs, phases)], -1)
-        png.write_png(root / "rgb" / f"{i:04d}.png",
-                      ((0.9 * img + 1.0) * 127.5).astype(np.uint8))
+        yield ((0.9 * img + 1.0) * 127.5).astype(np.uint8)
+
+
+def _clip(root, n, hw=(480, 640), step=(12.0, 4.0), seed=0):
+    """A TUM-format clip of smooth texture panning out and back."""
+    (root / "rgb").mkdir(parents=True, exist_ok=True)
+    rows = []
+    for i, img in enumerate(_frames(n, hw, step, seed)):
+        png.write_png(root / "rgb" / f"{i:04d}.png", img)
         rows.append(f"{1e9 + i / 30.0:.6f} rgb/{i:04d}.png")
     (root / "rgb.txt").write_text("# ts file\n" + "\n".join(rows) + "\n")
+    return root
+
+
+# EuRoC MH cam0's calibration scaled to a CLIP_HW frame (the distortion
+# coefficients act on normalized coordinates and keep their values)
+EUROC_SCALE = CLIP_HW[1] / 752
+
+
+def _euroc_clip(root, n):
+    """A EuRoC-layout clip (mav0/cam0/data/<ns>.png, gray, sensor.yaml with
+    distortion): every frame is undistorted as it is read."""
+    cam = root / "mav0" / "cam0"
+    (cam / "data").mkdir(parents=True, exist_ok=True)
+    for i, img in enumerate(_frames(n, CLIP_HW, CLIP_STEP, 1)):
+        png.write_png(cam / "data" / f"{1403636579763555584 + i * 50_000_000}"
+                      ".png", img.mean(-1).astype(np.uint8))
+    k = EUROC_SCALE
+    (cam / "sensor.yaml").write_text(yaml.safe_dump({
+        "intrinsics": [458.654 * k, 457.296 * k, 367.215 * k, 248.375 * k],
+        "distortion_coefficients": [-0.28340811, 0.07395907, 0.00019359,
+                                    1.76187114e-05],
+        "resolution": [CLIP_HW[1], CLIP_HW[0]]}))
+    return root
+
+
+def _replica_clip(root, n):
+    """Replica's layout: results/frame%06d.jpg + cam_params.json."""
+    (root / "results").mkdir(parents=True, exist_ok=True)
+    for i, img in enumerate(_frames(n, CLIP_HW, CLIP_STEP, 2)):
+        write_jpeg(root / "results" / f"frame{i:06d}.jpg", img, 95)
+    h, w = CLIP_HW
+    (root / "cam_params.json").write_text(
+        f'{{"camera": {{"w": {w}, "h": {h}, "fx": {w / 2}, "fy": {w / 2}, '
+        f'"cx": {(w - 1) / 2}, "cy": {(h - 1) / 2}}}}}')
     return root
 
 
@@ -132,27 +173,26 @@ def _traj(path):
                        if l.strip()])
 
 
-@pytest.fixture(scope="module")
-def both_runs(setup):
-    """One run of each CLI on the clip; the JAX one's per-frame modes are
+def _both_cli_runs(setup, clip, tag):
+    """One run of each CLI on ``clip``; the JAX one's per-frame modes are
     read from its ``States`` at each ``create_frame``; the port's
     keyframe-decision margins from its ``track_core`` outputs."""
     import main as jcli
     from mast3r_slam_tpu.parallel import topology
     from mast3r_slam_tpu.slam import tracker as JT
 
-    base, clip, weights, _, cfg_path = setup
+    base, _, weights, _, cfg_path = setup
     argv = ["--dataset", str(clip), "--config", str(cfg_path), "--no-viz",
             "--weights", str(weights)]
     cwd = os.getcwd()
     os.chdir(base)
     saved = (jcli.States, jcli.create_frame, TT.track_core, JT.track_core,
-             topology.plan_topology)
-    j_track, t_track = [], []
+             topology.plan_topology, tcli.create_frame)
+    j_track, t_track, j_frames, t_frames = [], [], [], []
     try:
         states, j_modes = [], []
 
-        # the port runs on one device (multi-device is ROADMAP queue 1 item 6):
+        # the port runs on one device (multi-device is ROADMAP queue 1 item 4):
         # the JAX CLI gets the single-device topology, not the test
         # process's 8 virtual CPU devices
         topology.plan_topology = lambda devices=None: saved[4](
@@ -171,11 +211,12 @@ def both_runs(setup):
 
         def rec_create(*a, **kw):
             j_modes.append(states[-1].get_mode().name)
+            j_frames.append(np.array(a[1]))
             return saved[1](*a, **kw)
 
         jcli.States, jcli.create_frame = RecStates, rec_create
         JT.track_core = rec_jtrack
-        j_out = jcli.main(argv + ["--save-as", "jax"])
+        j_out = jcli.main(argv + ["--save-as", f"jax_{tag}"])
         jcli.States, jcli.create_frame = saved[0], saved[1]
 
         margins = []
@@ -188,21 +229,43 @@ def both_runs(setup):
                             out["T_WCf"].numpy()))
             return out
 
-        TT.track_core = rec_core
-        t_out = tcli.main(argv + ["--save-as", "port"], device="cpu")
+        def rec_tcreate(*a, **kw):
+            t_frames.append(np.array(a[1]))
+            return saved[5](*a, **kw)
+
+        TT.track_core, tcli.create_frame = rec_core, rec_tcreate
+        t_out = tcli.main(argv + ["--save-as", f"port_{tag}"], device="cpu")
     finally:
         (jcli.States, jcli.create_frame, TT.track_core, JT.track_core,
-         topology.plan_topology) = saved
+         topology.plan_topology, tcli.create_frame) = saved
         os.chdir(cwd)
     name = clip.name
+    logs = base / "logs"
     return dict(j=j_out, t=t_out, j_modes=j_modes, margins=margins,
-                j_track=j_track, t_track=t_track,
-                j_traj=_traj(base / "logs" / "jax" / name / f"{name}.txt"),
-                t_traj=_traj(base / "logs" / "port" / name / f"{name}.txt"))
+                j_track=j_track, t_track=t_track, j_frames=j_frames,
+                t_frames=t_frames,
+                j_traj=_traj(logs / f"jax_{tag}" / name / f"{name}.txt"),
+                t_traj=_traj(logs / f"port_{tag}" / name / f"{name}.txt"))
 
 
-def test_cli_mode_sequence_matches_jax(both_runs):
-    r = both_runs
+@pytest.fixture(scope="module")
+def both_runs(setup):
+    return _both_cli_runs(setup, setup[1], "tum")
+
+
+@pytest.fixture(scope="module", params=["euroc", "replica"])
+def dataset_runs(request, setup):
+    """The EuRoC-layout clip (undistorted on read) and the Replica JPEG
+    clip through both CLIs."""
+    base = setup[0]
+    if request.param == "euroc":
+        clip = _euroc_clip(base / "euroc_MH_01_easy", N_FRAMES)
+    else:
+        clip = _replica_clip(base / "replica_office0", N_FRAMES)
+    return _both_cli_runs(setup, clip, request.param)
+
+
+def _check_modes(r):
     assert r["t"]["modes"] == r["j_modes"]
     assert r["t"]["modes"][0] == "INIT"
     assert r["t"]["frames_processed"] == r["j"]["frames_processed"] \
@@ -212,39 +275,88 @@ def test_cli_mode_sequence_matches_jax(both_runs):
     assert min(abs(m) for m in r["margins"]) > 0.02, r["margins"]
 
 
-def test_cli_keyframes_and_edges_match_jax(both_runs):
-    kj, kt = both_runs["j"]["keyframes"], both_runs["t"]["keyframes"]
+def _check_keyframes_and_edges(r):
+    kj, kt = r["j"]["keyframes"], r["t"]["keyframes"]
     n = len(kt)
     assert n == len(kj) >= 4
     np.testing.assert_array_equal(kt.dataset_idx[:n], kj.dataset_idx[:n])
-    gj, gt = both_runs["j"]["graph"], both_runs["t"]["graph"]
+    gj, gt = r["j"]["graph"], r["t"]["graph"]
     np.testing.assert_array_equal(np.asarray(gt.ii), np.asarray(gj.ii))
     np.testing.assert_array_equal(np.asarray(gt.jj), np.asarray(gj.jj))
     assert any(abs(int(i) - int(j)) > 1 for i, j in zip(gt.ii, gt.jj)), \
         "no retrieval edge"
 
 
-def test_cli_tracked_poses_match_jax_while_matches_agree(both_runs):
+def _check_frames(r):
+    """Both CLIs hand ``create_frame`` the same host frames, bit for bit."""
+    jf, tf = r["j_frames"], r["t_frames"]
+    assert len(jf) == len(tf) == N_FRAMES
+    for a, b in zip(jf, tf):
+        assert (b.dtype, b.shape) == (a.dtype, a.shape)
+        np.testing.assert_array_equal(b, a)
+
+
+def _check_tracked_poses(r, min_agreeing=MIN_AGREEING_FRAMES):
     """Frame by frame: the same matches give the same pose (POSE_TOL); the
     first frame whose matches differ anywhere is where the chains part, and
-    it comes after at least ``MIN_AGREEING_FRAMES`` tracked frames."""
-    jt, tt = both_runs["j_track"], both_runs["t_track"]
+    it comes after at least ``min_agreeing`` tracked frames. The first
+    tracked frame starts from the same state in both CLIs, so its pose is
+    held at POSE_TOL too where more than 99.9% of its matches agree. Every
+    tracked frame agrees on at least 99.5% of its matches (a random-weight
+    matcher flips a few pixels: ROADMAP queue 3)."""
+    jt, tt = r["j_track"], r["t_track"]
     assert len(jt) == len(tt) == N_FRAMES - 1
     agree = [np.array_equal(a[0], b[0]) for a, b in zip(jt, tt)]
+    share = [(a[0] == b[0]).mean() for a, b in zip(jt, tt)]
     first = agree.index(False) if False in agree else len(agree)
-    assert first >= MIN_AGREEING_FRAMES, agree
-    for (_, Ta), (_, Tb) in list(zip(jt, tt))[:first]:
+    assert first >= min_agreeing, agree
+    held = max(first, int(share[0] > 0.999))
+    assert held >= 1, share
+    for (_, Ta), (_, Tb) in list(zip(jt, tt))[:held]:
         np.testing.assert_allclose(Tb, Ta, rtol=0, atol=POSE_TOL)
-    # the frame where the chains part still agrees on nearly every match
-    if first < len(agree):
-        assert (jt[first][0] == tt[first][0]).mean() >= 0.995
+    assert min(share) >= 0.995, share
 
 
-def test_cli_trajectories_match_jax(both_runs):
-    tj, tt = both_runs["j_traj"], both_runs["t_traj"]
+def _check_trajectories(r):
+    tj, tt = r["j_traj"], r["t_traj"]
     assert tt.shape == tj.shape and tt.shape[1] == 8
     np.testing.assert_array_equal(tt[:, 0], tj[:, 0])
     np.testing.assert_allclose(tt[:, 1:], tj[:, 1:], rtol=0, atol=TRAJ_TOL)
+
+
+def test_cli_frames_match_jax(both_runs):
+    _check_frames(both_runs)
+
+
+def test_cli_mode_sequence_matches_jax(both_runs):
+    _check_modes(both_runs)
+
+
+def test_cli_keyframes_and_edges_match_jax(both_runs):
+    _check_keyframes_and_edges(both_runs)
+
+
+def test_cli_tracked_poses_match_jax_while_matches_agree(both_runs):
+    _check_tracked_poses(both_runs)
+
+
+def test_cli_trajectories_match_jax(both_runs):
+    _check_trajectories(both_runs)
+
+
+@pytest.mark.parametrize("check", [
+    _check_frames, _check_modes, _check_keyframes_and_edges,
+    lambda r: _check_tracked_poses(r, min_agreeing=0), _check_trajectories],
+    ids=["frames", "modes", "keyframes_edges", "tracked_poses",
+         "trajectories"])
+def test_cli_dataset_layouts_match_jax(dataset_runs, check):
+    """EuRoC (gray, undistorted) and Replica (JPEG) clips: both CLIs read
+    the same frames bit for bit, and the TUM clip's checks hold at the
+    same tolerances. On these clips the random-weight matcher flips a few
+    pixels early (EuRoC 4 of 6,144 at the fourth tracked frame, Replica 5
+    at the first), so no count of exactly agreeing frames is asked; the
+    first tracked frame's pose is held at POSE_TOL on both."""
+    check(dataset_runs)
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +431,26 @@ def test_cli_calibrated(setup, big_clip):
     K = out["keyframes"].K
     assert K is not None
     np.testing.assert_allclose(K[0, 0].item(), 500.0 * 96 / 640, rtol=1e-5)
+    _check_outputs(out, savedir, big_clip.name)
+
+
+def test_cli_calib_file_with_distortion(setup, big_clip):
+    """--calib config/intrinsics.yaml (freiburg1's calibration with k1..k3,
+    the example the JAX CLI ships): every frame undistorted, and the BA's K
+    is the undistorted camera's K_frame at the crop."""
+    from mast3r_slam_tpu_torch.data.datasets import Intrinsics
+
+    cfg = _write_cfg(setup, "calib_dist", use_calib=True)
+    intr = REPO / "config" / "intrinsics.yaml"
+    out, savedir = _run(setup, big_clip, "calib_dist", cfg,
+                        ["--calib", str(intr)], frames=4)
+    c = yaml.safe_load(intr.read_text())
+    want = Intrinsics(c["width"], c["height"], c["fx"], c["fy"], c["cx"],
+                      c["cy"], [c[k] for k in ("k1", "k2", "p1", "p2", "k3")],
+                      cfg={"dataset": {"img_size": 96}})
+    assert want.has_distortion
+    np.testing.assert_array_equal(out["keyframes"].K.numpy(), want.K_frame)
+    assert out["frames_processed"] == 4
     _check_outputs(out, savedir, big_clip.name)
 
 
@@ -519,7 +651,7 @@ def test_cli_refuses_only_the_viewer_and_needs_a_card(setup, service):
     instead of falling back to the CPU."""
     _, clip, _, _, cfg_path = setup
     if service == "viewer":
-        with pytest.raises(SystemExit, match="viewer .item 7"):
+        with pytest.raises(SystemExit, match="viewer .item 5"):
             tcli.main(["--dataset", str(clip), "--config", str(cfg_path)],
                       device="cpu")
         if not torch.cuda.is_available():
@@ -583,3 +715,4 @@ def test_ate_and_rpe_match_jax(tmp_path):
                     + "\n")
     for a, b in zip(TE.load_tum_traj(csv), JE.load_tum_traj(csv)):
         np.testing.assert_array_equal(a, b)
+

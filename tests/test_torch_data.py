@@ -1,7 +1,9 @@
 """Port parity of the data layer: the stdlib PNG codec against OpenCV, the
 cv2-free ``resize_img`` against the JAX package's (which calls
 ``cv2.resize``), and the dataset readers against the JAX package's on the
-fixtures of tests/test_datasets.py."""
+fixtures of tests/test_datasets.py (undistorted frames within
+``REMAP_TOL``; tests/test_torch_undistort.py holds the undistortion
+itself)."""
 
 import numpy as np
 import pytest
@@ -14,10 +16,11 @@ from mast3r_slam_tpu.data import image_ops as JI  # noqa: E402
 from mast3r_slam_tpu.utils import config as JCfg  # noqa: E402
 from mast3r_slam_tpu_torch.data import datasets as TD  # noqa: E402
 from mast3r_slam_tpu_torch.data import image_ops as TI  # noqa: E402
-from mast3r_slam_tpu_torch.data import png  # noqa: E402
+from mast3r_slam_tpu_torch.data import imread, png  # noqa: E402
 
 RNG = np.random.default_rng(31)
 FILTERS = ["NONE", "SUB", "UP", "AVG", "PAETH"]
+REMAP_TOL = 3e-7          # the port's remap against cv2.remap
 
 
 def _img(h=48, w=64, c=3):
@@ -49,7 +52,7 @@ def test_png_decode_matches_cv2(tmp_path, kind, filt):
         want = want[..., [2, 1, 0, 3][:want.shape[2]]]
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, img)
-    rgb = png.read_rgb(path)
+    rgb = imread.read_rgb(path)
     assert rgb.shape == (40, 56, 3) and rgb.dtype == np.uint8
 
 
@@ -58,7 +61,7 @@ def test_png_decode_noise_all_filters_mixed(tmp_path):
     for img in (_img(33, 47), _smooth(64, 96)):
         path = tmp_path / "b.png"
         cv2.imwrite(str(path), img[..., ::-1].copy())
-        np.testing.assert_array_equal(png.read_rgb(path), img)
+        np.testing.assert_array_equal(imread.read_rgb(path), img)
 
 
 def test_png_writer_read_back_by_cv2(tmp_path):
@@ -171,15 +174,15 @@ def tum_dir(tmp_path):
     return d
 
 
-def _same_dataset(dt, dj):
+def _same_dataset(dt, dj, atol=0.0):
     assert type(dt).__name__ == type(dj).__name__
     assert len(dt) == len(dj)
     np.testing.assert_array_equal(np.asarray(dt.timestamps),
                                   np.asarray(dj.timestamps))
     for i in range(len(dj)):
         (tt, it), (tj, ij) = dt[i], dj[i]
-        assert tt == tj and it.dtype == np.float32
-        np.testing.assert_array_equal(it, ij)
+        assert tt == tj and it.dtype == np.float32 and it.shape == ij.shape
+        np.testing.assert_allclose(it, ij, rtol=0, atol=atol)
     assert dt.get_img_shape() == dj.get_img_shape()
 
 
@@ -210,25 +213,29 @@ def test_calibrated_tum_k_frame(tum_dir, jax_config, cfg_calib):
 
 
 def test_distortion_raises_when_used(tmp_path, jax_config):
-    """freiburg1 has distortion: reading without use_calib works; using the
-    calibration (K_frame, remap) raises until undistortion is ported."""
+    """freiburg1 has distortion. It used to raise when used; now reading
+    without use_calib gives the raw frames, and using the calibration
+    (K_frame, remap) gives the JAX reader's undistorted frames within
+    ``REMAP_TOL`` and its K_frame."""
     d = tmp_path / "rgbd_dataset_freiburg1_xyz"
     (d / "rgb").mkdir(parents=True)
     cv2.imwrite(str(d / "rgb" / "0.png"), _img(480, 640))
     (d / "rgb.txt").write_text("0.0 rgb/0.png\n")
     ds = TD.load_dataset(str(d), jax_config)
+    dj = JD.load_dataset(str(d))
     assert ds.camera_intrinsics.has_distortion and not ds.has_calib()
     assert ds[0][1].shape == (480, 640, 3)
-    with pytest.raises(NotImplementedError, match="undistortion"):
-        ds.camera_intrinsics.K_frame
-    ds.use_calibration = True
-    with pytest.raises(NotImplementedError, match="undistortion"):
-        ds[0]
+    _same_dataset(ds, dj)
+    np.testing.assert_allclose(ds.camera_intrinsics.K_frame,
+                               dj.camera_intrinsics.K_frame, rtol=1e-6)
+    ds.use_calibration = dj.use_calibration = True
+    _same_dataset(ds, dj, atol=REMAP_TOL)
+    assert not np.array_equal(ds[0][1], ds.read_img(0) / np.float32(255))
 
 
 def test_euroc_layout_and_gray(tmp_path, jax_config):
     """EuRoC: gray PNGs, nanosecond stems, sensor.yaml; always undistorts,
-    so a frame read raises in the port."""
+    frame for frame as the JAX reader (within ``REMAP_TOL``)."""
     d = tmp_path / "euroc_MH01"
     cam = d / "mav0" / "cam0"
     (cam / "data").mkdir(parents=True)
@@ -246,8 +253,9 @@ def test_euroc_layout_and_gray(tmp_path, jax_config):
     np.testing.assert_array_equal(dt.timestamps, dj.timestamps)
     gray = dt.read_img(1)
     np.testing.assert_array_equal(gray, dj.read_img(1))
-    with pytest.raises(NotImplementedError):
-        dt[0]
+    _same_dataset(dt, dj, atol=REMAP_TOL)
+    np.testing.assert_allclose(dt.camera_intrinsics.K_frame,
+                               dj.camera_intrinsics.K_frame, rtol=1e-6)
 
 
 def test_seven_scenes_rgbfiles_eth3d_replica(tmp_path, jax_config):

@@ -28,8 +28,11 @@ _FORBIDDEN = re.compile(
 
 
 def _port_sources():
+    """The package, chip_smoke.py and the test encoder chip_smoke.py
+    writes its JPEG clips with."""
     files = sorted((ROOT / "mast3r_slam_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "tests" /
+                    "torch_jpeg_writer.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -38,7 +41,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(files) > 25
     names = {str(f.relative_to(ROOT)) for f in files}
     for mod in ("main.py", "evaluation.py", "data/png.py",
-                "data/image_ops.py", "data/datasets.py",
+                "data/image_ops.py", "data/datasets.py", "data/imread.py",
+                "data/jpeg.py", "data/undistort.py",
                 "slam/retrieval.py", "slam/pipeline.py",
                 "utils/checkpoint.py", "utils/tictoc.py",
                 "ops/gram_variants.py", "bench/gram_kernel_bench.py",
