@@ -11,10 +11,13 @@ then:
    shape the tracking path gives it (K1 on the model's own head-split
    views, checking its token-major output; K3 at the encoder, decoder,
    batched-decode and cross shapes; K2 with the path and split count each
-   shape takes), checks that two launches are bitwise equal, and times
-   kernel, first (PR 1) design, plain version, one PyTorch library call of
-   the same function (a yardstick the port never calls) and the least time
-   the card could take;
+   shape takes, in bf16 and f32, and at the evaluation crops' shapes),
+   checks that two launches are bitwise equal, and times kernel, first
+   design, plain version, one PyTorch library call of the same function (a
+   yardstick the port never calls) and the least time the card could take; f32 K2 (the 3xTF32 path of the evaluation configs' f32
+   heads) is summed per tracked frame at each crop and held within 4x of
+   its first design's error against a float64 conv, and the TF32 rounding
+   of the plain versions against the card's;
 2. drives the port's main path at full ViT-L width with random weights and
    ``config/base.yaml`` settings: one mono-inference keyframe, then
    ``FrameTracker.track`` on 8 more frames, checking that every
@@ -33,8 +36,10 @@ then:
    counts and types of the backend, with their times, each Gram entry
    against the scale of its own rows (and shows that this comparison
    rejects a Gram with its smallest residual dropped or flipped); bf16
-   rows take the tensor-core path, and the first, FMA design (``path="fma"``)
-   is held and timed beside it; every launch is counted on its path, here
+   rows take the tensor-core path, f32 rows the 3xTF32 tensor-core path
+   (held within 4x of the first design's error against a float64 Gram at
+   E = 128, N = 196,608), and the first, FMA design (``path="fma"``) is
+   held and timed beside both; every launch is counted on its path, here
    and in phases 3, 7, 8 and 10 (every bf16-row launch on the tensor
    cores);
 6. holds K4', the Gram microbenchmark's four kernels (the channel sum, the
@@ -86,11 +91,12 @@ then:
 13. (phase ``cli_datasets``) runs the CLI at full ViT-L width on three
    12-frame clips it writes in the evaluation datasets' layouts, each
    under its evaluation script's config: EuRoC (gray 752x480 PNGs,
-   undistorted on read, ``eval_no_calib``: K4's FMA path), TUM freiburg1
-   under calibration (undistorted, ``eval_calib``: K5's FMA path) and
+   undistorted on read, ``eval_no_calib``: K4's f32-row path), TUM
+   freiburg1 under calibration (undistorted, ``eval_calib``: K5's) and
    Replica (680x1200 JPEGs written by ``tests/torch_jpeg_writer.py``,
    ``eval_replica``: K5), checking outputs, launches per kernel and
-   path, and K_frame's principal point.
+   path (every DPT conv on K2's 3xTF32 path, every system build on the
+   f32-row Gram), and K_frame's principal point.
 
 In every phase that runs a service, an exception in a service worker (which
 prints it and carries on) fails the run, and the global TSDF must run on
@@ -122,6 +128,13 @@ ROOT = Path(__file__).resolve().parent
 # CUDA-core rate, HBM3 bandwidth.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+# dense TF32 tensor-core rate: a float32-accurate product on the tensor
+# cores takes TF32_PASSES TF32 products (hi*hi + hi*lo + lo*hi)
+PEAK_TF32 = 494.7e12
+TF32_PASSES = 3
+# a float32 path's largest error against float64 may be at most this many
+# times its first (CUDA-core FMA) design's on the same inputs
+F64_GUARD = 4.0
 
 N_FRAMES = 9
 IMG_HW = (384, 512)
@@ -217,13 +230,13 @@ def reset_counters(FA, C3, BA):
 
 
 def launch_counts(FA, C3, BA):
-    """Launches per kernel; "BA mma" / "BA fma" count K4 and K5 together
-    by path (bf16 rows on the tensor cores, or the FMA design)."""
+    """Launches per kernel; "K2 <path>" count K2 by path and "BA <path>" K4
+    and K5 together by path."""
     out = {"K1": FA.counter.launches, "K2": C3.counter.launches,
            "K3": FA.attn_counter.launches, "K4": BA.rays_counter.launches,
-           "K5": BA.calib_counter.launches,
-           "BA mma": BA.path_counters["mma"].launches,
-           "BA fma": BA.path_counters["fma"].launches}
+           "K5": BA.calib_counter.launches}
+    out.update({f"K2 {p}": c.launches for p, c in C3.path_counters.items()})
+    out.update({f"BA {p}": c.launches for p, c in BA.path_counters.items()})
     out.update({k: c.launches for k, c in k4p_counters().items()})
     return out
 
@@ -288,19 +301,130 @@ def k2_cases(hw=IMG_HW):
     ]
 
 
+def cudnn_conv(x, w, bias):
+    """cuDNN's conv of the same function (the K2 rows' library call; f32
+    in true f32 after ``use_full_f32``)."""
+    import torch
+    import torch.nn.functional as F
+
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return F.conv2d(xc, wc, bias, padding=1)
+
+
+def conv3x3_f64(x, w, bias):
+    """The conv in float64 (NHWC), the reference of the float64 guard."""
+    import torch.nn.functional as F
+
+    y = F.conv2d(x.double().permute(0, 3, 1, 2),
+                 w.double().permute(3, 2, 0, 1),
+                 None if bias is None else bias.double(), padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def k2_f32_frame():
+    return dict(ms=0.0, first_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                prepass_ms=0.0, flops=0.0, nbytes=0.0, err=0.0, err64=0.0,
+                err64_first=0.0)
+
+
+def k2_f32_frame_add(acc, calls, flops, nbytes, t_k, t_f, t_p, t_l, t_w):
+    """Adds one f32 DPT shape's calls of a tracked frame (two heads);
+    ``t_w``: the weight pre-pass alone, part of ``t_k``."""
+    n = 2 * calls
+    for key, val in (("ms", t_k), ("first_ms", t_f), ("plain_ms", t_p),
+                     ("library_ms", t_l), ("prepass_ms", t_w),
+                     ("flops", flops), ("nbytes", nbytes)):
+        acc[key] += n * val
+
+
+def k2_f32_frame_done(acc, hw):
+    """The f32 K2 sums of a tracked frame at ``hw`` with their floors: the
+    tensor cores' (TF32_PASSES TF32 products, the float32-accurate route:
+    the bound), the CUDA cores' (f32 FMAs) and the bytes'."""
+    tc = acc["flops"] * TF32_PASSES / PEAK_TF32 * 1e3
+    acc["cuda_core_ms"] = acc["flops"] / PEAK_FLOPS["float32"] * 1e3
+    acc["bytes_ms"] = acc["nbytes"] / PEAK_BYTES * 1e3
+    acc["bound_ms"] = max(tc, acc["bytes_ms"])
+    acc["by"] = "operations" if tc >= acc["bytes_ms"] else "bytes"
+    log(f"K2 float32 per tracked frame at {hw[0]}x{hw[1]} (40 calls, "
+        f"{acc['flops'] * 1e-9:.1f} GFLOP): kernel {acc['ms']:.4f} ms (its "
+        f"weight pre-pass {acc['prepass_ms']:.4f} ms), "
+        f"first (fma) {acc['first_ms']:.4f} ms, plain {acc['plain_ms']:.4f}"
+        f" ms, cudnn f32 (TF32 off) {acc['library_ms']:.4f} ms; bound "
+        f"{acc['bound_ms']:.4f} ms (tensor cores, {TF32_PASSES} TF32 "
+        f"passes; CUDA-core floor {acc['cuda_core_ms']:.4f} ms, bytes "
+        f"{acc['bytes_ms']:.4f} ms); float64 error {acc['err64']:.3e}, "
+        f"first design's {acc['err64_first']:.3e}")
+    return acc
+
+
+def prepass_ms(C3, path, w):
+    """Time of the 3xTF32 path's weight pre-pass alone (0 on another
+    path)."""
+    return (time_ms(lambda: C3.tf32_split_weights(w)) if path == "tf32x3"
+            else 0.0)
+
+
+def tf32_round_check(torch):
+    """``ops.tf32.tf32_round`` against the card's ``cvt.rna.tf32.f32`` on a
+    million random float32 bit patterns and the edge values (signed zeros,
+    subnormals, ties, the largest finite float, infinities), bit for bit
+    (NaN as NaN)."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.ops import conv3x3 as C3
+    from mast3r_slam_tpu_torch.ops.tf32 import tf32_round
+
+    edge = [0x0, 0x80000000, 0x1, 0x1000, 0x80001000, 0x7fffff, 0x3f801000,
+            0x3f803000, 0xbf801000, 0x3f800fff, 0x7f7fefff, 0x7f7ff000,
+            0x7f7fffff, 0xff7fffff, 0x7f800000, 0xff800000, 0x7fc00000]
+    rng = np.random.default_rng(0)
+    bits = np.concatenate([np.array(edge, np.uint32), rng.integers(
+        0, 2**32, 1 << 20, dtype=np.uint64).astype(np.uint32)])
+    x = torch.from_numpy(bits.view(np.float32).copy())
+    want = tf32_round(x)
+    got = C3.tf32_round_on_card(x.to("cuda")).cpu()
+    nan = torch.isnan(want)
+    same = (torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32)))
+    check(same, "ops.tf32.tf32_round differs from the card's cvt.rna")
+    log(f"TF32 rounding: ops.tf32.tf32_round equals the card's "
+        f"cvt.rna.tf32.f32 on {bits.size} float32 values")
+
+
+def k2_f64_guard(torch, C3, x, w, bias, out, tag, acc):
+    """The f32 conv's largest error against float64 is at most
+    ``F64_GUARD`` times the first (fma) design's on the same inputs."""
+    ref = conv3x3_f64(x, w, bias)
+    first = C3.conv3x3(x, w, bias, path="fma")
+    torch.cuda.synchronize()
+    e_new = (out.double() - ref).abs().max().item()
+    e_first = (first.double() - ref).abs().max().item()
+    check(e_new <= F64_GUARD * e_first,
+          f"{tag}: float64 error {e_new:.3e} > {F64_GUARD:g} x the first "
+          f"design's {e_first:.3e}")
+    acc["err64"] = max(acc["err64"], e_new)
+    acc["err64_first"] = max(acc["err64_first"], e_first)
+
+
 def crop_kernel_checks(torch, g):
     """K1 and K2 against their plain versions at the token grids and DPT
-    shapes of ``EVAL_CROPS`` (checks only, no times): K1 in bf16 (the
-    trunk's dtype) and f32, K2 in f32 (the evaluation configs' head_dtype,
-    the "fma" path) and bf16. Returns the largest error of each."""
+    shapes of ``EVAL_CROPS``: K1 in bf16 (the trunk's dtype) and f32, K2 in
+    f32 (the evaluation configs' head_dtype) and bf16, with f32 K2's
+    float64 guard. Times only f32 K2's calls of a tracked frame (kernel,
+    first design, plain, cuDNN). Returns the largest error of each kernel
+    and the f32 K2 sums per crop."""
     from mast3r_slam_tpu_torch.models import mast3r as M
     from mast3r_slam_tpu_torch.ops import conv3x3 as C3
     from mast3r_slam_tpu_torch.ops import flash_attention as FA
 
     dev = "cuda"
     errs = {"K1": 0.0, "K2": 0.0}
+    frames = {}
     n_checks = 0
     for hw in EVAL_CROPS:
+        f32_frame = k2_f32_frame()
         hp, wp = hw[0] // 16, hw[1] // 16
         for b, h, label, _, _ in k1_cases():
             pos = M.patch_positions(hp, wp, b, dev)
@@ -318,7 +442,7 @@ def crop_kernel_checks(torch, g):
                       f"{tag}: not launched")
                 errs["K1"] = max(errs["K1"], compare(out, ref, dn, tag))
                 n_checks += 1
-        for hh, ww, cin, cout, _, _ in k2_cases(hw):
+        for hh, ww, cin, cout, has_bias, calls in k2_cases(hw):
             for dt in (torch.float32, torch.bfloat16):
                 dn = str(dt).split(".")[-1]
                 path = C3.conv3x3_path(dt, cin, cout)
@@ -337,13 +461,31 @@ def crop_kernel_checks(torch, g):
                                f"bias={bias is not None}")
                         check(C3.path_counters[path].launches == before + 1,
                               f"{tag}: did not take the {path} path")
-                        errs["K2"] = max(errs["K2"],
-                                         compare(out, ref, dn, tag))
+                        e = compare(out, ref, dn, tag)
+                        errs["K2"] = max(errs["K2"], e)
                         n_checks += 1
+                        if dt != torch.float32:
+                            continue
+                        f32_frame["err"] = max(f32_frame["err"], e)
+                        k2_f64_guard(torch, C3, x, w, bias, out, tag,
+                                     f32_frame)
+                        if bsz == 1 and (bias is not None) == has_bias:
+                            nbytes = (x.numel() + hh * ww * cout + w.numel()
+                                      + (cout if has_bias else 0)) * 4
+                            k2_f32_frame_add(
+                                f32_frame, calls,
+                                2.0 * hh * ww * 9 * cin * cout, nbytes,
+                                time_ms(lambda: C3.conv3x3(x, w, bias)),
+                                time_ms(lambda: C3.conv3x3(x, w, bias,
+                                                           path="fma")),
+                                time_ms(lambda: C3.conv3x3_ref(x, w, bias)),
+                                time_ms(lambda: cudnn_conv(x, w, bias)),
+                                prepass_ms(C3, path, w))
+        frames[hw] = k2_f32_frame_done(f32_frame, hw)
     log(f"K1 / K2 at the evaluation crops {EVAL_CROPS}: {n_checks} checks "
         f"against the plain versions, largest errors K1 {errs['K1']:.2e}, "
         f"K2 {errs['K2']:.2e}")
-    return errs
+    return errs, frames
 
 
 def k3_cases():
@@ -479,9 +621,12 @@ def phase_kernels(torch):
 
     per_frame["K3"] = phase_k3(torch, g)
 
+    tf32_round_check(torch)
+    f32_frame = k2_f32_frame()
     for hh, ww, cin, cout, has_bias, calls in k2_cases():
         for dt in (torch.bfloat16, torch.float32):
             dn = str(dt).split(".")[-1]
+            first = "mma" if dt == torch.bfloat16 else "fma"
             for bsz in (1, 2):
                 x = torch.randn(bsz, hh, ww, cin, generator=g, device=dev)
                 w = torch.randn(3, 3, cin, cout, generator=g, device=dev)
@@ -489,8 +634,9 @@ def phase_kernels(torch):
                 x, w = x.to(dt), w.to(dt)
                 bvec = torch.randn(cout, generator=g, device=dev).to(dt)
                 path = C3.conv3x3_path(dt, cin, cout)
-                splits = (C3.plan(bsz, hh, ww, cin, cout, _build_sms(torch))
-                          .splits if path == "igemm" else 1)
+                splits = (C3.plan(bsz, hh, ww, cin, cout, _build_sms(torch),
+                                  *C3.TILES[path]).splits
+                          if path in C3.TILES else 1)
                 for bias in (None, bvec):
                     before = C3.path_counters[path].launches
                     out = C3.conv3x3(x, w, bias)
@@ -504,15 +650,14 @@ def phase_kernels(torch):
                     check(torch.equal(out, C3.conv3x3(x, w, bias)),
                           f"{tag}: two launches differ")
                     per_frame["K2"]["err"] = max(per_frame["K2"]["err"], err)
+                    if dt == torch.float32:
+                        f32_frame["err"] = max(f32_frame["err"], err)
+                        k2_f64_guard(torch, C3, x, w, bias, out, tag,
+                                     f32_frame)
                     t_k = time_ms(lambda: C3.conv3x3(x, w, bias))
-                    t_f = (time_ms(lambda: C3.conv3x3(x, w, bias,
-                                                      path="mma"))
-                           if dt == torch.bfloat16 else t_k)
+                    t_f = time_ms(lambda: C3.conv3x3(x, w, bias, path=first))
                     t_p = time_ms(lambda: C3.conv3x3_ref(x, w, bias))
-                    xc = x.permute(0, 3, 1, 2)
-                    wc = w.permute(3, 2, 0, 1).contiguous(
-                        memory_format=torch.channels_last)
-                    t_l = time_ms(lambda: F.conv2d(xc, wc, bias, padding=1))
+                    t_l = time_ms(lambda: cudnn_conv(x, w, bias))
                     flops = 2.0 * bsz * hh * ww * 9 * cin * cout
                     nbytes = (x.numel() + bsz * hh * ww * cout + w.numel()
                               + (cout if bias is not None else 0)
@@ -523,8 +668,12 @@ def phase_kernels(torch):
                         f"cudnn {t_l:.4f} ms bound {bnd * 1e3:.2f} us ({by}) "
                         f"path {path} splits {splits} "
                         f"{flops / t_k * 1e-9:.0f} TFLOP/s")
-                    if (dt == torch.bfloat16 and bsz == 1
-                            and (bias is not None) == has_bias):
+                    if bsz == 1 and (bias is not None) == has_bias:
+                        if dt == torch.float32:
+                            k2_f32_frame_add(f32_frame, calls, flops, nbytes,
+                                             t_k, t_f, t_p, t_l,
+                                             prepass_ms(C3, path, w))
+                            continue
                         acc = per_frame["K2"]
                         for key, val in (("ms", t_k), ("first_ms", t_f),
                                          ("plain_ms", t_p),
@@ -532,7 +681,12 @@ def phase_kernels(torch):
                                          ("bound_ms", bnd)):
                             acc[key] += 2 * calls * val   # two heads
                         acc["by"] = by
-    for key, err in crop_kernel_checks(torch, g).items():
+    per_frame["K2 f32"] = {IMG_HW: k2_f32_frame_done(f32_frame, IMG_HW)}
+    crop_errs, crop_frames = crop_kernel_checks(torch, g)
+    per_frame["K2 f32"].update(crop_frames)
+    for fr in per_frame["K2 f32"].values():
+        per_frame["K2"]["err"] = max(per_frame["K2"]["err"], fr["err"])
+    for key, err in crop_errs.items():
         per_frame[key]["err"] = max(per_frame[key]["err"], err)
     return per_frame
 
@@ -696,9 +850,10 @@ def phase_event(torch, FA, C3, BA, state):
     launches = {k: v for k, v in launch_counts(FA, C3, BA).items()
                 if k != "K3"}
     want = {"K1": 2 * K1_PER_DECODE, "K2": 2 * 2 * K2_PER_HEAD,
-            "K4": 1 + graph.last_solve_iters, "K5": 0,
-            "BA mma": 1 + graph.last_solve_iters, "BA fma": 0}
+            "K4": 1 + graph.last_solve_iters, "K5": 0}
+    want.update({key: 0 for key in launches if " " in key})
     want.update({key: 0 for key, _ in K4P_ALL})
+    want.update({"K2 igemm": want["K2"], "BA mma": want["K4"]})
     log(f"event launches: {launches} (want {want}); "
         f"LM iterations {graph.last_solve_iters}")
     check(launches == want, "keyframe event launch counts")
@@ -862,15 +1017,17 @@ def phase_ba_kernels(torch, BA):
                         acc["rel"] = max(acc.get("rel", 0.0), rel)
                         t_k = time_ms(lambda: fn(rts, meas, *args,
                                                  compute_dtype=cdt))
-                        t_f = None    # the first (FMA) design, bf16 rows
-                        if cdt == torch.bfloat16:
-                            compare_gram(BA, fn(rts, meas, *args,
-                                                compute_dtype=cdt,
-                                                path="fma"),
-                                         want, cn, f"{tag} path fma")
-                            t_f = time_ms(lambda: fn(rts, meas, *args,
-                                                     compute_dtype=cdt,
-                                                     path="fma"))
+                        # the first (FMA) design on the same inputs
+                        compare_gram(BA, fn(rts, meas, *args,
+                                            compute_dtype=cdt, path="fma"),
+                                     want, cn, f"{tag} path fma")
+                        t_f = time_ms(lambda: fn(rts, meas, *args,
+                                                 compute_dtype=cdt,
+                                                 path="fma"))
+                        if (cdt == mdt == torch.float32 and E == 128
+                                and N == GRAM_PIXELS[-1]):
+                            gram_f64_guard(torch, BA, kind, fn, rts, meas,
+                                           args, out, tag, acc)
                         t_p = time_ms(lambda: ref(rts, meas, *args,
                                                   compute_dtype=cdt),
                                       iters=5, warmup=1)
@@ -879,14 +1036,22 @@ def phase_ba_kernels(torch, BA):
                         del S
                         nbytes = (len(meas) * E * N * meas[0].element_size()
                                   + rts.numel() * 4 + E * 32 * 32 * 4)
-                        bnd, by = bound_ms(2.0 * rows * rows * N * E, nbytes,
-                                           cn)
-                        first = ("" if t_f is None else
-                                 f" first (fma) {t_f:.4f} ms")
+                        bnd, by = gram_bound_ms(2.0 * rows * rows * N * E,
+                                                nbytes, cn)
                         log(f"{'K4' if kind == 'rays' else 'K5'} {tag:42s} "
                             f"Gram err {rel:.2e} kernel ({path}) {t_k:.4f} "
-                            f"ms{first} plain {t_p:.4f} ms bmm (Gram only) "
-                            f"{t_l:.4f} ms bound {bnd * 1e3:.2f} us ({by})")
+                            f"ms first (fma) {t_f:.4f} ms plain {t_p:.4f} ms "
+                            f"bmm (Gram only) {t_l:.4f} ms bound "
+                            f"{bnd * 1e3:.2f} us ({by})")
+                        if (N == GRAM_PIXELS[-1] and mdt == cdt
+                                == torch.float32 and E in GRAM_REPORT_EDGES):
+                            sfx = "" if E == GRAM_REPORT[0] else f"_e{E}"
+                            acc.update({f"f32_ms{sfx}": t_k,
+                                        f"f32_first_ms{sfx}": t_f,
+                                        f"f32_plain_ms{sfx}": t_p,
+                                        f"f32_library_ms{sfx}": t_l,
+                                        f"f32_bound_ms{sfx}": bnd,
+                                        "f32_by": by})
                         if (N == GRAM_REPORT[1] and mdt == cdt
                                 == torch.bfloat16 and E in GRAM_REPORT_EDGES):
                             sfx = "" if E == GRAM_REPORT[0] else f"_e{E}"
@@ -907,11 +1072,48 @@ def phase_ba_kernels(torch, BA):
     return report
 
 
+def gram_bound_ms(flops, nbytes, dtype_name):
+    """The Gram's bound: bf16 rows at the bf16 tensor rate; f32 rows, whose
+    float32-accurate product takes two TF32 passes on the tensor cores (S
+    S^T = hi hi^T + X + X^T, X = hi lo^T), at the TF32 rate; either beside
+    the bytes."""
+    if dtype_name == "bfloat16":
+        return bound_ms(flops, nbytes, dtype_name)
+    t_ops = 2.0 * flops / PEAK_TF32
+    t_bytes = nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def gram_f64_guard(torch, BA, kind, fn, rts, meas, args, out, tag, acc):
+    """The f32-row Gram's error against the float64 Gram of the same f32
+    rows (``gram_error``) is at most ``F64_GUARD`` times the first (fma)
+    design's on the same inputs."""
+    rows = (BA.rays_rows(rts, meas, *args) if kind == "rays"
+            else BA.calib_rows(rts, meas, *args))
+    S = torch.stack(rows, dim=1).double()
+    del rows
+    G64 = S @ S.transpose(1, 2)
+    del S
+    first = fn(rts, meas, *args, compute_dtype=torch.float32, path="fma")
+    e_new = BA.gram_error(out, G64)
+    e_first = BA.gram_error(first, G64)
+    log(f"{tag}: Gram error against float64 {e_new:.3e}, first design's "
+        f"{e_first:.3e}")
+    check(e_new <= F64_GUARD * e_first,
+          f"{tag}: float64 Gram error {e_new:.3e} > {F64_GUARD:g} x the "
+          f"first design's {e_first:.3e}")
+    acc["f32_err64"] = e_new
+    acc["f32_err64_first"] = e_first
+    del G64
+    torch.cuda.empty_cache()
+
+
 def gram_crop_checks(torch, BA):
     """K4 and K5 against their plain versions at the pixel counts of
     ``EVAL_CROPS`` at pixel_step 1 with ``EVAL_GRAM_EDGES`` edges, on
     oracle channels rendered at each crop, in every channel and row dtype
-    (the evaluation configs take f32 and f32, the FMA path). Checks only;
+    (the evaluation configs take f32 and f32, the 3xTF32 path). Checks only;
     returns (max abs error, Gram error) of each kernel."""
     errs = {"K4": (0.0, 0.0), "K5": (0.0, 0.0)}
     n_checks = 0
@@ -1112,10 +1314,10 @@ def phase_gram_bench(torch, FA, C3, BA):
     per_call = 3 + 20                     # the benchmark's warm-up + reps
     # v0 and v3's check (default); the sweep and v0 with v2c's check (--r2)
     mma = 2 * (per_call + 1) + per_call * len(r2.get("grid", {}))
-    want = {"K1": 0, "K2": 0, "K3": 0, "K5": 0,
-            "K4'a": per_call, "K4'b": per_call, "K4'b-fast": per_call,
-            "K4'c": per_call + 1, "K4'd": per_call + 1,
-            "K4": per_call + mma, "BA fma": per_call, "BA mma": mma}
+    want = {key: 0 for key in launches}
+    want.update({"K4'a": per_call, "K4'b": per_call, "K4'b-fast": per_call,
+                 "K4'c": per_call + 1, "K4'd": per_call + 1,
+                 "K4": per_call + mma, "BA fma": per_call, "BA mma": mma})
     log(f"gram bench launches: {launches} (want {want})")
     check(launches == want, "gram bench launch counts")
     for what, a in (("v3 vs v0", default["v3_vs_v0"]),
@@ -1183,7 +1385,7 @@ def phase_oracle(torch, FA, C3, BA):
         check(counter.launches == 1 + p["iters"],
               f"oracle {kind}: {name} launched {counter.launches} times")
         paths = {k: c.launches for k, c in BA.path_counters.items()}
-        check(paths == {"mma": counter.launches, "fma": 0},
+        check(paths == {"mma": counter.launches, "tf32": 0, "fma": 0},
               f"oracle {kind}: bf16-row {name} launches by path {paths}")
         check(r["n_skipped"] == 0, f"oracle {kind}: skipped frames")
         check(r["ate_ba"] < 0.03, f"oracle {kind}: ATE after BA "
@@ -1563,10 +1765,15 @@ def instrumented(torch, model):
             setattr(owner, name, orig)
 
 
-def expected_launches(calls, calib, ba_path="mma"):
+def expected_launches(calls, calib, ba_path="mma", k2_path="igemm"):
     """Launches per kernel from the run's model calls and LM iterations.
-    ``ba_path``: base.yaml's bf16 BA rows take the tensor cores
-    (``"mma"``), the eval configs' float32 rows the FMA design."""
+    ``ba_path`` / ``k2_path``: the path every BA system build and every DPT
+    conv takes (base.yaml's bf16 rows and heads: ``"mma"`` and
+    ``"igemm"``; the eval configs' float32 ones: ``gram_path`` and
+    ``conv3x3_path`` of float32)."""
+    from mast3r_slam_tpu_torch.ops import ba_kernels as BA
+    from mast3r_slam_tpu_torch.ops import conv3x3 as C3
+
     c = calls
     k1 = K1_PER_PAIR * (c["mono"] + c["track"]) + K1_PER_DECODE * (
         c["oneway"] + c["symmetric"])
@@ -1574,9 +1781,9 @@ def expected_launches(calls, calib, ba_path="mma"):
         c["track"] + c["oneway"] + c["symmetric"])
     ba = c["solves"] + c["lm_iters"]
     out = {"K1": k1, "K2": k2, "K3": 0, "K4": 0 if calib else ba,
-           "K5": ba if calib else 0,
-           "BA mma": ba if ba_path == "mma" else 0,
-           "BA fma": ba if ba_path == "fma" else 0}
+           "K5": ba if calib else 0}
+    out.update({f"K2 {p}": k2 if p == k2_path else 0 for p in C3.PATHS})
+    out.update({f"BA {p}": ba if p == ba_path else 0 for p in BA.PATHS})
     out.update({key: 0 for key, _ in K4P_ALL})  # the benchmark's alone
     return out
 
@@ -1666,7 +1873,7 @@ def quality_fields(path):
 
 
 def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
-            ba_path="mma"):
+            ba_path="mma", k2_path="igemm"):
     """``main(argv)`` on the card with every launch counter at 0 before and
     read after; checks the launches against the run's own model calls and
     LM iterations. Returns (summary, launches, instrumentation record)."""
@@ -1688,7 +1895,7 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
         os.chdir(cwd)
     check_no_faults(faults, f"cli {tag}")
     check_services(out, rec, tag)
-    want = expected_launches(rec["calls"], calib, ba_path)
+    want = expected_launches(rec["calls"], calib, ba_path, k2_path)
     g = out["graph"]
     log(f"cli {tag}: {out['frames_processed']} frames in {wall:.1f} s, "
         f"keyframes {len(out['keyframes'])}, edges {g.n_edges()}, modes "
@@ -2129,8 +2336,8 @@ def phase_cli_datasets(torch, FA, C3, BA, workdir):
     """The CLI at full ViT-L width on three ``DATA_FRAMES``-frame clips in
     the evaluation datasets' layouts, each under its evaluation script's
     config with ``CLI_CUTS``: EuRoC (gray, undistorted on read;
-    eval_no_calib, the ray BA on K4's FMA path), TUM freiburg1 under
-    calibration (undistorted; eval_calib, K5's FMA path) and Replica (JPEG
+    eval_no_calib, the ray BA on K4's f32-row path), TUM freiburg1 under
+    calibration (undistorted; eval_calib, K5's) and Replica (JPEG
     frames; eval_replica, K5). Each checks its outputs, its launches per
     kernel and path, and K_frame's principal point at the crop's centre."""
     from mast3r_slam_tpu_torch.data.datasets import load_dataset
@@ -2145,6 +2352,10 @@ def phase_cli_datasets(torch, FA, C3, BA, workdir):
         ("replica", "eval_replica.yaml", True,
          write_replica_clip(work / "replica" / "office0", DATA_FRAMES)),
     )
+    # the eval configs' f32 heads and BA rows: every DPT conv (Cin, Cout
+    # multiples of 8) and every system build on these paths
+    k2_path = C3.conv3x3_path(torch.float32, 256, 256)
+    ba_path = BA.gram_path(torch.float32)
     model, summary = None, {}
     for tag, inherit, calib, clip in runs:
         cfg_path = write_config(work / f"cli_{tag}.yaml", inherit=inherit)
@@ -2172,11 +2383,15 @@ def phase_cli_datasets(torch, FA, C3, BA, workdir):
         out, launches, rec = run_cli(
             torch, FA, C3, BA, model, work,
             ["--dataset", str(clip), "--config", cfg_path, "--no-viz",
-             "--save-as", tag], tag, calib=calib, ba_path="fma")
+             "--save-as", tag], tag, calib=calib, ba_path=ba_path,
+            k2_path=k2_path)
         kernel = "K5" if calib else "K4"
-        check(launches[kernel] > 0 and launches["BA fma"] > 0
-              and launches["BA mma"] == 0,
-              f"cli {tag}: the BA did not run on {kernel}'s FMA path")
+        check(launches[kernel] > 0
+              and launches[f"BA {ba_path}"] == launches[kernel]
+              and launches["K2"] > 0
+              and launches[f"K2 {k2_path}"] == launches["K2"],
+              f"cli {tag}: a BA system build did not run on {kernel}'s "
+              f"{ba_path} path, or a conv not on K2's {k2_path} path")
         if calib:
             K = out["keyframes"].K
             check(K is not None and bool(torch.allclose(
@@ -2190,7 +2405,8 @@ def phase_cli_datasets(torch, FA, C3, BA, workdir):
                             keyframes=len(out["keyframes"]),
                             edges=out["graph"].n_edges(),
                             launches={k: launches[k] for k in (
-                                "K1", "K2", kernel, "BA fma")},
+                                "K1", "K2", f"K2 {k2_path}", kernel,
+                                f"BA {ba_path}")},
                             crop=(h, w), pp=pp)
         log(f"cli {tag}: {w}x{h} crop, K_frame principal point "
             f"({pp[0]:.3f}, {pp[1]:.3f}); median tracked frame "
@@ -2198,7 +2414,8 @@ def phase_cli_datasets(torch, FA, C3, BA, workdir):
             f"frames, median backend step {parts['step']:.1f} ms over "
             f"{len(rec['ms']['step'])} steps; keyframes "
             f"{len(out['keyframes'])}, edges {out['graph'].n_edges()}; "
-            f"{kernel} fma launches {launches[kernel]}")
+            f"{kernel} {ba_path} launches {launches[kernel]}, K2 {k2_path} "
+            f"launches {launches['K2']}")
         del out
     del model
     torch.cuda.empty_cache()
@@ -2295,7 +2512,8 @@ def phase_reloc(torch, FA, C3, BA):
     check(BA.rays_counter.launches >= 2, "reloc: the global solve skipped K4")
     paths = {k: c.launches for k, c in BA.path_counters.items()}
     check(BA.calib_counter.launches == 0
-          and paths == {"mma": BA.rays_counter.launches, "fma": 0},
+          and paths == {"mma": BA.rays_counter.launches, "tf32": 0,
+                        "fma": 0},
           f"reloc: bf16-row K4 launches by path {paths}")
     check(not any(c.launches for c in k4p_counters().values()),
           "reloc: a K4' kernel ran")
@@ -2797,6 +3015,9 @@ def main():
                     f"({d['keyframes']} keyframes, launches {d['launches']})"
                     for t, d in datasets.items()) + f"; on {smi}")
 
+    k2f = per_frame["K2 f32"]
+    k2_path = C3.conv3x3_path(torch.float32, 256, 256)
+    ba_path = BA.gram_path(torch.float32)
     table = {"kernels": [
         {"name": "flash_attention_rope", "route": "cuda",
          "source": "mast3r_slam_tpu_torch/csrc/flash_attention_rope.cu",
@@ -2848,6 +3069,36 @@ def main():
         for key, name, line in (("K4", "gram_rays", 216),
                                 ("K5", "gram_calib", 232))
     ] + [
+        {"name": "conv3x3 (float32)", "route": "cuda",
+         "source": "mast3r_slam_tpu_torch/csrc/conv3x3.cu",
+         "replaces": "mast3r_slam_tpu/ops/conv3x3.py:119",
+         "launches": sum(d["launches"][f"K2 {k2_path}"]
+                         for d in datasets.values()),
+         "max_abs_err": k2f[IMG_HW]["err"],
+         **{k: k2f[IMG_HW][k] for k in (
+             "ms", "first_ms", "plain_ms", "bound_ms", "cuda_core_ms",
+             "library_ms", "err64", "err64_first")},
+         "bound_by": k2f[IMG_HW]["by"],
+         **{f"{k}_{h}x{w}": k2f[h, w][k] for h, w in EVAL_CROPS
+            for k in ("ms", "first_ms", "plain_ms", "bound_ms",
+                      "library_ms")}},
+    ] + [
+        {"name": f"{name} (float32)", "route": "cuda",
+         "source": "mast3r_slam_tpu_torch/csrc/ba_gram.cu",
+         "replaces": f"mast3r_slam_tpu/ops/ba_kernels.py:{line}",
+         "launches": sum(d["launches"][f"BA {ba_path}"]
+                         for t, d in datasets.items() if t in tags),
+         "max_abs_err": gram[key]["err"],
+         **{m + sfx: gram[key][f"f32_{m}{sfx}"] for sfx in ("", "_e128")
+            for m in ("ms", "first_ms", "plain_ms", "bound_ms",
+                      "library_ms")},
+         "bound_by": gram[key]["f32_by"],
+         "err64_e128": gram[key]["f32_err64"],
+         "err64_first_e128": gram[key]["f32_err64_first"]}
+        for key, name, line, tags in (
+            ("K4", "gram_rays", 216, ("euroc",)),
+            ("K5", "gram_calib", 232, ("tum_fr1_calib", "replica")))
+    ] + [
         {"name": f"gram_{name}", "route": "cuda",
          "source": "mast3r_slam_tpu_torch/csrc/ba_gram.cu",
          "replaces": f"scripts/gram_kernel_bench.py:{line}",
@@ -2888,7 +3139,16 @@ def main():
         f"K4'd against K4, on the same inputs (both K4's tensor-core kernel "
         f"with other tiles); K4'b's first_ms: its first kernel in the "
         f"same run, sass_per_pixel: its loop's SASS a pixel, bf16 "
-        f"channels")
+        f"channels. The float32 rows: conv3x3 per tracked frame of f32 "
+        f"heads at {IMG_HW[0]}x{IMG_HW[1]} (and, suffixed, the evaluation "
+        f"crops), first_ms the first (fma) design, library cuDNN f32 with "
+        f"TF32 off, bound the tensor-core floor of {TF32_PASSES} TF32 "
+        f"passes (cuda_core_ms: the f32 CUDA-core floor), err64 against a "
+        f"float64 conv; gram_rays / gram_calib with f32 channels and rows at"
+        f" N = {GRAM_PIXELS[-1]}, E = {GRAM_REPORT[0]} (and _e128), library "
+        f"torch.bmm of a pre-built f32 row stack with TF32 off, err64 the "
+        f"Gram error against the float64 Gram of the same rows; launches "
+        f"from the cli_datasets runs (eval configs: f32 heads, f32 rows)")
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

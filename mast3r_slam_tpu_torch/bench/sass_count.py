@@ -9,7 +9,7 @@ carries) and prints, for each kernel of K4 / K5 and K4′ (every kernel with
 branch, the instructions between its target and itself, and their mix by
 opcode class. ``gram_tc_kernel``'s first template argument, its tile set, is
 the kind of its C entries: 0 K4, 1 K5, 2 K4′c, 3 K4′d. A loop body runs once
-per pixel (the tensor-core kernel, the reductions at one pixel a thread),
+per pixel (the tensor-core kernels, ``gram_tf32_kernel`` too, the reductions at one pixel a thread),
 per tile of a thread's vector pixels (``rows_kernel``, K4′b and K4′b-fast:
 its second template argument, 8 a thread; ``reduce_kernel``, K4′a and K4′b's
 first design: 8 bf16 or 4 f32) or per tile (the FMA path, whose inner loop
@@ -35,8 +35,9 @@ from pathlib import Path
 
 from mast3r_slam_tpu_torch import _build
 
-KERNELS = ("gram_tc_kernel", "gram_kernel", "reduce_kernel", "rows_kernel",
-           "rays_rows_sum_ieee", "gram_sum_kernel")
+KERNELS = ("gram_tc_kernel", "gram_tf32_kernel", "gram_kernel",
+           "reduce_kernel", "rows_kernel", "rays_rows_sum_ieee",
+           "gram_sum_kernel")
 CLASSES = (
     ("MUFU", re.compile(r"^MUFU")),
     ("fp32", re.compile(r"^(FFMA|FMUL|FADD|FMNMX|FSEL|FSETP|FSET|FCHK)")),

@@ -13,14 +13,18 @@ and are widened to float32 at load; the weighted rows are rounded to
 float64 by the plain version, see :func:`_gram`).
 
 On CUDA tensors both launch a hand-written kernel in ``csrc/ba_gram.cu``,
-on one of two paths (:func:`gram_path`):
+on one of three paths (:func:`gram_path`):
 
 - ``"mma"``: bfloat16 rows, the Gram on the tensor cores (``mma.sync``)
   after a row stage on cheaper operations (MUFU reciprocal square roots,
   reciprocal sigmas from the host); :func:`rays_rows_kernel_order` and
   :func:`calib_rows_kernel_order` are its row arithmetic in plain form;
-- ``"fma"``: float32 rows, or bfloat16 rows when the caller asks for it
-  (the first design, kept for timing), the Gram as f32 FMAs.
+- ``"tf32"``: float32 rows, the IEEE float32 rows and the Gram on the
+  tensor cores in 3xTF32 (``wgmma`` .tf32; each row value split into TF32
+  hi and lo parts, three products), float32-accurate; :func:`gram_tf32x3`
+  is its product in plain form;
+- ``"fma"``: the first design, kept for timing (float32 or bfloat16 rows),
+  the Gram as f32 FMAs.
 
 On CPU tensors they return the plain versions :func:`gram_rays_ref` /
 :func:`gram_calib_ref`; any other device raises. The TPU kernel's
@@ -32,16 +36,18 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from mast3r_slam_tpu_torch import _build
+from mast3r_slam_tpu_torch.ops.tf32 import tf32_split
 
 KERNEL = "ba_gram"
 HUBER_K = 1.345
 SQRT_HUBER_K = 1.15974135    # the "mma" path's constant, rounded to f32
 THREADS = 256            # pixels per tile of the kernel
 BLOCKS_PER_SM = 4        # blocks the "fma" grid aims for per SM
-PATHS = ("mma", "fma")
+PATHS = ("mma", "tf32", "fma")
 rays_counter = _build.LaunchCounter()
 calib_counter = _build.LaunchCounter()
 path_counters = {p: _build.LaunchCounter() for p in PATHS}
@@ -96,6 +102,17 @@ def _gram(rows, compute_dtype):
     entry on an H100.)"""
     S = torch.stack([r.to(compute_dtype) for r in rows], dim=1).double()
     return (S @ S.transpose(1, 2)).float()
+
+
+def gram_tf32x3(rows):
+    """Plain version of the ``"tf32"`` path's product: the float32 rows
+    ``S`` split into TF32 parts (:func:`~.tf32.tf32_split`), ``lo hiᵀ + hi
+    loᵀ + hi hiᵀ`` summed in float64 (each product of TF32 values is exact
+    there) and rounded to float32 once."""
+    S = torch.stack([r.float() for r in rows], dim=1)
+    hi, lo = (t.double() for t in tf32_split(S))
+    hiT = hi.transpose(1, 2)
+    return (lo @ hiT + hi @ lo.transpose(1, 2) + hi @ hiT).float()
 
 
 def _ray_terms(rts, meas, p, dinv, d):
@@ -217,8 +234,16 @@ def gram_calib_ref(rts, meas, img_size, pixel_border, z_eps, sigma_pixel,
 
 def gram_path(compute_dtype) -> str:
     """The kernel path a CUDA call takes by default: ``"mma"`` for bfloat16
-    rows, ``"fma"`` for float32."""
-    return "mma" if as_dtype(compute_dtype) == torch.bfloat16 else "fma"
+    rows, ``"tf32"`` for float32."""
+    return "mma" if as_dtype(compute_dtype) == torch.bfloat16 else "tf32"
+
+
+def host_reciprocal(sigma) -> float:
+    """``RN(1 / sigma)`` in float32 from the float32 ``sigma``: what the
+    correctly rounded row sequences take as their reciprocal sigmas (the
+    ``"tf32"`` path, K4′b); a float64 quotient rounded to float32 can be an
+    ulp off."""
+    return float(np.float32(1) / np.float32(sigma))
 
 
 def gram_rays(rts, meas, sigma_ray, sigma_dist,
@@ -344,15 +369,18 @@ def check_inputs(rts, meas, n_ch, cols):
 _mma_blocks: dict[tuple, int] = {}
 
 
-def mma_blocks_per_sm(device, kind, meas_bf16) -> int:
-    """Blocks of the tensor-core kernel for (kind, channel type) that one SM
+def mma_blocks_per_sm(device, kind, meas_bf16, path="mma") -> int:
+    """Blocks of a tensor-core kernel for (kind, channel type) that one SM
     of ``device`` holds at once, as the CUDA occupancy calculator reports it
-    for the built instance (cached). kind: 0 = K4, 1 = K5 (the "mma"
-    path), 2 = K4′c, 3 = K4′d (``gram_variants`` with bfloat16 rows)."""
-    key = (torch.device(device).index, kind, meas_bf16)
+    for the built instance (cached). ``path`` "mma": kind 0 = K4, 1 = K5,
+    2 = K4′c, 3 = K4′d (``gram_variants`` with bfloat16 rows); "tf32":
+    kind 0 = K4, 1 = K5 with float32 rows."""
+    key = (torch.device(device).index, path, kind, meas_bf16)
     if key not in _mma_blocks:
         lib = _lib()
-        n = lib.ba_gram_mma_blocks_per_sm(kind, int(meas_bf16))
+        query = (lib.ba_gram_tf32_blocks_per_sm if path == "tf32"
+                 else lib.ba_gram_mma_blocks_per_sm)
+        n = query(kind, int(meas_bf16))
         if n <= 0:
             _build.check(lib, KERNEL, -n or 1)
         _mma_blocks[key] = n
@@ -365,14 +393,14 @@ def _launch(kind, rts, meas, compute_dtype, path, scalars, grid=None):
                                        13 if kind == 0 else 17)
     cdt = as_dtype(compute_dtype)
     path = path or gram_path(cdt)
-    if path not in PATHS or (path == "mma" and cdt != torch.bfloat16):
+    if path not in PATHS or (path != "fma" and gram_path(cdt) != path):
         raise ValueError(f"path {path!r} does not take {cdt} rows")
     dev = rts.device
     mb = dt == torch.bfloat16
     sm = _build.sm_count(dev)
     if grid is None:
-        grid = (grid_mma(E, N, sm, mma_blocks_per_sm(dev, kind, mb))
-                if path == "mma" else grid_shape(E, N, sm))
+        grid = (grid_shape(E, N, sm) if path == "fma" else
+                grid_mma(E, N, sm, mma_blocks_per_sm(dev, kind, mb, path)))
     bpe, tiles = grid
     partial = torch.empty(E, bpe, 32 * 32, dtype=torch.float32, device=dev)
     G = torch.empty(E, 32, 32, dtype=torch.float32, device=dev)
@@ -384,6 +412,11 @@ def _launch(kind, rts, meas, compute_dtype, path, scalars, grid=None):
         err = lib.ba_gram_mma(
             kind, *ptrs, rts.data_ptr(), E, N, int(mb), bpe, tiles,
             1.0 / sig0, 1.0 / sig1, *geom,
+            partial.data_ptr(), G.data_ptr(), stream)
+    elif path == "tf32":
+        err = lib.ba_gram_tf32(
+            kind, *ptrs, rts.data_ptr(), E, N, int(mb), bpe, tiles, sig0,
+            sig1, host_reciprocal(sig0), host_reciprocal(sig1), *geom,
             partial.data_ptr(), G.data_ptr(), stream)
     else:
         err = lib.ba_gram(
@@ -401,6 +434,8 @@ ENTRIES = {
     "ba_gram": [_I] + [_P] * 9 + [_I] * 6 + [_F] * 7 + [_P] * 3,
     "ba_gram_mma": [_I] + [_P] * 9 + [_I] * 5 + [_F] * 7 + [_P] * 3,
     "ba_gram_mma_blocks_per_sm": [_I, _I],
+    "ba_gram_tf32": [_I] + [_P] * 9 + [_I] * 5 + [_F] * 9 + [_P] * 3,
+    "ba_gram_tf32_blocks_per_sm": [_I, _I],
 }
 
 

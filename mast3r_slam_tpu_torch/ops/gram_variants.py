@@ -50,6 +50,7 @@ import torch
 
 from mast3r_slam_tpu_torch import _build
 from mast3r_slam_tpu_torch.ops import ba_kernels as BA
+from mast3r_slam_tpu_torch.ops.ba_kernels import host_reciprocal
 
 KERNEL = BA.KERNEL
 load_counter = _build.LaunchCounter()
@@ -61,13 +62,6 @@ _KINDS = {"load": (0, load_counter), "rows": (1, rows_counter),
           "diag": (2, diag_counter), "one_product": (3, one_product_counter),
           "rows_fast": (4, rows_fast_counter), "rows_first": (5, None)}
 ROW_SUMS = ("rows", "rows_fast", "rows_first")   # kinds 1, 4 and 5
-
-
-def host_reciprocal(sigma) -> float:
-    """``RN(1 / sigma)`` in float32 from the float32 ``sigma``: what the
-    rows kernels take as their reciprocal sigmas (a float64 quotient
-    rounded to float32 can be an ulp off)."""
-    return float(np.float32(1) / np.float32(sigma))
 
 
 def gram_load_ref(rts, meas):

@@ -88,7 +88,7 @@ def test_conv3x3_path_by_shape():
     assert TC3.conv3x3_path(torch.bfloat16, 96, 16) == "igemm"
     assert TC3.conv3x3_path(torch.bfloat16, 96, 12) == "mma"
     assert TC3.conv3x3_path(torch.bfloat16, 20, 96) == "mma"
-    assert TC3.conv3x3_path(torch.float32, 256, 256) == "fma"
+    assert TC3.conv3x3_path(torch.float32, 256, 256) == "tf32x3"
 
 
 def _lax_conv(x, w, b):
