@@ -96,7 +96,20 @@ then:
    Replica (680x1200 JPEGs written by ``tests/torch_jpeg_writer.py``,
    ``eval_replica``: K5), checking outputs, launches per kernel and
    path (every DPT conv on K2's 3xTF32 path, every system build on the
-   f32-row Gram), and K_frame's principal point.
+   f32-row Gram), and K_frame's principal point;
+14. (phase ``topology``) prints the layout ``plan_topology()`` gives on
+   the visible cards, then on a virtual 5-slot layout of cuda:0 checks
+   the sharded symmetric decode of 3 pairs at full width (padded to a
+   4-slot backend mesh: one decoder call a slot with one decode's K1 / K2
+   launches, equal bit for bit to each slot's pairs decoded alone, within
+   ``TOPO_DECODE_TOL`` of one unsharded decode), the 4-slot K4 / K5
+   systems at the keyframe event's E (bf16 and f32 channels and rows)
+   against one build, ``main()`` on the CLI clip with base.yaml's
+   services and ``devices=[cuda:0] * 5`` (the cli phase's checks, a
+   sharded solve, launches from the run's decoder calls and system
+   builds, its medians beside the cli phase's one-slot run) and the
+   fallback of a 3-slot backend with one edge; with two or more cards
+   the same on the distinct cards, else it says that layout was not run.
 
 In every phase that runs a service, an exception in a service worker (which
 prints it and carries on) fails the run, and the global TSDF must run on
@@ -248,7 +261,11 @@ def _build_sms(torch):
 
 
 def sync_clock(torch):
-    torch.cuda.synchronize()
+    """The host clock after every visible card has finished its work (a
+    layout over several cards runs the backend on cards other than the
+    calling thread's)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
     return time.perf_counter()
 
 
@@ -883,11 +900,11 @@ def phase_event(torch, FA, C3, BA, state):
 # Phase: K4 / K5 against their plain versions
 # ---------------------------------------------------------------------------
 
-def oracle_channels(torch, hw=IMG_HW, steps=(2, 1)):
+def oracle_channels(torch, hw=IMG_HW, steps=(2, 1), dev="cuda"):
     """Measured channels of four edges among three oracle keyframes at
     ``hw`` (ground-truth correspondences), at each pixel_step of
     ``steps``, for the ray and the calibrated residual, and the true
-    poses."""
+    poses, on ``dev``."""
     import numpy as np
 
     from mast3r_slam_tpu_torch.ops import geometry
@@ -905,7 +922,6 @@ def oracle_channels(torch, hw=IMG_HW, steps=(2, 1)):
                                hw)
         idx.append(p_)
         valid.append(ok[:, None])
-    dev = "cuda"
     n = hw[0] * hw[1]
     Kt = torch.as_tensor(K, dtype=torch.float32, device=dev)
     X = torch.as_tensor(np.stack([m[0] for m in maps]), device=dev)
@@ -1697,10 +1713,13 @@ def tied_model(cfg, device, seed=0, **mcfg_over):
 
 @contextlib.contextmanager
 def instrumented(torch, model):
-    """Counts the model calls that launch K1/K2 and the BA's LM iterations
-    (K4/K5 launch 1 + iterations per solve) and the quality jobs submitted,
-    and times tracked frames and the backend step's parts with a device
-    sync around each."""
+    """Counts the model calls that launch K1/K2, the symmetric decoder
+    calls (one per match_symmetric, one per backend slot on a mesh), the
+    BA's LM iterations and its system builds (1 + iterations per solve,
+    each one K4/K5 launch per slot on a mesh) and the quality jobs
+    submitted, and times tracked frames and the backend step's parts with
+    a device sync around each."""
+    from mast3r_slam_tpu_torch.models import inference as I
     from mast3r_slam_tpu_torch.services.quality_async import (
         AsynchronousQualityService)
     from mast3r_slam_tpu_torch.slam import factor_graph as FG
@@ -1709,7 +1728,8 @@ def instrumented(torch, model):
     from mast3r_slam_tpu_torch.slam.retrieval import RetrievalDatabase
 
     rec = {"calls": {k: 0 for k in ("mono", "track", "oneway", "symmetric",
-                                    "solves", "lm_iters", "quality_jobs")},
+                                    "decodes", "solves", "lm_iters",
+                                    "builds", "quality_jobs")},
            "ms": {k: [] for k in ("track", "step", "retrieval",
                                   "add_factors", "solve")}}
     saved = []
@@ -1752,6 +1772,9 @@ def instrumented(torch, model):
     patch(T, "track_core", counted("track"))
     patch(T.FrameTracker, "track", timed("track"))
     patch(FG, "_lm_loop", lm)
+    patch(I, "_decode_symmetric_core", counted("decodes"))
+    patch(FG, "_accumulate_rays", counted("builds"))
+    patch(FG, "_accumulate_calib", counted("builds"))
     patch(Backend, "step", timed("step"))
     patch(RetrievalDatabase, "update", timed("retrieval"))
     patch(FG.FactorGraph, "add_factors", timed("add_factors"))
@@ -1766,20 +1789,20 @@ def instrumented(torch, model):
 
 
 def expected_launches(calls, calib, ba_path="mma", k2_path="igemm"):
-    """Launches per kernel from the run's model calls and LM iterations.
-    ``ba_path`` / ``k2_path``: the path every BA system build and every DPT
-    conv takes (base.yaml's bf16 rows and heads: ``"mma"`` and
-    ``"igemm"``; the eval configs' float32 ones: ``gram_path`` and
-    ``conv3x3_path`` of float32)."""
+    """Launches per kernel from the run's model calls, symmetric decoder
+    calls and BA system builds. ``ba_path`` / ``k2_path``: the path every
+    BA system build and every DPT conv takes (base.yaml's bf16 rows and
+    heads: ``"mma"`` and ``"igemm"``; the eval configs' float32 ones:
+    ``gram_path`` and ``conv3x3_path`` of float32)."""
     from mast3r_slam_tpu_torch.ops import ba_kernels as BA
     from mast3r_slam_tpu_torch.ops import conv3x3 as C3
 
     c = calls
     k1 = K1_PER_PAIR * (c["mono"] + c["track"]) + K1_PER_DECODE * (
-        c["oneway"] + c["symmetric"])
+        c["oneway"] + c["decodes"])
     k2 = K2_PER_HEAD * c["mono"] + 2 * K2_PER_HEAD * (
-        c["track"] + c["oneway"] + c["symmetric"])
-    ba = c["solves"] + c["lm_iters"]
+        c["track"] + c["oneway"] + c["decodes"])
+    ba = c["builds"]
     out = {"K1": k1, "K2": k2, "K3": 0, "K4": 0 if calib else ba,
            "K5": ba if calib else 0}
     out.update({f"K2 {p}": k2 if p == k2_path else 0 for p in C3.PATHS})
@@ -1873,10 +1896,13 @@ def quality_fields(path):
 
 
 def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
-            ba_path="mma", k2_path="igemm"):
-    """``main(argv)`` on the card with every launch counter at 0 before and
-    read after; checks the launches against the run's own model calls and
-    LM iterations. Returns (summary, launches, instrumentation record)."""
+            ba_path="mma", k2_path="igemm", devices=None):
+    """``main(argv)`` on the card (``devices``: the slot list of its
+    topology, default the visible cards) with every launch counter at 0
+    before and read after; checks the launches against the run's own model
+    calls, decoder calls and system builds (on one slot: one decoder call
+    per match_symmetric, 1 + iterations builds per solve). Returns
+    (summary, launches, instrumentation record)."""
     import os
 
     from mast3r_slam_tpu_torch import main as cli
@@ -1887,7 +1913,8 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
         with instrumented(torch, model) as rec, worker_faults() as faults:
             reset_counters(FA, C3, BA)
             t0 = time.perf_counter()
-            out = cli.main(argv, device="cuda", model=model)
+            out = cli.main(argv, device="cuda", model=model,
+                           devices=devices)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = launch_counts(FA, C3, BA)
@@ -1895,7 +1922,14 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
         os.chdir(cwd)
     check_no_faults(faults, f"cli {tag}")
     check_services(out, rec, tag)
-    want = expected_launches(rec["calls"], calib, ba_path, k2_path)
+    c = rec["calls"]
+    if out["topo"].backend_mesh is None:
+        check(c["decodes"] == c["symmetric"]
+              and c["builds"] == c["solves"] + c["lm_iters"],
+              f"cli {tag}: one slot, but {c['decodes']} decoder calls for "
+              f"{c['symmetric']} symmetric matches or {c['builds']} system "
+              f"builds for {c['solves']} solves + {c['lm_iters']} iterations")
+    want = expected_launches(c, calib, ba_path, k2_path)
     g = out["graph"]
     log(f"cli {tag}: {out['frames_processed']} frames in {wall:.1f} s, "
         f"keyframes {len(out['keyframes'])}, edges {g.n_edges()}, modes "
@@ -2905,9 +2939,302 @@ def phase_services(torch, device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase: the disjoint device topology
+# ---------------------------------------------------------------------------
+
+TOPO_SLOTS = 5            # the virtual layout on one card
+TOPO_PAIRS = 3            # the sharded decode's pairs, padded to the mesh
+TOPO_FALLBACK_SLOTS = 3   # a backend with more slots than two-way edges
+# the sharded decode (batch 2 a slot) against one batch-6 decoder call:
+# cuBLAS's algorithms and K2's split-K plan follow the batch, so bf16
+# rounding lands in other places through 12 decoder blocks and the heads;
+# bound as tests/test_torch_model.py bounds bf16 outputs whose rounding
+# lands elsewhere (test_downstream_heads_bf16_trunk): 6e-2 x max |ref|
+TOPO_DECODE_TOL = 6e-2
+# the BA systems of the check: (channel and row type, pixels) of base.yaml
+# (bf16, pixel_step 2) and of the evaluation configs (f32, pixel_step 1)
+TOPO_GRAM = (("bfloat16", IMG_HW[0] * IMG_HW[1] // 2),
+             ("float32", IMG_HW[0] * IMG_HW[1]))
+
+
+def topo_meshes(slots):
+    """The backend mesh of the decode and BA checks (slots 1..4 of
+    ``slots``, numbered as a topology numbers them) and the 3-slot mesh of
+    the fallback check (its slots repeat when there are fewer)."""
+    from mast3r_slam_tpu_torch.parallel.sharding import DeviceMesh
+
+    back = list(range(1, min(len(slots), 5)))
+    fall = [back[k % len(back)] for k in range(TOPO_FALLBACK_SLOTS)]
+    return (DeviceMesh(tuple(slots[s] for s in back), tuple(back)),
+            DeviceMesh(tuple(slots[s] for s in fall), tuple(fall)))
+
+
+def topo_decode(torch, FA, C3, BA, model, mesh):
+    """The sharded symmetric decode of ``TOPO_PAIRS`` pairs at full width:
+    one decoder call per slot on the slot's device with exactly one
+    decode's K1 / K2 launches each; its outputs bit for bit those of each
+    slot's (padded) pairs decoded alone on the frontend's parameters,
+    concatenated and trimmed, and within ``TOPO_DECODE_TOL`` of one
+    unsharded decode of all pairs. Returns the largest relative error and
+    both host times."""
+    from mast3r_slam_tpu_torch.models import inference as I
+    from mast3r_slam_tpu_torch.models import mast3r as M
+
+    H, W = IMG_HW
+    dev0 = model.params["enc_norm"]["g"].device
+    g = torch.Generator(device=dev0).manual_seed(21)
+    feats = [torch.randn(TOPO_PAIRS, (H // 16) * (W // 16),
+                         model.cfg.enc_embed_dim, generator=g, device=dev0)
+             for _ in range(2)]
+    pos = M.patch_positions(H // 16, W // 16, TOPO_PAIRS, dev0)
+    args = (feats[0], pos, feats[1], pos, IMG_HW)
+    one = {"K1": K1_PER_DECODE, "K2": 2 * K2_PER_HEAD}
+    model.set_mesh(None)
+    reset_counters(FA, C3, BA)
+    t0 = sync_clock(torch)
+    ref = model.decode_symmetric_batch(*args)
+    t_one = (sync_clock(torch) - t0) * 1e3
+    got_one = {k: v for k, v in launch_counts(FA, C3, BA).items() if k in one}
+    check(got_one == one, f"topology: unsharded decode launches {got_one}")
+    per_slot = -(-TOPO_PAIRS // mesh.size)
+    pad = per_slot * mesh.size - TOPO_PAIRS
+    padded = [torch.cat([a, a[-1:].expand(pad, *a.shape[1:])])
+              for a in (feats[0], pos, feats[1], pos)]
+    chunks = [model.decode_symmetric_batch(
+        *(a[k * per_slot:(k + 1) * per_slot] for a in padded), IMG_HW)
+        for k in range(mesh.size)]
+    slotwise = [torch.cat([c[i] for c in chunks], 1)[:, :TOPO_PAIRS]
+                for i in range(4)]
+    core, calls = I._decode_symmetric_core, []
+
+    def counted(params, cfg, f_i, *a, **kw):
+        before = launch_counts(FA, C3, BA)
+        out = core(params, cfg, f_i, *a, **kw)
+        after = launch_counts(FA, C3, BA)
+        calls.append((f_i.device, f_i.shape[0],
+                      {k: after[k] - before[k] for k in one}))
+        return out
+
+    model.set_mesh(mesh)
+    I._decode_symmetric_core = counted
+    try:
+        reset_counters(FA, C3, BA)
+        t0 = sync_clock(torch)
+        got = model.decode_symmetric_batch(*args)
+        t_mesh = (sync_clock(torch) - t0) * 1e3
+        launches = launch_counts(FA, C3, BA)
+    finally:
+        I._decode_symmetric_core = core
+        model.set_mesh(None)
+    check(len(calls) == mesh.size, f"topology: {len(calls)} decoder calls on "
+          f"{mesh.size} slots")
+    for (dev, b, n), want_dev in zip(calls, mesh.devices):
+        check(dev == want_dev and b == per_slot and n == one,
+              f"topology: a slot's decode on {dev} of {b} pairs launched "
+              f"{n}, want {want_dev}, {per_slot}, {one}")
+    check(launches["K1"] == mesh.size * one["K1"]
+          and launches["K2"] == launches["K2 igemm"]
+          == mesh.size * one["K2"], f"topology: decode launches {launches}")
+    err = 0.0
+    for name, a, b, s in zip(("pts3d", "conf", "desc", "desc_conf"), got,
+                             ref, slotwise):
+        check(a.shape == b.shape and a.shape[:2] == (4, TOPO_PAIRS),
+              f"topology decode {name}: shape {tuple(a.shape)}")
+        check(a.device == mesh.first, f"topology decode {name} on {a.device}")
+        check(torch.equal(a, s.to(a.device)), f"topology decode {name}: not "
+              f"each slot's pairs decoded alone, bit for bit")
+        check(bool(a.float().isfinite().all()), f"topology decode {name}: "
+              f"not finite")
+        e = (a.float() - b.float().to(a.device)).abs().max().item()
+        scale = b.float().abs().max().item()
+        log(f"topology decode {name:9s} equal to the slot-wise decode; max "
+            f"abs err {e:.3e} against one batch-{2 * TOPO_PAIRS} call (max "
+            f"|ref| {scale:.3e}, tolerance {TOPO_DECODE_TOL} x max |ref|)")
+        check(e <= TOPO_DECODE_TOL * scale, f"topology decode {name}: max "
+              f"abs err {e:.3e} > {TOPO_DECODE_TOL} x {scale:.3e}")
+        err = max(err, e / max(scale, 1e-30))
+    log(f"topology: decode of {TOPO_PAIRS} pairs padded to "
+        f"{per_slot * mesh.size} on {mesh.size} slots {t_mesh:.1f} ms, "
+        f"unsharded {t_one:.1f} ms (host clock, first calls); per slot "
+        f"K1 {one['K1']} K2 {one['K2']} launches")
+    return dict(rel_err=err, ms=t_mesh, ms_one=t_one)
+
+
+def topo_gram(torch, BA, mesh, device="cuda"):
+    """The sharded K4 / K5 system at the keyframe event's E (four two-way
+    edges among three oracle keyframes at 384x512) against one build of
+    the same edges, on bf16 (base.yaml) and on f32 (evaluation configs)
+    channels and rows: ``system_error`` within the Gram tolerance, one
+    launch per slot on the row type's path. Returns the largest error."""
+    from mast3r_slam_tpu_torch.ops import geometry
+    from mast3r_slam_tpu_torch.slam import factor_graph as FG
+
+    meas_all, T, ii, jj, K = oracle_channels(torch, dev=device)
+    dev = T.device
+    cap = T.shape[0]
+    free = torch.arange(cap, device=dev) > 0
+    mask = torch.ones(ii.shape[0], device=dev)
+    calib_args = (IMG_HW, -10.0, 1e-6, 1.0, 10.0)
+    worst = 0.0
+    for kind in ("rays", "calib"):
+        counter = BA.rays_counter if kind == "rays" else BA.calib_counter
+        for dt_name, N in TOPO_GRAM:
+            dt = getattr(torch, dt_name)
+            meas = tuple(ch.to(dt).contiguous() for ch in meas_all[kind, N])
+            if kind == "rays":
+                def accum(T_, meas_, ii_, jj_, mask_, free_):
+                    return FG._accumulate_rays(T_, meas_, ii_, jj_, mask_,
+                                               free_, cap, 0.003, 10.0,
+                                               compute_dtype=dt)
+                extra = ()
+            else:
+                def accum(T_, meas_, ii_, jj_, mask_, free_, K_):
+                    return FG._accumulate_calib(T_, meas_, K_, ii_, jj_,
+                                                mask_, free_, cap,
+                                                *calib_args, compute_dtype=dt)
+                extra = (K,)
+            path = BA.path_counters[BA.gram_path(dt)]
+            before = (counter.launches, path.launches)
+            single = accum(T, meas, ii, jj, mask, free, *extra)
+            torch.cuda.synchronize()
+            mid = (counter.launches, path.launches)
+            sharded = FG._shard_edge_system(mesh, accum, T, free, ii, jj,
+                                            mask, meas, extra)
+            torch.cuda.synchronize()
+            after = (counter.launches, path.launches)
+            tag = f"topology {kind} E={ii.shape[0]} N={N} {dt_name}"
+            check(mid[0] - before[0] == mid[1] - before[1] == 1
+                  and after[0] - mid[0] == after[1] - mid[1] == mesh.size,
+                  f"{tag}: launches {before} {mid} {after}, want 1 then "
+                  f"{mesh.size} on {BA.gram_path(dt)}")
+            check(all(bool(a.isfinite().all()) for a in sharded)
+                  and sharded[0].device == mesh.first, f"{tag}: output")
+            check(float(single[2]) > 0, f"{tag}: an empty system")
+            err = FG.system_error(sharded, single)
+            log(f"{tag}: sharded over {mesh.size} slots vs one build, system "
+                f"error {err:.3e} (tolerance {GRAM_TOL[dt_name]:.0e})")
+            check(err <= GRAM_TOL[dt_name], f"{tag}: system error {err:.3e}")
+            worst = max(worst, err)
+    return worst
+
+
+def topo_layout(torch, FA, C3, BA, slots, model, clip, cfg_path, work, tag,
+                device="cuda"):
+    """(a) the sharded decode, (b) the sharded K4 / K5 system, (d) the CLI
+    on ``slots`` with base.yaml's services, (c) the 3-slot fallback on the
+    CLI's keyframes."""
+    from mast3r_slam_tpu_torch.slam.factor_graph import FactorGraph
+    from mast3r_slam_tpu_torch.utils.config import load_config
+
+    mesh, mesh3 = topo_meshes(slots)
+    log(f"topology {tag}: slots {[str(d) for d in slots]}; decode / BA mesh "
+        f"slots {mesh.slots}, fallback mesh slots {mesh3.slots}")
+    out = {"decode": topo_decode(torch, FA, C3, BA, model, mesh),
+           "gram_err": topo_gram(torch, BA, mesh, device)}
+    res, launches, rec = run_cli(
+        torch, FA, C3, BA, model, work,
+        ["--dataset", str(clip), "--config", cfg_path, "--no-viz",
+         "--save-as", f"topo_{tag}"], f"topology {tag}", devices=slots)
+    topo, g = res["topo"], res["graph"]
+    log(f"topology {tag}: main() planned {topo.describe()}; solve_stats "
+        f"{g.solve_stats}")
+    check(topo.backend_mesh is not None and g.mesh == topo.backend_mesh,
+          f"topology {tag}: no backend mesh in the CLI run")
+    check(g.solve_stats["sharded"] >= 1, f"topology {tag}: no sharded solve "
+          f"({g.solve_stats})")
+    check(res["quality"].processed_jobs > 0
+          and res["refiner"].stats["scheduled"] > 0,
+          f"topology {tag}: services idle")
+    # the cli phase's output checks
+    kf = res["keyframes"]
+    check(len(kf) >= 8 and kf.T_WC.device == topo.frontend_device,
+          f"topology {tag}: keyframes {len(kf)} on {kf.T_WC.device}")
+    check(any(abs(int(i) - int(j)) > 1 for i, j in zip(g.ii, g.jj)),
+          f"topology {tag}: no non-consecutive (retrieval) edge")
+    check(rec["calls"]["lm_iters"] > 0, f"topology {tag}: no BA iterations")
+    savedir = work / "logs" / f"topo_{tag}" / clip.name
+    check_outputs(res, savedir, clip.name, CLI_FRAMES, IMG_HW)
+    qf = quality_fields(savedir / f"{clip.name}_quality.ply")
+    for field in ("r", "delta_cov"):
+        check(bool((qf[field] != 0).any()),
+              f"topology {tag}: the quality PLY's {field} is all zero")
+    parts = cli_parts(rec)
+    out.update(tracked_ms=parts["track"], step_ms=parts["step"],
+               solve_ms=parts["solve"], add_factors_ms=parts["add_factors"],
+               keyframes=len(kf),
+               edges=g.n_edges(), solve_stats=dict(g.solve_stats),
+               launches=launches)
+    # (c) fewer two-way edges than slots: the first backend slot alone
+    cfg = load_config(cfg_path)
+    model.set_mesh(mesh3)
+    try:
+        g3 = FactorGraph(model, kf, cfg, mesh=mesh3,
+                         home_device=topo.frontend_device)
+        check(g3.add_factors([0], [1], 0.0), "topology fallback: no edge")
+        g3.solve_GN_rays()
+        torch.cuda.synchronize()
+    finally:
+        model.set_mesh(None)
+    check(g3.solve_stats == {"sharded": 0, "fallback_single_device": 1},
+          f"topology fallback: {g3.solve_stats}")
+    check(kf.T_WC.device == topo.frontend_device
+          and bool(kf.T_WC[:len(kf)].isfinite().all()),
+          "topology fallback: poses not homed or not finite")
+    log(f"topology {tag}: fallback on {mesh3.size} slots with 2 two-way "
+        f"edges: {g3.solve_stats}")
+    return out
+
+
+def phase_topology(torch, FA, C3, BA, workdir, cli=None, device="cuda"):
+    """The disjoint device topology: the layout ``plan_topology()`` gives on
+    the visible cards, then a virtual ``TOPO_SLOTS``-slot layout on cuda:0
+    (and, with two or more cards, the same on the distinct cards): the
+    sharded decode, the sharded BA system, the CLI with services and the
+    3-slot fallback (``topo_layout``). ``cli``: the cli phase's one-slot
+    medians, printed beside the layout's. ``device`` "cpu" rehearses the
+    phase on the CPU (with ``tied_model`` and ``main`` patched)."""
+    from mast3r_slam_tpu_torch.parallel.sharding import visible_devices
+    from mast3r_slam_tpu_torch.parallel.topology import plan_topology
+    from mast3r_slam_tpu_torch.utils.config import load_config
+
+    cards = visible_devices()
+    log(f"topology: plan_topology() on the {len(cards)} visible card(s): "
+        f"{plan_topology().describe()}")
+    work = Path(workdir)
+    clip = write_clip(work / "topo_tum_clip", CLI_FRAMES)
+    cfg_path = write_config(work / "cli_topo.yaml")
+    model = tied_model(load_config(cfg_path), device)
+    first = torch.device(device, 0) if device == "cuda" else torch.device(
+        device)
+    layouts = [("virtual", [first] * TOPO_SLOTS)]
+    if len(cards) >= 2:
+        layouts.append(("cards", cards))
+    else:
+        log("topology: the layout over distinct cards was NOT run (1 card "
+            "visible); only the virtual layout on cuda:0 was checked")
+    out = {}
+    for tag, slots in layouts:
+        out[tag] = topo_layout(torch, FA, C3, BA, slots, model, clip,
+                               cfg_path, work, tag, device)
+        r = out[tag]
+        one = ("not run in this call" if cli is None else
+               f"{cli['tracked_ms']:.1f} / {cli['step_ms']:.1f} ms "
+               f"(add_factors {cli['add_factors_ms']:.1f}, solve "
+               f"{cli['solve_ms']:.1f})")
+        log(f"topology {tag}: CLI median tracked frame / backend step "
+            f"{r['tracked_ms']:.1f} / {r['step_ms']:.1f} ms (add_factors "
+            f"{r['add_factors_ms']:.1f}, solve {r['solve_ms']:.1f}); one "
+            f"slot (phase cli): {one}; keyframes "
+            f"{r['keyframes']}, edges {r['edges']}, {r['solve_stats']}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASES = ("data", "kernels", "main", "event", "cross", "ba_kernels",
           "gram_bench", "oracle", "cli", "cli_cross", "cli_datasets", "reloc",
-          "services")
+          "services", "topology")
 
 
 def main():
@@ -2981,6 +3308,7 @@ def main():
         run("cli_cross", phase_cli_cross, torch, work)
         datasets = run("cli_datasets", phase_cli_datasets, torch, FA, C3, BA,
                        work)
+        run("topology", phase_topology, torch, FA, C3, BA, work, cli)
     reloc = run("reloc", phase_reloc, torch, FA, C3, BA)
     services = run("services", phase_services, torch)
     log(f"phase times (s): {timings}")

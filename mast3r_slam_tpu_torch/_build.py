@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels and its host C++ libraries.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. It is
-compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``build/`` (git-ignored), named by a hash of the source, and loaded with
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface (it
+may include the shared headers ``csrc/*.cuh``). It is compiled with
+``nvcc`` for ``sm_90a`` into a shared library under ``build/``
+(git-ignored), named by a hash of the sources, and loaded with
 ``ctypes``. Nothing is compiled or loaded when this module is imported: the
 first call that needs a kernel builds it, and :func:`build_all` builds
 several at once in parallel ``nvcc`` processes. The wrappers also share
@@ -43,9 +44,12 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD / f"lib{name}-{digest}.so"
+    """The library of kernel ``name``, keyed by its source and the shared
+    headers (``csrc/*.cuh``) it may include."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _nvcc_cmd(nvcc: str, name: str, out: Path) -> list[str]:

@@ -40,6 +40,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "device_once.cuh"
+
 #include <algorithm>
 #include <cstdint>
 
@@ -664,14 +666,13 @@ __global__ void conv3x3_split_sum_kernel(const float* __restrict__ ws,
 int launch_igemm(const void* x, const void* w, const void* bias, void* y,
                  void* ws, int B, int H, int W, int cin, int cout,
                  int splits, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv3x3_igemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(IG_SMEM));
-    if (e != cudaSuccess) return int(e);
-    configured = true;
-  }
+  static PerDeviceOnce once;
+  const cudaError_t setup = once.run([] {
+    return cudaFuncSetAttribute(conv3x3_igemm_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                int(IG_SMEM));
+  });
+  if (setup != cudaSuccess) return int(setup);
   if (cin % 8 != 0 || cout % 8 != 0) return int(cudaErrorInvalidValue);
   const long long m_total = (long long)B * H * W;
   const int tiles_h = (H + IG_TH - 1) / IG_TH;
@@ -1006,14 +1007,13 @@ int launch_tf32_split(const void* w, void* wsplit, int cin, int cout,
 int launch_tf32x3(const void* x, const void* w, const void* bias, void* y,
                   void* wsplit, void* ws, int B, int H, int W, int cin,
                   int cout, int splits, cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv3x3_tf32x3_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(TF_SMEM));
-    if (e != cudaSuccess) return int(e);
-    configured = true;
-  }
+  static PerDeviceOnce once;
+  const cudaError_t setup = once.run([] {
+    return cudaFuncSetAttribute(conv3x3_tf32x3_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                int(TF_SMEM));
+  });
+  if (setup != cudaSuccess) return int(setup);
   if (cin % 8 != 0 || cout % 8 != 0 || wsplit == nullptr)
     return int(cudaErrorInvalidValue);
   const long long m_total = (long long)B * H * W;

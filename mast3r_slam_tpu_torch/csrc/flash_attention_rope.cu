@@ -41,6 +41,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "device_once.cuh"
 #include <math.h>
 
 #include <cstdint>
@@ -478,14 +480,13 @@ int launch_f32(const void* q, const void* k, const void* v, const void* cq,
                const void* sq, const void* ck, const void* sk, void* o, int bh,
                int n_heads, int nq, int nk, float sm_scale,
                cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_rope_kernel<ROPE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(SMEM_BYTES));
-    if (e != cudaSuccess) return int(e);
-    configured = true;
-  }
+  static PerDeviceOnce once;
+  const cudaError_t setup = once.run([] {
+    return cudaFuncSetAttribute(flash_rope_kernel<ROPE>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                int(SMEM_BYTES));
+  });
+  if (setup != cudaSuccess) return int(setup);
   const dim3 grid((nq + BQ - 1) / BQ, bh);
   flash_rope_kernel<ROPE><<<grid, THREADS, SMEM_BYTES, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
@@ -861,14 +862,13 @@ int launch_pipelined(const void* q, Strides sq, const void* k, Strides sk,
                      const void* sqt, void* o, Strides so, int bh,
                      int n_heads, int nq, int nk, float sm_scale,
                      cudaStream_t stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_pipelined_kernel<ROPE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, int(PSMEM));
-    if (e != cudaSuccess) return int(e);
-    configured = true;
-  }
+  static PerDeviceOnce once;
+  const cudaError_t setup = once.run([] {
+    return cudaFuncSetAttribute(flash_pipelined_kernel<ROPE>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                int(PSMEM));
+  });
+  if (setup != cudaSuccess) return int(setup);
   const dim3 grid((nq + PBQ - 1) / PBQ, bh);
   flash_pipelined_kernel<ROPE><<<grid, PTHREADS, PSMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), sq,

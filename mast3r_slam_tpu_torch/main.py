@@ -15,6 +15,11 @@ global TSDF, each as the config turns it on), the shutdown drain,
 checkpoint / resume, and the export (trajectory, PLYs with the quality
 fields, keyframe PNGs). It runs on the CUDA card; :func:`main` takes
 ``device="cpu"`` from Python (the tests), and there is no CPU fallback.
+With several cards it lays the roles out as the JAX CLI does
+(``parallel/topology.py``: tracking on the first card, the backend's
+decode and BA sharded over a power-of-two set of the others, the services
+on the rest); from Python, ``devices`` gives that layout a slot list of
+its own, e.g. five slots of one card or eight of the CPU.
 
 Refused until ported: the viewer (a run without ``--no-viz``, ROADMAP
 queue 1 item 5).
@@ -33,6 +38,7 @@ from mast3r_slam_tpu_torch.models import convert
 from mast3r_slam_tpu_torch.models import mast3r as M
 from mast3r_slam_tpu_torch.models.inference import MASt3RInference
 from mast3r_slam_tpu_torch.ops import lie
+from mast3r_slam_tpu_torch.parallel.topology import plan_topology
 from mast3r_slam_tpu_torch.services.quality_async import (
     AsynchronousQualityService)
 from mast3r_slam_tpu_torch.services.tsdf_global import TSDFGlobalManager
@@ -88,10 +94,11 @@ def model_config(cfg) -> M.MASt3RConfig:
                           head_dtype=mdl.get("head_dtype", "bfloat16"))
 
 
-def build_model(cfg, weights="", downsample=1, device="cuda"):
+def build_model(cfg, weights="", downsample=1, device="cuda", mesh=None):
     """The model the CLI runs: ``model.preset: tiny`` or the full MASt3R
     config (trunk / head dtypes from the config), with ``weights`` (a
-    parameter ``.npz``) or random weights from seed 0."""
+    parameter ``.npz``) or random weights from seed 0, on ``device`` and
+    with its pair decode sharded over ``mesh`` when one is given."""
     mcfg = model_config(cfg)
     if weights:
         params = convert.params_from_jax(convert.load_npz(weights), mcfg,
@@ -102,7 +109,8 @@ def build_model(cfg, weights="", downsample=1, device="cuda"):
               "(geometry will be meaningless — fine for perf/smoke runs)")
         params = M.init_params(mcfg, seed=0, device=device)
     return MASt3RInference(M.prepare_params(params, mcfg), mcfg,
-                           cfg.get("matching", {}), downsample=downsample)
+                           cfg.get("matching", {}), mesh=mesh,
+                           downsample=downsample)
 
 
 def _check_device(device):
@@ -113,16 +121,38 @@ def _check_device(device):
             "main(argv, device='cpu') runs the plain versions)")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda" and device.index is None:
+        # a bare "cuda" is the calling thread's device: name it
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
-def main(argv=None, device="cuda", model=None):
-    """Run the CLI. ``device`` is ``"cuda"`` (the card) or ``"cpu"``;
-    ``model`` (a ``MASt3RInference``) replaces :func:`build_model`. Returns
-    a summary dict (keyframes, graph, frames processed, the per-frame mode
-    sequence, the services)."""
-    args = parse_args(argv)
+def device_slots(device, devices=None):
+    """The slot list the topology is planned on: ``devices`` when given;
+    on the card, every visible card with ``device`` first; on the CPU,
+    ``[device]``."""
+    if devices is not None:
+        return [_check_device(d) for d in devices]
     device = _check_device(device)
+    if device.type == "cpu":
+        return [device]
+    return [device] + [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())
+                       if i != device.index]
+
+
+def main(argv=None, device="cuda", model=None, devices=None):
+    """Run the CLI. ``device`` is ``"cuda"`` (the card) or ``"cpu"``;
+    ``devices`` (a list of devices, repeats allowed) is the slot list the
+    disjoint topology is planned on instead of the visible cards (its
+    first slot is the frontend's); ``model`` (a ``MASt3RInference``)
+    replaces :func:`build_model` and is placed on the run's backend mesh.
+    Returns a summary dict (keyframes, graph, frames processed, the
+    per-frame mode sequence, the services, the topology)."""
+    args = parse_args(argv)
+    topo = plan_topology(device_slots(device, devices))
+    device = topo.frontend_device
+    mesh = topo.backend_mesh
     cfg = load_config(args.config)
     refuse_unported(args.no_viz)
     single_thread = bool(cfg.get("single_thread", False))
@@ -152,6 +182,8 @@ def main(argv=None, device="cuda", model=None):
         n_frames = min(n_frames, args.max_frames)
     print(f"dataset: {args.dataset} ({n_frames} frames @ {h}x{w}; "
           f"calib={'on' if use_calib else 'off'}; device {device})")
+    if mesh is not None:
+        print(f"disjoint device topology: {topo.describe()}")
 
     # remove this run's stale outputs first, so a crash cannot leave a mix
     if getattr(dataset, "save_results", True):
@@ -163,10 +195,13 @@ def main(argv=None, device="cuda", model=None):
                 p.unlink()
 
     if model is None:
-        model = build_model(cfg, args.weights, downsample=ds, device=device)
+        model = build_model(cfg, args.weights, downsample=ds, device=device,
+                            mesh=mesh)
     elif model.ds != ds:
         raise ValueError(f"the model decimates by {model.ds}, the config "
                          f"asks for dataset.img_downsample={ds}")
+    else:
+        model.set_mesh(mesh)
     keyframes = KeyframeBuffer(h_work, w_work, capacity=110,
                                feat_dim=model.cfg.enc_embed_dim,
                                device=device, model_hw=(h, w))
@@ -180,12 +215,15 @@ def main(argv=None, device="cuda", model=None):
                                  device=device)
         keyframes.set_intrinsics(K)
 
-    quality = (AsynchronousQualityService(cfg, device=device).start()
+    # each service on its planned device (the frontend's on one device)
+    quality = (AsynchronousQualityService(
+                   cfg, device=topo.quality_device or device).start()
                if cfg.get("quality", {}).get("enabled", True) else None)
     tracker = FrameTracker(model, keyframes, cfg, quality_service=quality)
     refiner = TSDFRefiner(keyframes, cfg, quality_service=quality,
-                          device=device).start()
-    graph = FactorGraph(model, keyframes, cfg, K=K)
+                          device=topo.tsdf_local_device or device).start()
+    graph = FactorGraph(model, keyframes, cfg, K=K, mesh=mesh,
+                        home_device=None if mesh is None else device)
     head_params, nfeat = None, 256
     if args.retrieval_weights:
         if args.retrieval_weights.endswith(".npz"):
@@ -336,7 +374,7 @@ def main(argv=None, device="cuda", model=None):
     return {"keyframes": keyframes, "graph": graph, "frames_processed": i,
             "modes": modes, "states": states, "retrieval": retrieval,
             "quality": quality, "refiner": refiner,
-            "tsdf_manager": tsdf_manager}
+            "tsdf_manager": tsdf_manager, "topo": topo}
 
 
 if __name__ == "__main__":

@@ -3,8 +3,11 @@
 initialization, the asymmetric frame↔keyframe decode, and the backend's
 symmetric pair decode and match entry points. Both decode directions of B
 keyframe pairs run as one decoder call of batch 2B; the matcher then runs
-each direction as its own B = 1 call, as the JAX package does. The
-multi-device path has no counterpart yet.
+each direction as its own B = 1 call, as the JAX package's single-device
+path does. With a backend mesh (``parallel/``) the pair batch is padded to
+a multiple of the mesh size and each slot decodes its share on its own
+device (K1 and K2 on every backend device); the matcher runs on the first
+slot's device, where the decode outputs gather.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 
 from mast3r_slam_tpu_torch.models import mast3r as M
 from mast3r_slam_tpu_torch.ops import matching
+from mast3r_slam_tpu_torch.parallel import sharding as S
 
 
 def _decimate(a, ds, h_axis=1):
@@ -63,16 +67,28 @@ class MASt3RInference:
     """Holds prepared params + config and exposes the SLAM-facing inference
     methods. ``params`` should come from ``M.prepare_params``;
     ``match_cfg`` is the config's ``matching`` section (the backend
-    matcher's settings); ``downsample`` (``dataset.img_downsample``)
+    matcher's settings); ``mesh`` (a ``parallel.sharding.DeviceMesh``)
+    shards the symmetric pair decode over the backend's devices (see
+    :meth:`set_mesh`); ``downsample`` (``dataset.img_downsample``)
     decimates the working pointmaps, while the model still sees the full
     crop."""
 
     def __init__(self, params, cfg: M.MASt3RConfig, match_cfg=None,
-                 downsample: int = 1):
+                 mesh=None, downsample: int = 1):
         self.params = params
         self.cfg = cfg
         self.match_cfg = match_cfg or {}
         self.ds = int(downsample)
+        self.set_mesh(mesh)
+
+    def set_mesh(self, mesh):
+        """Decode symmetric pair batches over ``mesh``, or on ``params``'
+        own device when None. The mesh gets a parameter replica per
+        distinct device; ``params`` stay where they are (the frontend's
+        copy), and a mesh device that holds them already shares them."""
+        self.mesh = mesh
+        self.params_mesh = (None if mesh is None
+                            else S.replicate(self.params, mesh))
 
     def encode_frame(self, frame):
         """Populate ``frame.feat`` / ``frame.pos`` (cached across calls)."""
@@ -104,9 +120,29 @@ class MASt3RInference:
     def decode_symmetric_batch(self, feat_i, pos_i, feat_j, pos_j, img_hw):
         """Both decode directions of B pairs in one batched call. Returns
         (X, C, D, Q), each with leading dim 4 over [ii, ji, jj, ij] and
-        second dim B."""
-        return _decode_symmetric_core(self.params, self.cfg, feat_i, pos_i,
-                                      feat_j, pos_j, img_hw, self.ds)
+        second dim B.
+
+        With a mesh, B is padded up to a multiple of the mesh size (the
+        last pair repeated; the JAX package's edge-mode pad), each slot
+        decodes its pairs on its device with that device's replica, and
+        the outputs gather on the first slot's device in slot order,
+        trimmed back to B: the decode never runs on the frontend's copy."""
+        if self.mesh is None:
+            return _decode_symmetric_core(self.params, self.cfg, feat_i,
+                                          pos_i, feat_j, pos_j, img_hw,
+                                          self.ds)
+        mesh = self.mesh
+        b = feat_i.shape[0]
+        pad = S.pad_to_multiple(b, mesh.size) - b
+        shards = []
+        for t in (feat_i, pos_i, feat_j, pos_j):
+            if pad:
+                t = torch.cat([t, t[-1:].expand(pad, *t.shape[1:])])
+            shards.append(S.shard_leading(t, mesh))
+        outs = [_decode_symmetric_core(p, self.cfg, *parts, img_hw, self.ds)
+                for p, parts in zip(self.params_mesh, zip(*shards))]
+        return tuple(torch.cat([o[k].to(mesh.first) for o in outs],
+                               dim=1)[:, :b] for k in range(4))
 
     def match_symmetric(self, feat_i, pos_i, feat_j, pos_j, img_hw,
                         init_i2j=None, init_j2i=None):
@@ -119,12 +155,14 @@ class MASt3RInference:
         camera i), and vice versa; a missing one starts from identity."""
         b = feat_i.shape[0]
         n = (img_hw[0] // self.ds) * (img_hw[1] // self.ds)
-        ident = torch.arange(n, device=feat_i.device).expand(b, n)
-        i2j = ident if init_i2j is None else init_i2j.long()
-        j2i = ident if init_j2i is None else init_j2i.long()
-        init = torch.cat([i2j, j2i])
         X, _, D, Q = self.decode_symmetric_batch(feat_i, pos_i, feat_j,
                                                  pos_j, img_hw)
+        # the warm starts come from the frontend's keyframe state: the
+        # matcher runs where the decode outputs are
+        ident = torch.arange(n, device=X.device).expand(b, n)
+        i2j = ident if init_i2j is None else init_i2j.to(X.device).long()
+        j2i = ident if init_j2i is None else init_j2i.to(X.device).long()
+        init = torch.cat([i2j, j2i])
         X11 = torch.cat([X[0], X[2]])
         X21 = torch.cat([X[1], X[3]])
         D11 = torch.cat([D[0], D[2]])

@@ -380,7 +380,8 @@ def mma_blocks_per_sm(device, kind, meas_bf16, path="mma") -> int:
         lib = _lib()
         query = (lib.ba_gram_tf32_blocks_per_sm if path == "tf32"
                  else lib.ba_gram_mma_blocks_per_sm)
-        n = query(kind, int(meas_bf16))
+        with torch.cuda.device(device):
+            n = query(kind, int(meas_bf16))
         if n <= 0:
             _build.check(lib, KERNEL, -n or 1)
         _mma_blocks[key] = n
@@ -398,31 +399,35 @@ def _launch(kind, rts, meas, compute_dtype, path, scalars, grid=None):
     dev = rts.device
     mb = dt == torch.bfloat16
     sm = _build.sm_count(dev)
-    if grid is None:
-        grid = (grid_shape(E, N, sm) if path == "fma" else
-                grid_mma(E, N, sm, mma_blocks_per_sm(dev, kind, mb, path)))
-    bpe, tiles = grid
-    partial = torch.empty(E, bpe, 32 * 32, dtype=torch.float32, device=dev)
-    G = torch.empty(E, 32, 32, dtype=torch.float32, device=dev)
     ptrs = [ch.data_ptr() for ch in meas] + [None] * (8 - n_ch)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _lib()
     sig0, sig1, *geom = (float(s) for s in scalars)
-    if path == "mma":
-        err = lib.ba_gram_mma(
-            kind, *ptrs, rts.data_ptr(), E, N, int(mb), bpe, tiles,
-            1.0 / sig0, 1.0 / sig1, *geom,
-            partial.data_ptr(), G.data_ptr(), stream)
-    elif path == "tf32":
-        err = lib.ba_gram_tf32(
-            kind, *ptrs, rts.data_ptr(), E, N, int(mb), bpe, tiles, sig0,
-            sig1, host_reciprocal(sig0), host_reciprocal(sig1), *geom,
-            partial.data_ptr(), G.data_ptr(), stream)
-    else:
-        err = lib.ba_gram(
-            kind, *ptrs, rts.data_ptr(), E, N, int(mb),
-            int(cdt == torch.bfloat16), bpe, tiles, sig0, sig1, *geom,
-            partial.data_ptr(), G.data_ptr(), stream)
+    # the C launchers run on the current device: make it the tensors'
+    with torch.cuda.device(dev):
+        if grid is None:
+            grid = (grid_shape(E, N, sm) if path == "fma" else
+                    grid_mma(E, N, sm, mma_blocks_per_sm(dev, kind, mb,
+                                                         path)))
+        bpe, tiles = grid
+        partial = torch.empty(E, bpe, 32 * 32, dtype=torch.float32,
+                              device=dev)
+        G = torch.empty(E, 32, 32, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lib = _lib()
+        if path == "mma":
+            err = lib.ba_gram_mma(
+                kind, *ptrs, rts.data_ptr(), E, N, int(mb), bpe, tiles,
+                1.0 / sig0, 1.0 / sig1, *geom,
+                partial.data_ptr(), G.data_ptr(), stream)
+        elif path == "tf32":
+            err = lib.ba_gram_tf32(
+                kind, *ptrs, rts.data_ptr(), E, N, int(mb), bpe, tiles,
+                sig0, sig1, host_reciprocal(sig0), host_reciprocal(sig1),
+                *geom, partial.data_ptr(), G.data_ptr(), stream)
+        else:
+            err = lib.ba_gram(
+                kind, *ptrs, rts.data_ptr(), E, N, int(mb),
+                int(cdt == torch.bfloat16), bpe, tiles, sig0, sig1, *geom,
+                partial.data_ptr(), G.data_ptr(), stream)
     _build.check(lib, KERNEL, err)
     path_counters[path].add()
     return G

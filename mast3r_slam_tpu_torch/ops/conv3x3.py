@@ -194,27 +194,32 @@ def conv3x3(x, w, b=None, *, path=None):
     lib = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     bias = None if b is None else b.data_ptr()
+    ws = wsplit = None
     if path in TILES:
         p = plan(bsz, h, wd, cin, cout, _build.sm_count(x.device),
                  *TILES[path])
-        ws = (torch.empty(p.splits, bsz * h * wd, cout, dtype=torch.float32,
-                          device=x.device) if p.splits > 1 else None)
-        ws_ptr = None if ws is None else ws.data_ptr()
+        if p.splits > 1:
+            ws = torch.empty(p.splits, bsz * h * wd, cout,
+                             dtype=torch.float32, device=x.device)
+        if path == "tf32x3":
+            wsplit = torch.empty(2, 9, cout, cin, dtype=torch.float32,
+                                 device=x.device)
+    ws_ptr = None if ws is None else ws.data_ptr()
+    # the C launchers run on the current device: make it the tensors'
+    with torch.cuda.device(x.device):
         if path == "igemm":
             err = lib.conv3x3_igemm(
                 x.data_ptr(), w.data_ptr(), bias, y.data_ptr(), ws_ptr, bsz,
                 h, wd, cin, cout, p.splits, stream)
-        else:
-            wsplit = torch.empty(2, 9, cout, cin, dtype=torch.float32,
-                                 device=x.device)
+        elif path == "tf32x3":
             err = lib.conv3x3_tf32x3(
                 x.data_ptr(), w.data_ptr(), bias, y.data_ptr(),
                 wsplit.data_ptr(), ws_ptr, bsz, h, wd, cin, cout, p.splits,
                 stream)
-    else:
-        err = lib.conv3x3_nhwc(
-            0 if path == "fma" else 1, x.data_ptr(), w.data_ptr(), bias,
-            y.data_ptr(), bsz, h, wd, cin, cout, stream)
+        else:
+            err = lib.conv3x3_nhwc(
+                0 if path == "fma" else 1, x.data_ptr(), w.data_ptr(), bias,
+                y.data_ptr(), bsz, h, wd, cin, cout, stream)
     _build.check(lib, KERNEL, err)
     counter.add()
     path_counters[path].add()
@@ -231,9 +236,11 @@ def tf32_split_weights(w):
     w = _build.aligned(w.contiguous())
     out = torch.empty(2, 9, cout, cin, dtype=torch.float32, device=w.device)
     lib = _lib()
-    _build.check(lib, KERNEL, lib.conv3x3_tf32_split(
-        w.data_ptr(), out.data_ptr(), cin, cout,
-        torch.cuda.current_stream(w.device).cuda_stream))
+    with torch.cuda.device(w.device):
+        err = lib.conv3x3_tf32_split(
+            w.data_ptr(), out.data_ptr(), cin, cout,
+            torch.cuda.current_stream(w.device).cuda_stream)
+    _build.check(lib, KERNEL, err)
     return out
 
 
@@ -245,9 +252,11 @@ def tf32_round_on_card(x):
     x = _build.aligned(x.contiguous())
     y = torch.empty_like(x)
     lib = _lib()
-    _build.check(lib, KERNEL, lib.conv3x3_tf32_round(
-        x.data_ptr(), y.data_ptr(), x.numel(),
-        torch.cuda.current_stream(x.device).cuda_stream))
+    with torch.cuda.device(x.device):
+        err = lib.conv3x3_tf32_round(
+            x.data_ptr(), y.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, KERNEL, err)
     return y
 
 

@@ -118,11 +118,14 @@ def _pipelined(q, k, v, tables):
     tables = [] if tables is None else [_build.aligned(t.contiguous())
                                         for t in tables]
     tabs = [t.data_ptr() for t in tables] or [None] * 4
-    err = lib.flash_attention_bf16(
-        int(bool(tables)), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        *tabs, out.data_ptr(), None if k_rot is None else k_rot.data_ptr(),
-        strides, b, h, nq, nk, d, 1.0 / math.sqrt(d),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    # the C launcher runs on the current device: make it the tensors'
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bf16(
+            int(bool(tables)), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *tabs, out.data_ptr(),
+            None if k_rot is None else k_rot.data_ptr(), strides, b, h, nq,
+            nk, d, 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, KERNEL, err)
     return o
 
@@ -136,15 +139,18 @@ def _contiguous(entry, q, k, v, tables):
     out = torch.empty_like(tensors[0])
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if entry == "rope":
-        tabs = [_build.aligned(t.contiguous()) for t in tables]
-        err = lib.flash_attention_rope(
-            _DTYPES[q.dtype], *(t.data_ptr() for t in tensors + tabs),
-            out.data_ptr(), b * h, h, nq, nk, d, 1.0 / math.sqrt(d), stream)
-    else:
-        err = lib.flash_attention(
-            _DTYPES[q.dtype], *(t.data_ptr() for t in tensors),
-            out.data_ptr(), b * h, nq, nk, d, 1.0 / math.sqrt(d), stream)
+    tabs = ([_build.aligned(t.contiguous()) for t in tables]
+            if entry == "rope" else [])
+    with torch.cuda.device(q.device):
+        if entry == "rope":
+            err = lib.flash_attention_rope(
+                _DTYPES[q.dtype], *(t.data_ptr() for t in tensors + tabs),
+                out.data_ptr(), b * h, h, nq, nk, d, 1.0 / math.sqrt(d),
+                stream)
+        else:
+            err = lib.flash_attention(
+                _DTYPES[q.dtype], *(t.data_ptr() for t in tensors),
+                out.data_ptr(), b * h, nq, nk, d, 1.0 / math.sqrt(d), stream)
     _build.check(lib, KERNEL, err)
     return out
 

@@ -237,8 +237,9 @@ def rows_blocks_per_sm(device, kind, meas_bf16, vec) -> int:
     path that one SM of ``device`` holds at once, as the CUDA occupancy
     calculator reports it for the built instance (cached)."""
     key = (torch.device(device).index, kind, meas_bf16, vec)
-    return _query(_rows_blocks, key, _lib().ba_gram_rows_blocks_per_sm,
-                  kind, int(meas_bf16), int(vec))
+    with torch.cuda.device(device):
+        return _query(_rows_blocks, key, _lib().ba_gram_rows_blocks_per_sm,
+                      kind, int(meas_bf16), int(vec))
 
 
 def _launch(name, rts, meas, sigma_ray, sigma_dist, compute_dtype,
@@ -274,12 +275,13 @@ def _launch(name, rts, meas, sigma_ray, sigma_dist, compute_dtype,
     else:
         sinv = (1.0 / float(sigma_ray), 1.0 / float(sigma_dist))
     lib = _lib()
-    err = lib.ba_gram_variant(
-        kind, *(ch.data_ptr() for ch in meas), rts.data_ptr(), E, N,
-        int(mb), int(cdt == torch.bfloat16), bpe, tiles,
-        float(sigma_ray), float(sigma_dist), *sinv, partial.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.ba_gram_variant(
+            kind, *(ch.data_ptr() for ch in meas), rts.data_ptr(), E, N,
+            int(mb), int(cdt == torch.bfloat16), bpe, tiles,
+            float(sigma_ray), float(sigma_dist), *sinv, partial.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, KERNEL, err)
     if counter is not None:
         counter.add()
@@ -295,9 +297,11 @@ def rn_mismatches(op, lo, hi, sigma=1.0, device="cuda"):
     count = torch.zeros(1, dtype=torch.int64, device=device)
     lo, hi = (int(np.uint32(b).view(np.int32)) for b in (lo, hi))
     lib = _lib()
-    err = lib.ba_gram_rn_mismatches(
-        op, lo, hi, float(sigma), host_reciprocal(sigma), count.data_ptr(),
-        torch.cuda.current_stream(count.device).cuda_stream)
+    with torch.cuda.device(count.device):
+        err = lib.ba_gram_rn_mismatches(
+            op, lo, hi, float(sigma), host_reciprocal(sigma),
+            count.data_ptr(),
+            torch.cuda.current_stream(count.device).cuda_stream)
     _build.check(lib, KERNEL, err)
     return int(count.item())
 

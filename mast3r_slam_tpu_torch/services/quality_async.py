@@ -20,6 +20,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from mast3r_slam_tpu_torch.parallel import sharding as S
 from mast3r_slam_tpu_torch.services import quality_core
 
 _QUIT = "__quit__"
@@ -154,6 +155,7 @@ class AsynchronousQualityService:
         return batch
 
     def _run(self):
+        S.bind_thread(self.device)
         while True:
             batch = self._collect_batch()
             if batch is None:
@@ -186,7 +188,9 @@ class AsynchronousQualityService:
                             traceback.print_exc()
 
     def _dev(self, x, dtype=torch.float32):
-        return torch.as_tensor(x, device=self.device).to(dtype)
+        """A job's array on the service's device: the tracker's tensors live
+        on the frontend device, and this is their copy."""
+        return torch.as_tensor(x).to(self.device, dtype)
 
     def _args(self, H, W):
         return (H, W, self.ps, self.alpha, self.b0, self.theta0, self.C_thr,

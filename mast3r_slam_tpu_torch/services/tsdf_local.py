@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from mast3r_slam_tpu_torch.ops import geometry, lie
+from mast3r_slam_tpu_torch.parallel import sharding as S
 
 _F32 = np.float32
 
@@ -549,6 +550,7 @@ class TSDFRefiner:
             self._retry_counts[kf] = attempts
 
     def run(self):
+        S.bind_thread(self.device)
         pending = None  # different-keyframe task popped while grouping
         while not self.stop_flag.is_set():
             self._pump_retries()

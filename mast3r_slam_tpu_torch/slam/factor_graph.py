@@ -20,20 +20,31 @@ Pose Jacobian convention: residuals are functions of ``X' = T_i^{-1} T_j X_j``;
 the local point Jacobian ``[I | -skew(X') | X']`` maps to world-frame
 perturbations of pose j through ``Adj(T_i^{-1})``, and ``J_i = -J_j``.
 
+With a backend mesh (``parallel/``) the graph keeps its edge buffers and
+channel cache on the first backend slot's device, each slot builds the
+full-size system from its share of the two-way edges (one K4 / K5 launch
+per slot and system build), and the systems are summed onto the first slot
+in slot order (:func:`_shard_edge_system`, the JAX ``shard_map`` and
+``psum``); solved poses go back to the frontend device.
+
 What differs from the JAX package: the LM loop is a host loop with one sync
 per iteration (same accept / reject and exit rules, so the same iterate
 sequence); a Cholesky failure is read from ``cholesky_ex``'s ``info``; the
 edge buffers are not padded to power-of-two buckets (those existed for
-XLA's compile cache); the cache is updated in place. Mesh sharding and
-the XLA chunked scans have no counterpart here.
+XLA's compile cache), so a mesh solve splits the edges with
+``torch.tensor_split`` whenever there are at least as many as slots; the
+cache is updated in place. The XLA chunked scans have no counterpart here.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from mast3r_slam_tpu_torch.ops import ba_kernels, geometry, lie
+from mast3r_slam_tpu_torch.parallel import sharding as S
 
 _F32 = np.float32
 
@@ -195,6 +206,64 @@ def _accumulate_calib(T, meas, K, ii, jj, edge_mask, free_mask, cap,
     return _assemble(G, 3, Ti, ii, jj, free_mask, cap)
 
 
+def _shard_edge_system(mesh, accum, T, free_mask, ii, jj, edge_mask, meas,
+                       extra_arrays=()):
+    """The dense system ``(H, g, cost)`` of all edges, built per slot of
+    ``mesh`` and summed (the JAX ``_shard_edge_system``: ``shard_map`` over
+    the edge axis and a ``psum``).
+
+    The edges ``ii, jj, edge_mask`` and the channels ``meas`` are split
+    over the slots (``torch.tensor_split``; every slot needs at least one
+    edge); ``T``, ``free_mask`` and ``extra_arrays`` (e.g. K) are
+    replicated. Each slot builds the full-size system from its own edges
+    on its device with ``accum(T, meas, ii, jj, mask, free, *extras)``
+    (the scatter targets are global keyframe slots, so the slots'
+    systems are disjoint contributions); every slot is launched before
+    any is summed, then the systems are added onto the first slot's
+    device in slot order, so the sum is deterministic."""
+    parts = [S.shard_leading(a, mesh) for a in (ii, jj, edge_mask)]
+    meas_parts = [S.shard_leading(ch, mesh) for ch in meas]
+    reps = [S.replicate(a, mesh) for a in (T, free_mask, *extra_arrays)]
+    outs = []
+    for k in range(mesh.size):
+        T_k, free_k, *extras = (r[k] for r in reps)
+        ii_k, jj_k, mask_k = (p[k] for p in parts)
+        outs.append(accum(T_k, tuple(m[k] for m in meas_parts), ii_k, jj_k,
+                          mask_k, free_k, *extras))
+    H, g, cost = outs[0]
+    for H_k, g_k, cost_k in outs[1:]:
+        H = H + H_k.to(mesh.first)
+        g = g + g_k.to(mesh.first)
+        cost = cost + cost_k.to(mesh.first)
+    return H, g, cost
+
+
+def system_error(sys, ref):
+    """Largest error of a dense system ``(H, g, cost)`` against a reference
+    system, each entry relative to its own scale: ``H_ab`` to ``sqrt(H_aa
+    H_bb)``, ``g_a`` to ``sqrt(H_aa cost)``, the cost to itself (the bounds
+    Cauchy-Schwarz gives a sum of whitened Gram blocks, as
+    ``ba_kernels.gram_error`` holds a Gram). An entry whose scale is zero
+    must be exactly zero, else the error is infinite. Checks the sharded
+    system against one build (on the reference's device); never on the
+    solve's path."""
+    H, g, c = (a.to(ref[0].device).double() for a in sys)
+    H0, g0, c0 = (a.double() for a in ref)
+    n = H0.shape[0] * H0.shape[1]
+    H, H0 = H.reshape(n, n), H0.reshape(n, n)
+    g, g0 = g.reshape(n), g0.reshape(n)
+    d = torch.diagonal(H0).clamp_min(0.0).sqrt()
+    c0 = c0.clamp_min(0.0)
+
+    def rel(diff, den):
+        return torch.where(den > 0, diff / den.clamp_min(1e-300),
+                           torch.where(diff > 0, math.inf, 0.0)).max().item()
+
+    return max(rel((H - H0).abs(), d[:, None] * d[None, :]),
+               rel((g - g0).abs(), d * c0.sqrt()),
+               rel((c - c0).abs().reshape(1), c0.reshape(1)))
+
+
 def _solve_system(H, g, free_mask, cap, damping):
     """Damped dense Cholesky step. Returns ``(dx (cap, 7), ok)``.
 
@@ -267,19 +336,27 @@ def _lm_loop(system, T_WC, free_mask, cap, max_iter, delta_thresh, damping):
 
 def gauss_newton_rays(T_WC, meas, ii, jj, edge_mask, free_mask, sigma_ray,
                       sigma_dist, max_iter, delta_thresh, damping=1e-4,
-                      compute_dtype="bfloat16"):
+                      compute_dtype="bfloat16", mesh=None):
     """Global ray-alignment BA over two-way edges ``ii, jj (E,)``.
 
     ``T_WC (cap, 8)``; ``meas``: channels from :func:`precompute_meas_rays`
     (float32 or bfloat16); ``edge_mask (E,)``; ``free_mask (cap,)`` bool.
     Returns ``(T (cap, 8), iterations)``; one K4 launch per system build
-    (1 + iterations)."""
+    (1 + iterations), or with ``mesh`` one per slot and build
+    (:func:`_shard_edge_system`; the inputs and ``T_WC`` on its first
+    slot's device)."""
     cap = T_WC.shape[0]
     cdt = ba_kernels.as_dtype(compute_dtype)
 
-    def system(T):
-        return _accumulate_rays(T, meas, ii, jj, edge_mask, free_mask, cap,
+    def accum(T, meas_l, ii_l, jj_l, mask_l, free_l):
+        return _accumulate_rays(T, meas_l, ii_l, jj_l, mask_l, free_l, cap,
                                 sigma_ray, sigma_dist, compute_dtype=cdt)
+
+    def system(T):
+        if mesh is not None:
+            return _shard_edge_system(mesh, accum, T, free_mask, ii, jj,
+                                      edge_mask, meas)
+        return accum(T, meas, ii, jj, edge_mask, free_mask)
 
     return _lm_loop(system, T_WC, free_mask, cap, max_iter, delta_thresh,
                     damping)
@@ -288,16 +365,22 @@ def gauss_newton_rays(T_WC, meas, ii, jj, edge_mask, free_mask, sigma_ray,
 def gauss_newton_calib(T_WC, meas, K, ii, jj, edge_mask, free_mask, img_size,
                        pixel_border, z_eps, sigma_pixel, sigma_depth,
                        max_iter, delta_thresh, damping=1e-4,
-                       compute_dtype="bfloat16"):
+                       compute_dtype="bfloat16", mesh=None):
     """Global calibrated BA (pixel + log-depth residuals); as
     :func:`gauss_newton_rays` with K5."""
     cap = T_WC.shape[0]
     cdt = ba_kernels.as_dtype(compute_dtype)
 
-    def system(T):
-        return _accumulate_calib(T, meas, K, ii, jj, edge_mask, free_mask,
+    def accum(T, meas_l, ii_l, jj_l, mask_l, free_l, K_l):
+        return _accumulate_calib(T, meas_l, K_l, ii_l, jj_l, mask_l, free_l,
                                  cap, img_size, pixel_border, z_eps,
                                  sigma_pixel, sigma_depth, compute_dtype=cdt)
+
+    def system(T):
+        if mesh is not None:
+            return _shard_edge_system(mesh, accum, T, free_mask, ii, jj,
+                                      edge_mask, meas, extra_arrays=(K,))
+        return accum(T, meas, ii, jj, edge_mask, free_mask, K)
 
     return _lm_loop(system, T_WC, free_mask, cap, max_iter, delta_thresh,
                     damping)
@@ -329,14 +412,27 @@ class FactorGraph:
     across solves and refreshed only for edges whose keyframes' pointmaps
     changed."""
 
-    def __init__(self, model, keyframes, cfg, K=None):
+    def __init__(self, model, keyframes, cfg, K=None, mesh=None,
+                 home_device=None):
         self.model = model
         self.keyframes = keyframes
         self.cfg = cfg["local_opt"]
         self.K = K
+        # ``mesh``: the backend's device slots (``parallel.sharding``); the
+        # edge buffers, the channel cache and the solve live on its first
+        # slot. ``home_device``: where solved poses are committed (the
+        # frontend device of a disjoint topology); None leaves them where
+        # the solve put them.
+        self.mesh = mesh
+        self.home_device = home_device
+        self.device = keyframes.device if mesh is None else mesh.first
+        # which placement each solve took: "sharded" = at least one two-way
+        # edge per slot, the system built over the mesh;
+        # "fallback_single_device" = fewer, on the first backend slot
+        self.solve_stats = {"sharded": 0, "fallback_single_device": 0}
         n_pix = keyframes.h * keyframes.w
         self.n_pix = n_pix
-        dev = keyframes.device
+        dev = self.device
         self.ii = np.zeros((0,), np.int64)
         self.jj = np.zeros((0,), np.int64)
         self.idx_ii2jj = torch.zeros(0, n_pix, dtype=torch.long, device=dev)
@@ -377,9 +473,11 @@ class FactorGraph:
         ``valid_i (N, 1)``, ``Q_i (N, 1)`` the fused confidence); the edge
         then decodes only (i, j) and runs one matcher
         (``model.match_oneway``). A hint for an edge not in the batch is not
-        used. (The JAX package also takes a 3-tuple ``(i, j, idx_j2i)`` that
-        warm-starts the symmetric matcher; nothing produces it, so the port
-        has no such branch.)"""
+        used. Under a mesh the hint instead warm-starts the symmetric
+        matcher's j→i direction of its edge, as in the JAX package (whose
+        mesh path decodes every edge sharded). (The JAX package also takes
+        a 3-tuple ``(i, j, idx_j2i)`` that warm-starts the symmetric
+        matcher; nothing produces it, so the port has no such branch.)"""
         if len(ii_new) == 0:
             return False
         kf = self.keyframes
@@ -412,8 +510,17 @@ class FactorGraph:
                                  f"Q_i), got {len(init_hint)} entries")
             rows = [r for r in range(len(ii_new))
                     if int(ii_new[r]) == hi and int(jj_new[r]) == hj]
-            if rows:
+            if rows and self.mesh is None:
                 reuse_row = rows[0]
+            elif rows:
+                # the tracker's converged i-pixel -> j-pixel match inits the
+                # matcher whose output is idx_jj2ii
+                if init_j2i is None:
+                    init_j2i = torch.arange(n, device=kf.device).expand(
+                        len(ii_new), n)
+                init_j2i = init_j2i.clone().long()
+                init_j2i[rows[0]] = torch.as_tensor(
+                    init_hint[2], device=kf.device).reshape(-1)[:n].long()
 
         if reuse_row is not None:
             r = reuse_row
@@ -463,7 +570,7 @@ class FactorGraph:
                 self.model.match_symmetric(feat_i, pos_i, feat_j, pos_j,
                                            img_hw, init_i2j=init_i2j,
                                            init_j2i=init_j2i))
-            b_idx = torch.arange(idx_i2j.shape[0], device=kf.device)[:, None]
+            b_idx = torch.arange(idx_i2j.shape[0], device=self.device)[:, None]
             Qj = torch.sqrt(Qii[b_idx, idx_i2j] * Qji)
             Qi = torch.sqrt(Qjj[b_idx, idx_j2i] * Qij)
 
@@ -485,7 +592,9 @@ class FactorGraph:
         kidx = np.where(keep)[0]
         self.ii = np.concatenate([self.ii, ii_arr[kidx]])
         self.jj = np.concatenate([self.jj, jj_arr[kidx]])
-        kj = torch.as_tensor(kidx, device=kf.device)
+        # the matches lie where the graph keeps its buffers: on the
+        # model's mesh (its first slot) or, without one, the keyframes'
+        kj = torch.as_tensor(kidx, device=self.device)
         self.idx_ii2jj = torch.cat([self.idx_ii2jj, idx_i2j[kj].long()])
         self.idx_jj2ii = torch.cat([self.idx_jj2ii, idx_j2i[kj].long()])
         self.valid_match_j = torch.cat([self.valid_match_j, valid_j[kj]])
@@ -507,8 +616,7 @@ class FactorGraph:
     def _premeas_rows(self, kind, rows, direction, X, Cavg):
         """Channels of one-way edges ``rows`` in one direction, in the
         storage type ``meas_dtype``."""
-        rj = torch.as_tensor(np.asarray(rows, np.int64),
-                             device=self.keyframes.device)
+        rj = torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
         if direction == "ij":
             g_kf, r_kf = self.ii[rows], self.jj[rows]
             idx, valid, Q = (self.idx_ii2jj[rj], self.valid_match_j[rj],
@@ -546,16 +654,19 @@ class FactorGraph:
         cache = []
 
         def inputs():
-            # built once per call, and only when a row is (re)computed
+            # built once per call, and only when a row is (re)computed; on
+            # the backend's device (a copy of the frontend's buffers in a
+            # disjoint topology), so the gathers run there
             if not cache:
-                X = kf.X
-                Cavg = kf.C / torch.as_tensor(
+                X = kf.X.to(self.device)
+                Cavg = (kf.C.to(self.device) / torch.as_tensor(
                     kf.N, dtype=torch.float32,
-                    device=kf.device).clamp_min(1.0)[:, None, None]
+                    device=self.device).clamp_min(1.0)[:, None, None])
                 if kind == "calib":
                     # both solve sides use ray-constrained points
                     X = geometry.constrain_points_to_ray(
-                        (kf.h, kf.w), X.reshape(-1, self.n_pix, 3), self.K)
+                        (kf.h, kf.w), X.reshape(-1, self.n_pix, 3),
+                        self._place_K())
                 cache.append((X, Cavg))
             return cache[0]
 
@@ -593,7 +704,7 @@ class FactorGraph:
                 continue
             X, Cavg = inputs()
             fresh = self._premeas_rows(kind, stale, direction, X, Cavg)
-            sj = torch.as_tensor(stale, device=kf.device)
+            sj = torch.as_tensor(stale, device=self.device)
             for ch, f in zip(cached, fresh):
                 ch[sj] = f
             ver_cached[stale] = want[stale]
@@ -612,7 +723,7 @@ class FactorGraph:
         """Two-way edges and channels ``(ii2, jj2, mask, meas)``: every
         one-way edge in both directions (the JAX ``_two_way_padded`` without
         its power-of-two padding, which only fed XLA's compile cache)."""
-        dev = self.keyframes.device
+        dev = self.device
         ii2 = torch.as_tensor(np.concatenate([self.ii, self.jj]), device=dev)
         jj2 = torch.as_tensor(np.concatenate([self.jj, self.ii]), device=dev)
         meas = tuple(torch.cat([a, b]) for a, b in
@@ -624,7 +735,34 @@ class FactorGraph:
         pin = int(self.cfg["pin"])
         mask = np.zeros(self.keyframes.capacity, bool)
         mask[unique_kf_idx[pin:]] = True
-        return torch.as_tensor(mask, device=self.keyframes.device)
+        return torch.as_tensor(mask, device=self.device)
+
+    def _solve_mesh(self, n_two_way):
+        """The mesh a solve over ``n_two_way`` edges is sharded over, or
+        None (no mesh, or fewer edges than slots: the first backend slot
+        alone); counted in ``solve_stats``."""
+        if self.mesh is None:
+            return None
+        if n_two_way >= self.mesh.size:
+            self.solve_stats["sharded"] += 1
+            return self.mesh
+        self.solve_stats["fallback_single_device"] += 1
+        return None
+
+    def _place_T(self, T):
+        """The pose table on the solve's device (the first backend slot);
+        :func:`_shard_edge_system` replicates it from there."""
+        return T.to(self.device)
+
+    def _place_K(self):
+        return None if self.K is None else self.K.to(self.device)
+
+    def _home(self, T_new):
+        """Solved poses back on the frontend device, so the tracking
+        computations stay on their own device."""
+        if self.home_device is None:
+            return T_new
+        return T_new.to(self.home_device)
 
     def _solve(self, kind, solver):
         unique = self.get_unique_kf_idx()
@@ -637,8 +775,9 @@ class FactorGraph:
             self._ensure_meas(kind)
             ii2, jj2, mask, meas = self._two_way()
             T_new, self.last_solve_iters = solver(
-                kf.T_WC, meas, ii2, jj2, mask, self._free_mask(unique))
-            kf.T_WC = T_new
+                self._place_T(kf.T_WC), meas, ii2, jj2, mask,
+                self._free_mask(unique), self._solve_mesh(ii2.shape[0]))
+            kf.T_WC = self._home(T_new)
             for i in unique[int(self.cfg["pin"]):]:
                 kf.version[int(i)] += 1
 
@@ -648,11 +787,12 @@ class FactorGraph:
     def solve_GN_rays(self):
         c = self.cfg
 
-        def solver(T, meas, ii2, jj2, mask, free):
+        def solver(T, meas, ii2, jj2, mask, free, mesh):
             return gauss_newton_rays(
                 T, meas, ii2, jj2, mask, free, float(c["sigma_ray"]),
                 float(c["sigma_dist"]), int(c["max_iters"]),
-                float(c["delta_norm"]), compute_dtype=self._compute_dtype())
+                float(c["delta_norm"]), compute_dtype=self._compute_dtype(),
+                mesh=mesh)
 
         self._solve("rays", solver)
 
@@ -660,12 +800,12 @@ class FactorGraph:
         c = self.cfg
         kf = self.keyframes
 
-        def solver(T, meas, ii2, jj2, mask, free):
+        def solver(T, meas, ii2, jj2, mask, free, mesh):
             return gauss_newton_calib(
-                T, meas, self.K, ii2, jj2, mask, free, (kf.h, kf.w),
+                T, meas, self._place_K(), ii2, jj2, mask, free, (kf.h, kf.w),
                 float(c["pixel_border"]), float(c["depth_eps"]),
                 float(c["sigma_pixel"]), float(c["sigma_depth"]),
                 int(c["max_iters"]), float(c["delta_norm"]),
-                compute_dtype=self._compute_dtype())
+                compute_dtype=self._compute_dtype(), mesh=mesh)
 
         self._solve("calib", solver)

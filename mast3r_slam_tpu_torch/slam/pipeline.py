@@ -2,10 +2,13 @@
 backend loop (counterpart of ``mast3r_slam_tpu/slam/pipeline.py``).
 
 The backend runs as a host thread (default) or inline via
-:meth:`Backend.step` in ``single_thread`` mode. The thread shares the
-frontend's CUDA device and its default stream, as do the service threads
-(separate streams are ROADMAP queue 1 item 4); every read or write of
-keyframe tensors goes under ``keyframes.lock``.
+:meth:`Backend.step` in ``single_thread`` mode. The thread's current CUDA
+device is the backend's (the factor graph's device: the first backend slot
+of a disjoint topology, else the frontend's); each service thread makes its
+own role's device current. On one card every role shares the card and its
+default stream, serialized, as every role shares the one chip in the JAX
+package. Every read or write of keyframe tensors goes under
+``keyframes.lock``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 
 from mast3r_slam_tpu_torch.data.image_ops import resize_img
 from mast3r_slam_tpu_torch.ops import lie
+from mast3r_slam_tpu_torch.parallel import sharding as S
 from mast3r_slam_tpu_torch.slam.frame import Frame, KeyframeBuffer, Mode, States
 
 
@@ -137,6 +141,7 @@ class Backend:
 
     def _loop(self):
         try:
+            S.bind_thread(self.graph.device)
             while not self.stop_flag.is_set():
                 if not self.step():
                     time.sleep(0.005)

@@ -192,9 +192,9 @@ def _both_cli_runs(setup, clip, tag):
     try:
         states, j_modes = [], []
 
-        # the port runs on one device (multi-device is ROADMAP queue 1 item 4):
-        # the JAX CLI gets the single-device topology, not the test
-        # process's 8 virtual CPU devices
+        # the port runs its one-slot layout here (device="cpu"): the JAX
+        # CLI gets the single-device topology, not the test process's 8
+        # virtual CPU devices (the 8-slot run: test_torch_parallel.py)
         topology.plan_topology = lambda devices=None: saved[4](
             jax.devices()[:1])
 

@@ -48,7 +48,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "ops/gram_variants.py", "bench/gram_kernel_bench.py",
                 "services/quality_core.py", "services/quality_async.py",
                 "services/tsdf_local.py", "services/tsdf_global.py",
-                "services/native_tsdf.py"):
+                "services/native_tsdf.py", "parallel/__init__.py",
+                "parallel/sharding.py", "parallel/topology.py"):
         assert f"mast3r_slam_tpu_torch/{mod}" in names, mod
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
@@ -95,6 +96,34 @@ def test_kernel_sources_exist_and_build_names_are_content_keyed():
     assert GV.KERNEL == BA.KERNEL
     assert 'extern "C" int ba_gram_variant' in (
         _build.CSRC / f"{BA.KERNEL}.cu").read_text()
+
+
+def test_kernel_setup_is_per_device():
+    """Each launcher raises its kernel's dynamic shared-memory limit once
+    per device (``csrc/device_once.cuh``), never once per process: the
+    attribute belongs to the current device, so a process-wide flag would
+    leave a second card at the default 48 KB. The shared header is part of
+    every library's build key."""
+    header = (_build.CSRC / "device_once.cuh").read_text()
+    assert "cudaGetDevice" in header and "std::atomic" in header
+    for name in (FA.KERNEL, C3.KERNEL, BA.KERNEL):
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert '#include "device_once.cuh"' in text
+        assert "static bool" not in text
+        sites = text.count("cudaFuncSetAttribute(")
+        assert sites >= 1 and text.count("PerDeviceOnce") >= sites, name
+
+
+def test_library_key_covers_the_shared_header(monkeypatch, tmp_path):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path(C3.KERNEL)
+    (csrc / "device_once.cuh").write_text(
+        (csrc / "device_once.cuh").read_text() + "\n// edited\n")
+    assert _build.library_path(C3.KERNEL) != before
 
 
 def test_k1_wrapper_on_cpu_is_the_plain_version():
