@@ -109,7 +109,18 @@ then:
    sharded solve, launches from the run's decoder calls and system
    builds, its medians beside the cli phase's one-slot run) and the
    fallback of a 3-slot backend with one edge; with two or more cards
-   the same on the distinct cards, else it says that layout was not run.
+   the same on the distinct cards, else it says that layout was not run;
+15. (phase ``viz``) runs the CLI with its viewer (no ``--no-viz``) on the
+   cli phase's clip: launches from its own calls, and the modes,
+   keyframes and edges of the ``--no-viz`` run; then, on that run's
+   keyframe buffer against a CPU copy, the software renderer
+   (``viz/render.py``) at 480x640 and 720x1280 (99.9% of pixels equal,
+   median ms of 20, points splatted, lock hold) and the GL viewer's data
+   path (``_refresh_dirty``, ``_gather_map``, ``_camera_mvp``, the
+   overlay; ms and lock hold); one frame through EGL where OpenGL
+   imports, else a line that the GL pipeline was not exercised and why;
+   and ``two_view_infer`` / ``match_asymmetric`` at 384x512, bit for bit
+   their compositions, with their K1 / K2 launches.
 
 In every phase that runs a service, an exception in a service worker (which
 prints it and carries on) fails the run, and the global TSDF must run on
@@ -1939,6 +1950,10 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
     return out, launches, rec
 
 
+def graph_edges(g):
+    return [(int(i), int(j)) for i, j in zip(g.ii, g.jj)]
+
+
 def cli_parts(rec):
     return {k: statistics.median(v) if v else 0.0
             for k, v in rec["ms"].items()}
@@ -1991,7 +2006,8 @@ def phase_cli(torch, FA, C3, BA, workdir):
           f"{out['quality'].processed_jobs} jobs, refiner {rs})")
     ms = rec["ms"]
     parts = cli_parts(rec)
-    summary = dict(tracked_ms=parts["track"], step_ms=parts["step"],
+    summary = dict(modes=out["modes"], edge_pairs=graph_edges(g),
+                   tracked_ms=parts["track"], step_ms=parts["step"],
                    retrieval_ms=parts["retrieval"],
                    add_factors_ms=parts["add_factors"],
                    solve_ms=parts["solve"], keyframes=len(kf),
@@ -3231,10 +3247,329 @@ def phase_topology(torch, FA, C3, BA, workdir, cli=None, device="cuda"):
     torch.cuda.empty_cache()
     return out
 
+VIZ_RENDER_HW = ((480, 640), (720, 1280))   # the JAX default, the viewer's
+VIZ_AGREE = 0.999                          # share of pixels, card vs CPU
+VIZ_TOL = 1e-5                             # viewer points and normals
+VIZ_GL_HW = (240, 320)
+
+
+class TimedLock:
+    """A stand-in for a buffer's ``RLock`` that records how long each
+    outermost hold lasted (s)."""
+
+    def __init__(self, lock):
+        self.lock, self.depth, self.held = lock, 0, []
+
+    def __enter__(self):
+        self.lock.acquire()
+        self.depth += 1
+        if self.depth == 1:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.depth -= 1
+        if self.depth == 0:
+            self.held.append(time.perf_counter() - self.t0)
+        self.lock.release()
+
+
+@contextlib.contextmanager
+def timed_lock(buf):
+    saved = buf.lock
+    buf.lock = TimedLock(saved)
+    try:
+        yield buf.lock.held
+    finally:
+        buf.lock = saved
+
+
+def cpu_copy(torch, kf, states):
+    """The keyframe buffer (what the viewer and the renderer read) and the
+    controller state's edges and current frame, copied to the CPU."""
+    from mast3r_slam_tpu_torch.slam.frame import Frame, KeyframeBuffer, States
+
+    c = KeyframeBuffer(kf.h, kf.w, capacity=kf.capacity, feat_dim=8,
+                       device="cpu", model_hw=kf.model_hw)
+    n = len(kf)
+    for key in ("T_WC", "X", "C"):
+        getattr(c, key)[:n] = getattr(kf, key)[:n].cpu()
+    c.N[:], c.n_size, c.uimg = kf.N.copy(), n, list(kf.uimg)
+    cs = States()
+    cs.set_edges(states.edges_ii, states.edges_jj)
+    cur = states.get_frame()
+    if cur is not None:
+        f = Frame(frame_id=cur.frame_id, img=None, img_shape=cur.img_shape,
+                  img_true_shape=cur.img_true_shape, uimg=cur.uimg,
+                  T_WC=cur.T_WC.cpu())
+        f.X_canon = None if cur.X_canon is None else cur.X_canon.cpu()
+        cs.set_frame(f)
+    return c, cs
+
+
+def card_ms(torch, fn):
+    """``_host_ms`` of ``fn`` followed by a card sync."""
+    return _host_ms(lambda: (fn(), torch.cuda.synchronize()))
+
+
+def same(torch, a, b, tol=0.0):
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    return a.shape == b.shape and bool(torch.allclose(
+        a, b, rtol=0, atol=tol, equal_nan=True))
+
+
+def viz_renderer(torch, kf, states, kf_cpu, states_cpu):
+    """``render_state`` on the card's buffer against the CPU copy at each
+    size, with the median ms of 20 on the card, one CPU call's ms, the
+    points splatted and the lock hold."""
+    from mast3r_slam_tpu_torch.viz import render as R
+
+    out = {}
+    splatted = []
+    splat = R.splat_points
+
+    def counting(img, zbuf, P, *a):
+        splatted.append(int(P.shape[0]))
+        return splat(img, zbuf, P, *a)
+
+    for hw in VIZ_RENDER_HW:
+        R.splat_points = counting
+        try:
+            with timed_lock(kf) as held:
+                got = R.render_state(kf, states, img_hw=hw)
+            with one_cpu_thread(torch):
+                t0 = time.perf_counter()
+                want = R.render_state(kf_cpu, states_cpu, img_hw=hw)
+                cpu_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            R.splat_points = splat
+        agree = (got.cpu() == want).all(-1).float().mean().item()
+        lit = (want > 0).any(-1).float().mean().item()
+        check(got.device.type == "cuda" and agree >= VIZ_AGREE and lit > 0,
+              f"viz render {hw}: {agree:.6f} of pixels agree card vs CPU "
+              f"(need {VIZ_AGREE}), {lit:.4f} lit")
+        ms = card_ms(torch, lambda: R.render_state(kf, states, img_hw=hw))
+        out[hw] = dict(ms=ms, cpu_ms=cpu_ms, agree=agree, lit=lit,
+                       points=splatted[-1], lock_ms=max(held) * 1e3)
+        log(f"viz render_state {hw[0]}x{hw[1]}: {ms:.2f} ms on the card "
+            f"(median of {HOST_REPEATS}; one CPU call {cpu_ms:.1f} ms), "
+            f"{splatted[-1]} points splatted, {agree:.6f} of pixels equal "
+            f"card vs CPU, {lit:.4f} lit, lock held {max(held) * 1e3:.3f} ms")
+    return out
+
+
+def viz_data_path(torch, kf, states, kf_cpu, states_cpu, cfg):
+    """The GL viewer's data path without GL on the card's buffer against
+    the CPU copy: ``_refresh_dirty`` (all keyframes dirty), ``_gather_map``,
+    ``_camera_mvp`` and the overlay's triangles, with ms per call and the
+    lock hold of ``_refresh_dirty``."""
+    from mast3r_slam_tpu_torch.viz.viewer import Viewer
+
+    n = len(kf)
+    card, host = Viewer(kf, states, cfg), Viewer(kf_cpu, states_cpu, cfg)
+    for v in (card, host):
+        v.conf_threshold = 1.0
+        v.keyframes.is_dirty[:n] = True
+    with one_cpu_thread(torch):
+        host._refresh_dirty()
+    with timed_lock(kf) as held:
+        card._refresh_dirty()
+    check(sorted(card._kf_points) == list(range(n)),
+          f"viz _refresh_dirty: keyframes {sorted(card._kf_points)}")
+    for i in range(n):
+        for name, a, b, tol in zip(("X", "C/N", "colour", "T_WC", "normals"),
+                                   card._kf_points[i], host._kf_points[i],
+                                   (0, 0, 0, 0, VIZ_TOL)):
+            check(a.device.type == "cpu" and same(torch, a, b, tol),
+                  f"viz _refresh_dirty keyframe {i}: {name} card vs CPU")
+    got, want = card._gather_map(), host._gather_map()
+    check(len(got[0]) > 0 and all(
+        same(torch, a, b, tol) for a, b, tol in zip(got, want, (
+            VIZ_TOL, 0, VIZ_TOL))), "viz _gather_map: card vs CPU")
+    check(same(torch, card._camera_mvp(), host._camera_mvp()),
+          "viz _camera_mvp: card vs CPU")
+    check(all(same(torch, a, b) for a, b in zip(
+        card.overlay.triangles(card.width, card.height),
+        host.overlay.triangles(host.width, host.height))),
+        "viz overlay triangles: card vs CPU")
+
+    def refresh():
+        kf.is_dirty[:n] = True
+        card._refresh_dirty()
+
+    with timed_lock(kf) as held_timed:
+        refresh_ms = card_ms(torch, refresh)
+    out = dict(refresh_ms=refresh_ms,
+               refresh_lock_ms=max(held_timed) * 1e3,
+               first_lock_ms=max(held) * 1e3,
+               gather_ms=card_ms(torch, card._gather_map),
+               mvp_ms=card_ms(torch, card._camera_mvp),
+               overlay_ms=card_ms(torch, lambda: card.overlay.triangles(
+                   card.width, card.height)),
+               points=len(got[0]), keyframes=n)
+    log(f"viz data path ({n} keyframes, {len(got[0])} points above conf "
+        f"1.0): _refresh_dirty {out['refresh_ms']:.2f} ms (lock held at "
+        f"most {out['refresh_lock_ms']:.3f} ms; first call "
+        f"{out['first_lock_ms']:.3f})"
+        f", _gather_map {out['gather_ms']:.2f} ms, _camera_mvp "
+        f"{out['mvp_ms']:.4f} ms, overlay.triangles {out['overlay_ms']:.3f} "
+        f"ms (medians of {HOST_REPEATS}); card vs CPU: points and normals "
+        f"within {VIZ_TOL}, colours, matrices and triangles equal")
+    return out
+
+
+def viz_gl(torch, kf, states, cfg, cli_viewer):
+    """The GL pipeline, where it can run: one frame through EGL with
+    pixels landed. Returns why it was not exercised, or None."""
+    import importlib.util
+
+    from mast3r_slam_tpu_torch.viz.viewer import Viewer
+
+    if cli_viewer.error is not None:
+        log(f"viz: the CLI's viewer stopped in init_gl: "
+            f"{type(cli_viewer.error).__name__}: {cli_viewer.error}")
+    else:
+        log(f"viz: the CLI's viewer drew {cli_viewer.frames} frames")
+    if importlib.util.find_spec("OpenGL") is None:
+        why = "PyOpenGL is not installed on this machine"
+    else:
+        v = Viewer(kf, states, cfg, width=VIZ_GL_HW[1], height=VIZ_GL_HW[0],
+                   headless=True)
+        try:
+            v.init_gl()
+        except Exception as e:
+            why = f"no EGL context: {type(e).__name__}: {e}"
+        else:
+            try:
+                v.render_frame()
+                img = v.ctx.read_pixels()
+            finally:
+                v.ctx.destroy()
+            bg = (int(0.05 * 255), int(0.05 * 255), int(0.08 * 255))
+            lit = float((abs(img.astype(int) - bg).sum(-1) > 10).mean())
+            check(lit > 0.01, f"viz GL: {lit:.4f} of pixels drawn")
+            log(f"viz GL: one {VIZ_GL_HW[0]}x{VIZ_GL_HW[1]} frame through "
+                f"EGL, {lit:.4f} of pixels drawn")
+            return None
+    log(f"viz: the GL pipeline was NOT exercised ({why}); the renderer "
+        f"and the viewer's data path ran on the card")
+    return why
+
+
+def viz_model_entries(torch, FA, C3, BA, model, device="cuda"):
+    """``two_view_infer`` and ``match_asymmetric`` at 384x512 on the card:
+    bit for bit their plain compositions, with their K1 / K2 launches."""
+    from mast3r_slam_tpu_torch.models import mast3r as M
+    from mast3r_slam_tpu_torch.ops import matching
+    from mast3r_slam_tpu_torch.slam.frame import Frame
+
+    imgs = [torch.from_numpy(f).to(device)
+            for f in synthetic_frames(2, IMG_HW)]
+    p, cfg = model.params, model.cfg
+    want_one = {"K1": K1_PER_PAIR + K1_PER_DECODE, "K2": 2 * K2_PER_HEAD}
+    reset_counters(FA, C3, BA)
+    got = M.two_view_infer(p, cfg, imgs[0][None], imgs[1][None])
+    torch.cuda.synchronize()
+    two_view = launch_counts(FA, C3, BA)
+    f1, p1 = M.encode_image(p, cfg, imgs[0][None])
+    f2, p2 = M.encode_image(p, cfg, imgs[1][None])
+    want = M.decode_heads(p, cfg, f1, p1, f2, p2, IMG_HW)
+    check(all(torch.equal(a[k], b[k]) for a, b in zip(got, want)
+              for k in ("pts3d", "conf", "desc", "desc_conf")),
+          "viz two_view_infer: differs from decode_heads(encode_image x2)")
+    check({k: two_view[k] for k in want_one} == want_one
+          and two_view["K2 igemm"] == want_one["K2"],
+          f"viz two_view_infer launches {two_view}, want {want_one}")
+    frames = [Frame(frame_id=k, img=im, img_shape=IMG_HW,
+                    img_true_shape=IMG_HW) for k, im in enumerate(imgs)]
+    reset_counters(FA, C3, BA)
+    got = model.match_asymmetric(*frames)
+    torch.cuda.synchronize()
+    asym = launch_counts(FA, C3, BA)
+    X, C, D, Q = model.asymmetric_inference(*frames)
+    idx, valid = matching.match(X[:1], X[1:], D[:1], D[1:],
+                                **model._match_kw())
+    n = IMG_HW[0] * IMG_HW[1]
+    want = (idx, valid, *(a.reshape(2, n, -1)[k][None] for k in (0, 1)
+                          for a in (X, C, Q)))
+    check(len(got) == 8 and all(torch.equal(a, b)
+                                for a, b in zip(got, want)),
+          "viz match_asymmetric: differs from asymmetric_inference + match")
+    check({k: asym[k] for k in want_one} == want_one,
+          f"viz match_asymmetric launches {asym}, want {want_one}")
+    log(f"viz two_view_infer / match_asymmetric at {IMG_HW[0]}x{IMG_HW[1]}:"
+        f" bit for bit their compositions; launches K1 {two_view['K1']} / "
+        f"{asym['K1']}, K2 {two_view['K2']} / {asym['K2']} (valid matches "
+        f"{float(valid.float().mean()):.4f})")
+    return {"two_view": two_view, "match_asymmetric": asym}
+
+
+def phase_viz(torch, FA, C3, BA, workdir, cli=None, device="cuda"):
+    """The port's CLI with its viewer (no ``--no-viz``) at full ViT-L width
+    on the cli phase's 24-frame clip with base.yaml's services: launches
+    from its own calls, and the modes, keyframes and edges of the clip's
+    ``--no-viz`` run (the cli phase's main run, or one made here). Then, on
+    that run's keyframe buffer on cuda:0 against a CPU copy: the software
+    renderer at 480x640 and 720x1280 and the GL viewer's data path, with
+    their times and lock holds; the GL pipeline through EGL where OpenGL
+    imports (else a line says it was not exercised, and why); and
+    ``two_view_infer`` / ``match_asymmetric`` at 384x512."""
+    from mast3r_slam_tpu_torch.utils.config import load_config
+
+    work = Path(workdir)
+    clip = work / "smoke_tum_clip"
+    if not (clip / "rgb.txt").exists():
+        write_clip(clip, CLI_FRAMES)
+    cfg_path = write_config(work / "cli.yaml")
+    cfg = load_config(cfg_path)
+    model = tied_model(cfg, device)
+    base = ["--dataset", str(clip), "--config", cfg_path]
+    t0 = time.perf_counter()
+    out, launches, rec = run_cli(torch, FA, C3, BA, model, work,
+                                 [*base, "--save-as", "viz"], "viewer")
+    wall = time.perf_counter() - t0
+    viewer, kf, states = out["viewer"], out["keyframes"], out["states"]
+    check(viewer is not None and not viewer.is_alive(),
+          "viz: the CLI did not start and stop its viewer")
+    if cli is None:
+        ref, _, ref_rec = run_cli(torch, FA, C3, BA, model, work,
+                                  [*base, "--no-viz", "--save-as",
+                                   "viz_off"], "viewer off")
+        parts = cli_parts(ref_rec)
+        cli = dict(modes=ref["modes"], edge_pairs=graph_edges(ref["graph"]),
+                   keyframes=len(ref["keyframes"]),
+                   tracked_ms=parts["track"], step_ms=parts["step"])
+        del ref
+    got = dict(modes=out["modes"], edge_pairs=graph_edges(out["graph"]),
+               keyframes=len(kf))
+    parts = cli_parts(rec)
+    for key in got:
+        check(got[key] == cli[key], f"viz: the run with the viewer has "
+              f"{key} {got[key]}, the --no-viz run {cli[key]}")
+    log(f"viz: the CLI with its viewer ran {len(out['modes'])} frames in "
+        f"{wall:.1f} s: {len(kf)} keyframes, {len(got['edge_pairs'])} "
+        f"edges, modes as the --no-viz run; launches K1 {launches['K1']}, "
+        f"K2 {launches['K2']}, K4 {launches['K4']}; median tracked frame "
+        f"{parts['track']:.1f} ms, backend step {parts['step']:.1f} ms "
+        f"(--no-viz run: {cli['tracked_ms']:.1f} / {cli['step_ms']:.1f})")
+    kf_cpu, states_cpu = cpu_copy(torch, kf, states)
+    summary = dict(launches=launches, keyframes=len(kf),
+                   tracked_ms=parts["track"], step_ms=parts["step"],
+                   render=viz_renderer(torch, kf, states, kf_cpu,
+                                       states_cpu),
+                   data=viz_data_path(torch, kf, states, kf_cpu, states_cpu,
+                                      cfg),
+                   gl_not_exercised=viz_gl(torch, kf, states, cfg, viewer))
+    del out, kf, states, kf_cpu, states_cpu
+    summary.update(viz_model_entries(torch, FA, C3, BA, model, device))
+    del model
+    torch.cuda.empty_cache()
+    return summary
+
 
 PHASES = ("data", "kernels", "main", "event", "cross", "ba_kernels",
           "gram_bench", "oracle", "cli", "cli_cross", "cli_datasets", "reloc",
-          "services", "topology")
+          "services", "topology", "viz")
 
 
 def main():
@@ -3309,6 +3644,7 @@ def main():
         datasets = run("cli_datasets", phase_cli_datasets, torch, FA, C3, BA,
                        work)
         run("topology", phase_topology, torch, FA, C3, BA, work, cli)
+        viz = run("viz", phase_viz, torch, FA, C3, BA, work, cli)
     reloc = run("reloc", phase_reloc, torch, FA, C3, BA)
     services = run("services", phase_services, torch)
     log(f"phase times (s): {timings}")
@@ -3333,6 +3669,21 @@ def main():
         f"integrate {services['integrate_ms']:.1f} ms per keyframe (host), "
         f"blocks refined / rejected {services['refined']} / "
         f"{services['rejected']}; on {smi}")
+    r, d = viz["render"], viz["data"]
+    log(f"viz: CLI with its viewer, launches K1 {viz['launches']['K1']} K2 "
+        f"{viz['launches']['K2']} K4 {viz['launches']['K4']} on "
+        f"{viz['keyframes']} keyframes; render_state ms "
+        + ", ".join(f"{h}x{w} {r[h, w]['ms']:.2f} ({r[h, w]['points']} "
+                    f"points, lock {r[h, w]['lock_ms']:.3f})"
+                    for h, w in VIZ_RENDER_HW)
+        + f"; _refresh_dirty {d['refresh_ms']:.2f} (lock "
+        f"{d['refresh_lock_ms']:.3f}), _gather_map {d['gather_ms']:.2f}; "
+        f"two_view_infer launches K1 {viz['two_view']['K1']} K2 "
+        f"{viz['two_view']['K2']}, match_asymmetric K1 "
+        f"{viz['match_asymmetric']['K1']} K2 "
+        f"{viz['match_asymmetric']['K2']}; GL pipeline "
+        + ("exercised" if viz["gl_not_exercised"] is None else
+           f"not exercised ({viz['gl_not_exercised']})") + f"; on {smi}")
     log(f"data: host ms per EuRoC remap {data['remap_ms']:.2f} (gray; "
         f"x3 {data['remap_rgb_ms']:.2f}), per "
         f"1200x680 Replica decode {data['decode_ms']:.2f} (smooth, "

@@ -1,7 +1,7 @@
 """MASt3R-SLAM on PyTorch/CUDA — the command-line entry point.
 
     python -m mast3r_slam_tpu_torch.main --dataset <path> \\
-        --config config/base.yaml --no-viz \\
+        --config config/base.yaml [--no-viz] \\
         [--calib intrinsics.yaml] [--save-as default] [--weights <.npz>] \\
         [--retrieval-weights <.pth|.npz>] [--retrieval-codebook <.pkl|.npy|.npz>] \\
         [--max-frames N] [--checkpoint state.npz] [--resume state.npz] \\
@@ -21,8 +21,10 @@ decode and BA sharded over a power-of-two set of the others, the services
 on the rest); from Python, ``devices`` gives that layout a slot list of
 its own, e.g. five slots of one card or eight of the CPU.
 
-Refused until ported: the viewer (a run without ``--no-viz``, ROADMAP
-queue 1 item 5).
+Without ``--no-viz`` the viewer (``viz/viewer.py``) runs as a thread: an
+OpenGL window through glfw, or surfaceless EGL without a display. Where no
+GL stack imports (PyOpenGL, and glfw or EGL), it prints ``[viewer]
+disabled (...)`` and the run goes on without it, as the JAX viewer does.
 """
 
 from __future__ import annotations
@@ -51,6 +53,12 @@ from mast3r_slam_tpu_torch.slam.tracker import FrameTracker
 from mast3r_slam_tpu_torch.utils import tictoc
 from mast3r_slam_tpu_torch.utils.checkpoint import load_state, save_state
 from mast3r_slam_tpu_torch.utils.config import load_config, read_yaml
+from mast3r_slam_tpu_torch.viz.viewer import Viewer
+
+
+# how long the shutdown waits for the viewer thread to draw its last frame
+# and release its GL context
+VIEWER_JOIN_S = 10.0
 
 
 def parse_args(argv=None):
@@ -76,14 +84,6 @@ def parse_args(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="per-section timing report at exit (utils.tictoc)")
     return ap.parse_args(argv)
-
-
-def refuse_unported(no_viz):
-    """Stop on what the port does not have yet, naming its ROADMAP queue 1
-    item: the viewer."""
-    if not no_viz:
-        raise SystemExit("not ported yet (ROADMAP queue 1): the viewer "
-                         "(item 5). Pass --no-viz.")
 
 
 def model_config(cfg) -> M.MASt3RConfig:
@@ -148,13 +148,13 @@ def main(argv=None, device="cuda", model=None, devices=None):
     first slot is the frontend's); ``model`` (a ``MASt3RInference``)
     replaces :func:`build_model` and is placed on the run's backend mesh.
     Returns a summary dict (keyframes, graph, frames processed, the
-    per-frame mode sequence, the services, the topology)."""
+    per-frame mode sequence, the services, the topology, the viewer or
+    None)."""
     args = parse_args(argv)
     topo = plan_topology(device_slots(device, devices))
     device = topo.frontend_device
     mesh = topo.backend_mesh
     cfg = load_config(args.config)
-    refuse_unported(args.no_viz)
     single_thread = bool(cfg.get("single_thread", False))
 
     dataset = load_dataset(args.dataset, cfg)
@@ -245,6 +245,11 @@ def main(argv=None, device="cuda", model=None, devices=None):
                       tsdf_manager=tsdf_manager)
     if not single_thread:
         backend.start()
+
+    viewer = None
+    if not args.no_viz:
+        viewer = Viewer(keyframes, states, cfg)
+        viewer.start()
 
     # ---------------- frontend loop ---------------------------------------
     i = 0
@@ -352,6 +357,9 @@ def main(argv=None, device="cuda", model=None, devices=None):
     tsdf_manager.shutdown()
     if quality:
         quality.shutdown()
+    if viewer is not None:
+        viewer.should_close.set()
+        viewer.join(timeout=VIEWER_JOIN_S)
 
     if args.checkpoint:
         save_state(args.checkpoint, keyframes, graph, frame_idx=i)
@@ -374,7 +382,7 @@ def main(argv=None, device="cuda", model=None, devices=None):
     return {"keyframes": keyframes, "graph": graph, "frames_processed": i,
             "modes": modes, "states": states, "retrieval": retrieval,
             "quality": quality, "refiner": refiner,
-            "tsdf_manager": tsdf_manager, "topo": topo}
+            "tsdf_manager": tsdf_manager, "topo": topo, "viewer": viewer}
 
 
 if __name__ == "__main__":

@@ -117,6 +117,20 @@ class MASt3RInference:
                for k in ("pts3d", "conf", "desc", "desc_conf")]
         return tuple(_decimate(a, self.ds) for a in out)
 
+    def match_asymmetric(self, frame_i, frame_j, idx_i2j_init=None):
+        """Frame-to-keyframe decode and match. Returns ``(idx_i2j,
+        valid_match_j, Xii, Cii, Qii, Xji, Cji, Qji)`` with the pointmaps
+        flattened to (1, N, ...)."""
+        X, C, D, Q = self.asymmetric_inference(frame_i, frame_j)
+        h, w = X.shape[1:3]
+        idx_i2j, valid_match_j = matching.match(
+            X[:1], X[1:], D[:1], D[1:], idx_1_to_2_init=idx_i2j_init,
+            **self._match_kw())
+        Xf, Cf, Qf = (a.reshape(2, h * w, -1) for a in (X, C, Q))
+        return (idx_i2j, valid_match_j,
+                Xf[0][None], Cf[0][None], Qf[0][None],
+                Xf[1][None], Cf[1][None], Qf[1][None])
+
     def decode_symmetric_batch(self, feat_i, pos_i, feat_j, pos_j, img_hw):
         """Both decode directions of B pairs in one batched call. Returns
         (X, C, D, Q), each with leading dim 4 over [ii, ji, jj, ij] and

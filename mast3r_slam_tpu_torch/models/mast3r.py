@@ -507,3 +507,17 @@ def decode_heads(params, cfg: MASt3RConfig, feat1, pos1, feat2, pos2,
     """Decoder + both heads for an (i, j) feature pair → (res1, res2)."""
     d1, d2 = decode_pair(params, cfg, feat1, pos1, feat2, pos2)
     return downstream_heads(params, cfg, d1, d2, img_hw)
+
+
+# The JAX package's jitted name for the encoder pass.
+encode = encode_image
+
+
+def two_view_infer(params, cfg: MASt3RConfig, img1, img2):
+    """Encode both images and decode the pair once → (res1, res2) in view
+    1's frame: the asymmetric inference of frame-to-keyframe tracking.
+    ``params`` come from :func:`prepare_params`."""
+    feat1, pos1 = encode(params, cfg, img1)
+    feat2, pos2 = encode(params, cfg, img2)
+    img_hw = (img1.shape[1], img1.shape[2])
+    return decode_heads(params, cfg, feat1, pos1, feat2, pos2, img_hw)

@@ -64,6 +64,39 @@ def quat_to_matrix(q):
     return m.reshape(q.shape[:-1] + (3, 3))
 
 
+def matrix_to_quat(R):
+    """Rotation matrix → unit quaternion (xyzw), branchless Shepperd's
+    method: the four candidate constructions, the one with the largest
+    diagonal term taken."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def half_root(x):
+        return torch.sqrt(x.clamp_min(1e-12)) / 2.0
+
+    qw0 = half_root(1.0 + tr)
+    q0 = torch.stack([m21 - m12, m02 - m20, m10 - m01, 4.0 * qw0 * qw0],
+                     -1) / (4.0 * qw0[..., None])
+    qx1 = half_root(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([4.0 * qx1 * qx1, m01 + m10, m02 + m20, m21 - m12],
+                     -1) / (4.0 * qx1[..., None])
+    qy2 = half_root(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([m01 + m10, 4.0 * qy2 * qy2, m12 + m21, m02 - m20],
+                     -1) / (4.0 * qy2[..., None])
+    qz3 = half_root(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([m02 + m20, m12 + m21, 4.0 * qz3 * qz3, m10 - m01],
+                     -1) / (4.0 * qz3[..., None])
+    scores = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22,
+                          m22 - m00 - m11], -1)
+    best = scores.argmax(-1)
+    cands = torch.stack([q0, q1, q2, q3], dim=-2)
+    q = torch.gather(cands, -2, best[..., None, None].expand(
+        *best.shape, 1, 4))[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
 def skew(v):
     """``(..., 3) → (..., 3, 3)`` cross-product matrix."""
     x, y, z = v.unbind(-1)
@@ -282,3 +315,39 @@ def adjoint(T):
     row2 = torch.cat([T.new_zeros(batch + (1, 6)),
                       T.new_ones(batch + (1, 1))], dim=-1)
     return torch.cat([row0, row1, row2], dim=-2)
+
+
+def normalize(T):
+    """Re-normalize the quaternion part (drift after many composes)."""
+    q = quaternion(T)
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return torch.cat([translation(T), q, scale(T)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# SE(3) ``[t q]`` (trajectory export)
+# ---------------------------------------------------------------------------
+
+def se3_identity(shape=(), dtype=torch.float32, device=None):
+    base = torch.tensor([0, 0, 0, 0, 0, 0, 1], dtype=dtype, device=device)
+    return base.expand(tuple(shape) + (7,)).clone()
+
+
+def se3_act(T, X):
+    return quat_act(T[..., 3:7], X) + T[..., 0:3]
+
+
+def se3_compose(Ta, Tb):
+    q = _unit(quat_mul(Ta[..., 3:7], Tb[..., 3:7]))
+    t = se3_act(Ta, Tb[..., 0:3])
+    return torch.cat([t, q], dim=-1)
+
+
+def se3_inv(T):
+    qi = _unit(quat_inv(T[..., 3:7]))
+    return torch.cat([-quat_act(qi, T[..., 0:3]), qi], dim=-1)
+
+
+def sim3_to_se3(T):
+    """Drop the scale: Sim(3) ``[t q s]`` → SE(3) ``[t q]``."""
+    return T[..., 0:7]

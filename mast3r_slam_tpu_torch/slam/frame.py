@@ -81,6 +81,12 @@ class Frame:
             device = self.img.device if self.img is not None else None
             self.T_WC = lie.identity(device=device)
 
+    def get_average_conf(self):
+        return self.C / self.N if self.C is not None else None
+
+    def get_score(self, C, filtering_score: str):
+        return get_score(C, filtering_score)
+
     def update_pointmap(self, X, C, filtering_mode="weighted_pointmap",
                         filtering_score="median"):
         if self.N == 0:
@@ -164,6 +170,9 @@ class KeyframeBuffer:
     def set_intrinsics(self, K):
         self.K = torch.as_tensor(K, dtype=torch.float32, device=self.device)
 
+    def get_intrinsics(self):
+        return self.K
+
     def __setitem__(self, idx, frame: Frame):
         with self.lock:
             self.n_size = max(idx + 1, self.n_size)
@@ -206,6 +215,16 @@ class KeyframeBuffer:
         with self.lock:
             self.n_size -= 1
 
+    def last_keyframe(self) -> Optional[Frame]:
+        with self.lock:
+            if self.n_size == 0:
+                return None
+            return self[self.n_size - 1]
+
+    def last_index(self) -> int:
+        with self.lock:
+            return self.n_size - 1
+
     def update_T_WCs(self, T_WCs, idx) -> None:
         """Pose-only write: bumps ``version``, not ``xc_version``."""
         with self.lock:
@@ -233,6 +252,16 @@ class KeyframeBuffer:
             self.version[idx] += 1
             self.xc_version[idx] += 1
             return True
+
+    def get_dirty_idx(self):
+        """Indices whose pointmap changed since the last call (appends,
+        fusion and refiner write-backs; a pose-only write does not count),
+        with the flags cleared under the lock: the viewer's incremental
+        upload."""
+        with self.lock:
+            idx = np.where(self.is_dirty)[0]
+            self.is_dirty[:] = False
+            return idx
 
 
 class States:

@@ -16,6 +16,7 @@ the BA instead of falling into RELOC at frame 1.
 
 import os
 import pathlib
+import time
 
 import jax
 import numpy as np
@@ -53,6 +54,8 @@ TRAJ_TOL = 0.05
 # keyframe decisions: min(match_frac_k, unique_frac_f) against
 # tracking.match_frac_thresh
 KF_THRESH = 0.9
+# how long the viewer run's last frame waits for the viewer's first frame
+VIEWER_WAIT_S = 60.0
 
 
 def _frames(n, hw, step, seed):
@@ -643,17 +646,68 @@ def test_cli_threaded_with_services_drains(setup, big_clip, monkeypatch):
     _check_services(out, savedir, big_clip.name, n)
 
 
+def _run_with_viewer(setup, clip, save_as, monkeypatch):
+    """The CLI without ``--no-viz`` (its viewer on EGL): the last frame
+    waits until the viewer has drawn a frame (or stopped), so that the run
+    is shown to go through the GL pipeline whatever the timing."""
+    from mast3r_slam_tpu_torch.viz import viewer as tviewer
+
+    started, make_frame = [], tcli.create_frame
+
+    class Recorded(tviewer.Viewer):
+        def start(self):
+            started.append(self)
+            super().start()
+
+    def create_frame(i, *a, **kw):
+        if i == N_FRAMES - 1:
+            v = started[0]
+            t0 = time.time()
+            while (v.frames == 0 and v.error is None and v.is_alive()
+                   and time.time() - t0 < VIEWER_WAIT_S):
+                time.sleep(0.05)
+        return make_frame(i, *a, **kw)
+
+    monkeypatch.setattr(tcli, "Viewer", Recorded)
+    monkeypatch.setattr(tcli, "create_frame", create_frame)
+    base, _, weights, _, cfg_path = setup
+    cwd = os.getcwd()
+    os.chdir(base)
+    try:
+        out = tcli.main(["--dataset", str(clip), "--config", str(cfg_path),
+                         "--weights", str(weights), "--save-as", save_as],
+                        device="cpu")
+    finally:
+        os.chdir(cwd)
+    assert out["viewer"] is started[0]
+    return out
+
+
 @pytest.mark.parametrize("service", ["quality", "tsdf_refine", "tsdf_global",
                                      "viewer"])
-def test_cli_refuses_only_the_viewer_and_needs_a_card(setup, service):
-    """Each service config runs (two frames); a run with the viewer stops
-    naming its ROADMAP item; without a card the default device raises
-    instead of falling back to the CPU."""
+def test_cli_runs_each_service_and_the_viewer_and_needs_a_card(
+        setup, service, monkeypatch):
+    """Each service config runs (two frames); with its viewer (no
+    ``--no-viz``) the CLI gives the same modes, keyframes and edges as
+    without it, and the viewer draws (under EGL here) and stops at
+    shutdown;
+    without a card the default device raises instead of falling back to
+    the CPU."""
     _, clip, _, _, cfg_path = setup
     if service == "viewer":
-        with pytest.raises(SystemExit, match="viewer .item 5"):
-            tcli.main(["--dataset", str(clip), "--config", str(cfg_path)],
-                      device="cpu")
+        out = _run_with_viewer(setup, clip, "viewer", monkeypatch)
+        ref, _ = _run(setup, clip, "viewer_off")
+        assert ref["viewer"] is None
+        v = out["viewer"]
+        assert not v.is_alive()
+        if v.error is None:
+            assert v.frames >= 1
+        else:   # no GL stack: it stopped in init_gl and the run went on
+            assert v.frames == 0 and not hasattr(v, "GL"), v.error
+        assert out["modes"] == ref["modes"]
+        assert len(out["keyframes"]) == len(ref["keyframes"])
+        assert (list(out["graph"].ii), list(out["graph"].jj)) == (
+            list(ref["graph"].ii), list(ref["graph"].jj))
         if not torch.cuda.is_available():
             with pytest.raises(RuntimeError, match="no CUDA card"):
                 tcli.main(["--dataset", str(clip), "--config", str(cfg_path),

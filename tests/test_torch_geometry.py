@@ -123,3 +123,17 @@ def test_project_to_index_matches_jax():
     want = JG.project_to_index(jnp.asarray(X), jnp.asarray(T_src),
                                jnp.asarray(T_dst), jnp.asarray(f), (12, 16))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_bilinear_sample_matches_jax():
+    """Within 1e-6: coordinates inside [1, W-2] x [1, H-2] (the matcher's
+    clamp), on integer pixels, and past the far edges (the index clamp)."""
+    rng = np.random.default_rng(72)
+    img = rng.normal(size=(11, 17, 4)).astype(np.float32)
+    uv = np.stack([rng.uniform(1, 15, (3, 50)), rng.uniform(1, 9, (3, 50))],
+                  -1).astype(np.float32)
+    uv[0, :10] = np.round(uv[0, :10])
+    uv[1, :5] = [16.0, 10.0]
+    uv[1, 5:10] = [16.5, 3.25]
+    _close(TI.bilinear_sample(t_(img), t_(uv)),
+           JI.bilinear_sample(jnp.asarray(img), jnp.asarray(uv)))

@@ -106,3 +106,48 @@ def test_adjoint_moves_tangents_through_the_group():
     lhs = TL.compose(TL.compose(T, TL.exp(xi)), TL.inv(T))
     rhs = TL.exp((TL.adjoint(T) @ xi[..., None])[..., 0])
     _close(TL.matrix(lhs), TL.matrix(rhs), tol=2e-5)
+
+
+def _rotations():
+    """Random rotations, the identity and the half-turns about each axis
+    and a diagonal (each of matrix_to_quat's four constructions wins)."""
+    rng = np.random.default_rng(13)
+    q = rng.normal(size=(32, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    s = np.float32(np.sqrt(0.5))
+    special = np.array([[0, 0, 0, 1], [1, 0, 0, 0], [0, 1, 0, 0],
+                        [0, 0, 1, 0], [s, s, 0, 0], [0, s, s, 0]],
+                       np.float32)
+    return np.array(JL.quat_to_matrix(jnp.asarray(np.concatenate(
+        [q, special]))))
+
+
+@pytest.mark.parametrize("op", ["matrix_to_quat", "normalize",
+                                "se3_identity", "se3_act", "se3_compose",
+                                "se3_inv", "sim3_to_se3"])
+def test_se3_and_matrix_helpers_match_jax(op):
+    """Within 1e-6 (``_close``), as the Sim(3) operations."""
+    rng = np.random.default_rng(14)
+    Ta, Tb = _poses(), _poses()
+    Sa, Sb = Ta[:, :7].copy(), Tb[:, :7].copy()
+    X = rng.normal(size=(64, 3)).astype(np.float32)
+    t, j = torch.from_numpy, jnp.asarray
+    if op == "matrix_to_quat":
+        R = _rotations()
+        _close(TL.matrix_to_quat(t(R)), JL.matrix_to_quat(j(R)))
+    elif op == "normalize":
+        T = Ta.copy()
+        T[:, 3:7] *= rng.uniform(0.5, 2.0, (64, 1)).astype(np.float32)
+        _close(TL.normalize(t(T)), JL.normalize(j(T)))
+    elif op == "se3_identity":
+        got = TL.se3_identity((2, 3), device="cpu")
+        _close(got, JL.se3_identity((2, 3)))
+        assert TL.se3_identity(dtype=torch.float64).dtype == torch.float64
+    elif op == "se3_act":
+        _close(TL.se3_act(t(Sa), t(X)), JL.se3_act(j(Sa), j(X)))
+    elif op == "se3_compose":
+        _close(TL.se3_compose(t(Sa), t(Sb)), JL.se3_compose(j(Sa), j(Sb)))
+    elif op == "se3_inv":
+        _close(TL.se3_inv(t(Sa)), JL.se3_inv(j(Sa)))
+    else:
+        _close(TL.sim3_to_se3(t(Ta)), JL.sim3_to_se3(j(Ta)))

@@ -163,3 +163,72 @@ def test_layer_primitives_match_jax(case):
         got = TL.gelu(t(x))
     assert tuple(got.shape) == tuple(want.shape)
     assert_close(got, want)
+
+
+def test_two_view_infer_matches_jax():
+    """Encode both images and decode once, to the f32 model tolerance."""
+    cj, pj, ct, pt = tiny_weights()
+    pj, pt = JM.prepare_params(pj, cj), TM.prepare_params(pt, ct)
+    want = JM.two_view_infer(pj, cj, jnp.asarray(IMG1), jnp.asarray(IMG2))
+    got = TM.two_view_infer(pt, ct, torch.from_numpy(IMG1),
+                            torch.from_numpy(IMG2))
+    assert TM.encode is TM.encode_image
+    for g, w in zip(got, want):
+        for key in ("pts3d", "conf", "desc", "desc_conf"):
+            assert_close(g[key], w[key])
+
+
+# Matches of random-weight tiny decodes: the matcher is chaotic on them.
+# The JAX matcher alone moves 0.4-0.9% of its indices when its inputs move
+# by the ~3e-6 that separates the two packages' decodes, so the indices are
+# held to 98% agreement and the valid masks to test_torch_factor_graph.py's
+# 99.5%.
+IDX_AGREE = 0.98
+VALID_AGREE = 0.995
+
+
+@pytest.mark.parametrize("shift,warm", [(0, False), (1, True)],
+                         ids=["itself", "panned_warm_start"])
+def test_match_asymmetric_matches_jax(shift, warm):
+    """The 8-tuple against the JAX method on a frame and its keyframe (the
+    tied tiny weights; frame j is frame i, or frame i panned 1 px with the
+    matcher warm-started at the pan): the pointmaps and confidences to the
+    f32 model tolerance, the matches to ``IDX_AGREE`` / ``VALID_AGREE``;
+    and the port's tuple is its own asymmetric_inference followed by
+    matching.match, exactly."""
+    from mast3r_slam_tpu.models.inference import MASt3RInference as JInf
+    from mast3r_slam_tpu.slam.frame import Frame as JFrame
+    from mast3r_slam_tpu_torch.ops import matching
+
+    cj, pj, ct, pt = tiny_weights(tie_streams=True)
+    pj, pt = JM.prepare_params(pj, cj), TM.prepare_params(pt, ct)
+    imgs = (IMG1[0], np.roll(IMG1[0], shift, axis=1))
+    n = HW[0] * HW[1]
+    init = (np.clip(np.arange(n) - shift, 0, n - 1)[None] if warm
+            else None)
+    # random weights: a wide distance gate, so that matches pass it
+    mcfg = {"radius": 1, "dilation_max": 2, "dist_thresh": 10.0}
+    jm = JInf(pj, cj, mcfg)
+    tm = MASt3RInference(pt, ct, mcfg)
+    jf = [JFrame(frame_id=k, img=jnp.asarray(im), img_shape=HW,
+                 img_true_shape=HW, uimg=None) for k, im in enumerate(imgs)]
+    tf = [crop_frame(k, im) for k, im in enumerate(imgs)]
+    want = jm.match_asymmetric(*jf, idx_i2j_init=None if init is None
+                               else jnp.asarray(init))
+    got = tm.match_asymmetric(*tf, idx_i2j_init=None if init is None
+                              else torch.from_numpy(init))
+    assert len(got) == len(want) == 8
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == tuple(w.shape)
+    idx_g, valid_g = got[0].numpy(), got[1].numpy()
+    assert np.asarray(want[1]).mean() > 0.05
+    assert (idx_g == np.asarray(want[0])).mean() >= IDX_AGREE
+    assert (valid_g == np.asarray(want[1])).mean() >= VALID_AGREE
+    for g, w in zip(got[2:], want[2:]):
+        assert_close(g, w)
+    X, _, D, _ = tm.asymmetric_inference(*tf)
+    idx, valid = matching.match(
+        X[:1], X[1:], D[:1], D[1:], idx_1_to_2_init=None if init is None
+        else torch.from_numpy(init), **tm._match_kw())
+    assert torch.equal(idx, got[0]) and torch.equal(valid, got[1])
+    assert torch.equal(X.reshape(2, n, 3)[1][None], got[5])

@@ -49,7 +49,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "services/quality_core.py", "services/quality_async.py",
                 "services/tsdf_local.py", "services/tsdf_global.py",
                 "services/native_tsdf.py", "parallel/__init__.py",
-                "parallel/sharding.py", "parallel/topology.py"):
+                "parallel/sharding.py", "parallel/topology.py",
+                "viz/render.py", "viz/viewer.py", "viz/ui.py",
+                "viz/glctx.py"):
         assert f"mast3r_slam_tpu_torch/{mod}" in names, mod
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
