@@ -83,20 +83,31 @@ then:
    ``compute_quality_batch``, ``refine_blocks_core`` and one integrate and
    query on the card against the CPU, with their times;
 12. (first, before any kernel: phase ``data``) builds the JPEG decoder on
-   this machine, decodes the committed fixtures (``tests/data/jpeg``) to
-   the SHA-256 digests of cv2's decode recorded beside them, checks
-   EuRoC cam0's and TUM freiburg1/2's ``K_undist`` against cv2's numbers
-   to 1e-6, and times one EuRoC remap and one 1200x680 Replica decode on
-   the host;
-13. (phase ``cli_datasets``) runs the CLI at full ViT-L width on three
-   12-frame clips it writes in the evaluation datasets' layouts, each
-   under its evaluation script's config: EuRoC (gray 752x480 PNGs,
-   undistorted on read, ``eval_no_calib``: K4's f32-row path), TUM
-   freiburg1 under calibration (undistorted, ``eval_calib``: K5's) and
-   Replica (680x1200 JPEGs written by ``tests/torch_jpeg_writer.py``,
-   ``eval_replica``: K5), checking outputs, launches per kernel and
-   path (every DPT conv on K2's 3xTF32 path, every system build on the
-   f32-row Gram), and K_frame's principal point;
+   this machine, decodes the committed fixtures (``tests/data/jpeg``:
+   baseline, progressive, 4:1:1, CMYK, YCCK, RGB-coded, cut and
+   EXIF-tagged files; ``tests/data/png``: every colour type x bit depth x
+   interlace, tRNS, gamma and eXIf files) in the colour and the gray read
+   to the SHA-256 digests of cv2.imread's reads recorded beside them,
+   checks EuRoC cam0's and TUM freiburg1/2's ``K_undist`` against cv2's
+   numbers to 1e-6, and times one EuRoC remap and one 1200x680 Replica
+   decode on the host, as a baseline and as a progressive file of the
+   same coefficients (which must decode to the same pixels);
+13. (phase ``cli_datasets``) runs the CLI at full ViT-L width on 12-frame
+   clips it writes in the evaluation datasets' layouts, each under its
+   evaluation script's config: EuRoC (gray 752x480 PNGs, undistorted on
+   read, ``eval_no_calib``: K4's f32-row path), TUM freiburg1 under
+   calibration (undistorted, ``eval_calib``: K5's) and Replica (680x1200
+   JPEGs written by ``tests/torch_jpeg_writer.py``, ``eval_replica``: K5),
+   then Replica again as progressive JPEGs of the same coefficients, then
+   an image folder of the cli phase's pan frames as 8-bit PNGs and as
+   mixed PNG kinds (16-bit, Adam7, stored under each EXIF orientation,
+   written by ``tests/torch_png_writer.py``) under base.yaml with the
+   services off (bf16), checking outputs, launches per kernel and path
+   (the eval configs' DPT convs on K2's 3xTF32 path and system builds on
+   the f32-row Gram; base.yaml's on the implicit GEMM and the tensor-core
+   Gram), K_frame's principal point, and that the progressive and mixed
+   clips' reader frames equal their baseline clips' bit for bit and their
+   runs give the same modes, keyframes and edges;
 14. (phase ``topology``) prints the layout ``plan_topology()`` gives on
    the visible cards, then on a virtual 5-slot layout of cuda:0 checks
    the sharded symmetric decode of 3 pairs at full width (padded to a
@@ -2228,11 +2239,16 @@ def phase_cli_cross(torch, workdir):
 
 
 # ---------------------------------------------------------------------------
-# Phases: the data layer (undistortion, the JPEG reader) and the CLI on the
-# evaluation datasets' layouts
+# Phases: the data layer (undistortion, the image readers) and the CLI on
+# the evaluation datasets' layouts and on an image folder
 # ---------------------------------------------------------------------------
 
 JPEG_FIXTURES = ROOT / "tests" / "data" / "jpeg"
+PNG_FIXTURES = ROOT / "tests" / "data" / "png"
+# the mixed image folder's frames in turn: 16-bit RGB (v * 257),
+# Adam7-interlaced RGB, and stored under the inverse of each EXIF
+# orientation (5-8 transposed)
+MIXED_PNG_KINDS = ("16-bit", "adam7") + tuple(range(1, 9))
 K_UNDIST_RTOL = 1e-6
 HOST_REPEATS = 20
 DATA_FRAMES = 12
@@ -2247,41 +2263,76 @@ REPLICA_CAM = dict(w=1200, h=680, fx=600.0, fy=600.0, cx=599.5, cy=339.5,
                    scale=6553.5)
 REPLICA_QUALITY = 95
 NOISE_LEVELS = 16       # sigma of the noisy decode timing frame
+PNG_PAETH_REPEATS = 3   # a Paeth-filtered 480x640 PNG decodes in ~0.5 s
 
 
-def _host_ms(fn):
-    """Median host milliseconds of ``HOST_REPEATS`` calls of ``fn``."""
+def _host_ms(fn, repeats=HOST_REPEATS):
+    """Median host milliseconds of ``repeats`` calls of ``fn``."""
     ts = []
-    for _ in range(HOST_REPEATS):
+    for _ in range(repeats):
         t0 = time.perf_counter()
         fn()
         ts.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ts)
 
 
-def _jpeg_writer():
-    """The test encoder (tests/torch_jpeg_writer.py): the card machine has
-    no cv2 or PIL to write JPEGs with."""
+def _test_writer(name):
+    """A test encoder (tests/torch_jpeg_writer.py, torch_png_writer.py):
+    the card machine has no cv2 or PIL to write JPEGs or PNGs of every kind
+    with."""
+    import importlib
+
     tests = str(ROOT / "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
-    import torch_jpeg_writer
+    return importlib.import_module(name)
 
-    return torch_jpeg_writer
+
+def fixture_reads():
+    """Every committed JPEG and PNG fixture through ``data/imread.py``'s
+    colour and gray reads, against the SHA-256 of cv2.imread's read
+    recorded beside it; only the cut JPEGs warn. Returns the count."""
+    import hashlib
+    import warnings
+
+    from mast3r_slam_tpu_torch.data import imread
+
+    n = 0
+    for folder in (JPEG_FIXTURES, PNG_FIXTURES):
+        reads = json.loads((folder / "fixtures.json").read_text())["reads"]
+        for name, rec in sorted(reads.items()):
+            for kind in ("color", "gray"):
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    read = (imread.read_gray if kind == "gray"
+                            else imread.read_rgb)
+                    img = read(folder / name)
+                got = hashlib.sha256(img.tobytes()).hexdigest()
+                want = rec[f"{kind}_sha256"]
+                check(list(img.shape) == rec[f"{kind}_shape"]
+                      and got == want,
+                      f"data: {folder.name}/{name} {kind} read {img.shape} "
+                      f"{got[:16]}, cv2 {rec[f'{kind}_shape']} {want[:16]}")
+                check(bool(caught) == name.startswith("cut"),
+                      f"data: {name} {kind} warnings {caught}")
+                n += 1
+    return n
 
 
 def phase_data():
     """The host data layer on this machine: the JPEG decoder built here
     decodes the committed fixtures to the SHA-256 digests of cv2's decode
-    recorded beside them; EuRoC cam0's and TUM freiburg1/2's K_undist
+    recorded beside them, and every JPEG and PNG fixture reads to cv2's
+    colour and gray reads; EuRoC cam0's and TUM freiburg1/2's K_undist
     equal the numbers cv2 gave; then the host ms of one EuRoC remap
-    (752x480 gray float32, and a colour frame of that size) and of one
-    1200x680 Replica decode (a smooth frame and a noisy one)."""
+    (752x480 gray float32, and a colour frame of that size), of one
+    1200x680 Replica decode (a smooth frame and a noisy one, baseline and
+    progressive) and of one 480x640 PNG decode (Up and Paeth rows)."""
     import hashlib
 
     import numpy as np
 
-    from mast3r_slam_tpu_torch.data import jpeg
+    from mast3r_slam_tpu_torch.data import jpeg, png
     from mast3r_slam_tpu_torch.data.datasets import Intrinsics
 
     t0 = time.perf_counter()
@@ -2301,10 +2352,12 @@ def phase_data():
         err = float(np.abs(K - want).max() / np.abs(want).max())
         check(err <= K_UNDIST_RTOL, f"data: {name} K_undist {K.tolist()} "
               f"!= cv2's {want.tolist()} (relative {err:.2e})")
+    n_reads = fixture_reads()
     log(f"data: JPEG decoder built in {build_s:.1f} s; "
         f"{len(rec['decoded_sha256'])} fixtures equal cv2 {rec['opencv']} "
-        f"bit for bit; K_undist of {sorted(rec['cameras'])} within "
-        f"{K_UNDIST_RTOL:g}")
+        f"bit for bit; {n_reads} colour and gray reads of the JPEG and PNG "
+        f"fixtures equal cv2.imread's; K_undist of {sorted(rec['cameras'])} "
+        f"within {K_UNDIST_RTOL:g}")
 
     e = EUROC_CAM0
     t0 = time.perf_counter()
@@ -2320,8 +2373,9 @@ def phase_data():
               f"data: EuRoC remap output of {frame.shape}")
     remap_ms = _host_ms(lambda: intr.remap(rgb[..., 0]))
     remap_rgb_ms = _host_ms(lambda: intr.remap(rgb))
+    jw = _test_writer("torch_jpeg_writer")
     img = next(pan_frames(1, REPLICA_HW, (0, 0), seed=5))
-    data = _jpeg_writer().encode_jpeg(img, REPLICA_QUALITY)
+    data = jw.encode_jpeg(img, REPLICA_QUALITY)
     dec = jpeg.decode_jpeg(data)
     check(dec.shape == (*REPLICA_HW, 3), "data: Replica decode shape")
     err = float(np.abs(dec.astype(np.float64) - img).mean())
@@ -2331,21 +2385,51 @@ def phase_data():
     # frame with seeded noise is a textured render's upper side
     noise = np.random.default_rng(6).normal(0.0, NOISE_LEVELS, img.shape)
     noisy = np.clip(img + noise, 0, 255).astype(np.uint8)
-    data_noisy = _jpeg_writer().encode_jpeg(noisy, REPLICA_QUALITY)
+    data_noisy = jw.encode_jpeg(noisy, REPLICA_QUALITY)
     check(jpeg.decode_jpeg(data_noisy).shape == (*REPLICA_HW, 3),
           "data: noisy Replica decode shape")
     decode_noisy_ms = _host_ms(lambda: jpeg.decode_jpeg(data_noisy))
+    # the same frames as progressive files of the same coefficients: the
+    # same pixels, and their decode time beside the baseline's
+    prog, prog_noisy = (jw.encode_jpeg(x, REPLICA_QUALITY, progressive=True)
+                        for x in (img, noisy))
+    for p_, b_, what in ((prog, data, "smooth"),
+                         (prog_noisy, data_noisy, "noisy")):
+        check(np.array_equal(jpeg.decode_jpeg(p_), jpeg.decode_jpeg(b_)),
+              f"data: the progressive {what} Replica frame does not decode "
+              f"to its baseline file's pixels")
+    prog_ms = _host_ms(lambda: jpeg.decode_jpeg(prog))
+    prog_noisy_ms = _host_ms(lambda: jpeg.decode_jpeg(prog_noisy))
+    # a TUM-size PNG with the Up filter on every row (the port's writer)
+    # and with Paeth on every row, which libpng's adaptive choice in a
+    # camera's or cv2's files approaches: Paeth and Average rows are
+    # undone by a Python loop over the row's bytes
+    tum = next(pan_frames(1, CLI_SRC_HW, (0, 0), seed=7))
+    pw = _test_writer("torch_png_writer")
+    png_up, png_paeth = (pw.encode_png(tum, filters=f) for f in (2, 4))
+    for d_ in (png_up, png_paeth):
+        check(np.array_equal(png.decode_png(d_), tum), "data: PNG decode")
+    png_up_ms = _host_ms(lambda: png.decode_png(png_up))
+    png_paeth_ms = _host_ms(lambda: png.decode_png(png_paeth),
+                            PNG_PAETH_REPEATS)
     log(f"data: EuRoC maps + tables {maps_ms:.1f} ms; host ms per EuRoC "
         f"remap (752x480 gray) {remap_ms:.2f} (752x480x3: {remap_rgb_ms:.2f}"
         f"), per 1200x680 Replica decode "
         f"(4:2:0, q{REPLICA_QUALITY}) {decode_ms:.2f} for a smooth frame "
         f"of {len(data)} bytes, {decode_noisy_ms:.2f} with noise of "
-        f"sigma {NOISE_LEVELS} levels, {len(data_noisy)} bytes (median of "
-        f"{HOST_REPEATS})")
+        f"sigma {NOISE_LEVELS} levels, {len(data_noisy)} bytes; progressive "
+        f"(jpeg_simple_progression, the same coefficients) {prog_ms:.2f} "
+        f"smooth ({len(prog)} bytes), {prog_noisy_ms:.2f} noisy "
+        f"({len(prog_noisy)} bytes) (median of {HOST_REPEATS}); 480x640 "
+        f"RGB PNG decode {png_up_ms:.2f} with Up rows, {png_paeth_ms:.1f} "
+        f"with Paeth rows (median of {PNG_PAETH_REPEATS})")
     return dict(remap_ms=remap_ms, remap_rgb_ms=remap_rgb_ms,
                 decode_ms=decode_ms, maps_ms=maps_ms,
                 decode_bytes=len(data), decode_noisy_ms=decode_noisy_ms,
-                decode_noisy_bytes=len(data_noisy))
+                decode_noisy_bytes=len(data_noisy), prog_ms=prog_ms,
+                prog_bytes=len(prog), prog_noisy_ms=prog_noisy_ms,
+                prog_noisy_bytes=len(prog_noisy), fixture_reads=n_reads,
+                png_up_ms=png_up_ms, png_paeth_ms=png_paeth_ms)
 
 
 def write_euroc_clip(root, n_frames):
@@ -2366,82 +2450,151 @@ def write_euroc_clip(root, n_frames):
     return Path(root)
 
 
-def write_replica_clip(root, n_frames):
+def write_replica_clip(root, n_frames, progressive=False):
     """Replica's layout: results/frame%06d.jpg at 680x1200 (written by the
-    test encoder) and cam_params.json."""
+    test encoder, baseline or progressive with the same coefficients) and
+    cam_params.json."""
     root = Path(root)
     (root / "results").mkdir(parents=True, exist_ok=True)
     W = REPLICA_HW[1]
     step = (CLI_STEP[0] * W / CLI_SRC_HW[1], CLI_STEP[1] * W / CLI_SRC_HW[1])
-    writer = _jpeg_writer()
+    writer = _test_writer("torch_jpeg_writer")
     for i, img in enumerate(pan_frames(n_frames, REPLICA_HW, step, seed=2)):
         writer.write_jpeg(root / "results" / f"frame{i:06d}.jpg", img,
-                          REPLICA_QUALITY)
+                          REPLICA_QUALITY, progressive=progressive)
     (root / "cam_params.json").write_text(json.dumps({"camera":
                                                       REPLICA_CAM}))
     return root
 
 
+def write_image_folder(root, n_frames, mixed=False):
+    """An image folder (the ``RGBFiles`` reader) of the cli phase's pan
+    frames at 480x640: 8-bit RGB PNGs, or with ``mixed`` the PNG kinds of
+    ``MIXED_PNG_KINDS`` in turn, each decoding to the same pixels."""
+    from mast3r_slam_tpu_torch.data import png
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    pw = _test_writer("torch_png_writer")
+    for i, img in enumerate(pan_frames(n_frames, CLI_SRC_HW, CLI_STEP)):
+        path = root / f"frame{i:04d}.png"
+        kind = MIXED_PNG_KINDS[i % len(MIXED_PNG_KINDS)]
+        if not mixed:
+            png.write_png(path, img)
+        elif kind == "16-bit":
+            pw.write_png(path, img.astype("int64") * 257, depth=16,
+                         filters=2)
+        elif kind == "adam7":
+            pw.write_png(path, img, interlace=True, filters=2)
+        else:
+            pw.write_png(path, pw.stored_under(img, kind), filters=2,
+                         exif=pw.exif_orientation(kind, "MM" if kind % 2
+                                                  else "II"))
+    return root
+
+
 def phase_cli_datasets(torch, FA, C3, BA, workdir):
-    """The CLI at full ViT-L width on three ``DATA_FRAMES``-frame clips in
-    the evaluation datasets' layouts, each under its evaluation script's
-    config with ``CLI_CUTS``: EuRoC (gray, undistorted on read;
-    eval_no_calib, the ray BA on K4's f32-row path), TUM freiburg1 under
-    calibration (undistorted; eval_calib, K5's) and Replica (JPEG
-    frames; eval_replica, K5). Each checks its outputs, its launches per
-    kernel and path, and K_frame's principal point at the crop's centre."""
+    """The CLI at full ViT-L width on ``DATA_FRAMES``-frame clips in the
+    evaluation datasets' layouts, each under its evaluation script's config
+    with ``CLI_CUTS``: EuRoC (gray, undistorted on read; eval_no_calib,
+    the ray BA on K4's f32-row path), TUM freiburg1 under calibration
+    (undistorted; eval_calib, K5's), Replica (JPEG frames; eval_replica,
+    K5) and Replica again as progressive JPEGs of the same coefficients;
+    then an image folder (``RGBFiles``) of the pan frames as 8-bit PNGs and
+    as mixed PNG kinds (16-bit, Adam7, EXIF-tagged), under base.yaml with
+    the services off (bf16: K1, K2 on the implicit GEMM, K4 on the tensor
+    cores). Each run checks its outputs and its launches per kernel and
+    path; the evaluation layouts K_frame's principal point at the crop's
+    centre. The progressive and the mixed clips' reader frames equal their
+    baseline clips' bit for bit, and their runs give the baseline runs'
+    modes, keyframes and edges."""
+    import numpy as np
+
     from mast3r_slam_tpu_torch.data.datasets import load_dataset
     from mast3r_slam_tpu_torch.utils.config import load_config
 
     work = Path(workdir)
+    # (tag, config, calibrated, clip, the run whose frames and decisions
+    # it must give)
     runs = (
         ("euroc", "eval_no_calib.yaml", False,
-         write_euroc_clip(work / "euroc" / "MH_01_easy", DATA_FRAMES)),
+         write_euroc_clip(work / "euroc" / "MH_01_easy", DATA_FRAMES), None),
         ("tum_fr1_calib", "eval_calib.yaml", True,
-         write_clip(work / "rgbd_dataset_freiburg1_desk", DATA_FRAMES)),
+         write_clip(work / "rgbd_dataset_freiburg1_desk", DATA_FRAMES), None),
         ("replica", "eval_replica.yaml", True,
-         write_replica_clip(work / "replica" / "office0", DATA_FRAMES)),
+         write_replica_clip(work / "replica" / "office0", DATA_FRAMES), None),
+        ("replica_progressive", "eval_replica.yaml", True,
+         write_replica_clip(work / "replica_progressive" / "office0",
+                            DATA_FRAMES, progressive=True), "replica"),
+        ("rgbfiles", "base.yaml", False,
+         write_image_folder(work / "frames" / "pan", DATA_FRAMES), None),
+        ("rgbfiles_mixed", "base.yaml", False,
+         write_image_folder(work / "frames_mixed" / "pan", DATA_FRAMES,
+                            mixed=True), "rgbfiles"),
     )
-    # the eval configs' f32 heads and BA rows: every DPT conv (Cin, Cout
-    # multiples of 8) and every system build on these paths
-    k2_path = C3.conv3x3_path(torch.float32, 256, 256)
-    ba_path = BA.gram_path(torch.float32)
-    model, summary = None, {}
-    for tag, inherit, calib, clip in runs:
-        cfg_path = write_config(work / f"cli_{tag}.yaml", inherit=inherit)
+    model, model_dtypes, summary, decided, frames = None, None, {}, {}, {}
+    for tag, inherit, calib, clip, baseline in runs:
+        evaluation = inherit != "base.yaml"
+        over = {} if evaluation else SERVICES_OFF
+        cfg_path = write_config(work / f"cli_{tag}.yaml", inherit=inherit,
+                                **over)
         cfg = load_config(cfg_path)
-        check(cfg["local_opt"]["ba_compute_dtype"] == "float32"
-              and int(cfg["local_opt"]["pixel_step"]) == 1
-              and bool(cfg.get("use_calib")) == calib,
-              f"cli {tag}: {inherit} is not the evaluation config")
-        if model is None:   # the eval configs share model.head_dtype f32
+        if evaluation:
+            check(cfg["local_opt"]["ba_compute_dtype"] == "float32"
+                  and int(cfg["local_opt"]["pixel_step"]) == 1
+                  and bool(cfg.get("use_calib")) == calib,
+                  f"cli {tag}: {inherit} is not the evaluation config")
+        # the eval configs' f32 heads and BA rows, base.yaml's bf16: every
+        # DPT conv (Cin, Cout multiples of 8) and every system build on
+        # these paths
+        dt = getattr(torch, cfg["model"]["head_dtype"])
+        k2_path = C3.conv3x3_path(dt, 256, 256)
+        ba_path = BA.gram_path(getattr(torch,
+                                       cfg["local_opt"]["ba_compute_dtype"]))
+        dtypes = (cfg["model"]["dtype"], cfg["model"]["head_dtype"])
+        if dtypes != model_dtypes:
+            del model
+            torch.cuda.empty_cache()
             t0 = time.perf_counter()
-            model = tied_model(cfg, "cuda")
+            model, model_dtypes = tied_model(cfg, "cuda"), dtypes
             torch.cuda.synchronize()
             log(f"cli datasets: ViT-L random init (tied streams, "
                 f"{cfg['model']['head_dtype']} heads) "
                 f"{time.perf_counter() - t0:.1f} s")
         ds = load_dataset(str(clip), cfg)
-        intr = ds.camera_intrinsics
+        frames[tag] = [ds.read_img(i) for i in range(len(ds))]
         (h, w), _ = ds.get_img_shape()
-        pp = (float(intr.K_frame[0, 2]), float(intr.K_frame[1, 2]))
-        check(abs(pp[0] - w / 2) <= 0.5 and abs(pp[1] - h / 2) <= 0.5,
-              f"cli {tag}: K_frame principal point {pp}, crop {w}x{h}")
-        check(intr.has_distortion == (tag != "replica")
-              and ds.has_calib() == (tag == "euroc" or calib),
-              f"cli {tag}: undistortion / calibration not in use")
+        intr = ds.camera_intrinsics
+        pp = None
+        if evaluation:
+            pp = (float(intr.K_frame[0, 2]), float(intr.K_frame[1, 2]))
+            check(abs(pp[0] - w / 2) <= 0.5 and abs(pp[1] - h / 2) <= 0.5,
+                  f"cli {tag}: K_frame principal point {pp}, crop {w}x{h}")
+            check(intr.has_distortion == (tag == "euroc" or tag.startswith(
+                "tum")) and ds.has_calib() == (tag == "euroc" or calib),
+                f"cli {tag}: undistortion / calibration not in use")
+        else:
+            check(type(ds).__name__ == "RGBFiles" and intr is None,
+                  f"cli {tag}: read as {type(ds).__name__}, not RGBFiles")
+        if baseline is not None:
+            same = [np.array_equal(a, b) for a, b in zip(frames[tag],
+                                                        frames[baseline])]
+            check(len(same) == len(frames[baseline]) == DATA_FRAMES
+                  and all(same), f"cli {tag}: reader frames differ from "
+                  f"{baseline}'s: {same}")
         out, launches, rec = run_cli(
             torch, FA, C3, BA, model, work,
             ["--dataset", str(clip), "--config", cfg_path, "--no-viz",
              "--save-as", tag], tag, calib=calib, ba_path=ba_path,
             k2_path=k2_path)
         kernel = "K5" if calib else "K4"
-        check(launches[kernel] > 0
+        check(launches["K1"] > 0 and launches[kernel] > 0
               and launches[f"BA {ba_path}"] == launches[kernel]
               and launches["K2"] > 0
               and launches[f"K2 {k2_path}"] == launches["K2"],
-              f"cli {tag}: a BA system build did not run on {kernel}'s "
-              f"{ba_path} path, or a conv not on K2's {k2_path} path")
+              f"cli {tag}: K1 or {kernel} not launched, a BA system build "
+              f"not on {kernel}'s {ba_path} path, or a conv not on K2's "
+              f"{k2_path} path")
         if calib:
             K = out["keyframes"].K
             check(K is not None and bool(torch.allclose(
@@ -2450,6 +2603,14 @@ def phase_cli_datasets(torch, FA, C3, BA, workdir):
         seq = clip.name
         check_outputs(out, work / "logs" / tag / seq, seq, DATA_FRAMES,
                       (h, w))
+        decided[tag] = dict(modes=list(out["modes"]),
+                            keyframes=len(out["keyframes"]),
+                            edge_pairs=graph_edges(out["graph"]))
+        if baseline is not None:
+            for key, got in decided[tag].items():
+                check(got == decided[baseline][key],
+                      f"cli {tag}: {key} {got}, the {baseline} run's "
+                      f"{decided[baseline][key]}")
         parts = cli_parts(rec)
         summary[tag] = dict(tracked_ms=parts["track"], step_ms=parts["step"],
                             keyframes=len(out["keyframes"]),
@@ -2458,14 +2619,17 @@ def phase_cli_datasets(torch, FA, C3, BA, workdir):
                                 "K1", "K2", f"K2 {k2_path}", kernel,
                                 f"BA {ba_path}")},
                             crop=(h, w), pp=pp)
-        log(f"cli {tag}: {w}x{h} crop, K_frame principal point "
-            f"({pp[0]:.3f}, {pp[1]:.3f}); median tracked frame "
+        log(f"cli {tag}: {w}x{h} crop"
+            + (f", K_frame principal point ({pp[0]:.3f}, {pp[1]:.3f})"
+               if pp else "") + f"; median tracked frame "
             f"{parts['track']:.1f} ms over {len(rec['ms']['track'])} "
             f"frames, median backend step {parts['step']:.1f} ms over "
             f"{len(rec['ms']['step'])} steps; keyframes "
             f"{len(out['keyframes'])}, edges {out['graph'].n_edges()}; "
-            f"{kernel} {ba_path} launches {launches[kernel]}, K2 {k2_path} "
-            f"launches {launches['K2']}")
+            f"K1 launches {launches['K1']}, {kernel} {ba_path} launches "
+            f"{launches[kernel]}, K2 {k2_path} launches {launches['K2']}"
+            + (f"; frames, modes, keyframes and edges as the {baseline} "
+               f"run's" if baseline else ""))
         del out
     del model
     torch.cuda.empty_cache()
@@ -3688,8 +3852,13 @@ def main():
         f"x3 {data['remap_rgb_ms']:.2f}), per "
         f"1200x680 Replica decode {data['decode_ms']:.2f} (smooth, "
         f"{data['decode_bytes']} bytes) / {data['decode_noisy_ms']:.2f} "
-        f"(noisy, {data['decode_noisy_bytes']} bytes); CLI on the "
-        f"evaluation layouts (median tracked frame / backend step ms): "
+        f"(noisy, {data['decode_noisy_bytes']} bytes), progressive "
+        f"{data['prog_ms']:.2f} / {data['prog_noisy_ms']:.2f}; 480x640 "
+        f"PNG {data['png_up_ms']:.2f} (Up) / {data['png_paeth_ms']:.1f} "
+        f"(Paeth); "
+        f"{data['fixture_reads']} fixture reads equal cv2's; CLI on the "
+        f"evaluation layouts and the image folders (median tracked frame / "
+        f"backend step ms): "
         + "; ".join(f"{t} {d['tracked_ms']:.1f} / {d['step_ms']:.1f} "
                     f"({d['keyframes']} keyframes, launches {d['launches']})"
                     for t, d in datasets.items()) + f"; on {smi}")
@@ -3751,7 +3920,7 @@ def main():
         {"name": "conv3x3 (float32)", "route": "cuda",
          "source": "mast3r_slam_tpu_torch/csrc/conv3x3.cu",
          "replaces": "mast3r_slam_tpu/ops/conv3x3.py:119",
-         "launches": sum(d["launches"][f"K2 {k2_path}"]
+         "launches": sum(d["launches"].get(f"K2 {k2_path}", 0)
                          for d in datasets.values()),
          "max_abs_err": k2f[IMG_HW]["err"],
          **{k: k2f[IMG_HW][k] for k in (
@@ -3776,7 +3945,8 @@ def main():
          "err64_first_e128": gram[key]["f32_err64_first"]}
         for key, name, line, tags in (
             ("K4", "gram_rays", 216, ("euroc",)),
-            ("K5", "gram_calib", 232, ("tum_fr1_calib", "replica")))
+            ("K5", "gram_calib", 232, ("tum_fr1_calib", "replica",
+                                       "replica_progressive")))
     ] + [
         {"name": f"gram_{name}", "route": "cuda",
          "source": "mast3r_slam_tpu_torch/csrc/ba_gram.cu",

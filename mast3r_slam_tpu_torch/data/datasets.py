@@ -4,17 +4,21 @@
 Every reader yields ``(timestamp, img)`` with ``img (H, W, 3) float32 RGB``
 in [0, 1] at the source resolution, undistorted when its calibration is in
 use; ``slam/pipeline.py::create_frame`` resizes to the model crop. Images
-are read with ``data/imread.py`` (PNG and baseline JPEG, told apart by
-their first bytes) and undistorted with ``data/undistort.py``: no OpenCV or
-PIL on the card machine.
+are read with ``data/imread.py`` as ``cv2.imread`` reads them (every PNG
+and every 8-bit Huffman JPEG, told apart by their first bytes, EXIF
+orientation applied; EuRoC's gray read as ``IMREAD_GRAYSCALE``) and
+undistorted with ``data/undistort.py``: no OpenCV or PIL on the card
+machine.
 
 The port's modules take the config dict as an argument: the readers and
 :class:`Intrinsics` read ``dataset.subsample``, ``dataset.img_size``,
 ``dataset.center_principle_point`` and ``use_calib`` from the ``cfg`` they
 are given, where the JAX package reads its process-global config.
 
-Not ported (ROADMAP): the video, webcam and RealSense readers (a video
-decoder and camera libraries): :func:`load_dataset` raises for them.
+The RealSense reader imports ``pyrealsense2`` when it is opened and raises
+``RuntimeError`` without it, as the JAX one does. Not ported (ROADMAP): the
+video file and webcam readers, which need a video decoder and a camera
+driver (``cv2.VideoCapture``): :func:`load_dataset` raises for them.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import numpy as np
 
 from mast3r_slam_tpu_torch.data import undistort
 from mast3r_slam_tpu_torch.data.image_ops import resize_img
-from mast3r_slam_tpu_torch.data.imread import gray_to_rgb, read_image, read_rgb
+from mast3r_slam_tpu_torch.data.imread import gray_to_rgb, read_gray, read_rgb
 
 
 def natsorted(paths):
@@ -225,7 +229,8 @@ class TUMDataset(MonocularDataset):
 # ---------------------------------------------------------------------------
 
 class EurocDataset(MonocularDataset):
-    """EuRoC cam0 grayscale stream (gray → RGB); always undistorted."""
+    """EuRoC cam0 grayscale stream, read as ``cv2.IMREAD_GRAYSCALE``
+    reads it (gray → RGB); always undistorted."""
 
     def __init__(self, path, cfg=None):
         super().__init__(cfg)
@@ -257,10 +262,10 @@ class EurocDataset(MonocularDataset):
         return len(self.files)
 
     def read_img(self, idx):
-        return read_rgb(self.files[idx])
+        return gray_to_rgb(read_gray(self.files[idx]))
 
     def read_frame(self, idx):
-        return read_image(self.files[idx])
+        return read_gray(self.files[idx])
 
 
 # ---------------------------------------------------------------------------
@@ -324,7 +329,7 @@ class SevenScenesDataset(MonocularDataset):
 
 class ReplicaDataset(MonocularDataset):
     """Replica renders: results/frame*.jpg (or .png) + cam_params.json in
-    any of 3 layouts; baseline JPEGs are read by ``data/jpeg.py``."""
+    any of 3 layouts; JPEGs are read by ``data/jpeg.py``."""
 
     def __init__(self, path, cfg=None):
         super().__init__(cfg)
@@ -388,18 +393,71 @@ class RGBFiles(MonocularDataset):
 
 
 # ---------------------------------------------------------------------------
+# RealSense
+# ---------------------------------------------------------------------------
+
+class RealsenseDataset(MonocularDataset):
+    """Intel RealSense live colour stream (640x480 RGB at 30 FPS), gated
+    on ``pyrealsense2``: the stream's intrinsics and distortion make the
+    calibration, every frame is undistorted, timestamps count from the
+    first frame."""
+
+    def __init__(self, cfg=None):
+        super().__init__(cfg)
+        try:
+            import pyrealsense2 as rs
+        except ImportError as e:
+            raise RuntimeError(
+                "pyrealsense2 is not installed; RealSense capture unavailable"
+            ) from e
+        self.pipeline = rs.pipeline()
+        rs_cfg = rs.config()
+        rs_cfg.enable_stream(rs.stream.color, 640, 480, rs.format.rgb8, 30)
+        profile = self.pipeline.start(rs_cfg)
+        intr = (profile.get_stream(rs.stream.color)
+                .as_video_stream_profile().get_intrinsics())
+        self.camera_intrinsics = self._intrinsics(
+            intr.width, intr.height, intr.fx, intr.fy, intr.ppx, intr.ppy,
+            tuple(intr.coeffs))
+        self.use_calibration = True
+        self.save_results = False
+        self._t0 = None
+        self.timestamps = []
+
+    def __len__(self):
+        return 999999999
+
+    def read_img(self, idx):
+        frames = self.pipeline.wait_for_frames()
+        color = frames.get_color_frame()
+        ts = color.get_timestamp() / 1000.0
+        if self._t0 is None:
+            self._t0 = ts
+        self.timestamps.append(ts - self._t0)
+        return np.asanyarray(color.get_data())
+
+    def __getitem__(self, idx):
+        img = self.read_img(idx).astype(self.dtype) / 255.0
+        if self.camera_intrinsics is not None:
+            img = self.camera_intrinsics.remap(img)
+        return self.timestamps[-1], img
+
+
+# ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
 
 def load_dataset(path: str, cfg=None) -> MonocularDataset:
     """Path-token dispatch, as the JAX ``load_dataset``."""
     p = str(path).lower()
-    if (p in ("realsense", "rs", "webcam", "cam") or p.startswith("webcam:")
+    if p in ("realsense", "rs"):
+        return RealsenseDataset(cfg)
+    if (p in ("webcam", "cam") or p.startswith("webcam:")
             or p.endswith((".mp4", ".avi", ".mov", ".mkv"))):
         raise NotImplementedError(
-            f"{path}: the video, webcam and RealSense readers are not ported "
-            "yet (ROADMAP queue 1): they need a video decoder and camera "
-            "drivers that the port does not have")
+            f"{path}: the video file and webcam readers are not ported "
+            "(ROADMAP): they need a video decoder and a camera driver "
+            "(cv2.VideoCapture) that the port does not have")
     if "tum" in p or "freiburg" in p:
         return TUMDataset(path, cfg)
     if "euroc" in p or os.path.exists(os.path.join(path, "mav0")):

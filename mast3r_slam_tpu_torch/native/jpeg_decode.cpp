@@ -1,23 +1,40 @@
-// Baseline JPEG decoder for the port's dataset readers (Replica's
-// results/frame*.jpg), bound with ctypes by data/jpeg.py.
+// JPEG decoder for the port's dataset readers (Replica's
+// results/frame*.jpg and any JPEG an image folder holds), bound with
+// ctypes by data/jpeg.py.
 //
-// It decodes what cv2.imdecode and PIL decode with libjpeg(-turbo)'s
-// default settings, bit for bit, by following IJG libjpeg's published
-// decode arithmetic:
+// It decodes what cv2.imread decodes with libjpeg-turbo's default
+// settings, bit for bit, by following IJG libjpeg's published decode
+// arithmetic:
 //   - jidctint.c's "islow" integer IDCT (CONST_BITS 13, PASS1_BITS 2,
 //     64-bit intermediates, the post-IDCT range-limit table);
-//   - jdsample.c's "fancy" (triangular) chroma upsampling: h2v1 and h2v2
-//     when the downsampled width exceeds 2 (else sample replication) and
-//     h1v2, with their alternating rounding biases and replicated edges
-//     (jdmainct.c repeats the first and the last real sample row);
-//   - jdcolor.c's fixed-point YCbCr -> RGB tables (SCALEBITS 16).
-// Scope: SOF0 / SOF1 at 8 bits, 1 (gray) or 3 (YCbCr) components, sampling
-// factors h, v in {1, 2} (4:4:4, 4:2:2, 4:2:0, 4:4:0, gray), interleaved
-// and non-interleaved scans, restart intervals, byte stuffing and fill
-// bytes, sizes that are not a multiple of the MCU. Progressive, lossless,
-// hierarchical and arithmetic-coded files, 12-bit samples, 4-component
-// files, RGB-coded 3-component files (Adobe transform 0) and truncated
-// data are refused with a message naming the feature.
+//   - jdsample.c's upsampling: "fancy" (triangular) h2v1 and h2v2 when the
+//     downsampled width exceeds 2 (else sample replication), fancy h1v2,
+//     and replication for every other integral ratio (4:1:1), with the
+//     alternating rounding biases and replicated edges (jdmainct.c repeats
+//     the first and the last real sample row);
+//   - jdcolor.c's fixed-point YCbCr -> RGB, YCCK -> CMYK and RGB -> gray
+//     tables (SCALEBITS 16), and OpenCV's own CMYK -> BGR and CMYK -> gray
+//     conversions (OpenCV asks libjpeg for CMYK output from a 4-component
+//     file);
+//   - jdphuff.c's progressive Huffman decoding (DC and AC first and
+//     refinement scans, end-of-band runs), all scans gathered into the
+//     coefficients and then rendered once: libjpeg applies no block
+//     smoothing when every coefficient's last scan has arrived;
+//   - jdhuff.c's handling of data that ends early: the bits past the end
+//     read as zeros, the MCU where they ran out is finished with them and
+//     every later MCU of the scan keeps the coefficients it had (zeros in
+//     a sequential file: level 128), with a warning.
+// Scope: SOF0 / SOF1 / SOF2 at 8 bits; 1 (gray), 3 (YCbCr, or RGB by the
+// Adobe transform 0 or the component ids 'R' 'G' 'B') or 4 (CMYK, or
+// YCCK by the Adobe transform 2) components; sampling factors 1 to 4 at
+// integral ratios; interleaved and non-interleaved scans, restart
+// intervals, byte stuffing and fill bytes, sizes that are not a multiple
+// of the MCU, and the standard Huffman tables where a file defines none
+// (Motion-JPEG frames). Lossless, hierarchical and arithmetic-coded files,
+// 12-bit samples, fractional sampling ratios and a progressive file whose
+// scans stop before the low-frequency coefficients are complete (which
+// libjpeg renders with block smoothing) are refused with a message naming
+// the feature.
 
 #include <algorithm>
 #include <cstdint>
@@ -97,16 +114,59 @@ void build_huffman(Huffman& t, const uint8_t* bits, const uint8_t* vals,
     }
 }
 
+// jstdhuff.c: the tables of the JPEG standard's Annex K.3, which
+// libjpeg-turbo uses for table 0 (luminance) and 1 (chrominance) when a
+// file defines none
+const uint8_t kStdDcBits[2][16] = {
+    {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+    {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
+const uint8_t kStdDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kStdAcBits[2][16] = {
+    {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+    {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+const uint8_t kStdAcVals[2][162] = {
+    {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+     0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+     0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+     0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+     0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+     0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+     0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+     0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+     0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+     0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+     0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+     0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+     0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+    {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+     0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+     0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+     0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+     0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+     0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+     0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+     0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+     0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+     0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+     0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+     0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+     0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+
 // Entropy-coded data reader. Bits are left-aligned in `buf`; at a marker or
-// at the end of the data it appends zero bytes and counts them in `fake`:
-// consuming one of those means the data was truncated.
+// at the end of the data it appends zero bytes, as libjpeg does. `real`
+// counts the bits in `buf` that came from the data: consuming more than
+// those sets `insufficient` (jdhuff.c's insufficient_data), and the
+// decoder then leaves the scan's later MCUs alone.
 struct BitReader {
   const uint8_t* p;
   const uint8_t* end;
   const uint8_t* marker = nullptr;  // the 0xFF that starts the next marker
   uint64_t buf = 0;
   int cnt = 0;
-  int fake = 0;
+  int real = 0;
+  bool insufficient = false;
 
   void fill() {
     while (cnt <= 56) {
@@ -118,17 +178,17 @@ struct BitReader {
           while (q < end && *q == 0xFF) q++;  // fill bytes
           if (q < end && *q == 0x00) {
             p = q + 1;  // stuffed zero: a data byte 0xFF
+            real += 8;
           } else {
             marker = p;
             b = 0;
-            fake += 8;
           }
         } else {
           p++;
+          real += 8;
         }
-      } else {
-        if (marker == nullptr) marker = end;
-        fake += 8;
+      } else if (marker == nullptr) {
+        marker = end;
       }
       buf |= (uint64_t)b << (56 - cnt);
       cnt += 8;
@@ -137,7 +197,12 @@ struct BitReader {
   void consume(int n) {
     buf <<= n;
     cnt -= n;
-    if (cnt < fake) throw Error("truncated JPEG data");
+    if (n > real) {
+      insufficient = true;
+      real = 0;
+    } else {
+      real -= n;
+    }
   }
   int bits(int n) {  // n in 1..16
     if (cnt < n) fill();
@@ -145,6 +210,7 @@ struct BitReader {
     consume(n);
     return v;
   }
+  int bit() { return bits(1); }
   int decode(const Huffman& t) {
     if (cnt < 16) fill();
     int e = t.look[buf >> (64 - kLookBits)];
@@ -162,17 +228,23 @@ struct BitReader {
     consume(l);
     return t.vals[code + t.valoffset[l]];
   }
-  // after a restart interval: drop the padding bits, read RSTn
+  // after a restart interval: drop the padding bits, read RSTn. Where the
+  // data has ended (a truncated file) there is no marker to read: the
+  // zeros go on, as libjpeg leaves its out-of-data state as it was.
   void restart(int expected) {
     const uint8_t* q = marker ? marker : p;
     while (q < end && *q != 0xFF) q++;  // extraneous bytes
     while (q < end && *q == 0xFF) q++;
-    if (q >= end || *q != 0xD0 + expected)
-      throw Error("bad JPEG restart marker");
+    buf = 0;
+    cnt = real = 0;
+    if (q >= end) {
+      p = marker = end;
+      return;
+    }
+    if (*q != 0xD0 + expected) throw Error("bad JPEG restart marker");
     p = q + 1;
     marker = nullptr;
-    buf = 0;
-    cnt = fake = 0;
+    insufficient = false;
   }
   // where marker parsing resumes after the scan
   const uint8_t* resume() const { return marker ? marker : p; }
@@ -186,8 +258,9 @@ struct Component {
   int id, h, v, tq;
   int bw, bh;      // blocks stored (whole MCUs)
   int dw, dh;      // downsampled size in samples
-  bool seen = false;
-  int16_t quant[64];  // natural order, as libjpeg's ISLOW_MULT_TYPE (short)
+  bool latched = false;
+  int16_t quant[64] = {};  // natural order, as libjpeg's ISLOW_MULT_TYPE
+  int coef_bits[64];       // jdphuff.c: the last Al of each coefficient
   std::vector<int16_t> coef;  // bh * bw blocks of 64
 };
 
@@ -332,7 +405,8 @@ void idct_islow(const int16_t* in, const int16_t* q, uint8_t* out,
 // --- jdsample.c: one component to full size --------------------------------
 
 // `plane` holds the component's samples (row stride `stride`, dh x dw
-// real); `out` receives H x W samples at full size.
+// real); `out` receives H x W samples at full size. (rh, rv) is the
+// integral ratio of the largest sampling factors to the component's.
 void upsample(const uint8_t* plane, int stride, int dw, int dh, int rh,
               int rv, uint8_t* out, int W, int H) {
   auto row = [&](int y) {  // jdmainct.c: first and last real rows repeat
@@ -371,27 +445,36 @@ void upsample(const uint8_t* plane, int stride, int dw, int dh, int rh,
     }
     return;
   }
-  // rh == 2 && rv == 2
-  std::vector<int> colsum(dw);
+  if (rh == 2 && rv == 2) {
+    std::vector<int> colsum(dw);
+    for (int y = 0; y < H; y++) {
+      uint8_t* o = out + (size_t)y * W;
+      if (!fancy) {  // h2v2_upsample
+        const uint8_t* in = row(y >> 1);
+        for (int x = 0; x < W; x++) o[x] = in[x >> 1];
+        continue;
+      }
+      // h2v2_fancy_upsample: nearer row * 3 + farther row, then the same
+      // triangle across columns with biases 8 and 7
+      const uint8_t* near = row(y >> 1);
+      const uint8_t* far = row((y & 1) ? (y >> 1) + 1 : (y >> 1) - 1);
+      for (int j = 0; j < dw; j++) colsum[j] = near[j] * 3 + far[j];
+      for (int x = 0; x < W; x++) {
+        int j = x >> 1;
+        if (x & 1)
+          o[x] = (uint8_t)((colsum[j] * 3 + colsum[col(j + 1)] + 7) >> 4);
+        else
+          o[x] = (uint8_t)((colsum[j] * 3 + colsum[col(j - 1)] + 8) >> 4);
+      }
+    }
+    return;
+  }
+  // int_upsample: every other integral ratio (4:1:1 and the like) repeats
+  // each sample rh times across and rv times down
   for (int y = 0; y < H; y++) {
+    const uint8_t* in = row(y / rv);
     uint8_t* o = out + (size_t)y * W;
-    if (!fancy) {  // h2v2_upsample
-      const uint8_t* in = row(y >> 1);
-      for (int x = 0; x < W; x++) o[x] = in[x >> 1];
-      continue;
-    }
-    // h2v2_fancy_upsample: nearer row * 3 + farther row, then the same
-    // triangle across columns with biases 8 and 7
-    const uint8_t* near = row(y >> 1);
-    const uint8_t* far = row((y & 1) ? (y >> 1) + 1 : (y >> 1) - 1);
-    for (int j = 0; j < dw; j++) colsum[j] = near[j] * 3 + far[j];
-    for (int x = 0; x < W; x++) {
-      int j = x >> 1;
-      if (x & 1)
-        o[x] = (uint8_t)((colsum[j] * 3 + colsum[col(j + 1)] + 7) >> 4);
-      else
-        o[x] = (uint8_t)((colsum[j] * 3 + colsum[col(j - 1)] + 8) >> 4);
-    }
+    for (int x = 0; x < W; x++) o[x] = in[x / rh];
   }
 }
 
@@ -418,16 +501,42 @@ inline uint8_t clamp255(int v) {
   return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
 }
 
+// jdcolor.c build_rgb_y_table: RGB -> Y for a gray read of an RGB-coded
+// file (SCALEBITS 16)
+struct RgbYTables {
+  int64_t r[256], g[256], b[256];
+  RgbYTables() {
+    auto fix = [](double x) { return (int64_t)(x * (1 << 16) + 0.5); };
+    for (int i = 0; i < 256; i++) {
+      r[i] = fix(0.29900) * i;
+      g[i] = fix(0.58700) * i;
+      b[i] = fix(0.11400) * i + ((int64_t)1 << 15);
+    }
+  }
+};
+const RgbYTables kRgbY;
+
+// OpenCV's icvCvt_CMYK2BGR_8u_C4C3R: one channel of a CMYK sample (as
+// libjpeg hands it over: an Adobe file's inverted values) with its K
+inline int cmyk_channel(int c, int k) { return k - (((255 - c) * k) >> 8); }
+
+// OpenCV's icvCvt_CMYK2Gray_8u_C4C1R weights (SCALE 14)
+constexpr int kGrayR = 4899, kGrayG = 9617, kGrayB = 1868;
+
 // --- the file --------------------------------------------------------------
+
+enum Space { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
 
 struct Decoder {
   const uint8_t* data;
   const uint8_t* end;
   int W = 0, H = 0, ncomp = 0, hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
   int restart_interval = 0;
-  bool saw_jfif = false, saw_adobe = false;
+  bool progressive = false, saw_jfif = false, saw_adobe = false;
+  bool truncated = false;  // data ended early or without EOI
   int adobe_transform = -1;
-  Component comp[3];
+  Space space = kGray;
+  Component comp[4];
   uint16_t qtab[4][64];
   bool qdef[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
@@ -438,9 +547,10 @@ struct Decoder {
 
   // the payload of the marker segment at p (p after the marker code)
   const uint8_t* segment(const uint8_t* p, int* len) {
-    if (end - p < 2) throw Error("truncated JPEG data");
+    if (end - p < 2) throw Error("truncated JPEG data (in a marker segment)");
     *len = u16(p) - 2;
-    if (*len < 0 || end - p - 2 < *len) throw Error("truncated JPEG data");
+    if (*len < 0 || end - p - 2 < *len)
+      throw Error("truncated JPEG data (in a marker segment)");
     return p + 2;
   }
 
@@ -455,10 +565,9 @@ struct Decoder {
     ncomp = s[5];
     if (H == 0) throw Error("JPEG height defined by a DNL marker is not supported");
     if (W == 0) throw Error("bad JPEG frame header (width 0)");
-    if (ncomp == 4) throw Error("4-component (CMYK / YCCK) JPEGs are not supported");
-    if (ncomp != 1 && ncomp != 3)
+    if (ncomp != 1 && ncomp != 3 && ncomp != 4)
       throw Error("JPEGs with " + std::to_string(ncomp) +
-                  " components are not supported (1 or 3 are)");
+                  " components are not supported (1, 3 or 4 are)");
     if (len < 6 + 3 * ncomp) throw Error("bad JPEG frame header");
     for (int i = 0; i < ncomp; i++) {
       Component& c = comp[i];
@@ -466,12 +575,15 @@ struct Decoder {
       c.h = s[7 + 3 * i] >> 4;
       c.v = s[7 + 3 * i] & 15;
       c.tq = s[8 + 3 * i];
-      if (c.h < 1 || c.h > 2 || c.v < 1 || c.v > 2)
-        throw Error("JPEG sampling factors other than 1 and 2 are not supported");
+      if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)
+        throw Error("bad JPEG sampling factors (1 to 4 are allowed)");
       if (c.tq > 3) throw Error("bad JPEG quantization table index");
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
     }
+    for (int i = 0; i < ncomp; i++)
+      if (hmax % comp[i].h || vmax % comp[i].v)
+        throw Error("JPEG fractional sampling ratios are not supported");
     mcux = (W + 8 * hmax - 1) / (8 * hmax);
     mcuy = (H + 8 * vmax - 1) / (8 * vmax);
     for (int i = 0; i < ncomp; i++) {
@@ -480,6 +592,7 @@ struct Decoder {
       c.bh = mcuy * c.v;
       c.dw = (W * c.h + hmax - 1) / hmax;
       c.dh = (H * c.v + vmax - 1) / vmax;
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
     }
   }
 
@@ -512,21 +625,44 @@ struct Decoder {
     }
   }
 
-  void check_color_space() {
-    // jdapimin.c default_decompress_parms, 3 components
-    if (ncomp != 3 || saw_jfif) return;
-    bool rgb;
-    if (saw_adobe)
-      rgb = adobe_transform == 0;
-    else
-      rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
-    if (rgb)
-      throw Error("RGB-coded JPEGs (Adobe transform 0) are not supported");
+  // a scan's Huffman table: the file's, else (jdhuff.c via jstdhuff.c)
+  // the standard one for tables 0 and 1
+  const Huffman& table(bool is_dc, int n) {
+    Huffman& t = is_dc ? dc[n] : ac[n];
+    if (!t.defined) {
+      if (n > 1) throw Error("JPEG scan uses an undefined Huffman table");
+      if (is_dc) {
+        build_huffman(t, kStdDcBits[n], kStdDcVals, 12, true);
+      } else {
+        build_huffman(t, kStdAcBits[n], kStdAcVals[n], 162, false);
+      }
+      t.defined = true;
+    }
+    return t;
   }
 
-  void decode_block(BitReader& br, Component& c, int by, int bx, int& pred,
-                    const Huffman& hd, const Huffman& ha) {
-    int16_t* blk = &c.coef[((size_t)by * c.bw + bx) * 64];
+  void find_color_space() {
+    // jdapimin.c default_decompress_parms
+    if (ncomp == 1) {
+      space = kGray;
+    } else if (ncomp == 3) {
+      bool rgb;
+      if (saw_jfif)
+        rgb = false;
+      else if (saw_adobe)
+        rgb = adobe_transform == 0;
+      else
+        rgb = comp[0].id == 'R' && comp[1].id == 'G' && comp[2].id == 'B';
+      space = rgb ? kRGB : kYCbCr;
+    } else {
+      space = (saw_adobe && adobe_transform != 0) ? kYCCK : kCMYK;
+    }
+  }
+
+  // --- jdhuff.c / jdphuff.c: one block of a scan ---
+
+  void seq_block(BitReader& br, int16_t* blk, int& pred, const Huffman& hd,
+                 const Huffman& ha) {
     int s = br.decode(hd);
     if (s) pred += extend(br.bits(s), s);
     blk[0] = (int16_t)pred;
@@ -544,13 +680,89 @@ struct Decoder {
     }
   }
 
+  void dc_first(BitReader& br, int16_t* blk, int& pred, const Huffman& hd,
+                int al) {
+    int s = br.decode(hd);
+    if (s) pred += extend(br.bits(s), s);
+    blk[0] = (int16_t)(int)((unsigned)pred << al);
+  }
+
+  void dc_refine(BitReader& br, int16_t* blk, int al) {
+    if (br.bit()) blk[0] = (int16_t)(blk[0] | (1 << al));
+  }
+
+  void ac_first(BitReader& br, int16_t* blk, const Huffman& ha, int ss,
+                int se, int al, int& eobrun) {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    for (int k = ss; k <= se; k++) {
+      int rs = br.decode(ha);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        int v = extend(br.bits(s), s);
+        blk[kNatural[k]] = (int16_t)(int)((unsigned)v << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br.bits(r);
+        eobrun--;
+        break;
+      }
+    }
+  }
+
+  void ac_refine(BitReader& br, int16_t* blk, const Huffman& ha, int ss,
+                 int se, int al, int& eobrun) {
+    const int p1 = 1 << al, m1 = (int)(~0u << al);
+    int k = ss;
+    auto correct = [&](int16_t* c) {  // a correction bit of a nonzero coef
+      if (br.bit() && (*c & p1) == 0) *c = (int16_t)(*c + (*c >= 0 ? p1 : m1));
+    };
+    if (eobrun == 0) {
+      for (; k <= se; k++) {
+        int rs = br.decode(ha);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          // the size of a newly nonzero coefficient is 1 (libjpeg warns
+          // and goes on otherwise)
+          s = br.bit() ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.bits(r);
+          break;  // the rest of the block is the end-of-band run's
+        }
+        do {
+          int16_t* c = blk + kNatural[k];
+          if (*c != 0) {
+            correct(c);
+          } else if (--r < 0) {
+            break;  // the zero coefficient that becomes nonzero
+          }
+          k++;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; k++) {
+        int16_t* c = blk + kNatural[k];
+        if (*c != 0) correct(c);
+      }
+      eobrun--;
+    }
+  }
+
   // returns where marker parsing resumes
   const uint8_t* read_scan(const uint8_t* s, int len, const uint8_t* after) {
     if (W == 0) throw Error("JPEG scan before the frame header");
-    int ns = s[0];
+    int ns = len > 0 ? s[0] : 0;
     if (ns < 1 || ns > ncomp || len < 4 + 2 * ns) throw Error("bad JPEG scan header");
-    Component* sc[3];
-    int td[3], ta[3];
+    Component* sc[4];
+    int td[4], ta[4];
     for (int i = 0; i < ns; i++) {
       int id = s[1 + 2 * i];
       sc[i] = nullptr;
@@ -559,27 +771,62 @@ struct Decoder {
       if (!sc[i]) throw Error("bad JPEG scan header (unknown component)");
       td[i] = s[2 + 2 * i] >> 4;
       ta[i] = s[2 + 2 * i] & 15;
-      if (td[i] > 3 || ta[i] > 3 || !dc[td[i]].defined || !ac[ta[i]].defined)
-        throw Error("JPEG scan uses an undefined Huffman table");
+      if (td[i] > 3 || ta[i] > 3) throw Error("bad JPEG scan header (table index)");
     }
     const uint8_t* t = s + 1 + 2 * ns;
-    if (t[0] != 0 || t[1] != 63 || t[2] != 0)
-      throw Error("bad JPEG scan header (not a sequential scan)");
+    const int ss = t[0], se = t[1], ah = t[2] >> 4, al = t[2] & 15;
+    const bool dc_band = ss == 0;
+    if (!progressive) {
+      if (ss != 0 || se != 63 || ah != 0 || al != 0)
+        throw Error("bad JPEG scan header (not a sequential scan)");
+    } else {
+      // jdphuff.c start_pass_phuff_decoder
+      bool bad = dc_band ? se != 0 : (ss > se || se > 63 || ns != 1);
+      if (ah != 0 && al != ah - 1) bad = true;
+      if (al > 13) bad = true;
+      if (bad)
+        throw Error("bad progressive JPEG scan parameters (Ss " +
+                    std::to_string(ss) + ", Se " + std::to_string(se) +
+                    ", Ah " + std::to_string(ah) + ", Al " +
+                    std::to_string(al) + ")");
+      for (int i = 0; i < ns; i++)
+        for (int k = ss; k <= se; k++) sc[i]->coef_bits[k] = al;
+    }
     for (int i = 0; i < ns; i++) {
       Component& c = *sc[i];
-      if (!c.seen) {  // jdinput.c latch_quant_tables
+      if (!c.latched) {  // jdinput.c latch_quant_tables
         if (!qdef[c.tq]) throw Error("JPEG component uses an undefined quantization table");
         for (int k = 0; k < 64; k++) c.quant[k] = (int16_t)qtab[c.tq][k];
-        c.coef.assign((size_t)c.bw * c.bh * 64, 0);
-        c.seen = true;
+        c.latched = true;
       }
+    }
+    const Huffman* hd[4] = {};
+    const Huffman* ha[4] = {};
+    for (int i = 0; i < ns; i++) {
+      if (!progressive || (dc_band && ah == 0)) hd[i] = &table(true, td[i]);
+      if (!progressive || !dc_band) ha[i] = &table(false, ta[i]);
     }
     int blocks_per_mcu = 0;
     for (int i = 0; i < ns; i++) blocks_per_mcu += sc[i]->h * sc[i]->v;
     if (ns > 1 && blocks_per_mcu > 10) throw Error("bad JPEG scan (MCU too large)");
 
     BitReader br{after, end};
-    int pred[3] = {0, 0, 0};
+    int pred[4] = {0, 0, 0, 0};
+    int eobrun = 0;
+    auto block = [&](int i, int by, int bx) {
+      Component& c = *sc[i];
+      int16_t* blk = &c.coef[((size_t)by * c.bw + bx) * 64];
+      if (!progressive)
+        seq_block(br, blk, pred[i], *hd[i], *ha[i]);
+      else if (dc_band && ah == 0)
+        dc_first(br, blk, pred[i], *hd[i], al);
+      else if (dc_band)
+        dc_refine(br, blk, al);
+      else if (ah == 0)
+        ac_first(br, blk, *ha[i], ss, se, al, eobrun);
+      else
+        ac_refine(br, blk, *ha[i], ss, se, al, eobrun);
+    };
     int nx, ny;
     if (ns == 1) {
       nx = (sc[0]->dw + 7) / 8;
@@ -593,24 +840,26 @@ struct Decoder {
       if (restart_interval) {
         if (todo == 0) {
           br.restart((int)(rst++ & 7));
-          pred[0] = pred[1] = pred[2] = 0;
+          pred[0] = pred[1] = pred[2] = pred[3] = 0;
+          eobrun = 0;
           todo = restart_interval;
         }
         todo--;
       }
+      if (br.insufficient) continue;  // jdhuff.c: out of data
       int my = (int)(m / nx), mx = (int)(m % nx);
       if (ns == 1) {
-        decode_block(br, *sc[0], my, mx, pred[0], dc[td[0]], ac[ta[0]]);
+        block(0, my, mx);
         continue;
       }
       for (int i = 0; i < ns; i++) {
         Component& c = *sc[i];
         for (int by = 0; by < c.v; by++)
           for (int bx = 0; bx < c.h; bx++)
-            decode_block(br, c, my * c.v + by, mx * c.h + bx, pred[i],
-                         dc[td[i]], ac[ta[i]]);
+            block(i, my * c.v + by, mx * c.h + bx);
       }
     }
+    if (br.insufficient) truncated = true;
     return br.resume();
   }
 
@@ -625,18 +874,17 @@ struct Decoder {
       while (p < end && *p != 0xFF) p++;
       while (p < end && *p == 0xFF) p++;
       if (p >= end) {
-        if (any_scan) break;  // complete scans, no EOI
-        throw Error("truncated JPEG data");
+        if (!any_scan) throw Error("truncated JPEG data (no scan)");
+        truncated = true;  // libjpeg: "Premature end of JPEG file"
+        break;
       }
       int code = *p++;
       if (code == 0xD9) break;                         // EOI
       if (code >= 0xD0 && code <= 0xD7) continue;      // stray RSTn
       if (code == 0x01) continue;                      // TEM
-      if (code == 0xC2 || code == 0xC6)
-        throw Error("progressive JPEGs are not supported");
       if (code == 0xC3 || code == 0xC7)
         throw Error("lossless JPEGs are not supported");
-      if (code == 0xC5)
+      if (code == 0xC5 || code == 0xC6)
         throw Error("hierarchical (differential) JPEGs are not supported");
       if (code >= 0xC9 && code <= 0xCF && code != 0xCC)
         throw Error("arithmetic-coded JPEGs are not supported");
@@ -648,8 +896,12 @@ struct Decoder {
       switch (code) {
         case 0xC0:
         case 0xC1:
+        case 0xC2:
           if (W) throw Error("bad JPEG: two frame headers");
+          progressive = code == 0xC2;
           read_sof(s, len);
+          for (int i = 0; i < ncomp; i++)
+            comp[i].coef.assign((size_t)comp[i].bw * comp[i].bh * 64, 0);
           break;
         case 0xC4: read_dht(s, len); break;
         case 0xDB: read_dqt(s, len); break;
@@ -657,10 +909,10 @@ struct Decoder {
           if (len < 2) throw Error("bad JPEG restart interval");
           restart_interval = u16(s);
           break;
-        case 0xE0:
-          if (len >= 5 && std::memcmp(s, "JFIF\0", 5) == 0) saw_jfif = true;
+        case 0xE0:  // jdmarker.c examine_app0: APP0_DATA_LEN 14
+          if (len >= 14 && std::memcmp(s, "JFIF\0", 5) == 0) saw_jfif = true;
           break;
-        case 0xEE:
+        case 0xEE:  // examine_app14: APP14_DATA_LEN 12
           if (len >= 12 && std::memcmp(s, "Adobe", 5) == 0) {
             saw_adobe = true;
             adobe_transform = s[11];
@@ -668,7 +920,7 @@ struct Decoder {
           break;
         case 0xDA:
           if (!any_scan) {
-            check_color_space();
+            find_color_space();
             if (header_only) return;
           }
           any_scan = true;
@@ -679,37 +931,91 @@ struct Decoder {
       p = next;
     }
     if (W == 0) throw Error("JPEG without a frame header");
-    if (!any_scan) throw Error("truncated JPEG data (no scan)");
-    for (int i = 0; i < ncomp; i++)
-      if (!comp[i].seen) throw Error("truncated JPEG data (a component has no scan)");
+    if (progressive && smoothing_applies())
+      throw Error(
+          "progressive JPEG whose scans stop before its low-frequency "
+          "coefficients are complete (libjpeg renders it with block "
+          "smoothing, which this decoder does not implement)");
   }
 
-  void render(uint8_t* out) {
-    std::vector<uint8_t> full[3];
+  // jdcoefct.c smoothing_ok (SAVED_COEFS 10): libjpeg smooths blocks when
+  // every component has its DC and some of coefficients 1..9 still lack
+  // their last scan
+  bool smoothing_applies() const {
+    static const int kPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
     for (int i = 0; i < ncomp; i++) {
-      Component& c = comp[i];
-      int stride = c.bw * 8;
-      std::vector<uint8_t> plane((size_t)stride * c.bh * 8);
-      for (int by = 0; by < c.bh; by++)
-        for (int bx = 0; bx < c.bw; bx++)
-          idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], c.quant,
-                     &plane[(size_t)by * 8 * stride + bx * 8], stride);
-      if (ncomp == 1) {
-        for (int y = 0; y < H; y++)
-          std::memcpy(out + (size_t)y * W, &plane[(size_t)y * stride], W);
-        return;
-      }
-      full[i].resize((size_t)W * H);
-      upsample(plane.data(), stride, c.dw, c.dh, hmax / c.h, vmax / c.v,
-               full[i].data(), W, H);
+      const Component& c = comp[i];
+      if (!c.latched) return false;
+      for (int k : kPos)
+        if (c.quant[k] == 0) return false;
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < 10; k++)
+        if (c.coef_bits[k] != 0) useful = true;
     }
+    return useful;
+  }
+
+  // component i's samples at full size
+  std::vector<uint8_t> plane(int i) {
+    Component& c = comp[i];
+    int stride = c.bw * 8;
+    std::vector<uint8_t> idct((size_t)stride * c.bh * 8);
+    for (int by = 0; by < c.bh; by++)
+      for (int bx = 0; bx < c.bw; bx++)
+        idct_islow(&c.coef[((size_t)by * c.bw + bx) * 64], c.quant,
+                   &idct[(size_t)by * 8 * stride + bx * 8], stride);
+    std::vector<uint8_t> full((size_t)W * H);
+    upsample(idct.data(), stride, c.dw, c.dh, hmax / c.h, vmax / c.v,
+             full.data(), W, H);
+    return full;
+  }
+
+  // gray: H x W (cv2's IMREAD_GRAYSCALE); else H x W gray for a
+  // 1-component file and H x W x 3 RGB for the others (IMREAD_COLOR)
+  void render(uint8_t* out, bool gray) {
     const size_t n = (size_t)W * H;
+    if (space == kGray || (gray && space == kYCbCr)) {
+      std::vector<uint8_t> y = plane(0);  // jdcolor.c grayscale_convert
+      std::memcpy(out, y.data(), n);
+      return;
+    }
+    std::vector<uint8_t> p[4];
+    for (int i = 0; i < ncomp; i++) p[i] = plane(i);
     for (size_t k = 0; k < n; k++) {
-      int y = full[0][k], cb = full[1][k], cr = full[2][k];
-      out[3 * k] = clamp255(y + kYcc.cr_r[cr]);
-      out[3 * k + 1] =
-          clamp255(y + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
-      out[3 * k + 2] = clamp255(y + kYcc.cb_b[cb]);
+      int r, g, b;
+      if (space == kRGB) {
+        r = p[0][k];
+        g = p[1][k];
+        b = p[2][k];
+        if (gray) {  // jdcolor.c rgb_gray_convert
+          out[k] = (uint8_t)((kRgbY.r[r] + kRgbY.g[g] + kRgbY.b[b]) >> 16);
+          continue;
+        }
+      } else if (space == kYCbCr) {
+        int y = p[0][k], cb = p[1][k], cr = p[2][k];
+        r = clamp255(y + kYcc.cr_r[cr]);
+        g = clamp255(y + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+        b = clamp255(y + kYcc.cb_b[cb]);
+      } else {
+        int c0 = p[0][k], c1 = p[1][k], c2 = p[2][k], kk = p[3][k];
+        if (space == kYCCK) {  // jdcolor.c ycck_cmyk_convert
+          int y = c0, cb = c1, cr = c2;
+          c0 = clamp255(255 - (y + kYcc.cr_r[cr]));
+          c1 = clamp255(255 - (y + (int)((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16)));
+          c2 = clamp255(255 - (y + kYcc.cb_b[cb]));
+        }
+        r = cmyk_channel(c0, kk);
+        g = cmyk_channel(c1, kk);
+        b = cmyk_channel(c2, kk);
+        if (gray) {  // icvCvt_CMYK2Gray_8u_C4C1R
+          out[k] = (uint8_t)((r * kGrayR + g * kGrayG + b * kGrayB + (1 << 13)) >> 14);
+          continue;
+        }
+      }
+      out[3 * k] = (uint8_t)r;
+      out[3 * k + 1] = (uint8_t)g;
+      out[3 * k + 2] = (uint8_t)b;
     }
   }
 };
@@ -722,8 +1028,8 @@ void set_error(char* err, int errlen, const char* msg) {
 
 extern "C" {
 
-// Reads the headers up to the first scan: size and channels (1 or 3).
-// Returns 0, or 1 with a message in err.
+// Reads the headers up to the first scan: width, height and components
+// (1, 3 or 4). Returns 0, or 1 with a message in err.
 int jpeg_info(const uint8_t* data, int64_t n, int32_t* whc, char* err,
               int errlen) {
   try {
@@ -740,15 +1046,22 @@ int jpeg_info(const uint8_t* data, int64_t n, int32_t* whc, char* err,
   }
 }
 
-// Decodes into out: H x W x 3 RGB, or H x W gray; out_size must be that.
+// Decodes into out: with gray != 0, H x W (cv2.IMREAD_GRAYSCALE);
+// otherwise H x W for a 1-component file, else H x W x 3 RGB
+// (cv2.IMREAD_COLOR). out_size must be that. *truncated is set to 1 where
+// the data ended early (libjpeg's warning). Returns 0, or 1 with a message
+// in err.
 int jpeg_decode(const uint8_t* data, int64_t n, uint8_t* out,
-                int64_t out_size, char* err, int errlen) {
+                int64_t out_size, int gray, int32_t* truncated, char* err,
+                int errlen) {
   try {
     Decoder d(data, n);
     d.run(false);
-    if ((int64_t)d.W * d.H * d.ncomp != out_size)
+    int channels = (gray || d.ncomp == 1) ? 1 : 3;
+    if ((int64_t)d.W * d.H * channels != out_size)
       throw Error("output buffer has the wrong size");
-    d.render(out);
+    d.render(out, gray != 0);
+    *truncated = d.truncated ? 1 : 0;
     return 0;
   } catch (const std::exception& e) {
     set_error(err, errlen, e.what());

@@ -1,7 +1,9 @@
 """The port's CLI (``mast3r_slam_tpu_torch/main.py``) on the CPU against the
 JAX CLI (``main.py``): the same tiny weights (npz) on the same synthetic
-TUM clip, and on a EuRoC-layout clip (gray, undistorted as it is read) and
-a Replica clip of JPEG frames, must give the same per-frame mode sequence,
+TUM clip, and on a EuRoC-layout clip (gray, undistorted as it is read), a
+Replica clip of JPEG frames (baseline and progressive) and an image folder
+of mixed PNG kinds (EXIF-tagged, 16-bit, interlaced, palette), must give
+the same per-frame mode sequence,
 keyframes and edges, and trajectories within ``TRAJ_TOL``. Further runs of the port's CLI
 (calibrated, ``img_downsample 2``, threaded, retrieval artifacts,
 checkpoint / resume) are checked as tests/test_e2e_smoke.py checks the JAX
@@ -29,6 +31,8 @@ from mast3r_slam_tpu_torch import main as tcli
 from mast3r_slam_tpu_torch.data import png
 from mast3r_slam_tpu_torch.slam import tracker as TT
 from torch_jpeg_writer import write_jpeg
+from torch_png_writer import exif_orientation, stored_under
+from torch_png_writer import write_png as write_png_kind
 from torch_parity import tiny_weights, torch_one_thread  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -105,15 +109,46 @@ def _euroc_clip(root, n):
     return root
 
 
-def _replica_clip(root, n):
+def _replica_clip(root, n, progressive=False):
     """Replica's layout: results/frame%06d.jpg + cam_params.json."""
     (root / "results").mkdir(parents=True, exist_ok=True)
     for i, img in enumerate(_frames(n, CLIP_HW, CLIP_STEP, 2)):
-        write_jpeg(root / "results" / f"frame{i:06d}.jpg", img, 95)
+        write_jpeg(root / "results" / f"frame{i:06d}.jpg", img, 95,
+                   progressive=progressive)
     h, w = CLIP_HW
     (root / "cam_params.json").write_text(
         f'{{"camera": {{"w": {w}, "h": {h}, "fx": {w / 2}, "fy": {w / 2}, '
         f'"cx": {(w - 1) / 2}, "cy": {(h - 1) / 2}}}}}')
+    return root
+
+
+# the image folder's frames in turn: stored under the inverse of each
+# EXIF orientation, 16-bit (v * 257), Adam7-interlaced, palette
+PNG_KINDS = tuple(range(1, 9)) + ("16-bit", "adam7", "palette")
+
+
+def _mixed_png_clip(root, n):
+    """An image folder (``RGBFiles``) whose frames are PNGs of the kinds
+    in ``PNG_KINDS``; a palette frame holds the frame quantized to a 6 x 6
+    x 6 colour cube."""
+    root.mkdir(parents=True, exist_ok=True)
+    for i, img in enumerate(_frames(n, CLIP_HW, CLIP_STEP, 3)):
+        kind = PNG_KINDS[i % len(PNG_KINDS)]
+        path = root / f"frame{i:04d}.png"
+        if kind == "16-bit":
+            write_png_kind(path, img.astype(np.int64) * 257, depth=16)
+        elif kind == "adam7":
+            write_png_kind(path, img, interlace=True)
+        elif kind == "palette":
+            q = img.astype(np.int64) * 6 // 256
+            cube = np.stack(np.meshgrid(*[np.arange(6) * 51] * 3,
+                                        indexing="ij"), -1).reshape(-1, 3)
+            write_png_kind(path, q[..., 0] * 36 + q[..., 1] * 6 + q[..., 2],
+                           palette=cube)
+        else:
+            write_png_kind(path, stored_under(img, kind),
+                           exif=exif_orientation(kind, "MM" if kind % 2
+                                                 else "II"))
     return root
 
 
@@ -256,15 +291,21 @@ def both_runs(setup):
     return _both_cli_runs(setup, setup[1], "tum")
 
 
-@pytest.fixture(scope="module", params=["euroc", "replica"])
+@pytest.fixture(scope="module", params=["euroc", "replica",
+                                        "replica_progressive",
+                                        "rgbfiles_mixed"])
 def dataset_runs(request, setup):
-    """The EuRoC-layout clip (undistorted on read) and the Replica JPEG
-    clip through both CLIs."""
+    """The EuRoC-layout clip (undistorted on read), the Replica JPEG clip
+    (baseline and progressive) and the image folder of mixed PNG kinds
+    through both CLIs."""
     base = setup[0]
     if request.param == "euroc":
         clip = _euroc_clip(base / "euroc_MH_01_easy", N_FRAMES)
+    elif request.param == "rgbfiles_mixed":
+        clip = _mixed_png_clip(base / "frames_mixed_png", N_FRAMES)
     else:
-        clip = _replica_clip(base / "replica_office0", N_FRAMES)
+        clip = _replica_clip(base / f"{request.param}_office0", N_FRAMES,
+                             progressive=request.param.endswith("ive"))
     return _both_cli_runs(setup, clip, request.param)
 
 
@@ -353,7 +394,8 @@ def test_cli_trajectories_match_jax(both_runs):
     ids=["frames", "modes", "keyframes_edges", "tracked_poses",
          "trajectories"])
 def test_cli_dataset_layouts_match_jax(dataset_runs, check):
-    """EuRoC (gray, undistorted) and Replica (JPEG) clips: both CLIs read
+    """EuRoC (gray, undistorted), Replica (baseline and progressive JPEG)
+    and image-folder (mixed PNG kinds, EXIF-tagged) clips: both CLIs read
     the same frames bit for bit, and the TUM clip's checks hold at the
     same tolerances. On these clips the random-weight matcher flips a few
     pixels early (EuRoC 4 of 6,144 at the fourth tracked frame, Replica 5

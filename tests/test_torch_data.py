@@ -5,6 +5,9 @@ fixtures of tests/test_datasets.py (undistorted frames within
 ``REMAP_TOL``; tests/test_torch_undistort.py holds the undistortion
 itself)."""
 
+import struct
+import zlib
+
 import numpy as np
 import pytest
 import yaml
@@ -73,14 +76,27 @@ def test_png_writer_read_back_by_cv2(tmp_path):
 
 
 def test_png_refuses_16_bit_and_interlaced(tmp_path):
+    """16-bit and interlaced files, which the reader once refused, read as
+    cv2.imread reads them (the high byte of each sample); a bad filter
+    type still raises."""
     path = tmp_path / "d.png"
-    cv2.imwrite(str(path), (RNG.random((8, 8, 3)) * 65535).astype(np.uint16))
-    with pytest.raises(ValueError, match="8-bit"):
-        png.read_png(path)
+    img16 = (RNG.random((8, 8, 3)) * 65535).astype(np.uint16)
+    cv2.imwrite(str(path), img16)
+    want = cv2.imread(str(path), cv2.IMREAD_COLOR)[..., ::-1]
+    np.testing.assert_array_equal(png.read_png(path), want)
+    np.testing.assert_array_equal(imread.read_rgb(path), want)
     data = bytearray(png.encode_png(_img(8, 8)))
     data[28] = 1                      # IHDR interlace byte (CRC not checked)
-    with pytest.raises(ValueError, match="interlaced"):
-        png.decode_png(bytes(data))
+    with pytest.raises(ValueError, match="PNG"):
+        png.decode_png(bytes(data))   # the rows are not Adam7's passes
+    data = bytearray(png.encode_png(_img(8, 8)))
+    body = zlib.decompress(bytes(data[41:-16]))
+    bad = bytes([7]) + body[1:]
+    idat = struct.pack(">I", len(zlib.compress(bad))) + b"IDAT" + \
+        zlib.compress(bad)
+    with pytest.raises(ValueError, match="filter type"):
+        png.decode_png(bytes(data[:33]) + idat + b"\0" * 4
+                       + bytes(data[-12:]))
 
 
 @pytest.mark.parametrize("n_in,n_out", [
@@ -302,8 +318,124 @@ def test_seven_scenes_rgbfiles_eth3d_replica(tmp_path, jax_config):
 def test_natsorted_and_unported_readers():
     assert [str(p) for p in TD.natsorted(["f10.png", "f2.png", "f1.png"])] \
         == [str(p) for p in JD.natsorted(["f10.png", "f2.png", "f1.png"])]
-    for path in ("clip.mp4", "webcam", "webcam:1", "realsense"):
+    for path in ("clip.mp4", "webcam", "webcam:1"):
         with pytest.raises(NotImplementedError, match="not ported"):
             TD.load_dataset(path)
+    # RealSense is ported: without pyrealsense2 both packages raise
+    for path in ("realsense", "rs"):
+        with pytest.raises(RuntimeError, match="pyrealsense2") as got:
+            TD.load_dataset(path)
+        with pytest.raises(RuntimeError) as want:
+            JD.load_dataset(path)
+        assert str(got.value) == str(want.value)
     with pytest.raises(ValueError, match="unrecognized"):
         TD.load_dataset("/nonexistent/path")
+
+
+class _FakeRealsense:
+    """A stand-in ``pyrealsense2`` module: a 640x480 RGB stream of seeded
+    frames with millisecond timestamps and Brown-Conrady intrinsics, the
+    same sequence for every pipeline it starts."""
+
+    W, H = 640, 480
+    COEFFS = (0.12, -0.25, 0.001, -0.0007, 0.08)
+
+    class stream:
+        color = "color"
+
+    class format:
+        rgb8 = "rgb8"
+
+    def __init__(self):
+        self.started = []
+
+    def config(self):
+        fake = self
+
+        class Config:
+            def enable_stream(self, *args):
+                fake.started.append(args)
+
+        return Config()
+
+    def pipeline(self):
+        fake = self
+
+        class Intrinsics:
+            width, height = fake.W, fake.H
+            fx, fy, ppx, ppy = 612.5, 611.25, 321.75, 238.5
+            coeffs = list(fake.COEFFS)
+
+        class Profile:
+            def get_stream(self, kind):
+                assert kind == fake.stream.color
+                return self
+
+            def as_video_stream_profile(self):
+                return self
+
+            def get_intrinsics(self):
+                return Intrinsics()
+
+        class Frame:
+            def __init__(self, i):
+                self.i = i
+
+            def get_color_frame(self):
+                return self
+
+            def get_timestamp(self):
+                return 1.7e12 + 33.4 * self.i + 0.25 * (self.i % 3)
+
+            def get_data(self):
+                rng = np.random.default_rng(self.i)
+                return rng.integers(0, 256, (fake.H, fake.W, 3),
+                                    dtype=np.uint8)
+
+        class Pipeline:
+            def __init__(self):
+                self.n = 0
+
+            def start(self, cfg):
+                return Profile()
+
+            def wait_for_frames(self):
+                self.n += 1
+                return Frame(self.n - 1)
+
+        return Pipeline()
+
+
+def test_realsense_matches_jax(monkeypatch, jax_config):
+    """One fake pyrealsense2 drives the JAX RealsenseDataset and the
+    port's: the stream settings, K_undist from the stream's intrinsics
+    and distortion, timestamps from the first frame, and each frame
+    undistorted (within REMAP_TOL of cv2.remap)."""
+    import sys
+
+    fake = _FakeRealsense()
+    monkeypatch.setitem(sys.modules, "pyrealsense2", fake)
+    dt = TD.load_dataset("realsense", jax_config)
+    dj = JD.load_dataset("rs")
+    assert isinstance(dt, TD.RealsenseDataset)
+    assert type(dj).__name__ == "RealsenseDataset"
+    assert fake.started == [("color", 640, 480, "rgb8", 30)] * 2
+    assert len(dt) == len(dj) and dt.has_calib() and dj.has_calib()
+    assert dt.save_results is False and dj.save_results is False
+    np.testing.assert_allclose(dt.camera_intrinsics.K_undist,
+                               dj.camera_intrinsics.K_undist, rtol=1e-6)
+    np.testing.assert_allclose(dt.camera_intrinsics.K_frame,
+                               dj.camera_intrinsics.K_frame, rtol=1e-6)
+    for i in range(3):
+        (tt, it), (tj, ij) = dt[i], dj[i]
+        assert tt == tj and it.dtype == np.float32 and it.shape == ij.shape
+        np.testing.assert_allclose(it, ij, rtol=0, atol=REMAP_TOL)
+    assert dt.timestamps == dj.timestamps and dt.timestamps[0] == 0.0
+    # without the module both raise the same error
+    monkeypatch.setitem(sys.modules, "pyrealsense2", None)
+    with pytest.raises(RuntimeError) as got:
+        TD.RealsenseDataset(jax_config)
+    with pytest.raises(RuntimeError) as want:
+        JD.RealsenseDataset()
+    assert str(got.value) == str(want.value)
+    assert isinstance(got.value.__cause__, ImportError)

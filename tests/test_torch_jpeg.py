@@ -1,13 +1,18 @@
 """The port's JPEG reader (``mast3r_slam_tpu_torch/data/jpeg.py``, the C++
-decoder ``native/jpeg_decode.cpp``) against ``cv2.imdecode`` and PIL, bit
-for bit; its refusals; the committed fixtures; the format sniffing of
-``data/imread.py``; the Replica ``.jpg`` layout against the JAX reader;
-and the test encoder ``tests/torch_jpeg_writer.py`` read back by cv2."""
+decoder ``native/jpeg_decode.cpp``) against ``cv2.imdecode`` /
+``cv2.imread`` and PIL, bit for bit, in the colour and the gray read:
+baseline, progressive, 4:1:1, CMYK / YCCK and RGB-coded files, truncated
+data (with its warning); its refusals; the committed fixtures; the format
+sniffing of ``data/imread.py``; the Replica ``.jpg`` layout against the
+JAX reader; and the test encoder ``tests/torch_jpeg_writer.py`` read back
+by cv2, its progressive files decoding to its baseline files' pixels."""
 
 import hashlib
 import io
 import itertools
 import json
+import struct
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -129,6 +134,7 @@ def test_refusals_name_the_feature():
     base = _cv2_encode(_texture(16, 16, 1), "420", 90, 0)
     sof = _sof(base)
     cases = {
+        # a baseline scan (Ss 0, Se 63) under a progressive frame header
         "progressive": base[:sof] + b"\xff\xc2" + base[sof + 2:],
         "lossless": base[:sof] + b"\xff\xc3" + base[sof + 2:],
         "arithmetic": base[:sof] + b"\xff\xc9" + base[sof + 2:],
@@ -144,23 +150,34 @@ def test_refusals_name_the_feature():
         jpeg.decode_jpeg(b"\x89PNG....")
 
 
-def test_refuses_real_progressive_cmyk_and_rgb_files():
-    """Files PIL writes: progressive, CMYK (Adobe, 4 components) and an
-    RGB-coded JPEG (Adobe transform 0)."""
+def test_refuses_real_progressive_cmyk_and_rgb_files(tmp_path):
+    """Files PIL writes that the decoder reads as cv2.imread does:
+    progressive, CMYK (Adobe, 4 components, also progressive) and an
+    RGB-coded JPEG (Adobe transform 0). What it still refuses: a
+    progressive file cut before its first scans are complete (libjpeg
+    smooths its blocks)."""
     rgb = _texture(24, 32, 2)
-    buf = io.BytesIO()
-    Image.fromarray(rgb).save(buf, "JPEG", progressive=True)
-    with pytest.raises(ValueError, match="progressive"):
-        jpeg.decode_jpeg(buf.getvalue())
-    buf = io.BytesIO()
-    Image.fromarray(rgb).convert("CMYK").save(buf, "JPEG")
-    with pytest.raises(ValueError, match="4-component"):
-        jpeg.decode_jpeg(buf.getvalue())
-    buf = io.BytesIO()
-    Image.fromarray(rgb).save(buf, "JPEG", keep_rgb=True)
-    assert Image.open(io.BytesIO(buf.getvalue())).mode == "RGB"
-    with pytest.raises(ValueError, match="Adobe transform"):
-        jpeg.decode_jpeg(buf.getvalue())
+    files = {}
+    for name, img, kw in (("prog", Image.fromarray(rgb),
+                           dict(progressive=True)),
+                          ("cmyk", Image.fromarray(rgb).convert("CMYK"), {}),
+                          ("cmyk_prog", Image.fromarray(rgb).convert("CMYK"),
+                           dict(progressive=True)),
+                          ("rgb", Image.fromarray(rgb), dict(keep_rgb=True))):
+        buf = io.BytesIO()
+        img.save(buf, "JPEG", **kw)
+        files[name] = buf.getvalue()
+    assert Image.open(io.BytesIO(files["rgb"])).mode == "RGB"
+    for name, data in files.items():
+        path = tmp_path / f"{name}.jpg"
+        path.write_bytes(data)
+        want = cv2.imread(str(path), cv2.IMREAD_COLOR)[..., ::-1]
+        np.testing.assert_array_equal(jpeg.decode_jpeg(data), want, name)
+        np.testing.assert_array_equal(
+            jpeg.decode_jpeg(data, gray=True),
+            cv2.imread(str(path), cv2.IMREAD_GRAYSCALE), name)
+    with pytest.raises(ValueError, match="block smoothing"):
+        jpeg.decode_jpeg(files["prog"][:len(files["prog"]) // 3])
 
 
 def test_fixtures_match_their_recorded_cv2_digests():
@@ -243,3 +260,173 @@ def test_replica_jpg_layout_matches_jax(tmp_path, jax_config, use_calib):
     assert dt.get_img_shape() == dj.get_img_shape()
     np.testing.assert_allclose(dt.camera_intrinsics.K_frame,
                                dj.camera_intrinsics.K_frame, rtol=1e-6)
+
+
+READS = json.loads((FIXTURES / "fixtures.json").read_text())["reads"]
+
+
+def _cv2_read(data, tmp_path, gray=False):
+    """cv2.imread of ``data`` from a file (a truncated file decodes only
+    there: cv2.imdecode's memory source refuses it), as RGB."""
+    path = tmp_path / "cv2.jpg"
+    path.write_bytes(data)
+    img = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE if gray
+                     else cv2.IMREAD_COLOR)
+    return img if gray else img[..., ::-1]
+
+
+def _port_read(data, gray=False):
+    """The port's read of ``data`` and whether it warned."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        img = imread.decode_image(data, gray)
+    return img, [str(w.message) for w in caught]
+
+
+def test_fixture_reads_are_recorded_and_small():
+    names = sorted(p.name for p in FIXTURES.glob("*.jpg"))
+    assert names == sorted(READS) and len(names) == 27
+    assert all((FIXTURES / n).stat().st_size < 5000 for n in names)
+
+
+@pytest.mark.parametrize("read", ["color", "gray"])
+@pytest.mark.parametrize("name", sorted(READS))
+def test_fixture_reads_match_cv2_and_their_digests(tmp_path, name, read):
+    """Every committed fixture (sampling modes, progressive, 4:1:1, CMYK,
+    YCCK, RGB-coded, three cuts, the EXIF orientations) reads to the
+    digest of cv2.imread's read recorded beside it, as cv2 here reads it;
+    the cut files warn."""
+    rec = READS[name]
+    data = (FIXTURES / name).read_bytes()
+    got, warned = _port_read(data, read == "gray")
+    assert list(got.shape) == rec[f"{read}_shape"]
+    assert hashlib.sha256(got.tobytes()).hexdigest() == rec[f"{read}_sha256"]
+    np.testing.assert_array_equal(got, _cv2_read(data, tmp_path,
+                                                 read == "gray"))
+    assert bool(warned) == name.startswith("cut"), warned
+
+
+@pytest.mark.parametrize("restart", [0, 3])
+@pytest.mark.parametrize("hw", [(1, 1), (9, 17), (65, 33), (680, 1200)])
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("sampling", ["444", "422", "420", "440", "411",
+                                      "gray"])
+def test_progressive_and_411_match_cv2(sampling, progressive, hw, restart):
+    """cv2's progressive files (jpeg_simple_progression: DC and AC first
+    and refinement scans, end-of-band runs, restarts inside progressive
+    scans) and 4:1:1 files, colour and gray reads, at 1x1, odd sizes and
+    a Replica frame."""
+    rgb = _texture(*hw, seed=hw[0] + hw[1] + restart)
+    params = [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_RST_INTERVAL,
+              restart, cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)]
+    if sampling == "gray":
+        ok, enc = cv2.imencode(".jpg", rgb[..., 0], params)
+    else:
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                   getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")]
+        ok, enc = cv2.imencode(".jpg", rgb[..., ::-1].copy(), params)
+    assert ok
+    buf = enc
+    data = enc.tobytes()
+    np.testing.assert_array_equal(jpeg.decode_jpeg(data), _cv2_decode(data))
+    np.testing.assert_array_equal(
+        jpeg.decode_jpeg(data, gray=True),
+        cv2.imdecode(buf, cv2.IMREAD_GRAYSCALE))
+
+
+@pytest.mark.parametrize("sampling", SAMPLING)
+@pytest.mark.parametrize("hw", [(16, 16), (65, 33)])
+def test_gray_read_is_the_y_channel(sampling, hw):
+    """cv2.IMREAD_GRAYSCALE of a colour JPEG: libjpeg's Y channel, no
+    colour conversion."""
+    data = _cv2_encode(_texture(*hw, seed=5), sampling, 90, 0)
+    np.testing.assert_array_equal(
+        jpeg.decode_jpeg(data, gray=True),
+        cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_GRAYSCALE))
+
+
+@pytest.mark.parametrize("quality", [40, 95])
+@pytest.mark.parametrize("gray", [False, True])
+@pytest.mark.parametrize("hw", [(1, 1), (9, 17), (37, 53), (120, 200)])
+def test_progressive_writer_decodes_to_the_baseline_pixels(hw, gray,
+                                                          quality):
+    """The test encoder's progressive files (the same quantized
+    coefficients in jpeg_simple_progression's scans) decode, in cv2 and in
+    the port, to exactly its baseline files' pixels."""
+    rng = np.random.default_rng(hw[0] * 7 + quality)
+    img = np.clip(_texture(*hw, seed=hw[1]).astype(int)
+                  + rng.normal(0, 25, hw + (3,)), 0, 255).astype(np.uint8)
+    if gray:
+        img = img[..., 1]
+    base = encode_jpeg(img, quality)
+    prog = encode_jpeg(img, quality, progressive=True)
+    assert b"\xff\xc2" in prog and b"\xff\xc2" not in base
+    want = _cv2_decode(base)
+    np.testing.assert_array_equal(_cv2_decode(prog), want)
+    np.testing.assert_array_equal(jpeg.decode_jpeg(prog), want)
+    np.testing.assert_array_equal(jpeg.decode_jpeg(prog, gray=True),
+                                  jpeg.decode_jpeg(base, gray=True))
+
+
+@pytest.mark.parametrize("cut", [0.2, 0.45, 0.7, 0.95, "no EOI"])
+@pytest.mark.parametrize("kind", ["baseline", "restart 2", "one scan a "
+                                  "component", "progressive"])
+def test_truncated_data_matches_cv2_with_a_warning(tmp_path, kind, cut):
+    """Data that ends early decodes as libjpeg decodes it (zero bits past
+    the end, the MCU in progress finished with them, later MCUs left as
+    they were) with one warning. A progressive file cut before its scans
+    are complete is refused (libjpeg smooths its blocks): only its late
+    cuts are compared."""
+    img = _texture(96, 128, seed=11)
+    if kind == "one scan a component":
+        data = encode_jpeg(img, 90, interleaved=False)
+    else:
+        params = [cv2.IMWRITE_JPEG_QUALITY, 90,
+                  cv2.IMWRITE_JPEG_RST_INTERVAL, 2 if "restart" in kind
+                  else 0, cv2.IMWRITE_JPEG_PROGRESSIVE,
+                  int(kind == "progressive")]
+        data = cv2.imencode(".jpg", img[..., ::-1].copy(), params)[1]
+        data = data.tobytes()
+    if cut == "no EOI":
+        data = data[:-2]
+    else:
+        sos = data.index(b"\xff\xda")
+        if kind == "progressive":
+            cut = 0.9 + cut / 10         # inside the last scans
+        data = data[:sos + int(cut * (len(data) - sos))]
+    for gray in (False, True):
+        got, warned = _port_read(data, gray)
+        assert len(warned) == 1 and "truncated" in warned[0]
+        np.testing.assert_array_equal(got, _cv2_read(data, tmp_path, gray))
+
+
+def test_standard_tables_when_a_file_defines_none(tmp_path):
+    """A Motion-JPEG frame without DHT: libjpeg-turbo takes the standard
+    tables, as the port does."""
+    bare = _cv2_encode(_texture(24, 40, 3), "422", 90, 0)
+    while b"\xff\xc4" in bare:
+        i = bare.index(b"\xff\xc4")
+        bare = bare[:i] + bare[i + 2 + struct.unpack(">H",
+                                                     bare[i + 2:i + 4])[0]:]
+    np.testing.assert_array_equal(imread.decode_image(bare),
+                                  _cv2_read(bare, tmp_path))
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("hw", [(1, 1), (31, 45), (96, 128)])
+def test_cmyk_files_match_cv2(tmp_path, hw, progressive):
+    """Random CMYK (Adobe, inverted) as PIL writes it, and the same file
+    marked YCCK (Adobe transform 2): OpenCV's CMYK -> RGB and CMYK -> gray
+    of libjpeg's CMYK output."""
+    cmyk = np.random.default_rng(hw[0]).integers(0, 256, hw + (4,),
+                                                 dtype=np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(cmyk, "CMYK").save(buf, "JPEG", quality=95,
+                                       progressive=progressive)
+    data = buf.getvalue()
+    t = data.index(b"\xff\xee\x00\x0eAdobe") + 15
+    for transform in (0, 2):
+        d = data[:t] + bytes([transform]) + data[t + 1:]
+        for gray in (False, True):
+            got, _ = _port_read(d, gray)
+            np.testing.assert_array_equal(got, _cv2_read(d, tmp_path, gray))

@@ -28,11 +28,12 @@ _FORBIDDEN = re.compile(
 
 
 def _port_sources():
-    """The package, chip_smoke.py and the test encoder chip_smoke.py
-    writes its JPEG clips with."""
+    """The package, chip_smoke.py and the test encoders chip_smoke.py
+    writes its JPEG and PNG clips with."""
     files = sorted((ROOT / "mast3r_slam_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "tests" /
-                    "torch_jpeg_writer.py"]
+                    "torch_jpeg_writer.py", ROOT / "tests" /
+                    "torch_png_writer.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -42,7 +43,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     names = {str(f.relative_to(ROOT)) for f in files}
     for mod in ("main.py", "evaluation.py", "data/png.py",
                 "data/image_ops.py", "data/datasets.py", "data/imread.py",
-                "data/jpeg.py", "data/undistort.py",
+                "data/jpeg.py", "data/undistort.py", "data/exif.py",
                 "slam/retrieval.py", "slam/pipeline.py",
                 "utils/checkpoint.py", "utils/tictoc.py",
                 "ops/gram_variants.py", "bench/gram_kernel_bench.py",

@@ -1,14 +1,17 @@
-"""A small baseline JPEG encoder in numpy, for writing test clips where no
-OpenCV or PIL is installed (``chip_smoke.py`` on the card machine, the
-Replica clips of the CPU tests). Test scaffolding, not a package feature.
+"""A small JPEG encoder in numpy, for writing test clips where no OpenCV or
+PIL is installed (``chip_smoke.py`` on the card machine, the Replica clips
+of the CPU tests). Test scaffolding, not a package feature.
 
-It writes JFIF baseline files: 4:2:0 YCbCr (or gray), the quantization
-tables of the JPEG standard's Annex K scaled by the IJG quality formula,
-the Annex K Huffman tables, an optional restart interval and, for tests of
-the decoder, non-interleaved scans (one per component). The forward DCT is
-a float64 matrix product. Entropy coding is vectorized: every Huffman
-symbol of the image is built as one (code, length) pair, and the pairs are
-packed into bits at once.
+It writes JFIF files: 4:2:0 YCbCr (or gray), the quantization tables of
+the JPEG standard's Annex K scaled by the IJG quality formula, the Annex K
+Huffman tables, and either baseline scans (with an optional restart
+interval and, for tests of the decoder, non-interleaved scans: one per
+component) or progressive ones with the same quantized coefficients, in
+the scan script of libjpeg's ``jpeg_simple_progression`` (spectral
+selection and successive approximation; each end-of-band run is one
+block long). The forward DCT is a float64 matrix product. Entropy coding
+is vectorized: every Huffman symbol of the image is built as one (code,
+length) pair, and the pairs are packed into bits at once.
 """
 
 from __future__ import annotations
@@ -104,60 +107,128 @@ def _pad(plane, h, w):
                   mode="edge")
 
 
+def _dc_events(dc, dc_tab, dc_pred_reset):
+    """The DC differences of a sequence of blocks as (value, length) bit
+    groups; ``dc_pred_reset`` (B,) bool, True where the predictor restarts
+    at 0."""
+    prev = np.concatenate([[0], dc[:-1]])
+    prev[dc_pred_reset] = 0
+    diff = dc - prev
+    dcode, dsize = dc_tab
+    s = _bit_length(diff)
+    extra = np.where(diff >= 0, diff, diff + (1 << s) - 1)
+    return (dcode[s] << s) | extra, dsize[s] + s
+
+
+def _band_events(band, ac_tab):
+    """The AC symbols of ``band`` (B, n) coefficient values in zigzag order
+    (a spectral band of each block): runs, ZRLs and an end of band (a run
+    of one block) where the band ends in zeros. Returns (values, lengths,
+    block, key), ``key`` the order within the block."""
+    B, n = band.shape
+    acode, asize = ac_tab
+    b, k = np.nonzero(band)
+    first = np.ones(b.size, bool)
+    first[1:] = b[1:] != b[:-1]
+    prevk = np.where(first, -1, np.concatenate([[0], k[:-1]]))
+    run = k - prevk - 1
+    v = band[b, k]
+    s = _bit_length(v)
+    extra = np.where(v >= 0, v, v + (1 << s) - 1)
+    sym = ((run % 16) << 4) | s
+    ev = [(b, k.astype(np.float64), (acode[sym] << s) | extra,
+           asize[sym] + s)]
+    # runs of 16 zeros (ZRL, symbol 0xF0) before a coefficient
+    nz = run // 16
+    zb = np.repeat(b, nz)
+    ev.append((zb, np.repeat(k - 0.5, nz), np.full(zb.size, acode[0xF0]),
+               np.full(zb.size, asize[0xF0])))
+    # end of band where the last coefficient is zero
+    last = np.full(B, -1, np.int64)
+    np.maximum.at(last, b, k)
+    eob = np.nonzero(last < n - 1)[0]
+    ev.append((eob, np.full(eob.size, float(n)), np.full(eob.size,
+                                                         acode[0x00]),
+               np.full(eob.size, asize[0x00])))
+    blk, key, vals, lens = (np.concatenate(x) for x in zip(*ev))
+    return vals, lens, blk, key
+
+
+def _refine_events(band, al, ac_tab):
+    """An AC successive-approximation refinement scan of ``band`` (B, n)
+    final coefficient values (jcphuff.c encode_mcu_AC_refine, each end of
+    band a run of one block): bit ``al`` of every coefficient, as a newly
+    nonzero coefficient's symbol and sign or as a correction bit of one
+    that was nonzero before, which rides after the next symbol. Returns
+    (values, lengths, block, key)."""
+    B, n = band.shape
+    acode, asize = ac_tab
+    a = np.abs(band) >> al
+    new, old, zero = a == 1, a > 1, a == 0
+    pos = np.broadcast_to(np.arange(n), (B, n))
+    eob = np.where(new, pos, -1).max(axis=1)          # last new coefficient
+    # zeros since the last new coefficient, before each position
+    zb = np.concatenate([np.zeros((B, 1), np.int64),
+                         np.cumsum(zero, axis=1)], axis=1)
+    last_new = np.maximum.accumulate(
+        np.concatenate([np.full((B, 1), -1), np.where(new, pos, -1)[:, :-1]],
+                       axis=1), axis=1)
+    z = zb[:, :n] - np.take_along_axis(zb, last_new + 1, axis=1)
+    live = (new | old) & (pos <= eob[:, None])
+    c = np.where(live, z // 16, 0)                     # ZRLs so far
+    seg = np.concatenate([np.zeros((B, 1), np.int64),
+                          np.cumsum(new, axis=1)[:, :-1]], axis=1)
+    big = n + 1
+    acc = np.maximum.accumulate(seg * big + c, axis=1) - seg * big
+    prev_c = np.concatenate([np.zeros((B, 1), np.int64), acc[:, :-1]],
+                            axis=1)
+    prev_c = np.where(np.concatenate([np.zeros((B, 1), bool),
+                                      new[:, :-1]], axis=1), 0, prev_c)
+    zrl = np.where(live, c - prev_c, 0)
+    flush = (zrl > 0) | new
+    # each old coefficient's bit rides after the first flush past it
+    fpos = np.where(flush, pos, n)
+    nxt = np.minimum.accumulate(fpos[:, ::-1], axis=1)[:, ::-1]
+    after = np.concatenate([nxt[:, 1:], np.full((B, 1), n)], axis=1)
+    ev = []
+    bz, kz = np.nonzero(zrl)
+    cnt = zrl[bz, kz]
+    rb, rk = np.repeat(bz, cnt), np.repeat(kz, cnt)
+    idx = np.arange(rb.size) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    ev.append((rb, rk, np.where(idx == 0, 0, 2), idx,
+               np.full(rb.size, acode[0xF0]), np.full(rb.size, asize[0xF0])))
+    bn, kn = np.nonzero(new)
+    sym = ((z[bn, kn] % 16) << 4) | 1
+    sign = (band[bn, kn] > 0).astype(np.int64)
+    ev.append((bn, kn, np.full(bn.size, 3), np.zeros(bn.size, np.int64),
+               (acode[sym] << 1) | sign, asize[sym] + 1))
+    be = np.nonzero(eob < n - 1)[0]
+    ev.append((be, np.full(be.size, n), np.zeros(be.size, np.int64),
+               np.zeros(be.size, np.int64), np.full(be.size, acode[0x00]),
+               np.full(be.size, asize[0x00])))
+    bo, ko = np.nonzero(old)
+    f = after[bo, ko]
+    at_zrl = np.where(f < n, zrl[bo, np.minimum(f, n - 1)] > 0, True)
+    ev.append((bo, f, np.where(at_zrl, 1, 4), ko, a[bo, ko] & 1,
+               np.ones(bo.size, np.int64)))
+    blk, k, sub, j, vals, lens = (np.concatenate(x) for x in zip(*ev))
+    key = (k * 8 + sub) * (n + 1) + j
+    return vals, lens, blk, key.astype(np.float64)
+
+
 def _symbols(zz, dc_tab, ac_tab, dc_pred_reset):
     """The (value, length) bit groups of a sequence of blocks.
 
     ``zz`` (B, 64) quantized coefficients in zigzag order; ``dc_pred_reset``
     (B,) bool, True where the DC predictor restarts at 0."""
     B = zz.shape[0]
-    dc = zz[:, 0]
-    prev = np.concatenate([[0], dc[:-1]])
-    prev[dc_pred_reset] = 0
-    diff = dc - prev
-    dcode, dsize = dc_tab
-    acode, asize = ac_tab
-    # events: (block, order key, value, length)
-    s = _bit_length(diff)
-    extra = np.where(diff >= 0, diff, diff + (1 << s) - 1)
-    ev_block = [np.arange(B)]
-    ev_key = [np.full(B, -1.0)]
-    ev_val = [(dcode[s] << s) | extra]
-    ev_len = [dsize[s] + s]
-
-    b, k = np.nonzero(zz[:, 1:])
-    k = k + 1
-    first = np.ones(b.size, bool)
-    first[1:] = b[1:] != b[:-1]
-    prevk = np.where(first, 0, np.concatenate([[0], k[:-1]]))
-    run = k - prevk - 1
-    v = zz[b, k]
-    s = _bit_length(v)
-    extra = np.where(v >= 0, v, v + (1 << s) - 1)
-    sym = ((run % 16) << 4) | s
-    ev_block.append(b)
-    ev_key.append(k.astype(np.float64))
-    ev_val.append((acode[sym] << s) | extra)
-    ev_len.append(asize[sym] + s)
-    # runs of 16 zeros (ZRL, symbol 0xF0) before a coefficient
-    nz = run // 16
-    zb = np.repeat(b, nz)
-    ev_block.append(zb)
-    ev_key.append(np.repeat(k - 0.5, nz))
-    ev_val.append(np.full(zb.size, acode[0xF0]))
-    ev_len.append(np.full(zb.size, asize[0xF0]))
-    # end of block where the last coefficient is zero
-    last = np.zeros(B, np.int64)
-    np.maximum.at(last, b, k)
-    eob = np.nonzero(last < 63)[0]
-    ev_block.append(eob)
-    ev_key.append(np.full(eob.size, 64.0))
-    ev_val.append(np.full(eob.size, acode[0x00]))
-    ev_len.append(np.full(eob.size, asize[0x00]))
-
-    blk, key = np.concatenate(ev_block), np.concatenate(ev_key)
+    dv, dl = _dc_events(zz[:, 0], dc_tab, dc_pred_reset)
+    av, al, ab, ak = _band_events(zz[:, 1:], ac_tab)
+    blk = np.concatenate([np.arange(B), ab])
+    key = np.concatenate([np.full(B, -1.0), ak])
     order = np.lexsort((key, blk))
-    return (np.concatenate(ev_val)[order].astype(np.int64),
-            np.concatenate(ev_len)[order].astype(np.int64), blk[order])
+    return (np.concatenate([dv, av])[order].astype(np.int64),
+            np.concatenate([dl, al])[order].astype(np.int64), blk[order])
 
 
 def _pack(vals, lens):
@@ -185,12 +256,28 @@ def _dht(tc, th, table):
     return bytes([(tc << 4) | th]) + bytes(counts) + bytes(symbols)
 
 
-def encode_jpeg(img, quality=90, restart_interval=0, interleaved=True):
-    """uint8 ``(H, W, 3)`` RGB (4:2:0) or ``(H, W)`` gray → JPEG bytes."""
+# jcparam.c jpeg_simple_progression: (components, Ss, Se, Ah, Al) of each
+# scan, for YCbCr and for a single component
+_SCRIPT_YCC = (((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2),
+               ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+               ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1),
+               ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0),
+               ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0))
+_SCRIPT_GRAY = (((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 2),
+                ((0,), 1, 63, 2, 1), ((0,), 0, 0, 1, 0), ((0,), 1, 63, 1, 0))
+
+
+def encode_jpeg(img, quality=90, restart_interval=0, interleaved=True,
+                progressive=False):
+    """uint8 ``(H, W, 3)`` RGB (4:2:0) or ``(H, W)`` gray → JPEG bytes.
+    ``progressive`` writes the same quantized coefficients in
+    ``jpeg_simple_progression``'s scans (no restart interval)."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3):
         raise ValueError(f"expected uint8 (H, W[, 3]), got {img.dtype} "
                          f"{img.shape}")
+    if progressive and restart_interval:
+        raise ValueError("progressive files are written without restarts")
     H, W = img.shape[:2]
     gray = img.ndim == 2
     qt = [quality_table(_Q_LUMA, quality), quality_table(_Q_CHROMA, quality)]
@@ -230,7 +317,7 @@ def encode_jpeg(img, quality=90, restart_interval=0, interleaved=True):
         [len(comps)])
     for i, c in enumerate(comps):
         sof += bytes([i + 1, (c["h"] << 4) | c["v"], c["t"]])
-    out.append(_segment(0xC0, sof))
+    out.append(_segment(0xC2 if progressive else 0xC0, sof))
     tables = [(_DC_LUMA, _AC_LUMA), (_DC_CHROMA, _AC_CHROMA)]
     dht = b""
     for t in range(1 if gray else 2):
@@ -239,13 +326,34 @@ def encode_jpeg(img, quality=90, restart_interval=0, interleaved=True):
     if restart_interval:
         out.append(_segment(0xDD, restart_interval.to_bytes(2, "big")))
 
-    def scan(ids, order, mcu_of):
+    def events(i, zz, first, ss, se, ah, al):
+        """One component's bit groups in a scan: (values, lengths, index
+        of the block in the component's coding order)."""
+        dc_tab, ac_tab = (_codes(x) for x in tables[comps[i]["t"]])
+        if not progressive:
+            return _symbols(zz, dc_tab, ac_tab, first)
+        if ss == 0 and ah == 0:
+            v, n = _dc_events(zz[:, 0] >> al, dc_tab, first)
+            return v, n, np.arange(zz.shape[0])
+        if ss == 0:
+            return ((zz[:, 0] >> al) & 1, np.ones(zz.shape[0], np.int64),
+                    np.arange(zz.shape[0]))
+        band = zz[:, ss:se + 1]
+        if ah == 0:
+            v, n, b, k = _band_events(np.sign(band) * (np.abs(band) >> al),
+                                      ac_tab)
+        else:
+            v, n, b, k = _refine_events(band, al, ac_tab)
+        o = np.lexsort((k, b))
+        return v[o].astype(np.int64), n[o].astype(np.int64), b[o]
+
+    def scan(ids, order, mcu_of, ss=0, se=63, ah=0, al=0):
         """One scan: components ``ids``; ``order`` (comp, block) pairs in
         coding order; ``mcu_of`` the MCU index of each."""
         header = bytes([len(ids)])
         for i in ids:
             header += bytes([i + 1, (comps[i]["t"] << 4) | comps[i]["t"]])
-        out.append(_segment(0xDA, header + b"\x00\x3f\x00"))
+        out.append(_segment(0xDA, header + bytes([ss, se, (ah << 4) | al])))
         n_mcu = int(mcu_of.max()) + 1
         interval = restart_interval or n_mcu
         vals, lens, inter = [], [], []
@@ -255,8 +363,7 @@ def encode_jpeg(img, quality=90, restart_interval=0, interleaved=True):
             zz = comps[i]["zz"][blk]
             first = np.ones(blk.size, bool)
             first[1:] = (mcu[1:] // interval) != (mcu[:-1] // interval)
-            v, n, b = _symbols(zz, _codes(tables[comps[i]["t"]][0]),
-                               _codes(tables[comps[i]["t"]][1]), first)
+            v, n, b = events(i, zz, first, ss, se, ah, al)
             # position of each bit group in coding order
             rank = np.nonzero(sel)[0][b]
             vals.append(v)
@@ -267,29 +374,42 @@ def encode_jpeg(img, quality=90, restart_interval=0, interleaved=True):
         o = np.argsort(rank, kind="stable")
         v, n, rank = v[o], n[o], rank[o]
         seg = mcu_of[rank] // interval
-        for r in range(int(seg.max()) + 1):
+        for r in range(int(seg.max()) + 1 if seg.size else 1):
             if r:
                 out.append(bytes([0xFF, 0xD0 + (r - 1) % 8]))
             m = seg == r
             out.append(_pack(v[m], n[m]))
 
-    if interleaved and len(comps) > 1:
+    def interleaved_order(ids):
         order, mcu_of = [], []
         for m in range(mx * my):
             r, c0 = divmod(m, mx)
-            for i, c in enumerate(comps):
+            for i in ids:
+                c = comps[i]
                 for y in range(c["v"]):
                     for x in range(c["h"]):
                         order.append((i, (r * c["v"] + y) * c["bx"]
                                       + c0 * c["h"] + x))
                         mcu_of.append(m)
-        scan(list(range(len(comps))), np.array(order), np.array(mcu_of))
+        return np.array(order), np.array(mcu_of)
+
+    def single_order(i):
+        c = comps[i]
+        nbx, nby = -(-c["dw"] // 8), -(-c["dh"] // 8)
+        order = np.array([(i, y * c["bx"] + x) for y in range(nby)
+                          for x in range(nbx)])
+        return order, np.arange(len(order))
+
+    if progressive:
+        for ids, ss, se, ah, al in (_SCRIPT_GRAY if gray else _SCRIPT_YCC):
+            order, mcu_of = (interleaved_order(ids) if len(ids) > 1
+                             else single_order(ids[0]))
+            scan(list(ids), order, mcu_of, ss, se, ah, al)
+    elif interleaved and len(comps) > 1:
+        scan(list(range(len(comps))), *interleaved_order(range(len(comps))))
     else:   # one scan a component (a gray image's only scan is such)
-        for i, c in enumerate(comps):
-            nbx, nby = -(-c["dw"] // 8), -(-c["dh"] // 8)
-            order = np.array([(i, y * c["bx"] + x) for y in range(nby)
-                              for x in range(nbx)])
-            scan([i], order, np.arange(len(order)))
+        for i in range(len(comps)):
+            scan([i], *single_order(i))
     out.append(b"\xff\xd9")
     return b"".join(out)
 
