@@ -20,9 +20,17 @@ then:
    of the plain versions against the card's;
 2. drives the port's main path at full ViT-L width with random weights and
    ``config/base.yaml`` settings: one mono-inference keyframe, then
-   ``FrameTracker.track`` on 8 more frames, checking that every
-   ``track_core`` output is finite and that each kernel was launched exactly
-   as often as the path needs (every K2 launch on the implicit GEMM);
+   ``FrameTracker.track`` on 8 more frames, twice on the same frames: with
+   ``track_core`` eager and as the tracker's CUDA graph (captured once,
+   replayed; its LM loops conditional WHILE nodes), checking on both that
+   every ``track_core`` output is finite, that each kernel was launched
+   exactly as often as the path needs (every K2 launch on the implicit
+   GEMM; a replay counts its captured launches and two loop nodes), that
+   ``track_core`` makes no host sync (``set_sync_debug_mode("error")``
+   around every call but the capture), and that the two paths' outputs
+   and keyframe buffers agree bit for bit (the graphed outputs kept across
+   later replays); then both paths' frame ms, device busy ms and idle
+   share under ``torch.profiler``, peak memory and the capture count;
 3. runs the backend keyframe event at full width on that path's state:
    three keyframes, ``FactorGraph.add_factors`` with the tracker's 5-tuple
    hint (``match_oneway``) and without one (``match_symmetric``), the
@@ -67,9 +75,13 @@ then:
    non-zero fields) and keyframe PNGs, each kernel's launches against the
    run's own model calls and LM iterations, every quality job processed
    or dropped and every refiner task ended; then the same clip with the
-   services off (their cost to the tracked frame and the backend step), a
-   calibrated run (K5), a checkpoint restored bit for bit and resumed, and
-   a threaded run with the global TSDF on as well that drains;
+   services off (their cost to the tracked frame and the backend step),
+   again with the tracker's ``track_core`` eager (the same modes,
+   keyframes, edges and keyframe poses, bit for bit, as the graphed run),
+   a calibrated run (K5), a checkpoint restored bit for bit and resumed,
+   and a threaded run with the global TSDF on as well that drains; every
+   CLI run (here and in phases 13-15) captures the tracker's graph
+   once and runs two loop nodes a replayed frame;
 9. runs the CLI with one reduced-depth f32 model on the card and on the
    CPU (services off): the same modes, keyframes and edges, and the same
    poses;
@@ -173,6 +185,7 @@ F64_GUARD = 4.0
 
 N_FRAMES = 9
 IMG_HW = (384, 512)
+PROFILED_FRAMES = 4   # tracked frames under torch.profiler, per path
 K1_PER_PAIR = 48      # 24 encoder + 12 decoder self + 12 decoder cross
 K1_PER_DECODE = 24    # 12 decoder self + 12 decoder cross, any batch
 K2_PER_HEAD = 20      # rn0-rn3, 14 fusion-block convs, head_c1, head_c2
@@ -258,10 +271,22 @@ def k4p_counters():
 
 
 def reset_counters(FA, C3, BA):
+    from mast3r_slam_tpu_torch.ops import device_loop
+
     for c in (FA.counter, FA.attn_counter, C3.counter, BA.rays_counter,
               BA.calib_counter, *k4p_counters().values(),
-              *C3.path_counters.values(), *BA.path_counters.values()):
+              *C3.path_counters.values(), *BA.path_counters.values(),
+              device_loop.counter):
         c.launches = 0
+
+
+def loop_nodes():
+    """Conditional loop nodes run (``ops/device_loop.py``): two a replayed
+    tracked frame (the matcher's and the pose solve's LM loops), none on
+    an eager path."""
+    from mast3r_slam_tpu_torch.ops import device_loop
+
+    return device_loop.counter.launches
 
 
 def launch_counts(FA, C3, BA):
@@ -285,9 +310,13 @@ def _build_sms(torch):
 def sync_clock(torch):
     """The host clock after every visible card has finished its work (a
     layout over several cards runs the backend on cards other than the
-    calling thread's)."""
-    for i in range(torch.cuda.device_count()):
-        torch.cuda.synchronize(i)
+    calling thread's); not while the tracker captures its CUDA graph (a
+    device-wide sync would invalidate the capture)."""
+    from mast3r_slam_tpu_torch.ops import device_loop
+
+    with device_loop.capture_lock:
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
     return time.perf_counter()
 
 
@@ -753,40 +782,41 @@ def synthetic_frames(n_frames, hw, seed=0):
     return frames
 
 
-def phase_main_path(torch, FA, C3, BA):
-    from mast3r_slam_tpu_torch.models import mast3r as M
-    from mast3r_slam_tpu_torch.models.inference import MASt3RInference
-    from mast3r_slam_tpu_torch.slam import tracker as T
+def main_path_run(torch, T, model, cfg, imgs, graphed, FA, C3, BA):
+    """The main path once on its own keyframe buffer: mono inference of
+    ``imgs[0]`` into keyframe 0, then ``FrameTracker.track`` on the rest,
+    the launch counters at 0 just before and read just after. ``graphed``:
+    the tracker's CUDA graph of ``track_core`` (the default) or the eager
+    path. Every ``track_core`` call but a capture runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host read inside it
+    raises. Returns the recorded outputs, frame times, modes, frames,
+    keyframes, launches and tracker."""
     from mast3r_slam_tpu_torch.slam.frame import KeyframeBuffer, Mode
     from mast3r_slam_tpu_torch.slam.pipeline import create_frame
-    from mast3r_slam_tpu_torch.utils.config import load_config
 
-    cfg = load_config(str(ROOT / "config" / "base.yaml"))
-    mcfg = M.MASt3RConfig(dtype=cfg["model"]["dtype"],
-                          head_dtype=cfg["model"]["head_dtype"])
-    t0 = time.perf_counter()
-    params = M.prepare_params(M.init_params(mcfg, seed=0, device="cuda"),
-                              mcfg)
-    torch.cuda.synchronize()
-    log(f"main path: ViT-L random init + prepare {time.perf_counter() - t0:.1f} s "
-        f"(trunk {mcfg.dtype}, heads {mcfg.head_dtype})")
-    model = MASt3RInference(params, mcfg, cfg["matching"])
     H, W = IMG_HW
     keyframes = KeyframeBuffer(H, W, capacity=16,
-                               feat_dim=mcfg.enc_embed_dim, device="cuda")
-    tracker = T.FrameTracker(model, keyframes, cfg)
-
+                               feat_dim=model.cfg.enc_embed_dim,
+                               device="cuda")
+    tracker = T.FrameTracker(model, keyframes, cfg, graphed=graphed)
     outputs = []
     core = T.track_core
 
     def recording_core(*a, **kw):
-        out = core(*a, **kw)
+        graphs = kw.get("graphs")
+        capture = graphs is not None and graphs.captures == 0
+        torch.cuda.set_sync_debug_mode("default" if capture else "error")
+        try:
+            out = core(*a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         outputs.append(out)
         return out
 
     T.track_core = recording_core
-    imgs = synthetic_frames(N_FRAMES, IMG_HW)
     frame_ms, modes, frames = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_counters(FA, C3, BA)
     try:
         mode = Mode.INIT
@@ -813,45 +843,171 @@ def phase_main_path(torch, FA, C3, BA):
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t) * 1e3)
             modes.append(note)
-            log(f"frame {i}: {note:12s} {frame_ms[-1]:9.1f} ms  "
-                f"keyframes {len(keyframes)}")
+            log(f"frame {i} ({'graphed' if graphed else 'eager'}): "
+                f"{note:12s} {frame_ms[-1]:9.1f} ms  keyframes "
+                f"{len(keyframes)}")
     finally:
         T.track_core = core
-    k1, k2 = FA.counter.launches, C3.counter.launches
-    check(BA.rays_counter.launches == BA.calib_counter.launches == 0
-          and not any(c.launches for c in BA.path_counters.values()),
-          "a BA kernel ran on the tracking path")
-    check(not any(c.launches for c in k4p_counters().values()),
-          "a K4' kernel ran on the tracking path")
+    return dict(outputs=outputs, frame_ms=frame_ms, modes=modes,
+                frames=frames, keyframes=keyframes,
+                launches=launch_counts(FA, C3, BA), loops=loop_nodes(),
+                tracker=tracker,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
-    check(len(outputs) == N_FRAMES - 1,
-          f"track_core ran {len(outputs)} times, expected {N_FRAMES - 1}")
-    for i, out in enumerate(outputs):
-        for key, val in out.items():
-            if torch.is_tensor(val) and val.is_floating_point():
-                check(bool(val.isfinite().all()),
-                      f"track_core frame {i + 1}: {key} not finite")
-            elif isinstance(val, float):
-                check(math.isfinite(val), f"track_core frame {i + 1}: {key}")
+
+def same_bits(a, b):
+    """Equal shape, dtype and bits."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.view(bits[t.element_size()]) for t in (a, b))
+    return torch.equal(a, b)
+
+
+def device_busy_ms(torch, fn, n):
+    """Device busy ms per call of ``fn`` (``n`` calls under
+    ``torch.profiler``: the device-side events' own times summed, as
+    ``scripts/profile_torch_track.py`` sums them) and the profiled wall ms
+    per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    return dev_us / 1e3 / n, wall
+
+
+def phase_main_path(torch, FA, C3, BA):
+    """The main path twice on the same frames, each from a keyframe of its
+    own made the same way: ``track_core`` eagerly, then as the tracker's
+    CUDA graph (the path a user runs, whose launches the table reports).
+    Both take each kernel exactly as often as the path needs, every
+    ``track_core`` output agrees bit for bit between them, and the
+    graphed outputs kept from each frame are intact after the later
+    replays; then both paths' device time a frame under the profiler."""
+    from mast3r_slam_tpu_torch.models import mast3r as M
+    from mast3r_slam_tpu_torch.models.inference import MASt3RInference
+    from mast3r_slam_tpu_torch.slam import tracker as T
+    from mast3r_slam_tpu_torch.slam.pipeline import create_frame
+    from mast3r_slam_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(ROOT / "config" / "base.yaml"))
+    mcfg = M.MASt3RConfig(dtype=cfg["model"]["dtype"],
+                          head_dtype=cfg["model"]["head_dtype"])
+    t0 = time.perf_counter()
+    params = M.prepare_params(M.init_params(mcfg, seed=0, device="cuda"),
+                              mcfg)
+    torch.cuda.synchronize()
+    log(f"main path: ViT-L random init + prepare {time.perf_counter() - t0:.1f} s "
+        f"(trunk {mcfg.dtype}, heads {mcfg.head_dtype})")
+    model = MASt3RInference(params, mcfg, cfg["matching"])
+    imgs = synthetic_frames(N_FRAMES, IMG_HW)
+    runs = {g: main_path_run(torch, T, model, cfg, imgs, g, FA, C3, BA)
+            for g in (False, True)}
+    eager, graphed = runs[False], runs[True]
     want_k1 = K1_PER_PAIR * N_FRAMES
     want_k2 = K2_PER_HEAD + 2 * K2_PER_HEAD * (N_FRAMES - 1)
-    log(f"main path launches: K1 {k1} (want {want_k1}), "
-        f"K2 {k2} (want {want_k2})")
-    check(k1 == want_k1, f"K1 launched {k1} times, expected {want_k1}")
-    check(k2 == want_k2, f"K2 launched {k2} times, expected {want_k2}")
-    paths = {p: c.launches for p, c in C3.path_counters.items()}
-    log(f"main path K2 launches by path: {paths}")
-    check(paths["igemm"] == k2, "a main-path conv did not take the "
-          "implicit GEMM")
-    tracked_ms = statistics.median(frame_ms[2:])
-    log(f"main path: median ms/frame over frames 2-{N_FRAMES - 1} "
-        f"{tracked_ms:.1f}; modes {modes}; keyframes {len(keyframes)}; "
-        f"peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    state = dict(cfg=cfg, model=model, keyframes=keyframes, frames=frames,
-                 outputs=outputs)
-    return ({"K1": k1, "K2": k2, "K3": FA.attn_counter.launches}, tracked_ms,
-            state)
+    for g, run in runs.items():
+        tag = "graphed" if g else "eager"
+        launches = run["launches"]
+        k1, k2 = launches["K1"], launches["K2"]
+        check(launches["K4"] == launches["K5"] == 0
+              and not any(launches[f"BA {p}"] for p in BA.PATHS),
+              f"a BA kernel ran on the tracking path ({tag})")
+        check(not any(launches[key] for key, _ in K4P_ALL),
+              f"a K4' kernel ran on the tracking path ({tag})")
+        outputs = run["outputs"]
+        check(len(outputs) == N_FRAMES - 1,
+              f"track_core ran {len(outputs)} times, expected "
+              f"{N_FRAMES - 1} ({tag})")
+        for i, out in enumerate(outputs):
+            for key, val in out.items():
+                if val.is_floating_point():
+                    check(bool(val.isfinite().all()),
+                          f"track_core frame {i + 1}: {key} not finite "
+                          f"({tag})")
+        log(f"main path launches ({tag}): K1 {k1} (want {want_k1}), "
+            f"K2 {k2} (want {want_k2})")
+        check(k1 == want_k1,
+              f"K1 launched {k1} times, expected {want_k1} ({tag})")
+        check(k2 == want_k2,
+              f"K2 launched {k2} times, expected {want_k2} ({tag})")
+        paths = {p: launches[f"K2 {p}"] for p in C3.PATHS}
+        log(f"main path K2 launches by path ({tag}): {paths}")
+        check(paths["igemm"] == k2, "a main-path conv did not take the "
+              f"implicit GEMM ({tag})")
+    tracker = graphed["tracker"]
+    check(tracker.graphs.captures == 1
+          and tracker.graphs.replays == N_FRAMES - 2,
+          f"graphed run: {tracker.graphs.captures} captures, "
+          f"{tracker.graphs.replays} replays")
+    want_loops = {False: 0, True: 2 * (N_FRAMES - 2)}
+    for g, run in runs.items():
+        check(run["loops"] == want_loops[g], f"{run['loops']} loop nodes "
+              f"ran, expected {want_loops[g]} (graphed: {g})")
+    check(eager["modes"] == graphed["modes"], "eager and graphed modes "
+          f"differ: {eager['modes']} vs {graphed['modes']}")
+    differ = [(i + 1, key) for i, (oe, og) in enumerate(zip(
+        eager["outputs"], graphed["outputs"])) for key in oe
+        if not same_bits(oe[key], og[key])]
+    check(not differ, f"graphed track_core differs from eager at (frame, "
+          f"output) {differ}")
+    for key in ("T_WC", "X", "C"):
+        check(same_bits(getattr(eager["keyframes"], key),
+                        getattr(graphed["keyframes"], key)),
+              f"the keyframe buffers' {key} differ")
+    ms = {g: statistics.median(run["frame_ms"][2:])
+          for g, run in runs.items()}
+    log(f"main path: eager and graphed track_core equal bit for bit on "
+        f"{N_FRAMES - 1} tracked frames (every output; the graphed ones "
+        f"kept across later replays); no host sync inside track_core "
+        f"(sync debug mode 'error'); captures {tracker.graphs.captures}, "
+        f"replays {tracker.graphs.replays}, loop nodes {graphed['loops']}")
+
+    # device time a frame: both paths on tracked frames 1-4 again
+    kfs = {g: run["keyframes"] for g, run in runs.items()}
+    trackers = {g: run["tracker"] for g, run in runs.items()}
+    busy = {}
+    for g in (False, True):
+        def one(i, g=g):
+            frame = create_frame(i + 1, (imgs[i + 1] + 1.0) * 0.5,
+                                 T_WC=kfs[g].T_WC[0], img_size=IMG_HW[1],
+                                 device="cuda")
+            trackers[g].track(frame)
+        busy[g] = device_busy_ms(torch, one, PROFILED_FRAMES)
+    for g in (False, True):
+        check(len(kfs[g]) == 1, "the main path added keyframes")
+    check(trackers[True].graphs.captures == 1, "a profiled frame recaptured")
+    log("main path: median ms/frame over frames 2-"
+        f"{N_FRAMES - 1}: eager {ms[False]:.1f}, graphed {ms[True]:.1f}; "
+        f"modes {graphed['modes']}; keyframes {len(graphed['keyframes'])}")
+    for g, tag in ((False, "eager"), (True, "graphed")):
+        dev, wall = busy[g]
+        log(f"main path ({tag}): device busy {dev:.2f} ms/frame over "
+            f"{PROFILED_FRAMES} profiled frames ({wall:.1f} ms/frame under "
+            f"the profiler), idle share "
+            f"{max(0.0, 1.0 - dev / ms[g]):.3f} of the unprofiled "
+            f"{ms[g]:.1f} ms frame; peak device memory "
+            f"{runs[g]['peak_gib']:.2f} GiB")
+    if busy[True][0] == 0.0:
+        log("main path: the profiler saw no device event in the graph "
+            "replays (device time not measured for the graphed path)")
+    del trackers, kfs
+    state = dict(cfg=cfg, model=model, keyframes=graphed["keyframes"],
+                 frames=graphed["frames"], outputs=graphed["outputs"])
+    return ({"K1": graphed["launches"]["K1"], "K2": graphed["launches"]["K2"],
+             "K3": graphed["launches"]["K3"]}, ms[True], state)
 
 
 # ---------------------------------------------------------------------------
@@ -1738,9 +1894,9 @@ def instrumented(torch, model):
     """Counts the model calls that launch K1/K2, the symmetric decoder
     calls (one per match_symmetric, one per backend slot on a mesh), the
     BA's LM iterations and its system builds (1 + iterations per solve,
-    each one K4/K5 launch per slot on a mesh) and the quality jobs
-    submitted, and times tracked frames and the backend step's parts with
-    a device sync around each."""
+    each one K4/K5 launch per slot on a mesh), the quality jobs submitted
+    and the tracker's CUDA graph captures, and times tracked frames and
+    the backend step's parts with a device sync around each."""
     from mast3r_slam_tpu_torch.models import inference as I
     from mast3r_slam_tpu_torch.services.quality_async import (
         AsynchronousQualityService)
@@ -1751,7 +1907,7 @@ def instrumented(torch, model):
 
     rec = {"calls": {k: 0 for k in ("mono", "track", "oneway", "symmetric",
                                     "decodes", "solves", "lm_iters",
-                                    "builds", "quality_jobs")},
+                                    "builds", "quality_jobs", "captures")},
            "ms": {k: [] for k in ("track", "step", "retrieval",
                                   "add_factors", "solve")}}
     saved = []
@@ -1792,6 +1948,7 @@ def instrumented(torch, model):
     patch(model, "match_oneway", counted("oneway"))
     patch(model, "match_symmetric", counted("symmetric"))
     patch(T, "track_core", counted("track"))
+    patch(T.TrackGraphs, "_capture", counted("captures"))
     patch(T.FrameTracker, "track", timed("track"))
     patch(FG, "_lm_loop", lm)
     patch(I, "_decode_symmetric_core", counted("decodes"))
@@ -1917,13 +2074,31 @@ def quality_fields(path):
     return np.frombuffer(data[end:], dtype=[(n, types[t]) for t, n in props])
 
 
+@contextlib.contextmanager
+def eager_tracker():
+    """The CLI's tracker runs ``track_core`` eagerly (no CUDA graph): the
+    reference of the graphed runs."""
+    import functools
+
+    from mast3r_slam_tpu_torch import main as cli
+
+    saved = cli.FrameTracker
+    cli.FrameTracker = functools.partial(saved, graphed=False)
+    try:
+        yield
+    finally:
+        cli.FrameTracker = saved
+
+
 def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
-            ba_path="mma", k2_path="igemm", devices=None):
+            ba_path="mma", k2_path="igemm", devices=None, graphed=True):
     """``main(argv)`` on the card (``devices``: the slot list of its
     topology, default the visible cards) with every launch counter at 0
     before and read after; checks the launches against the run's own model
     calls, decoder calls and system builds (on one slot: one decoder call
-    per match_symmetric, 1 + iterations builds per solve). Returns
+    per match_symmetric, 1 + iterations builds per solve) and the
+    tracker's CUDA graph captures (one, when a frame was tracked; none
+    with ``graphed=False``, which runs the tracker eagerly). Returns
     (summary, launches, instrumentation record)."""
     import os
 
@@ -1932,7 +2107,8 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
     cwd = os.getcwd()
     os.chdir(workdir)
     try:
-        with instrumented(torch, model) as rec, worker_faults() as faults:
+        with (instrumented(torch, model) as rec, worker_faults() as faults,
+              contextlib.nullcontext() if graphed else eager_tracker()):
             reset_counters(FA, C3, BA)
             t0 = time.perf_counter()
             out = cli.main(argv, device="cuda", model=model,
@@ -1940,6 +2116,7 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = launch_counts(FA, C3, BA)
+            loops = loop_nodes()
     finally:
         os.chdir(cwd)
     check_no_faults(faults, f"cli {tag}")
@@ -1951,6 +2128,12 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
               f"cli {tag}: one slot, but {c['decodes']} decoder calls for "
               f"{c['symmetric']} symmetric matches or {c['builds']} system "
               f"builds for {c['solves']} solves + {c['lm_iters']} iterations")
+    want_captures = 1 if graphed and c["track"] else 0
+    want_loops = 2 * (c["track"] - 1) if want_captures else 0
+    check(c["captures"] == want_captures and loops == want_loops,
+          f"cli {tag}: {c['captures']} captures of track_core's graph and "
+          f"{loops} loop nodes run, expected {want_captures} and "
+          f"{want_loops}")
     want = expected_launches(c, calib, ba_path, k2_path)
     g = out["graph"]
     log(f"cli {tag}: {out['frames_processed']} frames in {wall:.1f} s, "
@@ -1959,6 +2142,15 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
         f"launches {launches} (want {want})")
     check(launches == want, f"cli {tag}: launch counts {launches} != {want}")
     return out, launches, rec
+
+
+def cli_decisions(out):
+    """A CLI run's modes, keyframes (dataset indices), edges and keyframe
+    poses (on the host)."""
+    kf = out["keyframes"]
+    n = len(kf)
+    return dict(modes=out["modes"], kfs=[int(x) for x in kf.dataset_idx[:n]],
+                edges=graph_edges(out["graph"]), T=kf.T_WC[:n].cpu())
 
 
 def graph_edges(g):
@@ -2050,6 +2242,28 @@ def phase_cli(torch, FA, C3, BA, workdir):
         f"{parts['track']:.1f} / {off['track']:.1f} ms, median backend step "
         f"{parts['step']:.1f} / {off['step']:.1f} ms (solve "
         f"{parts['solve']:.1f} / {off['solve']:.1f})")
+
+    # again with the tracker's track_core eager: the graph changes nothing
+    runs = {"graphed": cli_decisions(out)}
+    del out
+    out, _, rec = run_cli(torch, FA, C3, BA, model, work,
+                          ["--dataset", str(clip), "--config", off_cfg,
+                           "--no-viz", "--save-as", "off_eager"],
+                          "services off, eager", graphed=False)
+    runs["eager"] = cli_decisions(out)
+    eager = cli_parts(rec)
+    a, b = runs["graphed"], runs["eager"]
+    for key in ("modes", "kfs", "edges"):
+        check(a[key] == b[key], f"cli graphed vs eager: {key} differ: "
+              f"{a[key]} vs {b[key]}")
+    check(same_bits(a["T"], b["T"]), "cli graphed vs eager: keyframe poses "
+          f"differ by {float((a['T'] - b['T']).abs().max()):.3e}")
+    summary.update(tracked_ms_eager=eager["track"], step_ms_eager=eager["step"])
+    log(f"cli services off, graphed / eager track_core: the same modes, "
+        f"{len(a['kfs'])} keyframes, {len(a['edges'])} edges and keyframe "
+        f"poses (bit for bit); median tracked frame {off['track']:.1f} / "
+        f"{eager['track']:.1f} ms, median backend step {off['step']:.1f} / "
+        f"{eager['step']:.1f} ms")
     del out
 
     # calibrated: freiburg3 has no distortion; K5 carries the BA
@@ -3756,6 +3970,7 @@ def main():
     from mast3r_slam_tpu_torch.models import mast3r as M
     from mast3r_slam_tpu_torch.ops import ba_kernels as BA
     from mast3r_slam_tpu_torch.ops import conv3x3 as C3
+    from mast3r_slam_tpu_torch.ops import device_loop as DL
     from mast3r_slam_tpu_torch.ops import flash_attention as FA
 
     smi = subprocess.run(
@@ -3767,7 +3982,8 @@ def main():
     M.use_full_f32()
     t0 = time.perf_counter()
     ptx = []
-    _build.build_all([FA.KERNEL, C3.KERNEL, BA.KERNEL], log=ptx.append)
+    _build.build_all([FA.KERNEL, C3.KERNEL, BA.KERNEL, DL.KERNEL],
+                     log=ptx.append)
     log(f"kernel build: {time.perf_counter() - t0:.1f} s")
     for block in ptx:
         for line in block.splitlines():
@@ -3816,6 +4032,10 @@ def main():
         log("partial run: no kernel table")
         return
     launches.update(K4=event["K4"], K5=oracle["K5"])
+    log(f"cli services off, graphed / eager track_core: median tracked "
+        f"frame {cli['tracked_ms_off']:.1f} / {cli['tracked_ms_eager']:.1f} "
+        f"ms, median backend step {cli['step_ms_off']:.1f} / "
+        f"{cli['step_ms_eager']:.1f} ms; on {smi}")
     log(f"cli: median tracked frame {cli['tracked_ms']:.1f} ms, median "
         f"backend step {cli['step_ms']:.1f} ms (retrieval "
         f"{cli['retrieval_ms']:.1f}, add_factors {cli['add_factors_ms']:.1f},"

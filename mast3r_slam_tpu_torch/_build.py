@@ -7,9 +7,11 @@ may include the shared headers ``csrc/*.cuh``). It is compiled with
 ``ctypes``. Nothing is compiled or loaded when this module is imported: the
 first call that needs a kernel builds it, and :func:`build_all` builds
 several at once in parallel ``nvcc`` processes. The wrappers also share
-their launch counter, SM count and input-alignment helpers from
-here. :func:`build_host` compiles one of ``native/*.cpp`` (the global
-TSDF's voxel hash, the JPEG decoder) with ``g++`` the same way.
+their launch counter (with the recording of a CUDA graph capture's
+launches, which each replay of the graph counts), SM count and
+input-alignment helpers from here. :func:`build_host` compiles one of
+``native/*.cpp`` (the global TSDF's voxel hash, the JPEG decoder) with
+``g++`` the same way.
 """
 
 from __future__ import annotations
@@ -140,19 +142,55 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
                            f"({fn(err).decode()})")
 
 
+_capture = threading.local()
+
+
 class LaunchCounter:
     """Launch counter of one kernel: its wrapper calls :meth:`add` once per
     launch of the kernel, and nothing else touches it but a reset of
-    ``launches`` to 0. The add holds a lock: the CLI's backend thread
-    launches kernels beside the frontend."""
+    ``launches`` to 0 and the replays of a CUDA graph
+    (:class:`LaunchRecording`). The add holds a lock: the CLI's backend
+    thread launches kernels beside the frontend."""
 
     def __init__(self):
         self.launches = 0
         self._lock = threading.Lock()
 
-    def add(self):
+    def add(self, n=1):
+        counts = getattr(_capture, "counts", None)
+        if counts is not None:
+            # this thread is capturing a CUDA graph: nothing launches now,
+            # each replay of the graph adds these counts
+            counts[self] = counts.get(self, 0) + n
+            return
         with self._lock:
-            self.launches += 1
+            self.launches += n
+
+
+class LaunchRecording:
+    """Within the block, the calling thread's :meth:`LaunchCounter.add`
+    calls are recorded in ``counts`` (counter → launches) instead of
+    counted: a CUDA graph's capture launches nothing. :meth:`replayed`
+    adds the recorded counts once, for one replay. Other threads count as
+    usual."""
+
+    def __init__(self):
+        self.counts: dict[LaunchCounter, int] = {}
+
+    def __enter__(self):
+        if getattr(_capture, "counts", None) is not None:
+            raise RuntimeError("a launch recording is already open on this "
+                               "thread")
+        _capture.counts = self.counts
+        return self
+
+    def __exit__(self, *exc):
+        _capture.counts = None
+        return False
+
+    def replayed(self):
+        for counter, n in self.counts.items():
+            counter.add(n)
 
 
 _sms: dict[int, int] = {}

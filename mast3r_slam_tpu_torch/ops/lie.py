@@ -39,7 +39,7 @@ def quat_mul(q1, q2):
 
 def quat_inv(q):
     """Conjugate of a unit quaternion."""
-    return q * q.new_tensor([-1.0, -1.0, -1.0, 1.0])
+    return torch.cat([-q[..., :3], q[..., 3:]], dim=-1)
 
 
 def quat_act(q, v):

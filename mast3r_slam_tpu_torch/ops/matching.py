@@ -6,9 +6,11 @@ kernel here). Same semantics:
 - ``iter_proj``: per-pixel Levenberg-Marquardt on the 2x2 normal equations
   of ``min_p ||normalize(bilerp(rays, p)) - r*||²`` with multiplicative
   damping (x0.1 on accept, x10 on reject), positions clamped to
-  ``[1, W-2] x [1, H-2]``, and the progress-plateau early exit. Each batch
-  row runs its own loop (the JAX loop is vmapped, so rows keep their own
-  iteration counts); the loop condition costs one host sync per iteration.
+  ``[1, W-2] x [1, H-2]``, and the progress-plateau early exit. As the
+  JAX ``lax.while_loop``, the loop exits on the device
+  (``ops/device_loop.py``): its condition is a device flag and nothing is
+  read on the host. Each batch row runs its own loop (the JAX loop is
+  vmapped, so rows keep their own iteration counts).
 - occlusion gate: 3D distance between matched points < ``dist_thresh``.
 - ``refine_matches``: coarse-to-fine descriptor search over a dilated
   window (``plus`` / ``separable`` / ``joint``), with descriptors rounded to
@@ -21,12 +23,14 @@ indices and the same out-of-image mask), which gives the same results.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mast3r_slam_tpu_torch.ops import device_loop
 from mast3r_slam_tpu_torch.ops.image import img_gradient
 
 
@@ -85,10 +89,13 @@ def _ray_cost(flat, u, v, target, w):
 def _iter_proj_single(rays9, pts_norm, p_init, max_iter, lambda_init,
                       cost_thresh, plateau_frac=0.0):
     """LM projection for one image: ``rays9 (H, W, 9)``, ``pts_norm (N, 3)``,
-    ``p_init (N, 2)`` → ``(p (N, 2), converged (N,))``.
+    ``p_init (N, 2)`` → ``(p (N, 2), converged (N,), iterations ()``, the
+    last a device tensor).
 
-    ``plateau_frac > 0`` stops once the converged-pixel count grows by less
-    than ``plateau_frac * N`` in an iteration (after the first two)."""
+    The loop stops (on the device) once every pixel has converged, after
+    ``max_iter`` iterations, or, with ``plateau_frac > 0``, once the
+    converged-pixel count grows by less than ``plateau_frac * N`` in an
+    iteration (after the first two)."""
     h, w, c = rays9.shape
     flat = rays9.reshape(h * w, c)
     u = p_init[:, 0].clamp(1.0, w - 2.0)
@@ -98,15 +105,13 @@ def _iter_proj_single(rays9, pts_norm, p_init, max_iter, lambda_init,
     n_q = u.shape[0]
     min_progress = int(math.ceil(plateau_frac * n_q)) if plateau_frac else 0
 
-    it, prev_cnt = 0, 0
-    while True:
-        cnt = int((cost < cost_thresh).sum())
-        go = it < max_iter and cnt < n_q
-        if min_progress:
-            go = go and (it < 2 or cnt - prev_cnt >= min_progress)
-        if not go:
-            break
-        prev_cnt = cnt
+    # the loop's state, updated in place by each step; live is JAX's cond
+    iters = torch.zeros((), dtype=torch.int64, device=u.device)
+    prev_cnt = torch.zeros_like(iters)
+    live = (cost < cost_thresh).sum() < n_q
+
+    def step():
+        cnt = (cost < cost_thresh).sum()
         gx = s[:, 3:6]
         gy = s[:, 6:9]
         a00 = (gx * gx).sum(-1) + lam
@@ -120,15 +125,26 @@ def _iter_proj_single(rays9, pts_norm, p_init, max_iter, lambda_init,
         u_new = (u + du).clamp(1.0, w - 2.0)
         v_new = (v + dv).clamp(1.0, h - 2.0)
         new_cost, new_s, new_err = _ray_cost(flat, u_new, v_new, pts_norm, w)
-        accept = new_cost < cost
-        u = torch.where(accept, u_new, u)
-        v = torch.where(accept, v_new, v)
-        lam = torch.where(accept, lam * 0.1, lam * 10.0)
-        cost = torch.where(accept, new_cost, cost)
-        s = torch.where(accept[:, None], new_s, s)
-        err = torch.where(accept[:, None], new_err, err)
-        it += 1
-    return torch.stack([u, v], dim=-1), cost < cost_thresh
+        accept = (new_cost < cost) & live
+        u.copy_(torch.where(accept, u_new, u))
+        v.copy_(torch.where(accept, v_new, v))
+        lam.copy_(torch.where(accept, lam * 0.1,
+                              torch.where(live, lam * 10.0, lam)))
+        cost.copy_(torch.where(accept, new_cost, cost))
+        s.copy_(torch.where(accept[:, None], new_s, s))
+        err.copy_(torch.where(accept[:, None], new_err, err))
+        prev_cnt.copy_(torch.where(live, cnt, prev_cnt))
+        iters.add_(live)
+        # the next step's condition: not every pixel converged and, after
+        # the first two steps, enough progress in this one
+        cnt = (cost < cost_thresh).sum()
+        nxt = live & (cnt < n_q)
+        if min_progress:
+            nxt &= (iters < 2) | (cnt - prev_cnt >= min_progress)
+        live.copy_(nxt)
+
+    device_loop.run(max_iter, live, step)
+    return torch.stack([u, v], dim=-1), cost < cost_thresh, iters
 
 
 def iter_proj(rays_with_grad, pts_norm, p_init, max_iter=10,
@@ -144,13 +160,6 @@ def iter_proj(rays_with_grad, pts_norm, p_init, max_iter=10,
             torch.stack([r[1] for r in rows]))
 
 
-def _window_offsets_np(radius: int, dilation: int) -> np.ndarray:
-    """(K, 2) integer (du, dv) offsets of the dilated square window."""
-    rng = np.arange(-radius, radius + 1) * dilation
-    du, dv = np.meshgrid(rng, rng, indexing="xy")
-    return np.stack([du.ravel(), dv.ravel()], axis=-1)
-
-
 def _dilation_levels(dilation_max: int, step: int) -> list:
     """Coarse-to-fine dilation schedule, always ending at d = 1."""
     levels = list(range(dilation_max, 0, -step))
@@ -161,9 +170,39 @@ def _dilation_levels(dilation_max: int, step: int) -> list:
     return levels
 
 
-def _search(Dflat, q, pu, pv, offs, h, w):
+def _offset_passes(rng, mode, stack, cat, meshgrid):
+    """The search passes of one dilation level, each a ``(K, 2)`` table of
+    integer ``(du, dv)`` offsets, from ``rng`` = ``arange(-r, r+1) * d``;
+    ``stack`` / ``cat`` / ``meshgrid`` are numpy's or torch's."""
+    r = (len(rng) - 1) // 2
+    zeros = rng * 0
+    if mode == "separable":
+        return [stack([rng, zeros], -1), stack([zeros, rng], -1)]
+    if mode == "plus":
+        nz = cat([rng[:r], rng[r + 1:]])
+        return [cat([stack([rng, zeros], -1), stack([nz * 0, nz], -1)])]
+    du, dv = meshgrid(rng, rng, indexing="xy")
+    return [stack([du.reshape(-1), dv.reshape(-1)], -1)]
+
+
+@functools.lru_cache(maxsize=None)
+def _offset_tables(radius: int, dilation: int, mode: str, device):
+    """``(host table, device table)`` per search pass of one level, built
+    once per (radius, dilation, mode, device): the host table drives the
+    candidate loop, the device one (made on the device from ``arange``, no
+    host copy) maps the winning candidate back to its offset."""
+    host = _offset_passes(np.arange(-radius, radius + 1) * dilation, mode,
+                          np.stack, np.concatenate, np.meshgrid)
+    dev = _offset_passes(
+        torch.arange(-radius, radius + 1, device=device) * dilation, mode,
+        torch.stack, torch.cat, torch.meshgrid)
+    return tuple(zip(host, dev))
+
+
+def _search(Dflat, q, pu, pv, offs, offs_t, h, w):
     """One window search for one image: ``Dflat (H*W, F)`` and ``q (N, F)``
-    (bf16-rounded, f32), integer ``pu, pv (N,)`` → the best candidate."""
+    (bf16-rounded, f32), integer ``pu, pv (N,)``, the pass's offsets on the
+    host (``offs``) and the device (``offs_t``) → the best candidate."""
     pu_c = pu.clamp(0, w - 1)
     pv_c = pv.clamp(0, h - 1)
     scores = torch.empty(len(offs), pu.shape[0], dtype=torch.float32,
@@ -176,8 +215,6 @@ def _search(Dflat, q, pu, pv, offs, h, w):
         sc = (Dflat[idx] * q).sum(-1)
         scores[k] = torch.where(inside, sc, -math.inf)
     best = scores.argmax(0)
-    offs_t = torch.as_tensor(np.asarray(offs), dtype=pu.dtype,
-                             device=pu.device)
     return pu + offs_t[best, 0], pv + offs_t[best, 1]
 
 
@@ -198,20 +235,8 @@ def refine_matches(D11, D21, p1, radius=3, dilation_max=5, mode="plus",
     for bi in range(b):
         u, v = pu[bi], pv[bi]
         for d in _dilation_levels(dilation_max, level_step):
-            rng = np.arange(-radius, radius + 1) * d
-            zeros = np.zeros_like(rng)
-            if mode == "separable":
-                passes = [np.stack([rng, zeros], -1),
-                          np.stack([zeros, rng], -1)]
-            elif mode == "plus":
-                nz = rng[rng != 0]
-                passes = [np.concatenate([np.stack([rng, zeros], -1),
-                                          np.stack([np.zeros_like(nz), nz],
-                                                   -1)])]
-            else:
-                passes = [_window_offsets_np(radius, d)]
-            for offs in passes:
-                u, v = _search(D11h[bi], D21h[bi], u, v, offs, h, w)
+            for offs, offs_t in _offset_tables(radius, d, mode, u.device):
+                u, v = _search(D11h[bi], D21h[bi], u, v, offs, offs_t, h, w)
         out_u.append(u)
         out_v.append(v)
     return torch.stack([torch.stack(out_u), torch.stack(out_v)], dim=-1)

@@ -7,11 +7,17 @@ keyframe pointmap fusion → keyframe-selection statistics → quality-job
 tensors — and :class:`FrameTracker` makes the host-side decisions on its
 outputs.
 
-The JAX ``lax.while_loop`` of the pose solve becomes a Python loop with the
-same accept/reject and exit rules, so it takes the same iterate sequence;
-each iteration reads its accept decision on the host (one sync). Cholesky
+As in JAX, :func:`track_core` reads nothing on the host: the LM loops of
+the matcher and of the pose solve exit on the device, as their
+``lax.while_loop`` counterparts (``ops/device_loop.py``: a device flag,
+polled without a wait on the eager path, a conditional node in the CUDA
+graph), and the keyframe's update count ``N_k`` is a device scalar. Cholesky
 failure is read from ``torch.linalg.cholesky_ex``'s ``info`` (JAX signals it
-with NaNs) and keeps the same ``ok`` semantics.
+with NaNs) and keeps the same ``ok`` semantics. :class:`FrameTracker` reads
+the frame's host decisions once, after the whole computation, as the JAX
+tracker reads them after its one program. On the card it runs
+:func:`track_core` as one CUDA graph per static shape (:class:`TrackGraphs`,
+the counterpart of the JAX package's ``jax.jit`` of it).
 
 Two measurement models, as in the reference:
 - uncalibrated: residual ``[unit_ray(3), dist(1)]`` (opt_pose_ray_dist_sim3)
@@ -21,17 +27,15 @@ Two measurement models, as in the reference:
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from mast3r_slam_tpu_torch import _build
 from mast3r_slam_tpu_torch.models import mast3r as M
 from mast3r_slam_tpu_torch.models.inference import _decimate
-from mast3r_slam_tpu_torch.ops import geometry, lie, matching
+from mast3r_slam_tpu_torch.ops import device_loop, geometry, lie, matching
 from mast3r_slam_tpu_torch.ops.robust import huber
 from mast3r_slam_tpu_torch.slam.frame import (Frame, fuse_weighted_spherical,
                                                median)
-
-_F32 = np.float32
 
 
 def _normal_7x7(sqrt_info, r, J, huber_k):
@@ -60,7 +64,10 @@ def _solve_damped_7x7(H, g, lam):
     ok = _chol_ok(Lc, info)
     eye = torch.eye(7, dtype=H.dtype, device=H.device)
     Lc_safe = torch.where(ok, Lc, eye)
-    tau = torch.cholesky_solve(g[:, None], Lc_safe)[:, 0]
+    # two triangular solves (cholesky_solve's potrs allocates inside a CUDA
+    # graph's loop body, which a conditional node does not allow)
+    y = torch.linalg.solve_triangular(Lc_safe, g[:, None], upper=False)
+    tau = torch.linalg.solve_triangular(Lc_safe.T, y, upper=True)[:, 0]
     return torch.where(ok, tau, torch.zeros_like(tau)), ok
 
 
@@ -77,40 +84,45 @@ def _lm_pose_loop(system, T0, max_iters, rel_error, delta_norm,
 
     ``ok`` is False when the initial system is broken or rank-deficient (its
     undamped Cholesky fails — the reference's singularity signal), when no
-    step was ever accepted, or when the final cost is not finite. The
-    scalar decisions are made on the host in float32, as the JAX loop makes
-    them on the device. Returns ``(T, ok)``."""
-    H, g, cost, ok0 = system(T0)
+    step was ever accepted, or when the final cost is not finite. As the
+    JAX ``lax.while_loop``, the loop exits on the device
+    (``ops/device_loop.py``): λ, the reference cost, the ``accepted_any``
+    flag and the loop's condition are float32 / bool device tensors, updated
+    in place by each step. Returns ``(T, ok, iterations)``, ``ok`` a device
+    bool and ``iterations`` (the steps taken) a device int."""
+    H, g, cost_ref, ok0 = system(T0)
     L0, info0 = torch.linalg.cholesky_ex(H)
-    ok0 = bool(ok0 & _chol_ok(L0, info0))
-    T_ref = T0
-    cost_ref = _F32(cost.item())
-    lam = _F32(lam0)
-    slack = _F32(1.0 + accept_slack)
-    accepted_any = False
-    for _ in range(max_iters):
-        tau, chol_ok = _solve_damped_7x7(H, g, float(lam))
+    ok0 = ok0 & _chol_ok(L0, info0)
+    # the loop's state, updated in place by each step (JAX's carry)
+    T_ref, H, g, cost_ref = (t.clone() for t in (T0, H, g, cost_ref))
+    lam = torch.full((), lam0, dtype=torch.float32, device=H.device)
+    live = torch.ones((), dtype=torch.bool, device=H.device)
+    accepted_any = torch.zeros_like(live)
+    iters = torch.zeros((), dtype=torch.int64, device=H.device)
+
+    def step():
+        tau, chol_ok = _solve_damped_7x7(H, g, lam)
         T_cand = lie.retr(T_ref, tau)
         H_c, g_c, cost_c, sys_ok = system(T_cand)
-        vals = torch.stack([(chol_ok & sys_ok).float(), cost_c,
-                            torch.linalg.norm(tau)]).cpu().numpy()
-        step_ok, cost_c, tau_norm = bool(vals[0]), vals[1], vals[2]
-        accept = step_ok and bool(cost_c <= cost_ref * slack)
-        if accept:
-            T_ref, H, g = T_cand, H_c, g_c
-            new_cost = cost_c
-            lam = max(_F32(lam0), lam * _F32(0.25))
-        else:
-            new_cost = cost_ref
-            lam = lam * _F32(10.0)
-        done = accept and bool(
-            abs((cost_ref - new_cost) / max(cost_ref, _F32(1e-30)))
-            < _F32(rel_error) or tau_norm < _F32(delta_norm))
-        cost_ref = new_cost
-        accepted_any |= accept
-        if done or lam > 1e8:
-            break
-    return T_ref, ok0 and accepted_any and bool(np.isfinite(cost_ref))
+        accept = (live & chol_ok & sys_ok
+                  & (cost_c <= cost_ref * (1.0 + accept_slack)))
+        new_cost = torch.where(accept, cost_c, cost_ref)
+        rel = ((cost_ref - new_cost) / cost_ref.clamp_min(1e-30)).abs()
+        T_ref.copy_(torch.where(accept, T_cand, T_ref))
+        H.copy_(torch.where(accept, H_c, H))
+        g.copy_(torch.where(accept, g_c, g))
+        lam.copy_(torch.where(accept, (lam * 0.25).clamp_min(lam0),
+                              torch.where(live, lam * 10.0, lam)))
+        done = (accept & ((rel < rel_error)
+                          | (torch.linalg.norm(tau) < delta_norm))
+                | (lam > 1e8))
+        cost_ref.copy_(new_cost)
+        accepted_any.copy_(accepted_any | accept)
+        iters.add_(live)
+        live.copy_(live & ~done)
+
+    device_loop.run(max_iters, live, step)
+    return T_ref, ok0 & accepted_any & torch.isfinite(cost_ref), iters
 
 
 def _ray_dist_channels(X):
@@ -146,8 +158,8 @@ def opt_pose_ray_dist_sim3(Xf, Xk, T_WCf, T_WCk, Qk, valid, sigma_ray,
         H, g, cost = _normal_7x7(sqrt_info, rd_k - rd_f, J, huber_k)
         return H, g, cost, torch.isfinite(cost)
 
-    T_CkCf, ok = _lm_pose_loop(system, T_CkCf0, max_iters, rel_error,
-                               delta_norm)
+    T_CkCf, ok, _ = _lm_pose_loop(system, T_CkCf0, max_iters, rel_error,
+                                  delta_norm)
     return lie.compose(T_WCk, T_CkCf), T_CkCf, ok
 
 
@@ -191,8 +203,8 @@ def opt_pose_calib_sim3(Xf, Xk, T_WCf, T_WCk, Qk, valid, meas_k,
         H, g, cost = _normal_7x7(info2, r, J, huber_k)
         return H, g, cost, torch.isfinite(cost)
 
-    T_CkCf, ok = _lm_pose_loop(system, T_CkCf0, max_iters, rel_error,
-                               delta_norm)
+    T_CkCf, ok, _ = _lm_pose_loop(system, T_CkCf0, max_iters, rel_error,
+                                  delta_norm)
     return lie.compose(T_WCk, T_CkCf), T_CkCf, ok
 
 
@@ -224,12 +236,25 @@ def make_scfg(tracking_cfg: dict, matching_cfg: dict) -> tuple:
 
 
 def track_core(params, mcfg, img, feat_k, pos_k, idx_init, X_k, C_k, N_k,
-               T_WCf_init, T_WCk, K, img_hw, use_calib, scfg, model_hw=None):
+               T_WCf_init, T_WCk, K, img_hw, use_calib, scfg, model_hw=None,
+               graphs=None):
     """The whole per-frame tracking computation (see module docstring).
 
     ``img (1, H, W, 3)``; keyframe ``feat_k, pos_k (1, Np, ·)``,
-    ``X_k (n, 3)``, ``C_k (n, 1)``, ``N_k`` (float); ``idx_init (1, n)``.
-    Returns a dict of tensors (``ok`` is a bool, ``N_k_new`` a float)."""
+    ``X_k (n, 3)``, ``C_k (n, 1)``, ``N_k`` (a float32 0-dim tensor; a
+    float is taken onto ``X_k``'s device); ``idx_init (1, n)``. Returns a
+    dict of tensors (``ok`` a 0-dim bool, ``N_k_new`` a float32 0-dim
+    tensor). With ``graphs`` (a :class:`TrackGraphs`, CUDA inputs) the
+    frame runs as that runner's CUDA graph of this computation."""
+    args = (params, mcfg, img, feat_k, pos_k, idx_init, X_k, C_k, N_k,
+            T_WCf_init, T_WCk, K, img_hw, use_calib, scfg)
+    if graphs is not None:
+        return graphs(_track_core, *args, model_hw=model_hw)
+    return _track_core(*args, model_hw=model_hw)
+
+
+def _track_core(params, mcfg, img, feat_k, pos_k, idx_init, X_k, C_k, N_k,
+                T_WCf_init, T_WCk, K, img_hw, use_calib, scfg, model_hw=None):
     (sigma_ray, sigma_dist, sigma_pixel, sigma_depth, huber_k, max_iters,
      rel_error, delta_norm, C_conf, Q_conf, pixel_border, depth_eps,
      match_max_iter, match_lambda, match_conv, match_dist, match_radius,
@@ -267,7 +292,8 @@ def track_core(params, mcfg, img, feat_k, pos_k, idx_init, X_k, C_k, N_k,
     vmatch = valid_match[0]                                   # (n, 1)
 
     # -- masks ------------------------------------------------------------------
-    Ck_avg = C_k / max(float(N_k), 1.0)
+    N_k = torch.as_tensor(N_k, dtype=torch.float32, device=X_k.device)
+    Ck_avg = C_k / N_k.clamp_min(1.0)
     Xf_all = Xff
     Xk_can = X_k
     meas_k = valid_meas_k = None
@@ -306,7 +332,7 @@ def track_core(params, mcfg, img, feat_k, pos_k, idx_init, X_k, C_k, N_k,
     # -- keyframe pointmap fusion (frame obs mapped into the keyframe) --------
     Xkk = lie.act(T_CkCf[None], Xkf)
     X_k_new, C_k_new, N_k_new = fuse_pointmap(
-        filtering_mode, filtering_score, X_k, C_k, float(N_k), Xkk, Ckf)
+        filtering_mode, filtering_score, X_k, C_k, N_k, Xkk, Ckf)
 
     match_frac_k, unique_frac_f = kf_selection_stats(vmatch, idx0, valid_kf,
                                                      n)
@@ -321,7 +347,7 @@ def track_core(params, mcfg, img, feat_k, pos_k, idx_init, X_k, C_k, N_k,
         "Qk": Qk, "Qkf": Qkf[None, :, None], "Qff": Qff[None, :, None],
         "T_WCf": T_WCf_new, "T_CkCf": T_CkCf, "ok": ok,
         "match_frac": match_frac,
-        "X_k_new": X_k_new, "C_k_new": C_k_new, "N_k_new": float(N_k_new),
+        "X_k_new": X_k_new, "C_k_new": C_k_new, "N_k_new": N_k_new,
         "match_frac_k": match_frac_k, "unique_frac_f": unique_frac_f,
         "Ck_avg": Ck_avg, "r_pix": r_pix, "valid_submit": valid_submit,
         "t_norm": t_norm, "theta": theta,
@@ -331,7 +357,10 @@ def track_core(params, mcfg, img, feat_k, pos_k, idx_init, X_k, C_k, N_k,
 def fuse_pointmap(filtering_mode, filtering_score, X_k, C_k, N_k, Xkk, Ckf0):
     """Keyframe pointmap fusion, all six reference policies. ``Xkk``: the
     frame's points mapped into the keyframe; ``Ckf0``: their confidences;
-    ``N_k`` a float."""
+    ``N_k`` a float32 0-dim tensor (a float is taken onto ``X_k``'s
+    device), and so is the returned count: no policy reads it on the
+    host."""
+    N_k = torch.as_tensor(N_k, dtype=torch.float32, device=X_k.device)
     if filtering_mode == "weighted_pointmap":
         return ((C_k * X_k + Ckf0 * Xkk) / (C_k + Ckf0), C_k + Ckf0,
                 N_k + 1.0)
@@ -339,23 +368,23 @@ def fuse_pointmap(filtering_mode, filtering_score, X_k, C_k, N_k, Xkk, Ckf0):
         X_new, C_new = fuse_weighted_spherical(X_k, C_k, Xkk, Ckf0)
         return X_new, C_new, N_k + 1.0
     if filtering_mode == "recent":
-        return Xkk, Ckf0, 1.0
+        return Xkk, Ckf0, torch.ones_like(N_k)
     if filtering_mode == "indep_conf":
         better = Ckf0 > C_k
         return (torch.where(better, Xkk, X_k), torch.where(better, Ckf0, C_k),
-                1.0)
+                torch.ones_like(N_k))
     if filtering_mode == "first":
         # keep the first post-creation update: N_k == 1 means only the
         # mono-init map exists; N = 2 then blocks later updates
-        if N_k <= 1.0:
-            return Xkk, Ckf0, 2.0
-        return X_k, C_k, 2.0
+        first = N_k <= 1.0
+        return (torch.where(first, Xkk, X_k), torch.where(first, Ckf0, C_k),
+                torch.full_like(N_k, 2.0))
     if filtering_mode == "best_score":
         # the stored C is always the winning update's C (N stays 1)
         score = median if filtering_score == "median" else torch.mean
-        better = score(Ckf0) > score(C_k / max(N_k, 1.0))
+        better = score(Ckf0) > score(C_k / N_k.clamp_min(1.0))
         return (torch.where(better, Xkk, X_k), torch.where(better, Ckf0, C_k),
-                1.0)
+                torch.ones_like(N_k))
     return X_k, C_k, N_k
 
 
@@ -391,11 +420,122 @@ def quality_job_tensors(use_calib, T_CkCf, Xf, Xk_can, valid_kf, meas_k,
     return r_pix, valid_submit, t_norm, theta
 
 
+class TrackGraphs:
+    """:func:`track_core` as one CUDA graph per static key, replayed every
+    frame: the counterpart of the JAX package's ``jax.jit(track_core,
+    static_argnames=("mcfg", "img_hw", "use_calib", "scfg", "model_hw"))``.
+
+    The key is what that jit is static on, plus the device, the inputs'
+    shapes and dtypes and the identity of ``params`` (new weights, e.g. a
+    new model, drop every graph: a graph reads the tensors it was captured
+    with). A key's first call runs the computation eagerly on a side stream
+    (its output is the frame's; it builds the kernels, their one-time
+    setup, the cached tables and the cuBLAS / cuSOLVER workspaces), then
+    captures it into a private memory pool in ``thread_local`` mode (the
+    backend and service threads go on launching and syncing their streams
+    meanwhile; a device-wide sync waits for ``device_loop.capture_lock``).
+    The LM loops of the matcher and the pose solve become conditional
+    WHILE nodes (``ops/device_loop.py``), so a replay stops each where the
+    eager loop exits. Later calls copy the inputs into the graph's static
+    buffers, replay it and return clones of its outputs, which the next
+    replay overwrites. The kernels' launch counters count launches that
+    ran: a capture adds nothing (:class:`_build.LaunchRecording`), each replay
+    adds the captured counts. A failed capture or replay raises."""
+
+    def __init__(self):
+        self._graphs = {}
+        self._params = None
+        self.captures = 0
+        self.replays = 0
+
+    def __call__(self, fn, params, mcfg, img, feat_k, pos_k, idx_init, X_k,
+                 C_k, N_k, T_WCf_init, T_WCk, K, img_hw, use_calib, scfg,
+                 model_hw=None):
+        inputs = (img, feat_k, pos_k, idx_init, X_k, C_k, N_k, T_WCf_init,
+                  T_WCk, K)
+        if any(t.device != img.device for t in inputs):
+            raise ValueError("track_core's inputs must be on one CUDA device")
+        static = (mcfg, tuple(img_hw), bool(use_calib), scfg,
+                  None if model_hw is None else tuple(model_hw))
+        key = static + (img.device,) + tuple((tuple(t.shape), t.dtype)
+                                             for t in inputs)
+        if params is not self._params:
+            self._graphs.clear()
+            self._params = params
+        with torch.cuda.device(img.device):
+            graph = self._graphs.get(key)
+            if graph is None:
+                out, self._graphs[key] = self._capture(fn, params, inputs,
+                                                       static)
+                return out
+            for buf, t in zip(graph.inputs, inputs):
+                buf.copy_(t)
+            graph.exec.launch()
+            graph.launches.replayed()
+            self.replays += 1
+            return {k: v.clone() for k, v in graph.outputs.items()}
+
+    def _capture(self, fn, params, inputs, static):
+        mcfg, img_hw, use_calib, scfg, model_hw = static
+        bufs = tuple(t.clone() for t in inputs)
+
+        def run(args):
+            return fn(params, mcfg, *args, img_hw, use_calib, scfg,
+                      model_hw=model_hw)
+
+        main = torch.cuda.current_stream()
+        side, body = torch.cuda.Stream(), torch.cuda.Stream()
+        for stream in (side, body):
+            stream.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = run(inputs)
+        with torch.cuda.stream(body):
+            # the loop bodies' stream gets its cuBLAS workspace here, from
+            # the ordinary pool, not inside a capture
+            eye = torch.eye(7, device=main.device)
+            torch.mv(torch.mm(eye, eye), eye[0])
+        graph = _Captured(bufs, device_loop.BodyPool(main.device))
+        with (device_loop.capture_lock, graph.launches,
+              device_loop.capturing(graph.pool, body)):
+            with torch.cuda.graph(graph.graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                graph.outputs = run(bufs)
+        graph.exec = device_loop.Executable(graph.graph)
+        main.wait_stream(side)
+        for t in out.values():
+            t.record_stream(main)
+        self.captures += 1
+        return out, graph
+
+
+class _Captured:
+    """One captured frame: the static input buffers, the graph (kept after
+    its capture) and its executable, its outputs, the launches its capture
+    recorded, and the memory pool of its loop bodies, released after the
+    graph itself."""
+
+    def __init__(self, inputs, pool):
+        self.inputs = inputs
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.exec = None
+        self.outputs = None
+        self.launches = _build.LaunchRecording()
+        self.pool = pool
+
+    def __del__(self):
+        self.outputs = None
+        if self.exec is not None:
+            self.exec.destroy()
+        self.graph.reset()
+        self.pool.release()
+
+
 class FrameTracker:
     """Drives per-frame tracking. ``track(frame)`` returns
     ``(new_kf, match_info, try_reloc)``, as the reference FrameTracker."""
 
-    def __init__(self, model, keyframes, cfg, quality_service=None):
+    def __init__(self, model, keyframes, cfg, quality_service=None,
+                 graphed=True):
         self.model = model              # models.inference.MASt3RInference
         self.keyframes = keyframes
         self.cfg = cfg["tracking"]
@@ -406,6 +546,9 @@ class FrameTracker:
         self._warm_kf_idx = None        # which keyframe idx_f2k converged on
         # (kf_idx, idx_f2k, valid_match, Qk) at the last keyframe creation
         self.last_kf_match = None
+        # track_core's CUDA graphs, used when the keyframes are on a card;
+        # graphed=False runs it eagerly there (a comparison's reference)
+        self.graphs = TrackGraphs() if graphed else None
 
     def reset_idx_f2k(self):
         self.idx_f2k = None
@@ -420,7 +563,7 @@ class FrameTracker:
             pos_k = kfs.pos[kf_idx][None].clone()
             X_k = kfs.X[kf_idx].clone()
             C_k = kfs.C[kf_idx].clone()
-            N_k = float(kfs.N[kf_idx])
+            N_k = int(kfs.N[kf_idx])
             T_WCk = kfs.T_WC[kf_idx].clone()
             kf_frame_id = int(kfs.dataset_idx[kf_idx])
             ver_k = int(kfs.version[kf_idx])
@@ -435,12 +578,19 @@ class FrameTracker:
         K = (kfs.K if self.use_calib
              else torch.eye(3, device=kfs.device))
         img_hw = (kfs.h, kfs.w)
+        # a fill, not a host-to-device copy
+        N_k = torch.full((), N_k, dtype=torch.float32, device=kfs.device)
 
         out = track_core(
             self.model.params, self.model.cfg, frame.img[None], feat_k,
             pos_k, idx_init, X_k, C_k, N_k, frame.T_WC, T_WCk, K, img_hw,
             bool(self.use_calib), make_scfg(self.cfg, self.match_cfg),
-            model_hw=tuple(kfs.model_hw))
+            model_hw=tuple(kfs.model_hw),
+            graphs=self.graphs if kfs.device.type == "cuda" else None)
+        # the frame's host decisions, in one device-to-host read
+        match_frac, ok, match_frac_k, unique_frac_f, N_k_new = torch.stack([
+            out["match_frac"], out["ok"].float(), out["match_frac_k"],
+            out["unique_frac_f"], out["N_k_new"]]).tolist()
 
         self.idx_f2k = out["idx_f2k"]
         self._warm_kf_idx = kf_idx
@@ -450,10 +600,10 @@ class FrameTracker:
         frame.C = out["C_frame"]
         frame.N = frame.N_updates = 1
 
-        if float(out["match_frac"]) < cfg["min_match_frac"]:
+        if match_frac < cfg["min_match_frac"]:
             print(f"Skipped frame {frame.frame_id}")
             return False, [], True
-        if not out["ok"]:
+        if not ok:
             print(f"Cholesky failed {frame.frame_id}")
             return False, [], True
 
@@ -467,15 +617,14 @@ class FrameTracker:
             if int(kfs.version[kf_idx]) == ver_k:
                 kfs.X[kf_idx] = out["X_k_new"]
                 kfs.C[kf_idx] = out["C_k_new"]
-                kfs.N[kf_idx] = int(out["N_k_new"])
+                kfs.N[kf_idx] = int(N_k_new)
                 kfs.N_updates[kf_idx] += 1
                 kfs.is_dirty[kf_idx] = True
                 kfs.version[kf_idx] += 1
                 kfs.xc_version[kf_idx] += 1
 
         # keyframe selection: low coverage in either direction → new KF
-        new_kf = min(float(out["match_frac_k"]),
-                     float(out["unique_frac_f"])) < cfg["match_frac_thresh"]
+        new_kf = min(match_frac_k, unique_frac_f) < cfg["match_frac_thresh"]
         if new_kf:
             # when this frame becomes keyframe kf_idx+1, the backend reuses
             # its converged match as the consecutive edge's whole j→i
@@ -491,8 +640,9 @@ class FrameTracker:
     def _submit_quality(self, out, kf_idx, kf_frame_id, img_hw):
         """Enqueue the quality job from :func:`track_core`'s outputs; no-op
         without a quality service. The job holds the device tensors
-        themselves, with no host sync: they are this frame's own outputs,
-        which nothing writes afterwards."""
+        themselves, with no host sync: they are this frame's own outputs
+        (on the card, clones of the graph's, which its next replay
+        overwrites), which nothing writes afterwards."""
         if self.quality_service is None:
             return
         try:

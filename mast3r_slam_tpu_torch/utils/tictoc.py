@@ -13,6 +13,8 @@ import time
 
 import torch
 
+from mast3r_slam_tpu_torch.ops import device_loop
+
 _stack: list[float] = []
 # name → [total seconds, calls, pending (start, end) CUDA event pairs]
 _sections: dict[str, list] = collections.defaultdict(lambda: [0.0, 0, []])
@@ -20,9 +22,10 @@ _sections: dict[str, list] = collections.defaultdict(lambda: [0.0, 0, []])
 
 def sync(device=None):
     """Block until all outstanding work on the card is complete (no-op
-    without one)."""
+    without one); not while another thread captures a CUDA graph."""
     if torch.cuda.is_available():
-        torch.cuda.synchronize(device)
+        with device_loop.capture_lock:
+            torch.cuda.synchronize(device)
 
 
 def tic():

@@ -22,6 +22,7 @@ from mast3r_slam_tpu_torch import _build
 from mast3r_slam_tpu_torch.models import mast3r as TM
 from mast3r_slam_tpu_torch.ops import ba_kernels as TBA
 from mast3r_slam_tpu_torch.ops import conv3x3 as TC3
+from mast3r_slam_tpu_torch.ops import device_loop as TDL
 from mast3r_slam_tpu_torch.ops import flash_attention as TFA
 from mast3r_slam_tpu_torch.ops import gram_variants as TGV
 from torch_parity import torch_one_thread  # noqa: F401
@@ -214,7 +215,7 @@ _CTYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
            "const long long*": ctypes.POINTER(ctypes.c_longlong)}
 
 
-@pytest.mark.parametrize("module", [TC3, TFA, TBA, TGV])
+@pytest.mark.parametrize("module", [TC3, TFA, TBA, TGV, TDL])
 def test_ctypes_signatures_match_the_c_entries(module):
     """Every C entry a wrapper binds has the parameter list the wrapper's
     ctypes signature declares (a mismatch passes garbage, e.g. as the

@@ -2,6 +2,8 @@
 JAX package on oracle-scene pointmaps, under the strict evaluation and the
 production matcher settings."""
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -119,3 +121,76 @@ def test_iter_proj_rows_keep_their_own_iteration_count():
                                                                p0)),
                            10, 1e-8, 1e-6, 0.001)
     assert (conv.numpy() == np.asarray(cj)).mean() >= 0.999
+
+
+def _flat_pair():
+    """Every pixel's point on one ray (the ray image is constant): each
+    target is matched wherever the search starts, the border's clamped
+    starts included."""
+    h, w = HW
+    X = np.broadcast_to(np.asarray([0.1, -0.2, 2.0], np.float32),
+                        (1, h, w, 3)).copy()
+    return X, X.copy()
+
+
+# rule → (max_iter, plateau_frac, pair)
+_PROJ_EXITS = {
+    "iteration_cap": (2, 0.0, "oracle"),
+    "all_converged": (10, 0.0, "flat"),
+    "plateau": (10, 0.001, "oracle"),
+}
+
+
+def _proj_inputs(pair):
+    X11, X21 = _flat_pair() if pair == "flat" else _oracle_pair()[:2]
+    return TMa.prep_for_iter_proj(torch.from_numpy(X11),
+                                  torch.from_numpy(X21), None)
+
+
+@pytest.mark.parametrize("rule", list(_PROJ_EXITS))
+def test_iter_proj_exit_rules_match_jax(rule):
+    """The device-exit LM projection against JAX's ``lax.while_loop`` for
+    each exit rule (the same tolerances as the matcher tests): the port's
+    step count shows where it stopped, and JAX capped there with the
+    plateau rule off ends at the same positions."""
+    max_iter, plateau, pair = _PROJ_EXITS[rule]
+    rays9, pts, p0 = _proj_inputs(pair)
+    p, conv, iters = TMa._iter_proj_single(rays9[0], pts[0], p0[0], max_iter,
+                                           1e-8, 1e-6, plateau)
+    n = int(iters)
+    if rule == "iteration_cap":
+        assert n == max_iter and not bool(conv.all())
+    elif rule == "all_converged":
+        h, w = HW
+        assert n == 0 and bool(conv.all())
+        assert torch.equal(p, torch.stack([p0[0, :, 0].clamp(1.0, w - 2.0),
+                                           p0[0, :, 1].clamp(1.0, h - 2.0)],
+                                          -1))
+    else:
+        assert 2 <= n < max_iter
+    for cap, frac in ((max_iter, plateau), (n, 0.0)):
+        pj, cj = JMa.iter_proj(*(jnp.asarray(t.numpy()) for t in (rays9, pts,
+                                                                   p0)),
+                               cap, 1e-8, 1e-6, frac)
+        assert (conv.numpy() == np.asarray(cj)[0]).mean() >= 0.999
+        assert np.isclose(p.numpy(), np.asarray(pj)[0], rtol=0,
+                          atol=1e-4).all(-1).mean() >= 0.999
+
+
+@pytest.mark.parametrize("rule", ["iteration_cap", "plateau"])
+def test_iter_proj_masked_steps_leave_the_state(rule):
+    """The steps after the exit (some run on the card's eager path, none
+    on the CPU or in the graph) change nothing."""
+    max_iter, plateau, pair = _PROJ_EXITS[rule]
+    rays9, pts, p0 = _proj_inputs(pair)
+    args = (rays9[0], pts[0], p0[0], max_iter + 3, 1e-8, 1e-6, plateau)
+    want = TMa._iter_proj_single(*args)
+
+    def masked(cap, live, step):
+        for _ in range(cap):
+            step()
+
+    with mock.patch.object(TMa.device_loop, "run", masked):
+        got = TMa._iter_proj_single(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -101,6 +101,115 @@ def test_singular_system_reports_failure(case):
     assert not bool(okj) and not okt
 
 
+# ---------------------------------------------------------------------------
+# The pose solve's LM loop: every exit rule against JAX's lax.while_loop
+# ---------------------------------------------------------------------------
+
+_M7 = np.linalg.qr(RNG.normal(size=(7, 7)))[0].astype(np.float32) * \
+    np.asarray([3.0, 2.0, 1.5, 1.0, 0.7, 0.5, 0.3], np.float32)
+_C7 = np.asarray([0.5, -0.3, 0.2, 0.4, -0.2, 0.3, 0.1], np.float32)
+
+
+def _quadratic_system(xp, kind):
+    """A least-squares system on the Sim(3) logarithm, the same
+    function in JAX (``xp = jnp``) and in the port (``xp = torch``):
+    ``r = M (log(T) - c)``. ``"nan"``: every candidate's cost is NaN, so no
+    step is ever accepted; ``"singular"``: H and g are zero (the initial
+    undamped Cholesky fails)."""
+    M = xp.asarray(_M7) if xp is jnp else torch.from_numpy(_M7)
+    c = xp.asarray(_C7) if xp is jnp else torch.from_numpy(_C7)
+    log = JL.log if xp is jnp else TL.log
+    T0 = np.array(JL.identity())
+
+    def system(T):
+        r = M @ (log(T) - c)
+        # a curvature four times the true one: every step goes a quarter
+        # of the way and the cost falls by a constant ratio, so the
+        # relative-change and step-norm rules stop a loop that still moves
+        H, g = 4.0 * (M.T @ M), -(M.T @ r)
+        cost = 0.5 * (r * r).sum()
+        if kind == "nan":
+            at_start = (T == (xp.asarray(T0) if xp is jnp
+                              else torch.from_numpy(T0))).all()
+            cost = xp.where(at_start, cost, float("nan"))
+        if kind == "singular":
+            H, g = H * 0.0, g * 0.0
+        finite = xp.isfinite(cost)
+        return H, g, cost, finite
+
+    return system, T0
+
+
+# (system kind, max_iters, rel_error, delta_norm) → the rule that stops it
+_EXITS = {
+    "iteration_cap": ("quadratic", 3, 0.0, 0.0),
+    "rel_error": ("quadratic", 50, 0.45, 0.0),
+    "delta_norm": ("quadratic", 50, 0.0, 1e-2),
+    "lambda_past_1e8": ("nan", 50, 0.0, 0.0),
+    "never_accepted": ("nan", 5, 0.0, 0.0),
+    "initial_cholesky_failure": ("singular", 50, 1e-6, 1e-6),
+}
+
+
+@pytest.mark.parametrize("rule", list(_EXITS))
+def test_lm_pose_loop_exit_rules_match_jax(rule):
+    """The device-exit pose loop against JAX's ``lax.while_loop`` for each
+    exit rule: the same pose and ``ok``; the port's step count shows where
+    it stopped, and JAX capped at that count (its rules off) ends at the
+    same pose, so JAX stopped there too."""
+    kind, max_iters, rel_error, delta_norm = _EXITS[rule]
+    sys_j, T0 = _quadratic_system(jnp, kind)
+    sys_t, _ = _quadratic_system(torch, kind)
+    Tj, okj = JT._lm_pose_loop(sys_j, jnp.asarray(T0), max_iters, rel_error,
+                               delta_norm)
+    Tt, okt, iters = TT._lm_pose_loop(sys_t, t_(T0), max_iters, rel_error,
+                                      delta_norm)
+    assert okt.dtype == torch.bool and bool(okt) == bool(okj)
+    assert_close(Tt, Tj, rtol=1e-5, atol=1e-6)
+    n = int(iters)
+    want_ok = {"iteration_cap": True, "rel_error": True, "delta_norm": True,
+               "lambda_past_1e8": False, "never_accepted": False,
+               "initial_cholesky_failure": False}[rule]
+    assert bool(okt) == want_ok
+    if rule in ("iteration_cap", "never_accepted"):
+        assert n == max_iters
+    elif rule == "initial_cholesky_failure":
+        assert n == 1                    # a zero step is accepted, and stops
+    else:
+        assert 1 <= n < max_iters
+    if rule == "lambda_past_1e8":        # every step rejected: λ = 1e-8·10^n
+        assert 16 <= n <= 17 and torch.equal(Tt, t_(T0))
+    Tc, _ = JT._lm_pose_loop(sys_j, jnp.asarray(T0), n, 0.0, 0.0)
+    assert_close(Tt, Tc, rtol=1e-5, atol=1e-6)
+    if rule in ("rel_error", "delta_norm"):
+        # one more step would still move the pose: the rule stopped it
+        Tm, _ = JT._lm_pose_loop(sys_j, jnp.asarray(T0), n + 1, 0.0, 0.0)
+        assert not np.array_equal(np.asarray(Tm), np.asarray(Tc))
+
+
+def _masked(cap, live, step):
+    """Every step runs, those after the exit masked (as the steps that the
+    card's eager loop launches before it sees the exit)."""
+    for _ in range(cap):
+        step()
+
+
+@pytest.mark.parametrize("rule", ["rel_error", "lambda_past_1e8",
+                                  "initial_cholesky_failure"])
+def test_lm_pose_loop_masked_steps_leave_the_state(rule):
+    """The steps after the exit (some run on the card's eager path, none
+    on the CPU's or in the graph) leave every part of the state as it
+    is."""
+    kind, max_iters, rel_error, delta_norm = _EXITS[rule]
+    sys_t, T0 = _quadratic_system(torch, kind)
+    want = TT._lm_pose_loop(sys_t, t_(T0), max_iters, rel_error, delta_norm)
+    with mock.patch.object(TT.device_loop, "run", _masked):
+        got = TT._lm_pose_loop(sys_t, t_(T0), max_iters, rel_error,
+                               delta_norm)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("mode", ["weighted_pointmap", "weighted_spherical",
                                   "recent", "indep_conf", "first",
                                   "best_score"])
@@ -120,9 +229,11 @@ def test_fuse_pointmap_matches_jax(mode, N_k):
                                   jnp.asarray(C_k) * N_k, jnp.asarray(N_k),
                                   jnp.asarray(Xkk), jnp.asarray(Ckf))
     Xt, Ct, Nt = TT.fuse_pointmap(mode, "median", t_(X_k), t_(C_k) * N_k,
-                                  N_k, t_(Xkk), t_(Ckf))
+                                  torch.tensor(N_k), t_(Xkk), t_(Ckf))
     assert_close(Xt, Xj)
     assert_close(Ct, Cj)
+    # the count stays a float32 tensor: no policy reads it on the host
+    assert Nt.dtype == torch.float32 and Nt.shape == ()
     assert float(Nt) == float(Nj)
 
 
@@ -358,3 +469,52 @@ def test_new_keyframe_records_the_backend_match_hint():
         assert kf_idx == 0 and tracker.idx_f2k is None
         assert idx_f2k.shape == (1, n) and valid.shape == (n, 1)
         assert Qk.shape == (n, 1) and bool(Qk.isfinite().all())
+
+
+@functools.lru_cache(maxsize=1)
+def _fusion_setup():
+    """Tied tiny weights in both packages and keyframe 0 (mono inference
+    of frame 0) in both."""
+    cj, pj, ct, pt = tiny_weights(tie_streams=True)
+    pj, pt = JM.prepare_params(pj, cj), TM.prepare_params(pt, ct)
+    imgs = _frames(2)
+    kf_j = j_mono_core(pj, cj, jnp.asarray(imgs[0])[None], HW)
+    kf_t = t_mono_core(pt, ct, t_(imgs[0])[None], HW)
+    return (cj, pj, kf_j), (ct, pt, kf_t), imgs[1]
+
+
+@pytest.mark.parametrize("mode", ["weighted_pointmap", "weighted_spherical",
+                                  "recent", "indep_conf", "first",
+                                  "best_score"])
+@pytest.mark.parametrize("N_k", [1.0, 3.0])
+def test_track_core_fusion_modes_match_jax(mode, N_k):
+    """``track_core`` with the keyframe's update count as a device tensor,
+    against JAX, for every filtering mode at N_k 1 and 3: given the JAX
+    run's matches, the fused keyframe map, the confidence average and the
+    new count (a float32 0-dim tensor, never read on the host) agree."""
+    (cj, pj, (fj, posj, Xj, Cj)), (ct, pt, (ft, post, Xt, Ct)), img = \
+        _fusion_setup()
+    cfg = _track_cfg()
+    cfg["tracking"]["filtering_mode"] = mode
+    n = HW[0] * HW[1]
+    oj = JT.track_core(pj, cj, jnp.asarray(img)[None], fj, posj,
+                       jnp.arange(n)[None], Xj[0], Cj[0] * N_k,
+                       jnp.asarray(N_k), JL.identity(), JL.identity(),
+                       jnp.eye(3), HW, False,
+                       JT.make_scfg(cfg["tracking"], cfg["matching"]),
+                       model_hw=HW)
+    jax_matches = (t_(np.array(oj["idx_f2k"])).long(),
+                   t_(np.array(oj["valid_match"]))[None])
+    with mock.patch.object(TT.matching, "match",
+                           lambda *a, **kw: jax_matches):
+        ot = TT.track_core(pt, ct, t_(img)[None], ft, post,
+                           torch.arange(n)[None], Xt[0], Ct[0] * N_k,
+                           torch.tensor(N_k), TL.identity(), TL.identity(),
+                           torch.eye(3), HW, False,
+                           TT.make_scfg(cfg["tracking"], cfg["matching"]),
+                           model_hw=HW)
+    N_new = ot["N_k_new"]
+    assert N_new.dtype == torch.float32 and N_new.shape == ()
+    assert float(N_new) == float(oj["N_k_new"])
+    for key in ("Ck_avg", "X_k_new", "C_k_new"):
+        assert_close(ot[key], oj[key], err_msg=key)
