@@ -101,9 +101,14 @@ then:
    interlace, tRNS, gamma and eXIf files) in the colour and the gray read
    to the SHA-256 digests of cv2.imread's reads recorded beside them,
    checks EuRoC cam0's and TUM freiburg1/2's ``K_undist`` against cv2's
-   numbers to 1e-6, and times one EuRoC remap and one 1200x680 Replica
-   decode on the host, as a baseline and as a progressive file of the
-   same coefficients (which must decode to the same pixels);
+   numbers to 1e-6, times one 1200x680 Replica decode on the host, as a
+   baseline and as a progressive file of the same coefficients (which
+   must decode to the same pixels), and builds the frame read's compiled
+   host code (``native/image_host.cpp``) and holds it against its plain
+   versions, equal bytes and float32 bits, timing both: the 480x640 PNG
+   decode with Sub, Up, Average and Paeth rows, the EuRoC (gray and
+   colour) and TUM freiburg1 remaps, and ``resize_img`` to 384x512 cold,
+   warm and with its weights built afresh;
 13. (phase ``cli_datasets``) runs the CLI at full ViT-L width on 12-frame
    clips it writes in the evaluation datasets' layouts, each under its
    evaluation script's config: EuRoC (gray 752x480 PNGs, undistorted on
@@ -119,7 +124,11 @@ then:
    the f32-row Gram; base.yaml's on the implicit GEMM and the tensor-core
    Gram), K_frame's principal point, and that the progressive and mixed
    clips' reader frames equal their baseline clips' bit for bit and their
-   runs give the same modes, keyframes and edges;
+   runs give the same modes, keyframes and edges; each run times its
+   frame reads (``dataset[i]`` + ``create_frame``), then the clip's reads
+   are timed compiled and plain in turns (the same frames, bit for bit),
+   and the EuRoC, TUM, Replica and image-folder runs are repeated with the
+   plain read: the same modes, keyframes, edges and poses, bit for bit;
 14. (phase ``topology``) prints the layout ``plan_topology()`` gives on
    the visible cards, then on a virtual 5-slot layout of cuda:0 checks
    the sharded symmetric decode of 3 pairs at full width (padded to a
@@ -2477,7 +2486,17 @@ REPLICA_CAM = dict(w=1200, h=680, fx=600.0, fy=600.0, cx=599.5, cy=339.5,
                    scale=6553.5)
 REPLICA_QUALITY = 95
 NOISE_LEVELS = 16       # sigma of the noisy decode timing frame
-PNG_PAETH_REPEATS = 3   # a Paeth-filtered 480x640 PNG decodes in ~0.5 s
+# the plain versions' slow cases (a 480x640 PNG of Average or Paeth rows
+# through unfilter_ref, ~0.4 s a decode) are timed over fewer calls
+PLAIN_SLOW_REPEATS = 3
+# TUM freiburg1 (the JAX package's _TUM_CALIB): 640x480, undistorted under
+# use_calib
+TUM_FR1 = (640, 480, 517.3, 516.5, 318.6, 255.3,
+           (0.2624, -0.9531, -0.0054, 0.0026, 1.1633))
+PNG_FILTERS = {"Sub": 1, "Up": 2, "Average": 3, "Paeth": 4}
+# the cli_datasets runs repeated with the plain read (one per layout; the
+# progressive and mixed clips are held to these runs' decisions already)
+PLAIN_READ_RUNS = ("euroc", "tum_fr1_calib", "replica", "rgbfiles")
 
 
 def _host_ms(fn, repeats=HOST_REPEATS):
@@ -2488,6 +2507,117 @@ def _host_ms(fn, repeats=HOST_REPEATS):
         fn()
         ts.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(ts)
+
+
+@contextlib.contextmanager
+def plain_host_read():
+    """Within the block, the readers run the plain versions of this
+    slice's compiled host code, the arithmetic the port read with before
+    it: the PNG unfilter row by row in Python (``png.unfilter_ref``), the
+    remap in numpy (``undistort.remap_bilinear_ref``) and the resize
+    weights built afresh on every call."""
+    from mast3r_slam_tpu_torch.data import (image_host, image_ops, png,
+                                            undistort)
+
+    saved = [(image_host, "png_unfilter", png.unfilter_ref),
+             (undistort, "remap_bilinear", undistort.remap_bilinear_ref),
+             (image_ops, "resize_weights",
+              image_ops.resize_weights.__wrapped__)]
+    saved = [(m, n, getattr(m, n), v) for m, n, v in saved]
+    for m, n, _, v in saved:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for m, n, orig, _ in saved:
+            setattr(m, n, orig)
+
+
+def host_read_checks(smi):
+    """The compiled host code of the frame read (``data/image_host.py``:
+    the PNG unfilter and the remap) and the cached resize weights against
+    their plain versions on this machine's host, in one call: equal bytes
+    and equal float32 bits, and the median ms of each (``HOST_REPEATS``
+    calls; ``PLAIN_SLOW_REPEATS`` for the plain Average and Paeth
+    decodes). The PNGs are a TUM-size 480x640 RGB frame with one filter
+    type on every row; the remaps EuRoC cam0's (752x480, gray as EuRoC
+    reads it and colour) and TUM freiburg1's (640x480 colour); the resize
+    480x640 -> 384x512 as ``create_frame`` does it, cold (cache emptied
+    before each call), warm, and plain."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.data import image_ops, png
+    from mast3r_slam_tpu_torch.data.datasets import Intrinsics
+
+    out = {}
+    tum = next(pan_frames(1, CLI_SRC_HW, (0, 0), seed=7))
+    pw = _test_writer("torch_png_writer")
+    for name, f in PNG_FILTERS.items():
+        data = pw.encode_png(tum, filters=f)
+        new = png.decode_png(data)
+        with plain_host_read():
+            plain = png.decode_png(data)
+            plain_ms = _host_ms(lambda: png.decode_png(data),
+                                PLAIN_SLOW_REPEATS if f > 2
+                                else HOST_REPEATS)
+        check(np.array_equal(new, tum) and np.array_equal(plain, tum),
+              f"data: the {name}-filtered PNG decodes to other pixels")
+        out[f"png_{name.lower()}"] = dict(
+            ms=_host_ms(lambda: png.decode_png(data)), plain_ms=plain_ms,
+            bytes=len(data))
+    e = EUROC_CAM0
+    euroc = Intrinsics(*e["resolution"], *e["intrinsics"],
+                       (*e["distortion_coefficients"], 0.0), cfg={})
+    tum_fr1 = Intrinsics(*TUM_FR1[:6], TUM_FR1[6], cfg={})
+    rng = np.random.default_rng(0)
+    for key, intr, chans in (("remap_euroc_gray", euroc, 0),
+                             ("remap_euroc_rgb", euroc, 3),
+                             ("remap_tum_rgb", tum_fr1, 3)):
+        shape = (intr.H, intr.W) + ((chans,) if chans else ())
+        frame = rng.random(shape).astype(np.float32)
+        new = intr.remap(frame)
+        with plain_host_read():
+            plain = intr.remap(frame)
+            plain_ms = _host_ms(lambda: intr.remap(frame))
+        check(new.shape == frame.shape and new.dtype == np.float32
+              and np.array_equal(new.view(np.int32), plain.view(np.int32)),
+              f"data: {key} differs from its plain version")
+        out[key] = dict(ms=_host_ms(lambda: intr.remap(frame)),
+                        plain_ms=plain_ms)
+    img = tum.astype(np.float32) / 255.0
+
+    def cold():
+        image_ops.resize_weights.cache_clear()
+        return image_ops.resize_img(img, 512)
+
+    new = cold()
+    warm = image_ops.resize_img(img, 512)
+    with plain_host_read():
+        plain = image_ops.resize_img(img, 512)
+        plain_ms = _host_ms(lambda: image_ops.resize_img(img, 512))
+    check(new["img"].shape == (1, *IMG_HW, 3)
+          and all(np.array_equal(new[k], warm[k])
+                  and np.array_equal(new[k], plain[k]) for k in new),
+          "data: resize_img with cached weights differs from its plain "
+          "version")
+    out["resize"] = dict(cold_ms=_host_ms(cold), plain_ms=plain_ms,
+                         ms=_host_ms(lambda: image_ops.resize_img(img, 512)))
+    log(f"data: host ms, compiled / plain (median of {HOST_REPEATS}; plain "
+        f"Average and Paeth of {PLAIN_SLOW_REPEATS}), equal bytes and bits: "
+        f"480x640 RGB PNG decode "
+        + ", ".join(f"{n} rows {out[f'png_{n.lower()}']['ms']:.2f} / "
+                    f"{out[f'png_{n.lower()}']['plain_ms']:.2f}"
+                    for n in PNG_FILTERS)
+        + f"; remap EuRoC 752x480 gray {out['remap_euroc_gray']['ms']:.2f} "
+        f"/ {out['remap_euroc_gray']['plain_ms']:.2f}, x3 "
+        f"{out['remap_euroc_rgb']['ms']:.2f} / "
+        f"{out['remap_euroc_rgb']['plain_ms']:.2f}, TUM fr1 640x480x3 "
+        f"{out['remap_tum_rgb']['ms']:.2f} / "
+        f"{out['remap_tum_rgb']['plain_ms']:.2f}; resize_img 480x640 -> "
+        f"384x512 warm {out['resize']['ms']:.2f}, cold "
+        f"{out['resize']['cold_ms']:.2f}, plain "
+        f"{out['resize']['plain_ms']:.2f}; on {smi}")
+    return out
 
 
 def _test_writer(name):
@@ -2533,25 +2663,28 @@ def fixture_reads():
     return n
 
 
-def phase_data():
+def phase_data(smi):
     """The host data layer on this machine: the JPEG decoder built here
     decodes the committed fixtures to the SHA-256 digests of cv2's decode
     recorded beside them, and every JPEG and PNG fixture reads to cv2's
     colour and gray reads; EuRoC cam0's and TUM freiburg1/2's K_undist
-    equal the numbers cv2 gave; then the host ms of one EuRoC remap
-    (752x480 gray float32, and a colour frame of that size), of one
-    1200x680 Replica decode (a smooth frame and a noisy one, baseline and
-    progressive) and of one 480x640 PNG decode (Up and Paeth rows)."""
+    equal the numbers cv2 gave; then the host ms of EuRoC cam0's maps, of
+    one 1200x680 Replica decode (a smooth frame and a noisy one, baseline
+    and progressive), and :func:`host_read_checks`: the PNG decodes, the
+    remaps and the resize, compiled and plain."""
     import hashlib
 
     import numpy as np
 
-    from mast3r_slam_tpu_torch.data import jpeg, png
+    from mast3r_slam_tpu_torch.data import image_host, jpeg
     from mast3r_slam_tpu_torch.data.datasets import Intrinsics
 
     t0 = time.perf_counter()
     jpeg.load_library()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    image_host.load_library()
+    host_build_s = time.perf_counter() - t0
     rec = json.loads((JPEG_FIXTURES / "fixtures.json").read_text())
     for name, want in sorted(rec["decoded_sha256"].items()):
         img = jpeg.read_jpeg(JPEG_FIXTURES / name)
@@ -2567,7 +2700,8 @@ def phase_data():
         check(err <= K_UNDIST_RTOL, f"data: {name} K_undist {K.tolist()} "
               f"!= cv2's {want.tolist()} (relative {err:.2e})")
     n_reads = fixture_reads()
-    log(f"data: JPEG decoder built in {build_s:.1f} s; "
+    log(f"data: JPEG decoder built in {build_s:.1f} s, image host library "
+        f"(PNG unfilter, remap) in {host_build_s:.1f} s; "
         f"{len(rec['decoded_sha256'])} fixtures equal cv2 {rec['opencv']} "
         f"bit for bit; {n_reads} colour and gray reads of the JPEG and PNG "
         f"fixtures equal cv2.imread's; K_undist of {sorted(rec['cameras'])} "
@@ -2575,18 +2709,10 @@ def phase_data():
 
     e = EUROC_CAM0
     t0 = time.perf_counter()
-    intr = Intrinsics(*e["resolution"], *e["intrinsics"],
-                      (*e["distortion_coefficients"], 0.0), cfg={})
+    Intrinsics(*e["resolution"], *e["intrinsics"],
+               (*e["distortion_coefficients"], 0.0), cfg={})
     maps_ms = (time.perf_counter() - t0) * 1e3
-    # EuRoC's frames are gray and remapped once; a colour frame of the same
-    # size takes three channels
-    rgb = np.random.default_rng(0).random((480, 752, 3)).astype(np.float32)
-    for frame in (rgb[..., 0], rgb):
-        out = intr.remap(frame)
-        check(out.shape == frame.shape and bool(np.isfinite(out).all()),
-              f"data: EuRoC remap output of {frame.shape}")
-    remap_ms = _host_ms(lambda: intr.remap(rgb[..., 0]))
-    remap_rgb_ms = _host_ms(lambda: intr.remap(rgb))
+    host = dict(host_read_checks(smi), host_build_s=host_build_s)
     jw = _test_writer("torch_jpeg_writer")
     img = next(pan_frames(1, REPLICA_HW, (0, 0), seed=5))
     data = jw.encode_jpeg(img, REPLICA_QUALITY)
@@ -2614,36 +2740,20 @@ def phase_data():
               f"to its baseline file's pixels")
     prog_ms = _host_ms(lambda: jpeg.decode_jpeg(prog))
     prog_noisy_ms = _host_ms(lambda: jpeg.decode_jpeg(prog_noisy))
-    # a TUM-size PNG with the Up filter on every row (the port's writer)
-    # and with Paeth on every row, which libpng's adaptive choice in a
-    # camera's or cv2's files approaches: Paeth and Average rows are
-    # undone by a Python loop over the row's bytes
-    tum = next(pan_frames(1, CLI_SRC_HW, (0, 0), seed=7))
-    pw = _test_writer("torch_png_writer")
-    png_up, png_paeth = (pw.encode_png(tum, filters=f) for f in (2, 4))
-    for d_ in (png_up, png_paeth):
-        check(np.array_equal(png.decode_png(d_), tum), "data: PNG decode")
-    png_up_ms = _host_ms(lambda: png.decode_png(png_up))
-    png_paeth_ms = _host_ms(lambda: png.decode_png(png_paeth),
-                            PNG_PAETH_REPEATS)
-    log(f"data: EuRoC maps + tables {maps_ms:.1f} ms; host ms per EuRoC "
-        f"remap (752x480 gray) {remap_ms:.2f} (752x480x3: {remap_rgb_ms:.2f}"
-        f"), per 1200x680 Replica decode "
+    log(f"data: EuRoC maps + tables {maps_ms:.1f} ms; host ms per "
+        f"1200x680 Replica decode "
         f"(4:2:0, q{REPLICA_QUALITY}) {decode_ms:.2f} for a smooth frame "
         f"of {len(data)} bytes, {decode_noisy_ms:.2f} with noise of "
         f"sigma {NOISE_LEVELS} levels, {len(data_noisy)} bytes; progressive "
         f"(jpeg_simple_progression, the same coefficients) {prog_ms:.2f} "
         f"smooth ({len(prog)} bytes), {prog_noisy_ms:.2f} noisy "
-        f"({len(prog_noisy)} bytes) (median of {HOST_REPEATS}); 480x640 "
-        f"RGB PNG decode {png_up_ms:.2f} with Up rows, {png_paeth_ms:.1f} "
-        f"with Paeth rows (median of {PNG_PAETH_REPEATS})")
-    return dict(remap_ms=remap_ms, remap_rgb_ms=remap_rgb_ms,
-                decode_ms=decode_ms, maps_ms=maps_ms,
+        f"({len(prog_noisy)} bytes) (median of {HOST_REPEATS}); on {smi}")
+    return dict(decode_ms=decode_ms, maps_ms=maps_ms,
                 decode_bytes=len(data), decode_noisy_ms=decode_noisy_ms,
                 decode_noisy_bytes=len(data_noisy), prog_ms=prog_ms,
                 prog_bytes=len(prog), prog_noisy_ms=prog_noisy_ms,
                 prog_noisy_bytes=len(prog_noisy), fixture_reads=n_reads,
-                png_up_ms=png_up_ms, png_paeth_ms=png_paeth_ms)
+                **host)
 
 
 def write_euroc_clip(root, n_frames):
@@ -2707,7 +2817,75 @@ def write_image_folder(root, n_frames, mixed=False):
     return root
 
 
-def phase_cli_datasets(torch, FA, C3, BA, workdir):
+@contextlib.contextmanager
+def timed_frame_reads(ms):
+    """Within the block, each frame the CLI reads appends to ``ms`` the
+    host ms from the start of ``dataset[i]`` to the return of
+    ``create_frame`` (the read, the decode, the remap, the resize, the
+    upload), as ``main.py``'s frame loop calls them."""
+    from mast3r_slam_tpu_torch import main as cli
+    from mast3r_slam_tpu_torch.data.datasets import MonocularDataset
+
+    started = {}
+    getitem, create = MonocularDataset.__getitem__, cli.create_frame
+
+    def timed_getitem(self, idx):
+        started["t0"] = time.perf_counter()
+        return getitem(self, idx)
+
+    def timed_create(*a, **kw):
+        frame = create(*a, **kw)
+        t0 = started.pop("t0", None)
+        if t0 is not None:
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return frame
+
+    MonocularDataset.__getitem__, cli.create_frame = (timed_getitem,
+                                                      timed_create)
+    try:
+        yield ms
+    finally:
+        MonocularDataset.__getitem__, cli.create_frame = getitem, create
+
+
+def read_turns(torch, ds, cfg, tag):
+    """``dataset[i]`` + ``create_frame`` over the clip's frames on the
+    card, compiled and plain (:func:`plain_host_read`) in turns, frame by
+    frame: the reader's frames equal bit for bit, and so do the model
+    crops uploaded. Returns the medians (ms) of both."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.slam.pipeline import create_frame
+
+    img_size = int(cfg["dataset"].get("img_size", 512))
+    down = int(cfg["dataset"].get("img_downsample", 1))
+    ms = {"new": [], "plain": []}
+
+    def read(i):
+        t0 = time.perf_counter()
+        _, img = ds[i]
+        f = create_frame(i, img, img_size=img_size, downsample=down,
+                         device="cuda")
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, img, f
+
+    for i in range(len(ds)):
+        got = {}
+        for kind in (("new", "plain") if i % 2 else ("plain", "new")):
+            with (plain_host_read() if kind == "plain"
+                  else contextlib.nullcontext()):
+                t, img, f = read(i)
+            ms[kind].append(t)
+            got[kind] = (img, f.img.cpu(), f.uimg)
+        (a, fa, ua), (b, fb, ub) = got["new"], got["plain"]
+        check(np.array_equal(a.view(np.int32), b.view(np.int32))
+              and torch.equal(fa, fb) and np.array_equal(ua, ub),
+              f"cli {tag}: frame {i} read with the compiled host code "
+              f"differs from its plain read")
+    return {k: statistics.median(v) for k, v in ms.items()}
+
+
+def phase_cli_datasets(torch, FA, C3, BA, workdir, smi):
     """The CLI at full ViT-L width on ``DATA_FRAMES``-frame clips in the
     evaluation datasets' layouts, each under its evaluation script's config
     with ``CLI_CUTS``: EuRoC (gray, undistorted on read; eval_no_calib,
@@ -2796,11 +2974,37 @@ def phase_cli_datasets(torch, FA, C3, BA, workdir):
             check(len(same) == len(frames[baseline]) == DATA_FRAMES
                   and all(same), f"cli {tag}: reader frames differ from "
                   f"{baseline}'s: {same}")
-        out, launches, rec = run_cli(
-            torch, FA, C3, BA, model, work,
-            ["--dataset", str(clip), "--config", cfg_path, "--no-viz",
-             "--save-as", tag], tag, calib=calib, ba_path=ba_path,
-            k2_path=k2_path)
+        with timed_frame_reads([]) as read_ms:
+            out, launches, rec = run_cli(
+                torch, FA, C3, BA, model, work,
+                ["--dataset", str(clip), "--config", cfg_path, "--no-viz",
+                 "--save-as", tag], tag, calib=calib, ba_path=ba_path,
+                k2_path=k2_path)
+        check(len(read_ms) == DATA_FRAMES,
+              f"cli {tag}: {len(read_ms)} frame reads timed, "
+              f"{DATA_FRAMES} frames")
+        turns = read_turns(torch, ds, cfg, tag)
+        plain_run = ""
+        if tag in PLAIN_READ_RUNS:
+            # the same run reading through the plain versions, the
+            # arithmetic the port read with before its compiled host code
+            with plain_host_read():
+                again, _, _ = run_cli(
+                    torch, FA, C3, BA, model, work,
+                    ["--dataset", str(clip), "--config", cfg_path,
+                     "--no-viz", "--save-as", f"{tag}_plain"],
+                    f"{tag} plain read", calib=calib, ba_path=ba_path,
+                    k2_path=k2_path)
+            a, b = cli_decisions(out), cli_decisions(again)
+            del again
+            for key in ("modes", "kfs", "edges"):
+                check(a[key] == b[key], f"cli {tag}: {key} differ with the "
+                      f"plain read: {a[key]} vs {b[key]}")
+            check(same_bits(a["T"], b["T"]), f"cli {tag}: keyframe poses "
+                  f"differ with the plain read by "
+                  f"{float((a['T'] - b['T']).abs().max()):.3e}")
+            plain_run = ("; with the plain read the same modes, keyframes, "
+                         "edges and keyframe poses (bit for bit)")
         kernel = "K5" if calib else "K4"
         check(launches["K1"] > 0 and launches[kernel] > 0
               and launches[f"BA {ba_path}"] == launches[kernel]
@@ -2827,6 +3031,9 @@ def phase_cli_datasets(torch, FA, C3, BA, workdir):
                       f"{decided[baseline][key]}")
         parts = cli_parts(rec)
         summary[tag] = dict(tracked_ms=parts["track"], step_ms=parts["step"],
+                            read_ms=statistics.median(read_ms),
+                            read_new_ms=turns["new"],
+                            read_plain_ms=turns["plain"],
                             keyframes=len(out["keyframes"]),
                             edges=out["graph"].n_edges(),
                             launches={k: launches[k] for k in (
@@ -2837,13 +3044,17 @@ def phase_cli_datasets(torch, FA, C3, BA, workdir):
             + (f", K_frame principal point ({pp[0]:.3f}, {pp[1]:.3f})"
                if pp else "") + f"; median tracked frame "
             f"{parts['track']:.1f} ms over {len(rec['ms']['track'])} "
-            f"frames, median backend step {parts['step']:.1f} ms over "
+            f"frames, median frame read (dataset[i] + create_frame) "
+            f"{summary[tag]['read_ms']:.2f} ms in the run (after it, in "
+            f"turns: compiled {turns['new']:.2f}, plain "
+            f"{turns['plain']:.2f}, equal bits), median backend step "
+            f"{parts['step']:.1f} ms over "
             f"{len(rec['ms']['step'])} steps; keyframes "
             f"{len(out['keyframes'])}, edges {out['graph'].n_edges()}; "
             f"K1 launches {launches['K1']}, {kernel} {ba_path} launches "
             f"{launches[kernel]}, K2 {k2_path} launches {launches['K2']}"
             + (f"; frames, modes, keyframes and edges as the {baseline} "
-               f"run's" if baseline else ""))
+               f"run's" if baseline else "") + plain_run + f"; on {smi}")
         del out
     del model
     torch.cuda.empty_cache()
@@ -4006,7 +4217,7 @@ def main():
         log(f"phase {name}: {timings[name]:.1f} s")
         return out
 
-    data = run("data", phase_data)
+    data = run("data", phase_data, smi)
     per_frame = run("kernels", phase_kernels, torch)
     main_path = run("main", phase_main_path, torch, FA, C3, BA)
     if main_path is not None:
@@ -4022,7 +4233,7 @@ def main():
         cli = run("cli", phase_cli, torch, FA, C3, BA, work)
         run("cli_cross", phase_cli_cross, torch, work)
         datasets = run("cli_datasets", phase_cli_datasets, torch, FA, C3, BA,
-                       work)
+                       work, smi)
         run("topology", phase_topology, torch, FA, C3, BA, work, cli)
         viz = run("viz", phase_viz, torch, FA, C3, BA, work, cli)
     reloc = run("reloc", phase_reloc, torch, FA, C3, BA)
@@ -4068,19 +4279,28 @@ def main():
         f"{viz['match_asymmetric']['K2']}; GL pipeline "
         + ("exercised" if viz["gl_not_exercised"] is None else
            f"not exercised ({viz['gl_not_exercised']})") + f"; on {smi}")
-    log(f"data: host ms per EuRoC remap {data['remap_ms']:.2f} (gray; "
-        f"x3 {data['remap_rgb_ms']:.2f}), per "
-        f"1200x680 Replica decode {data['decode_ms']:.2f} (smooth, "
+    log(f"data: host ms, compiled / plain: remap EuRoC 752x480 gray "
+        f"{data['remap_euroc_gray']['ms']:.2f} / "
+        f"{data['remap_euroc_gray']['plain_ms']:.2f}, TUM fr1 640x480x3 "
+        f"{data['remap_tum_rgb']['ms']:.2f} / "
+        f"{data['remap_tum_rgb']['plain_ms']:.2f}; 480x640 PNG "
+        + ", ".join(f"{n} {data[f'png_{n.lower()}']['ms']:.2f} / "
+                    f"{data[f'png_{n.lower()}']['plain_ms']:.2f}"
+                    for n in PNG_FILTERS)
+        + f"; resize_img warm / cold / plain {data['resize']['ms']:.2f} / "
+        f"{data['resize']['cold_ms']:.2f} / {data['resize']['plain_ms']:.2f}"
+        f"; per 1200x680 Replica decode {data['decode_ms']:.2f} (smooth, "
         f"{data['decode_bytes']} bytes) / {data['decode_noisy_ms']:.2f} "
         f"(noisy, {data['decode_noisy_bytes']} bytes), progressive "
-        f"{data['prog_ms']:.2f} / {data['prog_noisy_ms']:.2f}; 480x640 "
-        f"PNG {data['png_up_ms']:.2f} (Up) / {data['png_paeth_ms']:.1f} "
-        f"(Paeth); "
+        f"{data['prog_ms']:.2f} / {data['prog_noisy_ms']:.2f}; "
         f"{data['fixture_reads']} fixture reads equal cv2's; CLI on the "
         f"evaluation layouts and the image folders (median tracked frame / "
-        f"backend step ms): "
-        + "; ".join(f"{t} {d['tracked_ms']:.1f} / {d['step_ms']:.1f} "
-                    f"({d['keyframes']} keyframes, launches {d['launches']})"
+        f"frame read / backend step ms; frame read compiled / plain in "
+        f"turns): "
+        + "; ".join(f"{t} {d['tracked_ms']:.1f} / {d['read_ms']:.2f} / "
+                    f"{d['step_ms']:.1f} ({d['read_new_ms']:.2f} / "
+                    f"{d['read_plain_ms']:.2f}; {d['keyframes']} keyframes, "
+                    f"launches {d['launches']})"
                     for t, d in datasets.items()) + f"; on {smi}")
 
     k2f = per_frame["K2 f32"]

@@ -17,11 +17,15 @@ to the float32 image with two matrix products:
   ``sin(πx)·sin(πx/4) / (π²x²/4)`` normalised to sum 1, and source indices
   clamped at the border.
 
-Only the rows and columns the crop keeps are computed.
+The weight matrices of a size pair are built once and cached (read-only):
+a dataset's frames share one size, so a frame's resize is the two matrix
+products and the crop. Only the rows and columns the crop keeps are
+multiplied.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -73,16 +77,21 @@ def lanczos4_weights(n_in: int, n_out: int) -> np.ndarray:
     return W
 
 
+@functools.lru_cache(maxsize=64)
 def resize_weights(n_in: int, n_out: int) -> np.ndarray:
     """``(n_out, n_in)`` weights of one axis: INTER_AREA when shrinking,
     INTER_LANCZOS4 when enlarging. The JAX package picks one interpolation
     from the long-edge scale for both axes; one scale shrinks or enlarges
-    both, so the per-axis choice is the same."""
+    both, so the per-axis choice is the same. Cached per ``(n_in,
+    n_out)``; the array is read-only, shared by every caller."""
     if n_out < n_in:
-        return area_weights(n_in, n_out)
-    if n_out == n_in:
-        return np.eye(n_in)
-    return lanczos4_weights(n_in, n_out)
+        W = area_weights(n_in, n_out)
+    elif n_out == n_in:
+        W = np.eye(n_in)
+    else:
+        W = lanczos4_weights(n_in, n_out)
+    W.setflags(write=False)
+    return W
 
 
 def linear_weights(n_in: int, n_out: int) -> np.ndarray:

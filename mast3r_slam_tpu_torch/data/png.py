@@ -15,10 +15,12 @@ significant. :func:`exif_block` returns the ``eXIf`` chunk that
 ``data/exif.py`` reads the orientation from. The writer writes 8-bit gray
 and RGB.
 
-The None, Sub and Up filters are undone with whole-row numpy operations;
-Average and Paeth depend on the pixel to the left and run as a loop over
-the row's bytes, so a file that uses them much decodes slowly. The writer
-uses the Up filter only.
+The five scanline filters are undone in compiled code, one call a pass
+(``data/image_host.py::png_unfilter``); :func:`unfilter_ref` is its
+plain version, a loop over each row, whose Average and Paeth rows take
+Python's time for every byte. The rest of a read (the bit unpacking, the
+palette, the 16-bit cut, the gray conversion) is whole-array numpy. The
+writer uses the Up filter only.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from mast3r_slam_tpu_torch.data import image_host
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}    # color type → samples a pixel
@@ -90,6 +94,19 @@ def _unfilter_row(ftype, row, prev, bpp):
     else:
         raise ValueError(f"bad PNG filter type {ftype}")
     return np.frombuffer(bytes(out), np.uint8)
+
+
+def unfilter_ref(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """The plain version of ``image_host.png_unfilter``: one row at a
+    time, None, Sub and Up with whole-row numpy, Average and Paeth byte by
+    byte."""
+    ph, stride = rows.shape[0], rows.shape[1] - 1
+    plain = np.empty((ph, stride), np.uint8)
+    prev = np.zeros(stride, np.uint8)
+    for y in range(ph):
+        prev = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prev, bpp)
+        plain[y] = prev
+    return plain
 
 
 def _unpack(rows: np.ndarray, w: int, chans: int, depth: int) -> np.ndarray:
@@ -169,12 +186,8 @@ class _Png:
                 raise ValueError("PNG image data has the wrong size")
             rows = raw[pos:pos + need].reshape(ph, stride + 1)
             pos += need
-            plain = np.empty((ph, stride), np.uint8)
-            prev = np.zeros(stride, np.uint8)
-            for y in range(ph):
-                prev = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prev, bpp)
-                plain[y] = prev
-            out[y0::dy, x0::dx] = _unpack(plain, pw, chans, self.depth)
+            out[y0::dy, x0::dx] = _unpack(image_host.png_unfilter(rows, bpp),
+                                          pw, chans, self.depth)
         return out      # data past the image: libpng warns and reads on
 
 

@@ -15,13 +15,16 @@
   mapx, mapy, INTER_LINEAR)`` with ``BORDER_CONSTANT`` 0 on a float32
   image. OpenCV 5.0 interpolates in float with fused multiply-adds,
   ``v0 = fma(tx, b - a, a)``, ``v1 = fma(tx, d - c, c)``, ``fma(ty, v1 -
-  v0, v0)``, an out-of-range corner reading 0. Here each fma is a float64
-  product and sum rounded to float32 (the product of two floats is exact
-  in float64), which gives OpenCV's result bit for bit unless the exact
-  sum needs more than 53 bits and lands on a float32 tie, which is not
-  seen in practice. The weights-times-corners sum is 1.8e-7 away instead,
-  and coordinates quantized to 1/32 px, as OpenCV's fixed-point tables
-  are, 2.6e-2.
+  v0, v0)``, an out-of-range corner reading 0. :func:`remap_bilinear`
+  runs exactly that in compiled code (``data/image_host.py``), float
+  operands and correctly rounded float fmas, so it gives OpenCV's result
+  bit for bit. Its plain version :func:`remap_bilinear_ref` emulates each
+  fma in numpy as a float64 product and sum rounded to float32 (the
+  product of two floats is exact in float64), which is OpenCV's result
+  unless the exact sum needs more than 53 bits and lands on a float32
+  tie. The weights-times-corners sum is 1.8e-7 away instead, and
+  coordinates quantized to 1/32 px, as OpenCV's fixed-point tables are,
+  2.6e-2.
 
 The camera model is OpenCV's radial-tangential one with ``dist = (k1, k2,
 p1, p2, k3)``. Every function takes float32 ``K`` and ``dist`` as the
@@ -32,6 +35,8 @@ float32 arrays it is handed.
 from __future__ import annotations
 
 import numpy as np
+
+from mast3r_slam_tpu_torch.data import image_host
 
 _F32 = np.float32
 _F64 = np.float64
@@ -106,25 +111,49 @@ def undistort_rectify_map(K, dist, new_K, wh):
 
 class RemapTables:
     """What :func:`remap_bilinear` needs of one pair of maps, computed once
-    per calibration: the flat source index of each output pixel's four
-    corners (an out-of-range corner points at a zero appended after the
-    image) and the float32 fractions ``tx``, ``ty`` held as float64."""
+    per calibration: ``corners``, int32 ``(4, n)``, the flat source index
+    of each output pixel's four corners (an out-of-range corner points at
+    ``H * W``, past the image, which reads 0), and the float32 fractions
+    ``tx``, ``ty`` ``(n,)``."""
 
     def __init__(self, mapx, mapy, src_hw):
         H, W = (int(v) for v in src_hw)
+        if H * W >= 2**31 - 1:
+            raise ValueError(f"a {H}x{W} image is too large to remap")
         mapx, mapy = np.asarray(mapx, _F32), np.asarray(mapy, _F32)
         self.src_hw, self.out_hw = (H, W), mapx.shape
         fx, fy = np.floor(mapx), np.floor(mapy)
-        self.tx = (mapx - fx).reshape(-1, 1).astype(_F64)
-        self.ty = (mapy - fy).reshape(-1, 1).astype(_F64)
+        self.tx = (mapx - fx).ravel()
+        self.ty = (mapy - fy).ravel()
         x0, y0 = fx.astype(np.int64).ravel(), fy.astype(np.int64).ravel()
 
         def corner(yy, xx):
             inside = (xx >= 0) & (xx < W) & (yy >= 0) & (yy < H)
             return np.where(inside, yy * W + xx, H * W)
 
-        self.corners = (corner(y0, x0), corner(y0, x0 + 1),
-                        corner(y0 + 1, x0), corner(y0 + 1, x0 + 1))
+        self.corners = np.stack([corner(y0, x0), corner(y0, x0 + 1),
+                                 corner(y0 + 1, x0),
+                                 corner(y0 + 1, x0 + 1)]).astype(np.int32)
+
+
+def _source(img, tables):
+    img = np.asarray(img, _F32)
+    if img.shape[:2] != tables.src_hw:
+        raise ValueError(f"image {img.shape[:2]} is not the calibration's "
+                         f"{tables.src_hw}")
+    return img
+
+
+def remap_bilinear(img, tables: RemapTables):
+    """``img`` float32 ``(H, W)`` or ``(H, W, C)`` sampled at the tables'
+    maps: ``cv2.remap(img, mapx, mapy, INTER_LINEAR)`` with zero borders,
+    in compiled code. Four gathers and three float fused multiply-adds per
+    sample."""
+    img = _source(img, tables)
+    C = 1 if img.ndim == 2 else img.shape[2]
+    out = image_host.remap_bilinear(img.reshape(*tables.src_hw, C),
+                                    tables.corners, tables.tx, tables.ty)
+    return out.reshape(tables.out_hw + img.shape[2:])
 
 
 def _fma32(t, x, y):
@@ -133,18 +162,16 @@ def _fma32(t, x, y):
     return (t * x + y).astype(_F32)
 
 
-def remap_bilinear(img, tables: RemapTables):
-    """``img`` float32 ``(H, W)`` or ``(H, W, C)`` sampled at the tables'
-    maps: ``cv2.remap(img, mapx, mapy, INTER_LINEAR)`` with zero borders.
-    Four gathers and three fused multiply-adds per sample."""
-    img = np.asarray(img, _F32)
-    if img.shape[:2] != tables.src_hw:
-        raise ValueError(f"image {img.shape[:2]} is not the calibration's "
-                         f"{tables.src_hw}")
+def remap_bilinear_ref(img, tables: RemapTables):
+    """The plain version of :func:`remap_bilinear` in numpy: each fma a
+    float64 product and sum rounded to float32."""
+    img = _source(img, tables)
     C = 1 if img.ndim == 2 else img.shape[2]
     pixels = np.concatenate([img.reshape(-1, C), np.zeros((1, C), _F32)])
     a, b, c, d = (pixels.take(i, axis=0) for i in tables.corners)
-    v0 = _fma32(tables.tx, b - a, a)
-    v1 = _fma32(tables.tx, d - c, c)
-    out = _fma32(tables.ty, v1 - v0, v0)
+    tx = tables.tx.reshape(-1, 1).astype(_F64)
+    ty = tables.ty.reshape(-1, 1).astype(_F64)
+    v0 = _fma32(tx, b - a, a)
+    v1 = _fma32(tx, d - c, c)
+    out = _fma32(ty, v1 - v0, v0)
     return out.reshape(tables.out_hw + img.shape[2:])

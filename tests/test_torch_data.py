@@ -116,6 +116,35 @@ def test_resize_weights_match_cv2(n_in, n_out):
                                rtol=0, atol=3e-7)
 
 
+@pytest.mark.parametrize("n_in,n_out", [(480, 384), (640, 512), (752, 512),
+                                        (500, 512), (96, 96)])
+def test_resize_weights_are_built_once(n_in, n_out, monkeypatch):
+    """The weights of a size pair are built on the first call and then
+    returned from the cache: the same read-only array, equal to a fresh
+    build; ``resize_img`` gives the same bits cold, warm and with weights
+    built afresh on every call."""
+    TI.resize_weights.cache_clear()
+    W = TI.resize_weights(n_in, n_out)
+    fresh = (TI.area_weights(n_in, n_out) if n_out < n_in
+             else np.eye(n_in) if n_out == n_in
+             else TI.lanczos4_weights(n_in, n_out))
+    assert TI.resize_weights(n_in, n_out) is W
+    assert TI.resize_weights.cache_info().hits >= 1
+    np.testing.assert_array_equal(W, fresh)
+    assert not W.flags.writeable
+    with pytest.raises(ValueError, match="read-only"):
+        W[0, 0] = 1.0
+    img = RNG.random((n_in, n_in * 4 // 3, 3)).astype(np.float32)
+    TI.resize_weights.cache_clear()
+    cold = TI.resize_img(img, n_out)
+    warm = TI.resize_img(img, n_out)
+    monkeypatch.setattr(TI, "resize_weights", TI.resize_weights.__wrapped__)
+    afresh = TI.resize_img(img, n_out)
+    for k in cold:
+        assert np.array_equal(cold[k], warm[k])
+        assert np.array_equal(cold[k], afresh[k])
+
+
 @pytest.mark.parametrize("n_in,n_out", [
     (24, 384), (32, 512), (4, 64), (6, 96), (3, 48), (5, 80),  # quality grids
     (2, 32), (7, 100), (30, 17), (12, 384)])

@@ -13,10 +13,12 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 cv2 = pytest.importorskip("cv2")
 
-from mast3r_slam_tpu_torch.data import imread, png  # noqa: E402
+from mast3r_slam_tpu_torch.data import image_host, imread, png  # noqa: E402
 from torch_png_writer import CHANNELS, DEPTHS, chunk, encode_png  # noqa: E402
 
 FIXTURES = Path(__file__).resolve().parent / "data" / "png"
@@ -253,3 +255,88 @@ def test_decode_png_keeps_the_stored_channels():
     idx = rng.integers(0, 4, (3, 4))
     np.testing.assert_array_equal(
         png.decode_png(encode_png(idx, palette=pal, depth=2)), pal[idx])
+
+
+# ---------------------------------------------------------------------------
+# The compiled unfilter (data/image_host.py) against its plain version
+# ---------------------------------------------------------------------------
+
+BPPS = (1, 2, 3, 4, 6, 8)
+# (rows, pixels) of a pass: one row, one pixel a row, an odd width
+PASS_SHAPES = {"one row": (1, 9), "one pixel": (6, 1), "odd width": (5, 7)}
+
+
+def _pass(rng, rows, pixels, bpp, filters, high=256):
+    raw = rng.integers(0, high, (rows, 1 + pixels * bpp)).astype(np.uint8)
+    raw[:, 0] = filters
+    return raw
+
+
+@pytest.mark.parametrize("shape", sorted(PASS_SHAPES))
+@pytest.mark.parametrize("bpp", BPPS)
+@pytest.mark.parametrize("filt", [0, 1, 2, 3, 4])
+def test_unfilter_equals_plain_version(filt, bpp, shape):
+    """Every filter type at every bytes-per-pixel a PNG has (1: gray and
+    palettes, 2: gray + alpha or 16-bit gray, 3: RGB, 4, 6: 16-bit RGB, 8:
+    16-bit RGBA), on one-row, one-pixel and odd-width passes, byte for
+    byte; small samples (0-3) make Paeth's ties frequent."""
+    rng = np.random.default_rng(filt * 100 + bpp)
+    rows, pixels = PASS_SHAPES[shape]
+    for high in (256, 4):
+        raw = _pass(rng, rows, pixels, bpp, filt, high)
+        got = image_host.png_unfilter(raw, bpp)
+        assert got.dtype == np.uint8 and got.shape == (rows, pixels * bpp)
+        np.testing.assert_array_equal(got, png.unfilter_ref(raw, bpp))
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None)
+@given(data=st.data(), bpp=st.sampled_from(BPPS),
+       rows=st.integers(1, 12), pixels=st.integers(1, 23),
+       high=st.sampled_from([2, 8, 256]))
+def test_unfilter_random_rows_and_filters_hypothesis(data, bpp, rows, pixels,
+                                                     high):
+    """Random bytes with a random filter type on each row."""
+    filters = data.draw(st.lists(st.integers(0, 4), min_size=rows,
+                                 max_size=rows))
+    seed = data.draw(st.integers(0, 2**32 - 1))
+    raw = _pass(np.random.default_rng(seed), rows, pixels, bpp, filters, high)
+    np.testing.assert_array_equal(image_host.png_unfilter(raw, bpp),
+                                  png.unfilter_ref(raw, bpp))
+
+
+@pytest.mark.parametrize("bad", [5, 7, 255])
+def test_unfilter_refuses_a_bad_filter_type(bad):
+    """A filter type above 4, on the first row or a later one, raises as
+    the plain version raises."""
+    for row in (0, 2):
+        raw = _pass(np.random.default_rng(bad), 3, 4, 3, 1)
+        raw[row, 0] = bad
+        for fn in (image_host.png_unfilter, png.unfilter_ref):
+            with pytest.raises(ValueError, match=f"bad PNG filter type {bad}"):
+                fn(raw, 3)
+
+
+def test_decode_never_reaches_the_plain_unfilter(tmp_path, monkeypatch):
+    """A read of every filter type, plain and Adam7, runs the compiled
+    unfilter only; without the library (its build failing) the read
+    raises and does not fall back to the plain version."""
+    from mast3r_slam_tpu_torch import _build
+
+    def refused(*a, **k):
+        raise AssertionError("the plain unfilter was called")
+
+    monkeypatch.setattr(png, "unfilter_ref", refused)
+    monkeypatch.setattr(png, "_unfilter_row", refused)
+    img = np.random.default_rng(3).integers(0, 256, (9, 11, 3))
+    for il in (False, True):
+        for f in range(5):
+            data = encode_png(img, interlace=il, filters=f)
+            np.testing.assert_array_equal(png.decode_png(data), img)
+
+    def no_compiler(*a, **k):
+        raise RuntimeError("building the image host library failed: no g++")
+
+    monkeypatch.setattr(image_host, "_lib", None)
+    monkeypatch.setattr(_build, "build_host", no_compiler)
+    with pytest.raises(RuntimeError, match="image host library"):
+        png.decode_png(encode_png(img, filters=4))

@@ -44,6 +44,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for mod in ("main.py", "evaluation.py", "data/png.py",
                 "data/image_ops.py", "data/datasets.py", "data/imread.py",
                 "data/jpeg.py", "data/undistort.py", "data/exif.py",
+                "data/image_host.py",
                 "slam/retrieval.py", "slam/pipeline.py",
                 "utils/checkpoint.py", "utils/tictoc.py",
                 "ops/gram_variants.py", "bench/gram_kernel_bench.py",

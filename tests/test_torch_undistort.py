@@ -173,6 +173,119 @@ def test_remap_matches_cv2_with_borders(channels, seed):
     assert np.array_equal(got.reshape(want.shape), want)
 
 
+@pytest.mark.parametrize("reach", [3.0, 60.0, 1e4, 1e6])
+@pytest.mark.parametrize("channels", [0, 1, 3])
+def test_compiled_remap_matches_cv2_past_every_border(channels, reach):
+    """The compiled remap against cv2.remap(INTER_LINEAR) bit for bit on
+    random maps reaching ``reach`` pixels past every border: negative
+    coordinates, coordinates far past the image, integer ones."""
+    rng = np.random.default_rng(int(reach) + channels)
+    H, W = 45, 67
+    img = rng.random((H, W) if channels == 0 else (H, W, channels)
+                     ).astype(np.float32)
+    mx = rng.uniform(-reach, W - 1 + reach, (H, W)).astype(np.float32)
+    my = rng.uniform(-reach, H - 1 + reach, (H, W)).astype(np.float32)
+    mx[1, :6] = [-reach, -1, 0, W - 1, W, W - 1 + reach]
+    my[1, :6] = [0, H - 1, -reach, H - 1 + reach, -1, H]
+    got = U.remap_bilinear(img, U.RemapTables(mx, my, (H, W)))
+    want = cv2.remap(img, mx, my, cv2.INTER_LINEAR)
+    assert got.dtype == np.float32 and got.shape == img.shape
+    assert np.array_equal(got.reshape(want.shape), want)
+
+
+def _fma64_exact(t, x, y):
+    """Where the float64 ``t * x + y`` of float32 operands is exact (its
+    two-sum error is 0): there the plain remap's fma emulation rounds
+    once, as a fused multiply-add does."""
+    p = t.astype(np.float64) * x        # exact: 24 + 24 bits
+    s = p + y
+    bp = s - y
+    err = (p - bp) + (y - (s - bp))
+    return err == 0
+
+
+@pytest.mark.parametrize("channels", [0, 1, 2, 3, 4])
+def test_compiled_remap_equals_plain_version_without_ties(channels):
+    """The compiled remap against ``remap_bilinear_ref`` bit for bit
+    wherever the reference's three float64 sums are exact (there it
+    cannot meet a float32 tie), on random maps past the borders and on
+    EuRoC cam0's undistortion maps (every sample)."""
+    rng = np.random.default_rng(channels)
+    H, W = 48, 64
+    shape = (H, W) if channels == 0 else (H, W, channels)
+    img = (rng.random(shape) * rng.choice([1e-3, 1.0, 300.0], shape)
+           ).astype(np.float32)
+    mx = rng.uniform(-2, W + 1, (H, W)).astype(np.float32)
+    my = rng.uniform(-2, H + 1, (H, W)).astype(np.float32)
+    tables = U.RemapTables(mx, my, (H, W))
+    got = U.remap_bilinear(img, tables)
+    ref = U.remap_bilinear_ref(img, tables)
+    C = 1 if channels == 0 else channels
+    pix = np.concatenate([img.reshape(-1, C), np.zeros((1, C), np.float32)])
+    a, b, c, d = (pix[k] for k in tables.corners)
+    tx, ty = tables.tx[:, None], tables.ty[:, None]
+    v0 = (tx.astype(np.float64) * (b - a) + a).astype(np.float32)
+    v1 = (tx.astype(np.float64) * (d - c) + c).astype(np.float32)
+    exact = (_fma64_exact(tx, b - a, a) & _fma64_exact(tx, d - c, c)
+             & _fma64_exact(ty, v1 - v0, v0)).reshape(got.shape)
+    assert exact.mean() > 0.5
+    np.testing.assert_array_equal(got[exact], ref[exact])
+    W0, H0, fx, fy, cx, cy, *dist = CAMERAS["euroc_cam0"]
+    intr = TD.Intrinsics(W0, H0, fx, fy, cx, cy, dist, cfg={})
+    frame = rng.random((H0, W0) if channels == 0 else (H0, W0, channels)
+                       ).astype(np.float32)
+    np.testing.assert_array_equal(U.remap_bilinear(frame, intr.tables),
+                                  U.remap_bilinear_ref(frame, intr.tables))
+
+
+def test_compiled_remap_matches_cv2_where_the_plain_version_ties():
+    """A sample whose exact ``fma(tx, b - a, a)`` lies just above a
+    float32 tie, within half a float64 ulp of it: the plain version's
+    float64 sum rounds onto the tie and then to even, one float32 ulp
+    low; the compiled remap's float fma gives cv2's value."""
+    s = 47
+    # tx = q 2^-s and b - a = j 2^-23 with q j 2^-(23+s) = 2^-24 + delta,
+    # 0 < delta < 2^-53
+    j, q = next((j, -(-2**(s - 1) // j)) for j in range(2**22 + 1, 2**23)
+                if 0 < -(-2**(s - 1) // j) * j - 2**(s - 1) < 2**(s - 30))
+    H, W = 3, 40
+    img = np.zeros((H, W), np.float32)
+    img[:, 0], img[:, 1] = 1.0, 1.0 + j * 2.0**-23
+    mx = np.full((H, W), q * 2.0**-s, np.float32)
+    my = np.zeros((H, W), np.float32)
+    tables = U.RemapTables(mx, my, (H, W))
+    want = cv2.remap(img, mx, my, cv2.INTER_LINEAR)
+    got = U.remap_bilinear(img, tables)
+    assert np.array_equal(got, want)
+    assert (want == np.float32(1.0 + 2.0**-23)).all()
+    assert (U.remap_bilinear_ref(img, tables) == np.float32(1.0)).all()
+
+
+def test_readers_never_reach_the_plain_remap(monkeypatch):
+    """``Intrinsics.remap`` runs the compiled remap only; without the
+    library (its build failing) it raises and does not fall back."""
+    from mast3r_slam_tpu_torch import _build
+    from mast3r_slam_tpu_torch.data import image_host
+
+    def refused(*a, **k):
+        raise AssertionError("the plain remap was called")
+
+    monkeypatch.setattr(U, "remap_bilinear_ref", refused)
+    monkeypatch.setattr(U, "_fma32", refused)
+    W, H, fx, fy, cx, cy, *dist = CAMERAS["euroc_cam0"]
+    intr = TD.Intrinsics(W, H, fx, fy, cx, cy, dist, cfg={})
+    img = np.random.default_rng(4).random((H, W, 3)).astype(np.float32)
+    assert np.isfinite(intr.remap(img)).all()
+
+    def no_compiler(*a, **k):
+        raise RuntimeError("building the image host library failed: no g++")
+
+    monkeypatch.setattr(image_host, "_lib", None)
+    monkeypatch.setattr(_build, "build_host", no_compiler)
+    with pytest.raises(RuntimeError, match="image host library"):
+        intr.remap(img)
+
+
 @pytest.mark.parametrize("name", sorted(FIXTURES["cameras"]))
 def test_intrinsics_remap_matches_jax(jax_config, name):
     """A whole frame through each package's Intrinsics.remap."""
