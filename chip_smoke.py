@@ -34,8 +34,16 @@ then:
 3. runs the backend keyframe event at full width on that path's state:
    three keyframes, ``FactorGraph.add_factors`` with the tracker's 5-tuple
    hint (``match_oneway``) and without one (``match_symmetric``), the
-   measured channels and ``solve_GN_rays``, with exact K1 / K2 / K4 launch
-   counts;
+   measured channels and ``solve_GN_rays`` twice from the same poses,
+   eagerly and as the CLI runs them, as CUDA graphs (decode + match one a
+   batch size, the solve one a padded edge bucket, its LM loop a
+   conditional WHILE node): matches, Q, channels, poses and iterations
+   bit for bit, exact K1 / K2 / K4 launch counts for each part (K4 = 1 +
+   iterations, counted for the steps the loop ran), one capture per
+   batch size and bucket, every solve but the capture under
+   ``set_sync_debug_mode("error")``, the graphs' pool memory and each
+   part's time eager, on its first graphed call (with the capture) and
+   warm;
 4. runs mono inference and the asymmetric pair decode (both heads) at full
    width and reduced depth in f32 on the card (kernels) and on the CPU
    (plain versions) and compares the entry points' outputs;
@@ -64,9 +72,11 @@ then:
 7. runs the oracle SLAM harness at 384x512 (exact geometry plus noise in
    place of the network) for the ray and the calibrated BA, checks that the
    BA recovers the trajectory, cross-checks one Gram and one system build
-   on the card against the CPU, and reruns the BA's LM loop from kicked
-   keyframe poses on the card and on the CPU: several accepted steps, the
-   trajectory recovered, both runs ending at the same poses;
+   on the card against the CPU, holds the BA's solve as a CUDA graph (a
+   capture and two replays) against the eager solve bit for bit, and
+   reruns the BA's LM loop from kicked keyframe poses on the card and on
+   the CPU: several accepted steps, the trajectory recovered, both runs
+   ending at the same poses;
 8. runs the port's CLI (``mast3r_slam_tpu_torch.main.main``) at full ViT-L
    width on a 24-frame TUM clip it writes (an out-and-back pan) with
    ``config/base.yaml``'s quality service and local TSDF refiner as
@@ -76,12 +86,15 @@ then:
    run's own model calls and LM iterations, every quality job processed
    or dropped and every refiner task ended; then the same clip with the
    services off (their cost to the tracked frame and the backend step),
-   again with the tracker's ``track_core`` eager (the same modes,
-   keyframes, edges and keyframe poses, bit for bit, as the graphed run),
-   a calibrated run (K5), a checkpoint restored bit for bit and resumed,
-   and a threaded run with the global TSDF on as well that drains; every
-   CLI run (here and in phases 13-15) captures the tracker's graph
-   once and runs two loop nodes a replayed frame;
+   again with the tracker, the solves and the decode + match eager (the
+   same modes, keyframes, edges and keyframe poses, bit for bit, as the
+   graphed run; the step's parts of both), a calibrated run (K5), a
+   checkpoint restored bit for bit and resumed, and a threaded run with
+   the global TSDF on as well that drains (its backend capturing beside
+   the tracker's replays); every CLI run (here and in phases 13-15)
+   captures the tracker's graph once, each solve bucket and decode +
+   match batch size at most once, and runs the loop nodes its replays
+   hold, and reports its graphs' captures, replays and pool memory;
 9. runs the CLI with one reduced-depth f32 model on the card and on the
    CPU (services off): the same modes, keyframes and edges, and the same
    poses;
@@ -285,8 +298,17 @@ def reset_counters(FA, C3, BA):
     for c in (FA.counter, FA.attn_counter, C3.counter, BA.rays_counter,
               BA.calib_counter, *k4p_counters().values(),
               *C3.path_counters.values(), *BA.path_counters.values(),
-              device_loop.counter):
+              device_loop.counter, device_loop.masked):
         c.launches = 0
+
+
+def masked_launches():
+    """Counted kernels' launches in the steps that the card's eager loops
+    launched after their exit, which ran masked (``ops/device_loop.py``;
+    not on the kernels' counters); none in a graph's replay."""
+    from mast3r_slam_tpu_torch.ops import device_loop
+
+    return device_loop.masked.launches
 
 
 def loop_nodes():
@@ -1023,64 +1045,184 @@ def phase_main_path(torch, FA, C3, BA):
 # Phase: the backend keyframe event at full width
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def sync_debug_error(torch, on=True):
+    """Within the block, a host sync on the card raises (``torch.cuda.
+    set_sync_debug_mode("error")``), unless ``on`` is False."""
+    torch.cuda.set_sync_debug_mode("error" if on else "default")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def counted_call(torch, FA, C3, BA, fn, no_sync=False):
+    """``fn()`` with the launch counters at 0 before and read after, timed
+    from a synced card to a synced card (ms); ``no_sync``: under
+    :func:`sync_debug_error`. Returns (result, launches, ms)."""
+    reset_counters(FA, C3, BA)
+    t0 = sync_clock(torch)
+    with sync_debug_error(torch, no_sync):
+        out = fn()
+    ms = (sync_clock(torch) - t0) * 1e3
+    launches = {k: v for k, v in launch_counts(FA, C3, BA).items()
+                if v or k in ("K1", "K2", "K4", "K5")}
+    return out, launches, ms
+
+
+def event_edges(torch, FA, C3, BA, graph, hint, min_frac):
+    """The event's two edges on ``graph``: (0, 1) with the tracker's hint
+    (``match_oneway``), then (1, 2) (``match_symmetric``), each with one
+    decode's K1 and two heads' K2 launches; returns each one's ms."""
+    want = {"K1": K1_PER_DECODE, "K2": 2 * K2_PER_HEAD, "K2 igemm":
+            2 * K2_PER_HEAD, "K4": 0, "K5": 0}
+    ms = []
+    for ii, jj, kw in (([0], [1], dict(init_hint=hint)), ([1], [2], {})):
+        added, launches, t = counted_call(
+            torch, FA, C3, BA, lambda: graph.add_factors(ii, jj, min_frac,
+                                                         **kw))
+        check(added, f"edge ({ii[0]}, {jj[0]}) was not added")
+        check(launches == want, f"edge ({ii[0]}, {jj[0]}) launches "
+              f"{launches}, expected {want}")
+        ms.append(t)
+    check(graph.n_edges() == 2, f"{graph.n_edges()} edges, expected 2")
+    check(torch.equal(graph.idx_jj2ii[0], hint[2]),
+          "the hint's j->i match was not reused verbatim")
+    return ms
+
+
+def event_solve(torch, FA, C3, BA, graph, T0, no_sync, replay):
+    """``solve_GN_rays`` from the poses ``T0``: its launches (K4 = 1 +
+    iterations, on the tensor cores), ms, poses and iterations, the
+    iteration count read once, after the solve (``no_sync``: none before
+    it). The K4 launches of the steps an eager loop ran masked after its
+    exit are counted apart: at most ``max_iters`` less the iterations,
+    none in a graph's replay (``replay``)."""
+    graph.keyframes.T_WC = T0.clone()
+    _, launches, ms = counted_call(torch, FA, C3, BA, graph.solve_GN_rays,
+                                   no_sync)
+    iters = graph.last_solve_iters
+    masked = masked_launches()
+    want = {"K1": 0, "K2": 0, "K4": 1 + iters, "K5": 0,
+            "BA mma": 1 + iters}
+    check(launches == want, f"event solve launches {launches}, expected "
+          f"{want} ({iters} LM iterations)")
+    spare = int(graph.cfg["max_iters"]) - iters
+    check(0 <= masked <= (0 if replay else spare),
+          f"event solve: {masked} masked K4 launches after {iters} LM "
+          f"iterations ({'a replay' if replay else 'eager'})")
+    return graph.keyframes.T_WC.clone(), iters, ms, masked
+
+
 def phase_event(torch, FA, C3, BA, state):
     """Frames 1 and 2 of the main path become keyframes 1 and 2; edge
     (0, 1) reuses frame 1's recorded ``track_core`` match as the 5-tuple
     hint (``match_oneway``), edge (1, 2) takes the symmetric path; then the
-    measured channels and ``solve_GN_rays``. Random weights leave every
-    confidence under ``Q_conf``, so K4 builds systems of zeros here; the
-    oracle phase gives it real input."""
+    measured channels and ``solve_GN_rays``, twice from the same poses.
+    Eagerly (``graphed=False`` model and factor graph) and graphed (the
+    CLI's default: the first call of each decode + match and of the solve
+    captures, the second replays; a second factor graph replays the
+    decode + match): matches, Q, channels, poses and iterations bit for
+    bit, the exact K1 / K2 / K4 launches of each part, one capture per
+    batch size and per solve bucket, and every solve but the capture
+    under sync debug mode "error" (its only host read the iteration
+    count, afterwards). Random weights leave every confidence under
+    ``Q_conf``, so K4 builds systems of zeros here; the oracle phase
+    holds the graphed solve on real input."""
+    from mast3r_slam_tpu_torch.models.inference import MASt3RInference
     from mast3r_slam_tpu_torch.slam.factor_graph import FactorGraph
 
     cfg, keyframes, frames = state["cfg"], state["keyframes"], state["frames"]
+    model = state["model"]
     out1 = state["outputs"][0]            # frame 1 tracked against kf 0
     check(len(keyframes) == 1, "the main path added keyframes")
     keyframes.append(frames[1])
     keyframes.append(frames[2])
+    T0 = keyframes.T_WC.clone()
     hint = (0, 1, out1["idx_f2k"][0], out1["valid_match"], out1["Qk"])
-    graph = FactorGraph(state["model"], keyframes, cfg)
     min_frac = float(cfg["local_opt"]["min_match_frac"])
-    reset_counters(FA, C3, BA)
-    marks = [sync_clock(torch)]
-    check(graph.add_factors([0], [1], min_frac, init_hint=hint),
-          "edge (0, 1) was not added")
-    marks.append(sync_clock(torch))
-    check(graph.add_factors([1], [2], min_frac), "edge (1, 2) was not added")
-    marks.append(sync_clock(torch))
-    graph._ensure_meas("rays")
-    marks.append(sync_clock(torch))
-    graph.solve_GN_rays()
-    marks.append(sync_clock(torch))
-    launches = {k: v for k, v in launch_counts(FA, C3, BA).items()
-                if k != "K3"}
-    want = {"K1": 2 * K1_PER_DECODE, "K2": 2 * 2 * K2_PER_HEAD,
-            "K4": 1 + graph.last_solve_iters, "K5": 0}
-    want.update({key: 0 for key in launches if " " in key})
-    want.update({key: 0 for key, _ in K4P_ALL})
-    want.update({"K2 igemm": want["K2"], "BA mma": want["K4"]})
-    log(f"event launches: {launches} (want {want}); "
-        f"LM iterations {graph.last_solve_iters}")
-    check(launches == want, "keyframe event launch counts")
-    check(graph.n_edges() == 2, f"{graph.n_edges()} edges, expected 2")
-    check(torch.equal(graph.idx_jj2ii[0], hint[2]),
-          "the hint's j->i match was not reused verbatim")
-    tensors = [graph.Q_ii2jj, graph.Q_jj2ii, keyframes.T_WC,
-               *graph._meas_ij, *graph._meas_ji]
-    for t in tensors:
+    eager_model = MASt3RInference(model.params, model.cfg, model.match_cfg,
+                                  graphed=False)
+    check(model.graphs is not None and model.graphs.captures == 0,
+          "the main path's model already holds decode + match graphs")
+    paths = {}
+    for tag, m, graphed in (("eager", eager_model, False),
+                            ("graphed", model, True)):
+        keyframes.T_WC = T0.clone()       # the matcher inits read the poses
+        graph = FactorGraph(m, keyframes, cfg, graphed=graphed)
+        ms = event_edges(torch, FA, C3, BA, graph, hint, min_frac)
+        if graphed:               # the decode + match graphs replayed
+            again = FactorGraph(m, keyframes, cfg)
+            ms_again = event_edges(torch, FA, C3, BA, again, hint, min_frac)
+        _, _, ms_meas = counted_call(torch, FA, C3, BA,
+                                     lambda: graph._ensure_meas("rays"))
+        solves = [event_solve(torch, FA, C3, BA, graph, T0,
+                              no_sync=not graphed or k > 0,
+                              replay=graphed and k > 0)
+                  for k in range(2)]
+        paths[tag] = dict(graph=graph, ms=ms, ms_meas=ms_meas, solves=solves,
+                          again=again if graphed else None,
+                          ms_again=ms_again if graphed else None)
+    keyframes.T_WC = paths["graphed"]["solves"][0][0].clone()
+    e, g = paths["eager"], paths["graphed"]
+    fields = ("idx_ii2jj", "idx_jj2ii", "valid_match_j", "valid_match_i",
+              "Q_ii2jj", "Q_jj2ii")
+    for other in (g["graph"], g["again"]):
+        for key in fields:
+            check(same_bits(getattr(e["graph"], key), getattr(other, key)),
+                  f"event: graphed {key} differs from eager")
+    for a, b in zip(e["graph"]._meas_ij + e["graph"]._meas_ji,
+                    g["graph"]._meas_ij + g["graph"]._meas_ji):
+        check(same_bits(a, b), "event: graphed channels differ from eager")
+    (T_e, it_e, _, _), (T_e2, it_e2, _, _) = e["solves"]
+    for T_x, it_x in [(T_e2, it_e2)] + [(t, i) for t, i, _, _ in
+                                        g["solves"]]:
+        check(same_bits(T_e, T_x) and it_x == it_e,
+              f"event solve: poses / iterations {it_x} differ from eager's "
+              f"({it_e})")
+    for t in (T_e, g["graph"].Q_ii2jj, g["graph"].Q_jj2ii,
+              *g["graph"]._meas_ij, *g["graph"]._meas_ji):
         check(bool(t.float().isfinite().all()), "event output not finite")
-    for idx in (graph.idx_ii2jj, graph.idx_jj2ii):
+    for idx in (g["graph"].idx_ii2jj, g["graph"].idx_jj2ii):
         check(int(idx.min()) >= 0 and int(idx.max()) < IMG_HW[0] * IMG_HW[1],
               "match index out of range")
-    ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
-    t0 = sync_clock(torch)
-    graph.solve_GN_rays()                 # again, with the solver warm
-    warm = (sync_clock(torch) - t0) * 1e3
-    log(f"event: decode+match {ms[0] + ms[1]:.1f} ms (hint edge, "
-        f"match_oneway {ms[0]:.1f}; symmetric edge {ms[1]:.1f}), premeas "
-        f"{ms[2]:.1f} ms, solve {ms[3]:.1f} ms (first call; {warm:.1f} ms "
-        f"on a second solve) ({graph.last_solve_iters} LM iterations, E = "
-        f"{2 * graph.n_edges()} two-way edges)")
-    return launches
+    mg, sg = model.graphs, g["graph"].graphs
+    check((mg.captures, mg.replays) == (2, 2),
+          f"decode + match graphs: {mg.captures} captures, {mg.replays} "
+          "replays, expected 2 (one-way and symmetric at B = 1) and 2")
+    check((sg.captures, sg.replays) == (1, 1),
+          f"solve graphs: {sg.captures} captures, {sg.replays} replays, "
+          "expected 1 (bucket 8) and 1")
+    pools = {k: round(sum(c.pool_bytes().values()) / 2**30, 3)
+             for k, c in (("match", mg), ("solve", sg))}
+    pools["solve_buffers"] = round(g["graph"].bucket_bytes() / 2**30, 3)
+    masked = {tag: [s[3] for s in p["solves"]] for tag, p in paths.items()}
+    ms = {tag: dict(oneway=p["ms"][0], symmetric=p["ms"][1],
+                    premeas=p["ms_meas"], solve=p["solves"][0][2],
+                    solve_warm=p["solves"][1][2])
+          for tag, p in paths.items()}
+    ms["graphed"].update(oneway_warm=g["ms_again"][0],
+                         symmetric_warm=g["ms_again"][1])
+    log(f"event: eager and graphed equal bit for bit (matches, Q, "
+        f"channels, poses, {it_e} LM iterations, E = 4 two-way edges in a "
+        f"bucket of 8); captures decode + match {mg.captures}, solve "
+        f"{sg.captures}; graph pools and the solve's edge buffers {pools} "
+        f"GiB; K4 launches in masked steps (eager / graphed, two solves "
+        f"each) {masked['eager']} / {masked['graphed']}")
+    log("event ms (eager / graphed first call, with the capture / graphed "
+        f"warm, a replay): match_oneway {ms['eager']['oneway']:.1f} / "
+        f"{ms['graphed']['oneway']:.1f} / {ms['graphed']['oneway_warm']:.1f}"
+        f"; match_symmetric {ms['eager']['symmetric']:.1f} / "
+        f"{ms['graphed']['symmetric']:.1f} / "
+        f"{ms['graphed']['symmetric_warm']:.1f}; decode+match "
+        f"{ms['eager']['oneway'] + ms['eager']['symmetric']:.1f} / "
+        f"{ms['graphed']['oneway'] + ms['graphed']['symmetric']:.1f} / "
+        f"{ms['graphed']['oneway_warm'] + ms['graphed']['symmetric_warm']:.1f}"
+        f"; solve {ms['eager']['solve']:.1f} / {ms['graphed']['solve']:.1f}"
+        f" / {ms['graphed']['solve_warm']:.1f} (eager warm "
+        f"{ms['eager']['solve_warm']:.1f}); premeas "
+        f"{ms['eager']['premeas']:.1f} / {ms['graphed']['premeas']:.1f}")
+    return dict(K4=1 + it_e, ms=ms, pools=pools, iters=it_e, masked=masked)
 
 
 # ---------------------------------------------------------------------------
@@ -1634,23 +1776,64 @@ def phase_oracle(torch, FA, C3, BA):
                             [poses[f] for f in r["kf_ids"]])
         cdt = p["compute_dtype"]
         t_build = time_ms(lambda: system("cuda", cdt))
-        t0 = sync_clock(torch)
-        if calib:
-            _, iters = FG.gauss_newton_calib(
-                p["T"], p["meas"], p["K"], p["ii"], p["jj"],
-                p["mask"], p["free"], p["hw"], -10.0, 1e-6, *p["sigmas"],
-                p["max_iter"], p["delta"], compute_dtype=cdt)
-        else:
-            _, iters = FG.gauss_newton_rays(
-                p["T"], p["meas"], p["ii"], p["jj"], p["mask"], p["free"],
-                *p["sigmas"], p["max_iter"], p["delta"], compute_dtype=cdt)
-        t_solve = (sync_clock(torch) - t0) * 1e3
+        solve = oracle_graphed_solve(torch, FA, C3, BA, p, kind)
         log(f"oracle {kind}: system build {t_build:.3f} ms per LM iteration "
-            f"(rows {cdt}), whole solve {t_solve:.1f} ms ({iters} "
-            f"iterations)")
+            f"(rows {cdt}), whole solve eager {solve['eager_ms']:.1f} ms, "
+            f"graphed first call {solve['first_ms']:.1f} ms, warm "
+            f"{solve['warm_ms']:.1f} ms ({solve['iters']} iterations)")
         del r, p, gpu, cpu
     torch.cuda.empty_cache()
     return launches
+
+
+def oracle_solve(p, graphs=None):
+    """The oracle BA's solve (``gauss_newton_rays`` / ``_calib``) of the
+    problem ``p``; with ``graphs`` as its CUDA graph (the problem's edge,
+    mask and channel tensors are the graph's buffers)."""
+    from mast3r_slam_tpu_torch.slam import factor_graph as FG
+
+    args = dict(compute_dtype=p["compute_dtype"], graphs=graphs)
+    if p["kind"] == "calib":
+        return FG.gauss_newton_calib(
+            p["T"], p["meas"], p["K"], p["ii"], p["jj"], p["mask"],
+            p["free"], p["hw"], -10.0, 1e-6, *p["sigmas"], p["max_iter"],
+            p["delta"], **args)
+    return FG.gauss_newton_rays(
+        p["T"], p["meas"], p["ii"], p["jj"], p["mask"], p["free"],
+        *p["sigmas"], p["max_iter"], p["delta"], **args)
+
+
+def oracle_graphed_solve(torch, FA, C3, BA, p, kind):
+    """The oracle BA's solve eagerly, then as a CUDA graph (a capture and
+    two replays): the same poses and iterations bit for bit, K4 / K5
+    launched 1 + iterations times a solve, every solve but the capture
+    under sync debug mode "error". Returns the iterations and ms."""
+    from mast3r_slam_tpu_torch.ops.graphs import GraphCache
+
+    name = "K5" if kind == "calib" else "K4"
+    cache = GraphCache("solve")
+    runs = []
+    for graphs, no_sync in ((None, True), (cache, False), (cache, True),
+                            (cache, True)):
+        (T, iters), launches, ms = counted_call(
+            torch, FA, C3, BA, lambda: oracle_solve(p, graphs), no_sync)
+        iters = int(iters)
+        check(launches[name] == 1 + iters and launches["BA mma"] == 1 + iters,
+              f"oracle {kind} solve (graphed: {graphs is not None}): "
+              f"launches {launches} for {iters} iterations")
+        runs.append((T, iters, ms))
+    for T, iters, _ in runs[1:]:
+        check(same_bits(T, runs[0][0]) and iters == runs[0][1],
+              f"oracle {kind}: the graphed solve ({iters} iterations) "
+              f"differs from the eager one ({runs[0][1]})")
+    check((cache.captures, cache.replays) == (1, 2),
+          f"oracle {kind}: {cache.captures} captures, {cache.replays} "
+          "replays of the solve graph")
+    log(f"oracle {kind}: graphed solve equal to the eager one bit for bit "
+        f"({runs[0][1]} iterations, E = {p['ii'].numel()}); graph pool "
+        f"{sum(cache.pool_bytes().values()) / 2**30:.3f} GiB")
+    return dict(iters=runs[0][1], eager_ms=runs[0][2], first_ms=runs[1][2],
+                warm_ms=min(runs[2][2], runs[3][2]))
 
 
 @contextlib.contextmanager
@@ -1689,7 +1872,7 @@ def oracle_lm_from_kick(torch, p, counter, kind, gt_kf):
     end where the CPU's run ends."""
     import numpy as np
 
-    from mast3r_slam_tpu_torch.ops import lie
+    from mast3r_slam_tpu_torch.ops import device_loop, lie
     from mast3r_slam_tpu_torch.slam import factor_graph as FG
     from mast3r_slam_tpu_torch.utils.oracle_scene import ate_rmse_points
 
@@ -1710,14 +1893,18 @@ def oracle_lm_from_kick(torch, p, counter, kind, gt_kf):
             return out
 
         counter.launches = 0
+        device_loop.masked.launches = 0
         t0 = time.perf_counter()
         with one_cpu_thread(torch):
             T_out, iters = FG._lm_loop(system, T0.to(dev),
                                        p["free"].to(dev), cap,
                                        ORACLE_KICK_ITERS, 1e-12, 1e-4)
-        if dev == "cuda":
-            torch.cuda.synchronize()
+        iters = int(iters)
         t_run = (time.perf_counter() - t0) * 1e3
+        # the systems of the live steps (the card's eager loop may launch
+        # masked steps after the exit); one K4 / K5 launch each
+        masked = len(costs) - 1 - iters
+        costs = costs[:1 + iters]
         accepted = sum(c < min(costs[:k]) for k, c in enumerate(costs)
                        if k > 0)
         T_out = T_out.cpu()
@@ -1727,9 +1914,11 @@ def oracle_lm_from_kick(torch, p, counter, kind, gt_kf):
             f"-> {min(costs):.6e}, ATE {ate0 * 1e3:.3f} -> {ate * 1e3:.3f} "
             f"mm, {t_run:.1f} ms")
         if dev == "cuda":
-            check(counter.launches == 1 + iters,
+            check(counter.launches == 1 + iters
+                  and device_loop.masked.launches == masked,
                   f"oracle {kind} kick: {counter.launches} launches for "
-                  f"{iters} iterations")
+                  f"{iters} iterations, {device_loop.masked.launches} in "
+                  f"masked steps, {masked} systems built after the exit")
             check(accepted >= 3, f"oracle {kind} kick: {accepted} accepted "
                   f"LM steps")
             check(ate < 0.03 and ate < 0.5 * ate0,
@@ -1898,15 +2087,27 @@ def tied_model(cfg, device, seed=0, **mcfg_over):
                            cfg.get("matching", {}))
 
 
+# loop nodes a replay runs, by graph kind: the tracked frame's matcher and
+# pose solve, the BA solve's LM loop, one matcher call per direction and pair
+def graph_loops(name, key, inputs):
+    if name == "match":
+        return 2 * inputs[0].shape[0] if key[0] == "symmetric" else 1
+    return {"track": 2, "solve": 1}[name]
+
+
 @contextlib.contextmanager
 def instrumented(torch, model):
     """Counts the model calls that launch K1/K2, the symmetric decoder
     calls (one per match_symmetric, one per backend slot on a mesh), the
-    BA's LM iterations and its system builds (1 + iterations per solve,
-    each one K4/K5 launch per slot on a mesh), the quality jobs submitted
-    and the tracker's CUDA graph captures, and times tracked frames and
-    the backend step's parts with a device sync around each."""
-    from mast3r_slam_tpu_torch.models import inference as I
+    BA's solves, LM iterations and system builds (1 + iterations per
+    solve, each one K4/K5 launch per slot on a mesh), the quality jobs
+    submitted, the CUDA graph captures and replays by graph (``track``,
+    ``solve``, ``match``; a key captured twice fails) and the loop nodes
+    the replays run, and times tracked frames and the backend step's parts
+    with a device sync around each."""
+    import inspect
+
+    from mast3r_slam_tpu_torch.ops import graphs as G
     from mast3r_slam_tpu_torch.services.quality_async import (
         AsynchronousQualityService)
     from mast3r_slam_tpu_torch.slam import factor_graph as FG
@@ -1916,7 +2117,11 @@ def instrumented(torch, model):
 
     rec = {"calls": {k: 0 for k in ("mono", "track", "oneway", "symmetric",
                                     "decodes", "solves", "lm_iters",
-                                    "builds", "quality_jobs", "captures")},
+                                    "builds", "spare_builds",
+                                    "quality_jobs")},
+           "captures": {k: 0 for k in ("track", "solve", "match")},
+           "replays": {k: 0 for k in ("track", "solve", "match")},
+           "loops": 0, "captured": set(),
            "ms": {k: [] for k in ("track", "step", "retrieval",
                                   "add_factors", "solve")}}
     saved = []
@@ -1945,24 +2150,55 @@ def instrumented(torch, model):
             return inner
         return wrap
 
-    def lm(fn):
+    def solved(fn):
+        sig = inspect.signature(fn)
+
         def inner(*a, **kw):
             T_out, iters = fn(*a, **kw)
+            n = int(iters)
+            mesh = kw.get("mesh")
+            slots = 1 if mesh is None else mesh.size
+            max_iter = int(sig.bind(*a, **kw).arguments["max_iter"])
             rec["calls"]["solves"] += 1
-            rec["calls"]["lm_iters"] += iters
+            rec["calls"]["lm_iters"] += n
+            rec["calls"]["builds"] += (1 + n) * slots
+            # the most builds an eager loop can run masked after its exit
+            rec["calls"]["spare_builds"] += (max_iter - n) * slots
             return T_out, iters
+        return inner
+
+    def symmetric(fn):
+        def inner(*a, **kw):
+            rec["calls"]["symmetric"] += 1
+            rec["calls"]["decodes"] += (1 if model.mesh is None
+                                        else model.mesh.size)
+            return fn(*a, **kw)
+        return inner
+
+    def graph_run(fn):
+        def inner(self, key, run, inputs, **kw):
+            before = self.captures
+            out = fn(self, key, run, inputs, **kw)
+            full = (id(self), key, tuple(tuple(t.shape) for t in inputs))
+            if self.captures > before:
+                check(full not in rec["captured"], f"{self.name} graph "
+                      f"captured twice for key {key}")
+                rec["captured"].add(full)
+                rec["captures"][self.name] += 1
+            else:
+                rec["replays"][self.name] += 1
+                rec["loops"] += graph_loops(self.name, key, inputs)
+            return out
         return inner
 
     patch(model, "inference_mono", counted("mono"))
     patch(model, "match_oneway", counted("oneway"))
-    patch(model, "match_symmetric", counted("symmetric"))
+    patch(model, "match_symmetric", symmetric)
     patch(T, "track_core", counted("track"))
-    patch(T.TrackGraphs, "_capture", counted("captures"))
+    patch(G.GraphCache, "run", graph_run)
     patch(T.FrameTracker, "track", timed("track"))
-    patch(FG, "_lm_loop", lm)
-    patch(I, "_decode_symmetric_core", counted("decodes"))
-    patch(FG, "_accumulate_rays", counted("builds"))
-    patch(FG, "_accumulate_calib", counted("builds"))
+    patch(FG, "gauss_newton_rays", solved)
+    patch(FG, "gauss_newton_calib", solved)
     patch(Backend, "step", timed("step"))
     patch(RetrievalDatabase, "update", timed("retrieval"))
     patch(FG.FactorGraph, "add_factors", timed("add_factors"))
@@ -2084,19 +2320,22 @@ def quality_fields(path):
 
 
 @contextlib.contextmanager
-def eager_tracker():
-    """The CLI's tracker runs ``track_core`` eagerly (no CUDA graph): the
-    reference of the graphed runs."""
+def eager_paths(model):
+    """The CLI's tracker runs ``track_core`` eagerly, its factor graph its
+    solves and ``model`` its decode + match (no CUDA graph): the reference
+    of the graphed runs."""
     import functools
 
     from mast3r_slam_tpu_torch import main as cli
 
-    saved = cli.FrameTracker
-    cli.FrameTracker = functools.partial(saved, graphed=False)
+    saved = cli.FrameTracker, cli.FactorGraph, model.graphs
+    cli.FrameTracker = functools.partial(saved[0], graphed=False)
+    cli.FactorGraph = functools.partial(saved[1], graphed=False)
+    model.graphs = None
     try:
         yield
     finally:
-        cli.FrameTracker = saved
+        cli.FrameTracker, cli.FactorGraph, model.graphs = saved
 
 
 def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
@@ -2105,10 +2344,12 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
     topology, default the visible cards) with every launch counter at 0
     before and read after; checks the launches against the run's own model
     calls, decoder calls and system builds (on one slot: one decoder call
-    per match_symmetric, 1 + iterations builds per solve) and the
-    tracker's CUDA graph captures (one, when a frame was tracked; none
-    with ``graphed=False``, which runs the tracker eagerly). Returns
-    (summary, launches, instrumentation record)."""
+    per match_symmetric, 1 + iterations builds per solve), and the CUDA
+    graphs: the tracker's captured once when a frame was tracked, each
+    solve bucket and decode + match batch size at most once, the loop
+    nodes the replays run; none with ``graphed=False``, which runs the
+    tracker, the solves and the decode + match eagerly. Returns (summary,
+    launches, instrumentation record)."""
     import os
 
     from mast3r_slam_tpu_torch import main as cli
@@ -2117,7 +2358,7 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
     os.chdir(workdir)
     try:
         with (instrumented(torch, model) as rec, worker_faults() as faults,
-              contextlib.nullcontext() if graphed else eager_tracker()):
+              contextlib.nullcontext() if graphed else eager_paths(model)):
             reset_counters(FA, C3, BA)
             t0 = time.perf_counter()
             out = cli.main(argv, device="cuda", model=model,
@@ -2126,30 +2367,29 @@ def run_cli(torch, FA, C3, BA, model, workdir, argv, tag, calib=False,
             wall = time.perf_counter() - t0
             launches = launch_counts(FA, C3, BA)
             loops = loop_nodes()
+            masked = masked_launches()
     finally:
         os.chdir(cwd)
     check_no_faults(faults, f"cli {tag}")
     check_services(out, rec, tag)
-    c = rec["calls"]
-    if out["topo"].backend_mesh is None:
-        check(c["decodes"] == c["symmetric"]
-              and c["builds"] == c["solves"] + c["lm_iters"],
-              f"cli {tag}: one slot, but {c['decodes']} decoder calls for "
-              f"{c['symmetric']} symmetric matches or {c['builds']} system "
-              f"builds for {c['solves']} solves + {c['lm_iters']} iterations")
-    want_captures = 1 if graphed and c["track"] else 0
-    want_loops = 2 * (c["track"] - 1) if want_captures else 0
-    check(c["captures"] == want_captures and loops == want_loops,
-          f"cli {tag}: {c['captures']} captures of track_core's graph and "
-          f"{loops} loop nodes run, expected {want_captures} and "
-          f"{want_loops}")
+    c, caps = rec["calls"], rec["captures"]
+    want_track = 1 if graphed and c["track"] else 0
+    check(caps["track"] == want_track and (graphed or not any(caps.values())),
+          f"cli {tag}: captures {caps}, expected track {want_track}"
+          + ("" if graphed else " and none else"))
+    check(loops == rec["loops"], f"cli {tag}: {loops} loop nodes run, "
+          f"expected {rec['loops']} from the replays {rec['replays']}")
     want = expected_launches(c, calib, ba_path, k2_path)
     g = out["graph"]
     log(f"cli {tag}: {out['frames_processed']} frames in {wall:.1f} s, "
         f"keyframes {len(out['keyframes'])}, edges {g.n_edges()}, modes "
         f"{''.join(m[0] for m in out['modes'])}; model calls {rec['calls']}; "
-        f"launches {launches} (want {want})")
+        f"graph captures {caps}, replays {rec['replays']}, loop nodes "
+        f"{loops}; launches {launches} (want {want}); K4 / K5 launches in "
+        f"masked steps {masked} (at most {c['spare_builds']})")
     check(launches == want, f"cli {tag}: launch counts {launches} != {want}")
+    check(0 <= masked <= c["spare_builds"], f"cli {tag}: {masked} launches "
+          f"in masked steps, at most {c['spare_builds']}")
     return out, launches, rec
 
 
@@ -2164,6 +2404,20 @@ def cli_decisions(out):
 
 def graph_edges(g):
     return [(int(i), int(j)) for i, j in zip(g.ii, g.jj)]
+
+
+def graph_pool_gib(out, model):
+    """GiB held by the pools of a CLI run's CUDA graphs, by graph: the
+    tracker's, the factor graph's solves and the model's decode + match
+    (the model's graphs are kept across the runs that share it), and by
+    the solves' edge buffers."""
+    caches = {"track": out["tracker"].graphs, "solve": out["graph"].graphs,
+              "match": model.graphs}
+    out_gib = {k: round(sum(c.pool_bytes().values()) / 2**30, 3)
+               for k, c in caches.items() if c is not None}
+    # the padded two-way edge buffers that the solve graphs read in place
+    out_gib["solve_buffers"] = round(out["graph"].bucket_bytes() / 2**30, 3)
+    return out_gib
 
 
 def cli_parts(rec):
@@ -2225,6 +2479,7 @@ def phase_cli(torch, FA, C3, BA, workdir):
                    solve_ms=parts["solve"], keyframes=len(kf),
                    edges=g.n_edges(), loop_edges=len(loop),
                    launches=launches, steps=len(ms["step"]),
+                   captures=rec["captures"], replays=rec["replays"],
                    quality_jobs=out["quality"].processed_jobs,
                    quality_dropped=out["quality"].dropped_jobs,
                    refined=rs["refined_blocks"],
@@ -2235,7 +2490,9 @@ def phase_cli(torch, FA, C3, BA, workdir):
         f", add_factors {parts['add_factors']:.1f}, solve "
         f"{parts['solve']:.1f}); keyframes {len(kf)}, edges {g.n_edges()}, "
         f"retrieval edges {loop}; quality {out['quality'].processed_jobs} "
-        f"jobs ({out['quality'].dropped_jobs} dropped), refiner {rs}")
+        f"jobs ({out['quality'].dropped_jobs} dropped), refiner {rs}; graph "
+        f"captures {rec['captures']}, replays {rec['replays']}, pools "
+        f"{graph_pool_gib(out, model)} GiB")
     del out, g, kf
 
     # the same clip with the services off: their cost to the frame and step
@@ -2252,8 +2509,10 @@ def phase_cli(torch, FA, C3, BA, workdir):
         f"{parts['step']:.1f} / {off['step']:.1f} ms (solve "
         f"{parts['solve']:.1f} / {off['solve']:.1f})")
 
-    # again with the tracker's track_core eager: the graph changes nothing
+    # again with the tracker, the solves and the decode + match eager: the
+    # graphs change nothing
     runs = {"graphed": cli_decisions(out)}
+    pools = graph_pool_gib(out, model)
     del out
     out, _, rec = run_cli(torch, FA, C3, BA, model, work,
                           ["--dataset", str(clip), "--config", off_cfg,
@@ -2267,12 +2526,22 @@ def phase_cli(torch, FA, C3, BA, workdir):
               f"{a[key]} vs {b[key]}")
     check(same_bits(a["T"], b["T"]), "cli graphed vs eager: keyframe poses "
           f"differ by {float((a['T'] - b['T']).abs().max()):.3e}")
-    summary.update(tracked_ms_eager=eager["track"], step_ms_eager=eager["step"])
-    log(f"cli services off, graphed / eager track_core: the same modes, "
-        f"{len(a['kfs'])} keyframes, {len(a['edges'])} edges and keyframe "
-        f"poses (bit for bit); median tracked frame {off['track']:.1f} / "
-        f"{eager['track']:.1f} ms, median backend step {off['step']:.1f} / "
-        f"{eager['step']:.1f} ms")
+    summary.update(
+        tracked_ms_eager=eager["track"], step_ms_eager=eager["step"],
+        retrieval_ms_off=off["retrieval"], add_factors_ms_off=off[
+            "add_factors"], solve_ms_off=off["solve"],
+        retrieval_ms_eager=eager["retrieval"],
+        add_factors_ms_eager=eager["add_factors"],
+        solve_ms_eager=eager["solve"], pool_gib=pools)
+    log(f"cli services off, graphed / eager (tracker, solves, decode + "
+        f"match): the same modes, {len(a['kfs'])} keyframes, "
+        f"{len(a['edges'])} edges and keyframe poses (bit for bit); median "
+        f"tracked frame {off['track']:.1f} / {eager['track']:.1f} ms, "
+        f"median backend step {off['step']:.1f} / {eager['step']:.1f} ms "
+        f"(retrieval {off['retrieval']:.1f} / {eager['retrieval']:.1f}, "
+        f"add_factors {off['add_factors']:.1f} / {eager['add_factors']:.1f}"
+        f", solve {off['solve']:.1f} / {eager['solve']:.1f}); graph pools "
+        f"after the graphed run (GiB): {pools}")
     del out
 
     # calibrated: freiburg3 has no distortion; K5 carries the BA
@@ -4243,6 +4512,14 @@ def main():
         log("partial run: no kernel table")
         return
     launches.update(K4=event["K4"], K5=oracle["K5"])
+    ev_e, ev_g = event["ms"]["eager"], event["ms"]["graphed"]
+    log(f"event: decode+match eager "
+        f"{ev_e['oneway'] + ev_e['symmetric']:.1f} ms, graphed warm "
+        f"{ev_g['oneway_warm'] + ev_g['symmetric_warm']:.1f} ms; solve "
+        f"eager {ev_e['solve_warm']:.1f} ms, graphed "
+        f"first {ev_g['solve']:.1f} ms, warm "
+        f"{ev_g['solve_warm']:.1f} ms ({event['iters']} LM "
+        f"iterations); graph pools {event['pools']} GiB; on {smi}")
     log(f"cli services off, graphed / eager track_core: median tracked "
         f"frame {cli['tracked_ms_off']:.1f} / {cli['tracked_ms_eager']:.1f} "
         f"ms, median backend step {cli['step_ms_off']:.1f} / "

@@ -8,7 +8,8 @@ may include the shared headers ``csrc/*.cuh``). It is compiled with
 first call that needs a kernel builds it, and :func:`build_all` builds
 several at once in parallel ``nvcc`` processes. The wrappers also share
 their launch counter (with the recording of a CUDA graph capture's
-launches, which each replay of the graph counts), SM count and
+launches, which each replay of the graph counts, and the launches a step
+of loops whose exit the device decides), SM count and
 input-alignment helpers from here. :func:`build_host` compiles one of
 ``native/*.cpp`` (the global TSDF's voxel hash, the JPEG decoder) with
 ``g++`` the same way.
@@ -16,6 +17,7 @@ input-alignment helpers from here. :func:`build_host` compiles one of
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -144,53 +146,136 @@ def check(lib: ctypes.CDLL, name: str, err: int) -> None:
 
 _capture = threading.local()
 
+# Held by a thread while it captures a CUDA graph (ops/graphs.py: the
+# tracker's, the backend's solve and decode + match). A device-wide sync
+# (torch.cuda.synchronize) in another thread during a capture fails and
+# invalidates the capture: a thread that may sync the whole device while
+# another captures holds this lock around the sync (utils/tictoc.py::sync
+# and LaunchCounter.launches do).
+capture_lock = threading.RLock()
+
 
 class LaunchCounter:
     """Launch counter of one kernel: its wrapper calls :meth:`add` once per
     launch of the kernel, and nothing else touches it but a reset of
-    ``launches`` to 0 and the replays of a CUDA graph
-    (:class:`LaunchRecording`). The add holds a lock: the CLI's backend
-    thread launches kernels beside the frontend."""
+    ``launches``, the replays of a CUDA graph (:class:`LaunchRecording`)
+    and the loops whose exit the device decides (``ops/device_loop.py``),
+    whose steps are counted on the device (:meth:`add_steps`): one 0-dim
+    accumulator a device, read when ``launches`` is read or set, which
+    waits for the devices those loops ran on. Read the counts where no
+    kernel is running. The add holds a lock: the CLI's backend thread
+    launches kernels beside the frontend."""
 
     def __init__(self):
-        self.launches = 0
+        self._launches = 0
+        self._acc = {}           # device -> int64 accumulator of launches
+        self._seen = {}          # device -> its value already counted
         self._lock = threading.Lock()
 
+    def _fold(self):
+        """Add what the device accumulators gained since the last read."""
+        if not self._acc:
+            return
+        import torch
+
+        with capture_lock:
+            for dev in list(self._acc):
+                torch.cuda.synchronize(dev)
+        with self._lock:
+            for dev, acc in self._acc.items():
+                total = int(acc)
+                self._launches += total - self._seen[dev]
+                self._seen[dev] = total
+
+    @property
+    def launches(self):
+        self._fold()
+        return self._launches
+
+    @launches.setter
+    def launches(self, value):
+        self._fold()
+        with self._lock:
+            self._launches = value
+
     def add(self, n=1):
-        counts = getattr(_capture, "counts", None)
-        if counts is not None:
-            # this thread is capturing a CUDA graph: nothing launches now,
-            # each replay of the graph adds these counts
-            counts[self] = counts.get(self, 0) + n
+        recording = getattr(_capture, "recording", None)
+        if recording is not None:
+            # this thread is capturing a CUDA graph or recording a loop
+            # step: nothing is counted now (see LaunchRecording)
+            recording.counts[self] = recording.counts.get(self, 0) + n
             return
         with self._lock:
-            self.launches += n
+            self._launches += n
+
+    def add_steps(self, count, n):
+        """Count ``n`` launches for each step of a loop that ran on the
+        device: ``count`` is a device int that holds its steps once the
+        work queued on the current stream has run; the accumulator adds it
+        there, behind that work."""
+        import torch
+
+        dev = count.device
+        with self._lock:
+            acc = self._acc.get(dev)
+            if acc is None:
+                acc = torch.zeros((), dtype=torch.int64, device=dev)
+                self._acc[dev], self._seen[dev] = acc, 0
+        acc.add_(count, alpha=n)
 
 
 class LaunchRecording:
     """Within the block, the calling thread's :meth:`LaunchCounter.add`
     calls are recorded in ``counts`` (counter → launches) instead of
-    counted: a CUDA graph's capture launches nothing. :meth:`replayed`
-    adds the recorded counts once, for one replay. Other threads count as
-    usual."""
+    counted: a CUDA graph's capture launches nothing. A loop captured in
+    the block (:func:`loop_step`) is recorded in ``loops`` with its step
+    counter and its launches a step. :meth:`replayed` adds the recorded
+    counts once, for one replay, and counts each loop's launches a step
+    times the steps the node ran, on the device (a replay reads nothing on
+    the host). Other threads count as usual."""
 
     def __init__(self):
         self.counts: dict[LaunchCounter, int] = {}
+        self.loops: list[tuple] = []     # (device int of steps, counts)
 
     def __enter__(self):
-        if getattr(_capture, "counts", None) is not None:
+        if getattr(_capture, "recording", None) is not None:
             raise RuntimeError("a launch recording is already open on this "
                                "thread")
-        _capture.counts = self.counts
+        _capture.recording = self
         return self
 
     def __exit__(self, *exc):
-        _capture.counts = None
+        _capture.recording = None
         return False
 
     def replayed(self):
         for counter, n in self.counts.items():
             counter.add(n)
+        for count, per_step in self.loops:
+            for counter, n in per_step.items():
+                counter.add_steps(count, n)
+
+
+@contextlib.contextmanager
+def loop_step(count):
+    """Within the block (the capture of a loop's body inside a graph's
+    :class:`LaunchRecording`), the calling thread's launches are one step
+    of a loop whose device int ``count`` holds, once the loop has run, the
+    steps it ran (``ops/device_loop.py``'s conditional node): the loop
+    joins the recording. Loops do not nest."""
+    outer = getattr(_capture, "recording", None)
+    if outer is None:
+        raise RuntimeError("a loop step recorded outside a graph's capture")
+    step = LaunchRecording()
+    _capture.recording = step
+    try:
+        yield
+    finally:
+        _capture.recording = outer
+    if step.loops:
+        raise RuntimeError("a loop inside a loop step")
+    outer.loops.append((count, step.counts))
 
 
 _sms: dict[int, int] = {}

@@ -380,7 +380,8 @@ def main(argv=None, device="cuda", model=None, devices=None):
         tictoc.report()
     print("done")
     return {"keyframes": keyframes, "graph": graph, "frames_processed": i,
-            "modes": modes, "states": states, "retrieval": retrieval,
+            "tracker": tracker, "modes": modes, "states": states,
+            "retrieval": retrieval,
             "quality": quality, "refiner": refiner,
             "tsdf_manager": tsdf_manager, "topo": topo, "viewer": viewer}
 

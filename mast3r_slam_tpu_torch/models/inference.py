@@ -4,10 +4,16 @@ initialization, the asymmetric frame↔keyframe decode, and the backend's
 symmetric pair decode and match entry points. Both decode directions of B
 keyframe pairs run as one decoder call of batch 2B; the matcher then runs
 each direction as its own B = 1 call, as the JAX package's single-device
-path does. With a backend mesh (``parallel/``) the pair batch is padded to
-a multiple of the mesh size and each slot decodes its share on its own
-device (K1 and K2 on every backend device); the matcher runs on the first
-slot's device, where the decode outputs gather.
+path does. On a card, :meth:`MASt3RInference.match_symmetric` and
+:meth:`~MASt3RInference.match_oneway` run decode, heads and matcher as
+one CUDA graph per batch size and static configuration
+(``ops/graphs.py``; the JAX package's ``_match_symmetric_fused`` /
+``_match_oneway_fused`` jits), each matcher call a conditional loop node;
+a missing matcher init is the identity, as in JAX, so a warm and a cold
+start share one graph. With a backend mesh (``parallel/``) the pair batch
+is padded to a multiple of the mesh size and each slot decodes its share
+on its own device (K1 and K2 on every backend device), eagerly; the
+matcher runs on the first slot's device, where the decode outputs gather.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch
 
 from mast3r_slam_tpu_torch.models import mast3r as M
 from mast3r_slam_tpu_torch.ops import matching
+from mast3r_slam_tpu_torch.ops.graphs import GraphCache
 from mast3r_slam_tpu_torch.parallel import sharding as S
 
 
@@ -63,6 +70,50 @@ def _decode_symmetric_core(params, cfg, feat_i, pos_i, feat_j, pos_j,
             stack("desc_conf"))
 
 
+def _match_rows(X, D, init, kw):
+    """Both matcher directions of the ``[ii, ji, jj, ij]`` decode outputs,
+    one B = 1 ``matching.match`` call per row of ``[i2j (B); j2i (B)]``
+    (``init (2B, N)``). Returns ``(idx (2B, N), valid (2B, N, 1))``."""
+    X11 = torch.cat([X[0], X[2]])
+    X21 = torch.cat([X[1], X[3]])
+    D11 = torch.cat([D[0], D[2]])
+    D21 = torch.cat([D[1], D[3]])
+    rows = [matching.match(X11[r:r + 1], X21[r:r + 1], D11[r:r + 1],
+                           D21[r:r + 1], idx_1_to_2_init=init[r:r + 1],
+                           **kw)
+            for r in range(X11.shape[0])]
+    return (torch.cat([r[0] for r in rows]),
+            torch.cat([r[1] for r in rows]))
+
+
+def _match_symmetric_core(params, cfg, feat_i, pos_i, feat_j, pos_j, init,
+                          img_hw, ds, kw):
+    """Symmetric decode + heads + both matcher directions (the JAX
+    ``_match_symmetric_fused``). Returns ``(idx (2B, N), valid (2B, N, 1),
+    Q)``, ``Q`` the stacked ``[ii, ji, jj, ij]`` descriptor
+    confidences."""
+    X, _, D, Q = _decode_symmetric_core(params, cfg, feat_i, pos_i, feat_j,
+                                        pos_j, img_hw, ds)
+    idx, valid = _match_rows(X, D, init, kw)
+    return idx, valid, Q
+
+
+def _match_oneway_core(params, cfg, feat_i, pos_i, feat_j, pos_j, init,
+                       img_hw, ds, kw):
+    """Decode (i, j) + heads + the i→j matcher (the JAX
+    ``_match_oneway_fused``). Returns ``(idx_i2j, valid_j, Qii, Qji)``."""
+    res_ii, res_ji = M.decode_heads(params, cfg, feat_i, pos_i, feat_j,
+                                    pos_j, tuple(img_hw))
+    Xii, Xji, Dii, Dji, Qii, Qji = (
+        _decimate(r[k], ds) for r, k in (
+            (res_ii, "pts3d"), (res_ji, "pts3d"), (res_ii, "desc"),
+            (res_ji, "desc"), (res_ii, "desc_conf"), (res_ji, "desc_conf")))
+    b, h, w, _ = Xii.shape
+    idx, valid = matching.match(Xii, Xji, Dii, Dji, idx_1_to_2_init=init,
+                                **kw)
+    return idx, valid, Qii.reshape(b, h * w), Qji.reshape(b, h * w)
+
+
 class MASt3RInference:
     """Holds prepared params + config and exposes the SLAM-facing inference
     methods. ``params`` should come from ``M.prepare_params``;
@@ -71,14 +122,18 @@ class MASt3RInference:
     shards the symmetric pair decode over the backend's devices (see
     :meth:`set_mesh`); ``downsample`` (``dataset.img_downsample``)
     decimates the working pointmaps, while the model still sees the full
-    crop."""
+    crop. On a card the backend's decode + match run as CUDA graphs
+    (``graphed=False`` runs them eagerly there: a comparison's
+    reference)."""
 
     def __init__(self, params, cfg: M.MASt3RConfig, match_cfg=None,
-                 mesh=None, downsample: int = 1):
+                 mesh=None, downsample: int = 1, graphed=True):
         self.params = params
         self.cfg = cfg
         self.match_cfg = match_cfg or {}
         self.ds = int(downsample)
+        # match_symmetric's and match_oneway's CUDA graphs, one per key
+        self.graphs = GraphCache("match") if graphed else None
         self.set_mesh(mesh)
 
     def set_mesh(self, mesh):
@@ -166,53 +221,69 @@ class MASt3RInference:
         Qij)``, the Q's ``(B, N, 1)``. Matcher inits, like its outputs, are
         indexed by image-2 pixels and hold image-1 pixels: ``init_i2j``
         maps j-pixels to i-pixels (e.g. keyframe j's points projected into
-        camera i), and vice versa; a missing one starts from identity."""
+        camera i), and vice versa; a missing one starts from identity.
+        Without a mesh, one program (on a card, a CUDA graph per B);
+        with one, the sharded decode, then the matcher."""
         b = feat_i.shape[0]
         n = (img_hw[0] // self.ds) * (img_hw[1] // self.ds)
-        X, _, D, Q = self.decode_symmetric_batch(feat_i, pos_i, feat_j,
-                                                 pos_j, img_hw)
-        # the warm starts come from the frontend's keyframe state: the
-        # matcher runs where the decode outputs are
-        ident = torch.arange(n, device=X.device).expand(b, n)
-        i2j = ident if init_i2j is None else init_i2j.to(X.device).long()
-        j2i = ident if init_j2i is None else init_j2i.to(X.device).long()
-        init = torch.cat([i2j, j2i])
-        X11 = torch.cat([X[0], X[2]])
-        X21 = torch.cat([X[1], X[3]])
-        D11 = torch.cat([D[0], D[2]])
-        D21 = torch.cat([D[1], D[3]])
         kw = self._match_kw()
-        rows = [matching.match(X11[r:r + 1], X21[r:r + 1], D11[r:r + 1],
-                               D21[r:r + 1], idx_1_to_2_init=init[r:r + 1],
-                               **kw)
-                for r in range(X11.shape[0])]
-        idx = torch.cat([r[0] for r in rows])
-        valid = torch.cat([r[1] for r in rows])
+        if self.mesh is None:
+            init = self._init(b, n, feat_i.device, init_i2j, init_j2i)
+
+            def run(*args):
+                return _match_symmetric_core(self.params, self.cfg, *args,
+                                             tuple(img_hw), self.ds, kw)
+
+            idx, valid, Q = self._graphed(
+                "symmetric", img_hw, kw, run,
+                (feat_i, pos_i, feat_j, pos_j, init))
+        else:
+            X, _, D, Q = self.decode_symmetric_batch(feat_i, pos_i, feat_j,
+                                                     pos_j, img_hw)
+            # the warm starts come from the frontend's keyframe state: the
+            # matcher runs where the decode outputs are
+            init = self._init(b, n, X.device, init_i2j, init_j2i)
+            idx, valid = _match_rows(X, D, init, kw)
         Qii, Qji, Qjj, Qij = (Q[k].reshape(b, n, 1) for k in range(4))
         return (idx[:b], idx[b:], valid[:b], valid[b:], Qii, Qjj, Qji, Qij)
 
     def match_oneway(self, feat_i, pos_i, feat_j, pos_j, img_hw,
                      init_i2j=None):
         """One direction of a symmetric edge: decode (i, j) and the i→j
-        matcher. The backend uses it when the j→i direction of a
-        consecutive edge is the tracker's own decode and match (the same
-        computation on the same features). Returns ``(idx_i2j (1, N),
-        valid_j (1, N, 1), Qii (1, N), Qji (1, N))``."""
-        res_ii, res_ji = M.decode_heads(self.params, self.cfg, feat_i, pos_i,
-                                        feat_j, pos_j, tuple(img_hw))
-        Xii, Xji, Dii, Dji, Qii, Qji = (
-            _decimate(r[k], self.ds) for r, k in (
-                (res_ii, "pts3d"), (res_ji, "pts3d"), (res_ii, "desc"),
-                (res_ji, "desc"), (res_ii, "desc_conf"),
-                (res_ji, "desc_conf")))
-        b, h, w, _ = Xii.shape
-        if init_i2j is None:
-            init_i2j = torch.arange(h * w, device=Xii.device).expand(b,
-                                                                     h * w)
-        idx, valid = matching.match(Xii, Xji, Dii, Dji,
-                                    idx_1_to_2_init=init_i2j.long(),
-                                    **self._match_kw())
-        return idx, valid, Qii.reshape(b, h * w), Qji.reshape(b, h * w)
+        matcher, as one program (on a card, a CUDA graph). The backend
+        uses it when the j→i direction of a consecutive edge is the
+        tracker's own decode and match (the same computation on the same
+        features). Returns ``(idx_i2j (1, N), valid_j (1, N, 1), Qii
+        (1, N), Qji (1, N))``."""
+        b = feat_i.shape[0]
+        n = (img_hw[0] // self.ds) * (img_hw[1] // self.ds)
+        init = self._init(b, n, feat_i.device, init_i2j)
+        kw = self._match_kw()
+
+        def run(*args):
+            return _match_oneway_core(self.params, self.cfg, *args,
+                                      tuple(img_hw), self.ds, kw)
+
+        return self._graphed("oneway", img_hw, kw, run,
+                             (feat_i, pos_i, feat_j, pos_j, init))
+
+    @staticmethod
+    def _init(b, n, device, *inits):
+        """The matcher inits of each direction given, stacked ``(len(inits)
+        B, N)`` long on ``device``; identity rows for a missing one."""
+        ident = torch.arange(n, device=device).expand(b, n)
+        return torch.cat([ident if i is None else i.to(device).long()
+                          for i in inits])
+
+    def _graphed(self, kind, img_hw, kw, run, args):
+        """``run(*args)``: on a card as the graph of this kind, image size,
+        decimation and matcher settings (the inputs' shapes and the
+        params complete the key), else eagerly."""
+        if self.graphs is None or args[0].device.type != "cuda":
+            return run(*args)
+        key = (kind, self.cfg, tuple(img_hw), self.ds,
+               tuple(sorted(kw.items())))
+        return self.graphs.run(key, run, args, owner=self.params)
 
     def _match_kw(self):
         c = self.match_cfg

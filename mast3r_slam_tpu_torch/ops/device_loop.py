@@ -11,12 +11,21 @@ a Python loop stops at the exit. Eagerly on the card (outside a capture)
 nothing waits for the device: each step's flag is copied to pinned host
 memory behind it, and the Python loop stops once a landed copy shows the
 exit (the steps launched meanwhile run masked). While a thread captures a
-CUDA graph inside :func:`capturing` (``slam/tracker.py::TrackGraphs``), the
-loop becomes one conditional WHILE node of the graph
-(``csrc/graph_loop.cu``): ``step`` is captured once as its body, and on
-replay the body runs while ``live`` holds and fewer than ``cap`` steps ran,
-so the steps after the exit cost nothing. The body's memory comes from a
-pool of its own, which lives as long as the graph.
+CUDA graph inside :func:`capturing` (``ops/graphs.py``), the loop becomes
+one conditional WHILE node of the graph (``csrc/graph_loop.cu``): ``step``
+is captured once as its body, and on replay the body runs while ``live``
+holds and fewer than ``cap`` steps ran, so the steps after the exit cost
+nothing. The body's memory comes from a pool of its own, which lives as
+long as the graph.
+
+The kernels a step launches count once for each step that ran while
+``live`` held. In a graph, which cannot count a step, the replay counts
+the body's launches times the node's step count (``_build.loop_step``).
+On the card's eager path each step's launches are recorded and must be
+the first step's; the steps that started while ``live`` held are summed
+on the device and counted on the kernels' counters, the steps launched
+after the exit (which ran masked) on :data:`masked`. Both counts are
+read from the device when the launch counters are read.
 """
 
 from __future__ import annotations
@@ -42,15 +51,15 @@ ENTRIES = {
 
 # loop nodes captured: one a loop; each replay of a graph adds its loops
 counter = _build.LaunchCounter()
+# the counted kernels' launches in the steps that the card's eager loop
+# launched after its exit (they ran masked): not on the kernels' counters
+masked = _build.LaunchCounter()
 
 _local = threading.local()
 
-# Held by a thread while it captures a CUDA graph (slam/tracker.py::
-# TrackGraphs). A device-wide sync (torch.cuda.synchronize) in another
-# thread during a capture fails and invalidates the capture: a thread that
-# may sync the whole device while the tracker captures holds this lock
-# around the sync (utils/tictoc.py::sync does).
-capture_lock = threading.RLock()
+# Held by a thread while it captures a CUDA graph (``_build.capture_lock``;
+# a device-wide sync in another thread waits for it).
+capture_lock = _build.capture_lock
 
 
 class BodyPool:
@@ -113,7 +122,7 @@ def run(cap, live, step):
                                                     pool.handle)
     pool.uses += 1
     try:
-        with torch.cuda.stream(body):
+        with _build.loop_step(count), torch.cuda.stream(body):
             step()
     finally:
         torch._C._cuda_endAllocateToPool(pool.device.index, pool.handle)
@@ -129,20 +138,39 @@ def _run_polled(cap, live, step):
     """The eager loop on the card: after each step its flag is copied to
     pinned host memory without a wait, and the loop stops once a copy that
     has landed shows the exit. The steps launched before then run masked,
-    so the result is the exit's, however far the host ran ahead."""
+    so the result is the exit's, however far the host ran ahead. Every
+    step must launch the counted kernels the first did (a graph's body
+    does); the steps that started while ``live`` held are summed on the
+    device and counted on the kernels' counters, the others on
+    :data:`masked`."""
     flags = torch.empty(cap, dtype=torch.bool, pin_memory=True)
     seen = flags.numpy()
     copied = []                          # one event a step, in stream order
     landed = 0
-    for k in range(cap):
-        while landed < len(copied) and copied[landed].query():
-            landed += 1
-        if landed and not seen[landed - 1]:
-            return
-        step()
-        flags[k].copy_(live, non_blocking=True)
-        copied.append(torch.cuda.Event())
-        copied[-1].record()
+    steps = torch.zeros((), dtype=torch.int32, device=live.device)
+    first = None
+    try:
+        for k in range(cap):
+            while landed < len(copied) and copied[landed].query():
+                landed += 1
+            if landed and not seen[landed - 1]:
+                return
+            steps.add_(live)
+            with _build.LaunchRecording() as launched:
+                step()
+            if first is None:
+                first = launched.counts
+            elif launched.counts != first:
+                raise RuntimeError("a loop step launched other counted "
+                                   "kernels than its first step")
+            flags[k].copy_(live, non_blocking=True)
+            copied.append(torch.cuda.Event())
+            copied[-1].record()
+    finally:
+        if first:
+            for counter, n in first.items():
+                counter.add_steps(steps, n)
+            masked.add_steps(len(copied) - steps, sum(first.values()))
 
 
 class Executable:

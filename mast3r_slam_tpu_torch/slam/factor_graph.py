@@ -27,13 +27,27 @@ per slot and system build), and the systems are summed onto the first slot
 in slot order (:func:`_shard_edge_system`, the JAX ``shard_map`` and
 ``psum``); solved poses go back to the frontend device.
 
-What differs from the JAX package: the LM loop is a host loop with one sync
-per iteration (same accept / reject and exit rules, so the same iterate
-sequence); a Cholesky failure is read from ``cholesky_ex``'s ``info``; the
-edge buffers are not padded to power-of-two buckets (those existed for
-XLA's compile cache), so a mesh solve splits the edges with
-``torch.tensor_split`` whenever there are at least as many as slots; the
-cache is updated in place. The XLA chunked scans have no counterpart here.
+As in the JAX package, the LM loop exits on the device (``ops/device_loop.py``:
+the JAX ``lax.while_loop``'s state and rules, updated in place, with the
+steps after the exit masked), and the two-way edges are padded to a
+power-of-two bucket (padded rows ``ii = jj = 0`` with zero channels and
+``edge_mask`` 0, whose Gram is exactly zero). On a card without a mesh,
+:class:`FactorGraph` runs each solve as one CUDA graph per bucket and
+static configuration (``ops/graphs.py``, the counterpart of the JAX
+``jax.jit`` of :func:`gauss_newton_rays` / :func:`gauss_newton_calib`):
+the system builds, the damped solve, the retraction and the exit rules
+sit in one conditional WHILE node, and the only host read of a solve is
+its iteration count, afterwards (:attr:`FactorGraph.last_solve_iters`).
+Edges are never removed, so a kind holds one bucket's buffers: the
+smaller bucket's, and the graphs that read them, go when the edges
+outgrow it.
+
+What differs from the JAX package: a Cholesky failure is read from
+``cholesky_ex``'s ``info``; a mesh solve splits the unpadded edges with
+``torch.tensor_split`` whenever there are at least as many as slots, and
+runs its loop eagerly (the JAX package shards the padded bucket when the
+mesh divides it); the cache is updated in place. The XLA chunked scans
+have no counterpart here.
 """
 
 from __future__ import annotations
@@ -43,11 +57,9 @@ import math
 import numpy as np
 import torch
 
-from mast3r_slam_tpu_torch.ops import ba_kernels, geometry, lie
+from mast3r_slam_tpu_torch.ops import ba_kernels, device_loop, geometry, lie
+from mast3r_slam_tpu_torch.ops.graphs import GraphCache
 from mast3r_slam_tpu_torch.parallel import sharding as S
-
-_F32 = np.float32
-
 
 # ---------------------------------------------------------------------------
 # Measured channels
@@ -267,10 +279,10 @@ def system_error(sys, ref):
 def _solve_system(H, g, free_mask, cap, damping):
     """Damped dense Cholesky step. Returns ``(dx (cap, 7), ok)``.
 
-    ``damping`` is Marquardt-style relative damping ``H + λ·diag(H)``;
-    poses that may not move get identity rows. ``ok`` is False when the
-    factorization fails (``cholesky_ex``'s ``info``) or is not finite; dx
-    is then 0."""
+    ``damping`` (a float or a 0-dim float32 tensor, the LM loop's λ) is
+    Marquardt-style relative damping ``H + λ·diag(H)``; poses that may not
+    move get identity rows. ``ok`` is False when the factorization fails
+    (``cholesky_ex``'s ``info``) or is not finite; dx is then 0."""
     n = cap * 7
     Hd = H[:cap, :, :cap, :].reshape(n, n)
     gd = g[:cap].reshape(n)
@@ -288,7 +300,10 @@ def _solve_system(H, g, free_mask, cap, damping):
     ok = (info == 0) & torch.isfinite(Lc).all()
     eye = torch.eye(n, dtype=Hd.dtype, device=Hd.device)
     Lc_safe = torch.where(ok, Lc, eye)
-    dx = torch.cholesky_solve(gd[:, None], Lc_safe)[:, 0]
+    # two triangular solves (cholesky_solve's potrs allocates inside a CUDA
+    # graph's loop body, which a conditional node does not allow)
+    y = torch.linalg.solve_triangular(Lc_safe, gd[:, None], upper=False)
+    dx = torch.linalg.solve_triangular(Lc_safe.T, y, upper=True)[:, 0]
     dx = torch.where(ok, dx, torch.zeros_like(dx))
     return dx.reshape(cap, 7), ok
 
@@ -302,49 +317,69 @@ def _lm_loop(system, T_WC, free_mask, cap, max_iter, delta_thresh, damping):
       candidate, λ ← max(damping, λ/4);
     - rejects otherwise: keep the iterate, λ ← 10λ, re-solve the same
       system.
-    It stops after ``max_iter`` iterations, after an accepted step with
-    ``‖dx‖ < delta_thresh``, or once λ passes 1e8. The scalar decisions are
-    made on the host in float32 (one sync per iteration), in the JAX
-    ``while_loop``'s order. Returns ``(T, iterations)``."""
-    H, g, cost = system(T_WC)
-    T_ref = T_WC
-    cost_ref = _F32(cost.item())
-    lam = _F32(damping)
-    delta = _F32(np.inf)
-    it = 0
-    while it < max_iter and delta >= _F32(delta_thresh):
-        dx, chol_ok = _solve_system(H, g, free_mask, cap, float(lam))
+    ``delta`` is the step's ‖dx‖ when accepted and inf otherwise, 0 once λ
+    passes 1e8; the loop goes on while fewer than ``max_iter`` iterations
+    ran and ``delta >= delta_thresh``. As the JAX ``lax.while_loop``, it
+    exits on the device (``ops/device_loop.py``): the iterate, its cost, H,
+    g, λ and delta are float32 device tensors updated in place by each
+    step, in the JAX loop's order, and a step after the exit leaves them
+    as they are. Returns ``(T, iterations)``, iterations a device int."""
+    T_ref = T_WC.clone()
+    H, g, cost_ref = (t.clone() for t in system(T_WC))
+    dev = H.device
+    lam = torch.full((), damping, dtype=torch.float32, device=dev)
+    delta = torch.full((), math.inf, dtype=torch.float32, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    live = torch.full((), max_iter > 0, dtype=torch.bool, device=dev)
+
+    def step():
+        dx, chol_ok = _solve_system(H, g, free_mask, cap, lam)
         T_cand = lie.retr(T_ref, dx)
         H_c, g_c, cost_c = system(T_cand)
-        vals = torch.stack([chol_ok.float(), cost_c.float(),
-                            torch.linalg.norm(dx)]).cpu().numpy()
-        ok, cost_c_h, dx_norm = bool(vals[0]), vals[1], vals[2]
-        accept = ok and bool(cost_c_h < cost_ref)
-        if accept:
-            T_ref, cost_ref, H, g = T_cand, cost_c_h, H_c, g_c
-            lam = max(_F32(damping), lam * _F32(0.25))
-        else:
-            lam = lam * _F32(10.0)
+        accept = live & chol_ok & (cost_c < cost_ref)
+        T_ref.copy_(torch.where(accept, T_cand, T_ref))
+        cost_ref.copy_(torch.where(accept, cost_c, cost_ref))
+        H.copy_(torch.where(accept, H_c, H))
+        g.copy_(torch.where(accept, g_c, g))
+        lam.copy_(torch.where(accept, (lam * 0.25).clamp_min(damping),
+                              torch.where(live, lam * 10.0, lam)))
         # only a small ACCEPTED step means converged; the λ cap ends a
         # reject-only stall
-        delta = dx_norm if accept else _F32(np.inf)
-        if lam > 1e8:
-            delta = _F32(0.0)
-        it += 1
-    return T_ref, it
+        moved = torch.where(accept, torch.linalg.norm(dx), math.inf)
+        delta.copy_(torch.where(live, torch.where(lam > 1e8, 0.0, moved),
+                                delta))
+        iters.add_(live)
+        live.copy_(live & (iters < max_iter) & (delta >= delta_thresh))
+
+    device_loop.run(max_iter, live, step)
+    return T_ref, iters
+
+
+def _run_solve(graphs, mesh, key, solve, inputs, static):
+    """``solve(*inputs)``: eagerly, or with ``graphs`` (and no mesh) as the
+    CUDA graph of ``key``, the inputs at indices ``static`` read where
+    they are (see :func:`gauss_newton_rays`)."""
+    if graphs is None or mesh is not None:
+        return solve(*inputs)
+    return graphs.run(key, solve, inputs, static=static)
 
 
 def gauss_newton_rays(T_WC, meas, ii, jj, edge_mask, free_mask, sigma_ray,
                       sigma_dist, max_iter, delta_thresh, damping=1e-4,
-                      compute_dtype="bfloat16", mesh=None):
+                      compute_dtype="bfloat16", mesh=None, graphs=None):
     """Global ray-alignment BA over two-way edges ``ii, jj (E,)``.
 
     ``T_WC (cap, 8)``; ``meas``: channels from :func:`precompute_meas_rays`
     (float32 or bfloat16); ``edge_mask (E,)``; ``free_mask (cap,)`` bool.
-    Returns ``(T (cap, 8), iterations)``; one K4 launch per system build
-    (1 + iterations), or with ``mesh`` one per slot and build
-    (:func:`_shard_edge_system`; the inputs and ``T_WC`` on its first
-    slot's device)."""
+    Returns ``(T (cap, 8), iterations)``, iterations a device int; one K4
+    launch per system build (1 + iterations), or with ``mesh`` one per slot
+    and build (:func:`_shard_edge_system`; the inputs and ``T_WC`` on its
+    first slot's device; the loop runs eagerly). With ``graphs`` (an
+    ``ops.graphs.GraphCache``, CUDA inputs, no mesh) the solve runs as its
+    graph for this configuration and shape; ``ii, jj, edge_mask,
+    free_mask`` and ``meas`` must then be the caller's buffers, the same
+    tensors on every call of a shape (:meth:`FactorGraph._two_way_padded`'s),
+    which the graph reads where they are."""
     cap = T_WC.shape[0]
     cdt = ba_kernels.as_dtype(compute_dtype)
 
@@ -352,22 +387,30 @@ def gauss_newton_rays(T_WC, meas, ii, jj, edge_mask, free_mask, sigma_ray,
         return _accumulate_rays(T, meas_l, ii_l, jj_l, mask_l, free_l, cap,
                                 sigma_ray, sigma_dist, compute_dtype=cdt)
 
-    def system(T):
-        if mesh is not None:
-            return _shard_edge_system(mesh, accum, T, free_mask, ii, jj,
-                                      edge_mask, meas)
-        return accum(T, meas, ii, jj, edge_mask, free_mask)
+    def solve(T_WC, ii, jj, edge_mask, free_mask, *meas):
+        def system(T):
+            if mesh is not None:
+                return _shard_edge_system(mesh, accum, T, free_mask, ii, jj,
+                                          edge_mask, meas)
+            return accum(T, meas, ii, jj, edge_mask, free_mask)
 
-    return _lm_loop(system, T_WC, free_mask, cap, max_iter, delta_thresh,
-                    damping)
+        return _lm_loop(system, T_WC, free_mask, cap, max_iter,
+                        delta_thresh, damping)
+
+    inputs = (T_WC, ii, jj, edge_mask, free_mask, *meas)
+    key = ("rays", cdt, sigma_ray, sigma_dist, max_iter, delta_thresh,
+           damping)
+    return _run_solve(graphs, mesh, key, solve, inputs,
+                      range(1, len(inputs)))
 
 
 def gauss_newton_calib(T_WC, meas, K, ii, jj, edge_mask, free_mask, img_size,
                        pixel_border, z_eps, sigma_pixel, sigma_depth,
                        max_iter, delta_thresh, damping=1e-4,
-                       compute_dtype="bfloat16", mesh=None):
+                       compute_dtype="bfloat16", mesh=None, graphs=None):
     """Global calibrated BA (pixel + log-depth residuals); as
-    :func:`gauss_newton_rays` with K5."""
+    :func:`gauss_newton_rays` with K5 (``K`` is copied into a graph's
+    buffer on every call, as ``T_WC``)."""
     cap = T_WC.shape[0]
     cdt = ba_kernels.as_dtype(compute_dtype)
 
@@ -376,19 +419,44 @@ def gauss_newton_calib(T_WC, meas, K, ii, jj, edge_mask, free_mask, img_size,
                                  cap, img_size, pixel_border, z_eps,
                                  sigma_pixel, sigma_depth, compute_dtype=cdt)
 
-    def system(T):
-        if mesh is not None:
-            return _shard_edge_system(mesh, accum, T, free_mask, ii, jj,
-                                      edge_mask, meas, extra_arrays=(K,))
-        return accum(T, meas, ii, jj, edge_mask, free_mask, K)
+    def solve(T_WC, K, ii, jj, edge_mask, free_mask, *meas):
+        def system(T):
+            if mesh is not None:
+                return _shard_edge_system(mesh, accum, T, free_mask, ii, jj,
+                                          edge_mask, meas, extra_arrays=(K,))
+            return accum(T, meas, ii, jj, edge_mask, free_mask, K)
 
-    return _lm_loop(system, T_WC, free_mask, cap, max_iter, delta_thresh,
-                    damping)
+        return _lm_loop(system, T_WC, free_mask, cap, max_iter,
+                        delta_thresh, damping)
+
+    inputs = (T_WC, K, ii, jj, edge_mask, free_mask, *meas)
+    key = ("calib", cdt, tuple(img_size), pixel_border, z_eps, sigma_pixel,
+           sigma_depth, max_iter, delta_thresh, damping)
+    return _run_solve(graphs, mesh, key, solve, inputs,
+                      range(2, len(inputs)))
 
 
 # ---------------------------------------------------------------------------
 # Host-side factor graph
 # ---------------------------------------------------------------------------
+
+def _bucket(n, minimum=8):
+    """The power-of-two edge bucket of ``n`` two-way edges (the JAX
+    ``_bucket``): one solve graph per bucket."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def _upload(buf, host):
+    """Copy the numpy array ``host`` into the device buffer ``buf`` without
+    a stream sync: from pinned memory, asynchronously, on a card."""
+    src = torch.from_numpy(host)
+    if buf.device.type == "cuda":
+        src = src.pin_memory()
+    buf.copy_(src, non_blocking=True)
+
 
 def _geo_match_init(X_i, X_j, T_i, T_j, img_hw):
     """Pose-projected matcher inits for both directions of B edges.
@@ -410,10 +478,11 @@ class FactorGraph:
     created by a symmetric decode + match and accepted by bidirectional
     coverage; the pose-invariant measured channels of every edge are cached
     across solves and refreshed only for edges whose keyframes' pointmaps
-    changed."""
+    changed. On a card, a solve without a mesh runs as a CUDA graph
+    (``graphed=False`` runs it eagerly there: a comparison's reference)."""
 
     def __init__(self, model, keyframes, cfg, K=None, mesh=None,
-                 home_device=None):
+                 home_device=None, graphed=True):
         self.model = model
         self.keyframes = keyframes
         self.cfg = cfg["local_opt"]
@@ -444,7 +513,16 @@ class FactorGraph:
         self.Q_ii2jj = torch.zeros(0, n_pix, 1, device=dev)
         self.Q_jj2ii = torch.zeros(0, n_pix, 1, device=dev)
         self.last_unique_kf_idx: np.ndarray | None = None
-        self.last_solve_iters = 0
+        self._iters = 0           # the last solve's iterations (device int)
+        # the solves' CUDA graphs, one per edge bucket and kind
+        self.graphs = GraphCache("solve") if graphed else None
+        # kind -> (bucket, the padded two-way edge buffers of that bucket),
+        # and the free-pose mask: written in place by every solve. Edges
+        # are never removed, so a larger bucket replaces a kind's buffers
+        # (and the solve graphs that read them).
+        self._buckets: dict[str, tuple] = {}
+        self._free = torch.zeros(keyframes.capacity, dtype=torch.bool,
+                                 device=self.device)
         # local_opt.pixel_step: BA residual decimation (1 = every pixel)
         self.pixel_step = int(self.cfg.get("pixel_step", 1))
         # local_opt.meas_dtype: channel storage type; the math widens to f32
@@ -719,23 +797,57 @@ class FactorGraph:
 
     # -- solves --------------------------------------------------------------
 
-    def _two_way(self):
-        """Two-way edges and channels ``(ii2, jj2, mask, meas)``: every
-        one-way edge in both directions (the JAX ``_two_way_padded`` without
-        its power-of-two padding, which only fed XLA's compile cache)."""
+    def _two_way_padded(self):
+        """Two-way edges and channels padded to a power-of-two bucket, as
+        the JAX ``_two_way_padded``: rows ``[ij (E); ji (E); pad]``, a
+        padded row ``ii = jj = 0`` with zero channels and ``edge_mask`` 0
+        (its Gram is exactly zero). They are written into the bucket's
+        buffers, kept across solves (a graphed solve reads them where they
+        are): the channels in one copy from the cache, the edge rows from
+        pinned memory without a stream sync, the mask filled on the
+        device. Returns ``(ii2, jj2, mask, meas, n)``, ``n = 2E``."""
+        E = self.n_edges()
+        n = 2 * E
+        B = _bucket(n)
         dev = self.device
-        ii2 = torch.as_tensor(np.concatenate([self.ii, self.jj]), device=dev)
-        jj2 = torch.as_tensor(np.concatenate([self.jj, self.ii]), device=dev)
-        meas = tuple(torch.cat([a, b]) for a, b in
-                     zip(self._meas_ij, self._meas_ji))
-        mask = torch.ones(ii2.shape[0], device=dev)
-        return ii2, jj2, mask, meas
+        held = self._buckets.get(self._meas_kind)
+        if held is None or held[0] != B:
+            if held is not None and self.graphs is not None:
+                self.graphs.drop(held[1][1])
+            edges = torch.empty(2, B, dtype=torch.long, device=dev)
+            held = (B, (edges, edges[0], edges[1],
+                        torch.empty(B, dtype=torch.float32, device=dev),
+                        tuple(torch.empty((B,) + ch.shape[1:],
+                                          dtype=ch.dtype, device=dev)
+                              for ch in self._meas_ij)))
+            self._buckets[self._meas_kind] = held
+        bufs = held[1]
+        edges, ii2, jj2, mask, meas = bufs
+        rows = np.zeros((2, B), np.int64)
+        rows[0, :n] = np.concatenate([self.ii, self.jj])
+        rows[1, :n] = np.concatenate([self.jj, self.ii])
+        _upload(edges, rows)
+        mask.copy_(torch.arange(B, device=dev) < n)
+        for buf, a, b in zip(meas, self._meas_ij, self._meas_ji):
+            buf[:E].copy_(a)
+            buf[E:n].copy_(b)
+            buf[n:].zero_()
+        return ii2, jj2, mask, meas, n
+
+    def bucket_bytes(self):
+        """Device bytes of the padded two-way edge buffers held for the
+        solves (one bucket a kind), beside the solve graphs' pools."""
+        return sum(t.numel() * t.element_size()
+                   for _, (edges, _, _, mask, meas) in self._buckets.values()
+                   for t in (edges, mask, *meas))
 
     def _free_mask(self, unique_kf_idx):
+        """The poses a solve may move, in the graph's buffer."""
         pin = int(self.cfg["pin"])
         mask = np.zeros(self.keyframes.capacity, bool)
         mask[unique_kf_idx[pin:]] = True
-        return torch.as_tensor(mask, device=self.device)
+        _upload(self._free, mask)
+        return self._free
 
     def _solve_mesh(self, n_two_way):
         """The mesh a solve over ``n_two_way`` edges is sharded over, or
@@ -764,6 +876,14 @@ class FactorGraph:
             return T_new
         return T_new.to(self.home_device)
 
+    @property
+    def last_solve_iters(self):
+        """The last solve's LM iterations, read from the device at the
+        first access after the solve (the solve itself reads nothing)."""
+        if torch.is_tensor(self._iters):
+            self._iters = int(self._iters)
+        return self._iters
+
     def _solve(self, kind, solver):
         unique = self.get_unique_kf_idx()
         if unique.size <= int(self.cfg["pin"]):
@@ -773,10 +893,16 @@ class FactorGraph:
         kf = self.keyframes
         with kf.lock:
             self._ensure_meas(kind)
-            ii2, jj2, mask, meas = self._two_way()
-            T_new, self.last_solve_iters = solver(
+            ii2, jj2, mask, meas, n = self._two_way_padded()
+            mesh = self._solve_mesh(n)
+            if mesh is not None:
+                # the mesh splits the unpadded edges
+                ii2, jj2, mask = ii2[:n], jj2[:n], mask[:n]
+                meas = tuple(ch[:n] for ch in meas)
+            graphs = self.graphs if self.device.type == "cuda" else None
+            T_new, self._iters = solver(
                 self._place_T(kf.T_WC), meas, ii2, jj2, mask,
-                self._free_mask(unique), self._solve_mesh(ii2.shape[0]))
+                self._free_mask(unique), mesh, graphs)
             kf.T_WC = self._home(T_new)
             for i in unique[int(self.cfg["pin"]):]:
                 kf.version[int(i)] += 1
@@ -787,12 +913,12 @@ class FactorGraph:
     def solve_GN_rays(self):
         c = self.cfg
 
-        def solver(T, meas, ii2, jj2, mask, free, mesh):
+        def solver(T, meas, ii2, jj2, mask, free, mesh, graphs):
             return gauss_newton_rays(
                 T, meas, ii2, jj2, mask, free, float(c["sigma_ray"]),
                 float(c["sigma_dist"]), int(c["max_iters"]),
                 float(c["delta_norm"]), compute_dtype=self._compute_dtype(),
-                mesh=mesh)
+                mesh=mesh, graphs=graphs)
 
         self._solve("rays", solver)
 
@@ -800,12 +926,13 @@ class FactorGraph:
         c = self.cfg
         kf = self.keyframes
 
-        def solver(T, meas, ii2, jj2, mask, free, mesh):
+        def solver(T, meas, ii2, jj2, mask, free, mesh, graphs):
             return gauss_newton_calib(
                 T, meas, self._place_K(), ii2, jj2, mask, free, (kf.h, kf.w),
                 float(c["pixel_border"]), float(c["depth_eps"]),
                 float(c["sigma_pixel"]), float(c["sigma_depth"]),
                 int(c["max_iters"]), float(c["delta_norm"]),
-                compute_dtype=self._compute_dtype(), mesh=mesh)
+                compute_dtype=self._compute_dtype(), mesh=mesh,
+                graphs=graphs)
 
         self._solve("calib", solver)

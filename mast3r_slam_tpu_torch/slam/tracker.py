@@ -29,10 +29,10 @@ from __future__ import annotations
 
 import torch
 
-from mast3r_slam_tpu_torch import _build
 from mast3r_slam_tpu_torch.models import mast3r as M
 from mast3r_slam_tpu_torch.models.inference import _decimate
-from mast3r_slam_tpu_torch.ops import device_loop, geometry, lie, matching
+from mast3r_slam_tpu_torch.ops import (device_loop, geometry, graphs, lie,
+                                       matching)
 from mast3r_slam_tpu_torch.ops.robust import huber
 from mast3r_slam_tpu_torch.slam.frame import (Frame, fuse_weighted_spherical,
                                                median)
@@ -420,114 +420,31 @@ def quality_job_tensors(use_calib, T_CkCf, Xf, Xk_can, valid_kf, meas_k,
     return r_pix, valid_submit, t_norm, theta
 
 
-class TrackGraphs:
+class TrackGraphs(graphs.GraphCache):
     """:func:`track_core` as one CUDA graph per static key, replayed every
-    frame: the counterpart of the JAX package's ``jax.jit(track_core,
-    static_argnames=("mcfg", "img_hw", "use_calib", "scfg", "model_hw"))``.
-
-    The key is what that jit is static on, plus the device, the inputs'
-    shapes and dtypes and the identity of ``params`` (new weights, e.g. a
-    new model, drop every graph: a graph reads the tensors it was captured
-    with). A key's first call runs the computation eagerly on a side stream
-    (its output is the frame's; it builds the kernels, their one-time
-    setup, the cached tables and the cuBLAS / cuSOLVER workspaces), then
-    captures it into a private memory pool in ``thread_local`` mode (the
-    backend and service threads go on launching and syncing their streams
-    meanwhile; a device-wide sync waits for ``device_loop.capture_lock``).
-    The LM loops of the matcher and the pose solve become conditional
-    WHILE nodes (``ops/device_loop.py``), so a replay stops each where the
-    eager loop exits. Later calls copy the inputs into the graph's static
-    buffers, replay it and return clones of its outputs, which the next
-    replay overwrites. The kernels' launch counters count launches that
-    ran: a capture adds nothing (:class:`_build.LaunchRecording`), each replay
-    adds the captured counts. A failed capture or replay raises."""
+    frame (``ops/graphs.py``): the counterpart of the JAX package's
+    ``jax.jit(track_core, static_argnames=("mcfg", "img_hw", "use_calib",
+    "scfg", "model_hw"))``. The key is what that jit is static on, plus the
+    device, the inputs' shapes and dtypes and the identity of ``params``.
+    The LM loops of the matcher and the pose solve are conditional WHILE
+    nodes: two loop nodes a replay."""
 
     def __init__(self):
-        self._graphs = {}
-        self._params = None
-        self.captures = 0
-        self.replays = 0
+        super().__init__("track")
 
     def __call__(self, fn, params, mcfg, img, feat_k, pos_k, idx_init, X_k,
                  C_k, N_k, T_WCf_init, T_WCk, K, img_hw, use_calib, scfg,
                  model_hw=None):
         inputs = (img, feat_k, pos_k, idx_init, X_k, C_k, N_k, T_WCf_init,
                   T_WCk, K)
-        if any(t.device != img.device for t in inputs):
-            raise ValueError("track_core's inputs must be on one CUDA device")
         static = (mcfg, tuple(img_hw), bool(use_calib), scfg,
                   None if model_hw is None else tuple(model_hw))
-        key = static + (img.device,) + tuple((tuple(t.shape), t.dtype)
-                                             for t in inputs)
-        if params is not self._params:
-            self._graphs.clear()
-            self._params = params
-        with torch.cuda.device(img.device):
-            graph = self._graphs.get(key)
-            if graph is None:
-                out, self._graphs[key] = self._capture(fn, params, inputs,
-                                                       static)
-                return out
-            for buf, t in zip(graph.inputs, inputs):
-                buf.copy_(t)
-            graph.exec.launch()
-            graph.launches.replayed()
-            self.replays += 1
-            return {k: v.clone() for k, v in graph.outputs.items()}
 
-    def _capture(self, fn, params, inputs, static):
-        mcfg, img_hw, use_calib, scfg, model_hw = static
-        bufs = tuple(t.clone() for t in inputs)
-
-        def run(args):
+        def run(*args):
             return fn(params, mcfg, *args, img_hw, use_calib, scfg,
                       model_hw=model_hw)
 
-        main = torch.cuda.current_stream()
-        side, body = torch.cuda.Stream(), torch.cuda.Stream()
-        for stream in (side, body):
-            stream.wait_stream(main)
-        with torch.cuda.stream(side):
-            out = run(inputs)
-        with torch.cuda.stream(body):
-            # the loop bodies' stream gets its cuBLAS workspace here, from
-            # the ordinary pool, not inside a capture
-            eye = torch.eye(7, device=main.device)
-            torch.mv(torch.mm(eye, eye), eye[0])
-        graph = _Captured(bufs, device_loop.BodyPool(main.device))
-        with (device_loop.capture_lock, graph.launches,
-              device_loop.capturing(graph.pool, body)):
-            with torch.cuda.graph(graph.graph, stream=side,
-                                  capture_error_mode="thread_local"):
-                graph.outputs = run(bufs)
-        graph.exec = device_loop.Executable(graph.graph)
-        main.wait_stream(side)
-        for t in out.values():
-            t.record_stream(main)
-        self.captures += 1
-        return out, graph
-
-
-class _Captured:
-    """One captured frame: the static input buffers, the graph (kept after
-    its capture) and its executable, its outputs, the launches its capture
-    recorded, and the memory pool of its loop bodies, released after the
-    graph itself."""
-
-    def __init__(self, inputs, pool):
-        self.inputs = inputs
-        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        self.exec = None
-        self.outputs = None
-        self.launches = _build.LaunchRecording()
-        self.pool = pool
-
-    def __del__(self):
-        self.outputs = None
-        if self.exec is not None:
-            self.exec.destroy()
-        self.graph.reset()
-        self.pool.release()
+        return self.run(static, run, inputs, owner=params)
 
 
 class FrameTracker:

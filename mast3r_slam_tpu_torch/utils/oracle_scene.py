@@ -434,7 +434,7 @@ def run_oracle_slam(scene, poses, hw, mode, noise_seed=0, kf_every=4,
         ate_ba=ate_rmse_points(list(T_out), gt_kf), T_kf_ba=T_out,
         ba_problem=dict(kind="calib" if use_calib else "rays", T=T_in,
                         meas=meas, ii=ii, jj=jj, mask=mask_e, free=free,
-                        K=Kt, hw=tuple(hw), iters=iters,
+                        K=Kt, hw=tuple(hw), iters=int(iters),
                         sigmas=((sigma_pixel, sigma_depth) if use_calib
                                 else (sigma_ray, sigma_dist)),
                         compute_dtype=ba_cdt, max_iter=ba_iters,

@@ -13,6 +13,9 @@ both LM scenes. There the port, whose plain Gram sums in float64, is held
 to 1e-4 of the XLA build, the one JAX runs on a CPU, and the test checks
 that the two JAX builds are further apart than that."""
 
+from unittest import mock
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +29,7 @@ from mast3r_slam_tpu.slam import factor_graph as JFG
 from mast3r_slam_tpu.slam import frame as JFr
 from mast3r_slam_tpu_torch.models import mast3r as TM
 from mast3r_slam_tpu_torch.models.inference import MASt3RInference
+from mast3r_slam_tpu_torch.ops import ba_kernels as TK
 from mast3r_slam_tpu_torch.ops import lie as TL
 from mast3r_slam_tpu_torch.slam import factor_graph as TFG
 from mast3r_slam_tpu_torch.slam import frame as TFr
@@ -244,6 +248,197 @@ def test_gauss_newton_matches_jax(kind, compute):
 
 
 # ---------------------------------------------------------------------------
+# The BA's LM loop: every exit rule against JAX's lax.while_loop
+# ---------------------------------------------------------------------------
+
+_LM_CAP = 3
+_LM_RNG = np.random.default_rng(61)
+_LM_M = np.linalg.qr(_LM_RNG.normal(size=(7, 7)))[0].astype(np.float32) * \
+    np.asarray([3.0, 2.0, 1.5, 1.0, 0.7, 0.5, 0.3], np.float32)
+_LM_C = (_LM_RNG.normal(size=(_LM_CAP, 7)) * 0.3).astype(np.float32)
+_LM_FREE = np.asarray([False, True, True])
+
+
+def _dense_system(xp, kind):
+    """A least-squares system on the poses' Sim(3) logarithms in the
+    dense ``(cap+1, 7, cap+1, 7)`` layout, the same function in JAX
+    (``xp = jnp``) and in the port (``xp = torch``): ``r_k = M (log(T_k) -
+    c_k)``, with four times the true curvature, so that every step goes a
+    quarter of the way and the step norm shrinks geometrically.
+    ``"nan"``: every candidate's cost is NaN (no step is accepted);
+    ``"cholesky"``: H holds a NaN (every factorization fails)."""
+    if xp is jnp:
+        M, c = jnp.asarray(_LM_M), jnp.asarray(_LM_C)
+        log = jax.vmap(JL.log)
+        eye = jnp.eye(_LM_CAP + 1)[:, :_LM_CAP]
+    else:
+        M, c = t_(_LM_M), t_(_LM_C)
+        log = TL.log
+        eye = torch.eye(_LM_CAP + 1)[:, :_LM_CAP]
+    T0 = np.stack([np.array(JL.identity())] + [
+        np.array(JL.exp(jnp.asarray(_LM_C[k] * 0.2))) for k in (1, 2)])
+
+    def system(T):
+        r = (log(T) - c) @ M.T                                # (cap, 7)
+        A = 4.0 * (M.T @ M)
+        H = xp.einsum("ik,jk,ab->iajb", eye, eye, A)
+        g = xp.einsum("ik,ka->ia", eye, -(r @ M))
+        cost = 0.5 * (r * r).sum()
+        if kind == "nan":
+            at_start = (T == (jnp.asarray(T0) if xp is jnp
+                              else t_(T0))).all()
+            cost = xp.where(at_start, cost, float("nan"))
+        if kind == "cholesky":
+            H = H * xp.where(xp.arange(_LM_CAP + 1) == 1, float("nan"),
+                             1.0)[:, None, None, None]
+        return H, g, cost
+
+    return system, T0
+
+
+# (system kind, max_iter, delta_thresh) → the rule that stops the loop
+_BA_EXITS = {
+    "iteration_cap": ("quadratic", 3, 1e-12),
+    "small_accepted_step": ("quadratic", 50, 1e-2),
+    "lambda_past_1e8": ("nan", 50, 1e-12),
+    "cholesky_failure": ("cholesky", 50, 1e-12),
+}
+
+
+def _reject_only_steps(damping=1e-4):
+    """The steps of a loop that rejects every step: λ ← 10λ in float32,
+    from float32(damping), until λ > 1e8 (JAX's rule, replayed in numpy)."""
+    lam, n = np.float32(damping), 0
+    while not lam > np.float32(1e8):
+        lam, n = np.float32(lam * np.float32(10.0)), n + 1
+    return n
+
+
+@pytest.mark.parametrize("rule", list(_BA_EXITS))
+def test_ba_lm_loop_exit_rules_match_jax(rule):
+    """The device-exit BA loop against JAX's ``lax.while_loop`` for each
+    exit rule: the same poses; the port's step count shows where it
+    stopped, and JAX capped at that count (its other rules off: delta
+    threshold 0) ends at the same poses, so JAX stopped there too."""
+    kind, max_iter, delta = _BA_EXITS[rule]
+    sys_j, T0 = _dense_system(jnp, kind)
+    sys_t, _ = _dense_system(torch, kind)
+    Tj = JFG._lm_loop(sys_j, jnp.asarray(T0), jnp.asarray(_LM_FREE),
+                      _LM_CAP, max_iter, delta, 1e-4)
+    Tt, iters = TFG._lm_loop(sys_t, t_(T0), t_(_LM_FREE), _LM_CAP, max_iter,
+                             delta, 1e-4)
+    assert iters.dtype == torch.int32 and iters.shape == ()
+    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tj), rtol=0,
+                               atol=1e-5)
+    n = int(iters)
+    if rule == "iteration_cap":
+        assert n == max_iter
+    elif rule == "small_accepted_step":
+        assert 2 <= n < max_iter
+    else:                    # every step rejected: λ = 1e-4 · 10^n
+        assert n == _reject_only_steps() and torch.equal(Tt, t_(T0))
+    assert torch.equal(Tt[0], t_(T0[0]))                   # pinned
+    Tc = JFG._lm_loop(sys_j, jnp.asarray(T0), jnp.asarray(_LM_FREE),
+                      _LM_CAP, n, 0.0, 1e-4)
+    np.testing.assert_allclose(Tt.numpy(), np.asarray(Tc), rtol=0,
+                               atol=1e-5)
+    if rule == "small_accepted_step":
+        # one more step would still move the poses: the rule stopped it
+        Tm = JFG._lm_loop(sys_j, jnp.asarray(T0), jnp.asarray(_LM_FREE),
+                          _LM_CAP, n + 1, 0.0, 1e-4)
+        assert not np.array_equal(np.asarray(Tm), np.asarray(Tc))
+
+
+def _masked(cap, live, step):
+    """Every step runs, those after the exit masked (as the steps that the
+    card's eager loop launches before it sees the exit)."""
+    for _ in range(cap):
+        step()
+
+
+@pytest.mark.parametrize("rule", list(_BA_EXITS))
+def test_ba_lm_loop_masked_steps_leave_the_state(rule):
+    """The steps after the exit (some run on the card's eager path, none
+    on the CPU's or in the graph) leave the poses and the step count as
+    they are, bit for bit."""
+    kind, max_iter, delta = _BA_EXITS[rule]
+    sys_t, T0 = _dense_system(torch, kind)
+    args = (t_(_LM_FREE), _LM_CAP, max_iter, delta, 1e-4)
+    want = TFG._lm_loop(sys_t, t_(T0), *args)
+    with mock.patch.object(TFG.device_loop, "run", _masked):
+        got = TFG._lm_loop(sys_t, t_(T0), *args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _padded(E, B, ii, jj, mask, meas):
+    """Edges, mask and channels padded from E to B rows as the factor
+    graph pads them: ``ii = jj = 0``, zero channels, ``edge_mask`` 0."""
+    pad = B - E
+
+    def cat(a, fill):
+        a = torch.as_tensor(np.asarray(a))
+        return torch.cat([a, torch.full((pad,) + a.shape[1:], fill,
+                                        dtype=a.dtype)])
+
+    return (cat(ii, 0), cat(jj, 0), cat(mask, 0),
+            tuple(cat(ch, 0) for ch in meas))
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["rays", "calib"])
+def test_padded_solve_matches_unpadded(kind, compute):
+    """A padded row (identity relative pose, zero points) has an exactly
+    zero, finite Gram in the plain K4 / K5, and the padded solve ends
+    where the unpadded one does, within the JAX comparison's tolerance."""
+    if kind == "rays":
+        T_in, meas, ii, jj, mask, free = _lm_scene()
+        real = mask > 0
+        ii, jj, mask = ii[real], jj[real], mask[real]
+        meas = tuple(np.array(ch)[real] for ch in meas)
+        args = (0.003, 10.0, 12, 1e-9)
+    else:
+        T_in, meas, K, ii, jj, mask, hw = _calib_scene()
+        meas = tuple(np.array(ch) for ch in meas)
+        free = np.asarray([False, True, True])
+        args = (hw, -10.0, 1e-6, 1.0, 10.0, 10, 1e-9)
+    E = ii.shape[0]
+    flat = (t_(ii.astype(np.int64)), t_(jj.astype(np.int64)), t_(mask),
+            tuple(t_(ch) for ch in meas))
+    padded = _padded(E, TFG._bucket(E), *flat)
+    T = t_(T_in)
+    if kind == "rays":
+        _, rts = TFG._rel_pose_rows(T, *padded[:3])
+        G = TK.gram_rays(rts, padded[3], 0.003, 10.0, compute_dtype=compute)
+    else:
+        _, rts = TFG._rel_pose_rows(T, *padded[:3], extra=(
+            float(K[0, 0]), float(K[1, 1]), float(K[0, 2]), float(K[1, 2])))
+        G = TK.gram_calib(rts, padded[3], hw, -10.0, 1e-6, 1.0, 10.0,
+                          compute_dtype=compute)
+    assert G.shape[0] == TFG._bucket(E) > E
+    assert bool(G.isfinite().all()) and not G[E:].any()
+    outs = []
+    for ii_, jj_, mask_, meas_ in (flat, padded):
+        if kind == "rays":
+            outs.append(TFG.gauss_newton_rays(
+                T, meas_, ii_, jj_, mask_, t_(free), *args,
+                compute_dtype=compute))
+        else:
+            outs.append(TFG.gauss_newton_calib(
+                T, meas_, t_(K), ii_, jj_, mask_, t_(free), *args,
+                compute_dtype=compute))
+    (T_a, it_a), (T_b, it_b) = outs
+    assert int(it_a) == int(it_b) >= 1
+    err = (T_a - T_b).abs().max().item()
+    assert err <= (1e-5 if compute == "float32" else 1e-4), err
+
+
+def test_bucket_matches_jax():
+    for n in (0, 1, 7, 8, 9, 16, 17, 100):
+        assert TFG._bucket(n) == JFG._bucket(n)
+
+
+# ---------------------------------------------------------------------------
 # The factor graph: cache invalidation and whole solves (stub model)
 # ---------------------------------------------------------------------------
 
@@ -402,6 +597,70 @@ def test_solve_gn_rays_matches_jax_factor_graph():
     _, kt0 = _buffers(noise=0.02)
     assert torch.equal(kt.T_WC[0], kt0.T_WC[0])
     assert not torch.equal(kt.T_WC[1:4], kt0.T_WC[1:4])
+
+
+def test_solve_gn_calib_matches_jax_factor_graph():
+    """The calibrated solve through both FactorGraphs (both pad their
+    two-way edges to the bucket): poses within 1e-4 of JAX's XLA path,
+    version bumps, the pinned first keyframe, and the padded buffers'
+    rows."""
+    K = np.asarray([[20.0, 0, 11.5], [0, 20.0, 7.5], [0, 0, 1]], np.float32)
+    kj, kt = _buffers(noise=0.02)
+    gj = JFG.FactorGraph(StubModel(False), kj, CFG, K=jnp.asarray(K))
+    gt = TFG.FactorGraph(StubModel(True), kt, CFG, K=t_(K))
+    for g in (gj, gt):
+        assert g.add_factors([0, 1, 2], [1, 2, 3], 0.0)
+        g.solve_GN_calib()
+    np.testing.assert_allclose(kt.T_WC.numpy(), np.asarray(kj.T_WC),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(kt.version, kj.version)
+    assert 1 <= gt.last_solve_iters <= 3
+    _, kt0 = _buffers(noise=0.02)
+    assert torch.equal(kt.T_WC[0], kt0.T_WC[0])
+    assert not torch.equal(kt.T_WC[1:4], kt0.T_WC[1:4])
+    ii2, jj2, mask, meas, n = gt._two_way_padded()
+    assert n == 6 and ii2.shape[0] == 8
+    assert ii2.tolist() == [0, 1, 2, 1, 2, 3, 0, 0]
+    assert jj2.tolist() == [1, 2, 3, 0, 1, 2, 0, 0]
+    assert mask.tolist() == [1.0] * 6 + [0.0] * 2
+    assert len(meas) == 7 and not any(ch[6:].any() for ch in meas)
+
+
+def test_padded_buffers_are_kept_per_bucket(graph):
+    """The two-way buffers of a bucket are the same tensors solve after
+    solve (a graphed solve reads them where they are), refilled in place;
+    more edges move to the next bucket."""
+    graph._ensure_meas("rays")
+    first = graph._two_way_padded()
+    again = graph._two_way_padded()
+    for a, b in zip(first[:3] + first[3], again[:3] + again[3]):
+        assert a is b
+    assert first[4] == 6 and first[0].shape[0] == 8
+    graph.add_factors([0, 0], [2, 3], 0.0)
+    graph._ensure_meas("rays")
+    ii2, _, mask, meas, n = graph._two_way_padded()
+    assert n == 10 and ii2.shape[0] == 16 and mask.sum() == 10
+    assert ii2[:10].tolist() == [0, 1, 2, 0, 0, 1, 2, 3, 2, 3]
+
+
+@pytest.mark.parametrize("kind", ["rays", "calib"])
+def test_larger_bucket_replaces_the_smaller(graph, kind):
+    """Edges are never removed: once the edges move to a larger bucket,
+    the kind holds that bucket's buffers alone, and ``bucket_bytes``
+    counts them (edge rows, mask, channels)."""
+    graph.K = torch.tensor([[20.0, 0, 11.5], [0, 20.0, 7.5], [0, 0, 1.0]])
+    graph._ensure_meas(kind)
+    small = graph._two_way_padded()
+    graph.add_factors([0, 0], [2, 3], 0.0)
+    graph._ensure_meas(kind)
+    ii2, _, mask, meas, _ = graph._two_way_padded()
+    assert list(graph._buckets) == [kind]
+    assert graph._buckets[kind][0] == 16 and ii2 is not small[0]
+    assert all(ch.shape[0] == 16 for ch in meas)
+    want = 16 * (2 * 8 + 4) + sum(ch.numel() * ch.element_size()
+                                  for ch in meas)
+    assert graph.bucket_bytes() == want
+    assert len(meas) == (8 if kind == "rays" else 7)
 
 
 def test_backend_states_queue_and_hint():

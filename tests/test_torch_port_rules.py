@@ -47,7 +47,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "data/image_host.py",
                 "slam/retrieval.py", "slam/pipeline.py",
                 "utils/checkpoint.py", "utils/tictoc.py",
-                "ops/gram_variants.py", "bench/gram_kernel_bench.py",
+                "ops/gram_variants.py", "ops/device_loop.py", "ops/graphs.py",
+                "bench/gram_kernel_bench.py",
                 "services/quality_core.py", "services/quality_async.py",
                 "services/tsdf_local.py", "services/tsdf_global.py",
                 "services/native_tsdf.py", "parallel/__init__.py",
