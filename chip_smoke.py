@@ -29,8 +29,16 @@ then:
    ``track_core`` makes no host sync (``set_sync_debug_mode("error")``
    around every call but the capture), and that the two paths' outputs
    and keyframe buffers agree bit for bit (the graphed outputs kept across
-   later replays); then both paths' frame ms, device busy ms and idle
-   share under ``torch.profiler``, peak memory and the capture count;
+   later replays); then both paths' frame ms and its host steps by host
+   clock (``utils/tictoc.py::STEPS``: ``create_frame``'s resize, upload,
+   display image and pose; the keyframe snapshot, which the graphed
+   tracker copies straight into its graph's buffers; the small inputs;
+   the graph's key, input copies, launch, counters and output clones; the
+   decision read; the rest of ``track``), and under ``torch.profiler`` the
+   device busy ms, the kernels a frame counted from the device's events
+   (in the replay and outside it) and the idle time split into the gaps
+   inside the replay and outside it (``bench/frame_profile.py``), peak
+   memory and the capture count;
 3. runs the backend keyframe event at full width on that path's state:
    three keyframes, ``FactorGraph.add_factors`` with the tracker's 5-tuple
    hint (``match_oneway``) and without one (``match_symmetric``), the
@@ -84,7 +92,8 @@ then:
    retrieval edge, the exported trajectory, PLYs (the quality one with
    non-zero fields) and keyframe PNGs, each kernel's launches against the
    run's own model calls and LM iterations, every quality job processed
-   or dropped and every refiner task ended; then the same clip with the
+   or dropped and every refiner task ended, and its frame reads
+   (``dataset[i]`` + ``create_frame``) timed; then the same clip with the
    services off (their cost to the tracked frame and the backend step),
    again with the tracker, the solves and the decode + match eager (the
    same modes, keyframes, edges and keyframe poses, bit for bit, as the
@@ -96,8 +105,9 @@ then:
    match batch size at most once, and runs the loop nodes its replays
    hold, and reports its graphs' captures, replays and pool memory;
 9. runs the CLI with one reduced-depth f32 model on the card and on the
-   CPU (services off): the same modes, keyframes and edges, and the same
-   poses;
+   CPU (services off): the same modes, keyframes and edges, the same
+   poses, and every BA solve of the card's run solved again on the CPU
+   from the card's inputs to the same poses;
 10. runs the relocalization episode of ``tests/test_oracle_reloc.py`` at
    384x512: a teleport recovered within the JAX test's bounds, an impostor
    rejected and rolled back;
@@ -120,8 +130,13 @@ then:
    host code (``native/image_host.cpp``) and holds it against its plain
    versions, equal bytes and float32 bits, timing both: the 480x640 PNG
    decode with Sub, Up, Average and Paeth rows, the EuRoC (gray and
-   colour) and TUM freiburg1 remaps, and ``resize_img`` to 384x512 cold,
-   warm and with its weights built afresh;
+   colour) and TUM freiburg1 remaps, and ``resize_img`` (cv2's INTER_AREA
+   pass and its copy) at the TUM, EuRoC and Replica sizes and the model
+   crop's copy; both resizes on the seeded inputs of
+   ``tests/data/resize`` against the SHA-256 of cv2.resize's output
+   recorded there; then a calibrated TUM frame's read step by step (the
+   PNG decode, the float conversion, the remap, ``create_frame``'s
+   steps);
 13. (phase ``cli_datasets``) runs the CLI at full ViT-L width on 12-frame
    clips it writes in the evaluation datasets' layouts, each under its
    evaluation script's config: EuRoC (gray 752x480 PNGs, undistorted on
@@ -824,6 +839,7 @@ def main_path_run(torch, T, model, cfg, imgs, graphed, FA, C3, BA):
     keyframes, launches and tracker."""
     from mast3r_slam_tpu_torch.slam.frame import KeyframeBuffer, Mode
     from mast3r_slam_tpu_torch.slam.pipeline import create_frame
+    from mast3r_slam_tpu_torch.utils.tictoc import STEPS
 
     H, W = IMG_HW
     keyframes = KeyframeBuffer(H, W, capacity=16,
@@ -849,6 +865,7 @@ def main_path_run(torch, T, model, cfg, imgs, graphed, FA, C3, BA):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters(FA, C3, BA)
+    STEPS.start()
     try:
         mode = Mode.INIT
         last_T = None
@@ -872,18 +889,26 @@ def main_path_run(torch, T, model, cfg, imgs, graphed, FA, C3, BA):
                         "new keyframe" if new_kf else "tracked")
             last_T = frame.T_WC
             torch.cuda.synchronize()
+            STEPS.lap("frame: end sync")
             frame_ms.append((time.perf_counter() - t) * 1e3)
+            STEPS.end_frame()
             modes.append(note)
             log(f"frame {i} ({'graphed' if graphed else 'eager'}): "
                 f"{note:12s} {frame_ms[-1]:9.1f} ms  keyframes "
                 f"{len(keyframes)}")
     finally:
+        STEPS.stop()
         T.track_core = core
     return dict(outputs=outputs, frame_ms=frame_ms, modes=modes,
-                frames=frames, keyframes=keyframes,
+                frames=frames, keyframes=keyframes, steps=STEPS.frames,
                 launches=launch_counts(FA, C3, BA), loops=loop_nodes(),
                 tracker=tracker,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _fmt(v, digits):
+    """A measured number, or "not measured" where there is none."""
+    return "not measured" if v is None else f"{v:.{digits}f}"
 
 
 def same_bits(a, b):
@@ -898,13 +923,15 @@ def same_bits(a, b):
     return torch.equal(a, b)
 
 
-def device_busy_ms(torch, fn, n):
-    """Device busy ms per call of ``fn`` (``n`` calls under
-    ``torch.profiler``: the device-side events' own times summed, as
-    ``scripts/profile_torch_track.py`` sums them) and the profiled wall ms
-    per call."""
-    from torch.autograd import DeviceType
+def device_profile(torch, fn, n, frame_ms):
+    """``n`` calls of ``fn`` under ``torch.profiler``: the device side a
+    call (``bench/frame_profile.py::device_split``: busy ms, kernels
+    counted from the device's events, in the graph replay and outside it,
+    the idle time against the unprofiled ``frame_ms`` split into the gaps
+    inside the replay and the rest) and the profiled wall ms a call."""
     from torch.profiler import ProfilerActivity, profile
+
+    from mast3r_slam_tpu_torch.bench import frame_profile as FP
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -914,9 +941,7 @@ def device_busy_ms(torch, fn, n):
             fn(i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-    return dev_us / 1e3 / n, wall
+    return dict(FP.device_split(prof, n, frame_ms), profiled_wall_ms=wall)
 
 
 def phase_main_path(torch, FA, C3, BA):
@@ -927,6 +952,7 @@ def phase_main_path(torch, FA, C3, BA):
     ``track_core`` output agrees bit for bit between them, and the
     graphed outputs kept from each frame are intact after the later
     replays; then both paths' device time a frame under the profiler."""
+    from mast3r_slam_tpu_torch.bench import frame_profile as FP
     from mast3r_slam_tpu_torch.models import mast3r as M
     from mast3r_slam_tpu_torch.models.inference import MASt3RInference
     from mast3r_slam_tpu_torch.slam import tracker as T
@@ -1000,6 +1026,9 @@ def phase_main_path(torch, FA, C3, BA):
               f"the keyframe buffers' {key} differ")
     ms = {g: statistics.median(run["frame_ms"][2:])
           for g, run in runs.items()}
+    # the host steps of tracked frames 2 on (frame 1 captures the graph)
+    host = {g: FP.host_breakdown(run["steps"][2:], run["frame_ms"][2:])
+            for g, run in runs.items()}
     log(f"main path: eager and graphed track_core equal bit for bit on "
         f"{N_FRAMES - 1} tracked frames (every output; the graphed ones "
         f"kept across later replays); no host sync inside track_core "
@@ -1009,29 +1038,45 @@ def phase_main_path(torch, FA, C3, BA):
     # device time a frame: both paths on tracked frames 1-4 again
     kfs = {g: run["keyframes"] for g, run in runs.items()}
     trackers = {g: run["tracker"] for g, run in runs.items()}
-    busy = {}
+    dev = {}
     for g in (False, True):
         def one(i, g=g):
             frame = create_frame(i + 1, (imgs[i + 1] + 1.0) * 0.5,
                                  T_WC=kfs[g].T_WC[0], img_size=IMG_HW[1],
                                  device="cuda")
             trackers[g].track(frame)
-        busy[g] = device_busy_ms(torch, one, PROFILED_FRAMES)
+        dev[g] = device_profile(torch, one, PROFILED_FRAMES, ms[g])
     for g in (False, True):
         check(len(kfs[g]) == 1, "the main path added keyframes")
     check(trackers[True].graphs.captures == 1, "a profiled frame recaptured")
     log("main path: median ms/frame over frames 2-"
         f"{N_FRAMES - 1}: eager {ms[False]:.1f}, graphed {ms[True]:.1f}; "
         f"modes {graphed['modes']}; keyframes {len(graphed['keyframes'])}")
+    smi = FP.smi()
     for g, tag in ((False, "eager"), (True, "graphed")):
-        dev, wall = busy[g]
-        log(f"main path ({tag}): device busy {dev:.2f} ms/frame over "
-            f"{PROFILED_FRAMES} profiled frames ({wall:.1f} ms/frame under "
-            f"the profiler), idle share "
-            f"{max(0.0, 1.0 - dev / ms[g]):.3f} of the unprofiled "
-            f"{ms[g]:.1f} ms frame; peak device memory "
+        d = dev[g]
+        log(f"main path ({tag}): device busy "
+            f"{_fmt(d['busy_ms'], 2)} ms/frame (the events' durations "
+            f"summed: {_fmt(d.get('busy_sum_ms'), 2)}) over "
+            f"{PROFILED_FRAMES} "
+            f"profiled frames ({d['profiled_wall_ms']:.1f} ms/frame under "
+            f"the profiler), idle share {_fmt(d.get('idle_share'), 3)} of "
+            f"the unprofiled {ms[g]:.1f} ms frame: "
+            f"{_fmt(d.get('gap_in_replay_ms'), 2)} ms of gaps inside the "
+            f"replay, {_fmt(d.get('gap_outside_ms'), 2)} ms outside it; "
+            f"kernels/frame from device events {_fmt(d['kernels'], 1)} "
+            f"({_fmt(d['replay_kernels'], 1)} in the replay, replays/frame "
+            f"{_fmt(d['replays'], 2)}); peak device memory "
             f"{runs[g]['peak_gib']:.2f} GiB")
-    if busy[True][0] == 0.0:
+        h = host[g]
+        log(f"main path ({tag}) host steps, median ms of tracked frames 2-"
+            f"{N_FRAMES - 1} (host clock, no sync inside a step): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in h["steps"].items())
+            + f"; sum {h['steps_sum_ms']:.2f} of the {h['frame_ms']:.2f} ms "
+            f"frame ({h['steps_share']:.1%})")
+        log(f"main path ({tag}) breakdown: " + json.dumps(
+            {"smi": smi, "frame_ms": ms[g], "host": h, "device": d}))
+    if not dev[True]["busy_ms"]:
         log("main path: the profiler saw no device event in the graph "
             "replays (device time not measured for the graphed path)")
     del trackers, kfs
@@ -2015,6 +2060,7 @@ CROSS_IMG_SIZE = 128            # 96x128 crops
 CROSS_FRAMES = 8
 CROSS_POSE_TOL = 1e-3
 CROSS_DRIFT_TOL = 0.1
+CROSS_SHARE = 0.995     # of matches, or BA channel elements, that agree
 RELOC_HW = (384, 512)
 RELOC_KF_X = (0.0, 0.6, 1.2, 1.8, 2.4, 3.0)
 RELOC_WORDS = 64
@@ -2450,9 +2496,12 @@ def phase_cli(torch, FA, C3, BA, workdir):
     H, W = IMG_HW
     base = ["--config", cfg_path, "--no-viz"]
 
-    out, launches, rec = run_cli(torch, FA, C3, BA, model, work,
-                                 ["--dataset", str(clip), "--save-as", "main",
-                                  *base], "main")
+    with timed_frame_reads([]) as read_ms:
+        out, launches, rec = run_cli(torch, FA, C3, BA, model, work,
+                                     ["--dataset", str(clip), "--save-as",
+                                      "main", *base], "main")
+    check(len(read_ms) == CLI_FRAMES, f"cli main: {len(read_ms)} frame "
+          f"reads timed, {CLI_FRAMES} frames")
     g = out["graph"]
     kf = out["keyframes"]
     check(len(kf) >= 8, f"cli main: {len(kf)} keyframes, need >= 8")
@@ -2474,6 +2523,7 @@ def phase_cli(torch, FA, C3, BA, workdir):
     parts = cli_parts(rec)
     summary = dict(modes=out["modes"], edge_pairs=graph_edges(g),
                    tracked_ms=parts["track"], step_ms=parts["step"],
+                   read_ms=statistics.median(read_ms),
                    retrieval_ms=parts["retrieval"],
                    add_factors_ms=parts["add_factors"],
                    solve_ms=parts["solve"], keyframes=len(kf),
@@ -2485,7 +2535,9 @@ def phase_cli(torch, FA, C3, BA, workdir):
                    refined=rs["refined_blocks"],
                    rejected=rs["rejected_blocks"])
     log(f"cli main: median tracked frame {parts['track']:.1f} ms over "
-        f"{len(ms['track'])} frames; median backend step {parts['step']:.1f} "
+        f"{len(ms['track'])} frames, median frame read (dataset[i] + "
+        f"create_frame, 480x640 PNG to the 384x512 crop) "
+        f"{summary['read_ms']:.2f} ms; median backend step {parts['step']:.1f} "
         f"ms over {len(ms['step'])} steps (retrieval {parts['retrieval']:.1f}"
         f", add_factors {parts['add_factors']:.1f}, solve "
         f"{parts['solve']:.1f}); keyframes {len(kf)}, edges {g.n_edges()}, "
@@ -2618,14 +2670,47 @@ def phase_cli(torch, FA, C3, BA, workdir):
     return summary
 
 
+def _apart(a, b):
+    """Largest elementwise distance of two tensors."""
+    return float((a.float() - b.float()).abs().max())
+
+
+def _share(a, b):
+    """The share of the elements of two tuples of tensors that agree
+    within ``CROSS_POSE_TOL``, relative to the larger of 1 and the second
+    tensor's largest magnitude."""
+    n = ok = 0
+    for x, y in zip(a, b, strict=True):
+        if x.shape != y.shape:
+            return 0.0
+        x, y = x.float(), y.float()
+        scale = max(1.0, float(y.abs().max()))
+        ok += int(((x - y).abs() <= CROSS_POSE_TOL * scale).sum())
+        n += x.numel()
+    return ok / max(n, 1)
+
+
 def phase_cli_cross(torch, workdir):
     """The CLI with one model on the card and on the CPU: full width, depth
     ``CROSS_DEPTH`` (encoder, decoder), f32, 96x128 crops, ``CROSS_FRAMES``
-    frames. The same mode sequence, keyframes and edges; every tracked pose
-    within ``CROSS_POSE_TOL`` while the two runs' valid matches agree index
-    for index (a random-weight matcher can put a pixel on a near-singular
-    LM step, after which the chains part: then the first frames must agree
-    and the final poses are reported and bounded by ``CROSS_DRIFT_TOL``)."""
+    frames, base.yaml's bundle adjustment (BA). The same mode sequence,
+    keyframes and edges. Every BA solve of the card's run is solved again
+    on the CPU from the card's own inputs (start poses, channels, edges)
+    and must end within ``CROSS_POSE_TOL`` of the card. Every tracked pose
+    within ``CROSS_POSE_TOL`` while the two runs' valid matches agree
+    index for index (a random-weight matcher can put a pixel on a
+    near-singular LM step, after which the chains part: then the first
+    frames must agree and the final poses are reported and bounded by
+    ``CROSS_DRIFT_TOL``). A random-weight BA can be a near-tie as well:
+    inputs that agree to a few 1e-6 end far apart. Where the CPU's own
+    solve parts from the card's while the inputs agree (poses within
+    ``CROSS_POSE_TOL``, the edges equal, ``CROSS_SHARE`` of the edge
+    matches and of the channel elements alike), the CPU solved from the
+    card's inputs is the witness (it lands beside the card, so the
+    reference itself parts that far from a perturbation of that size; the
+    CPU is also solved from the card's start poses with its own channels),
+    and the CPU's run goes on from the card's poses, so that the rest of
+    the clip is compared pose for pose."""
     import os
 
     import numpy as np
@@ -2633,6 +2718,7 @@ def phase_cli_cross(torch, workdir):
     from mast3r_slam_tpu_torch import main as cli
     from mast3r_slam_tpu_torch.models import mast3r as M
     from mast3r_slam_tpu_torch.models.inference import MASt3RInference
+    from mast3r_slam_tpu_torch.slam import factor_graph as FG
     from mast3r_slam_tpu_torch.slam import tracker as T
     from mast3r_slam_tpu_torch.utils.config import load_config
 
@@ -2663,12 +2749,13 @@ def phase_cli_cross(torch, workdir):
     argv = ["--dataset", str(clip), "--config", cfg_path, "--no-viz",
             "--max-frames", str(CROSS_FRAMES)]
     res = {}
-    core = T.track_core
+    core, solve0 = T.track_core, FG.FactorGraph._solve
     cwd = os.getcwd()
     os.chdir(work)
     try:
         for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
-            tracked = []
+            tracked, solves = [], []
+            card = res["cuda"]["solves"] if dev == "cpu" else None
 
             def rec(*a, **kw):
                 out = core(*a, **kw)
@@ -2678,7 +2765,51 @@ def phase_cli_cross(torch, workdir):
                                 out["T_WCf"].cpu()))
                 return out
 
-            T.track_core = rec
+            def solve(graph, kind, solver, solves=solves, card=card):
+                def traced(T_in, meas, *rest):
+                    T_new, iters = solver(T_in, meas, *rest)
+                    E = graph.n_edges()
+                    got = dict(ins=tuple(x.cpu().clone() for x in
+                                         (T_in, *rest[:4])),
+                               meas=tuple(x.cpu().clone() for x in meas),
+                               out=T_new.cpu().clone(), iters=int(iters),
+                               matches=torch.cat([
+                                   torch.where(v[:E, :, 0], i[:E], -1).cpu()
+                                   for i, v in ((graph.idx_ii2jj,
+                                                 graph.valid_match_j),
+                                                (graph.idx_jj2ii,
+                                                 graph.valid_match_i))]))
+                    if card is not None and len(solves) < len(card):
+                        c = card[len(solves)]
+                        fed, it_fed = solver(c["ins"][0].clone(), c["meas"],
+                                             *c["ins"][1:], None, None)
+                        posed = solver(c["ins"][0].clone(), got["meas"],
+                                       *got["ins"][1:], None, None)[0]
+                        got.update(
+                            fed=fed.clone(), fed_iters=int(it_fed),
+                            posed=posed.clone(),
+                            poses_apart=_apart(got["ins"][0], c["ins"][0]),
+                            meas_share=_share(got["meas"], c["meas"]),
+                            match_share=float((got["matches"] == c[
+                                "matches"]).float().mean())
+                            if got["matches"].shape == c["matches"].shape
+                            else 0.0,
+                            edges=all(torch.equal(x, y) for x, y in
+                                      zip(got["ins"][1:], c["ins"][1:])))
+                        if (_apart(got["out"], c["out"]) > CROSS_POSE_TOL
+                                and got["edges"]
+                                and got["poses_apart"] <= CROSS_POSE_TOL
+                                and min(got["match_share"],
+                                        got["meas_share"]) >= CROSS_SHARE):
+                            got["reanchored"] = True
+                            T_new = c["out"].to(T_new.device, T_new.dtype,
+                                                copy=True)
+                    solves.append(got)
+                    return T_new, iters
+
+                solve0(graph, kind, traced)
+
+            T.track_core, FG.FactorGraph._solve = rec, solve
             t0 = time.perf_counter()
             with one_cpu_thread(torch):
                 out = cli.main(argv + ["--save-as", f"cross_{dev}"],
@@ -2689,19 +2820,44 @@ def phase_cli_cross(torch, workdir):
                             kfs=[int(x) for x in kf.dataset_idx[:n]],
                             ii=[int(x) for x in out["graph"].ii],
                             jj=[int(x) for x in out["graph"].jj],
-                            T=kf.T_WC[:n].cpu().numpy(), tracked=tracked)
+                            T=kf.T_WC[:n].cpu().numpy(), tracked=tracked,
+                            solves=solves)
             log(f"cli card vs CPU, {dev}: {time.perf_counter() - t0:.1f} s, "
                 f"modes {''.join(m[0] for m in out['modes'])}, keyframes "
                 f"{res[dev]['kfs']}, edges "
                 f"{list(zip(res[dev]['ii'], res[dev]['jj']))}")
     finally:
-        T.track_core = core
+        T.track_core, FG.FactorGraph._solve = core, solve0
         os.chdir(cwd)
     a, b = res["cuda"], res["cpu"]
     for key in ("modes", "kfs", "ii", "jj"):
         check(a[key] == b[key], f"cli card vs CPU: {key} differ: "
               f"{a[key]} vs {b[key]}")
     check(len(a["kfs"]) >= 2, "cli card vs CPU: no keyframe after the first")
+    check(len(a["solves"]) == len(b["solves"]) > 0,
+          f"cli card vs CPU: {len(a['solves'])} BA solves on the card, "
+          f"{len(b['solves'])} on the CPU")
+    fed_err = []
+    for k, (c, h) in enumerate(zip(a["solves"], b["solves"])):
+        fed_err.append(_apart(h["fed"], c["out"]))
+        log(f"cli card vs CPU: BA solve {k}: LM steps card {c['iters']} CPU "
+            f"{h['iters']} (from the card's inputs {h['fed_iters']}); "
+            f"inputs: poses {h['poses_apart']:.3e} apart, edge matches "
+            f"{h['match_share']:.5f} and channel elements {h['meas_share']:.5f}"
+            f" within {CROSS_POSE_TOL:g} (relative) alike, edges "
+            f"{'equal' if h['edges'] else 'differ'}; the CPU's own solve "
+            f"ends {_apart(h['out'], c['out']):.3e} from the card's; the CPU "
+            f"from the card's inputs {fed_err[-1]:.3e} from the card's and "
+            f"{_apart(h['fed'], h['out']):.3e} from its own; from the card's "
+            f"start poses and its own channels "
+            f"{_apart(h['posed'], c['out']):.3e} from the card's and "
+            f"{_apart(h['posed'], h['out']):.3e} from its own"
+            + ("; the CPU goes on from the card's poses"
+               if h.get("reanchored") else ""))
+    reanchored = [k for k, h in enumerate(b["solves"]) if h.get("reanchored")]
+    check(max(fed_err) <= CROSS_POSE_TOL,
+          f"cli card vs CPU: a BA solve on the CPU from the card's inputs "
+          f"ends {max(fed_err):.3e} from the card's")
     agree = [torch.equal(x[0], y[0])
              for x, y in zip(a["tracked"], b["tracked"])]
     first = agree.index(False) if False in agree else len(agree)
@@ -2710,7 +2866,10 @@ def phase_cli_cross(torch, workdir):
     share = [float((x[0] == y[0]).float().mean())
              for x, y in zip(a["tracked"], b["tracked"])]
     err = float(np.abs(a["T"] - b["T"]).max())
-    log(f"cli card vs CPU: same modes, keyframes and edges; tracked frames "
+    log(f"cli card vs CPU: same modes, keyframes and edges; {len(fed_err)} "
+        f"BA solves, each on the CPU from the card's inputs within "
+        f"{max(fed_err):.3e}, the CPU going on from the card's poses after "
+        f"solves {reanchored}; tracked frames "
         f"with identical valid matches: {first} of {len(agree)} (match "
         f"agreement per frame {['%.5f' % v for v in share]}); tracked pose "
         f"err per frame {['%.2e' % v for v in pose_err]}; keyframe poses max "
@@ -2721,13 +2880,14 @@ def phase_cli_cross(torch, workdir):
         check(err <= CROSS_POSE_TOL,
               f"cli card vs CPU: keyframe poses {err:.3e} apart")
     else:
-        check(first >= 2 and min(share) >= 0.995,
+        check(first >= 2 and min(share) >= CROSS_SHARE,
               f"cli card vs CPU: matches part at tracked frame {first}")
         check(err <= CROSS_DRIFT_TOL,
               f"cli card vs CPU: keyframe poses {err:.3e} apart")
     del gpu_model, cpu_model
     torch.cuda.empty_cache()
-    return dict(err=err, first=first, n=len(agree))
+    return dict(err=err, first=first, n=len(agree),
+                solves=len(fed_err), reanchored=reanchored)
 
 
 # ---------------------------------------------------------------------------
@@ -2780,16 +2940,18 @@ def _host_ms(fn, repeats=HOST_REPEATS):
 
 @contextlib.contextmanager
 def plain_host_read():
-    """Within the block, the readers run the plain versions of this
-    slice's compiled host code, the arithmetic the port read with before
-    it: the PNG unfilter row by row in Python (``png.unfilter_ref``), the
-    remap in numpy (``undistort.remap_bilinear_ref``) and the resize
-    weights built afresh on every call."""
+    """Within the block, the readers run the plain versions of the
+    compiled host code: the PNG unfilter row by row in Python
+    (``png.unfilter_ref``), the remap in numpy
+    (``undistort.remap_bilinear_ref``), the INTER_AREA resize and copy in
+    numpy (``image_ops.resize_area_ref``) and the LANCZOS4 weights built
+    afresh on every call."""
     from mast3r_slam_tpu_torch.data import (image_host, image_ops, png,
                                             undistort)
 
     saved = [(image_host, "png_unfilter", png.unfilter_ref),
              (undistort, "remap_bilinear", undistort.remap_bilinear_ref),
+             (image_host, "resize_area", image_ops.resize_area_ref),
              (image_ops, "resize_weights",
               image_ops.resize_weights.__wrapped__)]
     saved = [(m, n, getattr(m, n), v) for m, n, v in saved]
@@ -2802,20 +2964,134 @@ def plain_host_read():
             setattr(m, n, orig)
 
 
-def host_read_checks(smi):
-    """The compiled host code of the frame read (``data/image_host.py``:
-    the PNG unfilter and the remap) and the cached resize weights against
-    their plain versions on this machine's host, in one call: equal bytes
-    and equal float32 bits, and the median ms of each (``HOST_REPEATS``
-    calls; ``PLAIN_SLOW_REPEATS`` for the plain Average and Paeth
-    decodes). The PNGs are a TUM-size 480x640 RGB frame with one filter
-    type on every row; the remaps EuRoC cam0's (752x480, gray as EuRoC
-    reads it and colour) and TUM freiburg1's (640x480 colour); the resize
-    480x640 -> 384x512 as ``create_frame`` does it, cold (cache emptied
-    before each call), warm, and plain."""
+# resize_img's sizes timed on the host: (name, source H x W, size); the
+# last is the main path's own crop, which the resize copies
+RESIZE_TIMED = (("tum 480x640", (480, 640), 512),
+                ("euroc 480x752", (480, 752), 512),
+                ("replica 680x1200", (680, 1200), 512),
+                ("copy 384x512", (384, 512), 512))
+RESIZE_FIXTURES = ROOT / "tests" / "data" / "resize"
+
+
+def resize_checks(smi):
+    """``resize_img`` (its INTER_AREA pass and copy in compiled code,
+    ``data/image_host.py::resize_area``) against its plain version
+    (``image_ops.resize_area_ref``, :func:`plain_host_read`) at
+    ``RESIZE_TIMED``'s sizes: equal bits of the model and display images,
+    the median host ms of each; then both resizes on each committed
+    fixture's seeded input against the SHA-256 of cv2.resize's output
+    recorded beside it (this machine has no cv2)."""
+    import hashlib
+
     import numpy as np
 
-    from mast3r_slam_tpu_torch.data import image_ops, png
+    from mast3r_slam_tpu_torch.data import image_host, image_ops
+
+    out = {}
+    rng = np.random.default_rng(8)
+    for name, hw, size in RESIZE_TIMED:
+        img = rng.random((*hw, 3)).astype(np.float32)
+        new = image_ops.resize_img(img, size)
+        ms = _host_ms(lambda: image_ops.resize_img(img, size))
+        with plain_host_read():
+            plain = image_ops.resize_img(img, size)
+            plain_ms = _host_ms(lambda: image_ops.resize_img(img, size),
+                                PLAIN_SLOW_REPEATS * 3)
+        check(new["img"].dtype == np.float32
+              and np.array_equal(new["img"].view(np.int32),
+                                 plain["img"].view(np.int32))
+              and np.array_equal(new["unnormalized_img"],
+                                 plain["unnormalized_img"]),
+              f"data: resize_img {name} differs from its plain version")
+        out[name] = dict(ms=ms, plain_ms=plain_ms,
+                         crop=list(new["img"].shape[1:3]))
+    rec = json.loads((RESIZE_FIXTURES / "fixtures.json").read_text())
+    inputs = _test_writer("torch_resize_inputs")
+    for name, r in sorted(rec["resizes"].items()):
+        img = inputs.seeded_image(tuple(r["input"]), r["seed"])
+        check(hashlib.sha256(img.tobytes()).hexdigest() == r["input_sha256"],
+              f"data: the resize fixture {name}'s input is not the one "
+              f"recorded")
+        for fn, what in ((image_host.resize_area, "compiled"),
+                         (image_ops.resize_area_ref, "plain")):
+            got = fn(img, r["out_hw"])
+            digest = hashlib.sha256(got.tobytes()).hexdigest()
+            check(list(got.shape) == r["shape"] and digest == r["sha256"],
+                  f"data: the {what} resize of {name} {got.shape} "
+                  f"{digest[:16]}, cv2 {r['shape']} {r['sha256'][:16]}")
+    out["fixtures"] = len(rec["resizes"])
+    log("data: resize_img host ms, compiled / plain (median of "
+        f"{HOST_REPEATS} / {PLAIN_SLOW_REPEATS * 3}; equal bits): "
+        + ", ".join(f"{n} -> {out[n]['crop'][0]}x{out[n]['crop'][1]} "
+                    f"{out[n]['ms']:.3f} / {out[n]['plain_ms']:.2f}"
+                    for n, _, _ in RESIZE_TIMED)
+        + f"; compiled and plain resizes equal cv2 {rec['opencv']}'s "
+        f"digests on {out['fixtures']} fixtures; on {smi}")
+    return out
+
+
+def frame_read_steps(tum, smi):
+    """A TUM frame's read on this machine's host, step by step, as
+    ``dataset[i]`` + ``create_frame`` make it under ``use_calib``: the PNG
+    decode, the conversion to float, freiburg1's remap, then
+    ``create_frame``'s steps (``utils/tictoc.py::STEPS``: the resize with
+    the model and display images, the upload from pinned memory, the
+    display image as float, the pose); median ms of ``HOST_REPEATS``
+    reads, each ended by a device sync."""
+    import numpy as np
+    import torch
+
+    from mast3r_slam_tpu_torch.data import png
+    from mast3r_slam_tpu_torch.data.datasets import Intrinsics
+    from mast3r_slam_tpu_torch.slam.pipeline import create_frame
+    from mast3r_slam_tpu_torch.utils.tictoc import STEPS
+
+    data = _test_writer("torch_png_writer").encode_png(tum)
+    intr = Intrinsics(*TUM_FR1[:6], TUM_FR1[6], cfg={})
+    reads, totals = [], []
+    STEPS.start()
+    try:
+        for _ in range(HOST_REPEATS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            STEPS.mark()
+            img = png.decode_png(data)
+            STEPS.lap("decode")
+            img = img.astype(np.float32) / 255.0
+            STEPS.lap("to float")
+            img = intr.remap(img)
+            STEPS.lap("remap")
+            create_frame(0, img, img_size=512, device="cuda")
+            torch.cuda.synchronize()
+            STEPS.lap("end sync")
+            totals.append((time.perf_counter() - t0) * 1e3)
+            reads.append(STEPS.end_frame())
+    finally:
+        STEPS.stop()
+    reads, totals = reads[1:], totals[1:]
+    steps = {k: statistics.median(r[k] for r in reads) for k in reads[0]}
+    total = statistics.median(totals)
+    log(f"data: TUM fr1 frame read by step (480x640 PNG, calibrated, to "
+        f"the 384x512 crop on the card), median ms of {HOST_REPEATS}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in steps.items())
+        + f"; read {total:.2f} ms; on {smi}")
+    return dict(steps=steps, ms=total)
+
+
+def host_read_checks(smi):
+    """The compiled host code of the frame read (``data/image_host.py``:
+    the PNG unfilter, the remap and the resize) against their plain
+    versions on this machine's host, in one call: equal bytes and equal
+    float32 bits, and the median ms of each (``HOST_REPEATS`` calls;
+    ``PLAIN_SLOW_REPEATS`` for the plain Average and Paeth decodes). The
+    PNGs are a TUM-size 480x640 RGB frame with one filter type on every
+    row; the remaps EuRoC cam0's (752x480, gray as EuRoC reads it and
+    colour) and TUM freiburg1's (640x480 colour); the resizes
+    :func:`resize_checks`'; then a TUM frame's read step by step
+    (:func:`frame_read_steps`)."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.data import png
     from mast3r_slam_tpu_torch.data.datasets import Intrinsics
 
     out = {}
@@ -2853,24 +3129,6 @@ def host_read_checks(smi):
               f"data: {key} differs from its plain version")
         out[key] = dict(ms=_host_ms(lambda: intr.remap(frame)),
                         plain_ms=plain_ms)
-    img = tum.astype(np.float32) / 255.0
-
-    def cold():
-        image_ops.resize_weights.cache_clear()
-        return image_ops.resize_img(img, 512)
-
-    new = cold()
-    warm = image_ops.resize_img(img, 512)
-    with plain_host_read():
-        plain = image_ops.resize_img(img, 512)
-        plain_ms = _host_ms(lambda: image_ops.resize_img(img, 512))
-    check(new["img"].shape == (1, *IMG_HW, 3)
-          and all(np.array_equal(new[k], warm[k])
-                  and np.array_equal(new[k], plain[k]) for k in new),
-          "data: resize_img with cached weights differs from its plain "
-          "version")
-    out["resize"] = dict(cold_ms=_host_ms(cold), plain_ms=plain_ms,
-                         ms=_host_ms(lambda: image_ops.resize_img(img, 512)))
     log(f"data: host ms, compiled / plain (median of {HOST_REPEATS}; plain "
         f"Average and Paeth of {PLAIN_SLOW_REPEATS}), equal bytes and bits: "
         f"480x640 RGB PNG decode "
@@ -2882,10 +3140,9 @@ def host_read_checks(smi):
         f"{out['remap_euroc_rgb']['ms']:.2f} / "
         f"{out['remap_euroc_rgb']['plain_ms']:.2f}, TUM fr1 640x480x3 "
         f"{out['remap_tum_rgb']['ms']:.2f} / "
-        f"{out['remap_tum_rgb']['plain_ms']:.2f}; resize_img 480x640 -> "
-        f"384x512 warm {out['resize']['ms']:.2f}, cold "
-        f"{out['resize']['cold_ms']:.2f}, plain "
-        f"{out['resize']['plain_ms']:.2f}; on {smi}")
+        f"{out['remap_tum_rgb']['plain_ms']:.2f}; on {smi}")
+    out["resize"] = resize_checks(smi)
+    out["read_steps"] = frame_read_steps(tum, smi)
     return out
 
 
@@ -4564,8 +4821,10 @@ def main():
         + ", ".join(f"{n} {data[f'png_{n.lower()}']['ms']:.2f} / "
                     f"{data[f'png_{n.lower()}']['plain_ms']:.2f}"
                     for n in PNG_FILTERS)
-        + f"; resize_img warm / cold / plain {data['resize']['ms']:.2f} / "
-        f"{data['resize']['cold_ms']:.2f} / {data['resize']['plain_ms']:.2f}"
+        + "; resize_img compiled / plain " + ", ".join(
+            f"{n} {data['resize'][n]['ms']:.3f} / "
+            f"{data['resize'][n]['plain_ms']:.2f}" for n, _, _ in RESIZE_TIMED)
+        + f"; TUM fr1 frame read {data['read_steps']['ms']:.2f}"
         f"; per 1200x680 Replica decode {data['decode_ms']:.2f} (smooth, "
         f"{data['decode_bytes']} bytes) / {data['decode_noisy_ms']:.2f} "
         f"(noisy, {data['decode_noisy_bytes']} bytes), progressive "

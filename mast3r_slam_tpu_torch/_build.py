@@ -92,19 +92,23 @@ def build_all(names, log=None) -> dict[str, Path]:
     return paths
 
 
-def build_host(src: Path, build_dir: Path, what: str) -> Path:
-    """Compile host C++ source ``src`` with ``g++ -O2`` (no ``-march``: the
-    library is never committed or carried between machines) into
-    ``build_dir``, named by a hash of the source, unless it is built
-    already. Raises, naming ``what``, when it cannot be built."""
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+def build_host(src: Path, build_dir: Path, what: str,
+               flags: tuple = ()) -> Path:
+    """Compile host C++ source ``src`` with ``g++ -O2`` and ``flags`` (no
+    ``-march``: the library is never committed or carried between
+    machines) into ``build_dir``, named by a hash of the source and the
+    flags, unless it is built already. Raises, naming ``what``, when it
+    cannot be built."""
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()[:16]
     so = build_dir / f"lib{src.stem}-{digest}.so"
     if so.exists():
         return so
     build_dir.mkdir(parents=True, exist_ok=True)
     # a name of its own per process: test workers may build at once
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = ["g++", "-O2", "-shared", "-fPIC", str(src), "-o", str(tmp)]
+    cmd = ["g++", "-O2", *flags, "-shared", "-fPIC", str(src), "-o",
+           str(tmp)]
     try:
         subprocess.run(cmd, check=True, capture_output=True, text=True)
     except (subprocess.CalledProcessError, FileNotFoundError) as e:

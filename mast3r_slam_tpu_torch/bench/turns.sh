@@ -6,8 +6,8 @@
 #   bash mast3r_slam_tpu_torch/bench/turns.sh OUT PHASES DIR...
 #
 # Run n's output goes to OUT/<n>-<basename of DIR>.txt. At the end it
-# prints every run's event, CLI and phase-time lines; it exits 1 if any
-# run failed.
+# prints every run's main-path frame, event, CLI and phase-time lines; it
+# exits 1 if any run failed.
 set -u
 out=$(realpath -m "$1")
 phases=$2
@@ -23,5 +23,6 @@ for dir in "$@"; do
   echo "run $n $(basename "$dir"): exit $r"
   [ "$r" -eq 0 ] || rc=1
 done
-grep -HE "^(event:|cli main:|phase times)" "$out"/*.txt | cut -c1-400
+grep -HE "^(main path: median|event:|cli main:|phase times)" "$out"/*.txt \
+  | cut -c1-400
 exit "$rc"

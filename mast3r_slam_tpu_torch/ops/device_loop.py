@@ -92,6 +92,13 @@ def capturing(pool, body_stream):
         _local.capture = None
 
 
+def capturing_here():
+    """Whether the calling thread is inside :func:`capturing`, i.e. is
+    capturing a CUDA graph (in thread-local mode: it may not destroy
+    graphs or their executables until the capture ends)."""
+    return getattr(_local, "capture", None) is not None
+
+
 def run(cap, live, step):
     """``step()`` at most ``cap`` times while ``live`` holds (see module
     docstring)."""

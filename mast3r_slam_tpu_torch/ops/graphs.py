@@ -23,16 +23,36 @@ count launches that ran: a capture adds nothing
 (``_build.LaunchRecording``), each replay adds the captured counts and
 each loop's launches a step times the steps its node ran (summed on the
 device). A caller that lets go of a buffer its graphs read in place
-drops them (:meth:`GraphCache.drop`). A failed capture or replay raises;
+drops them (:meth:`GraphCache.drop`). A graph let go of inside a
+capture in its thread (the cyclic garbage collector runs where Python
+allocates) is freed after that capture. A failed capture or replay raises;
 nothing falls back to the eager path.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from mast3r_slam_tpu_torch import _build
 from mast3r_slam_tpu_torch.ops import device_loop
+from mast3r_slam_tpu_torch.utils.tictoc import STEPS
+
+
+# what _Captured.__del__ could not free because its thread was capturing
+# (the cyclic garbage collector runs wherever Python allocates, a capture
+# included): freed by the next GraphCache call outside a capture
+_deferred = []
+_deferred_lock = threading.RLock()
+
+
+def _free_deferred():
+    with _deferred_lock:
+        parts = _deferred[:]
+        _deferred.clear()
+    for free in parts:
+        free()
 
 
 def _map(fn, out):
@@ -57,6 +77,10 @@ class GraphCache:
 
     def __init__(self, name):
         self.name = name
+        # the replay's host steps, as :data:`STEPS` names them
+        self._laps = tuple(f"{name}: {step}" for step in (
+            "graph key", "input copies", "launch", "counters",
+            "output clones"))
         self._graphs = {}
         self._owner = None
         self.captures = 0
@@ -76,21 +100,30 @@ class GraphCache:
         if owner is not self._owner:
             self._graphs.clear()
             self._owner = owner
+        if _deferred and not device_loop.capturing_here():
+            _free_deferred()
         with torch.cuda.device(dev):
             graph = self._graphs.get(full)
             if graph is None:
                 out, self._graphs[full] = self._capture(fn, inputs, static)
                 return out
+            key_lap, copy_lap, launch_lap, count_lap, clone_lap = self._laps
+            STEPS.lap(key_lap)
             for i, (buf, t) in enumerate(zip(graph.inputs, inputs)):
                 if i not in static:
                     buf.copy_(t)
                 elif buf is not t:
                     raise ValueError(f"{self.name}: input {i} is kept as the "
                                      "graph's buffer; pass the same tensor")
+            STEPS.lap(copy_lap)
             graph.exec.launch()
+            STEPS.lap(launch_lap)
             graph.launches.replayed()
             self.replays += 1
-            return _map(torch.clone, graph.outputs)
+            STEPS.lap(count_lap)
+            out = _map(torch.clone, graph.outputs)
+            STEPS.lap(clone_lap)
+            return out
 
     def _capture(self, fn, inputs, static):
         bufs = tuple(t if i in static else t.clone()
@@ -117,6 +150,8 @@ class GraphCache:
         for t in _tensors(out):
             t.record_stream(main)
         self.captures += 1
+        if _deferred and not device_loop.capturing_here():
+            _free_deferred()
         return out, graph
 
     def drop(self, buf):
@@ -158,7 +193,17 @@ class _Captured:
 
     def __del__(self):
         self.outputs = None
-        if self.exec is not None:
-            self.exec.destroy()
-        self.graph.reset()
-        self.pool.release()
+        exec_, graph, pool = self.exec, self.graph, self.pool
+
+        def free():
+            if exec_ is not None:
+                exec_.destroy()
+            graph.reset()
+            pool.release()
+
+        if device_loop.capturing_here():
+            # a capture in this thread refuses the destroys: later
+            with _deferred_lock:
+                _deferred.append(free)
+        else:
+            free()

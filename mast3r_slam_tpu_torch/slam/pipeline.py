@@ -19,10 +19,55 @@ import time
 import numpy as np
 import torch
 
-from mast3r_slam_tpu_torch.data.image_ops import resize_img
+from mast3r_slam_tpu_torch.data.image_ops import resize_img, resize_plan
 from mast3r_slam_tpu_torch.ops import lie
 from mast3r_slam_tpu_torch.parallel import sharding as S
 from mast3r_slam_tpu_torch.slam.frame import Frame, KeyframeBuffer, Mode, States
+from mast3r_slam_tpu_torch.utils.tictoc import STEPS
+
+
+class _Staging:
+    """A pinned host buffer a frame's model image is written into and
+    uploaded from (``non_blocking``), and the event of that upload."""
+
+    def __init__(self, shape):
+        self.host = torch.empty(shape, dtype=torch.float32, pin_memory=True)
+        self.event = None
+
+
+_STAGING: dict = {}     # (shape, device) -> [_Staging, ...], least recent first
+_STAGING_LOCK = threading.Lock()
+_STAGING_DEPTH = 2      # buffers a shape; past that, wait for the oldest
+
+
+def _upload_model_image(img_np, img_size, device):
+    """``resize_img``'s pass writing the model image straight into a
+    pinned staging buffer, then one ``non_blocking`` copy to ``device`` on
+    its current stream. A buffer is written again only once the event of
+    its last copy has completed. Returns the result dict and the device
+    image."""
+    _, (y0, y1, x0, x1), _ = resize_plan(*img_np.shape[:2], img_size)
+    shape = (y1 - y0, x1 - x0, img_np.shape[2])
+    with _STAGING_LOCK:
+        ring = _STAGING.setdefault((shape, device), [])
+        slot = next((b for b in ring
+                     if b.event is None or b.event.query()), None)
+        if slot is None and len(ring) < _STAGING_DEPTH:
+            slot = _Staging(shape)
+        elif slot is None:
+            slot = ring[0]
+            slot.event.synchronize()
+        if slot in ring:
+            ring.remove(slot)
+        ring.append(slot)
+        res = resize_img(img_np, img_size, model_out=slot.host.numpy())
+        STEPS.lap("create_frame: resize")
+        with torch.cuda.device(device):
+            img = torch.empty(shape, dtype=torch.float32, device=device)
+            img.copy_(slot.host, non_blocking=True)
+            slot.event = torch.cuda.Event()
+            slot.event.record()
+    return res, img
 
 
 def create_frame(frame_id: int, img_np: np.ndarray, T_WC=None,
@@ -31,24 +76,41 @@ def create_frame(frame_id: int, img_np: np.ndarray, T_WC=None,
     """Host image ``(H, W, 3) float32 [0, 1]`` → model-crop Frame on
     ``device``, resized and cropped by ``data/image_ops.py::resize_img``.
 
+    On a card the model image is written by the resize's own pass into a
+    pinned staging buffer and uploaded from there without a host wait (the
+    buffer is reused once that copy's event has completed); on the CPU it
+    is the resize's array itself.
+
     ``downsample`` (``dataset.img_downsample``) decimates the display image
     ``uimg`` and ``img_shape``; the working pointmaps are decimated by the
     same stride at the inference layer, and ``img_true_shape`` stays the
     model crop."""
-    res = resize_img(img_np, img_size)
+    STEPS.mark()
+    device = torch.device(device)
+    if device.type == "cuda":
+        res, img = _upload_model_image(img_np, img_size, device)
+    else:
+        res = resize_img(img_np, img_size)
+        STEPS.lap("create_frame: resize")
+        img = torch.as_tensor(res["img"][0], device=device)
     h, w = (int(v) for v in res["true_shape"][0])
-    img = torch.as_tensor(res["img"][0], device=device)
-    uimg = res["unnormalized_img"].astype(np.float32) / 255.0
+    STEPS.lap("create_frame: upload")
+    # astype(float32) / 255.0 in one pass: the same bits, one array
+    uimg = np.divide(res["unnormalized_img"], np.float32(255.0),
+                     dtype=np.float32)
     img_shape = (h, w)
     if downsample > 1:
         uimg = uimg[::downsample, ::downsample]
         img_shape = (h // downsample, w // downsample)
+    STEPS.lap("create_frame: display")
     if T_WC is None:
         T_WC = lie.identity(device=device)
-    return Frame(frame_id=frame_id, img=img, img_shape=img_shape,
-                 img_true_shape=(h, w), uimg=uimg,
-                 T_WC=torch.as_tensor(T_WC, dtype=torch.float32,
-                                      device=device))
+    frame = Frame(frame_id=frame_id, img=img, img_shape=img_shape,
+                  img_true_shape=(h, w), uimg=uimg,
+                  T_WC=torch.as_tensor(T_WC, dtype=torch.float32,
+                                       device=device))
+    STEPS.lap("create_frame: pose")
+    return frame
 
 
 def _retrieval_args(cfg):

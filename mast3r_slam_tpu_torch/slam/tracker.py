@@ -36,6 +36,7 @@ from mast3r_slam_tpu_torch.ops import (device_loop, geometry, graphs, lie,
 from mast3r_slam_tpu_torch.ops.robust import huber
 from mast3r_slam_tpu_torch.slam.frame import (Frame, fuse_weighted_spherical,
                                                median)
+from mast3r_slam_tpu_torch.utils.tictoc import STEPS
 
 
 def _normal_7x7(sqrt_info, r, J, huber_k):
@@ -427,10 +428,39 @@ class TrackGraphs(graphs.GraphCache):
     "scfg", "model_hw"))``. The key is what that jit is static on, plus the
     device, the inputs' shapes and dtypes and the identity of ``params``.
     The LM loops of the matcher and the pose solve are conditional WHILE
-    nodes: two loop nodes a replay."""
+    nodes: two loop nodes a replay.
+
+    The keyframe snapshot (``feat_k``, ``pos_k``, ``X_k``, ``C_k``,
+    ``T_WCk``) is the graphs' own: :meth:`snapshot_buffers` hands the
+    tracker buffers it copies the keyframe into under the keyframes' lock,
+    and every graph reads them in place (``static`` inputs), one copy a
+    tensor. A capture's eager call reads them as well; an output of it
+    that shares their memory is handed back as a clone, since the next
+    frame's snapshot overwrites them."""
+
+    SNAPSHOT = (1, 2, 4, 5, 8)      # inputs: feat_k, pos_k, X_k, C_k, T_WCk
 
     def __init__(self):
         super().__init__("track")
+        self._snapshot = None
+        self._snapshot_spec = None
+
+    def snapshot_buffers(self, kfs):
+        """``(feat_k (1, Np, D), pos_k (1, Np, 2), X_k (n, 3), C_k (n, 1),
+        T_WCk (8,))`` for keyframes like ``kfs``'s, made at first use; a
+        keyframe buffer of another geometry gets new ones, and the graphs
+        that read the old ones go."""
+        spec = tuple((tuple(t.shape[1:]), t.dtype, t.device)
+                     for t in (kfs.feat, kfs.pos, kfs.X, kfs.C, kfs.T_WC))
+        if spec != self._snapshot_spec:
+            for buf in self._snapshot or ():
+                self.drop(buf)
+            self._snapshot = tuple(
+                torch.empty(((1,) if i < 2 else ()) + shape, dtype=dt,
+                            device=dev)
+                for i, (shape, dt, dev) in enumerate(spec))
+            self._snapshot_spec = spec
+        return self._snapshot
 
     def __call__(self, fn, params, mcfg, img, feat_k, pos_k, idx_init, X_k,
                  C_k, N_k, T_WCf_init, T_WCk, K, img_hw, use_calib, scfg,
@@ -439,12 +469,22 @@ class TrackGraphs(graphs.GraphCache):
                   T_WCk, K)
         static = (mcfg, tuple(img_hw), bool(use_calib), scfg,
                   None if model_hw is None else tuple(model_hw))
+        snap = self._snapshot is not None and all(
+            inputs[i] is b for i, b in zip(self.SNAPSHOT, self._snapshot))
 
         def run(*args):
             return fn(params, mcfg, *args, img_hw, use_calib, scfg,
                       model_hw=model_hw)
 
-        return self.run(static, run, inputs, owner=params)
+        return self.run(static, run, inputs, owner=params,
+                        static=self.SNAPSHOT if snap else ())
+
+    def _capture(self, fn, inputs, static):
+        out, graph = super()._capture(fn, inputs, static)
+        held = {inputs[i].untyped_storage().data_ptr() for i in static}
+        return graphs._map(
+            lambda t: (t.clone() if t.untyped_storage().data_ptr() in held
+                       else t), out), graph
 
 
 class FrameTracker:
@@ -472,18 +512,33 @@ class FrameTracker:
         self._warm_kf_idx = None
 
     def track(self, frame: Frame):
+        STEPS.mark()
         cfg = self.cfg
         kfs = self.keyframes
         kf_idx = len(kfs) - 1
+        # on a card, the graphs' own snapshot buffers (one copy a tensor);
+        # eagerly and on the CPU, clones
+        snap = (self.graphs.snapshot_buffers(kfs)
+                if self.graphs is not None and kfs.device.type == "cuda"
+                else None)
         with kfs.lock:
-            feat_k = kfs.feat[kf_idx][None].clone()
-            pos_k = kfs.pos[kf_idx][None].clone()
-            X_k = kfs.X[kf_idx].clone()
-            C_k = kfs.C[kf_idx].clone()
+            if snap is None:
+                feat_k = kfs.feat[kf_idx][None].clone()
+                pos_k = kfs.pos[kf_idx][None].clone()
+                X_k = kfs.X[kf_idx].clone()
+                C_k = kfs.C[kf_idx].clone()
+                T_WCk = kfs.T_WC[kf_idx].clone()
+            else:
+                feat_k, pos_k, X_k, C_k, T_WCk = snap
+                feat_k[0].copy_(kfs.feat[kf_idx])
+                pos_k[0].copy_(kfs.pos[kf_idx])
+                X_k.copy_(kfs.X[kf_idx])
+                C_k.copy_(kfs.C[kf_idx])
+                T_WCk.copy_(kfs.T_WC[kf_idx])
             N_k = int(kfs.N[kf_idx])
-            T_WCk = kfs.T_WC[kf_idx].clone()
             kf_frame_id = int(kfs.dataset_idx[kf_idx])
             ver_k = int(kfs.version[kf_idx])
+        STEPS.lap("track: snapshot")
 
         n = kfs.h * kfs.w
         if self._warm_kf_idx is not None and self._warm_kf_idx != kf_idx:
@@ -497,17 +552,20 @@ class FrameTracker:
         img_hw = (kfs.h, kfs.w)
         # a fill, not a host-to-device copy
         N_k = torch.full((), N_k, dtype=torch.float32, device=kfs.device)
+        scfg = make_scfg(self.cfg, self.match_cfg)
+        STEPS.lap("track: small inputs")
 
         out = track_core(
             self.model.params, self.model.cfg, frame.img[None], feat_k,
             pos_k, idx_init, X_k, C_k, N_k, frame.T_WC, T_WCk, K, img_hw,
-            bool(self.use_calib), make_scfg(self.cfg, self.match_cfg),
-            model_hw=tuple(kfs.model_hw),
+            bool(self.use_calib), scfg, model_hw=tuple(kfs.model_hw),
             graphs=self.graphs if kfs.device.type == "cuda" else None)
+        STEPS.lap("track: track_core")
         # the frame's host decisions, in one device-to-host read
         match_frac, ok, match_frac_k, unique_frac_f, N_k_new = torch.stack([
             out["match_frac"], out["ok"].float(), out["match_frac_k"],
             out["unique_frac_f"], out["N_k_new"]]).tolist()
+        STEPS.lap("track: decision read")
 
         self.idx_f2k = out["idx_f2k"]
         self._warm_kf_idx = kf_idx
@@ -519,9 +577,11 @@ class FrameTracker:
 
         if match_frac < cfg["min_match_frac"]:
             print(f"Skipped frame {frame.frame_id}")
+            STEPS.lap("track: rest")
             return False, [], True
         if not ok:
             print(f"Cholesky failed {frame.frame_id}")
+            STEPS.lap("track: rest")
             return False, [], True
 
         self._submit_quality(out, kf_idx, kf_frame_id, img_hw)
@@ -549,6 +609,7 @@ class FrameTracker:
             self.last_kf_match = (kf_idx, out["idx_f2k"], out["valid_match"],
                                   out["Qk"])
             self.reset_idx_f2k()
+        STEPS.lap("track: rest")
         return (new_kf,
                 [out["X_k_new"], out["C_k_new"], frame.X_canon, frame.C,
                  out["Qkf"], out["Qff"]],

@@ -1,14 +1,16 @@
 """Device-aware tic/toc timers (counterpart of
 ``mast3r_slam_tpu/utils/tictoc.py``): :func:`sync` waits for the card,
 :func:`section` accumulates named timings (with ``sync_device=True`` it
-times the enclosed device work with CUDA events), and :func:`trace` wraps
-``torch.profiler``.
+times the enclosed device work with CUDA events), :func:`trace` wraps
+``torch.profiler``, and :data:`STEPS` times the steps of a tracked frame's
+host work by host clock (:class:`HostSteps`).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import threading
 import time
 
 import torch
@@ -104,3 +106,57 @@ def trace(logdir: str = "torch-trace"):
     path = os.path.join(logdir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"[tictoc] trace written to {path}")
+
+
+class HostSteps:
+    """Host-clock laps of a frame's named steps (``create_frame``, the
+    tracker's snapshot and small inputs, the graph's input copies, launch,
+    counters and output clones, the decision read, the rest of ``track``):
+    the breakdown ``scripts/profile_torch_track.py`` and ``chip_smoke.py``
+    print. The instrumented code calls :meth:`mark` where a run of steps
+    starts and :meth:`lap` at the end of each step; both are a flag test
+    unless :meth:`start` turned the recorder on, and then record only in
+    the thread that did. Nothing here syncs the device: a step's time is
+    the host's, and work it queues on the card is not in it."""
+
+    def __init__(self):
+        self.on = False
+        self._thread = None
+        self._t = 0.0
+        self._frame = {}
+        self.frames = []          # one dict a frame: step -> ms
+
+    def start(self):
+        """Record from now on, in this thread; forget earlier frames."""
+        self._thread = threading.get_ident()
+        self._frame, self.frames = {}, []
+        self._t = time.perf_counter()
+        self.on = True
+
+    def stop(self):
+        self.on = False
+
+    def _mine(self):
+        return self.on and threading.get_ident() == self._thread
+
+    def mark(self):
+        """A run of steps starts here."""
+        if self._mine():
+            self._t = time.perf_counter()
+
+    def lap(self, name):
+        """Step ``name`` ends here (it began at the last mark or lap)."""
+        if self._mine():
+            t = time.perf_counter()
+            self._frame[name] = self._frame.get(name, 0.0) + (t - self._t)
+            self._t = t
+
+    def end_frame(self):
+        """Close the frame: its steps in ms, appended to :attr:`frames`."""
+        ms = {k: v * 1e3 for k, v in self._frame.items()}
+        self._frame = {}
+        self.frames.append(ms)
+        return ms
+
+
+STEPS = HostSteps()

@@ -19,7 +19,7 @@ from mast3r_slam_tpu.data import image_ops as JI  # noqa: E402
 from mast3r_slam_tpu.utils import config as JCfg  # noqa: E402
 from mast3r_slam_tpu_torch.data import datasets as TD  # noqa: E402
 from mast3r_slam_tpu_torch.data import image_ops as TI  # noqa: E402
-from mast3r_slam_tpu_torch.data import imread, png  # noqa: E402
+from mast3r_slam_tpu_torch.data import image_host, imread, png  # noqa: E402
 
 RNG = np.random.default_rng(31)
 FILTERS = ["NONE", "SUB", "UP", "AVG", "PAETH"]
@@ -106,12 +106,18 @@ def test_png_refuses_16_bit_and_interlaced(tmp_path):
     (1200, 512), (680, 290),                                    # Replica
     (500, 512), (333, 341), (400, 512)])                        # enlarging
 def test_resize_weights_match_cv2(n_in, n_out):
-    """The (out, in) weight matrices against cv2.resize of one-hot rows:
-    INTER_AREA when shrinking, INTER_LANCZOS4 when enlarging (cv2 rounds
+    """One axis's resize against cv2.resize of one-hot rows: shrinking,
+    INTER_AREA through the compiled pass and its plain version, bit for
+    bit; enlarging, the INTER_LANCZOS4 (out, in) weight matrix (cv2 rounds
     its weights to f32)."""
-    interp = cv2.INTER_AREA if n_out < n_in else cv2.INTER_LANCZOS4
     eye = np.eye(n_in, dtype=np.float32)
-    want = cv2.resize(eye, (n_out, n_in), interpolation=interp).T
+    if n_out < n_in:
+        want = cv2.resize(eye, (n_out, n_in), interpolation=cv2.INTER_AREA)
+        for fn in (image_host.resize_area, TI.resize_area_ref):
+            np.testing.assert_array_equal(fn(eye, (n_in, n_out)), want)
+        return
+    want = cv2.resize(eye, (n_out, n_in),
+                      interpolation=cv2.INTER_LANCZOS4).T
     np.testing.assert_allclose(TI.resize_weights(n_in, n_out), want,
                                rtol=0, atol=3e-7)
 
@@ -119,23 +125,42 @@ def test_resize_weights_match_cv2(n_in, n_out):
 @pytest.mark.parametrize("n_in,n_out", [(480, 384), (640, 512), (752, 512),
                                         (500, 512), (96, 96)])
 def test_resize_weights_are_built_once(n_in, n_out, monkeypatch):
-    """The weights of a size pair are built on the first call and then
-    returned from the cache: the same read-only array, equal to a fresh
-    build; ``resize_img`` gives the same bits cold, warm and with weights
-    built afresh on every call."""
-    TI.resize_weights.cache_clear()
-    W = TI.resize_weights(n_in, n_out)
-    fresh = (TI.area_weights(n_in, n_out) if n_out < n_in
-             else np.eye(n_in) if n_out == n_in
-             else TI.lanczos4_weights(n_in, n_out))
-    assert TI.resize_weights(n_in, n_out) is W
-    assert TI.resize_weights.cache_info().hits >= 1
-    np.testing.assert_array_equal(W, fresh)
-    assert not W.flags.writeable
-    with pytest.raises(ValueError, match="read-only"):
-        W[0, 0] = 1.0
+    """A size pair's resize table is built on the first call and then
+    returned from the cache: the same read-only arrays, equal to a fresh
+    build (LANCZOS4's weight matrix when enlarging, INTER_AREA's tap table
+    when shrinking; the same size builds none); ``resize_img`` gives the
+    same bits cold, warm and with the weights built afresh on every
+    call."""
     img = RNG.random((n_in, n_in * 4 // 3, 3)).astype(np.float32)
-    TI.resize_weights.cache_clear()
+    if n_out == n_in:
+        def refused(*a, **k):
+            raise AssertionError("the copy built a table")
+
+        monkeypatch.setattr(TI, "resize_weights", refused)
+        monkeypatch.setattr(TI, "area_table", refused)
+        cold, warm = TI.resize_img(img, n_out), TI.resize_img(img, n_out)
+        for k in cold:
+            assert np.array_equal(cold[k], warm[k])
+        return
+    cached = TI.resize_weights if n_out > n_in else TI.area_table
+    cached.cache_clear()
+    built = cached(n_in, n_out)
+    assert cached(n_in, n_out) is built
+    assert cached.cache_info().hits >= 1
+    fresh = cached.__wrapped__(n_in, n_out)
+    if n_out > n_in:
+        built, fresh = (built,), (fresh,)
+        np.testing.assert_array_equal(built[0],
+                                      TI.lanczos4_weights(n_in, n_out))
+    else:
+        with pytest.raises(ValueError, match="shrinks"):
+            TI.resize_weights(n_in, n_out)
+    for got, want in zip(built, fresh, strict=True):
+        np.testing.assert_array_equal(got, want)
+        assert not got.flags.writeable
+        with pytest.raises(ValueError, match="read-only"):
+            got[0] = 1
+    cached.cache_clear()
     cold = TI.resize_img(img, n_out)
     warm = TI.resize_img(img, n_out)
     monkeypatch.setattr(TI, "resize_weights", TI.resize_weights.__wrapped__)
@@ -172,9 +197,13 @@ def test_quality_resize_matches_cv2(n_in, n_out, kind):
 @pytest.mark.parametrize("hw,size", [
     ((480, 640), 512), ((480, 640), 96), ((480, 640), 224),
     ((333, 500), 512), ((400, 400), 512), ((480, 752), 512),
-    ((458, 739), 512), ((680, 1200), 512)])
+    ((458, 739), 512), ((680, 1200), 512), ((384, 512), 512),
+    ((768, 1024), 512)])
 def test_resize_img_matches_jax(hw, size):
-    """Same crop, true_shape and transformation; img within 1e-5; the uint8
+    """Same crop, true_shape and transformation. Where the JAX package
+    shrinks (INTER_AREA) or copies, ``img`` and the uint8 display image are
+    its bits exactly (the port computes cv2's arithmetic); where it enlarges
+    (INTER_LANCZOS4: 333x500 and 400x400 at 512), img within 1e-5 and the
     display image within one level (both truncate, and a value on an
     integer may land either side)."""
     img = RNG.random((*hw, 3)).astype(np.float32)
@@ -183,11 +212,18 @@ def test_resize_img_matches_jax(hw, size):
     np.testing.assert_array_equal(got["true_shape"], want["true_shape"])
     assert got["img"].shape == want["img"].shape
     assert got["img"].dtype == np.float32
-    np.testing.assert_allclose(got["img"], want["img"], rtol=0, atol=1e-5)
-    diff = np.abs(got["unnormalized_img"].astype(int)
-                  - want["unnormalized_img"].astype(int))
-    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
     assert gt == pytest.approx(wt)
+    if not TI.resize_plan(*hw, size)[2]:
+        np.testing.assert_allclose(got["img"], want["img"], rtol=0,
+                                   atol=1e-5)
+        diff = np.abs(got["unnormalized_img"].astype(int)
+                      - want["unnormalized_img"].astype(int))
+        assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+        return
+    np.testing.assert_array_equal(got["img"].view(np.uint32),
+                                  want["img"].view(np.uint32))
+    np.testing.assert_array_equal(got["unnormalized_img"],
+                                  want["unnormalized_img"])
 
 
 # ---------------------------------------------------------------------------

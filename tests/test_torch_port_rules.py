@@ -28,12 +28,13 @@ _FORBIDDEN = re.compile(
 
 
 def _port_sources():
-    """The package, chip_smoke.py and the test encoders chip_smoke.py
-    writes its JPEG and PNG clips with."""
+    """The package, chip_smoke.py, the test encoders chip_smoke.py writes
+    its JPEG and PNG clips with and the resize fixtures' input maker."""
     files = sorted((ROOT / "mast3r_slam_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "tests" /
                     "torch_jpeg_writer.py", ROOT / "tests" /
-                    "torch_png_writer.py"]
+                    "torch_png_writer.py", ROOT / "tests" /
+                    "torch_resize_inputs.py"]
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -44,7 +45,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     for mod in ("main.py", "evaluation.py", "data/png.py",
                 "data/image_ops.py", "data/datasets.py", "data/imread.py",
                 "data/jpeg.py", "data/undistort.py", "data/exif.py",
-                "data/image_host.py",
+                "data/image_host.py", "bench/frame_profile.py",
                 "slam/retrieval.py", "slam/pipeline.py",
                 "utils/checkpoint.py", "utils/tictoc.py",
                 "ops/gram_variants.py", "ops/device_loop.py", "ops/graphs.py",
