@@ -181,6 +181,25 @@ then:
    imports, else a line that the GL pipeline was not exercised and why;
    and ``two_view_infer`` / ``match_asymmetric`` at 384x512, bit for bit
    their compositions, with their K1 / K2 launches.
+16. (phase ``ate_study``) runs ``bench/ate_study.py``'s ``modes`` table
+   at the JAX oracle studies' protocol (96 frames, 64x96, a keyframe every
+   4, a 30-iteration BA) with noise seed 0, and base.yaml's row again with
+   the calibrated solves: no skips, 24 keyframes, the BA holding the
+   tracked trajectory (but for the separable ablation), base.yaml's cuts
+   within ``tests/test_oracle_modes.py``'s bounds of strict, and K4 / K5
+   launched 1 + LM iterations a solve on the path of the row's Gram rows
+   (strict: ``tf32``, the bf16 rows: ``mma``), with each row's wall time;
+17. (phase ``eval_harness``) runs ``bench/eval_datasets.py`` at full ViT-L
+   width on a calibrated TUM clip with its ground truth and a 7-Scenes
+   scene whose ground truth the harness derives from its pose files: the
+   trajectory written where the JAX scripts' evaluation reads it, its ATE
+   equal to ``evaluation.ate_rmse`` on the same files, K1 / K2 / K5 launched
+   as the run's model calls and solves need (K2 on ``tf32x3``, K5 on
+   ``tf32``);
+18. (phase ``recall``) runs ``bench/retrieval_recall.py`` at full ViT-L
+   width on 384x512 frames: 24 K1 launches a frame encoded, recall@1-3 of
+   the bootstrap codebook and the projector head, the encoder's ms a
+   frame.
 
 In every phase that runs a service, an exception in a service worker (which
 prints it and carries on) fails the run, and the global TSDF must run on
@@ -3587,6 +3606,250 @@ def phase_cli_datasets(torch, FA, C3, BA, workdir, smi):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-18: the accuracy tools (bench/ate_study.py, bench/eval_datasets.py,
+# bench/retrieval_recall.py)
+# ---------------------------------------------------------------------------
+
+# the modes table's ablation: its BA is not expected to hold the tracked
+# trajectory (the JAX study records it at 3.5x strict, 61.4 mm)
+ATE_ABLATION = "separable (ablation)"
+ATE_BASE_ROW = "production-defaults (all cuts, base.yaml)"
+# a TUM-layout clip's ground truth: the pan's camera moving along x and y
+GT_STEP = (0.02, 0.007)
+
+
+def check_ate_rows(rows, tag):
+    """Each row of a one-seed study run on the card: no skips, a keyframe
+    every 4 frames, the BA's K4 (rays) or K5 (calibrated) launched 1 + LM
+    iterations times, all on the path of the row's Gram rows (float32:
+    ``tf32``, else ``mma``), nothing else; but for the ablation, ATE after
+    BA under 30 mm and at most 1.05x the tracked one."""
+    from mast3r_slam_tpu_torch.bench import ate_study as AS
+
+    for r in rows:
+        what = f"ate_study {tag} {r['row']!r}"
+        kfs = [r["frames"] // AS.KF_EVERY] * len(r["seeds"])
+        check(r["skips"] == [0] * len(r["seeds"]) and r["keyframes"] == kfs,
+              f"{what}: skips {r['skips']}, keyframes {r['keyframes']}")
+        kernel, other = ("K5", "K4") if r["calib"] else ("K4", "K5")
+        path = ("tf32" if r["mode"].get("ba_compute_dtype") == "float32"
+                else "mma")
+        for iters, n in zip(r["lm_iters"], r["launches"]):
+            want = {kernel: 1 + iters, other: 0,
+                    **{p: (1 + iters if p == path else 0)
+                       for p in ("mma", "tf32", "fma")}}
+            check(n == want, f"{what}: BA launches {n}, want {want}")
+        if r["row"] != ATE_ABLATION:
+            for at, ab in zip(r["ate_track"], r["ate_ba"]):
+                check(ab < 0.03 and ab <= 1.05 * at, f"{what}: ATE after BA "
+                      f"{ab:.5f} m, tracked {at:.5f} m")
+
+
+def phase_ate_study(torch, FA, C3, BA, smi):
+    """``bench/ate_study.py``'s ``modes`` table at the JAX scripts' protocol
+    (96 frames, 64x96, a keyframe every 4, 30 BA iterations) with noise
+    seed 0 on the card, then base.yaml's row with the calibrated solves:
+    each row checked by :func:`check_ate_rows`, and base.yaml's cuts against
+    strict as ``tests/test_oracle_modes.py`` bounds them (ATE after BA
+    within 2x strict + 1 mm, matched-pixel error within +0.5 px)."""
+    import functools
+
+    from mast3r_slam_tpu_torch.bench import ate_study as AS
+    from mast3r_slam_tpu_torch.utils.oracle_scene import (
+        OracleScene, make_trajectory, run_oracle_slam)
+
+    run = functools.partial(run_oracle_slam, kf_every=AS.KF_EVERY,
+                            device="cuda")
+    scene, poses = OracleScene(seed=0), make_trajectory(AS.FRAMES)
+    reset_counters(FA, C3, BA)
+    rays = AS.run_study("modes", run, scene, poses, AS.HW, (0,), False, smi,
+                        emit=log)
+    calib = AS.run_study("modes", run, scene, poses, AS.HW, (0,), True, smi,
+                         modes={ATE_BASE_ROW: AS.MODES[ATE_BASE_ROW]},
+                         emit=log)
+    launches = launch_counts(FA, C3, BA)
+    check(not any(launches[k] for k in ("K1", "K2", "K3",
+                                        *dict(K4P_ALL))),
+          f"ate_study: a kernel other than K4 / K5 ran: {launches}")
+    check_ate_rows(rays, "rays")
+    check_ate_rows(calib, "calib")
+    strict = rays[0]
+    fast = next(r for r in rays if r["row"] == ATE_BASE_ROW)
+    check(fast["ate_ba_mean"] < 2.0 * strict["ate_ba_mean"] + 1e-3
+          and fast["pix_err_mean"] < strict["pix_err_mean"] + 0.5,
+          f"ate_study: base.yaml's cuts cost more than the bound: ATE "
+          f"{fast['ate_ba_mean']:.5f} vs strict {strict['ate_ba_mean']:.5f}"
+          f" m, pixel error {fast['pix_err_mean']:.3f} vs "
+          f"{strict['pix_err_mean']:.3f}")
+    out = {}
+    for r in rays + calib:
+        tag = ("calib " if r["calib"] else "") + r["row"]
+        out[tag] = {k: r[k] for k in ("ate_track_mean", "ate_ba_mean",
+                                      "pix_err_mean", "lm_iters", "wall_s")}
+        log(f"ate_study {tag}: {r['wall_s']:.1f} s, ATE track "
+            f"{r['ate_track_mean'] * 1e3:.3f} mm, BA "
+            f"{r['ate_ba_mean'] * 1e3:.3f} mm, pixel error "
+            f"{r['pix_err_mean']:.4f}, LM iterations {r['lm_iters']}, "
+            f"launches {r['launches']}; on {smi}")
+    return out
+
+
+def write_tum_groundtruth(clip, n_frames):
+    """``groundtruth.txt`` beside a ``write_clip`` clip: a pose a frame at
+    its ``rgb.txt`` timestamp, moving ``GT_STEP`` a frame out and back."""
+    rows = []
+    for i in range(n_frames):
+        p = min(i, n_frames - 1 - i)
+        rows.append(f"{1e9 + i / 30.0:.6f} {GT_STEP[0] * p:.6f} "
+                    f"{GT_STEP[1] * p:.6f} 0.000000 0 0 0 1")
+    (Path(clip) / "groundtruth.txt").write_text(
+        "# timestamp tx ty tz qx qy qz qw\n" + "\n".join(rows) + "\n")
+
+
+def write_seven_scenes_clip(scene, n_frames):
+    """7-Scenes' layout: ``seq-01/frame-XXXXXX.color.png`` (the cli phase's
+    480x640 pan) and ``frame-XXXXXX.pose.txt`` camera-to-world matrices
+    moving ``GT_STEP`` a frame out and back, with a small turn about y."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.data import png
+
+    seq = Path(scene) / "seq-01"
+    seq.mkdir(parents=True, exist_ok=True)
+    for i, img in enumerate(pan_frames(n_frames, CLI_SRC_HW, CLI_STEP,
+                                       seed=3)):
+        png.write_png(seq / f"frame-{i:06d}.color.png", img)
+        p = min(i, n_frames - 1 - i)
+        a = 0.01 * p
+        T = np.eye(4)
+        T[0, 0] = T[2, 2] = math.cos(a)
+        T[0, 2], T[2, 0] = math.sin(a), -math.sin(a)
+        T[:2, 3] = GT_STEP[0] * p, GT_STEP[1] * p
+        np.savetxt(seq / f"frame-{i:06d}.pose.txt", T)
+    return Path(scene)
+
+
+def phase_eval_harness(torch, FA, C3, BA, workdir, smi):
+    """``bench/eval_datasets.py`` at full ViT-L width on ``DATA_FRAMES``-
+    frame clips the phase writes: a calibrated TUM freiburg1 clip with its
+    ``groundtruth.txt``, and a 7-Scenes scene with its pose files (the
+    ground truth derived by ``data/seven_scenes_gt.py``), each under the
+    dataset's config with ``CLI_CUTS`` through an appended ``--config``,
+    the model the tied random weights (``tied_model``). Each run writes
+    ``logs/<save_as>/<seq>/<seq>.txt`` under the harness's workdir, its
+    ATE equals ``evaluation.ate_rmse`` on the same two files, and K1, K2
+    and K5 launch as its model calls and solves need, K2 on ``tf32x3``
+    and K5 on ``tf32`` (eval_calib's f32 heads and BA rows)."""
+    from mast3r_slam_tpu_torch import evaluation
+    from mast3r_slam_tpu_torch import main as cli
+    from mast3r_slam_tpu_torch.bench import eval_datasets as ED
+    from mast3r_slam_tpu_torch.utils.config import load_config
+
+    work = Path(workdir) / "eval_harness"
+    tum = write_clip(work / "tum" / "rgbd_dataset_freiburg1_desk",
+                     DATA_FRAMES)
+    write_tum_groundtruth(tum, DATA_FRAMES)
+    chess = write_seven_scenes_clip(work / "7-scenes" / "chess", DATA_FRAMES)
+    model, summary = None, {}
+    for dataset, clip in (("tum", tum), ("7-scenes", chess)):
+        spec = ED.DATASETS[dataset]
+        cfg_path = write_config(work / f"harness_{dataset}.yaml",
+                                inherit=spec.config)
+        cfg = load_config(cfg_path)
+        if model is None:
+            model = tied_model(cfg, "cuda")
+        k2_path = C3.conv3x3_path(getattr(torch, cfg["model"]["head_dtype"]),
+                                  256, 256)
+        ba_path = BA.gram_path(getattr(
+            torch, cfg["local_opt"]["ba_compute_dtype"]))
+        check((k2_path, ba_path) == ("tf32x3", "tf32"),
+              f"eval_harness {dataset}: {spec.config} takes K2 {k2_path}, "
+              f"K5 {ba_path}")
+        t0 = time.perf_counter()
+        with (instrumented(torch, model) as rec, worker_faults() as faults,
+              contextlib.ExitStack() as stack):
+            saved = cli.build_model
+            cli.build_model = lambda *a, **kw: model
+            stack.callback(setattr, cli, "build_model", saved)
+            reset_counters(FA, C3, BA)
+            out = ED.main([dataset, str(clip.parent), "--workdir", str(work),
+                           "--config", cfg_path], device="cuda")
+            torch.cuda.synchronize()
+            launches = launch_counts(FA, C3, BA)
+        wall = time.perf_counter() - t0
+        check_no_faults(faults, f"eval_harness {dataset}")
+        seq = clip.name
+        check(list(out["sequences"]) == [seq]
+              and out["skipped"] == [s for s in ED.sequences(dataset,
+                                                             clip.parent)
+                                     if s != seq],
+              f"eval_harness {dataset}: sequences {list(out['sequences'])}, "
+              f"skipped {out['skipped']}")
+        r = out["sequences"][seq]
+        est = work / "logs" / spec.save_as / seq / f"{seq}.txt"
+        gt = (clip / "groundtruth.txt" if dataset == "tum" else
+              work / "groundtruths" / "7-scenes" / f"{seq}.txt")
+        check(Path(r["traj"]) == est and est.is_file()
+              and Path(r["gt"]) == gt and gt.is_file(),
+              f"eval_harness {dataset}: trajectory {r['traj']}, ground "
+              f"truth {r['gt']}")
+        want_ate = evaluation.ate_rmse(gt, est, align=True, scale=True)
+        check(math.isfinite(r["ate_rmse"])
+              and r["ate_rmse"] == want_ate["rmse"]
+              and r["frames"] == DATA_FRAMES,
+              f"eval_harness {dataset}: ATE {r['ate_rmse']} vs "
+              f"{want_ate['rmse']}, frames {r['frames']}")
+        want = expected_launches(rec["calls"], True, ba_path, k2_path)
+        check(launches == want and launches["K5"] > 0,
+              f"eval_harness {dataset}: launches {launches} != {want}")
+        summary[dataset] = dict(ate_rmse=r["ate_rmse"], pairs=r["pairs"],
+                                keyframes=r["keyframes"],
+                                tracked_ms=r["tracked_ms_median"],
+                                step_ms=r["step_ms_median"], wall_s=wall,
+                                launches={k: launches[k] for k in (
+                                    "K1", "K2", "K5", f"K2 {k2_path}",
+                                    f"BA {ba_path}")})
+        log(f"eval_harness {dataset}: {wall:.1f} s, {r['frames']} frames, "
+            f"{r['keyframes']} keyframes, ATE {r['ate_rmse']:.6f} m over "
+            f"{r['pairs']} pairs (= evaluation.ate_rmse), median tracked "
+            f"frame {r['tracked_ms_median']:.1f} ms, backend step "
+            f"{r['step_ms_median']:.1f} ms; launches "
+            f"{summary[dataset]['launches']}; on {smi}")
+    del model
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_recall(torch, FA, C3, BA, smi):
+    """``bench/retrieval_recall.py``'s tables at full ViT-L width on
+    384x512 frames (random weights from seed 0): every frame encoded with
+    K1's launches (24 a frame, no K2), recall@1-3 in [0, 1], and the
+    encoder's ms a frame."""
+    from mast3r_slam_tpu_torch.bench import retrieval_recall as RR
+
+    reset_counters(FA, C3, BA)
+    t0 = time.perf_counter()
+    out = RR.main([], device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(FA, C3, BA)
+    want = {k: 0 for k in launches}
+    want.update(K1=(K1_PER_PAIR - K1_PER_DECODE) * out["frames"])
+    check(out["frames"] == 2 * RR.N_HALF and launches == want,
+          f"recall: {out['frames']} frames, launches {launches} != {want}")
+    recalls = [out["bootstrap"], out["head"], *out["min_thresh"].values()]
+    check(all(set(r) == {1, 2, 3} and all(0.0 <= v <= 1.0
+                                          for v in r.values())
+              for r in recalls), f"recall: recall@k out of range {recalls}")
+    log(f"recall: {wall:.1f} s, {out['frames']} frames at "
+        f"{RR.FULL_HW[0]}x{RR.FULL_HW[1]}, encoder median "
+        f"{out['encode_ms']:.2f} ms a frame, K1 launches {launches['K1']}; "
+        f"recall@1-3 bootstrap {out['bootstrap']}, projector head "
+        f"{out['head']}; on {smi}")
+    return dict(out, launches=launches["K1"], wall_s=wall)
+
+
 class _ForcedRetrieval:
     """Retrieval stand-in that always proposes keyframes 0 and 1, so that
     the strict geometric check is what rejects an impostor."""
@@ -4683,8 +4946,9 @@ def phase_viz(torch, FA, C3, BA, workdir, cli=None, device="cuda"):
 
 
 PHASES = ("data", "kernels", "main", "event", "cross", "ba_kernels",
-          "gram_bench", "oracle", "cli", "cli_cross", "cli_datasets", "reloc",
-          "services", "topology", "viz")
+          "gram_bench", "oracle", "cli", "cli_cross", "cli_datasets",
+          "ate_study", "eval_harness", "recall", "reloc", "services",
+          "topology", "viz")
 
 
 def main():
@@ -4760,6 +5024,10 @@ def main():
         run("cli_cross", phase_cli_cross, torch, work)
         datasets = run("cli_datasets", phase_cli_datasets, torch, FA, C3, BA,
                        work, smi)
+        ate = run("ate_study", phase_ate_study, torch, FA, C3, BA, smi)
+        harness = run("eval_harness", phase_eval_harness, torch, FA, C3, BA,
+                      work, smi)
+        recall = run("recall", phase_recall, torch, FA, C3, BA, smi)
         run("topology", phase_topology, torch, FA, C3, BA, work, cli)
         viz = run("viz", phase_viz, torch, FA, C3, BA, work, cli)
     reloc = run("reloc", phase_reloc, torch, FA, C3, BA)
@@ -4813,6 +5081,17 @@ def main():
         f"{viz['match_asymmetric']['K2']}; GL pipeline "
         + ("exercised" if viz["gl_not_exercised"] is None else
            f"not exercised ({viz['gl_not_exercised']})") + f"; on {smi}")
+    log(f"accuracy tools: ate_study (seed 0, 96 frames, 64x96) "
+        + "; ".join(f"{t} ATE BA {r['ate_ba_mean'] * 1e3:.3f} mm (track "
+                    f"{r['ate_track_mean'] * 1e3:.3f}), {r['wall_s']:.1f} s"
+                    for t, r in ate.items())
+        + "; eval_harness " + "; ".join(
+            f"{d} ATE {r['ate_rmse']:.6f} m, {r['keyframes']} keyframes, "
+            f"frame {r['tracked_ms']:.1f} ms, step {r['step_ms']:.1f} ms"
+            for d, r in harness.items())
+        + f"; recall encoder {recall['encode_ms']:.2f} ms a frame "
+        f"({recall['launches']} K1 launches), recall@1-3 "
+        f"{recall['bootstrap']}; on {smi}")
     log(f"data: host ms, compiled / plain: remap EuRoC 752x480 gray "
         f"{data['remap_euroc_gray']['ms']:.2f} / "
         f"{data['remap_euroc_gray']['plain_ms']:.2f}, TUM fr1 640x480x3 "

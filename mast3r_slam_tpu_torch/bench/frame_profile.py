@@ -15,6 +15,8 @@ the rest, the time the device waits on the host.
 
 from __future__ import annotations
 
+import os
+import platform
 import statistics
 import subprocess
 
@@ -30,6 +32,14 @@ def smi() -> str:
     except (OSError, subprocess.SubprocessError) as e:
         return f"nvidia-smi failed: {e}"
     return out[0] if out else "nvidia-smi printed nothing"
+
+
+def device_label(device) -> str:
+    """What a result ran on: the card's :func:`smi` line, or the CPU's
+    architecture and core count."""
+    if getattr(device, "type", str(device).split(":")[0]) == "cuda":
+        return smi()
+    return f"cpu ({platform.machine()}, {os.cpu_count()} cores)"
 
 
 def _is_device(e):

@@ -241,13 +241,44 @@ def convert_state_dict(sd, enc_depth=24, dec_depth=12, unused_out=None):
     return params
 
 
-def load_checkpoint(path, enc_depth=24, dec_depth=12):
+def checkpoint_depths(sd):
+    """(encoder depth, decoder depth) of a reference state dict: the
+    number of ``enc_blocks.<i>.`` and ``dec_blocks.<i>.`` blocks."""
+    def depth(prefix):
+        return len({k.split(".")[1] for k in sd if k.startswith(prefix)})
+
+    return depth("enc_blocks."), depth("dec_blocks.")
+
+
+def load_checkpoint(path, enc_depth=None, dec_depth=None):
     """Reference ``.pth`` checkpoint → parameter tree of numpy arrays (move
-    it to the card with :func:`params_from_tree`)."""
+    it to the card with :func:`params_from_tree`); the depths default to
+    the checkpoint's own (24 and 12 for the released MASt3R)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt["model"] if "model" in ckpt else ckpt
     sd = {k: v.float().numpy() for k, v in sd.items() if hasattr(v, "numpy")}
-    return convert_state_dict(sd, enc_depth, dec_depth)
+    enc, dec = checkpoint_depths(sd)
+    return convert_state_dict(sd, enc_depth or enc, dec_depth or dec)
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(_flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}/"))
+    else:
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def save_npz(tree, path):
+    """A parameter tree of arrays as the flat ``.npz`` that
+    :func:`load_npz` reads (keys are ``/``-joined tree paths, list indices
+    as components: the JAX package's ``save_params_npz`` layout)."""
+    np.savez(path, **_flatten(tree))
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ import torch
 
 from mast3r_slam_tpu_torch import _build
 from mast3r_slam_tpu_torch import main as cli
-from mast3r_slam_tpu_torch.bench import gram_kernel_bench
+from mast3r_slam_tpu_torch.bench import (ate_study, eval_datasets,
+                                         gram_kernel_bench, retrieval_recall,
+                                         validate_real)
 from mast3r_slam_tpu_torch.models import convert, mast3r
 from mast3r_slam_tpu_torch.ops import ba_kernels as BA
 from mast3r_slam_tpu_torch.ops import gram_variants as GV
@@ -49,7 +51,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "slam/retrieval.py", "slam/pipeline.py",
                 "utils/checkpoint.py", "utils/tictoc.py",
                 "ops/gram_variants.py", "ops/device_loop.py", "ops/graphs.py",
-                "bench/gram_kernel_bench.py",
+                "bench/gram_kernel_bench.py", "bench/ate_study.py",
+                "bench/eval_datasets.py", "bench/validate_real.py",
+                "bench/retrieval_recall.py", "data/seven_scenes_gt.py",
                 "services/quality_core.py", "services/quality_async.py",
                 "services/tsdf_local.py", "services/tsdf_global.py",
                 "services/native_tsdf.py", "parallel/__init__.py",
@@ -67,7 +71,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     (pipeline.create_frame, "device"), (frame.KeyframeBuffer, "device"),
     (oracle_scene.run_oracle_slam, "device"), (cli.main, "device"),
     (cli.build_model, "device"), (oracle_scene.OracleWorld, "device"),
-    (gram_kernel_bench.main, "device"),
+    (gram_kernel_bench.main, "device"), (ate_study.main, "device"),
+    (eval_datasets.main, "device"), (validate_real.main, "device"),
+    (retrieval_recall.main, "device"),
     (quality_async.AsynchronousQualityService, "device"),
     (tsdf_local.TSDFRefiner, "device")])
 def test_entry_points_default_to_cuda(fn, arg):
@@ -252,3 +258,17 @@ def test_gram_bench_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         gram_kernel_bench.main(["--edges", "1", "--pixels", "8"])
+
+
+@pytest.mark.parametrize("main,argv", [
+    (ate_study.main, []),
+    (eval_datasets.main, ["tum", "no_such_root"]),
+    (validate_real.main, ["no_such.pth", "no_such_seq"]),
+    (retrieval_recall.main, [])])
+def test_accuracy_tools_without_a_card_raise(monkeypatch, main, argv):
+    """The accuracy tools' default device is the card; without one each
+    raises before it reads or runs anything, and never falls back to the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
