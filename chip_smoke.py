@@ -51,7 +51,11 @@ then:
    batch size and bucket, every solve but the capture under
    ``set_sync_debug_mode("error")``, the graphs' pool memory and each
    part's time eager, on its first graphed call (with the capture) and
-   warm;
+   warm; then one warm graphed ``add_factors`` of edge (1, 2) on a factor
+   graph of its own under ``torch.profiler``: its device time by kind and
+   by source (``bench/trace_breakdown.py``), its host time outside the
+   device's busy time, and its matches, Q and channels equal to the
+   untraced call's bit for bit;
 4. runs mono inference and the asymmetric pair decode (both heads) at full
    width and reduced depth in f32 on the card (kernels) and on the CPU
    (plain versions) and compares the entry points' outputs;
@@ -199,7 +203,19 @@ then:
 18. (phase ``recall``) runs ``bench/retrieval_recall.py`` at full ViT-L
    width on 384x512 frames: 24 K1 launches a frame encoded, recall@1-3 of
    the bootstrap codebook and the projector head, the encoder's ms a
-   frame.
+   frame;
+19. (phase ``backend_tools``) runs the JAX repo's backend speed tools as
+   ported: ``bench/bench_ba.py`` at deployment scale (110 poses, 128
+   two-way edge rows x 196,608 pixels) with bf16 rows, f32 rows and
+   calibrated, graphed and eager (every solve ``max_iter`` LM iterations
+   and 1 + iterations K4 / K5 launches on the rows' path, graphed and
+   eager poses bit for bit), ``bench/ba_solve_microbench.py`` (the two
+   assemblies within 1e-4 of max |H|, the solve's residual within 1e-3 of
+   |g|), ``bench/profile_backend_decode.py`` at full ViT-L width with f32
+   and bf16 heads (each stage's K1 / K2 launches, the graphed
+   ``match_symmetric`` bit for bit its eager call), and
+   ``bench/trace_breakdown.py`` on ``bench_ba``'s trace of a graphed
+   10-iteration solve (11 K4 kernels in it).
 
 In every phase that runs a service, an exception in a service worker (which
 prints it and carries on) fails the run, and the global TSDF must run on
@@ -1178,6 +1194,47 @@ def event_solve(torch, FA, C3, BA, graph, T0, no_sync, replay):
     return graph.keyframes.T_WC.clone(), iters, ms, masked
 
 
+def trace_add_factors(torch, model, keyframes, cfg, min_frac):
+    """One warm graphed ``add_factors`` of edge (1, 2) (symmetric, a replay
+    of the decode + match graph captured before) on a factor graph of its
+    own, under the profiler: the graph, the call's host ms and its device
+    breakdown by kernel, source and kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mast3r_slam_tpu_torch.bench import trace_breakdown as TB
+    from mast3r_slam_tpu_torch.slam.factor_graph import FactorGraph
+
+    graph = FactorGraph(model, keyframes, cfg)
+    replays = model.graphs.replays
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     with_stack=True) as prof:
+            t0 = sync_clock(torch)
+            added = graph.add_factors([1], [2], min_frac)
+            wall = (sync_clock(torch) - t0) * 1e3
+        path = str(Path(d) / "add_factors.json")
+        prof.export_chrome_trace(path)
+        b = TB.breakdown(path)
+    check(added and graph.n_edges() == 1, "traced add_factors added no edge")
+    check(model.graphs.replays == replays + 1,
+          "the traced add_factors did not replay the decode + match graph")
+    kinds = sum(b["by_kind"].values())
+    check(abs(kinds - b["busy_ms"]) <= 0.01 * b["busy_ms"],
+          f"traced add_factors: by-kind total {kinds:.4f} ms against "
+          f"device busy {b['busy_ms']:.4f} ms")
+    log(f"event: traced warm graphed add_factors (1, 2): host {wall:.2f} ms, "
+        f"device busy {b['busy_ms']:.2f} ms, host outside device busy "
+        f"{wall - b['busy_ms']:.2f} ms; {b['events']} device events, "
+        f"{b['replay_events']} in the decode + match replay")
+    TB.report(b, emit=log)
+    return graph, dict(wall_ms=wall, busy_ms=b["busy_ms"],
+                       outside_ms=wall - b["busy_ms"], events=b["events"],
+                       replay_events=b["replay_events"],
+                       by_kind=b["by_kind"],
+                       by_source=dict(list(b["by_source"].items())[:25]))
+
+
 def phase_event(torch, FA, C3, BA, state):
     """Frames 1 and 2 of the main path become keyframes 1 and 2; edge
     (0, 1) reuses frame 1's recorded ``track_core`` match as the 5-tuple
@@ -1218,6 +1275,8 @@ def phase_event(torch, FA, C3, BA, state):
         if graphed:               # the decode + match graphs replayed
             again = FactorGraph(m, keyframes, cfg)
             ms_again = event_edges(torch, FA, C3, BA, again, hint, min_frac)
+            traced, traced_rec = trace_add_factors(torch, m, keyframes, cfg,
+                                                   min_frac)
         _, _, ms_meas = counted_call(torch, FA, C3, BA,
                                      lambda: graph._ensure_meas("rays"))
         solves = [event_solve(torch, FA, C3, BA, graph, T0,
@@ -1238,6 +1297,20 @@ def phase_event(torch, FA, C3, BA, state):
     for a, b in zip(e["graph"]._meas_ij + e["graph"]._meas_ji,
                     g["graph"]._meas_ij + g["graph"]._meas_ji):
         check(same_bits(a, b), "event: graphed channels differ from eager")
+    # the traced call's edge is edge 1 of the untraced graphs
+    for key in fields:
+        check(same_bits(getattr(traced, key)[0], getattr(g["again"], key)[1]),
+              f"event: the traced add_factors' {key} differs from the "
+              "untraced call's")
+    traced._ensure_meas("rays")
+    for a, b in zip(traced._meas_ij + traced._meas_ji,
+                    g["graph"]._meas_ij + g["graph"]._meas_ji):
+        check(same_bits(a[0], b[1]), "event: the traced add_factors' "
+              "channels differ from the untraced call's")
+    traced_rec["untraced_ms"] = g["ms_again"][1]
+    log(f"event: the traced add_factors' matches, Q and channels equal the "
+        f"untraced call's bit for bit (untraced warm call "
+        f"{g['ms_again'][1]:.2f} ms, traced {traced_rec['wall_ms']:.2f} ms)")
     (T_e, it_e, _, _), (T_e2, it_e2, _, _) = e["solves"]
     for T_x, it_x in [(T_e2, it_e2)] + [(t, i) for t, i, _, _ in
                                         g["solves"]]:
@@ -1251,9 +1324,10 @@ def phase_event(torch, FA, C3, BA, state):
         check(int(idx.min()) >= 0 and int(idx.max()) < IMG_HW[0] * IMG_HW[1],
               "match index out of range")
     mg, sg = model.graphs, g["graph"].graphs
-    check((mg.captures, mg.replays) == (2, 2),
+    check((mg.captures, mg.replays) == (2, 3),
           f"decode + match graphs: {mg.captures} captures, {mg.replays} "
-          "replays, expected 2 (one-way and symmetric at B = 1) and 2")
+          "replays, expected 2 (one-way and symmetric at B = 1) and 3 (the "
+          "second factor graph's two, the traced add_factors' one)")
     check((sg.captures, sg.replays) == (1, 1),
           f"solve graphs: {sg.captures} captures, {sg.replays} replays, "
           "expected 1 (bucket 8) and 1")
@@ -1286,7 +1360,8 @@ def phase_event(torch, FA, C3, BA, state):
         f" / {ms['graphed']['solve_warm']:.1f} (eager warm "
         f"{ms['eager']['solve_warm']:.1f}); premeas "
         f"{ms['eager']['premeas']:.1f} / {ms['graphed']['premeas']:.1f}")
-    return dict(K4=1 + it_e, ms=ms, pools=pools, iters=it_e, masked=masked)
+    return dict(K4=1 + it_e, ms=ms, pools=pools, iters=it_e, masked=masked,
+                add_factors_trace=traced_rec)
 
 
 # ---------------------------------------------------------------------------
@@ -1756,6 +1831,154 @@ def phase_gram_bench(torch, FA, C3, BA):
     report["K4'b"]["sass"] = sass["new"]
     torch.cuda.empty_cache()
     return report
+
+
+# ---------------------------------------------------------------------------
+# Phase: the backend speed tools (bench/bench_ba.py, ba_solve_microbench.py,
+# profile_backend_decode.py, trace_breakdown.py)
+# ---------------------------------------------------------------------------
+
+# bench_ba's runs: rays with bf16 and f32 rows, calibrated with bf16 rows
+BA_BENCH_RUNS = (("rays bf16", "bfloat16", False),
+                 ("rays f32", "float32", False),
+                 ("calib bf16", "bfloat16", True))
+MICRO_H_TOL = 1e-4          # incidence vs scatter assembly, of max |H|
+MICRO_RESIDUAL_TOL = 1e-3   # _solve_system's residual, of |g|
+
+
+def check_ba_bench(rec, tag, paths):
+    """Every solve of a ``bench_ba`` run: ``max_iter`` LM iterations
+    (``delta_thresh`` 0), K4 (rays) or K5 (calibrated) launched 1 +
+    iterations times, all on the row type's path; graphed and eager poses
+    equal bit for bit, finite; a positive per-iteration time."""
+    kernel, other = ("K5", "K4") if rec["kind"] == "calib" else ("K4", "K5")
+    path = "mma" if rec["dtype"] == "bfloat16" else "tf32"
+    for mode in ("graphed", "eager"):
+        s = rec[mode]
+        for n in rec["iters"]:
+            for it, launches in zip(s["iterations"][str(n)],
+                                    s["launches"][str(n)]):
+                want = {kernel: 1 + it, other: 0,
+                        **{p: (1 + it if p == path else 0)
+                           for p in paths}}
+                check(it == n and launches == want,
+                      f"bench_ba {tag} {mode}: {it} iterations of {n}, "
+                      f"launches {launches}, want {want}")
+        check(s["per_iter_ms"] > 0, f"bench_ba {tag} {mode}: per-iteration "
+              f"{s['per_iter_ms']:.4f} ms (medians {s['median_ms']})")
+    check(rec["same_bits"], f"bench_ba {tag}: graphed poses differ from "
+          "eager")
+    check(rec["finite"], f"bench_ba {tag}: non-finite poses")
+
+
+def decode_stage_launches(cfg_head_dtype):
+    """The K1 / K2 launches of each ``profile_backend_decode`` stage (K2 on
+    the heads' path: ``tf32x3`` under f32 heads, else ``igemm``)."""
+    path = "tf32x3" if cfg_head_dtype == "float32" else "igemm"
+
+    def want(k1, k2):
+        out = {"K1": k1, "K3": 0, "K2": k2}
+        out.update({f"K2 {p}": (k2 if p == path else 0)
+                    for p in ("igemm", "mma", "tf32x3", "fma")})
+        return out
+
+    from mast3r_slam_tpu_torch.bench import profile_backend_decode as PD
+
+    counts = dict(zip(PD.STAGES, ((K1_PER_DECODE, 0), (0, K2_PER_HEAD),
+                                  (K1_PER_DECODE, 2 * K2_PER_HEAD),
+                                  (0, 0), (0, 0), (0, 0))))
+    return {k: want(*v) for k, v in counts.items()}, want(
+        K1_PER_DECODE, 2 * K2_PER_HEAD)
+
+
+def phase_backend_tools(torch, FA, C3, BA):
+    """The JAX repo's backend speed tools, ported (``bench/``), at their
+    defaults: ``bench_ba`` at deployment scale (cap 110, 128 two-way edge
+    rows x 196,608 pixels) with bf16 rows (traced), f32 rows and
+    calibrated, graphed and eager; ``ba_solve_microbench`` (cap 110, E
+    128); ``profile_backend_decode`` at full ViT-L width with the script's
+    f32 heads and with base.yaml's bf16 heads; then ``trace_breakdown`` on
+    ``bench_ba``'s trace. Each tool's own checks: see ``check_ba_bench``,
+    the assemblies' agreement and the solve's residual, each decode
+    stage's K1 / K2 launches, the graphed ``match_symmetric`` bit for bit
+    its eager call."""
+    from mast3r_slam_tpu_torch.bench import ba_solve_microbench as MB
+    from mast3r_slam_tpu_torch.bench import bench_ba as BB
+    from mast3r_slam_tpu_torch.bench import profile_backend_decode as PD
+    from mast3r_slam_tpu_torch.bench import trace_breakdown as TB
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    t0 = time.perf_counter()
+    ring = BB.make_ring()
+    log(f"bench_ba: the keyframe ring built on the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ba_") as d:
+        for i, (tag, dtype, calib) in enumerate(BA_BENCH_RUNS):
+            rec = BB.bench(ring, dev, dtype, calib,
+                           trace_dir=d if i == 0 else None, emit=log)
+            log(json.dumps(rec))
+            check_ba_bench(rec, tag, BA.PATHS)
+            out[tag] = rec
+            torch.cuda.empty_cache()
+        b = TB.breakdown(out[BA_BENCH_RUNS[0][0]]["trace"])
+    del ring
+    TB.report(b, emit=log)
+    k4 = sum(c for _, _, c, kind, _ in b["kernels"] if kind == "K4 mma")
+    if b["replay_events"]:
+        check(k4 == 1 + BB.TRACE_ITERS, f"bench_ba trace: {k4} K4 kernels "
+              f"in the traced {BB.TRACE_ITERS}-iteration solve")
+    else:
+        log("bench_ba trace: no kernel seen inside the graph replay")
+    out["ba_trace"] = {k: b[k] for k in ("busy_ms", "events",
+                                         "replay_events", "by_kind")}
+    micro = MB.main([])
+    check(micro["h_diff"] <= MICRO_H_TOL * micro["h_scale"],
+          f"ba_solve_microbench: incidence vs scatter assembly "
+          f"{micro['h_diff']:.3e} of max |H| {micro['h_scale']:.3e}")
+    check(micro["solve_ok"] and micro["solve_residual"]
+          <= MICRO_RESIDUAL_TOL * micro["g_norm"],
+          f"ba_solve_microbench: _solve_system residual "
+          f"{micro['solve_residual']:.3e}, |g| {micro['g_norm']:.3e}")
+    check(all(math.isfinite(v) for v in micro["ms"].values()),
+          f"ba_solve_microbench: times {micro['ms']}")
+    out["micro"] = micro
+    torch.cuda.empty_cache()
+    for head in ("float32", "bfloat16"):
+        rec = PD.main(["--head-dtype", head])
+        stages, sym = decode_stage_launches(head)
+        check(rec["launches"] == stages, f"profile_backend_decode "
+              f"({head} heads): launches {rec['launches']}, want {stages}")
+        m = rec["match_symmetric"]
+        check(m["eager_launches"] == sym and m["replay_launches"] == sym,
+              f"match_symmetric ({head} heads): launches eager "
+              f"{m['eager_launches']}, replay {m['replay_launches']}, want "
+              f"{sym}")
+        check(m["same_bits"] and (m["captures"], m["replays"]) == (1, 4),
+              f"match_symmetric ({head} heads): graphed equal to eager "
+              f"{m['same_bits']}, captures {m['captures']}, replays "
+              f"{m['replays']}")
+        out[f"decode {head}"] = rec
+        torch.cuda.empty_cache()
+    summary = {tag: {mode: (round(out[tag][mode]["per_iter_ms"], 4),
+                            round(out[tag][mode]["pre_ms"], 3))
+                     for mode in ("graphed", "eager")}
+               for tag, _, _ in BA_BENCH_RUNS}
+    peaks = {tag: round(out[tag]["peak_bytes"] / 2**30, 3)
+             for tag, _, _ in BA_BENCH_RUNS}
+    log(f"backend tools: bench_ba (per LM iteration ms, precompute + "
+        f"overhead ms) {summary}; peak GiB {peaks}; solve pool GiB "
+        f"{round(out['rays bf16']['pool_bytes'] / 2**30, 3)}, edge-row "
+        f"buffers GiB {round(out['rays bf16']['buffer_bytes'] / 2**30, 3)}; "
+        f"microbench ms/rep {micro['ms']} ({micro['timing']}); decode + "
+        f"match stages ms, f32 / bf16 heads: "
+        + ", ".join(f"{s} {out['decode float32']['ms'][s]:.2f} / "
+                    f"{out['decode bfloat16']['ms'][s]:.2f}"
+                    for s in PD.STAGES)
+        + f"; match_symmetric graphed "
+        f"{out['decode float32']['match_symmetric']['ms']:.2f} / "
+        f"{out['decode bfloat16']['match_symmetric']['ms']:.2f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4946,9 +5169,9 @@ def phase_viz(torch, FA, C3, BA, workdir, cli=None, device="cuda"):
 
 
 PHASES = ("data", "kernels", "main", "event", "cross", "ba_kernels",
-          "gram_bench", "oracle", "cli", "cli_cross", "cli_datasets",
-          "ate_study", "eval_harness", "recall", "reloc", "services",
-          "topology", "viz")
+          "gram_bench", "backend_tools", "oracle", "cli", "cli_cross",
+          "cli_datasets", "ate_study", "eval_harness", "recall", "reloc",
+          "services", "topology", "viz")
 
 
 def main():
@@ -5018,6 +5241,7 @@ def main():
     run("cross", phase_cross_check, torch)
     gram = run("ba_kernels", phase_ba_kernels, torch, BA)
     k4p = run("gram_bench", phase_gram_bench, torch, FA, C3, BA)
+    run("backend_tools", phase_backend_tools, torch, FA, C3, BA)
     oracle = run("oracle", phase_oracle, torch, FA, C3, BA)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
         cli = run("cli", phase_cli, torch, FA, C3, BA, work)

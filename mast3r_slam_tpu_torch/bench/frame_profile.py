@@ -42,6 +42,27 @@ def device_label(device) -> str:
     return f"cpu ({platform.machine()}, {os.cpu_count()} cores)"
 
 
+def call_ms(fn, device):
+    """``(fn(), ms)``: the call timed from a synced device to its end, by
+    CUDA events on the card and the host clock on the CPU."""
+    import time
+
+    import torch
+
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return out, start.elapsed_time(end)
+
+
 def _is_device(e):
     return str(e.device_type()).endswith("CUDA")
 

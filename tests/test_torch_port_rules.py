@@ -11,8 +11,11 @@ import torch
 
 from mast3r_slam_tpu_torch import _build
 from mast3r_slam_tpu_torch import main as cli
-from mast3r_slam_tpu_torch.bench import (ate_study, eval_datasets,
-                                         gram_kernel_bench, retrieval_recall,
+from mast3r_slam_tpu_torch.bench import (ate_study, ba_solve_microbench,
+                                         bench_ba, eval_datasets,
+                                         gram_kernel_bench,
+                                         profile_backend_decode,
+                                         retrieval_recall, trace_breakdown,
                                          validate_real)
 from mast3r_slam_tpu_torch.models import convert, mast3r
 from mast3r_slam_tpu_torch.ops import ba_kernels as BA
@@ -54,6 +57,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "bench/gram_kernel_bench.py", "bench/ate_study.py",
                 "bench/eval_datasets.py", "bench/validate_real.py",
                 "bench/retrieval_recall.py", "data/seven_scenes_gt.py",
+                "bench/bench_ba.py", "bench/ba_solve_microbench.py",
+                "bench/profile_backend_decode.py",
+                "bench/trace_breakdown.py",
                 "services/quality_core.py", "services/quality_async.py",
                 "services/tsdf_local.py", "services/tsdf_global.py",
                 "services/native_tsdf.py", "parallel/__init__.py",
@@ -73,11 +79,23 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     (cli.build_model, "device"), (oracle_scene.OracleWorld, "device"),
     (gram_kernel_bench.main, "device"), (ate_study.main, "device"),
     (eval_datasets.main, "device"), (validate_real.main, "device"),
-    (retrieval_recall.main, "device"),
+    (retrieval_recall.main, "device"), (bench_ba.main, "device"),
+    (ba_solve_microbench.main, "device"),
+    (profile_backend_decode.main, "device"), (trace_breakdown.main, "device"),
     (quality_async.AsynchronousQualityService, "device"),
     (tsdf_local.TSDFRefiner, "device")])
 def test_entry_points_default_to_cuda(fn, arg):
     assert inspect.signature(fn).parameters[arg].default == "cuda"
+
+
+@pytest.mark.parametrize("mod", [bench_ba, ba_solve_microbench,
+                                 profile_backend_decode])
+def test_backend_tools_raise_without_a_card(mod, monkeypatch):
+    """The backend speed tools run on the card by default and raise where
+    there is none; they never fall back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        mod.main([])
 
 
 def test_builder_without_nvcc_raises(monkeypatch, tmp_path):
