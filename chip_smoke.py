@@ -172,8 +172,16 @@ then:
    services and ``devices=[cuda:0] * 5`` (the cli phase's checks, a
    sharded solve, launches from the run's decoder calls and system
    builds, its medians beside the cli phase's one-slot run) and the
-   fallback of a 3-slot backend with one edge; with two or more cards
-   the same on the distinct cards, else it says that layout was not run;
+   fallback of a 3-slot backend with one edge; the sharded decode and the
+   mesh's matcher as CUDA graphs (one a device and per-slot batch, the
+   matcher's one a batch on the first slot) bit for bit their eager path,
+   a second call replaying every slot, warm ms beside eager ms; the mesh
+   solve (rays and calibrated, bf16, the padded bucket split in equal
+   shares) eager and graphed, bit for bit, K4 / K5 launched slots x (1 +
+   iterations) a solve; the CLI's mesh solves, decodes and matcher as
+   graphs (captures and replays counted); with two or more cards the same
+   on the distinct cards (the solve as a graph a card with the loop on the
+   host), else it says that layout was not run;
 15. (phase ``viz``) runs the CLI with its viewer (no ``--no-viz``) on the
    cli phase's clip: launches from its own calls, and the modes,
    keyframes and edges of the ``--no-viz`` run; then, on that run's
@@ -215,7 +223,15 @@ then:
    and bf16 heads (each stage's K1 / K2 launches, the graphed
    ``match_symmetric`` bit for bit its eager call), and
    ``bench/trace_breakdown.py`` on ``bench_ba``'s trace of a graphed
-   10-iteration solve (11 K4 kernels in it).
+   10-iteration solve (11 K4 kernels in it);
+20. (phase ``debug_tools``) runs the JAX repo's last two scripts as
+   ported: ``bench/profile_refine.py`` at 384x512 (the three gather
+   layouts of one refine level, five levels of layout B and the port's
+   production search, each a CUDA graph timed by CUDA events; layouts A
+   and B equal bit for bit) and ``bench/debug_oracle_fail.py`` (the oracle
+   harness's 96 frames at 64x96 to a first tracking failure, if any, then
+   a failure planted in frame 7 of 12 on the card and on the CPU: the
+   same frames' ``ok``, failing frame and LM rows' flags).
 
 In every phase that runs a service, an exception in a service worker (which
 prints it and carries on) fails the run, and the global TSDF must run on
@@ -1982,6 +1998,67 @@ def phase_backend_tools(torch, FA, C3, BA):
 
 
 # ---------------------------------------------------------------------------
+# Phase: the JAX repo's last two scripts (profile_refine, debug_oracle_fail)
+# ---------------------------------------------------------------------------
+
+DEBUG_PLANTED = (12, 7)         # frames of the planted run, its NaN frame
+
+
+def phase_debug_tools(torch, smi):
+    """``bench/profile_refine.py`` at its 384x512 and
+    ``bench/debug_oracle_fail.py`` at its 96 frames on the card (see the
+    module docstring, item 20); the planted failure also on the CPU.
+    Returns the layouts' ms, the failures and the tools' wall time."""
+    from mast3r_slam_tpu_torch.bench import debug_oracle_fail as D
+    from mast3r_slam_tpu_torch.bench import profile_refine as P
+
+    t0 = time.perf_counter()
+    records, pos = P.run(device="cuda", emit=log)
+    t_refine = time.perf_counter() - t0
+    n = P.HW[0] * P.HW[1]
+    check(len(records) == 6 and all(r["ms"] > 0 for r in records),
+          f"profile_refine: {len(records)} records")
+    for name, p in pos.items():
+        check(p.shape == (1, n, 2) and p.dtype == torch.int64,
+              f"profile_refine {name}: positions {tuple(p.shape)}")
+    a, b, d = (pos[f"{v} dil={P.DIL}"] for v in P.VARIANTS)
+    check(torch.equal(a, b), "profile_refine: layouts A and B differ (the "
+          "same candidates, the same product)")
+    agree = float((d == a).all(-1).float().mean())
+    check(agree >= 0.999, f"profile_refine: layout D agrees with A on "
+          f"{agree:.5f} of the positions")
+    t1 = time.perf_counter()
+    run = D.run(device="cuda", emit=log)
+    frames, nan_frame = DEBUG_PLANTED
+    planted = D.run(frames, D.HW, "cuda", nan_frame=nan_frame, emit=log)
+    t_debug = time.perf_counter() - t1
+    with one_cpu_thread(torch):
+        cpu = D.run(frames, D.HW, "cpu", nan_frame=nan_frame,
+                    emit=lambda *a: None)
+    check(planted["failure"] == cpu["failure"] == [nan_frame, 4]
+          and planted["ok"] == cpu["ok"], f"debug_oracle_fail planted: card "
+          f"{planted['failure']} {planted['ok']}, cpu {cpu['failure']} "
+          f"{cpu['ok']}")
+    flags = [[(r["lam"], r["chol"], r["acc"]) for r in o["rows"]]
+             for o in (planted, cpu)]
+    check(len(flags[0]) == D.LM_ROWS and flags[0] == flags[1],
+          "debug_oracle_fail planted: the LM rows' flags differ, card / cpu")
+    check(len(run["ok"]) >= 1 and (run["failure"] is None
+                                   or len(run["rows"]) == D.LM_ROWS),
+          f"debug_oracle_fail: {run['failure']}, {len(run['rows'])} rows")
+    ms = {r["variant"]: r["ms"] for r in records}
+    log(f"debug_tools: profile_refine ms (best of {P.REPS} graph replays) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; layout D equal to A on {agree:.5f}; debug_oracle_fail "
+        f"{D.N_FRAMES} frames: first failure {run['failure']} "
+        f"({len(run['ok'])} frames tracked, {run['ms']:.0f} ms), planted "
+        f"frame {nan_frame} of {frames}: {planted['failure']} as on the "
+        f"CPU; tools' wall time {t_refine:.1f} + {t_debug:.1f} s; on {smi}")
+    return dict(ms=ms, failure=run["failure"], frames=len(run["ok"]),
+                wall_s=t_refine + t_debug)
+
+
+# ---------------------------------------------------------------------------
 # Phase: oracle SLAM at 384x512 (ray and calibrated BA)
 # ---------------------------------------------------------------------------
 
@@ -2376,11 +2453,18 @@ def tied_model(cfg, device, seed=0, **mcfg_over):
 
 
 # loop nodes a replay runs, by graph kind: the tracked frame's matcher and
-# pose solve, the BA solve's LM loop, one matcher call per direction and pair
+# pose solve, the BA solve's LM loop (none in the pieces of a solve over
+# distinct cards, whose loop runs on the host), one matcher call per
+# direction and pair (the mesh's matcher: one per row of its init), none in
+# a slot's decode
 def graph_loops(name, key, inputs):
     if name == "match":
+        if key[0] == "rows":
+            return inputs[2].shape[0]
         return 2 * inputs[0].shape[0] if key[0] == "symmetric" else 1
-    return {"track": 2, "solve": 1}[name]
+    if name == "solve" and {"build", "sum", "propose", "accept"} & set(key):
+        return 0
+    return {"track": 2, "solve": 1, "decode": 0}[name]
 
 
 @contextlib.contextmanager
@@ -2407,8 +2491,9 @@ def instrumented(torch, model):
                                     "decodes", "solves", "lm_iters",
                                     "builds", "spare_builds",
                                     "quality_jobs")},
-           "captures": {k: 0 for k in ("track", "solve", "match")},
-           "replays": {k: 0 for k in ("track", "solve", "match")},
+           "captures": {k: 0 for k in ("track", "solve", "match",
+                                       "decode")},
+           "replays": {k: 0 for k in ("track", "solve", "match", "decode")},
            "loops": 0, "captured": set(),
            "ms": {k: [] for k in ("track", "step", "retrieval",
                                   "add_factors", "solve")}}
@@ -4562,7 +4647,7 @@ def phase_services(torch, device="cuda"):
 
 TOPO_SLOTS = 5            # the virtual layout on one card
 TOPO_PAIRS = 3            # the sharded decode's pairs, padded to the mesh
-TOPO_FALLBACK_SLOTS = 3   # a backend with more slots than two-way edges
+TOPO_FALLBACK_SLOTS = 3   # a backend whose size divides no edge bucket
 # the sharded decode (batch 2 a slot) against one batch-6 decoder call:
 # cuBLAS's algorithms and K2's split-K plan follow the batch, so bf16
 # rounding lands in other places through 12 decoder blocks and the heads;
@@ -4588,13 +4673,13 @@ def topo_meshes(slots):
 
 
 def topo_decode(torch, FA, C3, BA, model, mesh):
-    """The sharded symmetric decode of ``TOPO_PAIRS`` pairs at full width:
-    one decoder call per slot on the slot's device with exactly one
-    decode's K1 / K2 launches each; its outputs bit for bit those of each
-    slot's (padded) pairs decoded alone on the frontend's parameters,
+    """The sharded symmetric decode of ``TOPO_PAIRS`` pairs at full width,
+    eagerly: one decoder call per slot on the slot's device with exactly
+    one decode's K1 / K2 launches each; its outputs bit for bit those of
+    each slot's (padded) pairs decoded alone on the frontend's parameters,
     concatenated and trimmed, and within ``TOPO_DECODE_TOL`` of one
-    unsharded decode of all pairs. Returns the largest relative error and
-    both host times."""
+    unsharded decode of all pairs. Then as CUDA graphs (``topo_graphed``).
+    Returns the largest relative error and the times."""
     from mast3r_slam_tpu_torch.models import inference as I
     from mast3r_slam_tpu_torch.models import mast3r as M
 
@@ -4633,7 +4718,9 @@ def topo_decode(torch, FA, C3, BA, model, mesh):
                       {k: after[k] - before[k] for k in one}))
         return out
 
+    graphs = model.graphs
     model.set_mesh(mesh)
+    model.graphs = None                 # the eager mesh path
     I._decode_symmetric_core = counted
     try:
         reset_counters(FA, C3, BA)
@@ -4643,7 +4730,7 @@ def topo_decode(torch, FA, C3, BA, model, mesh):
         launches = launch_counts(FA, C3, BA)
     finally:
         I._decode_symmetric_core = core
-        model.set_mesh(None)
+        model.graphs = graphs
     check(len(calls) == mesh.size, f"topology: {len(calls)} decoder calls on "
           f"{mesh.size} slots")
     for (dev, b, n), want_dev in zip(calls, mesh.devices):
@@ -4675,7 +4762,168 @@ def topo_decode(torch, FA, C3, BA, model, mesh):
         f"{per_slot * mesh.size} on {mesh.size} slots {t_mesh:.1f} ms, "
         f"unsharded {t_one:.1f} ms (host clock, first calls); per slot "
         f"K1 {one['K1']} K2 {one['K2']} launches")
-    return dict(rel_err=err, ms=t_mesh, ms_one=t_one)
+    try:
+        out = topo_graphed(torch, FA, C3, BA, model, mesh, args, got, one)
+    finally:
+        model.set_mesh(None)
+    return dict(rel_err=err, ms=t_mesh, ms_one=t_one, **out)
+
+
+def topo_graphed(torch, FA, C3, BA, model, mesh, args, eager, one):
+    """The sharded decode and the mesh's matcher as CUDA graphs: the
+    decode's graph per device and per-slot batch (captured on each
+    distinct device's first slot, replayed on the others), bit for bit the
+    eager mesh decode ``eager``, one decode's K1 / K2 launches a slot a
+    call; a second call replays every slot. Then ``match_symmetric`` on
+    the mesh (decode, then the matcher's graph on the first slot) against
+    its eager path, bit for bit, captured once and then replayed. Returns
+    the warm times beside the eager ones (ms, synced card to synced
+    card)."""
+    n_dev = len(mesh.distinct())
+    runs = []
+    for call in range(3):
+        caches_before = {d: (c.captures, c.replays)
+                         for d, c in model.slot_graphs.items()}
+        reset_counters(FA, C3, BA)
+        t0 = sync_clock(torch)
+        got = model.decode_symmetric_batch(*args)
+        ms = (sync_clock(torch) - t0) * 1e3
+        launches = launch_counts(FA, C3, BA)
+        caps = sum(c.captures - caches_before.get(d, (0, 0))[0]
+                   for d, c in model.slot_graphs.items())
+        reps = sum(c.replays - caches_before.get(d, (0, 0))[1]
+                   for d, c in model.slot_graphs.items())
+        want = (n_dev, mesh.size - n_dev) if call == 0 else (0, mesh.size)
+        check((caps, reps) == want, f"topology graphed decode call {call}: "
+              f"{caps} captures, {reps} replays, want {want}")
+        check(launches["K1"] == mesh.size * one["K1"]
+              and launches["K2"] == launches["K2 igemm"]
+              == mesh.size * one["K2"], f"topology graphed decode call "
+              f"{call}: launches {launches}")
+        for name, a, b in zip(("pts3d", "conf", "desc", "desc_conf"), got,
+                              eager):
+            check(same_bits(a, b), f"topology graphed decode {name} (call "
+                  f"{call}) differs from the eager mesh decode")
+        runs.append(ms)
+    log(f"topology: graphed sharded decode bit for bit the eager one; "
+        f"{len(model.slot_graphs)} device cache(s), first call "
+        f"{runs[0]:.1f} ms (captures), warm {min(runs[1:]):.1f} ms")
+    feat_i, pos_i, feat_j, pos_j, hw = args
+    n = hw[0] * hw[1]
+    init = torch.arange(n, device=feat_i.device).flip(0).expand(
+        TOPO_PAIRS, n)
+    graphs, outs, match_ms = model.graphs, [], []
+    cap0, rep0 = graphs.captures, graphs.replays
+    for graphed in (False, True, True, True):
+        model.graphs = graphs if graphed else None
+        try:
+            t0 = sync_clock(torch)
+            outs.append(model.match_symmetric(
+                feat_i, pos_i, feat_j, pos_j, hw, init_i2j=init,
+                init_j2i=init))
+            match_ms.append((sync_clock(torch) - t0) * 1e3)
+        finally:
+            model.graphs = graphs
+    check((graphs.captures - cap0, graphs.replays - rep0) == (1, 2),
+          f"topology mesh matcher: {graphs.captures - cap0} captures, "
+          f"{graphs.replays - rep0} replays, want 1, 2")
+    for out in outs[1:]:
+        for k, (a, b) in enumerate(zip(out, outs[0])):
+            check(same_bits(a, b), f"topology mesh match_symmetric output "
+                  f"{k}: graphed differs from eager")
+    log(f"topology: mesh match_symmetric of {TOPO_PAIRS} pairs, graphed "
+        f"(decode graphs + the matcher's graph on the first slot) bit for "
+        f"bit the eager path; eager {match_ms[0]:.1f} ms, graphed first "
+        f"{match_ms[1]:.1f} ms, warm {min(match_ms[2:]):.1f} ms")
+    return dict(graphed_first_ms=runs[0], graphed_ms=min(runs[1:]),
+                match_eager_ms=match_ms[0], match_first_ms=match_ms[1],
+                match_ms=min(match_ms[2:]))
+
+
+def topo_solve(torch, FA, C3, BA, mesh, device="cuda"):
+    """The mesh solve (``gauss_newton_rays`` / ``_calib`` on the first
+    power-of-two slots of ``mesh``) at the keyframe event's E (four two-way edges among three oracle
+    keyframes at 384x512, padded to the bucket of 8 rows, which the mesh
+    splits into equal shares), on base.yaml's bf16 channels and LM
+    settings from kicked poses: eagerly, then as CUDA graphs (a capture
+    and two replays; one graph when every slot is on one card, else each
+    slot's build on its card and the step on the first slot with the exit
+    read on the host): poses and iterations bit for bit, K4 / K5 launched
+    slots x (1 + iterations) a solve on the tensor-core path. Returns per
+    kind the iterations and times."""
+    from mast3r_slam_tpu_torch.ops import lie
+    from mast3r_slam_tpu_torch.ops.graphs import GraphCache
+    from mast3r_slam_tpu_torch.parallel.sharding import DeviceMesh
+    from mast3r_slam_tpu_torch.slam import factor_graph as FG
+
+    # the mesh's first power-of-two slots: they divide the bucket
+    m = 1 << (mesh.size.bit_length() - 1)
+    mesh = DeviceMesh(mesh.devices[:m], mesh.slots[:m])
+    N = IMG_HW[0] * IMG_HW[1] // 2
+    # the solve's inputs live on the mesh's first slot, as FactorGraph's
+    dev = mesh.first
+    meas_all, T, ii, jj, K = oracle_channels(torch, steps=(2,), dev=dev)
+    B, E = 8, ii.shape[0]
+    check(B % mesh.size == 0, f"topology solve: {mesh.size} slots do not "
+          f"divide the bucket of {B}")
+    ii2 = torch.cat([ii, ii.new_zeros(B - E)])
+    jj2 = torch.cat([jj, jj.new_zeros(B - E)])
+    mask = (torch.arange(B, device=dev) < E).float()
+    free = torch.arange(T.shape[0], device=dev) > 0
+    kick = torch.zeros(T.shape[0], 7, device=dev)
+    kick[1:] = torch.tensor([0.01, -0.005, 0.008, 0.004, -0.003, 0.002,
+                             0.01], device=dev)
+    T0 = lie.retr(T, kick)
+    design = "one graph" if len(mesh.distinct()) == 1 else (
+        "a graph a card + the step on the first slot, exit read on the host")
+    out = {}
+    for kind in ("rays", "calib"):
+        name = "K4" if kind == "rays" else "K5"
+        meas = tuple(torch.cat([ch, ch.new_zeros(B - E, *ch.shape[1:])])
+                     .to(torch.bfloat16).contiguous()
+                     for ch in meas_all[kind, N])
+
+        def solve(graphs):
+            kw = dict(compute_dtype="bfloat16", mesh=mesh, graphs=graphs)
+            if kind == "rays":
+                return FG.gauss_newton_rays(T0, meas, ii2, jj2, mask, free,
+                                            0.003, 10.0, 10, 1e-2, **kw)
+            return FG.gauss_newton_calib(T0, meas, K, ii2, jj2, mask, free,
+                                         IMG_HW, -10.0, 1e-6, 1.0, 10.0, 10,
+                                         1e-2, **kw)
+
+        cache = GraphCache("solve")
+        runs = []
+        for graphs in (None, cache, cache, cache):
+            (T_out, iters), launches, ms = counted_call(
+                torch, FA, C3, BA, lambda: solve(graphs))
+            iters = int(iters)
+            want = mesh.size * (1 + iters)
+            check(launches[name] == want and launches["BA mma"] == want,
+                  f"topology {kind} mesh solve (graphed: {graphs is not None}"
+                  f"): launches {launches}, want {want} ({iters} iterations"
+                  f" on {mesh.size} slots)")
+            runs.append((T_out, iters, ms))
+        for T_out, iters, _ in runs[1:]:
+            check(same_bits(T_out, runs[0][0]) and iters == runs[0][1],
+                  f"topology {kind}: the graphed mesh solve ({iters} "
+                  f"iterations) differs from the eager one ({runs[0][1]})")
+        check(runs[0][1] >= 1 and bool(runs[0][0].isfinite().all()),
+              f"topology {kind}: the mesh solve did not iterate")
+        check(cache.replays >= 2 * cache.captures >= 2,
+              f"topology {kind}: {cache.captures} captures, {cache.replays}"
+              f" replays of the solve graphs")
+        log(f"topology {kind} mesh solve on {mesh.size} slots ({design}): "
+            f"graphed bit for bit the eager one, {runs[0][1]} iterations, "
+            f"{name} {mesh.size} x (1 + {runs[0][1]}) launches a solve; "
+            f"{cache.captures} graphs; eager {runs[0][2]:.1f} ms, graphed "
+            f"first {runs[1][2]:.1f} ms, warm "
+            f"{min(r[2] for r in runs[2:]):.1f} ms")
+        out[kind] = dict(iters=runs[0][1], eager_ms=runs[0][2],
+                         first_ms=runs[1][2],
+                         warm_ms=min(r[2] for r in runs[2:]),
+                         graphs=cache.captures, design=design)
+    return out
 
 
 def topo_gram(torch, BA, mesh, device="cuda"):
@@ -4748,7 +4996,8 @@ def topo_layout(torch, FA, C3, BA, slots, model, clip, cfg_path, work, tag,
     log(f"topology {tag}: slots {[str(d) for d in slots]}; decode / BA mesh "
         f"slots {mesh.slots}, fallback mesh slots {mesh3.slots}")
     out = {"decode": topo_decode(torch, FA, C3, BA, model, mesh),
-           "gram_err": topo_gram(torch, BA, mesh, device)}
+           "gram_err": topo_gram(torch, BA, mesh, device),
+           "solve": topo_solve(torch, FA, C3, BA, mesh, device)}
     res, launches, rec = run_cli(
         torch, FA, C3, BA, model, work,
         ["--dataset", str(clip), "--config", cfg_path, "--no-viz",
@@ -4760,6 +5009,17 @@ def topo_layout(torch, FA, C3, BA, slots, model, clip, cfg_path, work, tag,
           f"topology {tag}: no backend mesh in the CLI run")
     check(g.solve_stats["sharded"] >= 1, f"topology {tag}: no sharded solve "
           f"({g.solve_stats})")
+    # the mesh's solves and decodes repeat their shapes within the clip;
+    # its matcher's batch (B edges an event) may not repeat
+    caps, reps = rec["captures"], rec["replays"]
+    for name, replays in (("solve", 1), ("decode", 1), ("match", 0)):
+        check(caps[name] >= 1 and reps[name] >= replays, f"topology {tag}: "
+              f"the CLI's {name} graphs: {caps[name]} captures, "
+              f"{reps[name]} replays")
+    log(f"topology {tag}: the CLI's mesh solves, sharded decode and "
+        f"matcher ran as graphs: captures {caps}, replays {reps}; K4 "
+        f"{launches['K4']} launches = its {rec['calls']['builds']} slot "
+        f"system builds ({g.mesh.size} a build on the mesh)")
     check(res["quality"].processed_jobs > 0
           and res["refiner"].stats["scheduled"] > 0,
           f"topology {tag}: services idle")
@@ -4782,7 +5042,8 @@ def topo_layout(torch, FA, C3, BA, slots, model, clip, cfg_path, work, tag,
                keyframes=len(kf),
                edges=g.n_edges(), solve_stats=dict(g.solve_stats),
                launches=launches)
-    # (c) fewer two-way edges than slots: the first backend slot alone
+    # (c) a bucket of 8 rows that 3 slots do not divide: the first
+    # backend slot alone
     cfg = load_config(cfg_path)
     model.set_mesh(mesh3)
     try:
@@ -4799,7 +5060,7 @@ def topo_layout(torch, FA, C3, BA, slots, model, clip, cfg_path, work, tag,
           and bool(kf.T_WC[:len(kf)].isfinite().all()),
           "topology fallback: poses not homed or not finite")
     log(f"topology {tag}: fallback on {mesh3.size} slots with 2 two-way "
-        f"edges: {g3.solve_stats}")
+        f"edges (a bucket of 8): {g3.solve_stats}")
     return out
 
 
@@ -4807,14 +5068,18 @@ def phase_topology(torch, FA, C3, BA, workdir, cli=None, device="cuda"):
     """The disjoint device topology: the layout ``plan_topology()`` gives on
     the visible cards, then a virtual ``TOPO_SLOTS``-slot layout on cuda:0
     (and, with two or more cards, the same on the distinct cards): the
-    sharded decode, the sharded BA system, the CLI with services and the
-    3-slot fallback (``topo_layout``). ``cli``: the cli phase's one-slot
-    medians, printed beside the layout's. ``device`` "cpu" rehearses the
-    phase on the CPU (with ``tied_model`` and ``main`` patched)."""
+    sharded decode and its graphs, the sharded BA system, the mesh solve
+    eager and graphed, the CLI with services (its mesh solves, decodes and
+    matcher as graphs) and the 3-slot fallback (``topo_layout``). ``cli``:
+    the cli phase's one-slot medians, printed beside the layout's.
+    ``device`` "cpu" rehearses the phase on the CPU (with ``tied_model``
+    and ``main`` patched)."""
+    from mast3r_slam_tpu_torch.bench.frame_profile import smi
     from mast3r_slam_tpu_torch.parallel.sharding import visible_devices
     from mast3r_slam_tpu_torch.parallel.topology import plan_topology
     from mast3r_slam_tpu_torch.utils.config import load_config
 
+    where = smi() if device == "cuda" else "cpu"
     cards = visible_devices()
     log(f"topology: plan_topology() on the {len(cards)} visible card(s): "
         f"{plan_topology().describe()}")
@@ -4844,6 +5109,16 @@ def phase_topology(torch, FA, C3, BA, workdir, cli=None, device="cuda"):
             f"{r['add_factors_ms']:.1f}, solve {r['solve_ms']:.1f}); one "
             f"slot (phase cli): {one}; keyframes "
             f"{r['keyframes']}, edges {r['edges']}, {r['solve_stats']}")
+        d, sv = r["decode"], r["solve"]
+        log(f"topology {tag}: sharded decode of {TOPO_PAIRS} pairs eager "
+            f"{d['ms']:.1f} ms (first call), graphed first "
+            f"{d['graphed_first_ms']:.1f} ms, warm {d['graphed_ms']:.1f} ms;"
+            f" mesh match_symmetric eager {d['match_eager_ms']:.1f} ms, "
+            f"graphed warm {d['match_ms']:.1f} ms; mesh solve ("
+            + ", ".join(f"{k} {v['iters']} iterations eager "
+                        f"{v['eager_ms']:.1f} ms, graphed warm "
+                        f"{v['warm_ms']:.1f} ms" for k, v in sv.items())
+            + f"; {sv['rays']['design']}); on {where}")
     del model
     torch.cuda.empty_cache()
     return out
@@ -5169,7 +5444,7 @@ def phase_viz(torch, FA, C3, BA, workdir, cli=None, device="cuda"):
 
 
 PHASES = ("data", "kernels", "main", "event", "cross", "ba_kernels",
-          "gram_bench", "backend_tools", "oracle", "cli", "cli_cross",
+          "gram_bench", "backend_tools", "debug_tools", "oracle", "cli", "cli_cross",
           "cli_datasets", "ate_study", "eval_harness", "recall", "reloc",
           "services", "topology", "viz")
 
@@ -5242,6 +5517,7 @@ def main():
     gram = run("ba_kernels", phase_ba_kernels, torch, BA)
     k4p = run("gram_bench", phase_gram_bench, torch, FA, C3, BA)
     run("backend_tools", phase_backend_tools, torch, FA, C3, BA)
+    run("debug_tools", phase_debug_tools, torch, smi)
     oracle = run("oracle", phase_oracle, torch, FA, C3, BA)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
         cli = run("cli", phase_cli, torch, FA, C3, BA, work)

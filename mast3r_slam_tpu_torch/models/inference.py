@@ -12,8 +12,11 @@ one CUDA graph per batch size and static configuration
 a missing matcher init is the identity, as in JAX, so a warm and a cold
 start share one graph. With a backend mesh (``parallel/``) the pair batch
 is padded to a multiple of the mesh size and each slot decodes its share
-on its own device (K1 and K2 on every backend device), eagerly; the
-matcher runs on the first slot's device, where the decode outputs gather.
+on its own device (K1 and K2 on every backend device), on a card as a
+CUDA graph per device and per-slot batch (the JAX package's jitted
+``_decode_symmetric_batch_jit``); the matcher runs on the first slot's
+device, where the decode outputs gather, as one graph per B there (the
+JAX mesh path's one batched ``matching.match``, whose stages are jitted).
 """
 
 from __future__ import annotations
@@ -144,6 +147,10 @@ class MASt3RInference:
         self.mesh = mesh
         self.params_mesh = (None if mesh is None
                             else S.replicate(self.params, mesh))
+        # the sharded decode's CUDA graphs, one cache per distinct device:
+        # a cache forgets its graphs when its owner changes, and each
+        # card's replica is an owner of its own
+        self.slot_graphs = {}
 
     def encode_frame(self, frame):
         """Populate ``frame.feat`` / ``frame.pos`` (cached across calls)."""
@@ -195,7 +202,9 @@ class MASt3RInference:
         last pair repeated; the JAX package's edge-mode pad), each slot
         decodes its pairs on its device with that device's replica, and
         the outputs gather on the first slot's device in slot order,
-        trimmed back to B: the decode never runs on the frontend's copy."""
+        trimmed back to B: the decode never runs on the frontend's copy.
+        On a card each slot's decode is the graph of its device and
+        per-slot batch (:meth:`_slot_decode`)."""
         if self.mesh is None:
             return _decode_symmetric_core(self.params, self.cfg, feat_i,
                                           pos_i, feat_j, pos_j, img_hw,
@@ -208,10 +217,26 @@ class MASt3RInference:
             if pad:
                 t = torch.cat([t, t[-1:].expand(pad, *t.shape[1:])])
             shards.append(S.shard_leading(t, mesh))
-        outs = [_decode_symmetric_core(p, self.cfg, *parts, img_hw, self.ds)
+        outs = [self._slot_decode(p, parts, img_hw)
                 for p, parts in zip(self.params_mesh, zip(*shards))]
         return tuple(torch.cat([o[k].to(mesh.first) for o in outs],
                                dim=1)[:, :b] for k in range(4))
+
+    def _slot_decode(self, params, parts, img_hw):
+        """One slot's decode of its pairs ``parts`` with its device's
+        parameter replica ``params``: on a card the graph of this device,
+        image size and per-slot batch, in the device's own cache (kept
+        until the next :meth:`set_mesh`), else eagerly."""
+        def run(*args):
+            return _decode_symmetric_core(params, self.cfg, *args,
+                                          tuple(img_hw), self.ds)
+
+        dev = parts[0].device
+        if self.graphs is None or dev.type != "cuda":
+            return run(*parts)
+        cache = self.slot_graphs.setdefault(dev, GraphCache("decode"))
+        key = ("decode", self.cfg, tuple(img_hw), self.ds)
+        return cache.run(key, run, parts, owner=params)
 
     def match_symmetric(self, feat_i, pos_i, feat_j, pos_j, img_hw,
                         init_i2j=None, init_j2i=None):
@@ -223,7 +248,8 @@ class MASt3RInference:
         maps j-pixels to i-pixels (e.g. keyframe j's points projected into
         camera i), and vice versa; a missing one starts from identity.
         Without a mesh, one program (on a card, a CUDA graph per B);
-        with one, the sharded decode, then the matcher."""
+        with one, the sharded decode, then the matcher (on a card, a CUDA
+        graph per B on the first slot's device)."""
         b = feat_i.shape[0]
         n = (img_hw[0] // self.ds) * (img_hw[1] // self.ds)
         kw = self._match_kw()
@@ -243,7 +269,12 @@ class MASt3RInference:
             # the warm starts come from the frontend's keyframe state: the
             # matcher runs where the decode outputs are
             init = self._init(b, n, X.device, init_i2j, init_j2i)
-            idx, valid = _match_rows(X, D, init, kw)
+
+            def rows(X, D, init):
+                return _match_rows(X, D, init, kw)
+
+            idx, valid = self._graphed("rows", img_hw, kw, rows,
+                                       (X, D, init))
         Qii, Qji, Qjj, Qij = (Q[k].reshape(b, n, 1) for k in range(4))
         return (idx[:b], idx[b:], valid[:b], valid[b:], Qii, Qjj, Qji, Qij)
 

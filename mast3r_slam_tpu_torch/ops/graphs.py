@@ -162,6 +162,12 @@ class GraphCache:
                      if any(t is buf for t in g.inputs)]:
             del self._graphs[full]
 
+    def drop_if(self, pred):
+        """Forget the graphs whose key (the caller's ``key``) satisfies
+        ``pred``."""
+        for full in [full for full in self._graphs if pred(full[0])]:
+            del self._graphs[full]
+
     def pool_bytes(self):
         """Device memory held by each graph's pools (its own and its loop
         bodies'), by key: the segments ``torch.cuda.memory_snapshot()``

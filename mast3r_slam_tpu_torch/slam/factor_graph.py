@@ -21,33 +21,39 @@ the local point Jacobian ``[I | -skew(X') | X']`` maps to world-frame
 perturbations of pose j through ``Adj(T_i^{-1})``, and ``J_i = -J_j``.
 
 With a backend mesh (``parallel/``) the graph keeps its edge buffers and
-channel cache on the first backend slot's device, each slot builds the
-full-size system from its share of the two-way edges (one K4 / K5 launch
-per slot and system build), and the systems are summed onto the first slot
-in slot order (:func:`_shard_edge_system`, the JAX ``shard_map`` and
-``psum``); solved poses go back to the frontend device.
+channel cache on the first backend slot's device and places each solve as
+the JAX package does: when the mesh size divides the padded bucket, each
+slot builds the full-size system from its equal share of the two-way rows
+(one K4 / K5 launch per slot and system build; a share of padding rows
+builds an exactly zero system) and the systems are summed onto the first
+slot in slot order (:func:`_mesh_system`, the JAX ``shard_map`` and
+``psum``); otherwise the first backend slot solves alone. Solved poses go
+back to the frontend device.
 
 As in the JAX package, the LM loop exits on the device (``ops/device_loop.py``:
 the JAX ``lax.while_loop``'s state and rules, updated in place, with the
 steps after the exit masked), and the two-way edges are padded to a
 power-of-two bucket (padded rows ``ii = jj = 0`` with zero channels and
-``edge_mask`` 0, whose Gram is exactly zero). On a card without a mesh,
-:class:`FactorGraph` runs each solve as one CUDA graph per bucket and
-static configuration (``ops/graphs.py``, the counterpart of the JAX
-``jax.jit`` of :func:`gauss_newton_rays` / :func:`gauss_newton_calib`):
-the system builds, the damped solve, the retraction and the exit rules
-sit in one conditional WHILE node, and the only host read of a solve is
-its iteration count, afterwards (:attr:`FactorGraph.last_solve_iters`).
-Edges are never removed, so a kind holds one bucket's buffers: the
-smaller bucket's, and the graphs that read them, go when the edges
-outgrow it.
+``edge_mask`` 0, whose Gram is exactly zero). On a card,
+:class:`FactorGraph` runs each solve as CUDA graphs, one set per bucket,
+static configuration and mesh (``ops/graphs.py``, the counterpart of the
+JAX ``jax.jit`` of :func:`gauss_newton_rays` / :func:`gauss_newton_calib`,
+whose mesh is static). Without a mesh, or with every slot on one device,
+the solve is one graph: the system builds (every slot's), the damped
+solve, the retraction and the exit rules sit in one conditional WHILE
+node, and the only host read of a solve is its iteration count,
+afterwards (:attr:`FactorGraph.last_solve_iters`). A conditional node's
+body holds the nodes of one device, so over distinct cards each slot's
+system build is a graph on its card, the step's two halves are graphs on
+the first slot, and the host reads the loop's exit once an iteration
+(:func:`_lm_hosted`). Edges are never removed, so a kind holds one
+bucket's buffers: the smaller bucket's, and the graphs that read them, go
+when the edges outgrow it.
 
 What differs from the JAX package: a Cholesky failure is read from
-``cholesky_ex``'s ``info``; a mesh solve splits the unpadded edges with
-``torch.tensor_split`` whenever there are at least as many as slots, and
-runs its loop eagerly (the JAX package shards the padded bucket when the
-mesh divides it); the cache is updated in place. The XLA chunked scans
-have no counterpart here.
+``cholesky_ex``'s ``info``; the cache is updated in place; over distinct
+cards the LM loop's exit is read on the host. The XLA chunked scans have
+no counterpart here.
 """
 
 from __future__ import annotations
@@ -218,36 +224,72 @@ def _accumulate_calib(T, meas, K, ii, jj, edge_mask, free_mask, cap,
     return _assemble(G, 3, Ti, ii, jj, free_mask, cap)
 
 
-def _shard_edge_system(mesh, accum, T, free_mask, ii, jj, edge_mask, meas,
-                       extra_arrays=()):
-    """The dense system ``(H, g, cost)`` of all edges, built per slot of
-    ``mesh`` and summed (the JAX ``_shard_edge_system``: ``shard_map`` over
-    the edge axis and a ``psum``).
-
-    The edges ``ii, jj, edge_mask`` and the channels ``meas`` are split
-    over the slots (``torch.tensor_split``; every slot needs at least one
-    edge); ``T``, ``free_mask`` and ``extra_arrays`` (e.g. K) are
-    replicated. Each slot builds the full-size system from its own edges
-    on its device with ``accum(T, meas, ii, jj, mask, free, *extras)``
-    (the scatter targets are global keyframe slots, so the slots'
-    systems are disjoint contributions); every slot is launched before
-    any is summed, then the systems are added onto the first slot's
-    device in slot order, so the sum is deterministic."""
+def _split_edges(mesh, ii, jj, edge_mask, meas):
+    """Each slot's share of the two-way edges ``ii, jj, edge_mask`` and
+    their channels ``meas``, on the slot's device, in slot order:
+    ``[(ii_k, jj_k, mask_k, meas_k), ...]`` (``torch.tensor_split``; a
+    solve splits its padded bucket, which the mesh size divides, into
+    equal parts)."""
     parts = [S.shard_leading(a, mesh) for a in (ii, jj, edge_mask)]
     meas_parts = [S.shard_leading(ch, mesh) for ch in meas]
-    reps = [S.replicate(a, mesh) for a in (T, free_mask, *extra_arrays)]
-    outs = []
-    for k in range(mesh.size):
-        T_k, free_k, *extras = (r[k] for r in reps)
-        ii_k, jj_k, mask_k = (p[k] for p in parts)
-        outs.append(accum(T_k, tuple(m[k] for m in meas_parts), ii_k, jj_k,
-                          mask_k, free_k, *extras))
+    return [(parts[0][k], parts[1][k], parts[2][k],
+             tuple(m[k] for m in meas_parts)) for k in range(mesh.size)]
+
+
+def _sum_systems(mesh, outs):
+    """The slots' systems ``[(H, g, cost), ...]`` added onto the first
+    slot's device in slot order (the JAX ``psum``; the order fixes the
+    sum)."""
     H, g, cost = outs[0]
     for H_k, g_k, cost_k in outs[1:]:
         H = H + H_k.to(mesh.first)
         g = g + g_k.to(mesh.first)
         cost = cost + cost_k.to(mesh.first)
     return H, g, cost
+
+
+def _mesh_system(mesh, accum, shares, free_mask, extra_arrays=()):
+    """``system(T)``: the dense system ``(H, g, cost)`` of all edges at
+    poses ``T``, built per slot of ``mesh`` from its share (``shares``, from
+    :func:`_split_edges`) and summed (:func:`_sum_systems`). ``free_mask``
+    and ``extra_arrays`` (e.g. K) are replicated once, ``T`` on every call.
+    Each slot builds the full-size system from its own edges on its device
+    with ``accum(T, meas, ii, jj, mask, free, *extras)`` (the scatter
+    targets are global keyframe slots, so the slots' systems are disjoint
+    contributions); every slot is launched before any is summed."""
+    reps = S.replicate((free_mask, *extra_arrays), mesh)
+
+    def system(T):
+        Ts = S.replicate(T, mesh)
+        return _sum_systems(mesh, [
+            accum(Ts[k], meas_k, ii_k, jj_k, mask_k, reps[k][0],
+                  *reps[k][1:])
+            for k, (ii_k, jj_k, mask_k, meas_k) in enumerate(shares)])
+
+    return system
+
+
+def _edge_system(mesh, accum, ii, jj, edge_mask, free_mask, meas,
+                 extra_arrays=()):
+    """``system(T)`` of a solve: one build of every edge without a mesh,
+    else :func:`_mesh_system` over the edges split once."""
+    if mesh is None:
+        return lambda T: accum(T, meas, ii, jj, edge_mask, free_mask,
+                               *extra_arrays)
+    return _mesh_system(mesh, accum,
+                        _split_edges(mesh, ii, jj, edge_mask, meas),
+                        free_mask, extra_arrays)
+
+
+def _shard_edge_system(mesh, accum, T, free_mask, ii, jj, edge_mask, meas,
+                       extra_arrays=()):
+    """The dense system ``(H, g, cost)`` of all edges, built per slot of
+    ``mesh`` and summed (the JAX ``_shard_edge_system``: ``shard_map`` over
+    the edge axis and a ``psum``): the edges and channels split over the
+    slots (:func:`_split_edges`), ``T``, ``free_mask`` and
+    ``extra_arrays`` replicated (:func:`_mesh_system`)."""
+    shares = _split_edges(mesh, ii, jj, edge_mask, meas)
+    return _mesh_system(mesh, accum, shares, free_mask, extra_arrays)(T)
 
 
 def system_error(sys, ref):
@@ -308,6 +350,47 @@ def _solve_system(H, g, free_mask, cap, damping):
     return dx.reshape(cap, 7), ok
 
 
+def _lm_state(T_WC, H, g, cost, damping, max_iter):
+    """The LM loop's state at poses ``T_WC`` and their system: ``(T_ref,
+    cost_ref, H, g, lam, delta, iters, live)``, device tensors that the
+    steps update in place (JAX's carry)."""
+    dev = H.device
+    return (T_WC.clone(), cost.clone(), H.clone(), g.clone(),
+            torch.full((), damping, dtype=torch.float32, device=dev),
+            torch.full((), math.inf, dtype=torch.float32, device=dev),
+            torch.zeros((), dtype=torch.int32, device=dev),
+            torch.full((), max_iter > 0, dtype=torch.bool, device=dev))
+
+
+def _lm_propose(state, free_mask, cap):
+    """A step's candidate: the damped solve of the state's system and the
+    retraction of its poses. Returns ``(dx, chol_ok, T_cand)``."""
+    T_ref, _, H, g, lam = state[:5]
+    dx, chol_ok = _solve_system(H, g, free_mask, cap, lam)
+    return dx, chol_ok, lie.retr(T_ref, dx)
+
+
+def _lm_accept(state, dx, chol_ok, T_cand, H_c, g_c, cost_c, max_iter,
+               delta_thresh, damping):
+    """The accept / reject rules of a step, given the candidate's system
+    ``H_c, g_c, cost_c``: the state updated in place."""
+    T_ref, cost_ref, H, g, lam, delta, iters, live = state
+    accept = live & chol_ok & (cost_c < cost_ref)
+    T_ref.copy_(torch.where(accept, T_cand, T_ref))
+    cost_ref.copy_(torch.where(accept, cost_c, cost_ref))
+    H.copy_(torch.where(accept, H_c, H))
+    g.copy_(torch.where(accept, g_c, g))
+    lam.copy_(torch.where(accept, (lam * 0.25).clamp_min(damping),
+                          torch.where(live, lam * 10.0, lam)))
+    # only a small ACCEPTED step means converged; the λ cap ends a
+    # reject-only stall
+    moved = torch.where(accept, torch.linalg.norm(dx), math.inf)
+    delta.copy_(torch.where(live, torch.where(lam > 1e8, 0.0, moved),
+                            delta))
+    iters.add_(live)
+    live.copy_(live & (iters < max_iter) & (delta >= delta_thresh))
+
+
 def _lm_loop(system, T_WC, free_mask, cap, max_iter, delta_thresh, damping):
     """Levenberg-Marquardt accept / reject loop of the BA solvers.
 
@@ -324,44 +407,85 @@ def _lm_loop(system, T_WC, free_mask, cap, max_iter, delta_thresh, damping):
     g, λ and delta are float32 device tensors updated in place by each
     step, in the JAX loop's order, and a step after the exit leaves them
     as they are. Returns ``(T, iterations)``, iterations a device int."""
-    T_ref = T_WC.clone()
-    H, g, cost_ref = (t.clone() for t in system(T_WC))
-    dev = H.device
-    lam = torch.full((), damping, dtype=torch.float32, device=dev)
-    delta = torch.full((), math.inf, dtype=torch.float32, device=dev)
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
-    live = torch.full((), max_iter > 0, dtype=torch.bool, device=dev)
+    state = _lm_state(T_WC, *system(T_WC), damping, max_iter)
 
     def step():
-        dx, chol_ok = _solve_system(H, g, free_mask, cap, lam)
-        T_cand = lie.retr(T_ref, dx)
-        H_c, g_c, cost_c = system(T_cand)
-        accept = live & chol_ok & (cost_c < cost_ref)
-        T_ref.copy_(torch.where(accept, T_cand, T_ref))
-        cost_ref.copy_(torch.where(accept, cost_c, cost_ref))
-        H.copy_(torch.where(accept, H_c, H))
-        g.copy_(torch.where(accept, g_c, g))
-        lam.copy_(torch.where(accept, (lam * 0.25).clamp_min(damping),
-                              torch.where(live, lam * 10.0, lam)))
-        # only a small ACCEPTED step means converged; the λ cap ends a
-        # reject-only stall
-        moved = torch.where(accept, torch.linalg.norm(dx), math.inf)
-        delta.copy_(torch.where(live, torch.where(lam > 1e8, 0.0, moved),
-                                delta))
-        iters.add_(live)
-        live.copy_(live & (iters < max_iter) & (delta >= delta_thresh))
+        dx, chol_ok, T_cand = _lm_propose(state, free_mask, cap)
+        _lm_accept(state, dx, chol_ok, T_cand, *system(T_cand), max_iter,
+                   delta_thresh, damping)
 
-    device_loop.run(max_iter, live, step)
-    return T_ref, iters
+    device_loop.run(max_iter, state[-1], step)
+    return state[0], state[-2]
 
 
-def _run_solve(graphs, mesh, key, solve, inputs, static):
-    """``solve(*inputs)``: eagerly, or with ``graphs`` (and no mesh) as the
-    CUDA graph of ``key``, the inputs at indices ``static`` read where
-    they are (see :func:`gauss_newton_rays`)."""
-    if graphs is None or mesh is not None:
+def _lm_hosted(graphs, key, mesh, accum, T_WC, extras, ii, jj, edge_mask,
+               free_mask, meas, cap, max_iter, delta_thresh, damping):
+    """:func:`_lm_loop` over a mesh of distinct cards, as CUDA graphs: a
+    conditional node's body holds the nodes of one device, so the loop
+    runs on the host. Each slot's system build is a graph on its own card
+    (one per card and shape), the step's solve and retraction
+    (``propose``) and its sum of the slots' systems and accept rules
+    (``accept``) are graphs on the first slot, and the host reads the
+    loop's exit once an iteration. The edges are split over the slots once
+    a solve. ``graphs.run`` may also be a plain call (``fn(*inputs)``):
+    the same operations in the same order as :func:`_lm_loop`, so the
+    results are its bits. Returns ``(T, iterations)``."""
+    shares = _split_edges(mesh, ii, jj, edge_mask, meas)
+    reps = S.replicate((free_mask, *extras), mesh)
+    n_extra = len(extras)
+    first = mesh.first
+
+    def build(T, free, ii_k, jj_k, mask_k, *rest):
+        return accum(T, rest[n_extra:], ii_k, jj_k, mask_k, free,
+                     *rest[:n_extra])
+
+    def system(T):
+        outs = []
+        for k, (ii_k, jj_k, mask_k, meas_k) in enumerate(shares):
+            dev = mesh.devices[k]
+            outs.append(graphs.run(
+                key + ("build", dev), build,
+                (T.to(dev), reps[k][0], ii_k, jj_k, mask_k, *reps[k][1:],
+                 *meas_k)))
+        # the slots' systems as flat inputs of a graph on the first slot
+        return [t.to(first) for out in outs for t in out]
+
+    def summed(*flat):
+        return _sum_systems(mesh, [flat[i:i + 3]
+                                   for i in range(0, len(flat), 3)])
+
+    def propose(*state_free):
+        return _lm_propose(state_free[:-1], state_free[-1], cap)
+
+    def accept(*a):
+        state, (dx, chol_ok, T_cand), flat = a[:8], a[8:11], a[11:]
+        _lm_accept(state, dx, chol_ok, T_cand, *summed(*flat), max_iter,
+                   delta_thresh, damping)
+        return state
+
+    H, g, cost = graphs.run(key + ("sum",), summed, tuple(system(T_WC)))
+    state = _lm_state(T_WC, H, g, cost, damping, max_iter)
+    for _ in range(max_iter):
+        if not bool(state[-1]):          # the exit, read once an iteration
+            break
+        cand = graphs.run(key + ("propose",), propose,
+                          (*state, free_mask))
+        state = graphs.run(key + ("accept",), accept,
+                           (*state, *cand, *system(cand[2])))
+    return state[0], state[-2]
+
+
+def _run_solve(graphs, mesh, key, solve, inputs, static, hosted):
+    """``solve(*inputs)``: eagerly, or with ``graphs`` as the CUDA graph of
+    ``key`` and the mesh (every slot on one device: the whole solve, the
+    inputs at indices ``static`` read where they are; see
+    :func:`gauss_newton_rays`), or, over distinct cards, as
+    :func:`_lm_hosted`'s graphs (``hosted(graphs, key)``)."""
+    if graphs is None:
         return solve(*inputs)
-    return graphs.run(key, solve, inputs, static=static)
+    if mesh is not None and len(mesh.distinct()) > 1:
+        return hosted(graphs, key + (mesh,))
+    return graphs.run(key + (mesh,), solve, inputs, static=static)
 
 
 def gauss_newton_rays(T_WC, meas, ii, jj, edge_mask, free_mask, sigma_ray,
@@ -373,13 +497,16 @@ def gauss_newton_rays(T_WC, meas, ii, jj, edge_mask, free_mask, sigma_ray,
     (float32 or bfloat16); ``edge_mask (E,)``; ``free_mask (cap,)`` bool.
     Returns ``(T (cap, 8), iterations)``, iterations a device int; one K4
     launch per system build (1 + iterations), or with ``mesh`` one per slot
-    and build (:func:`_shard_edge_system`; the inputs and ``T_WC`` on its
-    first slot's device; the loop runs eagerly). With ``graphs`` (an
-    ``ops.graphs.GraphCache``, CUDA inputs, no mesh) the solve runs as its
-    graph for this configuration and shape; ``ii, jj, edge_mask,
-    free_mask`` and ``meas`` must then be the caller's buffers, the same
-    tensors on every call of a shape (:meth:`FactorGraph._two_way_padded`'s),
-    which the graph reads where they are."""
+    and build: the edges split over the slots once a solve (the mesh size
+    divides E), the slots' systems summed in slot order
+    (:func:`_mesh_system`; the inputs and ``T_WC`` on the first slot's
+    device). With ``graphs`` (an ``ops.graphs.GraphCache``, CUDA inputs)
+    the solve runs as its graph for this configuration, mesh and shape
+    (its LM loop a conditional node); ``ii, jj, edge_mask, free_mask`` and
+    ``meas`` must then be the caller's buffers, the same tensors on every
+    call of a shape (:meth:`FactorGraph._two_way_padded`'s), which the
+    graph reads where they are. Over a mesh of distinct cards the solve
+    runs as :func:`_lm_hosted`'s graphs instead."""
     cap = T_WC.shape[0]
     cdt = ba_kernels.as_dtype(compute_dtype)
 
@@ -388,20 +515,21 @@ def gauss_newton_rays(T_WC, meas, ii, jj, edge_mask, free_mask, sigma_ray,
                                 sigma_ray, sigma_dist, compute_dtype=cdt)
 
     def solve(T_WC, ii, jj, edge_mask, free_mask, *meas):
-        def system(T):
-            if mesh is not None:
-                return _shard_edge_system(mesh, accum, T, free_mask, ii, jj,
-                                          edge_mask, meas)
-            return accum(T, meas, ii, jj, edge_mask, free_mask)
-
+        system = _edge_system(mesh, accum, ii, jj, edge_mask, free_mask,
+                              meas)
         return _lm_loop(system, T_WC, free_mask, cap, max_iter,
                         delta_thresh, damping)
+
+    def hosted(graphs, key):
+        return _lm_hosted(graphs, key, mesh, accum, T_WC, (), ii, jj,
+                          edge_mask, free_mask, meas, cap, max_iter,
+                          delta_thresh, damping)
 
     inputs = (T_WC, ii, jj, edge_mask, free_mask, *meas)
     key = ("rays", cdt, sigma_ray, sigma_dist, max_iter, delta_thresh,
            damping)
     return _run_solve(graphs, mesh, key, solve, inputs,
-                      range(1, len(inputs)))
+                      range(1, len(inputs)), hosted)
 
 
 def gauss_newton_calib(T_WC, meas, K, ii, jj, edge_mask, free_mask, img_size,
@@ -420,20 +548,21 @@ def gauss_newton_calib(T_WC, meas, K, ii, jj, edge_mask, free_mask, img_size,
                                  sigma_pixel, sigma_depth, compute_dtype=cdt)
 
     def solve(T_WC, K, ii, jj, edge_mask, free_mask, *meas):
-        def system(T):
-            if mesh is not None:
-                return _shard_edge_system(mesh, accum, T, free_mask, ii, jj,
-                                          edge_mask, meas, extra_arrays=(K,))
-            return accum(T, meas, ii, jj, edge_mask, free_mask, K)
-
+        system = _edge_system(mesh, accum, ii, jj, edge_mask, free_mask,
+                              meas, (K,))
         return _lm_loop(system, T_WC, free_mask, cap, max_iter,
                         delta_thresh, damping)
+
+    def hosted(graphs, key):
+        return _lm_hosted(graphs, key, mesh, accum, T_WC, (K,), ii, jj,
+                          edge_mask, free_mask, meas, cap, max_iter,
+                          delta_thresh, damping)
 
     inputs = (T_WC, K, ii, jj, edge_mask, free_mask, *meas)
     key = ("calib", cdt, tuple(img_size), pixel_border, z_eps, sigma_pixel,
            sigma_depth, max_iter, delta_thresh, damping)
     return _run_solve(graphs, mesh, key, solve, inputs,
-                      range(2, len(inputs)))
+                      range(2, len(inputs)), hosted)
 
 
 # ---------------------------------------------------------------------------
@@ -478,8 +607,8 @@ class FactorGraph:
     created by a symmetric decode + match and accepted by bidirectional
     coverage; the pose-invariant measured channels of every edge are cached
     across solves and refreshed only for edges whose keyframes' pointmaps
-    changed. On a card, a solve without a mesh runs as a CUDA graph
-    (``graphed=False`` runs it eagerly there: a comparison's reference)."""
+    changed. On a card, a solve runs as CUDA graphs (``graphed=False``
+    runs it eagerly there: a comparison's reference)."""
 
     def __init__(self, model, keyframes, cfg, K=None, mesh=None,
                  home_device=None, graphed=True):
@@ -495,9 +624,9 @@ class FactorGraph:
         self.mesh = mesh
         self.home_device = home_device
         self.device = keyframes.device if mesh is None else mesh.first
-        # which placement each solve took: "sharded" = at least one two-way
-        # edge per slot, the system built over the mesh;
-        # "fallback_single_device" = fewer, on the first backend slot
+        # which placement each solve took: "sharded" = the mesh size
+        # divides the padded bucket, the system built over the mesh;
+        # "fallback_single_device" = it does not, on the first backend slot
         self.solve_stats = {"sharded": 0, "fallback_single_device": 0}
         n_pix = keyframes.h * keyframes.w
         self.n_pix = n_pix
@@ -813,7 +942,11 @@ class FactorGraph:
         held = self._buckets.get(self._meas_kind)
         if held is None or held[0] != B:
             if held is not None and self.graphs is not None:
+                # the graphs that read the smaller bucket's buffers, or
+                # (over distinct cards) their slot shares
                 self.graphs.drop(held[1][1])
+                self.graphs.drop_if(
+                    lambda key: key[0] == self._meas_kind and "build" in key)
             edges = torch.empty(2, B, dtype=torch.long, device=dev)
             held = (B, (edges, edges[0], edges[1],
                         torch.empty(B, dtype=torch.float32, device=dev),
@@ -849,13 +982,14 @@ class FactorGraph:
         _upload(self._free, mask)
         return self._free
 
-    def _solve_mesh(self, n_two_way):
-        """The mesh a solve over ``n_two_way`` edges is sharded over, or
-        None (no mesh, or fewer edges than slots: the first backend slot
-        alone); counted in ``solve_stats``."""
+    def _solve_mesh(self, bucket):
+        """The mesh a solve over a padded bucket of ``bucket`` two-way rows
+        is sharded over, or None, as the JAX package places it: the mesh
+        when its size divides the bucket, else (or without a mesh) the
+        first backend slot alone; counted in ``solve_stats``."""
         if self.mesh is None:
             return None
-        if n_two_way >= self.mesh.size:
+        if bucket % self.mesh.size == 0:
             self.solve_stats["sharded"] += 1
             return self.mesh
         self.solve_stats["fallback_single_device"] += 1
@@ -893,12 +1027,8 @@ class FactorGraph:
         kf = self.keyframes
         with kf.lock:
             self._ensure_meas(kind)
-            ii2, jj2, mask, meas, n = self._two_way_padded()
-            mesh = self._solve_mesh(n)
-            if mesh is not None:
-                # the mesh splits the unpadded edges
-                ii2, jj2, mask = ii2[:n], jj2[:n], mask[:n]
-                meas = tuple(ch[:n] for ch in meas)
+            ii2, jj2, mask, meas, _ = self._two_way_padded()
+            mesh = self._solve_mesh(ii2.shape[0])
             graphs = self.graphs if self.device.type == "cuda" else None
             T_new, self._iters = solver(
                 self._place_T(kf.T_WC), meas, ii2, jj2, mask,

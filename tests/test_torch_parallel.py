@@ -1,6 +1,7 @@
 """Port parity: the multi-device paths of the backend
 (``_shard_edge_system``, the sharded pair decode, the mesh solve of
-``FactorGraph``) and the port's CLI on a virtual device layout, on the CPU.
+``FactorGraph`` and its placement, the loop that distinct cards run on
+the host) and the port's CLI on a virtual device layout, on the CPU.
 
 The port runs its slots on repeated CPU devices (``[cpu] * n``); the JAX
 side runs on conftest's 8 virtual CPU devices, its Pallas Gram in
@@ -14,7 +15,10 @@ interpret mode as ``tests/test_parallel.py`` runs it. Tolerances:
 - the sharded decode against the unsharded one and against JAX's sharded
   decode: ``torch_parity``'s float32 tolerance (rtol 1e-4, atol 1e-5);
 - mesh solves against the one-device solve: 1e-5 (float32 rows, the
-  systems differ only in the order of their f32 sums);
+  systems differ only in the order of their f32 sums); against the old
+  eager mesh loop and the host-driven loop of distinct cards: bit for bit;
+  the placement against JAX's FactorGraph: the same ``solve_stats``, poses
+  within 1e-4;
 - the CLI on 8 slots against its one-slot run: the same modes, keyframes
   and edges, exactly.
 """
@@ -191,6 +195,160 @@ def test_gauss_newton_on_a_mesh_matches_one_device(kind):
     assert it1 == it4 >= 1
     assert (T1 - t_(T_in)).abs().max() > 1e-3     # the solve moved
     assert (T4 - T1).abs().max() <= 1e-5
+
+
+def _old_shard_edge_system(mesh, accum, T, free_mask, ii, jj, edge_mask,
+                           meas, extra_arrays=()):
+    """The mesh system build as the port ran it before a solve split its
+    edges once: every build splits the edges and channels and replicates
+    ``T``, ``free_mask`` and the extras anew (the reference of the
+    restructured solve)."""
+    parts = [S.shard_leading(a, mesh) for a in (ii, jj, edge_mask)]
+    meas_parts = [S.shard_leading(ch, mesh) for ch in meas]
+    reps = [S.replicate(a, mesh) for a in (T, free_mask, *extra_arrays)]
+    outs = []
+    for k in range(mesh.size):
+        T_k, free_k, *extras = (r[k] for r in reps)
+        ii_k, jj_k, mask_k = (p[k] for p in parts)
+        outs.append(accum(T_k, tuple(m[k] for m in meas_parts), ii_k, jj_k,
+                          mask_k, free_k, *extras))
+    H, g, cost = outs[0]
+    for H_k, g_k, cost_k in outs[1:]:
+        H = H + H_k.to(mesh.first)
+        g = g + g_k.to(mesh.first)
+        cost = cost + cost_k.to(mesh.first)
+    return H, g, cost
+
+
+def _mesh_scene(kind):
+    """The LM scene of ``kind`` as port tensors: the solver's arguments
+    before the edges (``T_WC`` and, for calib, ``K``), the edges ``(ii, jj,
+    mask, free)``, the channels, the positional settings after
+    ``free_mask`` and the accumulate of :func:`TFG._accumulate_rays` /
+    ``_calib`` at those settings."""
+    if kind == "rays":
+        T_in, meas, ii, jj, mask, free = _lm_scene()
+        head = (t_(T_in),)
+        args = (0.003, 10.0, 12, 1e-9)
+
+        def accum(T, m, ii_, jj_, mask_, free_):
+            return TFG._accumulate_rays(T, m, ii_, jj_, mask_, free_, 3,
+                                        0.003, 10.0,
+                                        compute_dtype=torch.float32)
+    else:
+        T_in, meas, K_, ii, jj, mask, hw = _calib_scene()
+        free = np.asarray([False, True, True])
+        head = (t_(T_in), t_(K_))
+        args = (hw, -10.0, 1e-6, 1.0, 10.0, 10, 1e-9)
+
+        def accum(T, m, ii_, jj_, mask_, free_, K__):
+            return TFG._accumulate_calib(T, m, K__, ii_, jj_, mask_, free_,
+                                         3, hw, -10.0, 1e-6, 1.0, 10.0,
+                                         compute_dtype=torch.float32)
+    edges = tuple(t_(np.asarray(a)) for a in (ii, jj, mask, free))
+    return head, edges, tuple(t_(np.array(ch)) for ch in meas), args, accum
+
+
+def _mesh_solve(kind, mesh, graphs=None):
+    head, (ii, jj, mask, free), meas, args, _ = _mesh_scene(kind)
+    fn = TFG.gauss_newton_rays if kind == "rays" else TFG.gauss_newton_calib
+    if kind == "rays":
+        return fn(head[0], meas, ii, jj, mask, free, *args,
+                  compute_dtype="float32", mesh=mesh, graphs=graphs)
+    return fn(head[0], meas, head[1], ii, jj, mask, free, *args,
+              compute_dtype="float32", mesh=mesh, graphs=graphs)
+
+
+@pytest.mark.parametrize("kind", ["rays", "calib"])
+def test_mesh_solve_with_its_split_inside_equals_the_old_mesh_path(kind):
+    """The solve splits its edges over the slots once (inside the captured
+    computation on a card); on a 4-slot CPU mesh its poses and iterations
+    are bit for bit those of the old eager mesh loop, which split and
+    replicated everything at every system build."""
+    head, (ii, jj, mask, free), meas, args, accum = _mesh_scene(kind)
+    mesh = _cpu_mesh(4)
+    extra = head[1:]
+    cap = head[0].shape[0]
+    max_iter, delta = args[-2:]
+
+    def system(T):
+        return _old_shard_edge_system(mesh, accum, T, free, ii, jj, mask,
+                                      meas, extra)
+
+    T_old, it_old = TFG._lm_loop(system, head[0], free, cap, max_iter,
+                                 delta, 1e-4)
+    T_new, it_new = _mesh_solve(kind, mesh)
+    assert int(it_new) == int(it_old) >= 1
+    assert torch.equal(T_new, T_old)
+    assert (T_new - head[0]).abs().max() > 1e-3
+
+
+class _EagerPieces:
+    """Runs what ``GraphCache.run`` would capture as a plain call, and
+    records the keys."""
+
+    def __init__(self):
+        self.keys = []
+
+    def run(self, key, fn, inputs, **kw):
+        self.keys.append(key)
+        return fn(*inputs)
+
+
+@pytest.mark.parametrize("kind", ["rays", "calib"])
+def test_hosted_mesh_loop_equals_the_device_loop(kind):
+    """The loop that a mesh over distinct cards runs as graphs (each slot's
+    system build, the step's solve and its accept rules; the exit read on
+    the host), its pieces run as plain calls: poses and iterations bit for
+    bit those of the single-loop mesh solve, one build per slot and system
+    build. Two names of the CPU make the mesh's devices distinct."""
+    cpu0 = torch.device("cpu", 0)
+    mesh = S.DeviceMesh((CPU, cpu0, CPU, cpu0), (1, 2, 3, 4))
+    assert len(mesh.distinct()) == 2
+    pieces = _EagerPieces()
+    T_h, it_h = _mesh_solve(kind, mesh, graphs=pieces)
+    T_m, it_m = _mesh_solve(kind, _cpu_mesh(4))
+    n = int(it_h)
+    assert n == int(it_m) >= 1
+    assert torch.equal(T_h, T_m)
+    parts = [k[-2] if k[-2] == "build" else k[-1] for k in pieces.keys]
+    assert parts.count("build") == 4 * (1 + n)
+    assert parts.count("sum") == 1
+    assert parts.count("propose") == parts.count("accept") == n
+
+
+def _placed(edges, slots):
+    """``edges`` consecutive edges solved by the port's and JAX's
+    FactorGraph on a ``slots``-slot backend mesh: (port graph, JAX graph,
+    port poses, JAX poses)."""
+    from jax.sharding import Mesh
+
+    kj, kt = _buffers(edges + 1, noise=0.02)
+    jmesh = Mesh(np.asarray(jax.devices()[1:slots + 1]), (JS.EDGE_AXIS,))
+    gj = JFG.FactorGraph(StubModel(False), kj, CFG, mesh=jmesh,
+                         home_device=jax.devices()[0])
+    gt = TFG.FactorGraph(StubModel(True), kt, CFG, mesh=_cpu_mesh(slots),
+                         home_device=CPU)
+    for g in (gj, gt):
+        assert g.add_factors(list(range(edges)), list(range(1, edges + 1)),
+                             0.0)
+        g.solve_GN_rays()
+    return gt, gj, kt.T_WC, kj.T_WC
+
+
+@pytest.mark.parametrize("edges,slots,placed", [
+    (1, 4, "sharded"), (3, 3, "fallback_single_device"),
+    (4, 3, "fallback_single_device"), (5, 2, "sharded")])
+def test_factor_graph_mesh_placement_matches_jax(edges, slots, placed):
+    """The JAX package's placement: the mesh shards the padded bucket (8
+    two-way rows, 16 for five edges) when its size divides it, else the
+    first backend slot solves alone; the same ``solve_stats`` as JAX's
+    FactorGraph and its poses within 1e-4."""
+    gt, gj, T_t, T_j = _placed(edges, slots)
+    assert gt.solve_stats == gj.solve_stats
+    assert gt.solve_stats[placed] == 1
+    np.testing.assert_allclose(T_t.numpy(), np.asarray(T_j), rtol=0,
+                               atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

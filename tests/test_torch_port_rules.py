@@ -12,11 +12,11 @@ import torch
 from mast3r_slam_tpu_torch import _build
 from mast3r_slam_tpu_torch import main as cli
 from mast3r_slam_tpu_torch.bench import (ate_study, ba_solve_microbench,
-                                         bench_ba, eval_datasets,
-                                         gram_kernel_bench,
+                                         bench_ba, debug_oracle_fail,
+                                         eval_datasets, gram_kernel_bench,
                                          profile_backend_decode,
-                                         retrieval_recall, trace_breakdown,
-                                         validate_real)
+                                         profile_refine, retrieval_recall,
+                                         trace_breakdown, validate_real)
 from mast3r_slam_tpu_torch.models import convert, mast3r
 from mast3r_slam_tpu_torch.ops import ba_kernels as BA
 from mast3r_slam_tpu_torch.ops import gram_variants as GV
@@ -59,7 +59,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 "bench/retrieval_recall.py", "data/seven_scenes_gt.py",
                 "bench/bench_ba.py", "bench/ba_solve_microbench.py",
                 "bench/profile_backend_decode.py",
-                "bench/trace_breakdown.py",
+                "bench/trace_breakdown.py", "bench/profile_refine.py",
+                "bench/debug_oracle_fail.py",
                 "services/quality_core.py", "services/quality_async.py",
                 "services/tsdf_local.py", "services/tsdf_global.py",
                 "services/native_tsdf.py", "parallel/__init__.py",
@@ -82,6 +83,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     (retrieval_recall.main, "device"), (bench_ba.main, "device"),
     (ba_solve_microbench.main, "device"),
     (profile_backend_decode.main, "device"), (trace_breakdown.main, "device"),
+    (profile_refine.main, "device"), (debug_oracle_fail.main, "device"),
+    (debug_oracle_fail.run, "device"), (profile_refine.run, "device"),
     (quality_async.AsynchronousQualityService, "device"),
     (tsdf_local.TSDFRefiner, "device")])
 def test_entry_points_default_to_cuda(fn, arg):
@@ -89,7 +92,8 @@ def test_entry_points_default_to_cuda(fn, arg):
 
 
 @pytest.mark.parametrize("mod", [bench_ba, ba_solve_microbench,
-                                 profile_backend_decode])
+                                 profile_backend_decode, profile_refine,
+                                 debug_oracle_fail])
 def test_backend_tools_raise_without_a_card(mod, monkeypatch):
     """The backend speed tools run on the card by default and raise where
     there is none; they never fall back to the CPU."""
