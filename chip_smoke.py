@@ -231,7 +231,20 @@ then:
    and B equal bit for bit) and ``bench/debug_oracle_fail.py`` (the oracle
    harness's 96 frames at 64x96 to a first tracking failure, if any, then
    a failure planted in frame 7 of 12 on the card and on the CPU: the
-   same frames' ``ok``, failing frame and LM rows' flags).
+   same frames' ``ok``, failing frame and LM rows' flags);
+21. (phase ``video``) builds the video decoder (``native/video_decode.cpp``)
+   on this machine and reads every committed fixture of
+   ``tests/data/video`` (MPEG-4 Part 2 in MP4, MOV, AVI and Matroska;
+   MJPEG in AVI and Matroska), in order and backwards (each seek decoding
+   from its GOP's sync sample), to the SHA-256 digests of
+   cv2.VideoCapture's frames recorded beside them; times the host ms a
+   480x640 frame of MPEG-4 I-VOPs, P-VOPs and MJPEG beside the compiled
+   and plain numpy converters on the same planes (equal bytes); then runs
+   the CLI at full ViT-L width on the committed 16-frame 480x640 mp4v
+   clip under base.yaml with the services off (bf16): all 16 frames read,
+   the outputs checked, K1, K2 (implicit GEMM) and K4 (tensor cores)
+   launched and counted as the run's calls need, with its median tracked
+   frame and frame read (``dataset[i]`` + ``create_frame``).
 
 In every phase that runs a service, an exception in a service worker (which
 prints it and carries on) fails the run, and the global TSDF must run on
@@ -3915,6 +3928,195 @@ def phase_cli_datasets(torch, FA, C3, BA, workdir, smi):
 
 
 # ---------------------------------------------------------------------------
+# Phase 21: video files (data/containers.py, data/video.py)
+# ---------------------------------------------------------------------------
+
+VIDEO_FIXTURES = ROOT / "tests" / "data" / "video"
+VIDEO_CLI = "cli_640x480.mp4"       # 16 frames of mp4v: GOP 12, no B-VOPs
+VIDEO_REPS = 10                     # timed passes over each codec's frames
+VIDEO_HW = (480, 640)
+
+
+def video_fixture_reads():
+    """Every committed video fixture through ``VideoReader``: its fps,
+    frame count and size as cv2 reported them, and every frame (in order,
+    then backwards: every seek from its GOP's sync sample) at the SHA-256
+    of cv2.VideoCapture's frame recorded beside it. Returns the frames
+    read."""
+    import hashlib
+
+    from mast3r_slam_tpu_torch.data import video
+
+    rec = json.loads((VIDEO_FIXTURES / "digests.json").read_text())
+    n = 0
+    for name, want in sorted(rec.items()):
+        r = video.VideoReader(VIDEO_FIXTURES / name)
+        check(r.fps == want["fps"] and len(r) == want["frame_count"]
+              and r.track.fourcc == want["fourcc"],
+              f"video: {name} fps {r.fps}, {len(r)} frames, "
+              f"{r.track.fourcc!r}; cv2 {want['fps']}, "
+              f"{want['frame_count']}, {want['fourcc']!r}")
+        order = list(range(len(r))) + list(range(len(r) - 1, -1, -1))
+        for i in order:
+            img = r.read(i)
+            got = hashlib.sha256(img.tobytes()).hexdigest()
+            check(list(img.shape[:2]) == want["hw"]
+                  and got == want["frames"][i]["cv2"],
+                  f"video: {name} frame {i} decodes to {img.shape} "
+                  f"{got[:16]}, cv2's {want['frames'][i]['cv2'][:16]}")
+            n += 1
+    return n
+
+
+def video_decode_times(smi):
+    """Host ms a 480x640 frame, decode and RGB conversion, of MPEG-4
+    I-VOPs (the CLI clip's sample 0, decoded anew each time), P-VOPs (its
+    samples 1-11 in order) and MJPEG (a 4:2:0 JPEG of the pan frame by the
+    test encoder, as one Motion JPEG frame); each beside the compiled and
+    the plain numpy converter on the same planes, which must give the same
+    bytes."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.data import containers, video
+
+    path = VIDEO_FIXTURES / VIDEO_CLI
+    t = containers.open_track(path)
+    with open(path, "rb") as f:
+        samples = []
+        for off, size in zip(t.offsets, t.sizes):
+            f.seek(int(off))
+            samples.append(f.read(int(size)))
+    gop = int(np.flatnonzero(t.sync)[1]) if t.sync.sum() > 1 else len(samples)
+    jw = _test_writer("torch_jpeg_writer")
+    jpeg = jw.encode_jpeg(next(pan_frames(1, VIDEO_HW, (0, 0), seed=7)), 90)
+
+    def timed(codec, extra, warm, frames):
+        """ms a frame of decode + rgb over ``frames`` (after ``warm``),
+        VIDEO_REPS passes, each on a fresh decoder."""
+        ms = []
+        dec = None
+        for _ in range(VIDEO_REPS):
+            dec = video.Decoder(codec, extra)
+            for w in warm:
+                dec.decode(w)
+            for data in frames:
+                t0 = time.perf_counter()
+                dec.decode(data)
+                rgb = dec.rgb()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        check(rgb.shape == (*VIDEO_HW, 3), f"video: frame {rgb.shape}")
+        return statistics.median(ms), dec
+
+    out = {}
+    for kind, codec, extra, warm, frames in (
+            ("mpeg4_i", video.MPEG4, t.extradata, [], samples[:1]),
+            ("mpeg4_p", video.MPEG4, t.extradata, samples[:1],
+             samples[1:gop]),
+            ("mjpeg", video.MJPEG, b"", [], [jpeg])):
+        ms, dec = timed(codec, extra, warm, frames)
+        y, cb, cr = dec.planes()
+        full = codec == video.MJPEG
+        conv, plain = [], []
+        pair = ((video.yuv_to_rgb, conv), (video.yuv_to_rgb_ref, plain))
+        for k in range(VIDEO_REPS):  # in turns
+            for fn, acc in (pair if k % 2 == 0 else pair[::-1]):
+                t0 = time.perf_counter()
+                rgb = fn(y, cb, cr, full)
+                acc.append((time.perf_counter() - t0) * 1e3)
+                check(np.array_equal(rgb, dec.rgb()), f"video: {kind} "
+                      f"{fn.__name__} differs from the decoder's frame")
+        out[kind] = dict(ms=ms, convert_ms=statistics.median(conv),
+                         plain_convert_ms=statistics.median(plain),
+                         frames=len(frames))
+    log("video: host ms a 480x640 frame (decode + RGB; converter compiled / "
+        "plain numpy on the same planes, equal bytes): "
+        + ", ".join(f"{k} {v['ms']:.3f} ({v['convert_ms']:.3f} / "
+                    f"{v['plain_convert_ms']:.2f})" for k, v in out.items())
+        + f"; median of {VIDEO_REPS} passes; on {smi}")
+    return out
+
+
+def phase_video(torch, FA, C3, BA, workdir, smi):
+    """Video files on this machine: the decoder built here reads every
+    committed fixture (MPEG-4 Part 2 in MP4, MOV, AVI and Matroska; MJPEG
+    in AVI and Matroska) to the SHA-256 of cv2.VideoCapture's frames
+    recorded beside them; the host ms a 480x640 frame of MPEG-4 I-VOPs,
+    P-VOPs and MJPEG beside the plain converter; then the CLI at full
+    ViT-L width on the committed 16-frame 480x640 mp4v clip under
+    base.yaml with the services off (bf16: K1, K2 on the implicit GEMM,
+    K4 on the tensor cores), checking all 16 frames read, its outputs and
+    its launches as the cli_datasets phase's image-folder run does, with
+    the median tracked frame and frame read (``dataset[i]`` +
+    ``create_frame``)."""
+    from mast3r_slam_tpu_torch.data import video
+    from mast3r_slam_tpu_torch.data.datasets import load_dataset
+    from mast3r_slam_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    video.load_library()
+    build_s = time.perf_counter() - t0
+    n_reads = video_fixture_reads()
+    log(f"video: decoder built in {build_s:.1f} s; {n_reads} frame reads of "
+        f"the committed fixtures (in order and backwards) equal "
+        f"cv2.VideoCapture's")
+    out = {"decode": video_decode_times(smi)}
+
+    work = Path(workdir)
+    clip = VIDEO_FIXTURES / VIDEO_CLI
+    cfg_path = write_config(work / "cli_video.yaml", **SERVICES_OFF)
+    cfg = load_config(cfg_path)
+    k2_path = C3.conv3x3_path(getattr(torch, cfg["model"]["head_dtype"]),
+                              256, 256)
+    ba_path = BA.gram_path(getattr(torch,
+                                   cfg["local_opt"]["ba_compute_dtype"]))
+    ds = load_dataset(str(clip), cfg)
+    n_frames = len(ds)
+    check(type(ds).__name__ == "MP4Dataset" and n_frames == 16,
+          f"video: {clip.name} read as {type(ds).__name__} of {n_frames} "
+          f"frames")
+    (h, w), _ = ds.get_img_shape()
+    t0 = time.perf_counter()
+    model = tied_model(cfg, "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    with timed_frame_reads([]) as read_ms:
+        res, launches, rec = run_cli(
+            torch, FA, C3, BA, model, work,
+            ["--dataset", str(clip), "--config", cfg_path, "--no-viz",
+             "--save-as", "video"], "video", ba_path=ba_path,
+            k2_path=k2_path)
+    check(len(read_ms) == n_frames, f"video: {len(read_ms)} frame reads "
+          f"timed, {n_frames} frames")
+    check(launches["K1"] > 0 and launches["K4"] > 0
+          and launches[f"BA {ba_path}"] == launches["K4"]
+          and launches["K2"] > 0
+          and launches[f"K2 {k2_path}"] == launches["K2"],
+          f"video: K1 or K4 not launched, a BA system build not on K4's "
+          f"{ba_path} path, or a conv not on K2's {k2_path} path")
+    check(len(res["keyframes"]) >= 1, "video: no keyframe")
+    check_outputs(res, work / "logs" / "video" / clip.name, clip.name,
+                  n_frames, (h, w))
+    parts = cli_parts(rec)
+    out["cli"] = dict(tracked_ms=parts["track"], step_ms=parts["step"],
+                      read_ms=statistics.median(read_ms),
+                      keyframes=len(res["keyframes"]),
+                      edges=res["graph"].n_edges(),
+                      launches={k: launches[k] for k in (
+                          "K1", "K2", f"K2 {k2_path}", "K4",
+                          f"BA {ba_path}")})
+    log(f"video cli: {clip.name} ({n_frames} frames, {w}x{h} crop, model "
+        f"init {init_s:.1f} s): median tracked frame {parts['track']:.1f} ms "
+        f"over {len(rec['ms']['track'])} frames, median frame read "
+        f"(dataset[i] + create_frame) {out['cli']['read_ms']:.2f} ms, median "
+        f"backend step {parts['step']:.1f} ms; keyframes "
+        f"{out['cli']['keyframes']}, edges {out['cli']['edges']}; launches "
+        f"{out['cli']['launches']}; on {smi}")
+    del res, model
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 16-18: the accuracy tools (bench/ate_study.py, bench/eval_datasets.py,
 # bench/retrieval_recall.py)
 # ---------------------------------------------------------------------------
@@ -5445,8 +5647,8 @@ def phase_viz(torch, FA, C3, BA, workdir, cli=None, device="cuda"):
 
 PHASES = ("data", "kernels", "main", "event", "cross", "ba_kernels",
           "gram_bench", "backend_tools", "debug_tools", "oracle", "cli", "cli_cross",
-          "cli_datasets", "ate_study", "eval_harness", "recall", "reloc",
-          "services", "topology", "viz")
+          "cli_datasets", "video", "ate_study", "eval_harness", "recall",
+          "reloc", "services", "topology", "viz")
 
 
 def main():
@@ -5524,6 +5726,7 @@ def main():
         run("cli_cross", phase_cli_cross, torch, work)
         datasets = run("cli_datasets", phase_cli_datasets, torch, FA, C3, BA,
                        work, smi)
+        vid = run("video", phase_video, torch, FA, C3, BA, work, smi)
         ate = run("ate_study", phase_ate_study, torch, FA, C3, BA, smi)
         harness = run("eval_harness", phase_eval_harness, torch, FA, C3, BA,
                       work, smi)
@@ -5617,6 +5820,16 @@ def main():
                     f"{d['read_plain_ms']:.2f}; {d['keyframes']} keyframes, "
                     f"launches {d['launches']})"
                     for t, d in datasets.items()) + f"; on {smi}")
+
+    dec, vc = vid["decode"], vid["cli"]
+    log(f"video: host ms a 480x640 frame, decode + RGB (converter compiled / "
+        f"plain): " + ", ".join(
+            f"{k} {v['ms']:.3f} ({v['convert_ms']:.3f} / "
+            f"{v['plain_convert_ms']:.2f})" for k, v in dec.items())
+        + f"; CLI on {VIDEO_CLI}: median tracked frame "
+        f"{vc['tracked_ms']:.1f} ms, frame read {vc['read_ms']:.2f} ms, "
+        f"backend step {vc['step_ms']:.1f} ms, {vc['keyframes']} keyframes, "
+        f"launches {vc['launches']}; on {smi}")
 
     k2f = per_frame["K2 f32"]
     k2_path = C3.conv3x3_path(torch.float32, 256, 256)

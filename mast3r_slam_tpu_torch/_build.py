@@ -11,8 +11,8 @@ their launch counter (with the recording of a CUDA graph capture's
 launches, which each replay of the graph counts, and the launches a step
 of loops whose exit the device decides), SM count and
 input-alignment helpers from here. :func:`build_host` compiles one of
-``native/*.cpp`` (the global TSDF's voxel hash, the JPEG decoder) with
-``g++`` the same way.
+``native/*.cpp`` (the global TSDF's voxel hash, the JPEG and video
+decoders) with ``g++`` the same way.
 """
 
 from __future__ import annotations
@@ -93,14 +93,17 @@ def build_all(names, log=None) -> dict[str, Path]:
 
 
 def build_host(src: Path, build_dir: Path, what: str,
-               flags: tuple = ()) -> Path:
+               flags: tuple = (), deps: tuple = ()) -> Path:
     """Compile host C++ source ``src`` with ``g++ -O2`` and ``flags`` (no
     ``-march``: the library is never committed or carried between
-    machines) into ``build_dir``, named by a hash of the source and the
-    flags, unless it is built already. Raises, naming ``what``, when it
-    cannot be built."""
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()[:16]
+    machines) into ``build_dir``, named by a hash of the source, the files
+    it includes (``deps``) and the flags, unless it is built already.
+    Raises, naming ``what``, when it cannot be built."""
+    h = hashlib.sha256(src.read_bytes())
+    for dep in deps:
+        h.update(Path(dep).read_bytes())
+    h.update(" ".join(flags).encode())
+    digest = h.hexdigest()[:16]
     so = build_dir / f"lib{src.stem}-{digest}.so"
     if so.exists():
         return so

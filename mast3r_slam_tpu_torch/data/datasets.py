@@ -15,10 +15,13 @@ The port's modules take the config dict as an argument: the readers and
 ``dataset.center_principle_point`` and ``use_calib`` from the ``cfg`` they
 are given, where the JAX package reads its process-global config.
 
+Video files (``.mp4``, ``.avi``, ``.mov``, ``.mkv``) are read by
+``data/video.py`` as ``cv2.VideoCapture`` reads them (MPEG-4 Part 2 and
+Motion JPEG tracks; another codec raises ``ValueError`` naming its fourcc).
 The RealSense reader imports ``pyrealsense2`` when it is opened and raises
 ``RuntimeError`` without it, as the JAX one does. Not ported (ROADMAP): the
-video file and webcam readers, which need a video decoder and a camera
-driver (``cv2.VideoCapture``): :func:`load_dataset` raises for them.
+webcam reader, which needs a camera device (``cv2.VideoCapture`` on
+V4L2): :func:`load_dataset` raises for it.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ import re
 
 import numpy as np
 
-from mast3r_slam_tpu_torch.data import undistort
+from mast3r_slam_tpu_torch.data import undistort, video
 from mast3r_slam_tpu_torch.data.image_ops import resize_img
 from mast3r_slam_tpu_torch.data.imread import gray_to_rgb, read_gray, read_rgb
 
@@ -373,6 +376,46 @@ class ReplicaDataset(MonocularDataset):
 
 
 # ---------------------------------------------------------------------------
+# Video file
+# ---------------------------------------------------------------------------
+
+class MP4Dataset(MonocularDataset):
+    """A video file, read by ``data/video.py`` as ``cv2.VideoCapture``
+    reads it: every ``subsample``-th frame, timestamps at the file's frame
+    rate (30.0 where it gives none). A file that cannot be opened (missing
+    or unreadable) is what an unopened ``cv2.VideoCapture`` reports to the
+    JAX reader: frame count and fps -1, no timestamps, and ``len`` raises
+    ``ValueError``; a file whose layout or codec is not read raises
+    ``ValueError`` naming it."""
+
+    def __init__(self, path, cfg=None):
+        super().__init__(cfg)
+        self.path = str(path)
+        try:
+            self.reader = video.VideoReader(self.path)
+        except OSError:
+            self.reader = None
+        if self.reader is None:
+            self.fps, self.total_frames = -1.0, -1
+        else:
+            self.fps = self.reader.fps or 30.0
+            self.total_frames = len(self.reader)
+        self.stride = self.subsample
+        self.timestamps = (
+            np.arange(max(self.total_frames // self.stride, 0),
+                      dtype=np.float64) * self.stride / self.fps)
+
+    def __len__(self):
+        return self.total_frames // self.stride
+
+    def read_img(self, idx):
+        target = idx * self.stride
+        if self.reader is None:
+            raise ValueError(f"failed to decode frame {target} of {self.path}")
+        return self.reader.read(target)
+
+
+# ---------------------------------------------------------------------------
 # Image folder
 # ---------------------------------------------------------------------------
 
@@ -452,12 +495,13 @@ def load_dataset(path: str, cfg=None) -> MonocularDataset:
     p = str(path).lower()
     if p in ("realsense", "rs"):
         return RealsenseDataset(cfg)
-    if (p in ("webcam", "cam") or p.startswith("webcam:")
-            or p.endswith((".mp4", ".avi", ".mov", ".mkv"))):
+    if p in ("webcam", "cam") or p.startswith("webcam:"):
         raise NotImplementedError(
-            f"{path}: the video file and webcam readers are not ported "
-            "(ROADMAP): they need a video decoder and a camera driver "
-            "(cv2.VideoCapture) that the port does not have")
+            f"{path}: the webcam reader is not ported (ROADMAP): it needs a "
+            "camera device (cv2.VideoCapture on V4L2) that the port "
+            "does not have")
+    if p.endswith((".mp4", ".avi", ".mov", ".mkv")):
+        return MP4Dataset(path, cfg)
     if "tum" in p or "freiburg" in p:
         return TUMDataset(path, cfg)
     if "euroc" in p or os.path.exists(os.path.join(path, "mav0")):

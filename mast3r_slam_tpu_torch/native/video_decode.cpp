@@ -1,0 +1,1221 @@
+// Video frame decoder for the port's video reader (data/video.py), bound
+// with ctypes.
+//
+// It decodes what OpenCV's FFmpeg backend (cv2.VideoCapture) decodes, bit
+// for bit, by following FFmpeg's decode arithmetic for two codecs, both
+// decoded to Y/Cb/Cr 4:2:0 planes:
+//   - MPEG-4 Part 2 (ISO/IEC 14496-2) as FFmpeg's `mpeg4` encoder writes
+//     it (fourcc mp4v, XVID, DIVX, FMP4, ...): VOS/VO/VOL/GOV headers and
+//     user data, I-, P- and not-coded VOPs (a not-coded VOP repeats the
+//     last frame); intra DC VLC or intra DC as a TCOEF (intra_dc_vlc_thr),
+//     DC and AC prediction with the QP rescaling and the alternate scans
+//     under ac_pred; the TCOEF VLCs with the three escape modes; H.263 and
+//     MPEG quantisation with the VOL's matrices; P macroblocks with 1MV and
+//     4MV (median prediction, f_code residuals, chroma vector rounding,
+//     half-pel MC with vop_rounding_type, unrestricted vectors over edges
+//     replicated from the reference's whole macroblocks, as FFmpeg's
+//     h_edge_pos and v_edge_pos place them); sizes that are not multiples
+//     of 16. The IDCT, which Part 2 leaves to the decoder, is
+//     FFmpeg's integer "simple" IDCT (simple_idct_template.c at 8 bits:
+//     row shift 11, column shift 20), which FFmpeg uses for a stream that
+//     its own encoder wrote (user data "Lavc...").
+//   - Motion JPEG frames as FFmpeg's `mjpeg` decoder gives them: the
+//     entropy stage of jpeg_decode.cpp (baseline and progressive Huffman,
+//     the standard tables where a frame defines none), coefficients
+//     dequantized into 16 bits, the same simple IDCT, and the planes as
+//     they are, without libjpeg's upsampling.
+// Frames go to RGB through one converter, I420 (limited range) or J420
+// (full range) -> RGB24, as the unscaled YUV -> RGB path of swscale that
+// OpenCV's sws_scale call (BGR24, same size) takes: each chroma sample
+// covers its 2x2 luma samples, and each channel is the saturated sum of a
+// luma term and one or two chroma terms, each a 16-bit fixed-point product
+// truncated as pmulhw truncates (see yuv_to_rgb below).
+//
+// Refused with a message naming the feature: B-VOPs, quarter-pel motion,
+// GMC and static sprites (S-VOPs), interlaced VOLs, data partitioning and
+// RVLC, resync markers, NEWPRED, reduced-resolution VOPs, scalability,
+// non-rectangular shapes, not-8-bit VOLs, complexity estimation headers and
+// the short video header (H.263 baseline); MJPEG frames that are not 4:2:0
+// YCbCr. A frame whose data ends early or does not parse is an error.
+
+#include "jpeg_decode.cpp"
+
+namespace {
+
+// --- FFmpeg simple_idct_template.c (BIT_DEPTH 8) ---------------------------
+
+constexpr int W1 = 22725, W2 = 21407, W3 = 19266, W4 = 16383, W5 = 12873,
+              W6 = 8867, W7 = 4520;
+constexpr int kRowShift = 11, kColShift = 20, kDcShift = 3;
+
+inline uint8_t clip_u8(int v) { return (uint8_t)std::min(std::max(v, 0), 255); }
+
+// Unsigned sums wrap as FFmpeg's (SUINT) arithmetic does; each output is
+// the wrapped sum as a signed 32-bit value, shifted.
+void idct_row(int16_t* row) {
+  if (!(row[1] | row[2] | row[3] | row[4] | row[5] | row[6] | row[7])) {
+    int16_t t = (int16_t)(uint16_t)((unsigned)row[0] << kDcShift);
+    for (int i = 0; i < 8; i++) row[i] = t;
+    return;
+  }
+  unsigned a0 = W4 * row[0] + (1 << (kRowShift - 1));
+  unsigned a1 = a0, a2 = a0, a3 = a0;
+  a0 += W2 * row[2];
+  a1 += W6 * row[2];
+  a2 -= W6 * row[2];
+  a3 -= W2 * row[2];
+  unsigned b0 = W1 * row[1] + W3 * row[3];
+  unsigned b1 = W3 * row[1] - W7 * row[3];
+  unsigned b2 = W5 * row[1] - W1 * row[3];
+  unsigned b3 = W7 * row[1] - W5 * row[3];
+  a0 += W4 * row[4] + W6 * row[6];
+  a1 += -W4 * row[4] - W2 * row[6];
+  a2 += -W4 * row[4] + W2 * row[6];
+  a3 += W4 * row[4] - W6 * row[6];
+  b0 += W5 * row[5] + W7 * row[7];
+  b1 += -W1 * row[5] - W5 * row[7];
+  b2 += W7 * row[5] + W3 * row[7];
+  b3 += W3 * row[5] - W1 * row[7];
+  row[0] = (int16_t)((int)(a0 + b0) >> kRowShift);
+  row[7] = (int16_t)((int)(a0 - b0) >> kRowShift);
+  row[1] = (int16_t)((int)(a1 + b1) >> kRowShift);
+  row[6] = (int16_t)((int)(a1 - b1) >> kRowShift);
+  row[2] = (int16_t)((int)(a2 + b2) >> kRowShift);
+  row[5] = (int16_t)((int)(a2 - b2) >> kRowShift);
+  row[3] = (int16_t)((int)(a3 + b3) >> kRowShift);
+  row[4] = (int16_t)((int)(a3 - b3) >> kRowShift);
+}
+
+// the column pass of column c: out[r] for the 8 rows
+void idct_col(const int16_t* blk, int c, int* out) {
+  const int16_t* col = blk + c;
+  unsigned a0 = W4 * (col[0] + ((1 << (kColShift - 1)) / W4));
+  unsigned a1 = a0, a2 = a0, a3 = a0;
+  a0 += W2 * col[16];
+  a1 += W6 * col[16];
+  a2 += -W6 * col[16];
+  a3 += -W2 * col[16];
+  unsigned b0 = W1 * col[8] + W3 * col[24];
+  unsigned b1 = W3 * col[8] - W7 * col[24];
+  unsigned b2 = W5 * col[8] - W1 * col[24];
+  unsigned b3 = W7 * col[8] - W5 * col[24];
+  a0 += W4 * col[32];
+  a1 += -W4 * col[32];
+  a2 += -W4 * col[32];
+  a3 += W4 * col[32];
+  b0 += W5 * col[40];
+  b1 += -W1 * col[40];
+  b2 += W7 * col[40];
+  b3 += W3 * col[40];
+  a0 += W6 * col[48];
+  a1 += -W2 * col[48];
+  a2 += W2 * col[48];
+  a3 += -W6 * col[48];
+  b0 += W7 * col[56];
+  b1 += -W5 * col[56];
+  b2 += W3 * col[56];
+  b3 += -W1 * col[56];
+  out[0] = (int)(a0 + b0) >> kColShift;
+  out[1] = (int)(a1 + b1) >> kColShift;
+  out[2] = (int)(a2 + b2) >> kColShift;
+  out[3] = (int)(a3 + b3) >> kColShift;
+  out[4] = (int)(a3 - b3) >> kColShift;
+  out[5] = (int)(a2 - b2) >> kColShift;
+  out[6] = (int)(a1 - b1) >> kColShift;
+  out[7] = (int)(a0 - b0) >> kColShift;
+}
+
+// blk (natural order, modified in place) -> dst; add: dst + residual
+void simple_idct(int16_t* blk, uint8_t* dst, int stride, bool add) {
+  for (int r = 0; r < 8; r++) idct_row(blk + 8 * r);
+  int v[8];
+  for (int c = 0; c < 8; c++) {
+    idct_col(blk, c, v);
+    for (int r = 0; r < 8; r++) {
+      uint8_t* d = dst + r * stride + c;
+      *d = clip_u8(add ? *d + v[r] : v[r]);
+    }
+  }
+}
+
+// --- half-pel motion compensation (hpeldsp put_pixels / put_no_rnd) -------
+
+// An n x n block at half-pel position (hx, hy) of a plane of w x h
+// samples (stride `stride`), every coordinate clamped into the plane, as
+// FFmpeg's emulated edges replicate its border. rnd is 1 - rounding_type.
+void hpel_block(const uint8_t* src, int stride, int w, int h, int x, int y,
+                int dxy, int rnd, int n, uint8_t* dst, int dstride) {
+  const int ex = (dxy & 1) ? n + 1 : n, ey = (dxy & 2) ? n + 1 : n;
+  uint8_t tmp[17 * 17];
+  const uint8_t* s;
+  int ss;
+  if (x >= 0 && y >= 0 && x + ex <= w && y + ey <= h) {
+    s = src + (size_t)y * stride + x;
+    ss = stride;
+  } else {
+    for (int r = 0; r < ey; r++) {
+      int yy = std::min(std::max(y + r, 0), h - 1);
+      for (int c = 0; c < ex; c++) {
+        int xx = std::min(std::max(x + c, 0), w - 1);
+        tmp[r * 17 + c] = src[(size_t)yy * stride + xx];
+      }
+    }
+    s = tmp;
+    ss = 17;
+  }
+  for (int r = 0; r < n; r++) {
+    const uint8_t* a = s + r * ss;
+    const uint8_t* b = a + ss;
+    uint8_t* d = dst + r * dstride;
+    switch (dxy) {
+      case 0:
+        for (int c = 0; c < n; c++) d[c] = a[c];
+        break;
+      case 1:
+        for (int c = 0; c < n; c++) d[c] = (uint8_t)((a[c] + a[c + 1] + rnd) >> 1);
+        break;
+      case 2:
+        for (int c = 0; c < n; c++) d[c] = (uint8_t)((a[c] + b[c] + rnd) >> 1);
+        break;
+      default:
+        for (int c = 0; c < n; c++)
+          d[c] = (uint8_t)((a[c] + a[c + 1] + b[c] + b[c + 1] + 1 + rnd) >> 2);
+    }
+  }
+}
+
+// --- swscale's unscaled YUV -> RGB (yuv2rgb, x86 SIMD form) -----------------
+
+// The fixed-point coefficients of ff_yuv2rgb_c_init_tables for ITU-R BT.601
+// (SWS_CS_DEFAULT) at the default contrast, saturation and brightness,
+// scaled to the 13 fractional bits the SIMD code multiplies by.
+struct YuvCoeffs {
+  int y_coeff, y_offset, vr, ub, ug, vg;
+};
+
+YuvCoeffs yuv_coeffs(bool full_range) {
+  // ff_yuv2rgb_coeffs[SWS_CS_ITU601]: crv, cbu, cgu, cgv in 16.16
+  int64_t crv = 104597, cbu = 132201, cgu = -25675, cgv = -53279;
+  int64_t cy = 1 << 16, oy = 0;
+  if (!full_range) {
+    cy = (cy * 255) / 219;
+    oy = 16 << 16;
+  } else {
+    crv = (crv * 224) / 255;
+    cbu = (cbu * 224) / 255;
+    cgu = (cgu * 224) / 255;
+    cgv = (cgv * 224) / 255;
+  }
+  auto round16 = [](int64_t f) {  // roundToInt16
+    int64_t r = (f + (1 << 15)) >> 16;
+    return (int)std::min<int64_t>(std::max<int64_t>(r, -0x8000), 0x7FFF);
+  };
+  YuvCoeffs k;
+  k.y_coeff = round16(cy * 8192);
+  k.y_offset = round16(oy * 8);
+  k.vr = round16(crv * 8192);
+  k.ub = round16(cbu * 8192);
+  k.ug = round16(cgu * 8192);
+  k.vg = round16(cgv * 8192);
+  return k;
+}
+
+inline int16_t sat16(int v) {
+  return (int16_t)std::min(std::max(v, -32768), 32767);
+}
+inline int mulhi(int a, int b) { return (int)(((int32_t)(int16_t)a * b) >> 16); }
+
+// the converter's terms by sample value, one set per range
+struct YuvTables {
+  int16_t y[256], ub[256], vr[256], ug[256], vg[256];
+  explicit YuvTables(bool full_range) {
+    const YuvCoeffs k = yuv_coeffs(full_range);
+    for (int i = 0; i < 256; i++) {
+      y[i] = (int16_t)mulhi(sat16(i * 8 - k.y_offset), k.y_coeff);
+      ub[i] = (int16_t)mulhi(sat16(i * 8 - 1024), k.ub);
+      vr[i] = (int16_t)mulhi(sat16(i * 8 - 1024), k.vr);
+      ug[i] = (int16_t)mulhi(sat16(i * 8 - 1024), k.ug);
+      vg[i] = (int16_t)mulhi(sat16(i * 8 - 1024), k.vg);
+    }
+  }
+};
+
+inline void put_rgb(const YuvTables& t, int yv, int ro, int go, int bo,
+                    uint8_t* o) {
+  const int yy = t.y[yv];
+  o[0] = clip_u8(sat16(yy + ro));
+  o[1] = clip_u8(sat16(yy + go));
+  o[2] = clip_u8(sat16(yy + bo));
+}
+
+// Each chroma sample's three terms once, then its (up to) 2 x 2 luma
+// samples: each channel the saturated sum of a luma and a chroma term.
+void yuv_to_rgb(const uint8_t* y, int ys, const uint8_t* cb, const uint8_t* cr,
+                int cs, int w, int h, bool full_range, uint8_t* out) {
+  static const YuvTables limited(false), full(true);
+  const YuvTables& t = full_range ? full : limited;
+  for (int r = 0; r < h; r += 2) {
+    const uint8_t* br = cb + (size_t)(r >> 1) * cs;
+    const uint8_t* rr = cr + (size_t)(r >> 1) * cs;
+    const uint8_t* y0 = y + (size_t)r * ys;
+    const uint8_t* y1 = r + 1 < h ? y0 + ys : nullptr;
+    uint8_t* o0 = out + (size_t)r * w * 3;
+    uint8_t* o1 = o0 + (size_t)w * 3;
+    for (int c = 0; c < w; c += 2) {
+      const int u = br[c >> 1], v = rr[c >> 1];
+      const int ro = t.vr[v], go = sat16(t.ug[u] + t.vg[v]), bo = t.ub[u];
+      const bool two = c + 1 < w;
+      put_rgb(t, y0[c], ro, go, bo, o0 + 3 * c);
+      if (two) put_rgb(t, y0[c + 1], ro, go, bo, o0 + 3 * c + 3);
+      if (y1) {
+        put_rgb(t, y1[c], ro, go, bo, o1 + 3 * c);
+        if (two) put_rgb(t, y1[c + 1], ro, go, bo, o1 + 3 * c + 3);
+      }
+    }
+  }
+}
+
+// --- a frame of 4:2:0 planes -----------------------------------------------
+
+struct Frame {
+  int w = 0, h = 0;    // display size
+  int pw = 0, ph = 0;  // allocated luma size (whole macroblocks)
+  std::vector<uint8_t> y, cb, cr;
+  void alloc(int width, int height, int mb = 16) {
+    w = width;
+    h = height;
+    pw = (w + mb - 1) / mb * mb;
+    ph = (h + mb - 1) / mb * mb;
+    y.assign((size_t)pw * ph, 0);
+    cb.assign((size_t)(pw / 2) * (ph / 2), 128);
+    cr.assign((size_t)(pw / 2) * (ph / 2), 128);
+  }
+  int cstride() const { return pw / 2; }
+};
+
+// --- MPEG-4 Part 2 ---------------------------------------------------------
+
+// MSB-first bit reader; reading past the end is an error
+struct Bits {
+  const uint8_t* p;
+  int64_t nbits, pos = 0;
+  Bits(const uint8_t* d, int64_t n) : p(d), nbits(n * 8) {}
+  uint32_t peek(int n) const {  // n <= 32; bits past the end read as 0
+    uint64_t v = 0;
+    int64_t byte = pos >> 3;
+    for (int i = 0; i < 5; i++) {
+      v <<= 8;
+      if ((byte + i) * 8 < nbits) v |= p[byte + i];
+    }
+    v <<= 24;  // 40 bits at the top of 64
+    return (uint32_t)((v << (pos & 7)) >> (64 - n));
+  }
+  void skip(int n) {
+    pos += n;
+    if (pos > nbits) throw Error("MPEG-4 frame data ends early");
+  }
+  uint32_t get(int n) {
+    if (n == 0) return 0;
+    uint32_t v = peek(n);
+    skip(n);
+    return v;
+  }
+  int get1() { return (int)get(1); }
+  int sget(int n) {  // n-bit two's complement
+    int v = (int)get(n);
+    return v >= (1 << (n - 1)) ? v - (1 << n) : v;
+  }
+  void marker(const char* what) {
+    if (!get1()) throw Error(std::string("MPEG-4: missing marker bit (") + what + ")");
+  }
+  int64_t left() const { return nbits - pos; }
+};
+
+// A prefix code read by looking up the next `maxlen` bits: sym[i] is the
+// symbol of the prefix i, len[i] its code length (0: no code)
+struct Vlc {
+  int maxlen = 0;
+  std::vector<int16_t> sym;
+  std::vector<uint8_t> len;
+  void build(int ml, const uint16_t (*codes)[2], int n,
+             const int16_t* syms = nullptr) {
+    maxlen = ml;
+    sym.assign((size_t)1 << ml, -1);
+    len.assign((size_t)1 << ml, 0);
+    for (int i = 0; i < n; i++) {
+      int c = codes[i][0], l = codes[i][1];
+      if (l == 0) continue;
+      int base = c << (ml - l);
+      for (int k = 0; k < (1 << (ml - l)); k++) {
+        sym[base + k] = (int16_t)(syms ? syms[i] : i);
+        len[base + k] = (uint8_t)l;
+      }
+    }
+  }
+  int read(Bits& b, const char* what) const {
+    uint32_t i = b.peek(maxlen);
+    if (!len[i]) throw Error(std::string("MPEG-4: invalid ") + what + " code");
+    b.skip(len[i]);
+    return sym[i];
+  }
+};
+
+// ff_h263_intra_MCBPC (index: bit 2 set for IntraQ, 8 = stuffing)
+const uint16_t kIntraMcbpc[9][2] = {{1, 1}, {1, 3}, {2, 3}, {3, 3}, {1, 4},
+                                    {1, 6}, {2, 6}, {3, 6}, {1, 9}};
+// ff_h263_inter_MCBPC (index bits: 3:0 cbpc, 4 intra, 8 dquant, 16 4MV;
+// 20 = stuffing; 24..27, H.263's Inter4V+Q, do not occur in MPEG-4)
+const uint16_t kInterMcbpc[21][2] = {
+    {1, 1}, {3, 4}, {2, 4}, {5, 6}, {3, 5}, {4, 8}, {3, 8}, {3, 7},
+    {3, 3}, {7, 7}, {6, 7}, {5, 9}, {4, 6}, {4, 9}, {3, 9}, {2, 9},
+    {2, 3}, {5, 7}, {4, 7}, {5, 8}, {1, 9}};
+const uint16_t kCbpy[16][2] = {{3, 4}, {5, 5}, {4, 5}, {9, 4}, {3, 5}, {7, 4},
+                               {2, 6}, {11, 4}, {2, 5}, {3, 6}, {5, 4}, {10, 4},
+                               {4, 4}, {8, 4}, {6, 4}, {3, 2}};
+// ff_mvtab: |motion_code| 0..32, then a sign bit when nonzero
+const uint16_t kMvtab[33][2] = {
+    {1, 1},  {1, 2},  {1, 3},  {1, 4},  {3, 6},  {5, 7},  {4, 7},
+    {3, 7},  {11, 9}, {10, 9}, {9, 9},  {17, 10}, {16, 10}, {15, 10},
+    {14, 10}, {13, 10}, {12, 10}, {11, 10}, {10, 10}, {9, 10}, {8, 10},
+    {7, 10}, {6, 10}, {5, 10}, {4, 10}, {7, 11}, {6, 11}, {5, 11},
+    {4, 11}, {3, 11}, {2, 11}, {3, 12}, {2, 12}};
+// ff_mpeg4_DCtab_lum / _chrom: dct_dc_size 0..12
+const uint16_t kDcLum[13][2] = {{3, 3}, {3, 2}, {2, 2}, {2, 3}, {1, 3},
+                                {1, 4}, {1, 5}, {1, 6}, {1, 7}, {1, 8},
+                                {1, 9}, {1, 10}, {1, 11}};
+const uint16_t kDcChrom[13][2] = {{3, 2}, {2, 2}, {1, 2}, {1, 3}, {1, 4},
+                                  {1, 5}, {1, 6}, {1, 7}, {1, 8}, {1, 9},
+                                  {1, 10}, {1, 11}, {1, 12}};
+
+// TCOEF tables: code, run, level; the first `last` entries have last = 0,
+// and index 102 is the escape (0000011)
+struct RlTable {
+  uint16_t vlc[103][2];
+  int8_t run[102], level[102];
+  int last;
+};
+
+// ff_h263_rl_inter (ISO/IEC 14496-2 Table B-17)
+const RlTable kRlInter = {
+    {{0x2, 2},   {0xf, 4},   {0x15, 6},  {0x17, 7},  {0x1f, 8},  {0x25, 9},
+     {0x24, 9},  {0x21, 10}, {0x20, 10}, {0x7, 11},  {0x6, 11},  {0x20, 11},
+     {0x6, 3},   {0x14, 6},  {0x1e, 8},  {0xf, 10},  {0x21, 11}, {0x50, 12},
+     {0xe, 4},   {0x1d, 8},  {0xe, 10},  {0x51, 12}, {0xd, 5},   {0x23, 9},
+     {0xd, 10},  {0xc, 5},   {0x22, 9},  {0x52, 12}, {0xb, 5},   {0xc, 10},
+     {0x53, 12}, {0x13, 6},  {0xb, 10},  {0x54, 12}, {0x12, 6},  {0xa, 10},
+     {0x11, 6},  {0x9, 10},  {0x10, 6},  {0x8, 10},  {0x16, 7},  {0x55, 12},
+     {0x15, 7},  {0x14, 7},  {0x1c, 8},  {0x1b, 8},  {0x21, 9},  {0x20, 9},
+     {0x1f, 9},  {0x1e, 9},  {0x1d, 9},  {0x1c, 9},  {0x1b, 9},  {0x1a, 9},
+     {0x22, 11}, {0x23, 11}, {0x56, 12}, {0x57, 12}, {0x7, 4},   {0x19, 9},
+     {0x5, 11},  {0xf, 6},   {0x4, 11},  {0xe, 6},   {0xd, 6},   {0xc, 6},
+     {0x13, 7},  {0x12, 7},  {0x11, 7},  {0x10, 7},  {0x1a, 8},  {0x19, 8},
+     {0x18, 8},  {0x17, 8},  {0x16, 8},  {0x15, 8},  {0x14, 8},  {0x13, 8},
+     {0x18, 9},  {0x17, 9},  {0x16, 9},  {0x15, 9},  {0x14, 9},  {0x13, 9},
+     {0x12, 9},  {0x11, 9},  {0x7, 10},  {0x6, 10},  {0x5, 10},  {0x4, 10},
+     {0x24, 11}, {0x25, 11}, {0x26, 11}, {0x27, 11}, {0x58, 12}, {0x59, 12},
+     {0x5a, 12}, {0x5b, 12}, {0x5c, 12}, {0x5d, 12}, {0x5e, 12}, {0x5f, 12},
+     {0x3, 7}},
+    {0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  1,  1,  1,  1,  1,
+     1,  2,  2,  2,  2,  3,  3,  3,  4,  4,  4,  5,  5,  5,  6,  6,  6,
+     7,  7,  8,  8,  9,  9,  10, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
+     20, 21, 22, 23, 24, 25, 26, 0,  0,  0,  1,  1,  2,  3,  4,  5,  6,
+     7,  8,  9,  10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23,
+     24, 25, 26, 27, 28, 29, 30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40},
+    {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 1, 2, 3, 4, 5, 6, 1, 2, 3,
+     4, 1, 2, 3, 1, 2, 3, 1, 2, 3, 1, 2, 3, 1, 2, 1, 2, 1, 2, 1, 2,
+     1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 3, 1, 2,
+     1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+     1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1},
+    58};
+
+// ff_mpeg4_rl_intra (Table B-16)
+const RlTable kRlIntra = {
+    {{0x2, 2},   {0x6, 3},   {0xf, 4},   {0xd, 5},   {0xc, 5},   {0x15, 6},
+     {0x13, 6},  {0x12, 6},  {0x17, 7},  {0x1f, 8},  {0x1e, 8},  {0x1d, 8},
+     {0x25, 9},  {0x24, 9},  {0x23, 9},  {0x21, 9},  {0x21, 10}, {0x20, 10},
+     {0xf, 10},  {0xe, 10},  {0x7, 11},  {0x6, 11},  {0x20, 11}, {0x21, 11},
+     {0x50, 12}, {0x51, 12}, {0x52, 12}, {0xe, 4},   {0x14, 6},  {0x16, 7},
+     {0x1c, 8},  {0x20, 9},  {0x1f, 9},  {0xd, 10},  {0x22, 11}, {0x53, 12},
+     {0x55, 12}, {0xb, 5},   {0x15, 7},  {0x1e, 9},  {0xc, 10},  {0x56, 12},
+     {0x11, 6},  {0x1b, 8},  {0x1d, 9},  {0xb, 10},  {0x10, 6},  {0x22, 9},
+     {0xa, 10},  {0xd, 6},   {0x1c, 9},  {0x8, 10},  {0x12, 7},  {0x1b, 9},
+     {0x54, 12}, {0x14, 7},  {0x1a, 9},  {0x57, 12}, {0x19, 8},  {0x9, 10},
+     {0x18, 8},  {0x23, 11}, {0x17, 8},  {0x19, 9},  {0x18, 9},  {0x7, 10},
+     {0x58, 12}, {0x7, 4},   {0xc, 6},   {0x16, 8},  {0x17, 9},  {0x6, 10},
+     {0x5, 11},  {0x4, 11},  {0x59, 12}, {0xf, 6},   {0x16, 9},  {0x5, 10},
+     {0xe, 6},   {0x4, 10},  {0x11, 7},  {0x24, 11}, {0x10, 7},  {0x25, 11},
+     {0x13, 7},  {0x5a, 12}, {0x15, 8},  {0x5b, 12}, {0x14, 8},  {0x13, 8},
+     {0x1a, 8},  {0x15, 9},  {0x14, 9},  {0x13, 9},  {0x12, 9},  {0x11, 9},
+     {0x26, 11}, {0x27, 11}, {0x5c, 12}, {0x5d, 12}, {0x5e, 12}, {0x5f, 12},
+     {0x3, 7}},
+    {0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  0,
+     0,  0,  0,  0,  0,  0,  0,  0,  0,  0,  1,  1,  1,  1,  1,  1,  1,
+     1,  1,  1,  2,  2,  2,  2,  2,  3,  3,  3,  3,  4,  4,  4,  5,  5,
+     5,  6,  6,  6,  7,  7,  7,  8,  8,  9,  9,  10, 11, 12, 13, 14, 0,
+     0,  0,  0,  0,  0,  0,  0,  1,  1,  1,  2,  2,  3,  3,  4,  4,  5,
+     5,  6,  6,  7,  8,  9,  10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20},
+    {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20,
+     21, 22, 23, 24, 25, 26, 27, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 1, 2, 3,
+     4, 5, 1, 2, 3, 4, 1, 2, 3, 1, 2, 3, 1, 2, 3, 1, 2, 3, 1, 2,
+     1, 2, 1, 1, 1, 1, 1, 1, 2, 3, 4, 5, 6, 7, 8, 1, 2, 3, 1, 2,
+     1, 2, 1, 2, 1, 2, 1, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+     1, 1},
+    67};
+
+// a TCOEF table ready to read: the VLC and the escape modes' LMAX / RMAX
+struct Rl {
+  const RlTable* t;
+  Vlc vlc;
+  int max_level[2][64], max_run[2][64];
+  explicit Rl(const RlTable& tab) : t(&tab) {
+    vlc.build(12, tab.vlc, 103);
+    std::memset(max_level, 0, sizeof(max_level));
+    std::memset(max_run, 0, sizeof(max_run));
+    for (int i = 0; i < 102; i++) {
+      int last = i >= tab.last, r = tab.run[i], l = tab.level[i];
+      max_level[last][r] = std::max(max_level[last][r], l);
+      max_run[last][l] = std::max(max_run[last][l], r);
+    }
+  }
+};
+
+const int kZigzag[64] = {0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18,
+                         11, 4,  5,  12, 19, 26, 33, 40, 48, 41, 34, 27, 20,
+                         13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43,
+                         36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45,
+                         38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+const int kAltHorizontal[64] = {
+    0,  1,  2,  3,  8,  9,  16, 17, 10, 11, 4,  5,  6,  7,  15, 14,
+    13, 12, 19, 18, 24, 25, 32, 33, 26, 27, 20, 21, 22, 23, 28, 29,
+    30, 31, 34, 35, 40, 41, 48, 49, 42, 43, 36, 37, 38, 39, 44, 45,
+    46, 47, 50, 51, 56, 57, 58, 59, 52, 53, 54, 55, 60, 61, 62, 63};
+const int kAltVertical[64] = {
+    0,  8,  16, 24, 1,  9,  2,  10, 17, 25, 32, 40, 48, 56, 57, 49,
+    41, 33, 26, 18, 3,  11, 4,  12, 19, 27, 34, 42, 50, 58, 35, 43,
+    51, 59, 20, 28, 5,  13, 6,  14, 21, 29, 36, 44, 52, 60, 37, 45,
+    53, 61, 22, 30, 7,  15, 23, 31, 38, 46, 54, 62, 39, 47, 55, 63};
+// ff_mpeg4_default_intra_matrix / _non_intra_matrix (natural order)
+const uint8_t kDefIntraMatrix[64] = {
+    8,  17, 18, 19, 21, 23, 25, 27, 17, 18, 19, 21, 23, 25, 27, 28,
+    20, 21, 22, 23, 24, 26, 28, 30, 21, 22, 23, 24, 26, 28, 30, 32,
+    22, 23, 24, 26, 28, 30, 32, 35, 23, 24, 26, 28, 30, 32, 35, 38,
+    25, 26, 28, 30, 32, 35, 38, 41, 27, 28, 30, 32, 35, 38, 41, 45};
+const uint8_t kDefInterMatrix[64] = {
+    16, 17, 18, 19, 20, 21, 22, 23, 17, 18, 19, 20, 21, 22, 23, 24,
+    18, 19, 20, 21, 22, 23, 24, 25, 19, 20, 21, 22, 23, 24, 26, 27,
+    20, 21, 22, 23, 25, 26, 27, 28, 21, 22, 23, 24, 26, 27, 28, 30,
+    22, 23, 24, 26, 27, 28, 30, 31, 23, 24, 25, 27, 28, 30, 31, 33};
+// ff_mpeg4_y_dc_scale_table / c_dc_scale_table by QP
+const uint8_t kYDcScale[32] = {0,  8,  8,  8,  8,  10, 12, 14, 16, 17, 18,
+                               19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29,
+                               30, 31, 32, 34, 36, 38, 40, 42, 44, 46};
+const uint8_t kCDcScale[32] = {0,  8,  8,  8,  8,  9,  9,  10, 10, 11, 11,
+                               12, 12, 13, 13, 14, 14, 15, 15, 16, 16, 17,
+                               17, 18, 18, 19, 20, 21, 22, 23, 24, 25};
+const int kDcThreshold[8] = {99, 13, 15, 17, 19, 21, 23, 0};
+const int kDquant[4] = {-1, -2, 1, 2};
+
+struct Tables {
+  Vlc intra_mcbpc, inter_mcbpc, cbpy, mv, dc_lum, dc_chrom;
+  Rl inter{kRlInter}, intra{kRlIntra};
+  Tables() {
+    intra_mcbpc.build(9, kIntraMcbpc, 9);
+    inter_mcbpc.build(9, kInterMcbpc, 21);
+    cbpy.build(6, kCbpy, 16);
+    mv.build(12, kMvtab, 33);
+    dc_lum.build(11, kDcLum, 13);
+    dc_chrom.build(12, kDcChrom, 13);
+  }
+};
+const Tables& tables() {
+  static const Tables t;
+  return t;
+}
+
+inline int rounded_div(int a, int b) {
+  return (a >= 0 ? a + (b >> 1) : a - (b >> 1)) / b;
+}
+inline int mid3(int a, int b, int c) {
+  return std::max(std::min(a, b), std::min(std::max(a, b), c));
+}
+
+struct Mpeg4 {
+  // VOL
+  bool have_vol = false;
+  int width = 0, height = 0, time_inc_bits = 1, intra_dc_threshold = 99;
+  bool mpeg_quant = false;
+  int intra_matrix[64], inter_matrix[64];
+  // VOP
+  int qscale = 1, fcode = 1, rounding = 0;
+  bool ac_pred = false;
+  // macroblock state of the current VOP
+  int mbw = 0, mbh = 0;
+  std::vector<uint8_t> mb_intra, mb_q;
+  std::vector<int16_t> dc;     // per block: (2 mbw) x (2 mbh) luma, then 2 x mbw x mbh
+  std::vector<int16_t> ac;     // 16 per block: [1..7] left column, [9..15] top row
+  std::vector<int16_t> mvs;    // per luma block: x, y (half-pel)
+  Frame cur, ref;
+  bool have_frame = false;
+
+  Mpeg4() {
+    for (int i = 0; i < 64; i++) {
+      intra_matrix[i] = kDefIntraMatrix[i];
+      inter_matrix[i] = kDefInterMatrix[i];
+    }
+  }
+
+  static void refuse(const std::string& what) {
+    throw Error("MPEG-4 Part 2 " + what + " not supported");
+  }
+
+  void load_matrix(Bits& b, int* m) {
+    int last = 0, i = 0;
+    for (; i < 64; i++) {
+      int v = (int)b.get(8);
+      if (v == 0) break;
+      last = v;
+      m[kZigzag[i]] = v;
+    }
+    if (i == 0) throw Error("MPEG-4: bad quantisation matrix");
+    for (; i < 64; i++) m[kZigzag[i]] = last;
+  }
+
+  void parse_vol(Bits& b) {
+    b.skip(1);  // random_accessible_vol
+    int type = (int)b.get(8);
+    if (type == 0x12) refuse("fine granularity scalable VOLs are");
+    int verid = 1;
+    if (b.get1()) {  // is_object_layer_identifier
+      verid = (int)b.get(4);
+      b.skip(3);
+    }
+    if (b.get(4) == 15) b.skip(16);  // aspect_ratio_info, extended PAR
+    if (b.get1()) {                  // vol_control_parameters
+      int chroma = (int)b.get(2);
+      if (chroma != 1) refuse("chroma formats other than 4:2:0 are");
+      b.skip(1);      // low_delay
+      if (b.get1()) {  // vbv_parameters
+        b.skip(15); b.marker("vbv"); b.skip(15); b.marker("vbv");
+        b.skip(15); b.marker("vbv"); b.skip(3); b.skip(11); b.marker("vbv");
+        b.skip(15); b.marker("vbv");
+      }
+    }
+    int shape = (int)b.get(2);
+    if (shape != 0) refuse("non-rectangular (shape-coded) VOLs are");
+    b.marker("VOL");
+    int res = (int)b.get(16);
+    if (res == 0) throw Error("MPEG-4: VOL time increment resolution 0");
+    int bits = 0;
+    while ((1 << bits) < res) bits++;  // av_log2(res - 1) + 1
+    time_inc_bits = std::max(bits, 1);
+    b.marker("VOL");
+    if (b.get1()) b.skip(time_inc_bits);  // fixed_vop_rate
+    b.marker("VOL");
+    width = (int)b.get(13);
+    b.marker("VOL");
+    height = (int)b.get(13);
+    b.marker("VOL");
+    if (width <= 0 || height <= 0) throw Error("MPEG-4: VOL of size 0");
+    if (b.get1()) refuse("interlaced video is");
+    b.skip(1);  // obmc_disable
+    int sprite = (int)b.get(verid == 1 ? 1 : 2);
+    if (sprite) refuse("GMC and sprites (S-VOPs) are");
+    if (b.get1()) refuse("not-8-bit video is");
+    mpeg_quant = b.get1();
+    if (mpeg_quant) {
+      for (int i = 0; i < 64; i++) {
+        intra_matrix[i] = kDefIntraMatrix[i];
+        inter_matrix[i] = kDefInterMatrix[i];
+      }
+      if (b.get1()) load_matrix(b, intra_matrix);
+      if (b.get1()) load_matrix(b, inter_matrix);
+    }
+    if (verid != 1 && b.get1()) refuse("quarter-pel motion (quarter_sample) is");
+    if (!b.get1()) refuse("a complexity estimation header is");
+    if (!b.get1()) refuse("resync markers are");
+    if (b.get1()) refuse("data partitioning (and RVLC) is");
+    if (verid != 1) {
+      if (b.get1()) refuse("NEWPRED is");
+      if (b.get1()) refuse("reduced-resolution VOPs are");
+    }
+    if (b.get1()) refuse("scalability is");
+    mbw = (width + 15) / 16;
+    mbh = (height + 15) / 16;
+    have_vol = true;
+  }
+
+  // a buffer of start-code units: VOS/VO/VOL/GOV/user data set up the
+  // stream; a VOP decodes. Returns true when a VOP was decoded.
+  bool parse(const uint8_t* d, int64_t n) {
+    if (n >= 3 && d[0] == 0 && d[1] == 0 && (d[2] & 0xFC) == 0x80)
+      refuse("short video header (H.263 baseline) is");
+    int64_t i = 0;
+    while (true) {
+      // next start code 00 00 01 xx
+      while (i + 3 < n && !(d[i] == 0 && d[i + 1] == 0 && d[i + 2] == 1)) i++;
+      if (i + 3 >= n) return false;
+      int code = d[i + 3];
+      const uint8_t* body = d + i + 4;
+      int64_t m = n - i - 4;
+      if (code >= 0x20 && code <= 0x2F) {
+        Bits b(body, m);
+        parse_vol(b);
+      } else if (code == 0xB6) {
+        if (!have_vol) throw Error("MPEG-4 VOP before any VOL header");
+        Bits b(body, m);
+        decode_vop(b);
+        return true;
+      }
+      i += 4;
+    }
+  }
+
+  void decode_vop(Bits& b) {
+    int type = (int)b.get(2);
+    if (type == 2) refuse("B-VOPs are");
+    if (type == 3) refuse("S-VOPs (GMC and sprites) are");
+    while (b.get1()) {}  // modulo_time_base
+    b.marker("VOP");
+    b.skip(time_inc_bits);
+    b.marker("VOP");
+    if (!b.get1()) {  // vop_coded 0: the last frame again
+      if (!have_frame) throw Error("MPEG-4: a not-coded VOP before any frame");
+      return;
+    }
+    if (type == 1) rounding = b.get1();
+    int thr = (int)b.get(3);
+    intra_dc_threshold = kDcThreshold[thr];
+    qscale = (int)b.get(5);
+    if (qscale == 0) throw Error("MPEG-4: VOP quantiser 0");
+    if (type == 1) {
+      fcode = (int)b.get(3);
+      if (fcode == 0) throw Error("MPEG-4: VOP fcode 0");
+      if (!have_frame) throw Error("MPEG-4: a P-VOP before any I-VOP");
+    }
+    std::swap(cur, ref);
+    cur.alloc(width, height);
+    const int nb = 4 * mbw * mbh + 2 * mbw * mbh;
+    mb_intra.assign((size_t)mbw * mbh, 0);
+    mb_q.assign((size_t)mbw * mbh, 0);
+    dc.assign(nb, 1024);
+    ac.assign((size_t)nb * 16, 0);
+    mvs.assign((size_t)8 * mbw * mbh, 0);
+    for (int my = 0; my < mbh; my++)
+      for (int mx = 0; mx < mbw; mx++) decode_mb(b, type, mx, my);
+    have_frame = true;
+  }
+
+  // block index of block n (0..5) of macroblock (mx, my); -1 outside
+  int blk_index(int n, int bx, int by) const {
+    // bx, by in block units of that plane
+    if (n < 4) {
+      if (bx < 0 || by < 0 || bx >= 2 * mbw || by >= 2 * mbh) return -1;
+      if (!mb_intra[(by >> 1) * mbw + (bx >> 1)]) return -1;
+      return by * 2 * mbw + bx;
+    }
+    if (bx < 0 || by < 0 || bx >= mbw || by >= mbh) return -1;
+    if (!mb_intra[by * mbw + bx]) return -1;
+    return 4 * mbw * mbh + (n - 4) * mbw * mbh + by * mbw + bx;
+  }
+  void blk_pos(int n, int mx, int my, int* bx, int* by) const {
+    if (n < 4) {
+      *bx = 2 * mx + (n & 1);
+      *by = 2 * my + (n >> 1);
+    } else {
+      *bx = mx;
+      *by = my;
+    }
+  }
+  int mb_of(int n, int bx, int by) const {
+    return n < 4 ? (by >> 1) * mbw + (bx >> 1) : by * mbw + bx;
+  }
+
+  void set_q(int q) { qscale = std::min(std::max(q, 1), 31); }
+
+  void decode_mb(Bits& b, int type, int mx, int my) {
+    const Tables& T = tables();
+    const int xy = my * mbw + mx;
+    int mcbpc;
+    bool intra, q4mv = false;
+    if (type == 1) {
+      while (true) {
+        if (b.get1()) {  // not_coded: a copy of the reference
+          mb_q[xy] = (uint8_t)qscale;
+          int16_t zero[8] = {};
+          motion(mx, my, zero, false);
+          return;
+        }
+        mcbpc = T.inter_mcbpc.read(b, "MCBPC");
+        if (mcbpc != 20) break;
+      }
+      intra = (mcbpc & 4) != 0;
+      q4mv = (mcbpc & 16) != 0;
+    } else {
+      do mcbpc = T.intra_mcbpc.read(b, "MCBPC");
+      while (mcbpc == 8);
+      intra = true;
+    }
+    const bool dquant = type == 1 ? (mcbpc & 8) != 0 : (mcbpc & 4) != 0;
+    int16_t blocks[6][64];
+    std::memset(blocks, 0, sizeof(blocks));
+    if (intra) {
+      ac_pred = b.get1();
+      int cbpy = T.cbpy.read(b, "CBPY");
+      int cbp = (mcbpc & 3) | (cbpy << 2);
+      bool dc_vlc = qscale < intra_dc_threshold;
+      if (dquant) set_q(qscale + kDquant[b.get(2)]);
+      mb_intra[xy] = 1;
+      mb_q[xy] = (uint8_t)qscale;
+      for (int i = 0; i < 6; i++)
+        intra_block(b, blocks[i], i, mx, my, (cbp & (32 >> i)) != 0, dc_vlc);
+      render_intra(mx, my, blocks);
+      return;
+    }
+    int cbpy = T.cbpy.read(b, "CBPY") ^ 15;
+    int cbp = (mcbpc & 3) | (cbpy << 2);
+    if (dquant) set_q(qscale + kDquant[b.get(2)]);
+    mb_q[xy] = (uint8_t)qscale;
+    int16_t v[8];
+    if (!q4mv) {
+      int px, py;
+      pred_mv(mx, my, 0, &px, &py);
+      v[0] = (int16_t)read_mv(b, px);
+      v[1] = (int16_t)read_mv(b, py);
+      for (int k = 1; k < 4; k++) {
+        v[2 * k] = v[0];
+        v[2 * k + 1] = v[1];
+      }
+      for (int k = 0; k < 4; k++) set_mv(mx, my, k, v[2 * k], v[2 * k + 1]);
+    } else {
+      for (int k = 0; k < 4; k++) {
+        int px, py;
+        pred_mv(mx, my, k, &px, &py);
+        v[2 * k] = (int16_t)read_mv(b, px);
+        v[2 * k + 1] = (int16_t)read_mv(b, py);
+        set_mv(mx, my, k, v[2 * k], v[2 * k + 1]);
+      }
+    }
+    motion(mx, my, v, q4mv);
+    for (int i = 0; i < 6; i++) {
+      if (!(cbp & (32 >> i))) continue;
+      inter_block(b, blocks[i]);
+      uint8_t* dst;
+      int stride;
+      block_dst(cur, i, mx, my, &dst, &stride);
+      simple_idct(blocks[i], dst, stride, true);
+    }
+  }
+
+  // motion vectors of the current VOP per luma block (2 mbw x 2 mbh);
+  // intra and skipped macroblocks and anything outside the VOP hold 0
+  void set_mv(int mx, int my, int k, int x, int y) {
+    int bx = 2 * mx + (k & 1), by = 2 * my + (k >> 1);
+    size_t i = ((size_t)by * 2 * mbw + bx) * 2;
+    mvs[i] = (int16_t)x;
+    mvs[i + 1] = (int16_t)y;
+  }
+  void mv_at(int bx, int by, int* x, int* y) const {
+    if (bx < 0 || by < 0 || bx >= 2 * mbw) {
+      *x = *y = 0;
+      return;
+    }
+    size_t i = ((size_t)by * 2 * mbw + bx) * 2;
+    *x = mvs[i];
+    *y = mvs[i + 1];
+  }
+
+  // ff_h263_pred_motion for a VOP of one slice
+  void pred_mv(int mx, int my, int k, int* px, int* py) {
+    const int bx = 2 * mx + (k & 1), by = 2 * my + (k >> 1);
+    int ax, ay, bx_, by_, cx, cy;
+    mv_at(bx - 1, by, &ax, &ay);
+    if (my == 0 && k < 2) {  // the first row: the left vector alone
+      if (k == 0 && mx == 0) {
+        *px = *py = 0;
+      } else {
+        *px = ax;
+        *py = ay;
+      }
+      return;
+    }
+    static const int off[4] = {2, 1, 1, -1};
+    mv_at(bx, by - 1, &bx_, &by_);
+    mv_at(bx + off[k], by - 1, &cx, &cy);
+    *px = mid3(ax, bx_, cx);
+    *py = mid3(ay, by_, cy);
+  }
+
+  int read_mv(Bits& b, int pred) {
+    int code = tables().mv.read(b, "motion vector");
+    if (code == 0) return pred;
+    int sign = b.get1();
+    int shift = fcode - 1, val = code;
+    if (shift) {
+      val = (val - 1) << shift;
+      val |= (int)b.get(shift);
+      val++;
+    }
+    if (sign) val = -val;
+    val += pred;
+    const int nb = 5 + fcode;  // sign_extend(val, 5 + f_code)
+    val = (int)((unsigned)val << (32 - nb)) >> (32 - nb);
+    return val;
+  }
+
+  static int round_chroma(int x) {  // ff_h263_round_chroma
+    static const int tab[16] = {0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
+    return tab[x & 0xF] + ((x >> 3) & ~1);
+  }
+
+  // the prediction of macroblock (mx, my) from the reference, into cur;
+  // the reference's edges are those of its whole macroblocks
+  void motion(int mx, int my, const int16_t* v, bool four) {
+    const int rnd = 1 - rounding;
+    const int W = ref.pw, H = ref.ph, cs = ref.cstride();
+    uint8_t* ydst = &cur.y[(size_t)my * 16 * cur.pw + mx * 16];
+    if (!four) {
+      int x = v[0], y = v[1];
+      hpel_block(ref.y.data(), ref.pw, W, H, mx * 16 + (x >> 1),
+                 my * 16 + (y >> 1), (x & 1) | ((y & 1) << 1), rnd, 16, ydst,
+                 cur.pw);
+      // chroma: the luma vector halved, its quarters rounded to halves
+      int uvdxy = ((x & 1) | ((x & 2) >> 1)) | (((y & 1) | ((y & 2) >> 1)) << 1);
+      int ux = (mx * 16 + (x >> 1)) >> 1, uy = (my * 16 + (y >> 1)) >> 1;
+      chroma(ux, uy, uvdxy, rnd, mx, my, cs, W, H);
+      return;
+    }
+    int sx = 0, sy = 0;
+    for (int k = 0; k < 4; k++) {
+      int x = v[2 * k], y = v[2 * k + 1];
+      sx += x;
+      sy += y;
+      hpel_block(ref.y.data(), ref.pw, W, H, mx * 16 + (k & 1) * 8 + (x >> 1),
+                 my * 16 + (k >> 1) * 8 + (y >> 1), (x & 1) | ((y & 1) << 1),
+                 rnd, 8, ydst + (k >> 1) * 8 * cur.pw + (k & 1) * 8, cur.pw);
+    }
+    int cx = round_chroma(sx), cy = round_chroma(sy);
+    chroma(mx * 8 + (cx >> 1), my * 8 + (cy >> 1), (cx & 1) | ((cy & 1) << 1),
+           rnd, mx, my, cs, W, H);
+  }
+
+  void chroma(int ux, int uy, int dxy, int rnd, int mx, int my, int cs, int W,
+              int H) {
+    const size_t o = (size_t)my * 8 * cs + mx * 8;
+    hpel_block(ref.cb.data(), cs, W >> 1, H >> 1, ux, uy, dxy, rnd, 8,
+               &cur.cb[o], cs);
+    hpel_block(ref.cr.data(), cs, W >> 1, H >> 1, ux, uy, dxy, rnd, 8,
+               &cur.cr[o], cs);
+  }
+
+  void block_dst(Frame& f, int n, int mx, int my, uint8_t** dst, int* stride) {
+    if (n < 4) {
+      *stride = f.pw;
+      *dst = &f.y[(size_t)(my * 16 + (n >> 1) * 8) * f.pw + mx * 16 + (n & 1) * 8];
+    } else {
+      *stride = f.cstride();
+      auto& p = n == 4 ? f.cb : f.cr;
+      *dst = &p[(size_t)my * 8 * f.cstride() + mx * 8];
+    }
+  }
+
+  // TCOEF levels into blk (natural order) along `scan` from position i0;
+  // inter: dequantized here (H.263), as FFmpeg's run-level tables do
+  void read_coefs(Bits& b, int16_t* blk, const Rl& rl, const int* scan,
+                  int i0, int qmul, int qadd) {
+    int i = i0 - 1;
+    while (true) {
+      int sym = rl.vlc.read(b, "TCOEF");
+      int run, level, last;
+      if (sym != 102) {
+        run = rl.t->run[sym];
+        level = rl.t->level[sym];
+        last = sym >= rl.t->last;
+        level = level * qmul + qadd;
+        if (b.get1()) level = -level;
+      } else if (!b.get1()) {  // escape 1: level + LMAX
+        sym = rl.vlc.read(b, "TCOEF");
+        if (sym == 102) throw Error("MPEG-4: bad TCOEF escape");
+        run = rl.t->run[sym];
+        last = sym >= rl.t->last;
+        level = (rl.t->level[sym] + rl.max_level[last][run]) * qmul + qadd;
+        if (b.get1()) level = -level;
+      } else if (!b.get1()) {  // escape 2: run + RMAX + 1
+        sym = rl.vlc.read(b, "TCOEF");
+        if (sym == 102) throw Error("MPEG-4: bad TCOEF escape");
+        last = sym >= rl.t->last;
+        level = rl.t->level[sym];
+        run = rl.t->run[sym] + rl.max_run[last][level] + 1;
+        level = level * qmul + qadd;
+        if (b.get1()) level = -level;
+      } else {  // escape 3: fixed length
+        last = b.get1();
+        run = (int)b.get(6);
+        b.marker("escape");
+        level = b.sget(12);
+        b.marker("escape");
+        if (level > 0) level = level * qmul + qadd;
+        else level = level * qmul - qadd;
+        if (level < -2048) level = -2048;
+        if (level > 2047) level = 2047;
+      }
+      i += run + 1;
+      if (i > 63) throw Error("MPEG-4: run past the end of a block");
+      blk[scan[i]] = (int16_t)level;
+      if (last) return;
+    }
+  }
+
+  void inter_block(Bits& b, int16_t* blk) {
+    const Tables& T = tables();
+    if (!mpeg_quant) {
+      read_coefs(b, blk, T.inter, kZigzag, 0, 2 * qscale, (qscale - 1) | 1);
+      return;
+    }
+    read_coefs(b, blk, T.inter, kZigzag, 0, 1, 0);
+    // dct_unquantize_mpeg2_inter
+    const int q2 = qscale << 1;
+    for (int k = 0; k < 64; k++) {
+      int l = blk[k];
+      if (!l) continue;
+      int m = (((std::abs(l) << 1) + 1) * q2 * inter_matrix[k]) >> 5;
+      blk[k] = (int16_t)(l < 0 ? -m : m);
+    }
+  }
+
+  void intra_block(Bits& b, int16_t* blk, int n, int mx, int my, bool coded,
+                   bool dc_vlc) {
+    const Tables& T = tables();
+    int bx, by;
+    blk_pos(n, mx, my, &bx, &by);
+    const int scale = n < 4 ? kYDcScale[qscale] : kCDcScale[qscale];
+    // DC prediction direction: B C / A X
+    const int ia = blk_index(n, bx - 1, by), ib = blk_index(n, bx - 1, by - 1),
+              ic = blk_index(n, bx, by - 1);
+    const int a = ia < 0 ? 1024 : dc[ia], bb = ib < 0 ? 1024 : dc[ib],
+              c = ic < 0 ? 1024 : dc[ic];
+    const int dir = std::abs(a - bb) < std::abs(bb - c) ? 1 : 0;  // 1: top
+    const int pred = ((dir ? c : a) + (scale >> 1)) / scale;
+    int level = 0;
+    if (dc_vlc) {
+      int size = (n < 4 ? T.dc_lum : T.dc_chrom).read(b, "DC size");
+      if (size > 9) throw Error("MPEG-4: bad intra DC size");
+      if (size) {
+        level = (int)b.get(size);
+        if (level < (1 << (size - 1))) level -= (1 << size) - 1;
+        if (size > 8) b.marker("intra DC");
+      }
+    }
+    const int* scan = ac_pred ? (dir == 0 ? kAltVertical : kAltHorizontal) : kZigzag;
+    if (coded) read_coefs(b, blk, T.intra, scan, dc_vlc ? 1 : 0, 1, 0);
+    if (dc_vlc) blk[0] = (int16_t)level;
+    // mpeg4_pred_dc: the DC level with its prediction
+    int dcl = blk[0] + pred;
+    blk[0] = (int16_t)dcl;
+    int stored = dcl * scale;
+    if (stored & ~2047) stored = stored < 0 ? 0 : 2047;
+    const int self = blk_index_self(n, bx, by);
+    dc[self] = (int16_t)stored;
+    // ff_mpeg4_pred_ac
+    int16_t* av = &ac[(size_t)self * 16];
+    if (ac_pred) {
+      if (dir == 0) {
+        if (ia >= 0) {
+          const int16_t* p = &ac[(size_t)ia * 16];
+          int qn = mb_q[mb_of(n, bx - 1, by)];
+          bool same = qn == qscale || (n == 1 || n == 3);
+          for (int k = 1; k < 8; k++)
+            blk[k << 3] = (int16_t)(blk[k << 3] + (same ? p[k] : rounded_div(p[k] * qn, qscale)));
+        }
+      } else if (ic >= 0) {
+        const int16_t* p = &ac[(size_t)ic * 16];
+        int qn = mb_q[mb_of(n, bx, by - 1)];
+        bool same = qn == qscale || (n == 2 || n == 3);
+        for (int k = 1; k < 8; k++)
+          blk[k] = (int16_t)(blk[k] + (same ? p[8 + k] : rounded_div(p[8 + k] * qn, qscale)));
+      }
+    }
+    for (int k = 1; k < 8; k++) {
+      av[k] = blk[k << 3];
+      av[8 + k] = blk[k];
+    }
+    // dequantisation (dct_unquantize_h263_intra / _mpeg2_intra)
+    blk[0] = (int16_t)(blk[0] * scale);
+    if (!mpeg_quant) {
+      const int qmul = qscale << 1, qadd = (qscale - 1) | 1;
+      for (int k = 1; k < 64; k++) {
+        int l = blk[k];
+        if (l) blk[k] = (int16_t)(l < 0 ? l * qmul - qadd : l * qmul + qadd);
+      }
+    } else {
+      const int q2 = qscale << 1;
+      for (int k = 1; k < 64; k++) {
+        int l = blk[k];
+        if (!l) continue;
+        int m = (std::abs(l) * q2 * intra_matrix[k]) >> 4;
+        blk[k] = (int16_t)(l < 0 ? -m : m);
+      }
+    }
+  }
+
+  int blk_index_self(int n, int bx, int by) const {
+    if (n < 4) return by * 2 * mbw + bx;
+    return 4 * mbw * mbh + (n - 4) * mbw * mbh + by * mbw + bx;
+  }
+
+  void render_intra(int mx, int my, int16_t (*blocks)[64]) {
+    for (int i = 0; i < 6; i++) {
+      uint8_t* dst;
+      int stride;
+      block_dst(cur, i, mx, my, &dst, &stride);
+      simple_idct(blocks[i], dst, stride, false);
+    }
+  }
+
+  const Frame& frame() const { return cur; }
+};
+
+// --- Motion JPEG -------------------------------------------------------------
+
+struct Mjpeg {
+  Frame cur;
+  bool have_frame = false;
+
+  void decode(const uint8_t* d, int64_t n) {
+    Decoder jd(d, n);
+    jd.run(false);
+    if (jd.truncated) throw Error("MJPEG frame data ends early");
+    if (jd.space != kYCbCr || jd.ncomp != 3 || jd.comp[0].h != 2 ||
+        jd.comp[0].v != 2 || jd.comp[1].h != 1 || jd.comp[1].v != 1 ||
+        jd.comp[2].h != 1 || jd.comp[2].v != 1)
+      throw Error("MJPEG frames other than 4:2:0 YCbCr are not supported");
+    cur.alloc(jd.W, jd.H);
+    for (int ci = 0; ci < 3; ci++) {
+      Component& c = jd.comp[ci];
+      auto& plane = ci == 0 ? cur.y : ci == 1 ? cur.cb : cur.cr;
+      const int stride = ci == 0 ? cur.pw : cur.cstride();
+      const int rows = ci == 0 ? cur.ph / 8 : cur.ph / 16;
+      const int cols = ci == 0 ? cur.pw / 8 : cur.pw / 16;
+      for (int by = 0; by < std::min(rows, c.bh); by++)
+        for (int bx = 0; bx < std::min(cols, c.bw); bx++) {
+          const int16_t* src = &c.coef[((size_t)by * c.bw + bx) * 64];
+          int16_t blk[64];
+          // FFmpeg: the DC summed and dequantized from 1024 (4 << bits:
+          // the level shift), clipped to 16 bits; each AC level times its
+          // quantiser into 16 bits
+          int dcv = 1024 + src[0] * c.quant[0];
+          blk[0] = (int16_t)std::min(std::max(dcv, -32768), 32767);
+          for (int k = 1; k < 64; k++) blk[k] = (int16_t)(src[k] * c.quant[k]);
+          simple_idct(blk, &plane[(size_t)by * 8 * stride + bx * 8], stride, false);
+        }
+    }
+    have_frame = true;
+  }
+};
+
+struct Handle {
+  int codec;  // 1 MPEG-4 Part 2, 2 MJPEG
+  Mpeg4 m4;
+  Mjpeg mj;
+  const Frame* frame() const {
+    if (codec == 1) return m4.have_frame ? &m4.cur : nullptr;
+    return mj.have_frame ? &mj.cur : nullptr;
+  }
+};
+
+void set_err(char* err, int errlen, const char* msg) {
+  if (err && errlen > 0) std::snprintf(err, errlen, "%s", msg);
+}
+
+}  // namespace
+
+extern "C" {
+
+// A decoder of `codec` (1: MPEG-4 Part 2, 2: MJPEG). For MPEG-4, `extra`
+// holds the headers the container keeps apart (MP4 esds'
+// DecoderSpecificInfo, Matroska CodecPrivate), or is empty. Returns the
+// handle, or null with a message in err.
+void* vd_open(int codec, const uint8_t* extra, int64_t n, char* err,
+              int errlen) {
+  try {
+    if (codec != 1 && codec != 2) throw Error("unknown codec");
+    Handle* h = new Handle();
+    h->codec = codec;
+    if (codec == 1 && n > 0) {
+      try {
+        h->m4.parse(extra, n);
+      } catch (...) {
+        delete h;
+        throw;
+      }
+    }
+    return h;
+  } catch (const std::exception& e) {
+    set_err(err, errlen, e.what());
+    return nullptr;
+  }
+}
+
+void vd_close(void* h) { delete static_cast<Handle*>(h); }
+
+// Decodes one sample. Writes the frame's width and height to wh. Returns
+// 0, or 1 with a message in err (no frame in the sample, data that ends
+// early or does not parse, a refused feature).
+int vd_decode(void* hp, const uint8_t* data, int64_t n, int32_t* wh,
+              char* err, int errlen) {
+  Handle* h = static_cast<Handle*>(hp);
+  try {
+    if (h->codec == 1) {
+      if (!h->m4.parse(data, n)) throw Error("MPEG-4 sample without a VOP");
+    } else {
+      h->mj.decode(data, n);
+    }
+    const Frame* f = h->frame();
+    wh[0] = f->w;
+    wh[1] = f->h;
+    return 0;
+  } catch (const std::exception& e) {
+    set_err(err, errlen, e.what());
+    return 1;
+  }
+}
+
+// The last decoded frame as H x W x 3 RGB (rgb) and its planes: y (H x W),
+// cb and cr ((H+1)/2 x (W+1)/2); any pointer may be null. Returns 0, or 1
+// when there is no frame.
+int vd_frame(void* hp, uint8_t* rgb, uint8_t* y, uint8_t* cb, uint8_t* cr) {
+  Handle* h = static_cast<Handle*>(hp);
+  const Frame* f = h->frame();
+  if (!f) return 1;
+  const int cw = (f->w + 1) / 2, ch = (f->h + 1) / 2, cs = f->cstride();
+  if (rgb)
+    yuv_to_rgb(f->y.data(), f->pw, f->cb.data(), f->cr.data(), cs, f->w, f->h,
+               h->codec == 2, rgb);
+  for (int r = 0; y && r < f->h; r++)
+    std::memcpy(y + (size_t)r * f->w, &f->y[(size_t)r * f->pw], f->w);
+  for (int r = 0; cb && r < ch; r++)
+    std::memcpy(cb + (size_t)r * cw, &f->cb[(size_t)r * cs], cw);
+  for (int r = 0; cr && r < ch; r++)
+    std::memcpy(cr + (size_t)r * cw, &f->cr[(size_t)r * cs], cw);
+  return 0;
+}
+
+// The arithmetic alone, for the tests: the simple IDCT of one block
+// (natural order) put into (add 0) or added to (add 1) dst (8 x 8,
+// stride 8); one n x n half-pel block; the I420/J420 -> RGB conversion.
+void vd_idct(const int16_t* in, int add, uint8_t* dst) {
+  int16_t blk[64];
+  std::memcpy(blk, in, sizeof(blk));
+  simple_idct(blk, dst, 8, add != 0);
+}
+
+void vd_hpel(const uint8_t* src, int stride, int w, int h, int x, int y,
+             int dxy, int rounding, int n, uint8_t* dst) {
+  hpel_block(src, stride, w, h, x, y, dxy, 1 - rounding, n, dst, n);
+}
+
+void vd_yuv_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
+                   int w, int h, int full_range, uint8_t* out) {
+  yuv_to_rgb(y, w, cb, cr, (w + 1) / 2, w, h, full_range != 0, out);
+}
+
+}  // extern "C"

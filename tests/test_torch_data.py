@@ -383,9 +383,14 @@ def test_seven_scenes_rgbfiles_eth3d_replica(tmp_path, jax_config):
 def test_natsorted_and_unported_readers():
     assert [str(p) for p in TD.natsorted(["f10.png", "f2.png", "f1.png"])] \
         == [str(p) for p in JD.natsorted(["f10.png", "f2.png", "f1.png"])]
-    for path in ("clip.mp4", "webcam", "webcam:1"):
+    for path in ("webcam", "webcam:1"):
         with pytest.raises(NotImplementedError, match="not ported"):
             TD.load_dataset(path)
+    # video files are ported (tests/test_torch_video.py): a path that
+    # cannot be opened reads as an unopened cv2.VideoCapture reads
+    dt, dj = TD.load_dataset("clip.mp4"), JD.load_dataset("clip.mp4")
+    assert isinstance(dt, TD.MP4Dataset) and isinstance(dj, JD.MP4Dataset)
+    assert (dt.total_frames, dt.fps) == (dj.total_frames, dj.fps)
     # RealSense is ported: without pyrealsense2 both packages raise
     for path in ("realsense", "rs"):
         with pytest.raises(RuntimeError, match="pyrealsense2") as got:
