@@ -232,19 +232,22 @@ then:
    harness's 96 frames at 64x96 to a first tracking failure, if any, then
    a failure planted in frame 7 of 12 on the card and on the CPU: the
    same frames' ``ok``, failing frame and LM rows' flags);
-21. (phase ``video``) builds the video decoder (``native/video_decode.cpp``)
-   on this machine and reads every committed fixture of
-   ``tests/data/video`` (MPEG-4 Part 2 in MP4, MOV, AVI and Matroska;
-   MJPEG in AVI and Matroska), in order and backwards (each seek decoding
-   from its GOP's sync sample), to the SHA-256 digests of
-   cv2.VideoCapture's frames recorded beside them; times the host ms a
-   480x640 frame of MPEG-4 I-VOPs, P-VOPs and MJPEG beside the compiled
-   and plain numpy converters on the same planes (equal bytes); then runs
-   the CLI at full ViT-L width on the committed 16-frame 480x640 mp4v
-   clip under base.yaml with the services off (bf16): all 16 frames read,
-   the outputs checked, K1, K2 (implicit GEMM) and K4 (tensor cores)
-   launched and counted as the run's calls need, with its median tracked
-   frame and frame read (``dataset[i]`` + ``create_frame``).
+21. (phase ``video``) builds the video decoder (``native/video_decode.cpp``
+   with ``native/h264_decode.cpp``) on this machine and reads every
+   committed fixture of ``tests/data/video`` (MPEG-4 Part 2 in MP4, MOV,
+   AVI and Matroska; MJPEG in AVI and Matroska; H.264, CAVLC and CABAC, in
+   MP4, Matroska and AVI, a cropped 152x104 clip and a 1920x1080 one), in
+   order and backwards (each seek decoding from its GOP's sync sample), to
+   the SHA-256 digests of cv2.VideoCapture's frames recorded beside them;
+   times the host ms a 480x640 frame of MPEG-4 I-VOPs, P-VOPs, MJPEG and
+   H.264 (an IDR picture, CAVLC P and CABAC P pictures) and a 1920x1080
+   H.264 frame, beside the compiled and plain numpy converters on the same
+   planes (equal bytes); then runs the CLI at full ViT-L width on the
+   committed 16-frame 480x640 mp4v clip and on the H.264 one under
+   base.yaml with the services off (bf16): all 16 frames read, the outputs
+   checked, K1, K2 (implicit GEMM) and K4 (tensor cores) launched and
+   counted as each run's calls need, with its median tracked frame and
+   frame read (``dataset[i]`` + ``create_frame``).
 
 In every phase that runs a service, an exception in a service worker (which
 prints it and carries on) fails the run, and the global TSDF must run on
@@ -3933,6 +3936,9 @@ def phase_cli_datasets(torch, FA, C3, BA, workdir, smi):
 
 VIDEO_FIXTURES = ROOT / "tests" / "data" / "video"
 VIDEO_CLI = "cli_640x480.mp4"       # 16 frames of mp4v: GOP 12, no B-VOPs
+VIDEO_CLI_H264 = "cli_640x480_h264.mp4"  # 16 frames of H.264 (CABAC): I, 15 P
+VIDEO_H264_CAVLC = "h264_cavlc_640x480.avi"  # 4 frames of H.264 (CAVLC), Annex B
+VIDEO_H264_1080 = "h264_1920x1080.mp4"  # 4 frames of H.264, coded at 1088
 VIDEO_REPS = 10                     # timed passes over each codec's frames
 VIDEO_HW = (480, 640)
 
@@ -3968,29 +3974,43 @@ def video_fixture_reads():
     return n
 
 
-def video_decode_times(smi):
-    """Host ms a 480x640 frame, decode and RGB conversion, of MPEG-4
-    I-VOPs (the CLI clip's sample 0, decoded anew each time), P-VOPs (its
-    samples 1-11 in order) and MJPEG (a 4:2:0 JPEG of the pan frame by the
-    test encoder, as one Motion JPEG frame); each beside the compiled and
-    the plain numpy converter on the same planes, which must give the same
-    bytes."""
-    import numpy as np
+def video_samples(name):
+    """The track of committed fixture ``name`` and its samples' bytes."""
+    from mast3r_slam_tpu_torch.data import containers
 
-    from mast3r_slam_tpu_torch.data import containers, video
-
-    path = VIDEO_FIXTURES / VIDEO_CLI
+    path = VIDEO_FIXTURES / name
     t = containers.open_track(path)
     with open(path, "rb") as f:
         samples = []
         for off, size in zip(t.offsets, t.sizes):
             f.seek(int(off))
             samples.append(f.read(int(size)))
+    return t, samples
+
+
+def video_decode_times(smi):
+    """Host ms a frame, decode and RGB conversion, at 480x640: MPEG-4
+    I-VOPs (the CLI clip's sample 0, decoded anew each time), P-VOPs (its
+    samples 1-11 in order), MJPEG (a 4:2:0 JPEG of the pan frame by the
+    test encoder, as one Motion JPEG frame), an H.264 IDR picture (the H.264
+    CLI clip's sample 0), H.264 CABAC P pictures (its samples 1-15) and
+    CAVLC P pictures (the CAVLC clip's samples 1-3); and at 1920x1080 the
+    H.264 clip's 4 pictures (IDR and P, coded at 1088, cropped); each beside
+    the compiled and the plain numpy converter on the same planes, which
+    must give the same bytes."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.data import video
+
+    t, samples = video_samples(VIDEO_CLI)
     gop = int(np.flatnonzero(t.sync)[1]) if t.sync.sum() > 1 else len(samples)
+    th, hs = video_samples(VIDEO_CLI_H264)
+    tc, cs = video_samples(VIDEO_H264_CAVLC)
+    tk, ks = video_samples(VIDEO_H264_1080)
     jw = _test_writer("torch_jpeg_writer")
     jpeg = jw.encode_jpeg(next(pan_frames(1, VIDEO_HW, (0, 0), seed=7)), 90)
 
-    def timed(codec, extra, warm, frames):
+    def timed(codec, extra, warm, frames, hw):
         """ms a frame of decode + rgb over ``frames`` (after ``warm``),
         VIDEO_REPS passes, each on a fresh decoder."""
         ms = []
@@ -4004,16 +4024,22 @@ def video_decode_times(smi):
                 dec.decode(data)
                 rgb = dec.rgb()
                 ms.append((time.perf_counter() - t0) * 1e3)
-        check(rgb.shape == (*VIDEO_HW, 3), f"video: frame {rgb.shape}")
+        check(rgb.shape == (*hw, 3), f"video: frame {rgb.shape}, want {hw}")
         return statistics.median(ms), dec
 
     out = {}
-    for kind, codec, extra, warm, frames in (
-            ("mpeg4_i", video.MPEG4, t.extradata, [], samples[:1]),
+    for kind, codec, extra, warm, frames, hw in (
+            ("mpeg4_i", video.MPEG4, t.extradata, [], samples[:1], VIDEO_HW),
             ("mpeg4_p", video.MPEG4, t.extradata, samples[:1],
-             samples[1:gop]),
-            ("mjpeg", video.MJPEG, b"", [], [jpeg])):
-        ms, dec = timed(codec, extra, warm, frames)
+             samples[1:gop], VIDEO_HW),
+            ("mjpeg", video.MJPEG, b"", [], [jpeg], VIDEO_HW),
+            ("h264_idr", video.H264, th.extradata, [], hs[:1], VIDEO_HW),
+            ("h264_cabac_p", video.H264, th.extradata, hs[:1], hs[1:],
+             VIDEO_HW),
+            ("h264_cavlc_p", video.H264, tc.extradata, cs[:1], cs[1:],
+             VIDEO_HW),
+            ("h264_1080", video.H264, tk.extradata, [], ks, (1080, 1920))):
+        ms, dec = timed(codec, extra, warm, frames, hw)
         y, cb, cr = dec.planes()
         full = codec == video.MJPEG
         conv, plain = [], []
@@ -4027,9 +4053,9 @@ def video_decode_times(smi):
                       f"{fn.__name__} differs from the decoder's frame")
         out[kind] = dict(ms=ms, convert_ms=statistics.median(conv),
                          plain_convert_ms=statistics.median(plain),
-                         frames=len(frames))
-    log("video: host ms a 480x640 frame (decode + RGB; converter compiled / "
-        "plain numpy on the same planes, equal bytes): "
+                         frames=len(frames), hw=list(hw))
+    log("video: host ms a frame, 480x640 unless named (decode + RGB; "
+        "converter compiled / plain numpy on the same planes, equal bytes): "
         + ", ".join(f"{k} {v['ms']:.3f} ({v['convert_ms']:.3f} / "
                     f"{v['plain_convert_ms']:.2f})" for k, v in out.items())
         + f"; median of {VIDEO_REPS} passes; on {smi}")
@@ -4039,18 +4065,16 @@ def video_decode_times(smi):
 def phase_video(torch, FA, C3, BA, workdir, smi):
     """Video files on this machine: the decoder built here reads every
     committed fixture (MPEG-4 Part 2 in MP4, MOV, AVI and Matroska; MJPEG
-    in AVI and Matroska) to the SHA-256 of cv2.VideoCapture's frames
-    recorded beside them; the host ms a 480x640 frame of MPEG-4 I-VOPs,
-    P-VOPs and MJPEG beside the plain converter; then the CLI at full
-    ViT-L width on the committed 16-frame 480x640 mp4v clip under
-    base.yaml with the services off (bf16: K1, K2 on the implicit GEMM,
-    K4 on the tensor cores), checking all 16 frames read, its outputs and
-    its launches as the cli_datasets phase's image-folder run does, with
-    the median tracked frame and frame read (``dataset[i]`` +
-    ``create_frame``)."""
+    in AVI and Matroska; H.264 in MP4, Matroska and AVI) to the SHA-256 of
+    cv2.VideoCapture's frames recorded beside them; the host ms a frame of
+    each codec (:func:`video_decode_times`) beside the plain converter;
+    then the CLI at full ViT-L width on the committed 16-frame 480x640
+    mp4v clip and on the H.264 one under base.yaml with the services off
+    (bf16: K1, K2 on the implicit GEMM, K4 on the tensor cores), each
+    checking all 16 frames read, its outputs and its launches as the
+    cli_datasets phase's image-folder run does, with the median tracked
+    frame and frame read (``dataset[i]`` + ``create_frame``)."""
     from mast3r_slam_tpu_torch.data import video
-    from mast3r_slam_tpu_torch.data.datasets import load_dataset
-    from mast3r_slam_tpu_torch.utils.config import load_config
 
     t0 = time.perf_counter()
     video.load_library()
@@ -4060,10 +4084,23 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
         f"the committed fixtures (in order and backwards) equal "
         f"cv2.VideoCapture's")
     out = {"decode": video_decode_times(smi)}
+    out["cli"] = video_cli_run(torch, FA, C3, BA, workdir, smi, VIDEO_CLI,
+                               "video")
+    out["cli_h264"] = video_cli_run(torch, FA, C3, BA, workdir, smi,
+                                    VIDEO_CLI_H264, "video_h264")
+    return out
+
+
+def video_cli_run(torch, FA, C3, BA, workdir, smi, name, tag):
+    """The CLI on committed clip ``name`` (16 frames, 480x640) at full
+    ViT-L width under base.yaml with the services off, checked as
+    :func:`phase_video` says; its numbers."""
+    from mast3r_slam_tpu_torch.data.datasets import load_dataset
+    from mast3r_slam_tpu_torch.utils.config import load_config
 
     work = Path(workdir)
-    clip = VIDEO_FIXTURES / VIDEO_CLI
-    cfg_path = write_config(work / "cli_video.yaml", **SERVICES_OFF)
+    clip = VIDEO_FIXTURES / name
+    cfg_path = write_config(work / f"cli_{tag}.yaml", **SERVICES_OFF)
     cfg = load_config(cfg_path)
     k2_path = C3.conv3x3_path(getattr(torch, cfg["model"]["head_dtype"]),
                               256, 256)
@@ -4083,7 +4120,7 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
         res, launches, rec = run_cli(
             torch, FA, C3, BA, model, work,
             ["--dataset", str(clip), "--config", cfg_path, "--no-viz",
-             "--save-as", "video"], "video", ba_path=ba_path,
+             "--save-as", tag], tag, ba_path=ba_path,
             k2_path=k2_path)
     check(len(read_ms) == n_frames, f"video: {len(read_ms)} frame reads "
           f"timed, {n_frames} frames")
@@ -4093,24 +4130,23 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
           and launches[f"K2 {k2_path}"] == launches["K2"],
           f"video: K1 or K4 not launched, a BA system build not on K4's "
           f"{ba_path} path, or a conv not on K2's {k2_path} path")
-    check(len(res["keyframes"]) >= 1, "video: no keyframe")
-    check_outputs(res, work / "logs" / "video" / clip.name, clip.name,
+    check(len(res["keyframes"]) >= 1, f"video: no keyframe in {name}")
+    check_outputs(res, work / "logs" / tag / clip.name, clip.name,
                   n_frames, (h, w))
     parts = cli_parts(rec)
-    out["cli"] = dict(tracked_ms=parts["track"], step_ms=parts["step"],
-                      read_ms=statistics.median(read_ms),
-                      keyframes=len(res["keyframes"]),
-                      edges=res["graph"].n_edges(),
-                      launches={k: launches[k] for k in (
-                          "K1", "K2", f"K2 {k2_path}", "K4",
-                          f"BA {ba_path}")})
+    out = dict(tracked_ms=parts["track"], step_ms=parts["step"],
+               read_ms=statistics.median(read_ms),
+               keyframes=len(res["keyframes"]),
+               edges=res["graph"].n_edges(),
+               launches={k: launches[k] for k in (
+                   "K1", "K2", f"K2 {k2_path}", "K4", f"BA {ba_path}")})
     log(f"video cli: {clip.name} ({n_frames} frames, {w}x{h} crop, model "
         f"init {init_s:.1f} s): median tracked frame {parts['track']:.1f} ms "
         f"over {len(rec['ms']['track'])} frames, median frame read "
-        f"(dataset[i] + create_frame) {out['cli']['read_ms']:.2f} ms, median "
+        f"(dataset[i] + create_frame) {out['read_ms']:.2f} ms, median "
         f"backend step {parts['step']:.1f} ms; keyframes "
-        f"{out['cli']['keyframes']}, edges {out['cli']['edges']}; launches "
-        f"{out['cli']['launches']}; on {smi}")
+        f"{out['keyframes']}, edges {out['edges']}; launches "
+        f"{out['launches']}; on {smi}")
     del res, model
     torch.cuda.empty_cache()
     return out
@@ -5821,15 +5857,20 @@ def main():
                     f"launches {d['launches']})"
                     for t, d in datasets.items()) + f"; on {smi}")
 
-    dec, vc = vid["decode"], vid["cli"]
-    log(f"video: host ms a 480x640 frame, decode + RGB (converter compiled / "
+    dec = vid["decode"]
+    log(f"video: host ms a frame, decode + RGB (converter compiled / "
         f"plain): " + ", ".join(
-            f"{k} {v['ms']:.3f} ({v['convert_ms']:.3f} / "
-            f"{v['plain_convert_ms']:.2f})" for k, v in dec.items())
-        + f"; CLI on {VIDEO_CLI}: median tracked frame "
-        f"{vc['tracked_ms']:.1f} ms, frame read {vc['read_ms']:.2f} ms, "
-        f"backend step {vc['step_ms']:.1f} ms, {vc['keyframes']} keyframes, "
-        f"launches {vc['launches']}; on {smi}")
+            f"{k} {v['hw'][1]}x{v['hw'][0]} {v['ms']:.3f} "
+            f"({v['convert_ms']:.3f} / {v['plain_convert_ms']:.2f})"
+            for k, v in dec.items())
+        + "; " + "; ".join(
+            f"CLI on {clip}: median tracked frame {vc['tracked_ms']:.1f} ms, "
+            f"frame read {vc['read_ms']:.2f} ms, backend step "
+            f"{vc['step_ms']:.1f} ms, {vc['keyframes']} keyframes, launches "
+            f"{vc['launches']}"
+            for clip, vc in ((VIDEO_CLI, vid["cli"]),
+                             (VIDEO_CLI_H264, vid["cli_h264"])))
+        + f"; on {smi}")
 
     k2f = per_frame["K2 f32"]
     k2_path = C3.conv3x3_path(torch.float32, 256, 256)

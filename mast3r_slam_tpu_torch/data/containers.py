@@ -221,6 +221,9 @@ def _mp4_track(buf, mdia) -> Track:
     esds = _child(buf, ent + 86, ent + esz, b"esds")
     if esds is not None:
         extradata = _esds_dsi(buf, *esds)
+    avcc = _child(buf, ent + 86, ent + esz, b"avcC")
+    if avcc is not None:  # H.264: the AVCDecoderConfigurationRecord
+        extradata = bytes(buf[avcc[0]:avcc[1]])
 
     s, _ = box[b"stsz"]
     fixed, count = struct.unpack(">II", buf[s + 4:s + 12])

@@ -1,22 +1,34 @@
 """Video files for the dataset readers: the container demuxers of
-``data/containers.py`` and a C++ frame decoder (``native/video_decode.cpp``)
-bound with ctypes.
+``data/containers.py`` and a C++ frame decoder (``native/video_decode.cpp``
+with ``native/h264_decode.cpp``) bound with ctypes.
 
 :class:`VideoReader` reads a file as the JAX package's ``MP4Dataset`` reads
 it through ``cv2.VideoCapture``: the same frame count and frame rate
 (``CAP_PROP_FRAME_COUNT``, ``CAP_PROP_FPS``) and the same RGB frames,
 which the decoder reproduces by following FFmpeg's decode arithmetic (its
 simple IDCT, its motion compensation) and the conversion of swscale's
-unscaled YUV -> RGB path that OpenCV asks for. It reads MPEG-4 Part 2
-(``mp4v``, ``XVID``, ``DIVX``, ``FMP4``, ...) and Motion JPEG (``MJPG``)
-tracks of MP4/MOV, AVI and Matroska files; a track of another codec
-(H.264, HEVC, VP8/9, AV1, FFV1, ...) raises ``ValueError`` naming its
-fourcc. Bit identity holds for what FFmpeg's own encoder writes (user data
+unscaled YUV -> RGB path that OpenCV asks for (with the stream's range and
+matrix where it states them). It reads H.264 (``avc1``, ``avc3``, ``H264``,
+...; progressive 8-bit 4:2:0 I and P pictures, CAVLC and CABAC, up to the
+High profile's tools), MPEG-4 Part 2 (``mp4v``, ``XVID``, ``DIVX``,
+``FMP4``, ...) and Motion JPEG (``MJPG``) tracks of MP4/MOV, AVI and
+Matroska files; a track of another codec (HEVC, VP8/9, AV1, FFV1, ...)
+raises ``ValueError`` naming its fourcc, and an H.264 stream that needs
+what the decoder leaves out (B slices, fields, 4:2:2 / 4:4:4, more than 8
+bits, FMO, data partitioning, ...) raises one naming that. H.264
+reconstruction is exact in the standard, so its frames are FFmpeg's for
+every stream the decoder reads; the decoder also follows the two places
+where FFmpeg's x86 code departs from the standard's arithmetic (the
+Intra16x16 DC scaling above a 16-bit multiplier, and bS 2 on every edge of
+an 8x8-transform macroblock whose coded_block_pattern marks its first three
+8x8 blocks, when both chroma QP offsets are equal). For MPEG-4 Part 2, bit
+identity holds for what FFmpeg's own encoder writes (user data
 ``Lavc...``, as cv2.VideoWriter's files); FFmpeg decodes a stream that
 Xvid itself wrote with the Xvid IDCT instead, which the decoder does not
 reproduce (its frames differ by the IDCTs' rounding, drifting over a
 GOP). A frame that is not the next one decodes forward from the last
-sync sample at or before it, which is the frame that
+sync sample at or before it (or on from the last frame read, where no sync
+sample lies between), which is the frame that
 ``cap.set(CAP_PROP_POS_FRAMES, i); cap.read()`` gives. A frame that cannot
 be decoded raises ``ValueError(f"failed to decode frame {i} of {path}")``,
 as the JAX reader does.
@@ -25,9 +37,11 @@ The decoder is compiled with ``g++`` at first use into the package's
 ``build/`` (git-ignored), keyed by a hash of its sources, and loaded under
 a lock. When it cannot be built, reading raises: there is no fallback.
 
-Beside it are the plain numpy versions of its arithmetic (the IDCT, the
-half-pel interpolation and the colour converter), which only the tests
-use: the compiled entries must equal them bit for bit.
+Beside it are the plain numpy versions of its arithmetic (the MPEG-4 IDCT
+and half-pel interpolation, H.264's scaled 4x4 / 8x8 inverse transforms,
+quarter-sample luma and eighth-sample chroma interpolation and one
+deblocking edge, and the colour converter), which only the tests use: the
+compiled entries must equal them bit for bit.
 """
 
 from __future__ import annotations
@@ -43,19 +57,20 @@ from mast3r_slam_tpu_torch.data import containers
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _SRC = _PKG / "native" / "video_decode.cpp"
-_DEPS = (_PKG / "native" / "jpeg_decode.cpp",)
+_DEPS = (_PKG / "native" / "jpeg_decode.cpp", _PKG / "native" / "h264_decode.cpp")
 _BUILD = _PKG / "build"
 _LOCK = threading.Lock()
 _ERRLEN = 256
 _lib = None
 
-MPEG4, MJPEG = 1, 2
+MPEG4, MJPEG, H264 = 1, 2, 3
 # fourccs of MPEG-4 Part 2 and of Motion JPEG (one baseline or
 # progressive JPEG a sample) that FFmpeg gives its mpeg4 and mjpeg decoders
 CODECS = {
     **{c: MPEG4 for c in ("mp4v", "MP4V", "XVID", "xvid", "DIVX", "divx",
                           "DX50", "dx50", "FMP4", "fmp4", "M4S2", "MP4S")},
     **{c: MJPEG for c in ("MJPG", "mjpg", "jpeg")},
+    **{c: H264 for c in ("avc1", "avc3", "H264", "h264", "X264", "x264")},
 }
 
 
@@ -87,7 +102,15 @@ def load_library() -> ctypes.CDLL:
                                     cint, cint, u8p]
             lib.vd_yuv_to_rgb.restype = None
             lib.vd_yuv_to_rgb.argtypes = [u8p, u8p, u8p, cint, cint, cint,
-                                          u8p]
+                                          cint, u8p]
+            lib.vd_h264_idct.restype = None
+            lib.vd_h264_idct.argtypes = [i16p, u8p, cint, cint, u8p]
+            lib.vd_h264_mc.restype = None
+            lib.vd_h264_mc.argtypes = [u8p, cint, cint, cint, cint, cint,
+                                       cint, cint, cint, cint, u8p]
+            lib.vd_h264_edge.restype = None
+            lib.vd_h264_edge.argtypes = [u8p, cint, cint, cint, cint, cint,
+                                         cint]
             _lib = lib
     return _lib
 
@@ -97,9 +120,10 @@ def _u8(a):
 
 
 class Decoder:
-    """One stream's decoder state (``MPEG4`` or ``MJPEG``): samples in
-    decode order in, the last frame out. ``extradata`` holds the headers
-    a container keeps apart from the samples."""
+    """One stream's decoder state (``MPEG4``, ``MJPEG`` or ``H264``):
+    samples in decode order in, the last frame out. ``extradata`` holds the
+    headers a container keeps apart from the samples (for H.264 the avcC
+    record, or nothing for Annex B samples)."""
 
     def __init__(self, codec: int, extradata: bytes = b""):
         self._lib = load_library()
@@ -149,9 +173,9 @@ class Decoder:
         self.close()
 
 
-def yuv_to_rgb(y, cb, cr, full_range: bool) -> np.ndarray:
+def yuv_to_rgb(y, cb, cr, full_range: bool, matrix: int = 2) -> np.ndarray:
     """The decoder's converter on 4:2:0 planes (``yuv_to_rgb_ref`` is its
-    plain version)."""
+    plain version); ``matrix`` is H.264's matrix_coefficients."""
     lib = load_library()
     y, cb, cr = (np.ascontiguousarray(p, np.uint8) for p in (y, cb, cr))
     h, w = y.shape
@@ -160,7 +184,7 @@ def yuv_to_rgb(y, cb, cr, full_range: bool) -> np.ndarray:
                          f"{h}x{w} luma plane")
     out = np.empty((h, w, 3), np.uint8)
     lib.vd_yuv_to_rgb(_u8(y), _u8(cb), _u8(cr), w, h, int(full_range),
-                      _u8(out))
+                      int(matrix), _u8(out))
     return out
 
 
@@ -176,7 +200,7 @@ class VideoReader:
         if codec is None:
             raise ValueError(
                 f"{self.path}: video codec {self.track.fourcc!r} is not "
-                "decoded (MPEG-4 Part 2 and MJPEG are)")
+                "decoded (H.264, MPEG-4 Part 2 and MJPEG are)")
         self.codec = codec
         self.fps = float(self.track.fps)
         load_library()
@@ -197,10 +221,12 @@ class VideoReader:
         i = int(i)
         if not 0 <= i < len(self.track.sizes):
             raise ValueError(f"failed to decode frame {i} of {self.path}")
-        if self._dec is None or self._next != i:
-            start = i
-            while start > 0 and not self.track.sync[start]:
-                start -= 1
+        start = i
+        while start > 0 and not self.track.sync[start]:
+            start -= 1
+        # on from the last frame read when no sync sample lies between it
+        # and frame i (the same frames: an H.264 GOP can be long)
+        if self._dec is None or not start <= self._next <= i:
             self._dec = None
             self._dec = Decoder(self.codec, self.track.extradata)
             self._next = start
@@ -299,8 +325,16 @@ def hpel_ref(src: np.ndarray, x: int, y: int, dxy: int, rounding: int,
     return out.astype(np.uint8)
 
 
-def _coeffs(full_range: bool):
-    crv, cbu, cgu, cgv = 104597, 132201, -25675, -53279
+# swscale's ff_yuv2rgb_coeffs (crv, cbu, cgu, cgv) by H.264
+# matrix_coefficients; BT.601 for the values not listed
+_MATRICES = {1: (117489, 138438, 13975, 34925), 4: (104448, 132798, 24759, 53109),
+             7: (117579, 136230, 16907, 35559), 9: (110013, 140363, 12277, 42626),
+             10: (110013, 140363, 12277, 42626)}
+
+
+def _coeffs(full_range: bool, matrix: int = 2):
+    crv, cbu, cgu, cgv = _MATRICES.get(matrix, (104597, 132201, 25675, 53279))
+    cgu, cgv = -cgu, -cgv
     cy, oy = 1 << 16, 0
     if not full_range:
         cy, oy = cy * 255 // 219, 16 << 16
@@ -316,10 +350,11 @@ def _coeffs(full_range: bool):
 
 
 def yuv_to_rgb_ref(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
-                   full_range: bool) -> np.ndarray:
+                   full_range: bool, matrix: int = 2) -> np.ndarray:
     """4:2:0 planes -> uint8 RGB as swscale's unscaled SIMD YUV -> RGB
-    converts them (BT.601; I420 limited range, or J420 full range)."""
-    yc, yo, vr, ub, ug, vg = _coeffs(full_range)
+    converts them (I420 limited range, or J420 full range; BT.601 unless
+    ``matrix`` names another)."""
+    yc, yo, vr, ub, ug, vg = _coeffs(full_range, matrix)
     h, w = y.shape
 
     def mul(a, k):  # pmulhw of a saturated 16-bit lane
@@ -334,3 +369,214 @@ def yuv_to_rgb_ref(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
     rgb = [yy + mul(vv, vr), yy + g, yy + mul(uu, ub)]
     return np.stack([np.clip(np.clip(c, -32768, 32767), 0, 255)
                      for c in rgb], -1).astype(np.uint8)
+
+
+# --- H.264 ---------------------------------------------------------------------
+
+_NORM4 = ((10, 16, 13), (11, 18, 14), (13, 20, 16), (14, 23, 18), (16, 25, 20),
+          (18, 29, 23))
+_NORM8 = ((20, 18, 32, 19, 25, 24), (22, 19, 35, 21, 28, 26),
+          (26, 23, 42, 24, 33, 31), (28, 25, 45, 26, 35, 33),
+          (32, 28, 51, 30, 40, 38), (36, 32, 58, 34, 46, 43))
+
+
+def _norm(n: int, m: int) -> np.ndarray:
+    """normAdjust4x4 / normAdjust8x8 (raster) for qP % 6 == m."""
+    i, j = np.mgrid[0:n, 0:n]
+    if n == 4:
+        v = _NORM4[m]
+        return np.where((i % 2 == 0) & (j % 2 == 0), v[0],
+                        np.where((i % 2 == 1) & (j % 2 == 1), v[1], v[2]))
+    v = _NORM8[m]
+    out = np.full((8, 8), v[5])
+    out[((i % 4 == 0) & (j % 4 == 2)) | ((i % 4 == 2) & (j % 4 == 0))] = v[4]
+    out[((i % 4 == 0) & (j % 2 == 1)) | ((i % 2 == 1) & (j % 4 == 0))] = v[3]
+    out[(i % 4 == 2) & (j % 4 == 2)] = v[2]
+    out[(i % 2 == 1) & (j % 2 == 1)] = v[1]
+    out[(i % 4 == 0) & (j % 4 == 0)] = v[0]
+    return out
+
+
+def _idct4_1d(d):
+    e0, e1 = d[0] + d[2], d[0] - d[2]
+    e2, e3 = (d[1] >> 1) - d[3], d[1] + (d[3] >> 1)
+    return [e0 + e3, e1 + e2, e1 - e2, e0 - e3]
+
+
+def _idct8_1d(d):
+    a0, a4 = d[0] + d[4], d[0] - d[4]
+    a2, a6 = (d[2] >> 1) - d[6], d[2] + (d[6] >> 1)
+    b0, b2, b4, b6 = a0 + a6, a4 + a2, a4 - a2, a0 - a6
+    a1 = -d[3] + d[5] - d[7] - (d[7] >> 1)
+    a3 = d[1] + d[7] - d[3] - (d[3] >> 1)
+    a5 = -d[1] + d[7] + d[5] + (d[5] >> 1)
+    a7 = d[3] + d[5] + d[1] + (d[1] >> 1)
+    b1, b7 = a1 + (a7 >> 2), a7 - (a1 >> 2)
+    b3, b5 = a3 + (a5 >> 2), (a3 >> 2) - a5
+    return [b0 + b7, b2 + b5, b4 + b3, b6 + b1, b6 - b1, b4 - b3, b2 - b5,
+            b0 - b7]
+
+
+def h264_idct_ref(levels: np.ndarray, weights: np.ndarray, qp: int,
+                  pred: np.ndarray) -> np.ndarray:
+    """H.264's scaling (8.5.12.1 / 8.5.13.1) and inverse transform (8.5.12.2 /
+    8.5.13.2) of an n x n block of levels (raster, n 4 or 8) under the
+    scaling list ``weights`` (raster) and QP ``qp``, added to ``pred``
+    (uint8 n x n) and clipped."""
+    c = np.asarray(levels, np.int64)
+    n = c.shape[0]
+    ls = np.asarray(weights, np.int64) * _norm(n, qp % 6)
+    q6 = qp // 6
+    if n == 4:
+        d = (c * ls) << (q6 - 4) if qp >= 24 else \
+            (c * ls + (1 << (3 - q6))) >> (4 - q6)
+        one = _idct4_1d
+    else:
+        d = (c * ls) << (q6 - 6) if qp >= 36 else \
+            (c * ls + (1 << (5 - q6))) >> (6 - q6)
+        one = _idct8_1d
+    rows = np.stack(one([d[:, k] for k in range(n)]), 1)    # each row
+    cols = np.stack(one([rows[k] for k in range(n)]), 0)    # each column
+    r = (cols + 32) >> 6
+    return np.clip(np.asarray(pred, np.int64) + r, 0, 255).astype(np.uint8)
+
+
+def _clamped(plane, x, y, w, h):
+    ph, pw = plane.shape
+    ys = np.clip(np.arange(y, y + h), 0, ph - 1)
+    xs = np.clip(np.arange(x, x + w), 0, pw - 1)
+    return plane[np.ix_(ys, xs)].astype(np.int64)
+
+
+def h264_luma_mc_ref(plane: np.ndarray, x: int, y: int, fx: int, fy: int,
+                     w: int, h: int) -> np.ndarray:
+    """A w x h luma block at integer (x, y) plus the quarter-sample
+    fraction (fx, fy) (8.4.2.2.1), the plane's samples outside it those of
+    its nearest edge."""
+    g = _clamped(plane, x - 2, y - 2, w + 6, h + 6)  # G at [2 + r, 2 + c]
+
+    def tap(a):  # the 6-tap filter along axis 0 of a stack of 6
+        return a[0] - 5 * a[1] + 20 * a[2] + 20 * a[3] - 5 * a[4] + a[5]
+
+    b1 = tap([g[:, k:k + w + 1] for k in range(6)])        # (h+6, w+1) at x+k+1/2
+    h1 = tap([g[k:k + h + 1, :] for k in range(6)])        # (h+1, w+6) at y+k+1/2
+    j1 = tap([b1[k:k + h + 1] for k in range(6)])          # (h+1, w+1)
+    clip = lambda v: np.clip(v, 0, 255)  # noqa: E731
+    G = g[2:2 + h + 1, 2:2 + w + 1]
+    b = clip((b1[2:2 + h + 1] + 16) >> 5)                 # b at rows 0..h
+    hh = clip((h1[:, 2:2 + w + 1] + 16) >> 5)             # h at cols 0..w
+    j = clip((j1 + 512) >> 10)
+    avg = lambda p, q: (p + q + 1) >> 1  # noqa: E731
+    B, Bd = b[:h, :w], b[1:, :w]           # b(x, y), b(x, y+1)
+    Hh, Hr = hh[:h, :w], hh[:h, 1:]        # h(x, y), h(x+1, y)
+    J = j[:h, :w]
+    Gc, Gr, Gd = G[:h, :w], G[:h, 1:], G[1:, :w]
+    out = {
+        (0, 0): Gc, (1, 0): avg(Gc, B), (2, 0): B, (3, 0): avg(B, Gr),
+        (0, 1): avg(Gc, Hh), (1, 1): avg(B, Hh), (2, 1): avg(B, J),
+        (3, 1): avg(B, Hr), (0, 2): Hh, (1, 2): avg(Hh, J), (2, 2): J,
+        (3, 2): avg(J, Hr), (0, 3): avg(Hh, Gd), (1, 3): avg(Hh, Bd),
+        (2, 3): avg(J, Bd), (3, 3): avg(Hr, Bd),
+    }[(fx, fy)]
+    return out.astype(np.uint8)
+
+
+def h264_chroma_mc_ref(plane: np.ndarray, x: int, y: int, fx: int, fy: int,
+                       w: int, h: int) -> np.ndarray:
+    """A w x h chroma block at integer (x, y) plus the eighth-sample
+    fraction (fx, fy) (8.4.2.2.2), edges as in ``h264_luma_mc_ref``."""
+    p = _clamped(plane, x, y, w + 1, h + 1)
+    a, b, c, d = p[:h, :w], p[:h, 1:], p[1:, :w], p[1:, 1:]
+    return (((8 - fx) * (8 - fy) * a + fx * (8 - fy) * b + (8 - fx) * fy * c +
+             fx * fy * d + 32) >> 6).astype(np.uint8)
+
+
+_ALPHA = (0,) * 16 + (4, 4, 5, 6, 7, 8, 9, 10, 12, 13, 15, 17, 20, 22, 25, 28,
+                      32, 36, 40, 45, 50, 56, 63, 71, 80, 90, 101, 113, 127,
+                      144, 162, 182, 203, 226, 255, 255)
+_BETA = (0,) * 16 + (2, 2, 2, 3, 3, 3, 3, 4, 4, 4, 6, 6, 7, 7, 8, 8, 9, 9, 10,
+                     10, 11, 11, 12, 12, 13, 13, 14, 14, 15, 15, 16, 16, 17,
+                     17, 18, 18)
+_TC0 = ((0, 0, 0),) * 17 + (
+    (0, 0, 1), (0, 0, 1), (0, 0, 1), (0, 0, 1), (0, 1, 1), (0, 1, 1), (1, 1, 1),
+    (1, 1, 1), (1, 1, 1), (1, 1, 1), (1, 1, 2), (1, 1, 2), (1, 1, 2), (1, 1, 2),
+    (1, 2, 3), (1, 2, 3), (2, 2, 3), (2, 2, 4), (2, 3, 4), (2, 3, 4), (3, 3, 5),
+    (3, 4, 6), (3, 4, 6), (4, 5, 7), (4, 5, 8), (4, 6, 9), (5, 7, 10),
+    (6, 8, 11), (6, 8, 13), (7, 10, 14), (8, 11, 16), (9, 12, 18),
+    (10, 13, 20), (11, 15, 23), (13, 17, 25))
+
+
+def h264_edge_ref(lines: np.ndarray, bs: int, index_a: int, index_b: int,
+                  chroma: bool) -> np.ndarray:
+    """The deblocking filter (8.7.2.3 / 8.7.2.4) on lines of 8 samples
+    p3..p0 q0..q3 across one edge (uint8 (n, 8)) under bS 1..4, indexA
+    and indexB; a luma edge, or a chroma one."""
+    s = np.asarray(lines, np.int64).copy()
+    p3, p2, p1, p0, q0, q1, q2, q3 = (s[:, k].copy() for k in range(8))
+    alpha, beta = _ALPHA[index_a], _BETA[index_b]
+    on = (np.abs(p0 - q0) < alpha) & (np.abs(p1 - p0) < beta) & \
+        (np.abs(q1 - q0) < beta)
+    ap, aq = np.abs(p2 - p0), np.abs(q2 - q0)
+    if bs < 4:
+        tc0 = _TC0[index_a][bs - 1]
+        tc = tc0 + 1 if chroma else tc0 + (ap < beta) + (aq < beta)
+        d = np.clip((((q0 - p0) << 2) + (p1 - q1) + 4) >> 3, -tc, tc)
+        new = {3: np.clip(p0 + d, 0, 255), 4: np.clip(q0 - d, 0, 255)}
+        if not chroma:
+            avg = (p0 + q0 + 1) >> 1
+            new[2] = np.where(ap < beta, p1 + np.clip((p2 + avg - 2 * p1) >> 1,
+                                                      -tc0, tc0), p1)
+            new[5] = np.where(aq < beta, q1 + np.clip((q2 + avg - 2 * q1) >> 1,
+                                                      -tc0, tc0), q1)
+    elif chroma:
+        new = {3: (2 * p1 + p0 + q1 + 2) >> 2, 4: (2 * q1 + q0 + p1 + 2) >> 2}
+    else:
+        small = np.abs(p0 - q0) < ((alpha >> 2) + 2)
+        sp, sq = (ap < beta) & small, (aq < beta) & small
+        new = {
+            3: np.where(sp, (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3,
+                        (2 * p1 + p0 + q1 + 2) >> 2),
+            2: np.where(sp, (p2 + p1 + p0 + q0 + 2) >> 2, p1),
+            1: np.where(sp, (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3, p2),
+            4: np.where(sq, (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3,
+                        (2 * q1 + q0 + p1 + 2) >> 2),
+            5: np.where(sq, (p0 + q0 + q1 + q2 + 2) >> 2, q1),
+            6: np.where(sq, (2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3, q2),
+        }
+    for k, v in new.items():
+        s[:, k] = np.where(on, v, s[:, k])
+    return s.astype(np.uint8)
+
+
+def h264_idct(levels, weights, qp: int, pred) -> np.ndarray:
+    """The compiled ``h264_idct_ref``."""
+    lib = load_library()
+    c = np.ascontiguousarray(levels, np.int16)
+    n = c.shape[0]
+    w = np.ascontiguousarray(weights, np.uint8)
+    out = np.ascontiguousarray(pred, np.uint8).copy()
+    lib.vd_h264_idct(c.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), _u8(w),
+                     int(qp), n, _u8(out))
+    return out
+
+
+def h264_mc(plane, x: int, y: int, fx: int, fy: int, w: int, h: int,
+            chroma: bool) -> np.ndarray:
+    """The compiled ``h264_luma_mc_ref`` / ``h264_chroma_mc_ref``."""
+    lib = load_library()
+    src = np.ascontiguousarray(plane, np.uint8)
+    out = np.empty((h, w), np.uint8)
+    lib.vd_h264_mc(_u8(src), src.shape[1], src.shape[0], int(chroma), int(x),
+                   int(y), int(fx), int(fy), int(w), int(h), _u8(out))
+    return out
+
+
+def h264_edge(lines, bs: int, index_a: int, index_b: int,
+              chroma: bool) -> np.ndarray:
+    """The compiled ``h264_edge_ref``."""
+    lib = load_library()
+    s = np.ascontiguousarray(lines, np.uint8).copy()
+    q0 = ctypes.cast(s.ctypes.data + 4, ctypes.POINTER(ctypes.c_uint8))
+    lib.vd_h264_edge(q0, 8, s.shape[0], int(bs), int(index_a), int(index_b),
+                     int(chroma))
+    return s

@@ -38,6 +38,9 @@
 // the short video header (H.263 baseline); MJPEG frames that are not 4:2:0
 // YCbCr. A frame whose data ends early or does not parse is an error.
 
+#include <cstdlib>
+#include <memory>
+
 #include "jpeg_decode.cpp"
 
 namespace {
@@ -186,16 +189,32 @@ void hpel_block(const uint8_t* src, int stride, int w, int h, int x, int y,
 
 // --- swscale's unscaled YUV -> RGB (yuv2rgb, x86 SIMD form) -----------------
 
-// The fixed-point coefficients of ff_yuv2rgb_c_init_tables for ITU-R BT.601
-// (SWS_CS_DEFAULT) at the default contrast, saturation and brightness,
-// scaled to the 13 fractional bits the SIMD code multiplies by.
+// The fixed-point coefficients of ff_yuv2rgb_c_init_tables for the frame's
+// matrix (OpenCV hands swscale the decoder's colorspace; BT.601 when it is
+// unspecified) at the default contrast, saturation and brightness, scaled
+// to the 13 fractional bits the SIMD code multiplies by.
 struct YuvCoeffs {
   int y_coeff, y_offset, vr, ub, ug, vg;
 };
 
-YuvCoeffs yuv_coeffs(bool full_range) {
-  // ff_yuv2rgb_coeffs[SWS_CS_ITU601]: crv, cbu, cgu, cgv in 16.16
-  int64_t crv = 104597, cbu = 132201, cgu = -25675, cgv = -53279;
+// ff_yuv2rgb_coeffs (crv, cbu, cgu, cgv in 16.16) by matrix_coefficients /
+// AVColorSpace: BT.709 (1), FCC (4), SMPTE 240M (7), BT.2020 (9, 10), and
+// BT.601 for every other value
+void matrix_coeffs(int matrix, int64_t* c) {
+  static const int64_t k[5][4] = {{104597, 132201, 25675, 53279},
+                                  {117489, 138438, 13975, 34925},
+                                  {104448, 132798, 24759, 53109},
+                                  {117579, 136230, 16907, 35559},
+                                  {110013, 140363, 12277, 42626}};
+  int i = matrix == 1 ? 1 : matrix == 4 ? 2 : matrix == 7 ? 3
+          : (matrix == 9 || matrix == 10) ? 4 : 0;
+  for (int j = 0; j < 4; j++) c[j] = k[i][j];
+}
+
+YuvCoeffs yuv_coeffs(bool full_range, int matrix) {
+  int64_t m[4];
+  matrix_coeffs(matrix, m);
+  int64_t crv = m[0], cbu = m[1], cgu = -m[2], cgv = -m[3];
   int64_t cy = 1 << 16, oy = 0;
   if (!full_range) {
     cy = (cy * 255) / 219;
@@ -228,8 +247,8 @@ inline int mulhi(int a, int b) { return (int)(((int32_t)(int16_t)a * b) >> 16); 
 // the converter's terms by sample value, one set per range
 struct YuvTables {
   int16_t y[256], ub[256], vr[256], ug[256], vg[256];
-  explicit YuvTables(bool full_range) {
-    const YuvCoeffs k = yuv_coeffs(full_range);
+  YuvTables(bool full_range, int matrix) {
+    const YuvCoeffs k = yuv_coeffs(full_range, matrix);
     for (int i = 0; i < 256; i++) {
       y[i] = (int16_t)mulhi(sat16(i * 8 - k.y_offset), k.y_coeff);
       ub[i] = (int16_t)mulhi(sat16(i * 8 - 1024), k.ub);
@@ -251,9 +270,8 @@ inline void put_rgb(const YuvTables& t, int yv, int ro, int go, int bo,
 // Each chroma sample's three terms once, then its (up to) 2 x 2 luma
 // samples: each channel the saturated sum of a luma and a chroma term.
 void yuv_to_rgb(const uint8_t* y, int ys, const uint8_t* cb, const uint8_t* cr,
-                int cs, int w, int h, bool full_range, uint8_t* out) {
-  static const YuvTables limited(false), full(true);
-  const YuvTables& t = full_range ? full : limited;
+                int cs, int w, int h, bool full_range, int matrix, uint8_t* out) {
+  const YuvTables t(full_range, matrix);
   for (int r = 0; r < h; r += 2) {
     const uint8_t* br = cb + (size_t)(r >> 1) * cs;
     const uint8_t* rr = cr + (size_t)(r >> 1) * cs;
@@ -292,6 +310,8 @@ struct Frame {
   }
   int cstride() const { return pw / 2; }
 };
+
+#include "h264_decode.cpp"
 
 // --- MPEG-4 Part 2 ---------------------------------------------------------
 
@@ -1113,13 +1133,19 @@ struct Mjpeg {
 };
 
 struct Handle {
-  int codec;  // 1 MPEG-4 Part 2, 2 MJPEG
+  int codec;  // 1 MPEG-4 Part 2, 2 MJPEG, 3 H.264
   Mpeg4 m4;
   Mjpeg mj;
+  std::unique_ptr<h264::Decoder> avc;
   const Frame* frame() const {
     if (codec == 1) return m4.have_frame ? &m4.cur : nullptr;
+    if (codec == 3) return avc->have_frame ? &avc->out : nullptr;
     return mj.have_frame ? &mj.cur : nullptr;
   }
+  bool full_range() const {
+    return codec == 2 || (codec == 3 && avc->full_range);
+  }
+  int matrix() const { return codec == 3 ? avc->matrix : 2; }
 };
 
 void set_err(char* err, int errlen, const char* msg) {
@@ -1130,25 +1156,24 @@ void set_err(char* err, int errlen, const char* msg) {
 
 extern "C" {
 
-// A decoder of `codec` (1: MPEG-4 Part 2, 2: MJPEG). For MPEG-4, `extra`
-// holds the headers the container keeps apart (MP4 esds'
-// DecoderSpecificInfo, Matroska CodecPrivate), or is empty. Returns the
+// A decoder of `codec` (1: MPEG-4 Part 2, 2: MJPEG, 3: H.264). For MPEG-4,
+// `extra` holds the headers the container keeps apart (MP4 esds'
+// DecoderSpecificInfo, Matroska CodecPrivate), or is empty; for H.264 the
+// avcC record (samples are then length-prefixed NAL units) or nothing
+// (Annex B samples). Returns the
 // handle, or null with a message in err.
 void* vd_open(int codec, const uint8_t* extra, int64_t n, char* err,
               int errlen) {
   try {
-    if (codec != 1 && codec != 2) throw Error("unknown codec");
-    Handle* h = new Handle();
+    if (codec < 1 || codec > 3) throw Error("unknown codec");
+    std::unique_ptr<Handle> h(new Handle());
     h->codec = codec;
-    if (codec == 1 && n > 0) {
-      try {
-        h->m4.parse(extra, n);
-      } catch (...) {
-        delete h;
-        throw;
-      }
+    if (codec == 1 && n > 0) h->m4.parse(extra, n);
+    if (codec == 3) {
+      h->avc.reset(new h264::Decoder());
+      h->avc->open(extra, n);
     }
-    return h;
+    return h.release();
   } catch (const std::exception& e) {
     set_err(err, errlen, e.what());
     return nullptr;
@@ -1166,6 +1191,8 @@ int vd_decode(void* hp, const uint8_t* data, int64_t n, int32_t* wh,
   try {
     if (h->codec == 1) {
       if (!h->m4.parse(data, n)) throw Error("MPEG-4 sample without a VOP");
+    } else if (h->codec == 3) {
+      h->avc->decode(data, n);
     } else {
       h->mj.decode(data, n);
     }
@@ -1189,7 +1216,7 @@ int vd_frame(void* hp, uint8_t* rgb, uint8_t* y, uint8_t* cb, uint8_t* cr) {
   const int cw = (f->w + 1) / 2, ch = (f->h + 1) / 2, cs = f->cstride();
   if (rgb)
     yuv_to_rgb(f->y.data(), f->pw, f->cb.data(), f->cr.data(), cs, f->w, f->h,
-               h->codec == 2, rgb);
+               h->full_range(), h->matrix(), rgb);
   for (int r = 0; y && r < f->h; r++)
     std::memcpy(y + (size_t)r * f->w, &f->y[(size_t)r * f->pw], f->w);
   for (int r = 0; cb && r < ch; r++)
@@ -1214,8 +1241,62 @@ void vd_hpel(const uint8_t* src, int stride, int w, int h, int x, int y,
 }
 
 void vd_yuv_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
-                   int w, int h, int full_range, uint8_t* out) {
-  yuv_to_rgb(y, w, cb, cr, (w + 1) / 2, w, h, full_range != 0, out);
+                   int w, int h, int full_range, int matrix, uint8_t* out) {
+  yuv_to_rgb(y, w, cb, cr, (w + 1) / 2, w, h, full_range != 0, matrix, out);
+}
+
+// The H.264 arithmetic alone, for the tests: the scaling and inverse
+// transform of one 4x4 (n 4) or 8x8 (n 8) block of levels (raster order)
+// under weights `w` (the scaling list, raster) and QP `qp`, added to the
+// n x n block `dst` (stride n); one quarter-sample luma block and one
+// eighth-sample chroma block at (x, y) + fraction (fx, fy) of a w x h
+// plane, its samples outside the plane those of its edge; one edge of
+// `n` lines through `pix` (stride `stride` between lines, p3..p0 | q0..q3
+// along each line at offsets -4..3) under bS, indexA and indexB.
+void vd_h264_idct(const int16_t* levels, const uint8_t* w, int qp, int n,
+                  uint8_t* dst) {
+  int c[64], ls[64], d[64];
+  for (int k = 0; k < n * n; k++) {
+    c[k] = levels[k];
+    ls[k] = w[k] * (n == 4 ? h264::norm4(qp % 6, k) : h264::norm8(qp % 6, k));
+  }
+  if (n == 4) {
+    h264::scale4(c, ls, qp, false, d);
+    h264::idct4_add(d, dst, 4);
+  } else {
+    h264::scale8(c, ls, qp, d);
+    h264::idct8_add(d, dst, 8);
+  }
+}
+
+void vd_h264_mc(const uint8_t* src, int w, int h, int chroma, int x, int y,
+                int fx, int fy, int bw, int bh, uint8_t* dst) {
+  const int pad = 32;
+  const int pw = w + 2 * pad, ph = h + 2 * pad;
+  std::vector<uint8_t> p((size_t)pw * ph);
+  for (int r = 0; r < ph; r++)
+    for (int c = 0; c < pw; c++)
+      p[(size_t)r * pw + c] = src[(size_t)std::min(std::max(r - pad, 0), h - 1) * w +
+                                  std::min(std::max(c - pad, 0), w - 1)];
+  const uint8_t* o = p.data() + (size_t)pad * pw + pad;
+  if (chroma) {
+    x = std::min(std::max(x, -(bw + 4)), w + 4);
+    y = std::min(std::max(y, -(bh + 4)), h + 4);
+    h264::chroma_mc(o, pw, x, y, fx, fy, bw, bh, dst, bw);
+  } else {
+    x = std::min(std::max(x, -(bw + 8)), w + 8);
+    y = std::min(std::max(y, -(bh + 8)), h + 8);
+    h264::luma_mc(o, pw, x, y, fx, fy, bw, bh, dst, bw);
+  }
+}
+
+void vd_h264_edge(uint8_t* pix, int stride, int n, int bs, int index_a,
+                  int index_b, int chroma) {
+  if (bs < 1 || bs > 4) return;
+  for (int i = 0; i < n; i++)
+    h264::filter_line(pix + (size_t)i * stride, 1, bs, h264::kAlpha[index_a],
+                      h264::kBeta[index_b],
+                      bs < 4 ? h264::kTc0[index_a][bs - 1] : 0, chroma != 0);
 }
 
 }  // extern "C"

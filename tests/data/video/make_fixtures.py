@@ -1,10 +1,22 @@
-"""Writes the video fixtures of this folder with OpenCV (``cv2.VideoWriter``,
-its FFmpeg backend) and ``digests.json``: for each file, cv2's
-``CAP_PROP_FPS`` and ``CAP_PROP_FRAME_COUNT``, and per frame the SHA-256 of
-``cv2.VideoCapture``'s RGB frame and of the port's (``data/video.py``),
-with the largest and the mean absolute difference between the two.
+"""Writes the video fixtures of this folder and ``digests.json``: for each
+file, cv2's ``CAP_PROP_FPS`` and ``CAP_PROP_FRAME_COUNT``, and per frame
+the SHA-256 of ``cv2.VideoCapture``'s RGB frame and of the port's
+(``data/video.py``), with the largest and the mean absolute difference
+between the two. The MPEG-4 Part 2 and MJPEG files come from OpenCV's
+writer (``cv2.VideoWriter``, its FFmpeg backend), which writes no H.264;
+the H.264 files from the test writer ``tests/torch_h264_writer.py``:
+random legal syntax from a seed (CAVLC and CABAC, in MP4, Matroska and
+AVI) and its small encoder's pans (a cropped 152x104 clip, a 1920x1080 one
+coded at 1088, and the 640x480 clips of the CLI run and the host timing).
 
-    python tests/data/video/make_fixtures.py
+    python tests/data/video/make_fixtures.py          # every file
+    python tests/data/video/make_fixtures.py h264     # the H.264 files
+
+The second form keeps the cv2-written files and their digests as they are:
+cv2 rewrites the MP4, MOV and AVI files byte for byte, but FFmpeg's
+Matroska muxer draws a new segment UID and track UID (and the CRC-32s over
+them) each run, so every full run changes ``mp4v.mkv`` and ``mjpg.mkv``
+though their frames stay the same.
 
 The frames are a smooth texture panning out and back (the CLI tests'
 clips), so that the P-VOPs carry real motion vectors; ``xvid_busy.avi``
@@ -25,6 +37,9 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[2]))
+sys.path.insert(0, str(HERE.parents[1]))
+import torch_h264_writer as W  # noqa: E402
+
 from mast3r_slam_tpu_torch.data import video  # noqa: E402
 
 # name: (fourcc, (height, width), frames, kind)
@@ -39,6 +54,36 @@ FILES = {
     "mjpg.avi": ("MJPG", (120, 160), 8, "pan"),
     "mjpg.mkv": ("MJPG", (96, 128), 8, "pan"),
 }
+
+
+# name: (entropy coder, container, random_stream options) of the H.264
+# random-syntax clips, 64x48 coded, 8 pictures each
+H264_RANDOM = {
+    "h264_cavlc.mp4": (False, dict(seed=11, t8=True, lists=True, weighted=True,
+                                   poc_type=0, max_refs=4, crop=(0, 4, 0, 2))),
+    "h264_cavlc.mkv": (False, dict(seed=12, t8=False, poc_type=1,
+                                   constrained_intra=True,
+                                   vui=dict(full_range=1, matrix=1))),
+    "h264_cavlc.avi": (False, dict(seed=13, t8=True, poc_type=2, max_refs=3,
+                                   vui=dict(full_range=0, matrix=9))),
+    "h264_cabac.mp4": (True, dict(seed=21, t8=True, lists=True, weighted=True,
+                                  poc_type=0, max_refs=4, crop=(0, 0, 2, 4))),
+    "h264_cabac.mkv": (True, dict(seed=22, t8=True, poc_type=1,
+                                  constrained_intra=True,
+                                  vui=dict(full_range=1, matrix=6))),
+    "h264_cabac.avi": (True, dict(seed=23, t8=False, poc_type=2, weighted=True,
+                                  max_refs=3)),
+}
+# name: (frames, (height, width), CABAC, QP, crop (l, r, t, b), pan step) of
+# the encoder's pans
+# (sub-sample steps: the P pictures' motion vectors run the 6-tap filter)
+H264_PANS = {
+    "h264_152x104.mp4": (12, (104, 152), False, 26, (0, 8, 0, 8), (5.5, 2.25)),
+    "h264_1920x1080.mp4": (4, (1080, 1920), True, 30, (0, 0, 0, 8), (12.75, 4.5)),
+    "cli_640x480_h264.mp4": (16, (480, 640), True, 24, (0, 0, 0, 0), (12.5, 4.25)),
+    "h264_cavlc_640x480.avi": (4, (480, 640), False, 24, (0, 0, 0, 0), (12.5, 4.25)),
+}
+H264_NAMES = tuple(H264_RANDOM) + tuple(H264_PANS)
 
 
 def pan_frames(n, hw, step=(6.0, 2.0), seed=0):
@@ -69,6 +114,19 @@ def busy_frames(n, hw, seed=5):
         yield f
 
 
+def write_h264(path, name):
+    mux = {".mp4": W.write_mp4, ".mkv": W.write_mkv, ".avi": W.write_avi}[path.suffix]
+    if name in H264_RANDOM:
+        cabac, opts = H264_RANDOM[name]
+        clip = W.random_stream(opts["seed"], cabac=cabac, frames=8,
+                               **{k: v for k, v in opts.items() if k != "seed"})
+    else:
+        n, hw, cabac, qp, crop, step = H264_PANS[name]
+        clip = W.encode(pan_frames(n, hw, step=step), cabac=cabac, qp=qp, crop=crop)
+    mux(path, clip)
+    return clip
+
+
 def write(path, fourcc, hw, n, kind):
     frames = (pan_frames(n, hw, step=(12.0, 4.0)) if hw[1] >= 640 else
               busy_frames(n, hw) if kind == "busy" else pan_frames(n, hw))
@@ -85,31 +143,44 @@ def sha(a):
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
-def main():
+def record(path, fourcc, hw):
+    cap = cv2.VideoCapture(str(path))
+    reader = video.VideoReader(path)
+    frames = []
+    for i in range(int(cap.get(cv2.CAP_PROP_FRAME_COUNT))):
+        ok, bgr = cap.read()
+        assert ok, (path.name, i)
+        want = bgr[..., ::-1]
+        got = reader.read(i)
+        d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        frames.append({"cv2": sha(want), "port": sha(got),
+                       "max_abs": int(d.max()),
+                       "mean_abs": float(d.mean())})
+    print(path.name, path.stat().st_size, "bytes,",
+          "max |port - cv2|", max(f["max_abs"] for f in frames))
+    return {"fourcc": fourcc, "hw": list(hw),
+            "fps": cap.get(cv2.CAP_PROP_FPS),
+            "frame_count": int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
+            "frames": frames}
+
+
+def main(which="all"):
     out = {}
-    for name, (fourcc, hw, n, kind) in FILES.items():
+    digests = HERE / "digests.json"
+    if which == "h264" and digests.exists():
+        out = {k: v for k, v in json.loads(digests.read_text()).items()
+               if k not in H264_NAMES}
+    else:
+        for name, (fourcc, hw, n, kind) in FILES.items():
+            write(HERE / name, fourcc, hw, n, kind)
+            out[name] = record(HERE / name, fourcc, hw)
+    for name in H264_NAMES:
         path = HERE / name
-        write(path, fourcc, hw, n, kind)
-        cap = cv2.VideoCapture(str(path))
-        reader = video.VideoReader(path)
-        frames = []
-        for i in range(int(cap.get(cv2.CAP_PROP_FRAME_COUNT))):
-            ok, bgr = cap.read()
-            assert ok, (name, i)
-            want = bgr[..., ::-1]
-            got = reader.read(i)
-            d = np.abs(got.astype(np.int16) - want.astype(np.int16))
-            frames.append({"cv2": sha(want), "port": sha(got),
-                           "max_abs": int(d.max()),
-                           "mean_abs": float(d.mean())})
-        out[name] = {"fourcc": fourcc, "hw": list(hw),
-                     "fps": cap.get(cv2.CAP_PROP_FPS),
-                     "frame_count": int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),
-                     "frames": frames}
-        print(name, path.stat().st_size, "bytes,",
-              "max |port - cv2|", max(f["max_abs"] for f in frames))
-    (HERE / "digests.json").write_text(json.dumps(out, indent=1) + "\n")
+        clip = write_h264(path, name)
+        fourcc = "H264" if path.suffix == ".avi" else "avc1"
+        out[name] = record(path, fourcc, (clip.height, clip.width))
+    digests.write_text(json.dumps(out, indent=1) + "\n")
 
 
 if __name__ == "__main__":
-    main()
+    main(*sys.argv[1:])
