@@ -236,18 +236,21 @@ then:
    with ``native/h264_decode.cpp``) on this machine and reads every
    committed fixture of ``tests/data/video`` (MPEG-4 Part 2 in MP4, MOV,
    AVI and Matroska; MJPEG in AVI and Matroska; H.264, CAVLC and CABAC, in
-   MP4, Matroska and AVI, a cropped 152x104 clip and a 1920x1080 one), in
-   order and backwards (each seek decoding from its GOP's sync sample), to
-   the SHA-256 digests of cv2.VideoCapture's frames recorded beside them;
-   times the host ms a 480x640 frame of MPEG-4 I-VOPs, P-VOPs, MJPEG and
-   H.264 (an IDR picture, CAVLC P and CABAC P pictures) and a 1920x1080
-   H.264 frame, beside the compiled and plain numpy converters on the same
+   MP4, Matroska and AVI, a cropped 152x104 clip and a 1920x1080 one; H.264
+   with B pictures in MP4 (ctts with and without elst), Matroska and AVI,
+   and IBBP clips at 1920x1080 and 480x640), in order and backwards (each
+   seek decoding from an IDR picture), to the SHA-256 digests of
+   cv2.VideoCapture's frames recorded beside them; times the host ms a
+   480x640 frame of MPEG-4 I-VOPs, P-VOPs, MJPEG and H.264 (an IDR
+   picture, CAVLC P and CABAC P pictures, and the B and P pictures of the
+   IBBP clip) and a 1920x1080 H.264 frame (and the IBBP clip's B and P
+   pictures), beside the compiled and plain numpy converters on the same
    planes (equal bytes); then runs the CLI at full ViT-L width on the
-   committed 16-frame 480x640 mp4v clip and on the H.264 one under
-   base.yaml with the services off (bf16): all 16 frames read, the outputs
-   checked, K1, K2 (implicit GEMM) and K4 (tensor cores) launched and
-   counted as each run's calls need, with its median tracked frame and
-   frame read (``dataset[i]`` + ``create_frame``).
+   committed 16-frame 480x640 mp4v clip, the H.264 I/P one and the H.264
+   IBBP one under base.yaml with the services off (bf16): all 16 frames
+   read, the outputs checked, K1, K2 (implicit GEMM) and K4 (tensor cores)
+   launched and counted as each run's calls need, with its median tracked
+   frame and frame read (``dataset[i]`` + ``create_frame``).
 
 In every phase that runs a service, an exception in a service worker (which
 prints it and carries on) fails the run, and the global TSDF must run on
@@ -3939,6 +3942,8 @@ VIDEO_CLI = "cli_640x480.mp4"       # 16 frames of mp4v: GOP 12, no B-VOPs
 VIDEO_CLI_H264 = "cli_640x480_h264.mp4"  # 16 frames of H.264 (CABAC): I, 15 P
 VIDEO_H264_CAVLC = "h264_cavlc_640x480.avi"  # 4 frames of H.264 (CAVLC), Annex B
 VIDEO_H264_1080 = "h264_1920x1080.mp4"  # 4 frames of H.264, coded at 1088
+VIDEO_CLI_H264_B = "cli_640x480_h264_b.mp4"  # 16 frames of H.264 IBBP (CABAC)
+VIDEO_H264_B_1080 = "h264_b_1920x1080.mp4"  # 6 frames of H.264 IBBP, at 1088
 VIDEO_REPS = 10                     # timed passes over each codec's frames
 VIDEO_HW = (480, 640)
 
@@ -3954,6 +3959,8 @@ def video_fixture_reads():
     from mast3r_slam_tpu_torch.data import video
 
     rec = json.loads((VIDEO_FIXTURES / "digests.json").read_text())
+    check(VIDEO_CLI_H264_B in rec and VIDEO_H264_B_1080 in rec,
+          "video: the B-picture fixtures are not in digests.json")
     n = 0
     for name, want in sorted(rec.items()):
         r = video.VideoReader(VIDEO_FIXTURES / name)
@@ -3997,7 +4004,10 @@ def video_decode_times(smi):
     CAVLC P pictures (the CAVLC clip's samples 1-3); and at 1920x1080 the
     H.264 clip's 4 pictures (IDR and P, coded at 1088, cropped); each beside
     the compiled and the plain numpy converter on the same planes, which
-    must give the same bytes."""
+    must give the same bytes. Then the IBBP clips (480x640 and 1920x1080):
+    each sample decoded in turn with the frame it puts out converted, B
+    pictures and P pictures timed apart (a B picture's sample puts out
+    itself, a P picture's the B picture before it in display order)."""
     import numpy as np
 
     from mast3r_slam_tpu_torch.data import video
@@ -4054,10 +4064,35 @@ def video_decode_times(smi):
         out[kind] = dict(ms=ms, convert_ms=statistics.median(conv),
                          plain_convert_ms=statistics.median(plain),
                          frames=len(frames), hw=list(hw))
+    for name, tag, hw in ((VIDEO_CLI_H264_B, "h264_ibbp", VIDEO_HW),
+                          (VIDEO_H264_B_1080, "h264_ibbp_1080", (1080, 1920))):
+        tb, bs = video_samples(name)
+        is_b = [k > 0 and tb.pts[k] < tb.pts[:k].max() for k in range(len(bs))]
+        ms = {True: [], False: []}
+        for _ in range(VIDEO_REPS):
+            dec = video.Decoder(video.H264, tb.extradata)
+            dec.delay(tb.video_delay)
+            for k, data in enumerate(bs):
+                t0 = time.perf_counter()
+                if dec.decode(data, k):
+                    dec.rgb()
+                if k:  # the IDR picture is timed above
+                    ms[is_b[k]].append((time.perf_counter() - t0) * 1e3)
+            while dec.flush():
+                check(dec.rgb().shape == (*hw, 3), f"video: {name} frame shape")
+        for b in (True, False):
+            out[f"{tag}_{'b' if b else 'p'}"] = dict(
+                ms=statistics.median(ms[b]), frames=len(ms[b]) // VIDEO_REPS,
+                hw=list(hw), convert_ms=float("nan"), plain_convert_ms=float("nan"))
     log("video: host ms a frame, 480x640 unless named (decode + RGB; "
         "converter compiled / plain numpy on the same planes, equal bytes): "
         + ", ".join(f"{k} {v['ms']:.3f} ({v['convert_ms']:.3f} / "
-                    f"{v['plain_convert_ms']:.2f})" for k, v in out.items())
+                    f"{v['plain_convert_ms']:.2f})" for k, v in out.items()
+                    if v["convert_ms"] == v["convert_ms"])
+        + "; IBBP clips, ms a sample (decode + RGB of the frame it puts "
+        "out): " + ", ".join(f"{k} {v['ms']:.3f} ({v['frames']} samples)"
+                             for k, v in out.items()
+                             if v["convert_ms"] != v["convert_ms"])
         + f"; median of {VIDEO_REPS} passes; on {smi}")
     return out
 
@@ -4069,8 +4104,9 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
     cv2.VideoCapture's frames recorded beside them; the host ms a frame of
     each codec (:func:`video_decode_times`) beside the plain converter;
     then the CLI at full ViT-L width on the committed 16-frame 480x640
-    mp4v clip and on the H.264 one under base.yaml with the services off
-    (bf16: K1, K2 on the implicit GEMM, K4 on the tensor cores), each
+    mp4v clip, the H.264 I/P one and the H.264 IBBP one under base.yaml
+    with the services off (bf16: K1, K2 on the implicit GEMM, K4 on the
+    tensor cores), each
     checking all 16 frames read, its outputs and its launches as the
     cli_datasets phase's image-folder run does, with the median tracked
     frame and frame read (``dataset[i]`` + ``create_frame``)."""
@@ -4088,6 +4124,8 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
                                "video")
     out["cli_h264"] = video_cli_run(torch, FA, C3, BA, workdir, smi,
                                     VIDEO_CLI_H264, "video_h264")
+    out["cli_h264_b"] = video_cli_run(torch, FA, C3, BA, workdir, smi,
+                                      VIDEO_CLI_H264_B, "video_h264_b")
     return out
 
 
@@ -5860,8 +5898,9 @@ def main():
     dec = vid["decode"]
     log(f"video: host ms a frame, decode + RGB (converter compiled / "
         f"plain): " + ", ".join(
-            f"{k} {v['hw'][1]}x{v['hw'][0]} {v['ms']:.3f} "
-            f"({v['convert_ms']:.3f} / {v['plain_convert_ms']:.2f})"
+            f"{k} {v['hw'][1]}x{v['hw'][0]} {v['ms']:.3f}" + (
+                f" ({v['convert_ms']:.3f} / {v['plain_convert_ms']:.2f})"
+                if v["convert_ms"] == v["convert_ms"] else "")
             for k, v in dec.items())
         + "; " + "; ".join(
             f"CLI on {clip}: median tracked frame {vc['tracked_ms']:.1f} ms, "
@@ -5869,7 +5908,8 @@ def main():
             f"{vc['step_ms']:.1f} ms, {vc['keyframes']} keyframes, launches "
             f"{vc['launches']}"
             for clip, vc in ((VIDEO_CLI, vid["cli"]),
-                             (VIDEO_CLI_H264, vid["cli_h264"])))
+                             (VIDEO_CLI_H264, vid["cli_h264"]),
+                             (VIDEO_CLI_H264_B, vid["cli_h264_b"])))
         + f"; on {smi}")
 
     k2f = per_frame["K2 f32"]

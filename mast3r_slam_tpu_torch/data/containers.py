@@ -15,6 +15,15 @@ over the ``stts`` duration; AVI: ``dwRate / dwScale``; Matroska: 1e9 over
 stream's frame count where the container has one (MP4: the ``stts``
 samples; AVI: ``strh.dwLength``), else the duration times the frame rate,
 rounded (Matroska's ``Info/Duration``).
+
+A track also gives each sample's presentation time where the container
+has one, which a reader of B pictures needs to number frames as OpenCV
+does: MP4 the ``stts`` decode times plus the ``ctts`` offsets (version 0,
+or version 1 with negative offsets), moved by a one-entry ``elst`` edit;
+Matroska the block timecodes. AVI has none (samples in decode order).
+For an MP4 H.264 track with ``ctts``, ``video_delay`` is the reorder depth
+FFmpeg's demuxer estimates from them (``mov_estimate_video_delay``), where
+its decoder's reorder buffer starts.
 """
 
 from __future__ import annotations
@@ -49,6 +58,14 @@ class Track:
     sync: np.ndarray
     fps: float
     frame_count: int
+    # each sample's presentation time in units of time_base seconds, or
+    # None; MP4 also its decode time from the stts (OpenCV's seek finds
+    # an MP4 track's sync sample by these, from 0);
+    # and the reorder depth the demuxer estimates (MP4)
+    pts: np.ndarray = None
+    time_base: Fraction = None
+    video_delay: int = 0
+    dts: np.ndarray = None
 
 
 def av_reduce(num: int, den: int, limit: int) -> Fraction:
@@ -193,11 +210,11 @@ def _isobmff(f, size) -> Track:
         hdlr = _child(buf, *mdia, b"hdlr")
         if hdlr is None or buf[hdlr[0] + 8:hdlr[0] + 12] != b"vide":
             continue
-        return _mp4_track(buf, mdia)
+        return _mp4_track(buf, mdia, (ts, te))
     raise ValueError("MP4: no video track")
 
 
-def _mp4_track(buf, mdia) -> Track:
+def _mp4_track(buf, mdia, trak) -> Track:
     mdhd = _child(buf, *mdia, b"mdhd")
     ver = buf[mdhd[0]]
     timescale = struct.unpack(">I", buf[mdhd[0] + (20 if ver == 1 else 12):][:4])[0]
@@ -271,8 +288,45 @@ def _mp4_track(buf, mdia) -> Track:
     frames = int(stts[:, 0].sum())
     duration = int((stts[:, 0] * stts[:, 1]).sum())
     fps = float(av_reduce(timescale * frames, duration, 2**31 - 1)) if duration else 0.0
+    dts = np.concatenate([[0], np.cumsum(np.repeat(stts[:, 1], stts[:, 0]))])[:count]
+    pts, delay = dts.copy(), 0
+    if b"ctts" in box:
+        s, _ = box[b"ctts"]
+        n = struct.unpack(">I", buf[s + 4:s + 8])[0]
+        ctts = np.frombuffer(buf, ">i4" if buf[s] else ">u4", 2 * n,
+                             s + 8).reshape(n, 2).astype(np.int64)
+        off = np.repeat(ctts[:, 1], ctts[:, 0].astype(np.int64))[:count]
+        pts[:len(off)] += off
+        if fourcc in (b"avc1", b"avc3"):
+            delay = _reorder_depth(pts)
+    edit = _mp4_edit(buf, trak)
     return Track(fourcc.decode("latin-1"), width, height, extradata, offsets,
-                 sizes, sync, fps, frames)
+                 sizes, sync, fps, frames, pts - edit, Fraction(1, timescale), delay,
+                 dts)
+
+
+def _reorder_depth(pts) -> int:
+    """FFmpeg's mov_estimate_video_delay: the most samples among the 16
+    before one whose presentation time is later than its."""
+    depth = 0
+    for i in range(len(pts)):
+        depth = max(depth, int((pts[max(0, i - 16):i] > pts[i]).sum()))
+    return depth
+
+
+def _mp4_edit(buf, trak) -> int:
+    """The media time at which a one-entry edit list (``trak/edts/elst``)
+    starts the track, by which FFmpeg moves its timestamps; 0 without."""
+    edts = _child(buf, *trak, b"edts")
+    elst = edts and _child(buf, *edts, b"elst")
+    if not elst:
+        return 0
+    s = elst[0]
+    ver = buf[s]
+    if struct.unpack(">I", buf[s + 4:s + 8])[0] != 1:
+        return 0
+    media = struct.unpack_from(">q" if ver == 1 else ">i", buf, s + (16 if ver == 1 else 12))[0]
+    return max(int(media), 0)
 
 
 # ---------------------------------------------------------------------------
@@ -490,8 +544,10 @@ def _matroska(f, size) -> Track:
         count = int(math.floor(us / 1e6 * fps + 0.5))
     else:
         count = len(blocks)
+    pts = np.array([b[3] for b in blocks], np.int64)
     return Track(fourcc, track["width"], track["height"], bytes(extradata),
-                 offsets, sizes, sync, fps, count)
+                 offsets, sizes, sync, fps, count, pts,
+                 Fraction(timescale, 1_000_000_000))
 
 
 def _mkv_video_track(m, s, e):

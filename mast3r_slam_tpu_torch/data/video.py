@@ -9,29 +9,27 @@ which the decoder reproduces by following FFmpeg's decode arithmetic (its
 simple IDCT, its motion compensation) and the conversion of swscale's
 unscaled YUV -> RGB path that OpenCV asks for (with the stream's range and
 matrix where it states them). It reads H.264 (``avc1``, ``avc3``, ``H264``,
-...; progressive 8-bit 4:2:0 I and P pictures, CAVLC and CABAC, up to the
-High profile's tools), MPEG-4 Part 2 (``mp4v``, ``XVID``, ``DIVX``,
-``FMP4``, ...) and Motion JPEG (``MJPG``) tracks of MP4/MOV, AVI and
-Matroska files; a track of another codec (HEVC, VP8/9, AV1, FFV1, ...)
-raises ``ValueError`` naming its fourcc, and an H.264 stream that needs
-what the decoder leaves out (B slices, fields, 4:2:2 / 4:4:4, more than 8
-bits, FMO, data partitioning, ...) raises one naming that. H.264
-reconstruction is exact in the standard, so its frames are FFmpeg's for
-every stream the decoder reads; the decoder also follows the two places
-where FFmpeg's x86 code departs from the standard's arithmetic (the
-Intra16x16 DC scaling above a 16-bit multiplier, and bS 2 on every edge of
-an 8x8-transform macroblock whose coded_block_pattern marks its first three
-8x8 blocks, when both chroma QP offsets are equal). For MPEG-4 Part 2, bit
-identity holds for what FFmpeg's own encoder writes (user data
-``Lavc...``, as cv2.VideoWriter's files); FFmpeg decodes a stream that
-Xvid itself wrote with the Xvid IDCT instead, which the decoder does not
-reproduce (its frames differ by the IDCTs' rounding, drifting over a
-GOP). A frame that is not the next one decodes forward from the last
-sync sample at or before it (or on from the last frame read, where no sync
-sample lies between), which is the frame that
-``cap.set(CAP_PROP_POS_FRAMES, i); cap.read()`` gives. A frame that cannot
-be decoded raises ``ValueError(f"failed to decode frame {i} of {path}")``,
-as the JAX reader does.
+...; progressive 8-bit 4:2:0 I, P and B pictures, CAVLC and CABAC, up to
+the High profile's tools, in any decode order), MPEG-4 Part 2 (``mp4v``,
+``XVID``, ``DIVX``, ``FMP4``, ...) and Motion JPEG (``MJPG``) tracks of
+MP4/MOV, AVI and Matroska files; a track of another codec (HEVC, VP8/9,
+AV1, FFV1, ...) raises ``ValueError`` naming its fourcc, and an H.264
+stream that needs what the decoder leaves out (fields, 4:2:2 / 4:4:4, more
+than 8 bits, FMO, data partitioning, SP/SI slices, ...) raises one naming
+that. H.264 reconstruction is exact in the standard, so its frames are
+FFmpeg's for every stream the decoder reads; the decoder also follows the
+places where FFmpeg departs from it (``native/h264_decode.cpp`` lists
+them). H.264 pictures come out in FFmpeg's output order, through its
+reorder buffer (whose delay starts where FFmpeg's stream probe and, for
+MP4, its demuxer's ``ctts`` estimate leave it); frame ``i`` is the frame
+cv2 gives for it, read in order or after ``cap.set(CAP_PROP_POS_FRAMES,
+i)`` (:class:`VideoReader` says how). For MPEG-4 Part 2, bit identity holds
+for what FFmpeg's own encoder writes (user data ``Lavc...``, as
+cv2.VideoWriter's files); FFmpeg decodes a stream that Xvid itself wrote
+with the Xvid IDCT instead, which the decoder does not reproduce (its
+frames differ by the IDCTs' rounding, drifting over a GOP). A frame that
+cannot be decoded raises ``ValueError(f"failed to decode frame {i} of
+{path}")``, as the JAX reader does.
 
 The decoder is compiled with ``g++`` at first use into the package's
 ``build/`` (git-ignored), keyed by a hash of its sources, and loaded under
@@ -39,9 +37,10 @@ a lock. When it cannot be built, reading raises: there is no fallback.
 
 Beside it are the plain numpy versions of its arithmetic (the MPEG-4 IDCT
 and half-pel interpolation, H.264's scaled 4x4 / 8x8 inverse transforms,
-quarter-sample luma and eighth-sample chroma interpolation and one
-deblocking edge, and the colour converter), which only the tests use: the
-compiled entries must equal them bit for bit.
+quarter-sample luma and eighth-sample chroma interpolation, one deblocking
+edge, bi-prediction, implicit weights and temporal direct's scaling, and
+the colour converter), which only the tests use: the compiled entries must
+equal them bit for bit.
 """
 
 from __future__ import annotations
@@ -91,8 +90,14 @@ def load_library() -> ctypes.CDLL:
             lib.vd_close.restype = None
             lib.vd_close.argtypes = [ctypes.c_void_p]
             lib.vd_decode.restype = cint
-            lib.vd_decode.argtypes = [ctypes.c_void_p, u8p, i64, i32p,
+            lib.vd_decode.argtypes = [ctypes.c_void_p, u8p, i64, i64, i32p,
                                       ctypes.c_char_p, cint]
+            lib.vd_flush.restype = cint
+            lib.vd_flush.argtypes = [ctypes.c_void_p, i32p]
+            lib.vd_tag.restype = i64
+            lib.vd_tag.argtypes = [ctypes.c_void_p]
+            lib.vd_delay.restype = cint
+            lib.vd_delay.argtypes = [ctypes.c_void_p, cint, i32p]
             lib.vd_frame.restype = cint
             lib.vd_frame.argtypes = [ctypes.c_void_p, u8p, u8p, u8p, u8p]
             lib.vd_idct.restype = None
@@ -111,6 +116,13 @@ def load_library() -> ctypes.CDLL:
             lib.vd_h264_edge.restype = None
             lib.vd_h264_edge.argtypes = [u8p, cint, cint, cint, cint, cint,
                                          cint]
+            lib.vd_h264_bipred.restype = None
+            lib.vd_h264_bipred.argtypes = [u8p, u8p, cint, cint, cint, cint,
+                                           cint, cint, u8p]
+            lib.vd_h264_temporal.restype = cint
+            lib.vd_h264_temporal.argtypes = [cint, cint, cint, cint, i16p, i32p]
+            lib.vd_h264_implicit.restype = cint
+            lib.vd_h264_implicit.argtypes = [cint, cint, cint, cint, cint]
             _lib = lib
     return _lib
 
@@ -121,9 +133,11 @@ def _u8(a):
 
 class Decoder:
     """One stream's decoder state (``MPEG4``, ``MJPEG`` or ``H264``):
-    samples in decode order in, the last frame out. ``extradata`` holds the
-    headers a container keeps apart from the samples (for H.264 the avcC
-    record, or nothing for Annex B samples)."""
+    samples in decode order in, frames in output order out (an H.264
+    picture waits in a reorder buffer until its turn, as FFmpeg's decoder
+    holds it). ``extradata`` holds the headers a container keeps apart from
+    the samples (for H.264 the avcC record, or nothing for Annex B
+    samples)."""
 
     def __init__(self, codec: int, extradata: bytes = b""):
         self._lib = load_library()
@@ -137,15 +151,43 @@ class Decoder:
         self._handle = h
         self.size = None  # (width, height) of the last frame
 
-    def decode(self, data) -> None:
-        """Decodes one sample; ``ValueError`` naming why it cannot."""
+    def decode(self, data, tag: int = -1) -> bool:
+        """Decodes one sample, tagged ``tag``; True when a frame is ready
+        (``rgb``, ``planes``, ``tag``); ``ValueError`` naming why it cannot
+        decode the sample."""
         buf = np.frombuffer(data, np.uint8)
         wh = (ctypes.c_int32 * 2)()
         err = ctypes.create_string_buffer(_ERRLEN)
-        if self._lib.vd_decode(self._handle, _u8(buf), buf.size, wh, err,
-                               _ERRLEN):
+        got = self._lib.vd_decode(self._handle, _u8(buf), buf.size, int(tag),
+                                  wh, err, _ERRLEN)
+        if got < 0:
             raise ValueError(err.value.decode())
+        if got:
+            self.size = (int(wh[0]), int(wh[1]))
+        return bool(got)
+
+    def flush(self) -> bool:
+        """At the end of the stream: True when one more frame (an H.264
+        picture still waiting) is ready."""
+        wh = (ctypes.c_int32 * 2)()
+        if not self._lib.vd_flush(self._handle, wh):
+            return False
         self.size = (int(wh[0]), int(wh[1]))
+        return True
+
+    @property
+    def tag(self) -> int:
+        """The tag of the sample the ready frame was coded in."""
+        return int(self._lib.vd_tag(self._handle))
+
+    def delay(self, start: int = -1):
+        """H.264's reorder delay (FFmpeg's has_b_frames), first set to
+        ``start`` where it is not negative; with the active SPS's
+        bitstream_restriction_flag and reorder depth, and the number of
+        pictures dropped so far for arriving out of order."""
+        info = (ctypes.c_int32 * 3)()
+        d = self._lib.vd_delay(self._handle, int(start), info)
+        return int(d), bool(info[0]), int(info[1]), int(info[2])
 
     def rgb(self) -> np.ndarray:
         """The last frame, uint8 RGB ``(H, W, 3)``."""
@@ -188,10 +230,52 @@ def yuv_to_rgb(y, cb, cr, full_range: bool, matrix: int = 2) -> np.ndarray:
     return out
 
 
+class _Refused(ValueError):
+    """What the reader raises as it is, not as a frame that failed to
+    decode: headers it refuses, a seek it does not make."""
+
+
+def _nal_types(data: bytes, length_size: int):
+    """The NAL unit types of an H.264 sample: length-prefixed NAL units
+    (1, 2 or 4 bytes), or an Annex B byte stream (length_size 0)."""
+    out, i, n = [], 0, len(data)
+    if length_size:
+        while i + length_size < n:
+            size = int.from_bytes(data[i:i + length_size], "big")
+            i += length_size
+            if i < n:
+                out.append(data[i] & 31)
+            i += size
+        return out
+    while True:
+        j = data.find(b"\x00\x00\x01", i)
+        if j < 0 or j + 3 >= n:
+            return out
+        out.append(data[j + 3] & 31)
+        i = j + 3
+
+
 class VideoReader:
     """Frames of the first video track of ``path`` as uint8 RGB
     ``(H, W, 3)``. ``len`` is the frame count cv2 reports; ``fps`` its
-    frame rate (0.0 where the container gives none)."""
+    frame rate (0.0 where the container gives none).
+
+    Frame ``i`` is the frame ``cv2.VideoCapture`` returns for it, as the
+    JAX reader reads: the next frame it decodes, or after
+    ``cap.set(CAP_PROP_POS_FRAMES, i)`` the one OpenCV's seek reaches. Read
+    in order, frames come in output order, which for H.264 with B pictures
+    is not decode order: a picture waits in the decoder's reorder buffer,
+    whose depth starts where FFmpeg's stream probe leaves it (for MP4 the
+    depth its demuxer estimates from ``ctts``, then what decoding the first
+    pictures shows) and grows as FFmpeg's does; a picture that comes too
+    late is dropped, as FFmpeg drops it. A seek decodes from an IDR picture
+    (a sync sample); while no picture was dropped, frame i is then the
+    i-th picture in output order. After a drop, the seek is OpenCV's: to
+    the sync sample 16 frames or more before, numbering the first frame by
+    its presentation time and counting on from it (MP4 and Matroska). A
+    seek that OpenCV would start at a sync sample that is not an IDR picture
+    (an open GOP, whose leading pictures FFmpeg does not put out after a
+    seek) raises ``ValueError`` naming it."""
 
     def __init__(self, path):
         self.path = str(path)
@@ -205,43 +289,194 @@ class VideoReader:
         self.fps = float(self.track.fps)
         load_library()
         self._dec = None
-        self._next = None  # the sample the decoder reads next
+        self._sample = 0    # the sample the decoder reads next
+        self._pos = None    # the frame a read without a seek gives
+        self._delay = None  # H.264: FFmpeg's has_b_frames, once probed
+        self._dropped = False
+        self._first = None  # OpenCV's number of the first frame, and the
+        self._first_delay = None  # reorder delay it came out under
+        self._num = None    # OpenCV's number of the frame just decoded
+        self._start = 0     # the sample the decoder started from
+        self._outputs = 0   # and the frames it put out
+        self._idr = {}
+        extra = self.track.extradata
+        self._nal_len = (extra[4] & 3) + 1 if extra[:1] == b"\x01" else 0
 
     def __len__(self):
         return int(self.track.frame_count)
 
-    def _sample(self, f, k):
-        off, n = int(self.track.offsets[k]), int(self.track.sizes[k])
-        f.seek(off)
-        data = f.read(n)
-        return data if len(data) == n else None
+    def _sample_data(self, k):
+        with open(self.path, "rb") as f:
+            f.seek(int(self.track.offsets[k]))
+            data = f.read(int(self.track.sizes[k]))
+        if len(data) != int(self.track.sizes[k]):
+            raise ValueError("the file ends inside the sample")
+        return data
+
+    def _is_idr(self, k):
+        if self.codec != H264:
+            return True
+        if k not in self._idr:
+            self._idr[k] = 5 in _nal_types(self._sample_data(k), self._nal_len)
+        return self._idr[k]
+
+    def _probe(self):
+        """The reorder delay cv2's decoder starts with: the one FFmpeg's
+        stream probe leaves (avformat_find_stream_info decodes until seven
+        frames are out, or more while the delay is 3 or more, or until the
+        delay equals the SPS's reorder depth), from the MP4 demuxer's
+        estimate."""
+        dec = Decoder(H264, self.track.extradata)
+        dec.delay(self.track.video_delay)
+        out = 0
+        for k in range(len(self.track.sizes)):
+            d, _, reorder, _ = dec.delay()
+            if (d and d == reorder) or (d < 3 and out >= 7) or \
+                    (d < 4 and out >= 18) or out >= 20:
+                break
+            try:
+                out += dec.decode(self._sample_data(k), k)
+            except ValueError:
+                break
+        return dec.delay()[0]
+
+    def _restart(self, k):
+        """A fresh decoder (OpenCV's seek flushes its decoder, which keeps
+        its reorder delay) reading from sample k."""
+        if self.codec == H264 and self._delay is None:
+            self._delay = self._probe()
+        self._dec = None
+        try:
+            self._dec = Decoder(self.codec, self.track.extradata)
+        except ValueError as e:
+            raise _Refused(str(e)) from None
+        if self.codec == H264:
+            self._dec.delay(self._delay)
+        self._sample = self._start = k
+        self._outputs = 0
+
+    def _grab(self):
+        """Decodes on to the next frame; False at the end of the stream."""
+        dec = self._dec
+        while True:
+            end = self._sample >= len(self.track.sizes)
+            if not end:
+                k = self._sample
+                self._sample += 1
+                got = dec.decode(self._sample_data(k), k)
+            else:
+                got = dec.flush()
+            if self.codec == H264:
+                d, _, _, dropped = dec.delay()
+                self._delay = max(self._delay, d)
+                self._dropped |= dropped > 0
+            if got:
+                self._num = self._number(None if end else k)
+                if self._first is None and self._start == 0 and not self._outputs:
+                    self._first, self._first_delay = self._num, self._delay
+                self._outputs += 1
+            if got or end:
+                return got
+
+    def _number(self, k):
+        """OpenCV's number of the frame just put out (sample k decoded, or
+        None at the end of the stream): its presentation time in frames
+        since the stream's first; AVI has none, and OpenCV takes the decode
+        time of sample k (none at the end)."""
+        t = self.track
+        if t.pts is None:
+            return k
+        sec = float((int(t.pts[self._dec.tag]) - int(t.pts.min())) * t.time_base)
+        return int(self.fps * sec + 0.5)
+
+    def _keyframe(self, j):
+        """The sync sample OpenCV's seek to frame j lands on: the last one at
+        or before frame j's time (decode times for MP4, presentation times
+        for Matroska, sample indices for AVI)."""
+        t = self.track
+        keys = np.flatnonzero(t.sync)
+        if t.pts is None:
+            at = keys[keys <= j]
+        else:
+            frame = float(1 / (self.fps * t.time_base)) if self.fps else 1.0
+            times = t.pts - t.pts.min() if t.dts is None else t.dts
+            at = keys[times[keys] <= int(j * frame + 0.5)]
+        return int(at[-1]) if len(at) else 0
+
+    def _seek(self, i):
+        # counting from an IDR picture gives OpenCV's frame while no picture
+        # was dropped and (AVI) the reorder delay is the first frame's
+        if self._dropped or (self.track.pts is None and self._first is not None
+                             and self._delay != self._first_delay):
+            return self._seek_opencv(i)
+        self._open_gop(i, self._keyframe(max(i - 16, 0)))
+        start = i
+        while start > 0 and not (self.track.sync[start] and self._is_idr(start)):
+            start -= 1
+        # on from the last frame read when no IDR picture lies between it
+        # and frame i (the same frames: an H.264 GOP can be long)
+        if self._dec is None or self._pos is None or not start <= self._pos <= i:
+            self._restart(start)
+            self._pos = start
+        while self._pos < i:
+            if not self._grab():
+                raise ValueError("the stream ends before the frame")
+            self._pos += 1
+
+    def _open_gop(self, i, k):
+        if not self._is_idr(k):
+            raise _Refused(
+                f"H.264 with a seek into an open GOP (frame {i}: OpenCV "
+                f"starts at sample {k}, an I picture that is not IDR) is not "
+                "supported")
+
+    def _seek_opencv(self, i):
+        """cap.set(CAP_PROP_POS_FRAMES, i) as OpenCV's FFmpeg backend does
+        it (CvCapture_FFMPEG::seek): the decoder positioned so that the
+        next frame it puts out is frame i's."""
+        if self._first is None:
+            self._restart(0)
+            if not self._grab():
+                raise ValueError("the stream has no frame")
+        delta = 16
+        while True:
+            t = max(i - delta, 0)
+            k = self._keyframe(t)
+            self._open_gop(i, k)
+            self._restart(k)
+            if i <= 1:
+                if i == 1 and not self._grab():
+                    raise ValueError("the stream ends before the frame")
+                return
+            if not self._grab():
+                raise ValueError("the stream ends before the frame")
+            n = -1 if self._num is None else self._num - self._first
+            if n < 0 or n > i - 1:
+                if t == 0:
+                    return
+                delta = delta * 2 if delta < 16 else delta * 3 // 2
+                continue
+            while n < i - 1 and self._grab():
+                n += 1
+            return
 
     def read(self, i: int) -> np.ndarray:
         """Frame ``i``; ``ValueError`` where it cannot be decoded."""
         i = int(i)
         if not 0 <= i < len(self.track.sizes):
             raise ValueError(f"failed to decode frame {i} of {self.path}")
-        start = i
-        while start > 0 and not self.track.sync[start]:
-            start -= 1
-        # on from the last frame read when no sync sample lies between it
-        # and frame i (the same frames: an H.264 GOP can be long)
-        if self._dec is None or not start <= self._next <= i:
+        try:
+            if self._dec is None or i != self._pos:
+                self._seek(i)
+            if not self._grab():
+                raise ValueError("the stream ends before the frame")
+        except _Refused:
             self._dec = None
-            self._dec = Decoder(self.codec, self.track.extradata)
-            self._next = start
-        with open(self.path, "rb") as f:
-            while self._next <= i:
-                data = self._sample(f, self._next)
-                try:
-                    if data is None:
-                        raise ValueError("the file ends inside the sample")
-                    self._dec.decode(data)
-                except ValueError as e:
-                    self._dec = None
-                    raise ValueError(
-                        f"failed to decode frame {i} of {self.path}") from e
-                self._next += 1
+            raise
+        except ValueError as e:
+            self._dec = None
+            raise ValueError(f"failed to decode frame {i} of {self.path}") from e
+        self._pos = i + 1
         return self._dec.rgb()
 
     def planes(self, i: int):
@@ -580,3 +815,106 @@ def h264_edge(lines, bs: int, index_a: int, index_b: int,
     lib.vd_h264_edge(q0, 8, s.shape[0], int(bs), int(index_a), int(index_b),
                      int(chroma))
     return s
+
+
+def h264_bipred_ref(a, b, w0=None, w1=None, logwd=5, offset=0,
+                    x86=True) -> np.ndarray:
+    """Bi-prediction (8.4.2.3) of two uint8 predictions of one block: the
+    default average where ``w0`` is None, else weights w0 / w1 with
+    denominator ``logwd`` and offset ``offset`` (o0 + o1), as FFmpeg's x86
+    routine computes it (``x86``: 16-bit lanes with saturation, a weight of
+    128 halved with the denominator, which it takes for blocks 4 or more
+    samples wide) or as the standard's formula (its C routine, for 2-wide
+    chroma)."""
+    a, b = np.asarray(a, np.int64), np.asarray(b, np.int64)
+    if w0 is None:
+        return ((a + b + 1) >> 1).astype(np.uint8)
+    off = (offset + 1) | 1
+    if not x86:
+        return np.clip((a * w0 + b * w1 + (off << logwd)) >> (logwd + 1), 0,
+                       255).astype(np.uint8)
+    sh = logwd + 1
+    if w0 == 128 or w1 == 128:
+        w0, w1, off, sh = w0 >> 1, w1 >> 1, off >> 1, sh - 1
+    o16 = ((((off << sh) & 0xFFFFFFFF) >> 1) + 0x8000) % 0x10000 - 0x8000
+    sat = lambda v: np.clip(v, -32768, 32767)  # noqa: E731
+    return np.clip(sat(sat(a * w0 + b * w1) + o16) >> sh, 0, 255).astype(np.uint8)
+
+
+def _clip8(v):
+    return max(-128, min(127, v))
+
+
+def _tx(td):
+    """(16384 + |td / 2|) / td, truncated toward zero as C divides."""
+    q = (16384 + abs(td) // 2) // abs(td)
+    return q if td > 0 else -q
+
+
+def h264_temporal_scale_ref(cur_poc: int, poc0: int, poc1: int, long0: bool,
+                            mv_col) -> tuple:
+    """Temporal direct (8.4.1.2.3): DistScaleFactor of list 0 picture POC
+    ``poc0`` (long-term ``long0``) against list 1's first at ``poc1`` for
+    the current picture at ``cur_poc``, and mvL0, mvL1 from the co-located
+    motion vector ``mv_col``."""
+    td = _clip8(poc1 - poc0)
+    if td == 0 or long0:
+        sc = 256
+    else:
+        tb = _clip8(cur_poc - poc0)
+        sc = max(-1024, min(1023, (tb * _tx(td) + 32) >> 6))
+    mv0 = tuple(((sc * int(c) + 128) >> 8) for c in mv_col)
+    return sc, mv0, tuple(m - int(c) for m, c in zip(mv0, mv_col))
+
+
+def h264_implicit_weights_ref(cur_poc: int, pocs0, pocs1, long0=None,
+                              long1=None) -> np.ndarray:
+    """Implicit bi-prediction weights (8.4.2.3.1): w0 of every pair of a
+    list 0 and a list 1 picture (w1 is 64 - w0), 32 where a picture is
+    long-term, the POCs are equal or the scale leaves [-64, 128]."""
+    long0 = long0 or [False] * len(pocs0)
+    long1 = long1 or [False] * len(pocs1)
+    out = np.full((len(pocs0), len(pocs1)), 32, np.int64)
+    for i, (p0, l0) in enumerate(zip(pocs0, long0)):
+        for j, (p1, l1) in enumerate(zip(pocs1, long1)):
+            td = _clip8(p1 - p0)
+            if l0 or l1 or not td:
+                continue
+            d = (_clip8(cur_poc - p0) * _tx(td) + 32) >> 8
+            if -64 <= d <= 128:
+                out[i, j] = 64 - d
+    return out
+
+
+def h264_bipred(a, b, w0=None, w1=None, logwd=5, offset=0,
+                x86=True) -> np.ndarray:
+    """The compiled ``h264_bipred_ref``."""
+    lib = load_library()
+    a = np.ascontiguousarray(a, np.uint8)
+    b = np.ascontiguousarray(b, np.uint8)
+    out = np.empty_like(a)
+    lib.vd_h264_bipred(_u8(a), _u8(b), a.size, int(logwd), int(w0 or 0),
+                       int(w1 or 0), int(offset),
+                       0 if w0 is None else 2 if x86 else 1, _u8(out))
+    return out
+
+
+def h264_temporal_scale(cur_poc: int, poc0: int, poc1: int, long0: bool,
+                        mv_col) -> tuple:
+    """The compiled ``h264_temporal_scale_ref``."""
+    lib = load_library()
+    mc = (ctypes.c_int16 * 2)(*[int(v) for v in mv_col])
+    mv = (ctypes.c_int32 * 4)()
+    sc = lib.vd_h264_temporal(int(cur_poc), int(poc0), int(poc1), int(long0), mc, mv)
+    return int(sc), (int(mv[0]), int(mv[1])), (int(mv[2]), int(mv[3]))
+
+
+def h264_implicit_weights(cur_poc: int, pocs0, pocs1, long0=None,
+                          long1=None) -> np.ndarray:
+    """The compiled ``h264_implicit_weights_ref``."""
+    lib = load_library()
+    long0 = long0 or [False] * len(pocs0)
+    long1 = long1 or [False] * len(pocs1)
+    return np.array([[lib.vd_h264_implicit(int(cur_poc), int(p0), int(p1), int(l0), int(l1))
+                      for p1, l1 in zip(pocs1, long1)] for p0, l0 in zip(pocs0, long0)],
+                    np.int64).reshape(len(pocs0), len(pocs1))

@@ -38,6 +38,7 @@
 // the short video header (H.263 baseline); MJPEG frames that are not 4:2:0
 // YCbCr. A frame whose data ends early or does not parse is an error.
 
+#include <climits>
 #include <cstdlib>
 #include <memory>
 
@@ -1137,6 +1138,7 @@ struct Handle {
   Mpeg4 m4;
   Mjpeg mj;
   std::unique_ptr<h264::Decoder> avc;
+  int64_t tag = -1;  // MPEG-4 / MJPEG: the last sample's tag
   const Frame* frame() const {
     if (codec == 1) return m4.have_frame ? &m4.cur : nullptr;
     if (codec == 3) return avc->have_frame ? &avc->out : nullptr;
@@ -1182,28 +1184,65 @@ void* vd_open(int codec, const uint8_t* extra, int64_t n, char* err,
 
 void vd_close(void* h) { delete static_cast<Handle*>(h); }
 
-// Decodes one sample. Writes the frame's width and height to wh. Returns
-// 0, or 1 with a message in err (no frame in the sample, data that ends
-// early or does not parse, a refused feature).
-int vd_decode(void* hp, const uint8_t* data, int64_t n, int32_t* wh,
+// Decodes one sample, tagged `tag`. Returns 1 when a frame is ready (its
+// width and height in wh; an H.264 picture may come out of a later sample,
+// in output order, and its tag says which sample it was), 0 when the
+// sample puts no frame out (an H.264 picture waiting for its turn, or one
+// dropped), or -1 with a message in err (no picture in the sample, data
+// that ends early or does not parse, a refused feature).
+int vd_decode(void* hp, const uint8_t* data, int64_t n, int64_t tag, int32_t* wh,
               char* err, int errlen) {
   Handle* h = static_cast<Handle*>(hp);
   try {
     if (h->codec == 1) {
       if (!h->m4.parse(data, n)) throw Error("MPEG-4 sample without a VOP");
     } else if (h->codec == 3) {
-      h->avc->decode(data, n);
+      if (!h->avc->decode(data, n, tag)) return 0;
     } else {
       h->mj.decode(data, n);
     }
+    if (h->codec != 3) h->tag = tag;
     const Frame* f = h->frame();
     wh[0] = f->w;
     wh[1] = f->h;
-    return 0;
+    return 1;
   } catch (const std::exception& e) {
     set_err(err, errlen, e.what());
-    return 1;
+    return -1;
   }
+}
+
+// At the end of the stream: puts out the next H.264 picture still waiting
+// (1, its size in wh), or returns 0 when none waits.
+int vd_flush(void* hp, int32_t* wh) {
+  Handle* h = static_cast<Handle*>(hp);
+  if (h->codec != 3 || !h->avc->flush()) return 0;
+  wh[0] = h->avc->out.w;
+  wh[1] = h->avc->out.h;
+  return 1;
+}
+
+// The last frame's tag.
+int64_t vd_tag(void* hp) {
+  Handle* h = static_cast<Handle*>(hp);
+  return h->codec == 3 ? h->avc->out_tag : h->tag;
+}
+
+// H.264's reorder delay (FFmpeg's has_b_frames): set where decoding starts
+// (delay >= 0), and returned with the active SPS's bitstream_restriction
+// flag and reorder depth and the pictures dropped so far in info[0..2] (0s
+// before a picture).
+int vd_delay(void* hp, int delay, int32_t* info) {
+  Handle* h = static_cast<Handle*>(hp);
+  if (info) info[0] = info[1] = info[2] = 0;
+  if (h->codec != 3) return 0;
+  if (delay >= 0) h->avc->has_b = delay;
+  if (info) {
+    info[0] = h->avc->restriction;
+    info[1] = h->avc->num_reorder;
+    info[2] = h->avc->dropped;
+  }
+  return h->avc->has_b;
 }
 
 // The last decoded frame as H x W x 3 RGB (rgb) and its planes: y (H x W),
@@ -1288,6 +1327,33 @@ void vd_h264_mc(const uint8_t* src, int w, int h, int chroma, int x, int y,
     y = std::min(std::max(y, -(bh + 8)), h + 8);
     h264::luma_mc(o, pw, x, y, fx, fy, bw, bh, dst, bw);
   }
+}
+
+// B slices' arithmetic alone: n samples of the bi-prediction of a and b
+// (mode 0: the default average; else weights w0 / w1, offset o0 + o1 and
+// denominator logwd, as FFmpeg's C routine (mode 1) or its x86 one (mode
+// 2) weights them); DistScaleFactor and the temporal direct vectors of
+// mvcol (mv[0..3] out: mvL0, mvL1); the implicit weight w0 of a pair of
+// POCs.
+void vd_h264_bipred(const uint8_t* a, const uint8_t* b, int n, int logwd, int w0, int w1,
+                    int o, int mode, uint8_t* out) {
+  for (int i = 0; i < n; i++)
+    out[i] = mode == 0 ? (uint8_t)((a[i] + b[i] + 1) >> 1)
+             : mode == 2 ? h264::biweight_x86(a[i], b[i], logwd, w0, w1, o)
+                         : h264::biweight_c(a[i], b[i], logwd, w0, w1, o);
+}
+
+int vd_h264_temporal(int cur, int poc0, int poc1, int lt0, const int16_t* mvcol, int32_t* mv) {
+  int sc = h264::dist_scale(cur, poc0, poc1, lt0 != 0);
+  for (int c = 0; c < 2; c++) {
+    mv[c] = (int16_t)((sc * mvcol[c] + 128) >> 8);
+    mv[2 + c] = (int16_t)(mv[c] - mvcol[c]);
+  }
+  return sc;
+}
+
+int vd_h264_implicit(int cur, int poc0, int poc1, int lt0, int lt1) {
+  return h264::implicit_weight(cur, poc0, poc1, lt0 != 0, lt1 != 0);
 }
 
 void vd_h264_edge(uint8_t* pix, int stride, int n, int bs, int index_a,

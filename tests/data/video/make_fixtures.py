@@ -7,10 +7,14 @@ writer (``cv2.VideoWriter``, its FFmpeg backend), which writes no H.264;
 the H.264 files from the test writer ``tests/torch_h264_writer.py``:
 random legal syntax from a seed (CAVLC and CABAC, in MP4, Matroska and
 AVI) and its small encoder's pans (a cropped 152x104 clip, a 1920x1080 one
-coded at 1088, and the 640x480 clips of the CLI run and the host timing).
+coded at 1088, and the 640x480 clips of the CLI run and the host timing);
+with B pictures, random syntax in MP4 (``ctts`` with and without ``elst``),
+Matroska and AVI, and IBBP pans at 1920x1080 and 640x480 (the CLI's B
+clip).
 
     python tests/data/video/make_fixtures.py          # every file
-    python tests/data/video/make_fixtures.py h264     # the H.264 files
+    python tests/data/video/make_fixtures.py h264     # the H.264 I/P files
+    python tests/data/video/make_fixtures.py h264b    # the H.264 B files
 
 The second form keeps the cv2-written files and their digests as they are:
 cv2 rewrites the MP4, MOV and AVI files byte for byte, but FFmpeg's
@@ -84,6 +88,21 @@ H264_PANS = {
     "h264_cavlc_640x480.avi": (4, (480, 640), False, 24, (0, 0, 0, 0), (12.5, 4.25)),
 }
 H264_NAMES = tuple(H264_RANDOM) + tuple(H264_PANS)
+# the same for B pictures: random syntax (16 pictures, mini-GOPs of up to
+# three B pictures, a reference one in the middle) and IBBP pans
+H264B_RANDOM = {
+    "h264_b_cabac.mp4": (True, dict(seed=31, frames=16, idr_every=8, reorder=2)),
+    "h264_b_noelst.mp4": (True, dict(seed=32, frames=16, reorder=-1, bipred=2),
+                          dict(elst=False)),
+    "h264_b_cavlc.mkv": (False, dict(seed=33, frames=16, idr_every=8, reorder=2,
+                                     bipred=1, direct8x8=False)),
+    "h264_b_cavlc.avi": (False, dict(seed=34, frames=16, reorder=2, spatial=False)),
+}
+H264B_PANS = {
+    "h264_b_1920x1080.mp4": (6, (1080, 1920), True, 30, (0, 0, 0, 8), (6.25, 2.25)),
+    "cli_640x480_h264_b.mp4": (16, (480, 640), True, 24, (0, 0, 0, 0), (6.25, 2.125)),
+}
+H264B_NAMES = tuple(H264B_RANDOM) + tuple(H264B_PANS)
 
 
 def pan_frames(n, hw, step=(6.0, 2.0), seed=0):
@@ -116,6 +135,18 @@ def busy_frames(n, hw, seed=5):
 
 def write_h264(path, name):
     mux = {".mp4": W.write_mp4, ".mkv": W.write_mkv, ".avi": W.write_avi}[path.suffix]
+    if name in H264B_RANDOM:
+        cabac, opts, *mux_opts = H264B_RANDOM[name]
+        clip = W.random_stream(opts["seed"], cabac=cabac, b=True,
+                               **{k: v for k, v in opts.items() if k != "seed"})
+        mux(path, clip, **(mux_opts[0] if mux_opts else {}))
+        return clip
+    if name in H264B_PANS:
+        n, hw, cabac, qp, crop, step = H264B_PANS[name]
+        clip = W.encode(pan_frames(n, hw, step=step), cabac=cabac, qp=qp, crop=crop,
+                        bframes=2)
+        mux(path, clip)
+        return clip
     if name in H264_RANDOM:
         cabac, opts = H264_RANDOM[name]
         clip = W.random_stream(opts["seed"], cabac=cabac, frames=8,
@@ -167,14 +198,15 @@ def record(path, fourcc, hw):
 def main(which="all"):
     out = {}
     digests = HERE / "digests.json"
-    if which == "h264" and digests.exists():
+    names = {"h264": H264_NAMES, "h264b": H264B_NAMES}.get(which, H264_NAMES + H264B_NAMES)
+    if which in ("h264", "h264b") and digests.exists():
         out = {k: v for k, v in json.loads(digests.read_text()).items()
-               if k not in H264_NAMES}
+               if k not in names}
     else:
         for name, (fourcc, hw, n, kind) in FILES.items():
             write(HERE / name, fourcc, hw, n, kind)
             out[name] = record(HERE / name, fourcc, hw)
-    for name in H264_NAMES:
+    for name in names:
         path = HERE / name
         clip = write_h264(path, name)
         fourcc = "H264" if path.suffix == ".avi" else "avc1"

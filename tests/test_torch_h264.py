@@ -64,7 +64,7 @@ def jax_config():
 def test_fixtures_cover_the_slice():
     """CAVLC and CABAC random syntax in MP4, Matroska and AVI, the cropped
     clip, the 1080p clip and the CLI clip are all committed."""
-    assert len(H264) == 10
+    assert len(H264) == 16
     assert {n.rsplit(".", 1)[1] for n in H264} == {"mp4", "mkv", "avi"}
     assert DIGESTS["h264_1920x1080.mp4"]["hw"] == [1080, 1920]
     assert DIGESTS["h264_152x104.mp4"]["hw"] == [104, 152]
