@@ -233,21 +233,28 @@ then:
    a failure planted in frame 7 of 12 on the card and on the CPU: the
    same frames' ``ok``, failing frame and LM rows' flags);
 21. (phase ``video``) builds the video decoder (``native/video_decode.cpp``
-   with ``native/h264_decode.cpp``) on this machine and reads every
+   with ``native/h264_decode.cpp`` and ``native/vp9_decode.cpp``) on this
+   machine and reads every
    committed fixture of ``tests/data/video`` (MPEG-4 Part 2 in MP4, MOV,
    AVI and Matroska; MJPEG in AVI and Matroska; H.264, CAVLC and CABAC, in
    MP4, Matroska and AVI, a cropped 152x104 clip and a 1920x1080 one; H.264
    with B pictures in MP4 (ctts with and without elst), Matroska and AVI,
-   and IBBP clips at 1920x1080 and 480x640), in order and backwards (each
-   seek decoding from an IDR picture), to the SHA-256 digests of
+   and IBBP clips at 1920x1080 and 480x640; VP9 from cv2's writer in
+   Matroska, MP4 and AVI at 160x120, 130x98, 480x640 and 1920x1080 and the
+   VP9 test writer's hidden / compound / adaptation / segmentation / tile
+   streams), in order and backwards (each seek decoding from an IDR
+   picture or a VP9 key frame), to the SHA-256 digests of
    cv2.VideoCapture's frames recorded beside them; times the host ms a
    480x640 frame of MPEG-4 I-VOPs, P-VOPs, MJPEG and H.264 (an IDR
    picture, CAVLC P and CABAC P pictures, and the B and P pictures of the
-   IBBP clip) and a 1920x1080 H.264 frame (and the IBBP clip's B and P
-   pictures), beside the compiled and plain numpy converters on the same
-   planes (equal bytes); then runs the CLI at full ViT-L width on the
-   committed 16-frame 480x640 mp4v clip, the H.264 I/P one and the H.264
-   IBBP one under base.yaml with the services off (bf16): all 16 frames
+   IBBP clip; VP9 key and inter frames) and a 1920x1080 H.264 frame (and the
+   IBBP clip's B and P pictures, and VP9 key and inter frames), beside the
+   compiled and plain numpy converters on the same planes (equal bytes);
+   holds VP9's three plain versions (``vp9_itx_ref``, ``vp9_mc_ref``,
+   ``vp9_lf_ref``) against the compiled entries; then runs the CLI at full
+   ViT-L width on the committed 16-frame 480x640 mp4v clip, the H.264 I/P
+   one, the H.264 IBBP one and the VP9 one under base.yaml with the
+   services off (bf16): all 16 frames
    read, the outputs checked, K1, K2 (implicit GEMM) and K4 (tensor cores)
    launched and counted as each run's calls need, with its median tracked
    frame and frame read (``dataset[i]`` + ``create_frame``).
@@ -3944,6 +3951,8 @@ VIDEO_H264_CAVLC = "h264_cavlc_640x480.avi"  # 4 frames of H.264 (CAVLC), Annex 
 VIDEO_H264_1080 = "h264_1920x1080.mp4"  # 4 frames of H.264, coded at 1088
 VIDEO_CLI_H264_B = "cli_640x480_h264_b.mp4"  # 16 frames of H.264 IBBP (CABAC)
 VIDEO_H264_B_1080 = "h264_b_1920x1080.mp4"  # 6 frames of H.264 IBBP, at 1088
+VIDEO_CLI_VP9 = "cli_640x480_vp9.mkv"  # 16 frames of VP9 (libvpx via cv2), 2 tile columns
+VIDEO_VP9_1080 = "vp9_1920x1080.mkv"  # 4 frames of VP9, 4 tile columns
 VIDEO_REPS = 10                     # timed passes over each codec's frames
 VIDEO_HW = (480, 640)
 
@@ -3961,6 +3970,9 @@ def video_fixture_reads():
     rec = json.loads((VIDEO_FIXTURES / "digests.json").read_text())
     check(VIDEO_CLI_H264_B in rec and VIDEO_H264_B_1080 in rec,
           "video: the B-picture fixtures are not in digests.json")
+    check(sum(d["fourcc"] in ("VP90", "vp09") for d in rec.values()) == 11
+          and VIDEO_CLI_VP9 in rec and VIDEO_VP9_1080 in rec,
+          "video: the VP9 fixtures are not in digests.json")
     n = 0
     for name, want in sorted(rec.items()):
         r = video.VideoReader(VIDEO_FIXTURES / name)
@@ -4017,6 +4029,8 @@ def video_decode_times(smi):
     th, hs = video_samples(VIDEO_CLI_H264)
     tc, cs = video_samples(VIDEO_H264_CAVLC)
     tk, ks = video_samples(VIDEO_H264_1080)
+    _, vs = video_samples(VIDEO_CLI_VP9)
+    _, v9 = video_samples(VIDEO_VP9_1080)
     jw = _test_writer("torch_jpeg_writer")
     jpeg = jw.encode_jpeg(next(pan_frames(1, VIDEO_HW, (0, 0), seed=7)), 90)
 
@@ -4048,7 +4062,11 @@ def video_decode_times(smi):
              VIDEO_HW),
             ("h264_cavlc_p", video.H264, tc.extradata, cs[:1], cs[1:],
              VIDEO_HW),
-            ("h264_1080", video.H264, tk.extradata, [], ks, (1080, 1920))):
+            ("h264_1080", video.H264, tk.extradata, [], ks, (1080, 1920)),
+            ("vp9_key", video.VP9, b"", [], vs[:1], VIDEO_HW),
+            ("vp9_inter", video.VP9, b"", vs[:1], vs[1:12], VIDEO_HW),
+            ("vp9_1080_key", video.VP9, b"", [], v9[:1], (1080, 1920)),
+            ("vp9_1080_inter", video.VP9, b"", v9[:1], v9[1:], (1080, 1920))):
         ms, dec = timed(codec, extra, warm, frames, hw)
         y, cb, cr = dec.planes()
         full = codec == video.MJPEG
@@ -4097,6 +4115,56 @@ def video_decode_times(smi):
     return out
 
 
+def vp9_plain_checks():
+    """VP9's three plain numpy versions against the compiled entries on
+    random inputs: every inverse transform size and type and the WHT, the
+    four filters at every 1/16 fraction (put and averaged, past the
+    plane's edges) and the three loop-filter widths at every level and
+    sharpness; the cases held, each equal bit for bit."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.data import video
+
+    rng = np.random.default_rng(25)
+    n = 0
+    for tx in range(4):
+        m = 4 << tx
+        for tx_type in ([0, 1, 2, 3, 4] if tx == 0 else [0, 1, 2, 3] if tx < 3 else [0]):
+            for _ in range(4):
+                c = np.zeros((m, m), np.int64)
+                k = int(rng.integers(1, min(m * m, 64)))
+                c.flat[rng.choice(m * m, k, replace=False)] = rng.integers(-400, 401, k)
+                pred = rng.integers(0, 256, (m, m)).astype(np.uint8)
+                check(np.array_equal(video.vp9_itx(c, tx, tx_type, pred),
+                                     video.vp9_itx_ref(c, tx, tx_type, pred)),
+                      f"video: vp9_itx tx {tx} type {tx_type} differs from its plain version")
+                n += 1
+    plane = rng.integers(0, 256, (21, 27)).astype(np.uint8)
+    for filt in range(4):
+        for fx in range(16):
+            for fy in range(0, 16, 5):
+                x, y = int(rng.integers(-12, 32)), int(rng.integers(-12, 26))
+                dst = rng.integers(0, 256, (8, 8)).astype(np.uint8) if fx & 1 else None
+                check(np.array_equal(video.vp9_mc(plane, x, y, fx, fy, 8, 8, filt, dst),
+                                     video.vp9_mc_ref(plane, x, y, fx, fy, 8, 8, filt, dst)),
+                      f"video: vp9_mc filter {filt} ({fx}, {fy}) differs from its plain version")
+                n += 1
+    for wd in (4, 8, 16):
+        for level in range(1, 64, 6):
+            for sharp in range(8):
+                base = rng.integers(60, 200, (8, 1)) + \
+                    rng.integers(-2, 3, (8, 16)) * int(rng.integers(0, 3))
+                base[:, 8:] += int(rng.integers(-10, 11))
+                lines = np.clip(base, 0, 255).astype(np.uint8)
+                check(np.array_equal(video.vp9_lf(lines, wd, level, sharp),
+                                     video.vp9_lf_ref(lines, wd, level, sharp)),
+                      f"video: vp9_lf width {wd} level {level} differs from its plain version")
+                n += 1
+    log(f"video: VP9's plain versions equal the compiled entries on {n} cases "
+        f"(inverse transforms, 8-tap prediction, loop-filter edges)")
+    return n
+
+
 def phase_video(torch, FA, C3, BA, workdir, smi):
     """Video files on this machine: the decoder built here reads every
     committed fixture (MPEG-4 Part 2 in MP4, MOV, AVI and Matroska; MJPEG
@@ -4119,13 +4187,15 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
     log(f"video: decoder built in {build_s:.1f} s; {n_reads} frame reads of "
         f"the committed fixtures (in order and backwards) equal "
         f"cv2.VideoCapture's")
-    out = {"decode": video_decode_times(smi)}
+    out = {"decode": video_decode_times(smi), "vp9_plain_cases": vp9_plain_checks()}
     out["cli"] = video_cli_run(torch, FA, C3, BA, workdir, smi, VIDEO_CLI,
                                "video")
     out["cli_h264"] = video_cli_run(torch, FA, C3, BA, workdir, smi,
                                     VIDEO_CLI_H264, "video_h264")
     out["cli_h264_b"] = video_cli_run(torch, FA, C3, BA, workdir, smi,
                                       VIDEO_CLI_H264_B, "video_h264_b")
+    out["cli_vp9"] = video_cli_run(torch, FA, C3, BA, workdir, smi,
+                                   VIDEO_CLI_VP9, "video_vp9")
     return out
 
 
@@ -5909,7 +5979,8 @@ def main():
             f"{vc['launches']}"
             for clip, vc in ((VIDEO_CLI, vid["cli"]),
                              (VIDEO_CLI_H264, vid["cli_h264"]),
-                             (VIDEO_CLI_H264_B, vid["cli_h264_b"])))
+                             (VIDEO_CLI_H264_B, vid["cli_h264_b"]),
+                             (VIDEO_CLI_VP9, vid["cli_vp9"])))
         + f"; on {smi}")
 
     k2f = per_frame["K2 f32"]

@@ -42,6 +42,7 @@ class Track:
     """A video track: its codec, size, headers and samples.
 
     ``fourcc`` names the codec as the container does (``mp4v``, ``XVID``,
+    ``VP90`` (Matroska's ``V_VP9``, AVI), ``vp09`` (MP4),
     ``MJPG``, ``avc1``, ...); ``extradata`` holds the decoder headers the
     container keeps apart from the samples (MP4 ``esds``'
     DecoderSpecificInfo, Matroska ``CodecPrivate``, AVI ``strf`` bytes

@@ -16,8 +16,9 @@ The port's modules take the config dict as an argument: the readers and
 are given, where the JAX package reads its process-global config.
 
 Video files (``.mp4``, ``.avi``, ``.mov``, ``.mkv``) are read by
-``data/video.py`` as ``cv2.VideoCapture`` reads them (MPEG-4 Part 2 and
-Motion JPEG tracks; another codec raises ``ValueError`` naming its fourcc).
+``data/video.py`` as ``cv2.VideoCapture`` reads them (H.264, VP9, MPEG-4
+Part 2 and Motion JPEG tracks; another codec raises ``ValueError`` naming its
+fourcc).
 The RealSense reader imports ``pyrealsense2`` when it is opened and raises
 ``RuntimeError`` without it, as the JAX one does. Not ported (ROADMAP): the
 webcam reader, which needs a camera device (``cv2.VideoCapture`` on

@@ -1,6 +1,7 @@
 """Video files for the dataset readers: the container demuxers of
 ``data/containers.py`` and a C++ frame decoder (``native/video_decode.cpp``
-with ``native/h264_decode.cpp``) bound with ctypes.
+with ``native/h264_decode.cpp`` and ``native/vp9_decode.cpp``) bound with
+ctypes.
 
 :class:`VideoReader` reads a file as the JAX package's ``MP4Dataset`` reads
 it through ``cv2.VideoCapture``: the same frame count and frame rate
@@ -10,13 +11,19 @@ simple IDCT, its motion compensation) and the conversion of swscale's
 unscaled YUV -> RGB path that OpenCV asks for (with the stream's range and
 matrix where it states them). It reads H.264 (``avc1``, ``avc3``, ``H264``,
 ...; progressive 8-bit 4:2:0 I, P and B pictures, CAVLC and CABAC, up to
-the High profile's tools, in any decode order), MPEG-4 Part 2 (``mp4v``,
+the High profile's tools, in any decode order), VP9 (``VP90``, ``vp09``;
+profile 0 with every tool of it: superframes, hidden frames and
+``show_existing_frame``, intra-only frames, compound prediction,
+segmentation, backward adaptation, tiles), MPEG-4 Part 2 (``mp4v``,
 ``XVID``, ``DIVX``, ``FMP4``, ...) and Motion JPEG (``MJPG``) tracks of
-MP4/MOV, AVI and Matroska files; a track of another codec (HEVC, VP8/9,
-AV1, FFV1, ...) raises ``ValueError`` naming its fourcc, and an H.264
-stream that needs what the decoder leaves out (fields, 4:2:2 / 4:4:4, more
-than 8 bits, FMO, data partitioning, SP/SI slices, ...) raises one naming
-that. H.264 reconstruction is exact in the standard, so its frames are
+MP4/MOV, AVI and Matroska files; a track of another codec (HEVC, VP8, AV1,
+FFV1, ...) raises ``ValueError`` naming its fourcc, and an H.264 or VP9
+stream that needs what the decoder leaves out (H.264: fields, 4:2:2 /
+4:4:4, more than 8 bits, FMO, data partitioning, SP/SI slices, ...; VP9:
+profiles 1-3, scaled references, a size change, an odd frame height)
+raises one naming that. VP9 reconstruction is integer arithmetic too: its
+frames are FFmpeg's, and where FFmpeg departs from libvpx the decoder
+follows FFmpeg (``native/vp9_decode.cpp`` marks where). H.264 reconstruction is exact in the standard, so its frames are
 FFmpeg's for every stream the decoder reads; the decoder also follows the
 places where FFmpeg departs from it (``native/h264_decode.cpp`` lists
 them). H.264 pictures come out in FFmpeg's output order, through its
@@ -38,9 +45,10 @@ a lock. When it cannot be built, reading raises: there is no fallback.
 Beside it are the plain numpy versions of its arithmetic (the MPEG-4 IDCT
 and half-pel interpolation, H.264's scaled 4x4 / 8x8 inverse transforms,
 quarter-sample luma and eighth-sample chroma interpolation, one deblocking
-edge, bi-prediction, implicit weights and temporal direct's scaling, and
-the colour converter), which only the tests use: the compiled entries must
-equal them bit for bit.
+edge, bi-prediction, implicit weights and temporal direct's scaling, VP9's
+inverse transforms, 8-tap prediction and loop-filter edge, and the colour
+converter), which only the tests and chip_smoke.py use: the compiled
+entries must equal them bit for bit.
 """
 
 from __future__ import annotations
@@ -56,13 +64,14 @@ from mast3r_slam_tpu_torch.data import containers
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _SRC = _PKG / "native" / "video_decode.cpp"
-_DEPS = (_PKG / "native" / "jpeg_decode.cpp", _PKG / "native" / "h264_decode.cpp")
+_DEPS = (_PKG / "native" / "jpeg_decode.cpp", _PKG / "native" / "h264_decode.cpp",
+         _PKG / "native" / "vp9_decode.cpp")
 _BUILD = _PKG / "build"
 _LOCK = threading.Lock()
 _ERRLEN = 256
 _lib = None
 
-MPEG4, MJPEG, H264 = 1, 2, 3
+MPEG4, MJPEG, H264, VP9 = 1, 2, 3, 4
 # fourccs of MPEG-4 Part 2 and of Motion JPEG (one baseline or
 # progressive JPEG a sample) that FFmpeg gives its mpeg4 and mjpeg decoders
 CODECS = {
@@ -70,6 +79,7 @@ CODECS = {
                           "DX50", "dx50", "FMP4", "fmp4", "M4S2", "MP4S")},
     **{c: MJPEG for c in ("MJPG", "mjpg", "jpeg")},
     **{c: H264 for c in ("avc1", "avc3", "H264", "h264", "X264", "x264")},
+    **{c: VP9 for c in ("VP90", "vp90", "vp09")},
 }
 
 
@@ -123,6 +133,13 @@ def load_library() -> ctypes.CDLL:
             lib.vd_h264_temporal.argtypes = [cint, cint, cint, cint, i16p, i32p]
             lib.vd_h264_implicit.restype = cint
             lib.vd_h264_implicit.argtypes = [cint, cint, cint, cint, cint]
+            lib.vd_vp9_itx.restype = None
+            lib.vd_vp9_itx.argtypes = [i16p, cint, cint, u8p]
+            lib.vd_vp9_mc.restype = None
+            lib.vd_vp9_mc.argtypes = [u8p, cint, cint, cint, cint, cint, cint,
+                                      cint, cint, cint, cint, u8p]
+            lib.vd_vp9_lf.restype = None
+            lib.vd_vp9_lf.argtypes = [u8p, cint, cint, cint, cint, cint, cint]
             _lib = lib
     return _lib
 
@@ -132,7 +149,8 @@ def _u8(a):
 
 
 class Decoder:
-    """One stream's decoder state (``MPEG4``, ``MJPEG`` or ``H264``):
+    """One stream's decoder state (``MPEG4``, ``MJPEG``, ``H264`` or ``VP9``;
+    a VP9 sample of frames that are not shown puts out nothing):
     samples in decode order in, frames in output order out (an H.264
     picture waits in a reorder buffer until its turn, as FFmpeg's decoder
     holds it). ``extradata`` holds the headers a container keeps apart from
@@ -284,7 +302,7 @@ class VideoReader:
         if codec is None:
             raise ValueError(
                 f"{self.path}: video codec {self.track.fourcc!r} is not "
-                "decoded (H.264, MPEG-4 Part 2 and MJPEG are)")
+                "decoded (H.264, VP9, MPEG-4 Part 2 and MJPEG are)")
         self.codec = codec
         self.fps = float(self.track.fps)
         load_library()
@@ -918,3 +936,324 @@ def h264_implicit_weights(cur_poc: int, pocs0, pocs1, long0=None,
     return np.array([[lib.vd_h264_implicit(int(cur_poc), int(p0), int(p1), int(l0), int(l1))
                       for p1, l1 in zip(pocs1, long1)] for p0, l0 in zip(pocs0, long0)],
                     np.int64).reshape(len(pocs0), len(pocs1))
+
+
+# --- VP9's arithmetic in plain numpy (tests only) -----------------------------
+
+_COSPI = (16384, 16364, 16305, 16207, 16069, 15893, 15679, 15426, 15137, 14811,
+          14449, 14053, 13623, 13160, 12665, 12140, 11585, 11003, 10394, 9760,
+          9102, 8423, 7723, 7005, 6270, 5520, 4756, 3981, 3196, 2404, 1606, 804)
+_SINPI = (0, 5283, 9929, 13377, 15212)
+
+
+def _r14(x):
+    return (x + (1 << 13)) >> 14
+
+
+def _idct4_vp9(x):
+    c = _COSPI
+    s0, s1 = _r14((x[0] + x[2]) * c[16]), _r14((x[0] - x[2]) * c[16])
+    s2, s3 = _r14(x[1] * c[24] - x[3] * c[8]), _r14(x[1] * c[8] + x[3] * c[24])
+    return [s0 + s3, s1 + s2, s1 - s2, s0 - s3]
+
+
+def _idct_vp9(x):
+    """libvpx's n-point inverse DCT (n = 4, 8, 16, 32) of a list of int64
+    arrays: the even half an n/2-point IDCT, the odd half its butterflies."""
+    n, c = len(x), _COSPI
+    if n == 4:
+        return _idct4_vp9(x)
+    e = _idct_vp9(x[0::2])
+    if n == 8:
+        s4, s7 = _r14(x[1] * c[28] - x[7] * c[4]), _r14(x[1] * c[4] + x[7] * c[28])
+        s5, s6 = _r14(x[5] * c[12] - x[3] * c[20]), _r14(x[5] * c[20] + x[3] * c[12])
+        t4, t5, t6, t7 = s4 + s5, s4 - s5, -s6 + s7, s6 + s7
+        o = [t7, _r14((t5 + t6) * c[16]), _r14((t6 - t5) * c[16]), t4]
+        return [e[i] + o[i] for i in range(4)] + [e[3 - i] - o[3 - i] for i in range(4)]
+    if n == 16:
+        a = {8: x[1], 9: x[9], 10: x[5], 11: x[13], 12: x[3], 13: x[11], 14: x[7], 15: x[15]}
+        b = {}
+        for lo, hi, k1, k2 in ((8, 15, 30, 2), (9, 14, 14, 18), (10, 13, 22, 10), (11, 12, 6, 26)):
+            b[lo] = _r14(a[lo] * c[k1] - a[hi] * c[k2])
+            b[hi] = _r14(a[lo] * c[k2] + a[hi] * c[k1])
+        a = {8: b[8] + b[9], 9: b[8] - b[9], 10: -b[10] + b[11], 11: b[10] + b[11],
+             12: b[12] + b[13], 13: b[12] - b[13], 14: -b[14] + b[15], 15: b[14] + b[15]}
+        b = {8: a[8], 15: a[15], 11: a[11], 12: a[12],
+             9: _r14(-a[9] * c[8] + a[14] * c[24]), 14: _r14(a[9] * c[24] + a[14] * c[8]),
+             10: _r14(-a[10] * c[24] - a[13] * c[8]), 13: _r14(-a[10] * c[8] + a[13] * c[24])}
+        a = {8: b[8] + b[11], 9: b[9] + b[10], 10: b[9] - b[10], 11: b[8] - b[11],
+             12: -b[12] + b[15], 13: -b[13] + b[14], 14: b[13] + b[14], 15: b[12] + b[15]}
+        b = {8: a[8], 9: a[9], 14: a[14], 15: a[15],
+             10: _r14((-a[10] + a[13]) * c[16]), 13: _r14((a[10] + a[13]) * c[16]),
+             11: _r14((-a[11] + a[12]) * c[16]), 12: _r14((a[11] + a[12]) * c[16])}
+        return [e[i] + b[15 - i] for i in range(8)] + [e[7 - i] - b[8 + i] for i in range(8)]
+    s = {}
+    for k, a_ in enumerate((1, 17, 9, 25, 5, 21, 13, 29)):
+        b_ = 32 - a_
+        s[16 + k] = _r14(x[a_] * c[32 - a_] - x[b_] * c[a_])
+        s[31 - k] = _r14(x[a_] * c[a_] + x[b_] * c[32 - a_])
+    t = {}
+    for k in range(16, 32, 4):
+        t[k], t[k + 1] = s[k] + s[k + 1], s[k] - s[k + 1]
+        t[k + 2], t[k + 3] = -s[k + 2] + s[k + 3], s[k + 2] + s[k + 3]
+    s = dict(t)
+    for lo, hi, k1, k2, neg in ((17, 30, 4, 28, False), (18, 29, 28, 4, True),
+                                (21, 26, 20, 12, False), (22, 25, 12, 20, True)):
+        if not neg:
+            s[lo], s[hi] = _r14(-t[lo] * c[k1] + t[hi] * c[k2]), _r14(t[lo] * c[k2] + t[hi] * c[k1])
+        else:
+            s[lo], s[hi] = _r14(-t[lo] * c[k1] - t[hi] * c[k2]), _r14(-t[lo] * c[k2] + t[hi] * c[k1])
+    t = {16: s[16] + s[19], 17: s[17] + s[18], 18: s[17] - s[18], 19: s[16] - s[19],
+         20: -s[20] + s[23], 21: -s[21] + s[22], 22: s[21] + s[22], 23: s[20] + s[23],
+         24: s[24] + s[27], 25: s[25] + s[26], 26: s[25] - s[26], 27: s[24] - s[27],
+         28: -s[28] + s[31], 29: -s[29] + s[30], 30: s[29] + s[30], 31: s[28] + s[31]}
+    s = dict(t)
+    for lo, hi in ((18, 29), (19, 28)):
+        s[lo], s[hi] = _r14(-t[lo] * c[8] + t[hi] * c[24]), _r14(t[lo] * c[24] + t[hi] * c[8])
+    for lo, hi in ((20, 27), (21, 26)):
+        s[lo], s[hi] = _r14(-t[lo] * c[24] - t[hi] * c[8]), _r14(-t[lo] * c[8] + t[hi] * c[24])
+    t = {}
+    for i in range(4):
+        t[16 + i] = s[16 + i] + s[23 - i]
+        t[23 - i] = s[16 + i] - s[23 - i]
+        t[24 + i] = -s[24 + i] + s[31 - i]
+        t[31 - i] = s[24 + i] + s[31 - i]
+    s = dict(t)
+    for k in range(4):
+        lo, hi = 20 + k, 27 - k
+        s[lo], s[hi] = _r14((-t[lo] + t[hi]) * c[16]), _r14((t[lo] + t[hi]) * c[16])
+    return [e[i] + s[31 - i] for i in range(16)] + [e[15 - i] - s[16 + i] for i in range(16)]
+
+
+def _iadst_vp9(x):
+    """libvpx's iadst4 / iadst8 / iadst16 (a zero input gives zeros)."""
+    n, c, s9 = len(x), _COSPI, _SINPI
+    zero = ~np.any(np.stack(x) != 0, axis=0)
+    if n == 4:
+        x0, x1, x2, x3 = x
+        s0, s1, s2 = s9[1] * x0, s9[2] * x0, s9[3] * x1
+        s3, s4, s5, s6 = s9[4] * x2, s9[1] * x2, s9[2] * x3, s9[4] * x3
+        s7 = x0 - x2 + x3
+        s0, s1, s3, s2 = s0 + s3 + s5, s1 - s4 - s6, s2, s9[3] * s7
+        out = [_r14(s0 + s3), _r14(s1 + s3), _r14(s2), _r14(s0 + s1 - s3)]
+    elif n == 8:
+        x0, x1, x2, x3, x4, x5, x6, x7 = (x[7], x[0], x[5], x[2], x[3], x[4], x[1], x[6])
+        s = [c[2] * x0 + c[30] * x1, c[30] * x0 - c[2] * x1, c[10] * x2 + c[22] * x3,
+             c[22] * x2 - c[10] * x3, c[18] * x4 + c[14] * x5, c[14] * x4 - c[18] * x5,
+             c[26] * x6 + c[6] * x7, c[6] * x6 - c[26] * x7]
+        x0, x1, x2, x3 = (_r14(s[i] + s[i + 4]) for i in range(4))
+        x4, x5, x6, x7 = (_r14(s[i] - s[i + 4]) for i in range(4))
+        s4, s5 = c[8] * x4 + c[24] * x5, c[24] * x4 - c[8] * x5
+        s6, s7 = -c[24] * x6 + c[8] * x7, c[8] * x6 + c[24] * x7
+        x0, x1, x2, x3 = x0 + x2, x1 + x3, x0 - x2, x1 - x3
+        x4, x5, x6, x7 = _r14(s4 + s6), _r14(s5 + s7), _r14(s4 - s6), _r14(s5 - s7)
+        x2, x3 = _r14(c[16] * (x2 + x3)), _r14(c[16] * (x2 - x3))
+        x6, x7 = _r14(c[16] * (x6 + x7)), _r14(c[16] * (x6 - x7))
+        out = [x0, -x4, x6, -x2, x3, -x7, x5, -x1]
+    else:
+        v = [x[i] for i in (15, 0, 13, 2, 11, 4, 9, 6, 7, 8, 5, 10, 3, 12, 1, 14)]
+        ks = (1, 5, 9, 13, 17, 21, 25, 29)
+        s = []
+        for j, k in enumerate(ks):
+            a, b = v[2 * j], v[2 * j + 1]
+            s += [a * c[k] + b * c[32 - k], a * c[32 - k] - b * c[k]]
+        v = [_r14(s[i] + s[i + 8]) for i in range(8)] + [_r14(s[i] - s[i + 8]) for i in range(8)]
+        s = v[:8] + [v[8] * c[4] + v[9] * c[28], v[8] * c[28] - v[9] * c[4],
+                     v[10] * c[20] + v[11] * c[12], v[10] * c[12] - v[11] * c[20],
+                     -v[12] * c[28] + v[13] * c[4], v[12] * c[4] + v[13] * c[28],
+                     -v[14] * c[12] + v[15] * c[20], v[14] * c[20] + v[15] * c[12]]
+        v = [s[i] + s[i + 4] for i in range(4)] + [s[i] - s[i + 4] for i in range(4)] + \
+            [_r14(s[8 + i] + s[12 + i]) for i in range(4)] + [_r14(s[8 + i] - s[12 + i]) for i in range(4)]
+        def rot(a, b):
+            return [a * c[8] + b * c[24], a * c[24] - b * c[8]]
+
+        def rot2(a, b):
+            return [-a * c[24] + b * c[8], a * c[8] + b * c[24]]
+        s = v[0:4] + rot(v[4], v[5]) + rot2(v[6], v[7]) + v[8:12] + rot(v[12], v[13]) + rot2(v[14], v[15])
+        v = [s[0] + s[2], s[1] + s[3], s[0] - s[2], s[1] - s[3],
+             _r14(s[4] + s[6]), _r14(s[5] + s[7]), _r14(s[4] - s[6]), _r14(s[5] - s[7]),
+             s[8] + s[10], s[9] + s[11], s[8] - s[10], s[9] - s[11],
+             _r14(s[12] + s[14]), _r14(s[13] + s[15]), _r14(s[12] - s[14]), _r14(s[13] - s[15])]
+        x2, x3 = _r14(-c[16] * (v[2] + v[3])), _r14(c[16] * (v[2] - v[3]))
+        x6, x7 = _r14(c[16] * (v[6] + v[7])), _r14(c[16] * (-v[6] + v[7]))
+        x10, x11 = _r14(c[16] * (v[10] + v[11])), _r14(c[16] * (-v[10] + v[11]))
+        x14, x15 = _r14(-c[16] * (v[14] + v[15])), _r14(c[16] * (v[14] - v[15]))
+        out = [v[0], -v[8], v[12], -v[4], x6, x14, x10, x2, x3, x11, x15, x7,
+               v[5], -v[13], v[9], -v[1]]
+    return [np.where(zero, 0, o) for o in out]
+
+
+def vp9_transform_1d(x, adst: bool):
+    """One 1-D inverse transform of libvpx's (the plain version's) over the
+    rows of the int64 array x (n inputs a row)."""
+    cols = [x[:, k].astype(np.int64) for k in range(x.shape[1])]
+    return np.stack((_iadst_vp9 if adst else _idct_vp9)(cols), axis=1)
+
+
+def vp9_itx_ref(coef: np.ndarray, tx: int, tx_type: int, pred: np.ndarray) -> np.ndarray:
+    """VP9's inverse transform of one n x n block (n = 4 << tx) of
+    dequantised coefficients (raster order), added to the uint8 prediction:
+    ``tx_type`` 0-3 (DCT_DCT, ADST_DCT: ADST down the columns, DCT_ADST,
+    ADST_ADST; 32x32 is DCT only) or 4, the WHT of lossless frames (tx 0).
+    Rows first, then columns, then the rounding shift of the size; no
+    16-bit wrap (FFmpeg's arithmetic, equal on a conforming stream)."""
+    c = np.asarray(coef, np.int64).reshape(4 << tx, 4 << tx)
+    p = np.asarray(pred, np.int64)
+    if tx_type == 4:
+        def wht(a, c_, d, b):  # vpx_iwht4x4_16_add_c's butterflies
+            a = a + c_
+            d = d - b
+            e = (a - d) >> 1
+            b, c_ = e - b, e - c_
+            return a - b, b, c_, d + c_
+        rows = np.stack(wht(*(c[:, k] >> 2 for k in range(4))), axis=1)
+        res = np.stack(wht(*(rows[k] for k in range(4))), axis=0)
+        return np.clip(p + res, 0, 255).astype(np.uint8)
+    row_adst = tx < 3 and tx_type in (2, 3)
+    col_adst = tx < 3 and tx_type in (1, 3)
+    t = vp9_transform_1d(c, row_adst)
+    t = vp9_transform_1d(t.T, col_adst).T
+    shift = 4 if tx == 0 else 5 if tx == 1 else 6
+    return np.clip(p + ((t + (1 << (shift - 1))) >> shift), 0, 255).astype(np.uint8)
+
+
+def _vp9_taps(filt: int) -> np.ndarray:
+    if filt == 3:
+        k = np.arange(16)
+        t = np.zeros((16, 8), np.int64)
+        t[:, 3], t[:, 4] = 128 - 8 * k, 8 * k
+        return t
+    return _VP9_FILTERS[filt]
+
+
+# libvpx's vp9_filter.c kernels: regular, smooth (lp), sharp; row 0 is the copy
+_VP9_FILTERS = np.array([
+    [[0, 0, 0, 128, 0, 0, 0, 0], [0, 1, -5, 126, 8, -3, 1, 0],
+     [-1, 3, -10, 122, 18, -6, 2, 0], [-1, 4, -13, 118, 27, -9, 3, -1],
+     [-1, 4, -16, 112, 37, -11, 4, -1], [-1, 5, -18, 105, 48, -14, 4, -1],
+     [-1, 5, -19, 97, 58, -16, 5, -1], [-1, 6, -19, 88, 68, -18, 5, -1],
+     [-1, 6, -19, 78, 78, -19, 6, -1], [-1, 5, -18, 68, 88, -19, 6, -1],
+     [-1, 5, -16, 58, 97, -19, 5, -1], [-1, 4, -14, 48, 105, -18, 5, -1],
+     [-1, 4, -11, 37, 112, -16, 4, -1], [-1, 3, -9, 27, 118, -13, 4, -1],
+     [0, 2, -6, 18, 122, -10, 3, -1], [0, 1, -3, 8, 126, -5, 1, 0]],
+    [[0, 0, 0, 128, 0, 0, 0, 0], [-3, -1, 32, 64, 38, 1, -3, 0],
+     [-2, -2, 29, 63, 41, 2, -3, 0], [-2, -2, 26, 63, 43, 4, -4, 0],
+     [-2, -3, 24, 62, 46, 5, -4, 0], [-2, -3, 21, 60, 49, 7, -4, 0],
+     [-1, -4, 18, 59, 51, 9, -4, 0], [-1, -4, 16, 57, 53, 12, -4, -1],
+     [-1, -4, 14, 55, 55, 14, -4, -1], [-1, -4, 12, 53, 57, 16, -4, -1],
+     [0, -4, 9, 51, 59, 18, -4, -1], [0, -4, 7, 49, 60, 21, -3, -2],
+     [0, -4, 5, 46, 62, 24, -3, -2], [0, -4, 4, 43, 63, 26, -2, -2],
+     [0, -3, 2, 41, 63, 29, -2, -2], [0, -3, 1, 38, 64, 32, -1, -3]],
+    [[0, 0, 0, 128, 0, 0, 0, 0], [-1, 3, -7, 127, 8, -3, 1, 0],
+     [-2, 5, -13, 125, 17, -6, 3, -1], [-3, 7, -17, 121, 27, -10, 5, -2],
+     [-4, 9, -20, 115, 37, -13, 6, -2], [-4, 10, -23, 108, 48, -16, 8, -3],
+     [-4, 10, -24, 100, 59, -19, 9, -3], [-4, 11, -24, 90, 70, -21, 10, -4],
+     [-4, 11, -23, 80, 80, -23, 11, -4], [-4, 10, -21, 70, 90, -24, 11, -4],
+     [-3, 9, -19, 59, 100, -24, 10, -4], [-3, 8, -16, 48, 108, -23, 10, -4],
+     [-2, 6, -13, 37, 115, -20, 9, -4], [-2, 5, -10, 27, 121, -17, 7, -3],
+     [-1, 3, -6, 17, 125, -13, 5, -2], [0, 1, -3, 8, 127, -7, 3, -1]]], np.int64)
+
+
+def vp9_mc_ref(plane: np.ndarray, x: int, y: int, fx: int, fy: int, w: int,
+               h: int, filt: int, dst=None) -> np.ndarray:
+    """One w x h inter prediction of uint8 ``plane`` at full-sample (x, y)
+    plus the 1/16 fraction (fx, fy), samples outside the plane those of its
+    edge: the 8-tap filter ``filt`` (0 regular, 1 smooth, 2 sharp, 3
+    bilinear) across the rows the vertical pass needs, rounded and clipped
+    to 8 bits, then down the columns; where ``dst`` is given, the rounded
+    average with it (a compound block's second prediction)."""
+    ph, pw = plane.shape
+    ys = np.clip(np.arange(y - 3, y + h + 4), 0, ph - 1)
+    xs = np.clip(np.arange(x - 3, x + w + 4), 0, pw - 1)
+    src = plane[np.ix_(ys, xs)].astype(np.int64)
+    taps = _vp9_taps(filt)
+    if fx:
+        t = sum(taps[fx][k] * src[:, k:k + w] for k in range(8))
+        t = np.clip((t + 64) >> 7, 0, 255)
+    else:
+        t = src[:, 3:3 + w]
+    if fy:
+        o = sum(taps[fy][k] * t[k:k + h] for k in range(8))
+        o = np.clip((o + 64) >> 7, 0, 255)
+    else:
+        o = t[3:3 + h]
+    if dst is not None:
+        o = (np.asarray(dst, np.int64) + o + 1) >> 1
+    return o.astype(np.uint8)
+
+
+def _vp9_limits(level: int, sharp: int):
+    limit = level
+    if sharp > 0:
+        limit = min(limit >> ((sharp + 3) >> 2), 9 - sharp)
+    limit = max(limit, 1)
+    return 2 * (level + 2) + limit, limit, level >> 4
+
+
+def vp9_lf_ref(lines: np.ndarray, wd: int, level: int, sharp: int) -> np.ndarray:
+    """One VP9 loop-filter edge (FFmpeg's vp9dsp loop_filter) across uint8
+    ``lines`` (n x 16: p7..p0 | q0..q7, the edge between columns 7 and 8),
+    filter width ``wd`` (4, 8, 16) at ``level`` and ``sharpness``."""
+    E, I, H = _vp9_limits(level, sharp)
+    out = np.array(lines, np.int64)
+    for v in out:
+        p = v[7::-1]  # p0, p1, ...
+        q = v[8:]
+        if not (max(abs(p[3] - p[2]), abs(p[2] - p[1]), abs(p[1] - p[0]), abs(q[1] - q[0]),
+                    abs(q[2] - q[1]), abs(q[3] - q[2])) <= I and
+                abs(p[0] - q[0]) * 2 + (abs(p[1] - q[1]) >> 1) <= E):
+            continue
+        flat8in = wd >= 8 and all(abs(p[k] - p[0]) <= 1 and abs(q[k] - q[0]) <= 1
+                                  for k in (1, 2, 3))
+        flat8out = wd >= 16 and flat8in and all(abs(p[k] - p[0]) <= 1 and
+                                                abs(q[k] - q[0]) <= 1 for k in range(4, 8))
+        if flat8out or flat8in:
+            m = 16 if flat8out else 8
+            lo = 8 - m // 2
+            seg = v[lo:lo + m].copy()
+            half = m // 2 - 1
+            for k in range(1, m - 1):
+                idx = np.clip(np.arange(k - half, k + half + 1), 0, m - 1)
+                v[lo + k] = (seg[idx].sum() + seg[k] + m // 2) >> (4 if m == 16 else 3)
+            continue
+        p0, p1, q0, q1 = p[0], p[1], q[0], q[1]
+        hev = abs(p1 - p0) > H or abs(q1 - q0) > H
+        f = np.clip(p1 - q1, -128, 127) if hev else 0
+        f = int(np.clip(3 * (q0 - p0) + f, -128, 127))
+        f1, f2 = min(f + 4, 127) >> 3, min(f + 3, 127) >> 3
+        v[7], v[8] = np.clip(p0 + f2, 0, 255), np.clip(q0 - f1, 0, 255)
+        if not hev:
+            f = (f1 + 1) >> 1
+            v[6], v[9] = np.clip(p1 + f, 0, 255), np.clip(q1 - f, 0, 255)
+    return out.astype(np.uint8)
+
+
+def vp9_itx(coef, tx: int, tx_type: int, pred) -> np.ndarray:
+    """The compiled ``vp9_itx_ref``."""
+    lib = load_library()
+    c = np.ascontiguousarray(coef, np.int16)
+    out = np.array(pred, np.uint8, order="C", copy=True)
+    lib.vd_vp9_itx(c.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), int(tx),
+                   int(tx_type), _u8(out))
+    return out
+
+
+def vp9_mc(plane, x: int, y: int, fx: int, fy: int, w: int, h: int, filt: int,
+           dst=None) -> np.ndarray:
+    """The compiled ``vp9_mc_ref``."""
+    lib = load_library()
+    p = np.ascontiguousarray(plane, np.uint8)
+    out = np.zeros((h, w), np.uint8) if dst is None else np.array(dst, np.uint8, order="C", copy=True)
+    lib.vd_vp9_mc(_u8(p), p.shape[1], p.shape[0], int(x), int(y), int(fx), int(fy),
+                  int(w), int(h), int(filt), int(dst is not None), _u8(out))
+    return out
+
+
+def vp9_lf(lines, wd: int, level: int, sharp: int) -> np.ndarray:
+    """The compiled ``vp9_lf_ref``."""
+    lib = load_library()
+    out = np.array(lines, np.uint8, order="C", copy=True)
+    ptr = out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    edge = ctypes.cast(ctypes.addressof(ptr.contents) + 8, ctypes.POINTER(ctypes.c_uint8))
+    lib.vd_vp9_lf(edge, out.shape[1], 1, out.shape[0], int(wd), int(level), int(sharp))
+    return out

@@ -313,6 +313,7 @@ struct Frame {
 };
 
 #include "h264_decode.cpp"
+#include "vp9_decode.cpp"
 
 // --- MPEG-4 Part 2 ---------------------------------------------------------
 
@@ -1134,20 +1135,22 @@ struct Mjpeg {
 };
 
 struct Handle {
-  int codec;  // 1 MPEG-4 Part 2, 2 MJPEG, 3 H.264
+  int codec;  // 1 MPEG-4 Part 2, 2 MJPEG, 3 H.264, 4 VP9
   Mpeg4 m4;
   Mjpeg mj;
   std::unique_ptr<h264::Decoder> avc;
+  std::unique_ptr<vp9::Decoder> vp9;
   int64_t tag = -1;  // MPEG-4 / MJPEG: the last sample's tag
   const Frame* frame() const {
     if (codec == 1) return m4.have_frame ? &m4.cur : nullptr;
     if (codec == 3) return avc->have_frame ? &avc->out : nullptr;
+    if (codec == 4) return vp9->have_frame ? vp9->out.get() : nullptr;
     return mj.have_frame ? &mj.cur : nullptr;
   }
   bool full_range() const {
-    return codec == 2 || (codec == 3 && avc->full_range);
+    return codec == 2 || (codec == 3 && avc->full_range) || (codec == 4 && vp9->full_range);
   }
-  int matrix() const { return codec == 3 ? avc->matrix : 2; }
+  int matrix() const { return codec == 3 ? avc->matrix : codec == 4 ? vp9->matrix : 2; }
 };
 
 void set_err(char* err, int errlen, const char* msg) {
@@ -1158,7 +1161,8 @@ void set_err(char* err, int errlen, const char* msg) {
 
 extern "C" {
 
-// A decoder of `codec` (1: MPEG-4 Part 2, 2: MJPEG, 3: H.264). For MPEG-4,
+// A decoder of `codec` (1: MPEG-4 Part 2, 2: MJPEG, 3: H.264, 4: VP9, whose
+// samples carry all its headers). For MPEG-4,
 // `extra` holds the headers the container keeps apart (MP4 esds'
 // DecoderSpecificInfo, Matroska CodecPrivate), or is empty; for H.264 the
 // avcC record (samples are then length-prefixed NAL units) or nothing
@@ -1167,7 +1171,7 @@ extern "C" {
 void* vd_open(int codec, const uint8_t* extra, int64_t n, char* err,
               int errlen) {
   try {
-    if (codec < 1 || codec > 3) throw Error("unknown codec");
+    if (codec < 1 || codec > 4) throw Error("unknown codec");
     std::unique_ptr<Handle> h(new Handle());
     h->codec = codec;
     if (codec == 1 && n > 0) h->m4.parse(extra, n);
@@ -1175,6 +1179,7 @@ void* vd_open(int codec, const uint8_t* extra, int64_t n, char* err,
       h->avc.reset(new h264::Decoder());
       h->avc->open(extra, n);
     }
+    if (codec == 4) h->vp9.reset(new vp9::Decoder());
     return h.release();
   } catch (const std::exception& e) {
     set_err(err, errlen, e.what());
@@ -1188,7 +1193,7 @@ void vd_close(void* h) { delete static_cast<Handle*>(h); }
 // width and height in wh; an H.264 picture may come out of a later sample,
 // in output order, and its tag says which sample it was), 0 when the
 // sample puts no frame out (an H.264 picture waiting for its turn, or one
-// dropped), or -1 with a message in err (no picture in the sample, data
+// dropped; a VP9 sample of frames that are not shown), or -1 with a message in err (no picture in the sample, data
 // that ends early or does not parse, a refused feature).
 int vd_decode(void* hp, const uint8_t* data, int64_t n, int64_t tag, int32_t* wh,
               char* err, int errlen) {
@@ -1198,10 +1203,12 @@ int vd_decode(void* hp, const uint8_t* data, int64_t n, int64_t tag, int32_t* wh
       if (!h->m4.parse(data, n)) throw Error("MPEG-4 sample without a VOP");
     } else if (h->codec == 3) {
       if (!h->avc->decode(data, n, tag)) return 0;
+    } else if (h->codec == 4) {
+      if (!h->vp9->decode(data, n, tag)) return 0;
     } else {
       h->mj.decode(data, n);
     }
-    if (h->codec != 3) h->tag = tag;
+    if (h->codec != 3 && h->codec != 4) h->tag = tag;
     const Frame* f = h->frame();
     wh[0] = f->w;
     wh[1] = f->h;
@@ -1225,7 +1232,7 @@ int vd_flush(void* hp, int32_t* wh) {
 // The last frame's tag.
 int64_t vd_tag(void* hp) {
   Handle* h = static_cast<Handle*>(hp);
-  return h->codec == 3 ? h->avc->out_tag : h->tag;
+  return h->codec == 3 ? h->avc->out_tag : h->codec == 4 ? h->vp9->out_tag : h->tag;
 }
 
 // H.264's reorder delay (FFmpeg's has_b_frames): set where decoding starts
@@ -1363,6 +1370,32 @@ void vd_h264_edge(uint8_t* pix, int stride, int n, int bs, int index_a,
     h264::filter_line(pix + (size_t)i * stride, 1, bs, h264::kAlpha[index_a],
                       h264::kBeta[index_b],
                       bs < 4 ? h264::kTc0[index_a][bs - 1] : 0, chroma != 0);
+}
+
+// VP9's arithmetic alone, for the tests: one n x n inverse transform
+// (n = 4 << tx; type 0-3: DCT_DCT, ADST_DCT, DCT_ADST, ADST_ADST; 4: the
+// WHT of lossless frames, tx 0) of dequantised coefficients (raster order)
+// added to dst (stride n); one w x h block at (x, y) + the 1/16 fraction
+// (fx, fy) of a w x h plane read past its edges, filter 0 regular, 1
+// smooth, 2 sharp, 3 bilinear, put (avg 0) or averaged with dst (avg 1);
+// one loop-filter edge of n lines through pix (along: the stride between
+// lines, across: between the samples of a line, p3..p0 | q0..q3 at
+// -4..3), wd 4, 8 or 16, at filter level `level` and sharpness `sharp`.
+void vd_vp9_itx(const int16_t* coef, int tx, int type, uint8_t* dst) {
+  vp9::inverse_transform_add(coef, tx, type == 4 ? 0 : type, type == 4, dst, 4 << tx);
+}
+
+void vd_vp9_mc(const uint8_t* src, int w, int h, int x, int y, int fx, int fy,
+               int bw, int bh, int filter, int avg, uint8_t* dst) {
+  vp9::predict_block(src, w, w, h, x, y, fx, fy, bw, bh, filter, avg != 0, dst, bw);
+}
+
+void vd_vp9_lf(uint8_t* pix, int along, int across, int n, int wd, int level,
+               int sharp) {
+  vp9::LfLut lut;
+  lut.set(sharp);
+  vp9::filter_edge(pix, along, across, n, wd, lut.mblim[level], lut.lim[level],
+                   level >> 4);
 }
 
 }  // extern "C"

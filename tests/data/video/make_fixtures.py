@@ -4,7 +4,13 @@ the SHA-256 of ``cv2.VideoCapture``'s RGB frame and of the port's
 (``data/video.py``), with the largest and the mean absolute difference
 between the two. The MPEG-4 Part 2 and MJPEG files come from OpenCV's
 writer (``cv2.VideoWriter``, its FFmpeg backend), which writes no H.264;
-the H.264 files from the test writer ``tests/torch_h264_writer.py``:
+the VP9 files from cv2's writer too (libvpx: ``VP90`` into Matroska and
+AVI, ``vp09`` into MP4) and from the test writer
+``tests/torch_vp9_writer.py`` (random legal syntax of the tools libvpx
+through cv2 never writes: hidden frames and ``show_existing_frame``,
+compound prediction, backward adaptation with intra-only and
+error-resilient frames, segmentation with lossless and delta-q, tile
+rows); the H.264 files from the test writer ``tests/torch_h264_writer.py``:
 random legal syntax from a seed (CAVLC and CABAC, in MP4, Matroska and
 AVI) and its small encoder's pans (a cropped 152x104 clip, a 1920x1080 one
 coded at 1088, and the 640x480 clips of the CLI run and the host timing);
@@ -15,8 +21,9 @@ clip).
     python tests/data/video/make_fixtures.py          # every file
     python tests/data/video/make_fixtures.py h264     # the H.264 I/P files
     python tests/data/video/make_fixtures.py h264b    # the H.264 B files
+    python tests/data/video/make_fixtures.py vp9      # the VP9 files
 
-The second form keeps the cv2-written files and their digests as they are:
+The last three forms keep the cv2-written files and their digests as they are:
 cv2 rewrites the MP4, MOV and AVI files byte for byte, but FFmpeg's
 Matroska muxer draws a new segment UID and track UID (and the CRC-32s over
 them) each run, so every full run changes ``mp4v.mkv`` and ``mjpg.mkv``
@@ -43,6 +50,7 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[2]))
 sys.path.insert(0, str(HERE.parents[1]))
 import torch_h264_writer as W  # noqa: E402
+import torch_vp9_writer as W9  # noqa: E402
 
 from mast3r_slam_tpu_torch.data import video  # noqa: E402
 
@@ -103,6 +111,25 @@ H264B_PANS = {
     "cli_640x480_h264_b.mp4": (16, (480, 640), True, 24, (0, 0, 0, 0), (6.25, 2.125)),
 }
 H264B_NAMES = tuple(H264B_RANDOM) + tuple(H264B_PANS)
+# VP9 from cv2's writer: name: (fourcc, (height, width), frames, kind). cv2
+# codes the 131x99 busy clip at 130x98 (its writer halves odd sizes down)
+VP9_FILES = {
+    "vp9.mkv": ("VP90", (120, 160), 16, "pan"),
+    "vp9.mp4": ("vp09", (120, 160), 16, "pan"),
+    "vp9.avi": ("VP90", (120, 160), 16, "pan"),
+    "vp9_busy_131x99.mkv": ("VP90", (99, 131), 14, "busy"),
+    "cli_640x480_vp9.mkv": ("VP90", (480, 640), 16, "pan"),
+    "vp9_1920x1080.mkv": ("VP90", (1080, 1920), 4, "pan"),
+}
+# and from the test writer: name: (tool group, seed, frames)
+VP9_RANDOM = {
+    "vp9_hidden.mkv": ("hidden", 101, 8),
+    "vp9_compound.mp4": ("compound", 100, 8),
+    "vp9_adapt.avi": ("adapt", 103, 8),
+    "vp9_seg.mkv": ("seg", 101, 8),
+    "vp9_tiles.mp4": ("tiles", 100, 8),
+}
+VP9_NAMES = tuple(VP9_FILES) + tuple(VP9_RANDOM)
 
 
 def pan_frames(n, hw, step=(6.0, 2.0), seed=0):
@@ -195,17 +222,35 @@ def record(path, fourcc, hw):
             "frames": frames}
 
 
+def write_vp9(path, name):
+    """A VP9 fixture; returns its fourcc and (height, width)."""
+    if name in VP9_FILES:
+        fourcc, hw, n, kind = VP9_FILES[name]
+        write(path, fourcc, hw, n, kind)
+    else:
+        group, seed, n = VP9_RANDOM[name]
+        W9.MUX[path.suffix[1:]](path, W9.random_stream(seed, group, frames=n))
+    t = video.VideoReader(path).track
+    return t.fourcc, (t.height, t.width)
+
+
 def main(which="all"):
     out = {}
     digests = HERE / "digests.json"
-    names = {"h264": H264_NAMES, "h264b": H264B_NAMES}.get(which, H264_NAMES + H264B_NAMES)
-    if which in ("h264", "h264b") and digests.exists():
+    names = {"h264": H264_NAMES, "h264b": H264B_NAMES, "vp9": ()}.get(
+        which, H264_NAMES + H264B_NAMES)
+    vp9 = which in ("vp9", "all")
+    if which in ("h264", "h264b", "vp9") and digests.exists():
+        drop = VP9_NAMES if which == "vp9" else names
         out = {k: v for k, v in json.loads(digests.read_text()).items()
-               if k not in names}
+               if k not in drop}
     else:
         for name, (fourcc, hw, n, kind) in FILES.items():
             write(HERE / name, fourcc, hw, n, kind)
             out[name] = record(HERE / name, fourcc, hw)
+    for name in VP9_NAMES if vp9 else ():
+        fourcc, hw = write_vp9(HERE / name, name)
+        out[name] = record(HERE / name, fourcc, hw)
     for name in names:
         path = HERE / name
         clip = write_h264(path, name)

@@ -31,7 +31,8 @@ FIXTURES = Path(__file__).resolve().parent / "data" / "video"
 DIGESTS = json.loads((FIXTURES / "digests.json").read_text())
 NAMES = sorted(DIGESTS)
 # max |port - cv2| per codec, in LSB of the RGB frames (measured: 0)
-FRAME_TOL = {"mp4v": 0, "XVID": 0, "MJPG": 0, "avc1": 0, "H264": 0}
+FRAME_TOL = {"mp4v": 0, "XVID": 0, "MJPG": 0, "avc1": 0, "H264": 0, "VP90": 0,
+             "vp09": 0}
 RNG = np.random.default_rng(22)
 
 
