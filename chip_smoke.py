@@ -242,19 +242,24 @@ then:
    and IBBP clips at 1920x1080 and 480x640; VP9 from cv2's writer in
    Matroska, MP4 and AVI at 160x120, 130x98, 480x640 and 1920x1080 and the
    VP9 test writer's hidden / compound / adaptation / segmentation / tile
-   streams), in order and backwards (each seek decoding from an IDR
-   picture or a VP9 key frame), to the SHA-256 digests of
+   streams; MPEG-4 Part 2 as Xvid and DivX write it from the MPEG-4 test
+   writer: an IBBP clip at 480x640 under the Xvid IDCT, B-VOPs in MP4 and
+   Matroska BlockGroups, packed B-VOPs in AVI, the I/P tools under FF_BUG_EDGE
+   and DC_CLIP), in order and backwards (each seek decoding from an IDR
+   picture, a VP9 key frame or, as OpenCV seeks, an I-VOP), to the SHA-256 digests of
    cv2.VideoCapture's frames recorded beside them; times the host ms a
    480x640 frame of MPEG-4 I-VOPs, P-VOPs, MJPEG and H.264 (an IDR
    picture, CAVLC P and CABAC P pictures, and the B and P pictures of the
-   IBBP clip; VP9 key and inter frames) and a 1920x1080 H.264 frame (and the
+   IBBP clip; VP9 key and inter frames; the Xvid IBBP clip's I-, P- and
+   B-VOPs) and a 1920x1080 H.264 frame (and the
    IBBP clip's B and P pictures, and VP9 key and inter frames), beside the
    compiled and plain numpy converters on the same planes (equal bytes);
    holds VP9's three plain versions (``vp9_itx_ref``, ``vp9_mc_ref``,
-   ``vp9_lf_ref``) against the compiled entries; then runs the CLI at full
-   ViT-L width on the committed 16-frame 480x640 mp4v clip, the H.264 I/P
-   one, the H.264 IBBP one and the VP9 one under base.yaml with the
-   services off (bf16): all 16 frames
+   ``vp9_lf_ref``) and MPEG-4's (``xvid_idct_ref``, ``hpel_ref``,
+   ``mpeg4_bipred_ref``) against the compiled entries; then runs the CLI at
+   full ViT-L width on the committed 16-frame 480x640 mp4v clip, the H.264
+   I/P one, the H.264 IBBP one, the VP9 one and the Xvid IBBP one under
+   base.yaml with the services off (bf16): all 16 frames
    read, the outputs checked, K1, K2 (implicit GEMM) and K4 (tensor cores)
    launched and counted as each run's calls need, with its median tracked
    frame and frame read (``dataset[i]`` + ``create_frame``).
@@ -3952,6 +3957,13 @@ VIDEO_H264_1080 = "h264_1920x1080.mp4"  # 4 frames of H.264, coded at 1088
 VIDEO_CLI_H264_B = "cli_640x480_h264_b.mp4"  # 16 frames of H.264 IBBP (CABAC)
 VIDEO_H264_B_1080 = "h264_b_1920x1080.mp4"  # 6 frames of H.264 IBBP, at 1088
 VIDEO_CLI_VP9 = "cli_640x480_vp9.mkv"  # 16 frames of VP9 (libvpx via cv2), 2 tile columns
+# 16 frames of MPEG-4 Part 2 as Xvid writes it (XviD0064, fourcc XVID:
+# FFmpeg's Xvid IDCT), IBBP with 4MV and AC prediction, and the test
+# writer's smaller Xvid / DivX streams (B-VOPs in MP4 and Matroska, packed
+# B-VOPs in AVI, the I/P tools under FF_BUG_EDGE / DC_CLIP)
+VIDEO_CLI_XVID_B = "cli_640x480_xvid_b.avi"
+VIDEO_MPEG4_WRITER = (VIDEO_CLI_XVID_B, "xvid_b.mp4", "xvid_b4mv.mkv", "divx_packed.avi",
+                      "xvid_tools_66x50.avi")
 VIDEO_VP9_1080 = "vp9_1920x1080.mkv"  # 4 frames of VP9, 4 tile columns
 VIDEO_REPS = 10                     # timed passes over each codec's frames
 VIDEO_HW = (480, 640)
@@ -3973,6 +3985,8 @@ def video_fixture_reads():
     check(sum(d["fourcc"] in ("VP90", "vp09") for d in rec.values()) == 11
           and VIDEO_CLI_VP9 in rec and VIDEO_VP9_1080 in rec,
           "video: the VP9 fixtures are not in digests.json")
+    check(all(n in rec for n in VIDEO_MPEG4_WRITER),
+          "video: the MPEG-4 writer's fixtures are not in digests.json")
     n = 0
     for name, want in sorted(rec.items()):
         r = video.VideoReader(VIDEO_FIXTURES / name)
@@ -4016,10 +4030,12 @@ def video_decode_times(smi):
     CAVLC P pictures (the CAVLC clip's samples 1-3); and at 1920x1080 the
     H.264 clip's 4 pictures (IDR and P, coded at 1088, cropped); each beside
     the compiled and the plain numpy converter on the same planes, which
-    must give the same bytes. Then the IBBP clips (480x640 and 1920x1080):
-    each sample decoded in turn with the frame it puts out converted, B
-    pictures and P pictures timed apart (a B picture's sample puts out
-    itself, a P picture's the B picture before it in display order)."""
+    must give the same bytes. Then the IBBP clips (480x640 and 1920x1080;
+    H.264, and the Xvid one at 480x640 with its I-VOP too): each sample
+    decoded in turn with the frame it puts out converted, B pictures and P
+    pictures timed apart (a B picture's sample puts out itself, a P
+    picture's the B picture before it in display order, an Xvid I- or
+    P-VOP's the reference before it)."""
     import numpy as np
 
     from mast3r_slam_tpu_torch.data import video
@@ -4082,6 +4098,23 @@ def video_decode_times(smi):
         out[kind] = dict(ms=ms, convert_ms=statistics.median(conv),
                          plain_convert_ms=statistics.median(plain),
                          frames=len(frames), hw=list(hw))
+    tx, xs = video_samples(VIDEO_CLI_XVID_B)
+    vop = [data[data.index(b"\x00\x00\x01\xb6") + 4] >> 6 for data in xs]
+    ms = {0: [], 1: [], 2: []}
+    for _ in range(VIDEO_REPS):
+        dec = video.Decoder(video.MPEG4, tx.extradata, "XVID")
+        for k, data in enumerate(xs):
+            t0 = time.perf_counter()
+            if dec.decode(data, k):
+                dec.rgb()
+            ms[vop[k]].append((time.perf_counter() - t0) * 1e3)
+        while dec.flush():
+            check(dec.rgb().shape == (*VIDEO_HW, 3), "video: Xvid frame shape")
+    check(dec.mpeg4_info()["xvid_idct"], "video: the Xvid clip not under the Xvid IDCT")
+    for t, tag in ((0, "xvid_i"), (1, "xvid_p"), (2, "xvid_b")):
+        out[tag] = dict(ms=statistics.median(ms[t]), frames=len(ms[t]) // VIDEO_REPS,
+                        hw=list(VIDEO_HW), convert_ms=float("nan"),
+                        plain_convert_ms=float("nan"))
     for name, tag, hw in ((VIDEO_CLI_H264_B, "h264_ibbp", VIDEO_HW),
                           (VIDEO_H264_B_1080, "h264_ibbp_1080", (1080, 1920))):
         tb, bs = video_samples(name)
@@ -4113,6 +4146,65 @@ def video_decode_times(smi):
                              if v["convert_ms"] != v["convert_ms"])
         + f"; median of {VIDEO_REPS} passes; on {smi}")
     return out
+
+
+def mpeg4_plain_checks():
+    """MPEG-4 Part 2's plain numpy versions against the compiled entries
+    on random inputs: the Xvid IDCT put and added (DC rows, sparse, dense
+    and 16-bit-saturating blocks), half-pel blocks 8 and 16 wide at every
+    position with and without rounding (the 8-wide no_rnd approximation),
+    and the B-VOP average of two half-pel predictions, past the planes'
+    edges; the cases held, each equal bit for bit."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.data import video
+
+    rng = np.random.default_rng(26)
+    n = 0
+    for trial in range(200):
+        blk = np.zeros(64, np.int16)
+        kind = trial % 4
+        if kind == 0:
+            blk[::8] = rng.integers(-2048, 2048, 8)
+        elif kind == 1:
+            k = int(rng.integers(1, 10))
+            blk[rng.integers(0, 64, k)] = rng.integers(-300, 300, k)
+        elif kind == 2:
+            blk[:] = rng.integers(-2048, 2048, 64)
+        else:
+            blk[rng.integers(0, 64, 3)] = rng.integers(-32768, 32768, 3)
+        base = rng.integers(0, 256, (8, 8)).astype(np.uint8)
+        for add in (0, 1):
+            want = np.clip(base.astype(np.int64) * add + video.xvid_idct_ref(blk), 0, 255)
+            check(np.array_equal(video.xvid_idct(blk, add, base), want),
+                  f"video: xvid_idct (add {add}) differs from its plain version")
+            n += 1
+    plane = rng.integers(0, 256, (21, 27)).astype(np.uint8)
+    plane[rng.random(plane.shape) < 0.2] = 0  # where no_rnd's approximation shows
+    other = rng.integers(0, 256, (21, 27)).astype(np.uint8)
+    for size in (8, 16):
+        for dxy in range(4):
+            for rounding in (0, 1):
+                for _ in range(6):
+                    x, y = int(rng.integers(-20, 30)), int(rng.integers(-20, 25))
+                    got = np.empty((size, size), np.uint8)
+                    video.load_library().vd_hpel(video._u8(plane), 27, 27, 21, x, y, dxy,
+                                                 rounding, size, video._u8(got))
+                    check(np.array_equal(got, video.hpel_ref(plane, x, y, dxy, rounding, size)),
+                          f"video: MPEG-4 half-pel {size} dxy {dxy} rounding {rounding} "
+                          "differs from its plain version")
+                    n += 1
+            for _ in range(6):
+                fwd = (int(rng.integers(-20, 30)), int(rng.integers(-20, 25)), dxy)
+                bwd = (int(rng.integers(-20, 30)), int(rng.integers(-20, 25)),
+                       int(rng.integers(0, 4)))
+                check(np.array_equal(video.mpeg4_bipred(plane, other, fwd, bwd, size),
+                                     video.mpeg4_bipred_ref(plane, other, fwd, bwd, size)),
+                      f"video: the B-VOP average {size} differs from its plain version")
+                n += 1
+    log(f"video: MPEG-4's plain versions equal the compiled entries on {n} cases "
+        f"(Xvid IDCT, half-pel blocks, B-VOP average)")
+    return n
 
 
 def vp9_plain_checks():
@@ -4172,8 +4264,9 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
     cv2.VideoCapture's frames recorded beside them; the host ms a frame of
     each codec (:func:`video_decode_times`) beside the plain converter;
     then the CLI at full ViT-L width on the committed 16-frame 480x640
-    mp4v clip, the H.264 I/P one and the H.264 IBBP one under base.yaml
-    with the services off (bf16: K1, K2 on the implicit GEMM, K4 on the
+    mp4v clip, the H.264 I/P one, the H.264 IBBP one, the VP9 one and the
+    Xvid IBBP one (B-VOPs, 4MV, FFmpeg's Xvid IDCT) under base.yaml with
+    the services off (bf16: K1, K2 on the implicit GEMM, K4 on the
     tensor cores), each
     checking all 16 frames read, its outputs and its launches as the
     cli_datasets phase's image-folder run does, with the median tracked
@@ -4187,7 +4280,8 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
     log(f"video: decoder built in {build_s:.1f} s; {n_reads} frame reads of "
         f"the committed fixtures (in order and backwards) equal "
         f"cv2.VideoCapture's")
-    out = {"decode": video_decode_times(smi), "vp9_plain_cases": vp9_plain_checks()}
+    out = {"decode": video_decode_times(smi), "vp9_plain_cases": vp9_plain_checks(),
+           "mpeg4_plain_cases": mpeg4_plain_checks()}
     out["cli"] = video_cli_run(torch, FA, C3, BA, workdir, smi, VIDEO_CLI,
                                "video")
     out["cli_h264"] = video_cli_run(torch, FA, C3, BA, workdir, smi,
@@ -4196,6 +4290,8 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
                                       VIDEO_CLI_H264_B, "video_h264_b")
     out["cli_vp9"] = video_cli_run(torch, FA, C3, BA, workdir, smi,
                                    VIDEO_CLI_VP9, "video_vp9")
+    out["cli_xvid_b"] = video_cli_run(torch, FA, C3, BA, workdir, smi,
+                                      VIDEO_CLI_XVID_B, "video_xvid_b")
     return out
 
 
@@ -5980,7 +6076,8 @@ def main():
             for clip, vc in ((VIDEO_CLI, vid["cli"]),
                              (VIDEO_CLI_H264, vid["cli_h264"]),
                              (VIDEO_CLI_H264_B, vid["cli_h264_b"]),
-                             (VIDEO_CLI_VP9, vid["cli_vp9"])))
+                             (VIDEO_CLI_VP9, vid["cli_vp9"]),
+                             (VIDEO_CLI_XVID_B, vid["cli_xvid_b"])))
         + f"; on {smi}")
 
     k2f = per_frame["K2 f32"]

@@ -67,6 +67,12 @@ class Track:
     time_base: Fraction = None
     video_delay: int = 0
     dts: np.ndarray = None
+    # the codec tag FFmpeg's demuxer hands the decoder, where it is not
+    # ``fourcc``: "" for a Matroska codec ID (no tag); and an AVI stream
+    # header's handler (strh fccHandler), which FFmpeg's AVI demuxer makes
+    # the tag of an MPEG-4 stream when it says XVID
+    codec_tag: str = None
+    handler: str = ""
 
 
 def av_reduce(num: int, den: int, limit: int) -> Fraction:
@@ -406,7 +412,8 @@ def _avi_track(f, hdrl, info, stream, idx1, movi) -> Track:
     fps = float(av_reduce(rate, scale, 60000)) if scale and rate else 0.0
     count = length if length else len(sizes)
     return Track(fourcc, width, abs(height), extradata, offsets, sizes,
-                 sync, fps, int(count))
+                 sync, fps, int(count),
+                 handler=strh[4:8].decode("latin-1").rstrip("\0"))
 
 
 def _odml_index(f, indx):
@@ -519,12 +526,13 @@ def _matroska(f, size) -> Track:
         raise ValueError("Matroska: no video track")
     codec = track["codec"]
     extradata = track["private"]
+    tag = ""
     if codec == "V_MS/VFW/FOURCC":
         priv = track["private"]
         if len(priv) < 40:
             raise ValueError("Matroska: V_MS/VFW/FOURCC without a "
                              "BITMAPINFOHEADER")
-        fourcc = priv[16:20].decode("latin-1")
+        fourcc = tag = priv[16:20].decode("latin-1")
         extradata = priv[40:]
     else:
         fourcc = _MKV_CODECS.get(codec, codec)
@@ -548,7 +556,7 @@ def _matroska(f, size) -> Track:
     pts = np.array([b[3] for b in blocks], np.int64)
     return Track(fourcc, track["width"], track["height"], bytes(extradata),
                  offsets, sizes, sync, fps, count, pts,
-                 Fraction(timescale, 1_000_000_000))
+                 Fraction(timescale, 1_000_000_000), codec_tag=tag)
 
 
 def _mkv_video_track(m, s, e):

@@ -30,20 +30,21 @@ them). H.264 pictures come out in FFmpeg's output order, through its
 reorder buffer (whose delay starts where FFmpeg's stream probe and, for
 MP4, its demuxer's ``ctts`` estimate leave it); frame ``i`` is the frame
 cv2 gives for it, read in order or after ``cap.set(CAP_PROP_POS_FRAMES,
-i)`` (:class:`VideoReader` says how). For MPEG-4 Part 2, bit identity holds
-for what FFmpeg's own encoder writes (user data ``Lavc...``, as
-cv2.VideoWriter's files); FFmpeg decodes a stream that Xvid itself wrote
-with the Xvid IDCT instead, which the decoder does not reproduce (its
-frames differ by the IDCTs' rounding, drifting over a GOP). A frame that
-cannot be decoded raises ``ValueError(f"failed to decode frame {i} of
-{path}")``, as the JAX reader does.
+i)`` (:class:`VideoReader` says how). MPEG-4 Part 2 is decoded as FFmpeg
+decodes what FFmpeg, Xvid and DivX write: I-, P-, B- and not-coded VOPs,
+packed bitstreams, the IDCT and workarounds FFmpeg picks by the encoder's
+build in the stream's user data and by the container's codec tag (Xvid's
+IDCT for an Xvid build, or for no build under an ``XVID`` tag), frames in
+FFmpeg's output order. A frame that cannot be decoded raises
+``ValueError(f"failed to decode frame {i} of {path}")``, as the JAX reader
+does.
 
 The decoder is compiled with ``g++`` at first use into the package's
 ``build/`` (git-ignored), keyed by a hash of its sources, and loaded under
 a lock. When it cannot be built, reading raises: there is no fallback.
 
-Beside it are the plain numpy versions of its arithmetic (the MPEG-4 IDCT
-and half-pel interpolation, H.264's scaled 4x4 / 8x8 inverse transforms,
+Beside it are the plain numpy versions of its arithmetic (the MPEG-4
+simple and Xvid IDCTs, half-pel interpolation and B-VOP average, H.264's scaled 4x4 / 8x8 inverse transforms,
 quarter-sample luma and eighth-sample chroma interpolation, one deblocking
 edge, bi-prediction, implicit weights and temporal direct's scaling, VP9's
 inverse transforms, 8-tap prediction and loop-filter edge, and the colour
@@ -96,7 +97,8 @@ def load_library() -> ctypes.CDLL:
             i32p = ctypes.POINTER(ctypes.c_int32)
             cint, i64 = ctypes.c_int, ctypes.c_int64
             lib.vd_open.restype = ctypes.c_void_p
-            lib.vd_open.argtypes = [cint, u8p, i64, ctypes.c_char_p, cint]
+            lib.vd_open.argtypes = [cint, u8p, i64, ctypes.c_uint32,
+                                    ctypes.c_char_p, cint]
             lib.vd_close.restype = None
             lib.vd_close.argtypes = [ctypes.c_void_p]
             lib.vd_decode.restype = cint
@@ -108,10 +110,18 @@ def load_library() -> ctypes.CDLL:
             lib.vd_tag.argtypes = [ctypes.c_void_p]
             lib.vd_delay.restype = cint
             lib.vd_delay.argtypes = [ctypes.c_void_p, cint, i32p]
+            lib.vd_reset.restype = None
+            lib.vd_reset.argtypes = [ctypes.c_void_p]
+            lib.vd_mpeg4_info.restype = None
+            lib.vd_mpeg4_info.argtypes = [ctypes.c_void_p, i32p]
             lib.vd_frame.restype = cint
             lib.vd_frame.argtypes = [ctypes.c_void_p, u8p, u8p, u8p, u8p]
             lib.vd_idct.restype = None
             lib.vd_idct.argtypes = [i16p, cint, u8p]
+            lib.vd_xvid_idct.restype = None
+            lib.vd_xvid_idct.argtypes = [i16p, cint, u8p]
+            lib.vd_mpeg4_bipred.restype = None
+            lib.vd_mpeg4_bipred.argtypes = [u8p, u8p] + [cint] * 9 + [u8p]
             lib.vd_hpel.restype = None
             lib.vd_hpel.argtypes = [u8p, cint, cint, cint, cint, cint, cint,
                                     cint, cint, u8p]
@@ -153,17 +163,21 @@ class Decoder:
     a VP9 sample of frames that are not shown puts out nothing):
     samples in decode order in, frames in output order out (an H.264
     picture waits in a reorder buffer until its turn, as FFmpeg's decoder
-    holds it). ``extradata`` holds the headers a container keeps apart from
-    the samples (for H.264 the avcC record, or nothing for Annex B
-    samples)."""
+    holds it; an MPEG-4 I- or P-VOP of a VOL that is not low delay until
+    the next one; a not-coded VOP puts nothing out). ``extradata`` holds
+    the headers a container keeps apart from the samples (for H.264 the
+    avcC record, or nothing for Annex B samples); ``tag`` is the codec tag
+    FFmpeg's demuxer gives the track (MPEG-4: ``XVID`` and a few others
+    choose Xvid's IDCT and workarounds where the stream names no build)."""
 
-    def __init__(self, codec: int, extradata: bytes = b""):
+    def __init__(self, codec: int, extradata: bytes = b"", tag: str = ""):
         self._lib = load_library()
         self.codec = codec
         self._handle = None
         extra = np.frombuffer(extradata, np.uint8)
         err = ctypes.create_string_buffer(_ERRLEN)
-        h = self._lib.vd_open(codec, _u8(extra), extra.size, err, _ERRLEN)
+        tag32 = int.from_bytes(tag.encode("latin-1")[:4].ljust(4, b"\0"), "little")
+        h = self._lib.vd_open(codec, _u8(extra), extra.size, tag32, err, _ERRLEN)
         if not h:
             raise ValueError(err.value.decode())
         self._handle = h
@@ -197,6 +211,28 @@ class Decoder:
     def tag(self) -> int:
         """The tag of the sample the ready frame was coded in."""
         return int(self._lib.vd_tag(self._handle))
+
+    def reset(self):
+        """MPEG-4: a seek, as ``avcodec_flush_buffers`` leaves FFmpeg's
+        decoder (the pictures and a held VOP go; the headers, the encoder's
+        build and its workarounds stay)."""
+        self._lib.vd_reset(self._handle)
+
+    def mpeg4_info(self) -> dict:
+        """MPEG-4: what FFmpeg made of the encoder (``decode_user_data``,
+        ``ff_mpeg4_workaround_bugs``): the Xvid build, DivX version and
+        build, Lavc build (-1 where none), the workaround flags by FFmpeg's
+        names, whether the Xvid IDCT is on, packed bitstreams, and the VOL's
+        low delay."""
+        info = (ctypes.c_int32 * 8)()
+        self._lib.vd_mpeg4_info(self._handle, info)
+        names = ("EDGE", "DC_CLIP", "HPEL_CHROMA", "DIRECT_BLOCKSIZE", "QPEL_CHROMA",
+                 "QPEL_CHROMA2", "STD_QPEL", "IEDGE", "XVID_ILACE", "UMP4")
+        return {"xvid_build": info[0], "divx_version": info[1], "divx_build": info[2],
+                "lavc_build": info[3],
+                "bugs": {n for k, n in enumerate(names) if info[4] >> k & 1},
+                "xvid_idct": bool(info[5]), "packed": bool(info[6]),
+                "low_delay": bool(info[7])}
 
     def delay(self, start: int = -1):
         """H.264's reorder delay (FFmpeg's has_b_frames), first set to
@@ -293,7 +329,12 @@ class VideoReader:
     its presentation time and counting on from it (MP4 and Matroska). A
     seek that OpenCV would start at a sync sample that is not an IDR picture
     (an open GOP, whose leading pictures FFmpeg does not put out after a
-    seek) raises ``ValueError`` naming it."""
+    seek) raises ``ValueError`` naming it. MPEG-4 Part 2 always seeks as
+    OpenCV does: a VOP may put out no frame (not coded; a B-VOP whose past
+    reference a seek dropped) and a VOL that is not low delay puts each I-
+    or P-VOP out a sample late, so counting from the sync sample does not
+    give OpenCV's frame; the decoder keeps its headers and the encoder's
+    build over a seek, as FFmpeg's does."""
 
     def __init__(self, path):
         self.path = str(path)
@@ -304,6 +345,10 @@ class VideoReader:
                 f"{self.path}: video codec {self.track.fourcc!r} is not "
                 "decoded (H.264, VP9, MPEG-4 Part 2 and MJPEG are)")
         self.codec = codec
+        t = self.track
+        self._tag = t.fourcc if t.codec_tag is None else t.codec_tag
+        if codec == MPEG4 and t.handler == "XVID":
+            self._tag = "XVID"  # FFmpeg's AVI demuxer
         self.fps = float(self.track.fps)
         load_library()
         self._dec = None
@@ -363,11 +408,14 @@ class VideoReader:
         its reorder delay) reading from sample k."""
         if self.codec == H264 and self._delay is None:
             self._delay = self._probe()
-        self._dec = None
-        try:
-            self._dec = Decoder(self.codec, self.track.extradata)
-        except ValueError as e:
-            raise _Refused(str(e)) from None
+        if self.codec == MPEG4 and self._dec is not None:
+            self._dec.reset()  # the headers and the encoder's build stay
+        else:
+            self._dec = None
+            try:
+                self._dec = Decoder(self.codec, self.track.extradata, self._tag)
+            except ValueError as e:
+                raise _Refused(str(e)) from None
         if self.codec == H264:
             self._dec.delay(self._delay)
         self._sample = self._start = k
@@ -422,6 +470,16 @@ class VideoReader:
         return int(at[-1]) if len(at) else 0
 
     def _seek(self, i):
+        if self.codec == MPEG4:
+            # a VOP may put out no frame (not coded; a B-VOP without its
+            # references after a seek) and an I-/P-VOP comes out a sample
+            # late: OpenCV's own seek, always; a fresh reader of frame 0
+            # reads on from the start, as a fresh capture does
+            if self._dec is None and i == 0:
+                self._restart(0)
+                self._pos = 0
+                return
+            return self._seek_opencv(i)
         # counting from an IDR picture gives OpenCV's frame while no picture
         # was dropped and (AVI) the reorder delay is the first frame's
         if self._dropped or (self.track.pts is None and self._first is not None
@@ -557,25 +615,123 @@ def simple_idct_ref(block: np.ndarray) -> np.ndarray:
 
 def hpel_ref(src: np.ndarray, x: int, y: int, dxy: int, rounding: int,
              n: int) -> np.ndarray:
-    """An n x n block at full-pel (x, y) plus the half-pel offsets of dxy
-    (bit 0: x, bit 1: y) of plane ``src``, its coordinates clamped into the
-    plane (the reference's replicated edges); ``rounding`` is the VOP's
-    rounding type."""
+    """An n x n block (n 8 or 16) at full-pel (x, y) plus the half-pel
+    offsets of dxy (bit 0: x, bit 1: y) of plane ``src``, its coordinates
+    clamped into the plane (the reference's replicated edges);
+    ``rounding`` is the VOP's rounding type. As cv2's FFmpeg computes it on
+    x86: with rounding, an 8-wide average in one direction is pavgb(a - 1,
+    b), a - 1 saturating at 0 (a: the left sample, or the one on the
+    block's odd row)."""
     h, w = src.shape
     ys = np.clip(np.arange(y, y + n + 1), 0, h - 1)
     xs = np.clip(np.arange(x, x + n + 1), 0, w - 1)
     p = src[np.ix_(ys, xs)].astype(np.int32)
     a, b, c, d = p[:n, :n], p[:n, 1:], p[1:, :n], p[1:, 1:]
     rnd = 1 - rounding
+    approx = rounding and n == 8
+
+    def pavg_dec(u, v):  # pavgb(u - 1, v)
+        return (np.maximum(u - 1, 0) + v + 1) >> 1
     if dxy == 0:
         out = a
     elif dxy == 1:
-        out = (a + b + rnd) >> 1
+        out = pavg_dec(a, b) if approx else (a + b + rnd) >> 1
     elif dxy == 2:
-        out = (a + c + rnd) >> 1
+        odd = (np.arange(n) % 2 == 1)[:, None]
+        out = np.where(odd, pavg_dec(a, c), pavg_dec(c, a)) if approx else (a + c + rnd) >> 1
     else:
         out = (a + b + c + d + 1 + rnd) >> 2
     return out.astype(np.uint8)
+
+
+def mpeg4_bipred_ref(p0: np.ndarray, p1: np.ndarray, fwd, bwd, n: int) -> np.ndarray:
+    """A B-VOP's bidirectional prediction of an n x n block: ``fwd`` and
+    ``bwd`` are (x, y, dxy) in planes p0 and p1 (``hpel_ref``'s read), each
+    averaged with rounding, then the two averaged as FFmpeg's avg_pixels
+    does ((a + b + 1) >> 1)."""
+    a = hpel_ref(p0, *fwd, 0, n).astype(np.int32)
+    b = hpel_ref(p1, *bwd, 0, n).astype(np.int32)
+    return ((a + b + 1) >> 1).astype(np.uint8)
+
+
+def mpeg4_bipred(p0, p1, fwd, bwd, n: int) -> np.ndarray:
+    """The compiled ``mpeg4_bipred_ref`` (planes of one size)."""
+    lib = load_library()
+    p0 = np.ascontiguousarray(p0, np.uint8)
+    p1 = np.ascontiguousarray(p1, np.uint8)
+    if n not in (8, 16) or p0.ndim != 2 or p1.shape != p0.shape:
+        raise ValueError(f"blocks of 8 or 16 from two planes of one size, not {n} from "
+                         f"{p0.shape} and {p1.shape}")
+    h, w = p0.shape
+    out = np.empty((n, n), np.uint8)
+    lib.vd_mpeg4_bipred(_u8(p0), _u8(p1), w, h, *[int(v) for v in fwd],
+                        *[int(v) for v in bwd], int(n), _u8(out))
+    return out
+
+
+# FFmpeg's xvididct.c: each row's cosine table (rows 0-7: 04 17 26 35 04
+# 35 26 17) and rounder
+_XVID_TABS = ((22725, 21407, 19266, 16384, 12873, 8867, 4520),
+              (31521, 29692, 26722, 22725, 17855, 12299, 6270),
+              (29692, 27969, 25172, 21407, 16819, 11585, 5906),
+              (26722, 25172, 22654, 19266, 15137, 10426, 5315))
+_XVID_ROWS = (0, 1, 2, 3, 0, 3, 2, 1)
+_XVID_RND = (65536, 3597, 2260, 1203, 0, 120, 512, 512)
+
+
+def xvid_idct_ref(block: np.ndarray) -> np.ndarray:
+    """FFmpeg's Xvid IDCT of one 8x8 block of int16 coefficients (natural
+    order) as its x86 SSE2 version computes it (rows in 32 bits, saturated
+    to 16; columns in saturating 16-bit arithmetic): the residual before it
+    is put or added."""
+    b = np.asarray(block, np.int16).reshape(8, 8).astype(np.int64)
+
+    def s16(v):
+        return np.clip(v, -32768, 32767)
+    rows = np.empty((8, 8), np.int64)
+    for r in range(8):
+        c1, c2, c3, c4, c5, c6, c7 = _XVID_TABS[_XVID_ROWS[r]]
+        x = b[r]
+        k = c4 * x[0] + _XVID_RND[r]
+        a = (k + c2 * x[2] + c4 * x[4] + c6 * x[6], k + c6 * x[2] - c4 * x[4] - c2 * x[6],
+             k - c6 * x[2] - c4 * x[4] + c2 * x[6], k - c2 * x[2] + c4 * x[4] - c6 * x[6])
+        o = (c1 * x[1] + c3 * x[3] + c5 * x[5] + c7 * x[7],
+             c3 * x[1] - c7 * x[3] - c1 * x[5] - c5 * x[7],
+             c5 * x[1] - c1 * x[3] + c7 * x[5] + c3 * x[7],
+             c7 * x[1] - c5 * x[3] + c3 * x[5] - c1 * x[7])
+        rows[r] = s16(np.array([a[0] + o[0], a[1] + o[1], a[2] + o[2], a[3] + o[3],
+                                a[3] - o[3], a[2] - o[2], a[1] - o[1], a[0] - o[0]]) >> 11)
+    x = rows
+
+    def mult(c, v):  # pmulhw (tan3 > 1/2: by tan3 - 1, plus v)
+        return (c * v) >> 16
+    tan1, tan2, tan3, sqrt2 = 0x32EC, 0x6A0A, 0xAB0E, 0x5A82
+    t17 = s16(mult(tan1, x[7]) + x[1])
+    m17 = s16(mult(tan1, x[1]) - x[7])
+    t35 = s16(mult(tan3, x[5]) + x[3])
+    m35 = s16(mult(tan3, x[3]) - x[5])
+    b0, b3 = s16(t17 + t35), s16(m17 - m35)
+    u, v = s16(t17 - t35), s16(m17 + m35)
+    b1 = s16(2 * mult(sqrt2, s16(u + v)))
+    b2 = s16(2 * mult(sqrt2, s16(u - v)))
+    t26 = s16(mult(tan2, x[6]) + x[2])
+    m26 = s16(mult(tan2, x[2]) - x[6])
+    e0, e1 = s16(x[0] + x[4]), s16(x[0] - x[4])
+    a0, a3 = s16(e0 + t26), s16(e0 - t26)
+    a1, a2 = s16(e1 + m26), s16(e1 - m26)
+    out = np.stack([s16(a0 + b0), s16(a1 + b1), s16(a2 + b2), s16(a3 + b3),
+                    s16(a3 - b3), s16(a2 - b2), s16(a1 - b1), s16(a0 - b0)]) >> 6
+    return out.astype(np.int32)
+
+
+def xvid_idct(block, add: int, dst) -> np.ndarray:
+    """The compiled ``xvid_idct_ref``, put into (add 0) or added to (add 1)
+    the 8x8 uint8 block ``dst``."""
+    lib = load_library()
+    blk = np.ascontiguousarray(block, np.int16).reshape(64)
+    out = np.ascontiguousarray(dst, np.uint8).reshape(64).copy()
+    lib.vd_xvid_idct(blk.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), int(add), _u8(out))
+    return out.reshape(8, 8)
 
 
 # swscale's ff_yuv2rgb_coeffs (crv, cbu, cgu, cgv) by H.264

@@ -2,28 +2,47 @@
 // with ctypes.
 //
 // It decodes what OpenCV's FFmpeg backend (cv2.VideoCapture) decodes, bit
-// for bit, by following FFmpeg's decode arithmetic for two codecs, both
-// decoded to Y/Cb/Cr 4:2:0 planes:
-//   - MPEG-4 Part 2 (ISO/IEC 14496-2) as FFmpeg's `mpeg4` encoder writes
-//     it (fourcc mp4v, XVID, DIVX, FMP4, ...): VOS/VO/VOL/GOV headers and
-//     user data, I-, P- and not-coded VOPs (a not-coded VOP repeats the
-//     last frame); intra DC VLC or intra DC as a TCOEF (intra_dc_vlc_thr),
-//     DC and AC prediction with the QP rescaling and the alternate scans
-//     under ac_pred; the TCOEF VLCs with the three escape modes; H.263 and
-//     MPEG quantisation with the VOL's matrices; P macroblocks with 1MV and
-//     4MV (median prediction, f_code residuals, chroma vector rounding,
-//     half-pel MC with vop_rounding_type, unrestricted vectors over edges
-//     replicated from the reference's whole macroblocks, as FFmpeg's
-//     h_edge_pos and v_edge_pos place them); sizes that are not multiples
-//     of 16. The IDCT, which Part 2 leaves to the decoder, is
-//     FFmpeg's integer "simple" IDCT (simple_idct_template.c at 8 bits:
-//     row shift 11, column shift 20), which FFmpeg uses for a stream that
-//     its own encoder wrote (user data "Lavc...").
+// for bit, by following FFmpeg's decode arithmetic, decoding to Y/Cb/Cr
+// 4:2:0 planes (H.264 and VP9 in their own files):
+//   - MPEG-4 Part 2 (ISO/IEC 14496-2) as FFmpeg's `mpeg4` decoder reads
+//     what FFmpeg, Xvid and DivX write (fourcc mp4v, XVID, DIVX, FMP4,
+//     ...): VOS/VO/VOL/GOV headers and user data; I-, P-, B- and
+//     not-coded VOPs (FFmpeg puts out no frame for a not-coded VOP, but
+//     for a stream's last); intra DC VLC or intra DC as a TCOEF
+//     (intra_dc_vlc_thr), DC and AC prediction with the QP rescaling and
+//     the alternate scans under ac_pred; the TCOEF VLCs with the three
+//     escape modes; H.263 and MPEG quantisation with the VOL's matrices
+//     (MPEG's mismatch control on inter blocks); P macroblocks with 1MV and
+//     4MV (median prediction, f_code residuals, the 4MV chroma vector's
+//     sixteenth rounding), B macroblocks in the four modes (direct: the
+//     co-located P macroblock's one or four vectors scaled by TRB / TRD
+//     from the VOP clock, modulo_time_base and GOV time codes included;
+//     interpolate, backward, forward; MODB, CBPB, DBQUANT, both f_codes;
+//     a macroblock skipped in the future reference skipped too); half-pel
+//     MC placed as mpegvideo_motion.c places its reads (1MV blocks read
+//     through the edge emulation over h_edge_pos / v_edge_pos, 8x8 blocks
+//     clipped first) with hpeldsp's x86 arithmetic (the 8-wide no_rnd
+//     averages approximate); FFmpeg's output order (a VOL that is not low
+//     delay puts each I- or P-VOP out at the next one, a B-VOP at once; a
+//     B-VOP before two references is skipped); DivX / Xvid packed
+//     bitstreams (the VOP a sample leaves over is decoded at the next);
+//     sizes that are not multiples of 16. The IDCT, which Part 2 leaves to
+//     the decoder, and the workarounds are FFmpeg's choice by the
+//     encoder's build (user data XviD / DivX / Lavc / FFmpeg) and the
+//     container's codec tag, as ff_mpeg4_workaround_bugs makes it: Xvid's
+//     IDCT (xvididct.c, as its SSE2 version saturates) once the build is
+//     Xvid's or the tag says Xvid with no build named, with FF_BUG_EDGE
+//     (edges at the display size) and FF_BUG_DC_CLIP (DC predictors over
+//     2047 kept) where the build sets them; else FFmpeg's integer "simple"
+//     IDCT (simple_idct_template.c at 8 bits: row shift 11, column shift
+//     20). The other workarounds touch only tools refused below
+//     (quarter-pel, fields), or (FF_BUG_HPEL_CHROMA, set for DivX) change
+//     nothing in what cv2's FFmpeg puts out.
 //   - Motion JPEG frames as FFmpeg's `mjpeg` decoder gives them: the
 //     entropy stage of jpeg_decode.cpp (baseline and progressive Huffman,
 //     the standard tables where a frame defines none), coefficients
-//     dequantized into 16 bits, the same simple IDCT, and the planes as
-//     they are, without libjpeg's upsampling.
+//     dequantized into 16 bits, the simple IDCT, and the planes as they
+//     are, without libjpeg's upsampling.
 // Frames go to RGB through one converter, I420 (limited range) or J420
 // (full range) -> RGB24, as the unscaled YUV -> RGB path of swscale that
 // OpenCV's sws_scale call (BGR24, same size) takes: each chroma sample
@@ -31,11 +50,12 @@
 // luma term and one or two chroma terms, each a 16-bit fixed-point product
 // truncated as pmulhw truncates (see yuv_to_rgb below).
 //
-// Refused with a message naming the feature: B-VOPs, quarter-pel motion,
-// GMC and static sprites (S-VOPs), interlaced VOLs, data partitioning and
-// RVLC, resync markers, NEWPRED, reduced-resolution VOPs, scalability,
-// non-rectangular shapes, not-8-bit VOLs, complexity estimation headers and
-// the short video header (H.263 baseline); MJPEG frames that are not 4:2:0
+// Refused with a message naming the feature: quarter-pel motion, GMC and
+// static sprites (S-VOPs), interlaced VOLs, data partitioning and RVLC,
+// resync markers, NEWPRED, reduced-resolution VOPs, scalability,
+// non-rectangular shapes, not-8-bit VOLs, complexity estimation headers,
+// the short video header (H.263 baseline) and a VOL that changes the
+// picture's size (FFmpeg reinitialises there); MJPEG frames that are not 4:2:0
 // YCbCr. A frame whose data ends early or does not parse is an error.
 
 #include <climits>
@@ -142,50 +162,111 @@ void simple_idct(int16_t* blk, uint8_t* dst, int stride, bool add) {
   }
 }
 
-// --- half-pel motion compensation (hpeldsp put_pixels / put_no_rnd) -------
+// --- FFmpeg xvididct.c / x86/xvididct.asm: the Xvid IDCT ---------------------
 
-// An n x n block at half-pel position (hx, hy) of a plane of w x h
-// samples (stride `stride`), every coordinate clamped into the plane, as
-// FFmpeg's emulated edges replicate its border. rnd is 1 - rounding_type.
-void hpel_block(const uint8_t* src, int stride, int w, int h, int x, int y,
-                int dxy, int rnd, int n, uint8_t* dst, int dstride) {
-  const int ex = (dxy & 1) ? n + 1 : n, ey = (dxy & 2) ? n + 1 : n;
-  uint8_t tmp[17 * 17];
-  const uint8_t* s;
-  int ss;
-  if (x >= 0 && y >= 0 && x + ex <= w && y + ey <= h) {
-    s = src + (size_t)y * stride + x;
-    ss = stride;
-  } else {
-    for (int r = 0; r < ey; r++) {
-      int yy = std::min(std::max(y + r, 0), h - 1);
-      for (int c = 0; c < ex; c++) {
-        int xx = std::min(std::max(x + c, 0), w - 1);
-        tmp[r * 17 + c] = src[(size_t)yy * stride + xx];
-      }
+// FFmpeg's C version, which its comment says is made to give the SSE2
+// version's results, with the SSE2 version's 16-bit saturation (cv2 on x86
+// runs the SSE2 one; the C version wraps where a row's sum leaves 16 bits,
+// measured different from cv2 on such blocks, equal everywhere else): rows
+// scaled by their cosine tables and biased by a rounder each (row 0's
+// carries the column pass's rounding), 32-bit sums saturated to 16 bits
+// (packssdw); columns in the tangent form, 16-bit products (pmulhw) and
+// saturating sums (paddsw / psubsw).
+namespace xvid {
+
+const int kTab04[7] = {22725, 21407, 19266, 16384, 12873, 8867, 4520};
+const int kTab17[7] = {31521, 29692, 26722, 22725, 17855, 12299, 6270};
+const int kTab26[7] = {29692, 27969, 25172, 21407, 16819, 11585, 5906};
+const int kTab35[7] = {26722, 25172, 22654, 19266, 15137, 10426, 5315};
+const int* const kRowTab[8] = {kTab04, kTab17, kTab26, kTab35,
+                               kTab04, kTab35, kTab26, kTab17};
+const int kRowRnd[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+constexpr unsigned kTan1 = 0x32EC, kTan2 = 0x6A0A, kTan3 = 0xAB0E, kSqrt2 = 0x5A82;
+
+inline int s16(int v) { return std::min(std::max(v, -32768), 32767); }
+
+void row(int16_t* in, const int* tab, int rnd) {
+  const int c1 = tab[0], c2 = tab[1], c3 = tab[2], c4 = tab[3], c5 = tab[4],
+            c6 = tab[5], c7 = tab[6];
+  const int k = c4 * in[0] + rnd;
+  const int a0 = k + c2 * in[2] + c4 * in[4] + c6 * in[6];
+  const int a1 = k + c6 * in[2] - c4 * in[4] - c2 * in[6];
+  const int a2 = k - c6 * in[2] - c4 * in[4] + c2 * in[6];
+  const int a3 = k - c2 * in[2] + c4 * in[4] - c6 * in[6];
+  const int b0 = c1 * in[1] + c3 * in[3] + c5 * in[5] + c7 * in[7];
+  const int b1 = c3 * in[1] - c7 * in[3] - c1 * in[5] - c5 * in[7];
+  const int b2 = c5 * in[1] - c1 * in[3] + c7 * in[5] + c3 * in[7];
+  const int b3 = c7 * in[1] - c5 * in[3] + c3 * in[5] - c1 * in[7];
+  // 16-bit inputs: every sum fits 32 bits, as pmaddwd's do
+  in[0] = (int16_t)s16((a0 + b0) >> 11);
+  in[1] = (int16_t)s16((a1 + b1) >> 11);
+  in[2] = (int16_t)s16((a2 + b2) >> 11);
+  in[3] = (int16_t)s16((a3 + b3) >> 11);
+  in[4] = (int16_t)s16((a3 - b3) >> 11);
+  in[5] = (int16_t)s16((a2 - b2) >> 11);
+  in[6] = (int16_t)s16((a1 - b1) >> 11);
+  in[7] = (int16_t)s16((a0 - b0) >> 11);
+}
+
+// (c * x) >> 16 of a 16-bit x (tan3 > 1/2: pmulhw by tan3 - 1, plus x)
+inline int mult(unsigned c, int x) { return (int)(c * (unsigned)x) >> 16; }
+
+// idct_col_8 (its 4- and 3-row forms give the same values on their rows)
+void col(int16_t* in) {
+  int mm4 = in[56], mm5 = in[40], mm6 = in[24], mm7 = in[8];
+  int mm0 = s16(mult(kTan1, mm4) + mm7);
+  int mm1 = s16(mult(kTan1, mm7) - mm4);
+  int mm2 = s16(mult(kTan3, mm5) + mm6);
+  int mm3 = s16(mult(kTan3, mm6) - mm5);
+  mm7 = s16(mm0 + mm2);
+  mm4 = s16(mm1 - mm3);
+  mm0 = s16(mm0 - mm2);
+  mm1 = s16(mm1 + mm3);
+  mm6 = s16(mm0 + mm1);
+  mm5 = s16(mm0 - mm1);
+  mm5 = s16(2 * mult(kSqrt2, mm5));
+  mm6 = s16(2 * mult(kSqrt2, mm6));
+  mm1 = in[16];
+  mm2 = in[48];
+  mm3 = s16(mult(kTan2, mm2) + mm1);
+  mm2 = s16(mult(kTan2, mm1) - mm2);
+  mm0 = s16(in[0] + in[32]);
+  mm1 = s16(in[0] - in[32]);
+  int t = s16(mm0 + mm3);
+  mm3 = s16(mm0 - mm3);
+  mm0 = t;
+  t = s16(mm0 + mm7);
+  mm7 = s16(mm0 - mm7);
+  in[0] = (int16_t)(t >> 6);
+  in[56] = (int16_t)(mm7 >> 6);
+  t = s16(mm3 + mm4);
+  mm4 = s16(mm3 - mm4);
+  in[24] = (int16_t)(t >> 6);
+  in[32] = (int16_t)(mm4 >> 6);
+  t = s16(mm1 + mm2);
+  mm2 = s16(mm1 - mm2);
+  mm1 = t;
+  t = s16(mm1 + mm6);
+  mm6 = s16(mm1 - mm6);
+  in[8] = (int16_t)(t >> 6);
+  in[48] = (int16_t)(mm6 >> 6);
+  t = s16(mm2 + mm5);
+  mm5 = s16(mm2 - mm5);
+  in[16] = (int16_t)(t >> 6);
+  in[40] = (int16_t)(mm5 >> 6);
+}
+
+}  // namespace xvid
+
+// blk (natural order, modified in place) -> dst; add: dst + residual
+void xvid_idct(int16_t* blk, uint8_t* dst, int stride, bool add) {
+  for (int r = 0; r < 8; r++) xvid::row(blk + 8 * r, xvid::kRowTab[r], xvid::kRowRnd[r]);
+  for (int c = 0; c < 8; c++) xvid::col(blk + c);
+  for (int r = 0; r < 8; r++)
+    for (int c = 0; c < 8; c++) {
+      uint8_t* d = dst + r * stride + c;
+      *d = clip_u8(add ? *d + blk[8 * r + c] : blk[8 * r + c]);
     }
-    s = tmp;
-    ss = 17;
-  }
-  for (int r = 0; r < n; r++) {
-    const uint8_t* a = s + r * ss;
-    const uint8_t* b = a + ss;
-    uint8_t* d = dst + r * dstride;
-    switch (dxy) {
-      case 0:
-        for (int c = 0; c < n; c++) d[c] = a[c];
-        break;
-      case 1:
-        for (int c = 0; c < n; c++) d[c] = (uint8_t)((a[c] + a[c + 1] + rnd) >> 1);
-        break;
-      case 2:
-        for (int c = 0; c < n; c++) d[c] = (uint8_t)((a[c] + b[c] + rnd) >> 1);
-        break;
-      default:
-        for (int c = 0; c < n; c++)
-          d[c] = (uint8_t)((a[c] + a[c + 1] + b[c] + b[c + 1] + 1 + rnd) >> 2);
-    }
-  }
 }
 
 // --- swscale's unscaled YUV -> RGB (yuv2rgb, x86 SIMD form) -----------------
@@ -561,23 +642,72 @@ inline int mid3(int a, int b, int c) {
   return std::max(std::min(a, b), std::min(std::max(a, b), c));
 }
 
+// FFmpeg's workaround_bugs flags (FF_BUG_*) that ff_mpeg4_workaround_bugs
+// sets from the encoder's build and the container's codec tag
+enum : unsigned {
+  kBugEdge = 1u << 0,             // edges at the display size
+  kBugDcClip = 1u << 1,           // DC predictors not clipped at 2047
+  kBugHpelChroma = 1u << 2,       // set for DivX; cv2's FFmpeg reads no other vector
+  kBugDirectBlocksize = 1u << 3,  // quarter-pel direct blocks (no effect here)
+  kBugQpelChroma = 1u << 4,       // quarter-pel chroma (no effect here)
+  kBugQpelChroma2 = 1u << 5,
+  kBugStdQpel = 1u << 6,          // old quarter-pel filters (no effect here)
+  kBugIedge = 1u << 7,            // field MC's edge buffer (no effect here)
+  kBugXvidIlace = 1u << 8,        // interlaced only (no effect here)
+  kBugUmp4 = 1u << 9,
+};
+
+constexpr uint32_t fourcc(const char* s) {
+  return (uint32_t)(uint8_t)s[0] | (uint32_t)(uint8_t)s[1] << 8 |
+         (uint32_t)(uint8_t)s[2] << 16 | (uint32_t)(uint8_t)s[3] << 24;
+}
+
+// A decoded VOP and what later VOPs read of it: the P-VOP's vectors per
+// luma block, its 4MV and not-coded macroblocks (B-VOPs' direct mode and
+// skips), and the tag of the sample it was decoded from.
+struct M4Pic {
+  Frame f;
+  std::vector<int16_t> mv;     // per luma block (2 mbw x 2 mbh): x, y
+  std::vector<uint8_t> four;   // per macroblock
+  std::vector<uint8_t> skip;   // per macroblock
+  int64_t tag = -1;
+};
+
+// ff_mb_type_b_tab: direct '1', interpolate '01', backward '001', forward '0001'
+const uint16_t kMbTypeB[4][2] = {{1, 1}, {1, 2}, {1, 3}, {1, 4}};
+
 struct Mpeg4 {
+  // what FFmpeg learns of the encoder: its build from user data and the
+  // container's codec tag (upper case, as ff_toupper4 leaves it)
+  uint32_t codec_tag = 0;
+  int xvid_build = -1, divx_version = -1, divx_build = -1, lavc_build = -1;
+  bool divx_packed = false, use_xvid_idct = false, edge_bug = false;
+  unsigned bugs = 0;
   // VOL
-  bool have_vol = false;
-  int width = 0, height = 0, time_inc_bits = 1, intra_dc_threshold = 99;
+  bool have_vol = false, low_delay = false, vol_control = false;
+  int vo_type = 0, width = 0, height = 0, time_inc_bits = 1, time_res = 1;
   bool mpeg_quant = false;
   int intra_matrix[64], inter_matrix[64];
-  // VOP
-  int qscale = 1, fcode = 1, rounding = 0;
-  bool ac_pred = false;
-  // macroblock state of the current VOP
   int mbw = 0, mbh = 0;
+  // VOP times as FFmpeg keeps them (pp_time and pb_time are 16-bit there)
+  int64_t time_base = 0, last_time_base = 0, time = 0, last_non_b_time = 0;
+  uint16_t pp_time = 0, pb_time = 0;
+  int picture_number = 0;
+  // VOP
+  int type = 0, qscale = 1, fcode = 1, bcode = 1, rounding = 0;
+  int intra_dc_threshold = 99;
+  bool ac_pred = false;
+  int16_t direct_scale[2][64];
+  // macroblock state of the current VOP
   std::vector<uint8_t> mb_intra, mb_q;
   std::vector<int16_t> dc;     // per block: (2 mbw) x (2 mbh) luma, then 2 x mbw x mbh
   std::vector<int16_t> ac;     // 16 per block: [1..7] left column, [9..15] top row
-  std::vector<int16_t> mvs;    // per luma block: x, y (half-pel)
-  Frame cur, ref;
-  bool have_frame = false;
+  int last_mv[2][2];           // B-VOP vector predictors, forward and backward
+  // pictures as FFmpeg's mpegvideo keeps them: the two references (last,
+  // next) and the VOP being decoded; `out` is the frame put out
+  std::shared_ptr<M4Pic> last, next, cur, out;
+  bool skipped_last = false;   // the last sample was a not-coded VOP
+  std::vector<uint8_t> held;   // packed bitstreams: the VOPs a sample left over
 
   Mpeg4() {
     for (int i = 0; i < 64; i++) {
@@ -590,54 +720,75 @@ struct Mpeg4 {
     throw Error("MPEG-4 Part 2 " + what + " not supported");
   }
 
+  // ff_mpeg_flush (a seek): the pictures and the held VOPs go; the VOL,
+  // the encoder's build, the workarounds and the VOP clock stay
+  void reset() {
+    last.reset();
+    next.reset();
+    cur.reset();
+    out.reset();
+    held.clear();
+    pp_time = 0;
+    skipped_last = false;
+  }
+
+  // --- headers ---------------------------------------------------------------
+
   void load_matrix(Bits& b, int* m) {
-    int last = 0, i = 0;
+    int last_v = 0, i = 0;
     for (; i < 64; i++) {
       int v = (int)b.get(8);
       if (v == 0) break;
-      last = v;
+      last_v = v;
       m[kZigzag[i]] = v;
     }
-    if (i == 0) throw Error("MPEG-4: bad quantisation matrix");
-    for (; i < 64; i++) m[kZigzag[i]] = last;
+    for (; i < 64; i++) m[kZigzag[i]] = last_v;  // FFmpeg replicates the last (0 if none)
   }
 
   void parse_vol(Bits& b) {
     b.skip(1);  // random_accessible_vol
-    int type = (int)b.get(8);
-    if (type == 0x12) refuse("fine granularity scalable VOLs are");
+    vo_type = (int)b.get(8);
+    if (vo_type == 0x12) refuse("fine granularity scalable VOLs are");
     int verid = 1;
     if (b.get1()) {  // is_object_layer_identifier
       verid = (int)b.get(4);
       b.skip(3);
     }
     if (b.get(4) == 15) b.skip(16);  // aspect_ratio_info, extended PAR
-    if (b.get1()) {                  // vol_control_parameters
+    vol_control = b.get1();
+    if (vol_control) {
       int chroma = (int)b.get(2);
       if (chroma != 1) refuse("chroma formats other than 4:2:0 are");
-      b.skip(1);      // low_delay
+      low_delay = b.get1();
       if (b.get1()) {  // vbv_parameters
         b.skip(15); b.marker("vbv"); b.skip(15); b.marker("vbv");
         b.skip(15); b.marker("vbv"); b.skip(3); b.skip(11); b.marker("vbv");
         b.skip(15); b.marker("vbv");
       }
+    } else if (picture_number == 0) {
+      // FFmpeg: simple and advanced simple VOLs without the flag are low delay
+      low_delay = vo_type == 1 || vo_type == 17;
     }
     int shape = (int)b.get(2);
     if (shape != 0) refuse("non-rectangular (shape-coded) VOLs are");
     b.marker("VOL");
     int res = (int)b.get(16);
     if (res == 0) throw Error("MPEG-4: VOL time increment resolution 0");
+    time_res = res;
     int bits = 0;
     while ((1 << bits) < res) bits++;  // av_log2(res - 1) + 1
     time_inc_bits = std::max(bits, 1);
     b.marker("VOL");
     if (b.get1()) b.skip(time_inc_bits);  // fixed_vop_rate
     b.marker("VOL");
-    width = (int)b.get(13);
+    const int w = (int)b.get(13);
     b.marker("VOL");
-    height = (int)b.get(13);
+    const int h = (int)b.get(13);
     b.marker("VOL");
-    if (width <= 0 || height <= 0) throw Error("MPEG-4: VOL of size 0");
+    if (w <= 0 || h <= 0) throw Error("MPEG-4: VOL of size 0");
+    if (have_vol && (w != width || h != height)) refuse("a size change (a VOL of another size) is");
+    width = w;
+    height = h;
     if (b.get1()) refuse("interlaced video is");
     b.skip(1);  // obmc_disable
     int sprite = (int)b.get(verid == 1 ? 1 : 2);
@@ -666,65 +817,262 @@ struct Mpeg4 {
     have_vol = true;
   }
 
-  // a buffer of start-code units: VOS/VO/VOL/GOV/user data set up the
-  // stream; a VOP decodes. Returns true when a VOP was decoded.
-  bool parse(const uint8_t* d, int64_t n) {
+  // decode_user_data: the encoder's build, as FFmpeg reads it with sscanf
+  void user_data(const uint8_t* p, int64_t n) {
+    char buf[256];
+    int i = 0;
+    for (; i < 255 && i < n; i++) {
+      // up to the next 23 zero bits (a start code); bytes past the end are 0
+      const int b1 = i + 1 < n ? p[i + 1] : 0, b2 = i + 2 < n ? p[i + 2] : 0;
+      if (p[i] == 0 && b1 == 0 && (b2 & 0xFE) == 0) break;
+      buf[i] = (char)p[i];
+    }
+    buf[i] = 0;
+    int ver = 0, build = 0, ver2 = 0, ver3 = 0;
+    char last_c = 0;
+    int e = std::sscanf(buf, "DivX%dBuild%d%c", &ver, &build, &last_c);
+    if (e < 2) e = std::sscanf(buf, "DivX%db%d%c", &ver, &build, &last_c);
+    if (e >= 2) {
+      divx_version = ver;
+      divx_build = build;
+      divx_packed = e == 3 && last_c == 'p';
+    }
+    e = std::sscanf(buf, "FFmpe%*[^b]b%d", &build) + 3;
+    if (e != 4)
+      e = std::sscanf(buf, "FFmpeg v%d.%d.%d / libavcodec build: %d", &ver, &ver2,
+                      &ver3, &build);
+    if (e != 4) {
+      e = std::sscanf(buf, "Lavc%d.%d.%d", &ver, &ver2, &ver3) + 1;
+      if (e > 1)
+        build = ((ver & 0xFF) << 16) + ((ver2 & 0xFF) << 8) + (ver3 & 0xFF);
+    }
+    if (e != 4 && std::strcmp(buf, "ffmpeg") == 0) lavc_build = 4600;
+    if (e == 4) lavc_build = build;
+    if (std::sscanf(buf, "XviD%d", &build) == 1) xvid_build = build;
+  }
+
+  // mpeg4_decode_gop_header: the GOV's time code sets the time base
+  void gov(const uint8_t* p, int64_t n) {
+    Bits b(p, n);
+    if (!b.peek(23) || b.left() < 18) return;  // FFmpeg: "GOP header invalid"
+    int hours = (int)b.get(5), minutes = (int)b.get(6);
+    b.skip(1);  // marker (FFmpeg only logs it)
+    int seconds = (int)b.get(6);
+    time_base = seconds + 60 * (minutes + 60 * hours);
+  }
+
+  // ff_mpeg4_workaround_bugs (with FF_BUG_AUTODETECT, FFmpeg's default)
+  void workarounds() {
+    if (xvid_build == -1 && divx_version == -1 && lavc_build == -1 &&
+        (codec_tag == fourcc("XVID") || codec_tag == fourcc("XVIX") ||
+         codec_tag == fourcc("RMP4") || codec_tag == fourcc("ZMP4") ||
+         codec_tag == fourcc("SIPP")))
+      xvid_build = 0;
+    if (xvid_build == -1 && divx_version == -1 && lavc_build == -1 &&
+        codec_tag == fourcc("DIVX") && vo_type == 0 && !vol_control)
+      divx_version = 400;
+    if (xvid_build >= 0 && divx_version >= 0) divx_version = divx_build = -1;
+    if (codec_tag == fourcc("XVIX")) bugs |= kBugXvidIlace;
+    if (codec_tag == fourcc("UMP4")) bugs |= kBugUmp4;
+    if (divx_version >= 500 && divx_build < 1814) bugs |= kBugQpelChroma;
+    if (divx_version > 502 && divx_build < 1814) bugs |= kBugQpelChroma2;
+    if ((unsigned)xvid_build <= 1u) bugs |= kBugQpelChroma;
+    if ((unsigned)xvid_build <= 12u) bugs |= kBugEdge;
+    if ((unsigned)xvid_build <= 32u) bugs |= kBugDcClip;
+    if ((unsigned)lavc_build < 4653u) bugs |= kBugStdQpel;
+    if ((unsigned)lavc_build < 4655u) bugs |= kBugDirectBlocksize;
+    if ((unsigned)lavc_build < 4670u) bugs |= kBugEdge;
+    if ((unsigned)lavc_build <= 4712u) bugs |= kBugDcClip;
+    if ((lavc_build & 0xFF) >= 100 && lavc_build > 3621476 && lavc_build < 3752552 &&
+        (lavc_build < 3752037 || lavc_build > 3752191))
+      bugs |= kBugIedge;
+    if (divx_version >= 0) bugs |= kBugDirectBlocksize;
+    if ((unsigned)divx_version < 500u) bugs |= kBugEdge;
+    if (divx_version >= 0) bugs |= kBugHpelChroma;
+    if (xvid_build >= 0 && !use_xvid_idct) {
+      // FFmpeg switches to the Xvid IDCT and decodes the sample again, its
+      // VOP header now under the new workarounds
+      use_xvid_idct = true;
+      if (bugs & kBugEdge) edge_bug = true;
+    }
+  }
+
+  // the start codes of a buffer up to its VOP: VOS/VO/VOL/GOV/user data
+  // set up the stream. Returns the VOP's offset (past its start code), or
+  // -1 when the buffer holds none.
+  int64_t headers(const uint8_t* d, int64_t n) {
     if (n >= 3 && d[0] == 0 && d[1] == 0 && (d[2] & 0xFC) == 0x80)
       refuse("short video header (H.263 baseline) is");
     int64_t i = 0;
+    bool vol = false;
     while (true) {
-      // next start code 00 00 01 xx
       while (i + 3 < n && !(d[i] == 0 && d[i + 1] == 0 && d[i + 2] == 1)) i++;
-      if (i + 3 >= n) return false;
+      if (i + 3 >= n) return -1;
       int code = d[i + 3];
       const uint8_t* body = d + i + 4;
       int64_t m = n - i - 4;
       if (code >= 0x20 && code <= 0x2F) {
-        Bits b(body, m);
-        parse_vol(b);
+        if (!vol) {  // FFmpeg ignores a second VOL in one buffer
+          Bits b(body, m);
+          parse_vol(b);
+        }
+        vol = true;
+      } else if (code == 0xB2) {
+        user_data(body, m);
+      } else if (code == 0xB3) {
+        gov(body, m);
       } else if (code == 0xB6) {
-        if (!have_vol) throw Error("MPEG-4 VOP before any VOL header");
-        Bits b(body, m);
-        decode_vop(b);
-        return true;
+        return i + 4;
       }
       i += 4;
     }
   }
 
-  void decode_vop(Bits& b) {
-    int type = (int)b.get(2);
-    if (type == 2) refuse("B-VOPs are");
+  // decode_vop_header; false for a VOP FFmpeg puts out nothing for (not
+  // coded, or a B-VOP whose times do not lie between its references')
+  bool vop_header(Bits& b) {
+    type = (int)b.get(2);
     if (type == 3) refuse("S-VOPs (GMC and sprites) are");
-    while (b.get1()) {}  // modulo_time_base
+    if (type == 2 && low_delay && !vol_control) low_delay = false;
+    int incr = 0;
+    while (b.get1()) incr++;  // modulo_time_base
     b.marker("VOP");
-    b.skip(time_inc_bits);
+    const int inc = (int)b.get(time_inc_bits);
     b.marker("VOP");
-    if (!b.get1()) {  // vop_coded 0: the last frame again
-      if (!have_frame) throw Error("MPEG-4: a not-coded VOP before any frame");
-      return;
+    if (type != 2) {
+      last_time_base = time_base;
+      time_base += incr;
+      time = time_base * (int64_t)time_res + inc;
+      pp_time = (uint16_t)(time - last_non_b_time);
+      last_non_b_time = time;
+    } else {
+      time = (last_time_base + incr) * (int64_t)time_res + inc;
+      pb_time = (uint16_t)(pp_time - (last_non_b_time - time));
+      const int pp = pp_time, pb = pb_time;
+      if (pp <= pb || pp <= pp - pb || pp <= 0) return false;
+      for (int i = 0; i < 64; i++) {  // ff_mpeg4_init_direct_mv
+        direct_scale[0][i] = (int16_t)((i - 32) * pb / pp);
+        direct_scale[1][i] = (int16_t)((i - 32) * (pb - pp) / pp);
+      }
     }
-    if (type == 1) rounding = b.get1();
-    int thr = (int)b.get(3);
-    intra_dc_threshold = kDcThreshold[thr];
+    if (!b.get1()) {  // vop_coded 0
+      skipped_last = true;
+      return false;
+    }
+    rounding = type == 1 ? b.get1() : 0;
+    intra_dc_threshold = kDcThreshold[b.get(3)];
     qscale = (int)b.get(5);
     if (qscale == 0) throw Error("MPEG-4: VOP quantiser 0");
-    if (type == 1) {
+    fcode = bcode = 1;
+    if (type != 0) {
       fcode = (int)b.get(3);
       if (fcode == 0) throw Error("MPEG-4: VOP fcode 0");
-      if (!have_frame) throw Error("MPEG-4: a P-VOP before any I-VOP");
     }
-    std::swap(cur, ref);
-    cur.alloc(width, height);
+    if (type == 2) {
+      bcode = (int)b.get(3);
+      if (bcode == 0) throw Error("MPEG-4: VOP fcode_backward 0");
+    }
+    if (vo_type == 0 && !vol_control && divx_version == -1 && picture_number == 0)
+      low_delay = true;  // "divx4/(old)xvid/opendivx"
+    picture_number++;
+    if (bugs & kBugEdge) edge_bug = true;
+    return true;
+  }
+
+  // --- one sample (h263_decode_frame) ---------------------------------------
+
+  // Decodes one sample; true when it puts a frame out (`out`), in FFmpeg's
+  // output order: a VOL that is not low delay puts each I-/P-VOP out when
+  // the next one is decoded, and a B-VOP at once.
+  bool decode(const uint8_t* d, int64_t n, int64_t tag) {
+    skipped_last = false;
+    // packed bitstreams (DivX's "p", Xvid's packed mode): a sample whose
+    // first start code is a VOS drops what the last one left over;
+    // otherwise that is decoded in place of the sample (its placeholder)
+    if (divx_packed && !held.empty()) {
+      for (int64_t i = 0; i + 3 < n; i++)
+        if (d[i] == 0 && d[i + 1] == 0 && d[i + 2] == 1) {
+          if (d[i + 3] == 0xB0) held.clear();
+          break;
+        }
+    }
+    std::vector<uint8_t> src;
+    const bool from_held = !held.empty() && (divx_packed || n <= 19);
+    if (from_held) src.swap(held);
+    held.clear();
+    const uint8_t* buf = from_held ? src.data() : d;
+    const int64_t size = from_held ? (int64_t)src.size() : n;
+    const int64_t at = headers(buf, size);
+    if (at < 0) {
+      if (size == 1 && (divx_version >= 0 || xvid_build >= 0)) return false;  // "divx bug"
+      throw Error("MPEG-4 sample without a VOP");
+    }
+    if (!have_vol) throw Error("MPEG-4 VOP before any VOL header");
+    Bits b(buf + at, size - at);
+    if (!vop_header(b)) return false;
+    workarounds();
+    if (type == 2 && !last) return false;  // a B-VOP without two references
+    if (type == 1 && !next) throw Error("MPEG-4: a P-VOP before any I-VOP");
+    decode_vop(b, tag);
+    if (divx_packed) {  // ff_mpeg4_frame_end
+      const int64_t pos = from_held ? 0 : at + (b.pos >> 3);
+      bool found = false;
+      if (n - pos > 7)
+        for (int64_t i = pos; i < n - 4; i++)
+          if (d[i] == 0 && d[i + 1] == 0 && d[i + 2] == 1 && d[i + 3] == 0xB6) {
+            found = !(d[i + 4] & 0x40);  // an I- or B-VOP follows
+            break;
+          }
+      if (found) held.assign(d + pos, d + n);
+    }
+    if (type == 2 || low_delay) {
+      out = cur;
+      return true;
+    }
+    out = last;
+    return (bool)last;
+  }
+
+  // At the end of the stream: the reference still held back, or (low
+  // delay) the last frame again after a not-coded VOP
+  bool flush() {
+    if (!low_delay && next) {
+      out = next;
+      next.reset();
+      return true;
+    }
+    if (skipped_last && cur) {
+      out = cur;
+      cur.reset();
+      skipped_last = false;
+      return true;
+    }
+    return false;
+  }
+
+  // --- a VOP ------------------------------------------------------------------
+
+  void decode_vop(Bits& b, int64_t tag) {
+    cur = std::make_shared<M4Pic>();
+    cur->f.alloc(width, height);
+    cur->tag = tag;
+    cur->mv.assign((size_t)8 * mbw * mbh, 0);
+    cur->four.assign((size_t)mbw * mbh, 0);
+    cur->skip.assign((size_t)mbw * mbh, 0);
+    if (type != 2) {  // ff_mpv_frame_start: the references move on
+      last = next;
+      next = cur;
+    }
     const int nb = 4 * mbw * mbh + 2 * mbw * mbh;
     mb_intra.assign((size_t)mbw * mbh, 0);
     mb_q.assign((size_t)mbw * mbh, 0);
     dc.assign(nb, 1024);
     ac.assign((size_t)nb * 16, 0);
-    mvs.assign((size_t)8 * mbw * mbh, 0);
     for (int my = 0; my < mbh; my++)
-      for (int mx = 0; mx < mbw; mx++) decode_mb(b, type, mx, my);
-    have_frame = true;
+      for (int mx = 0; mx < mbw; mx++) {
+        if (type == 2) decode_b_mb(b, mx, my);
+        else decode_mb(b, mx, my);
+      }
   }
 
   // block index of block n (0..5) of macroblock (mx, my); -1 outside
@@ -754,7 +1102,8 @@ struct Mpeg4 {
 
   void set_q(int q) { qscale = std::min(std::max(q, 1), 31); }
 
-  void decode_mb(Bits& b, int type, int mx, int my) {
+  // an I- or P-VOP's macroblock
+  void decode_mb(Bits& b, int mx, int my) {
     const Tables& T = tables();
     const int xy = my * mbw + mx;
     int mcbpc;
@@ -763,8 +1112,8 @@ struct Mpeg4 {
       while (true) {
         if (b.get1()) {  // not_coded: a copy of the reference
           mb_q[xy] = (uint8_t)qscale;
-          int16_t zero[8] = {};
-          motion(mx, my, zero, false);
+          cur->skip[xy] = 1;
+          mc16(last->f, mx, my, 0, 0, 1 - rounding, false);
           return;
         }
         mcbpc = T.inter_mcbpc.read(b, "MCBPC");
@@ -790,42 +1139,129 @@ struct Mpeg4 {
       mb_q[xy] = (uint8_t)qscale;
       for (int i = 0; i < 6; i++)
         intra_block(b, blocks[i], i, mx, my, (cbp & (32 >> i)) != 0, dc_vlc);
-      render_intra(mx, my, blocks);
+      for (int i = 0; i < 6; i++) idct_put(blocks[i], i, mx, my, false);
       return;
     }
     int cbpy = T.cbpy.read(b, "CBPY") ^ 15;
     int cbp = (mcbpc & 3) | (cbpy << 2);
     if (dquant) set_q(qscale + kDquant[b.get(2)]);
     mb_q[xy] = (uint8_t)qscale;
-    int16_t v[8];
+    int16_t v[4][2];
     if (!q4mv) {
       int px, py;
       pred_mv(mx, my, 0, &px, &py);
-      v[0] = (int16_t)read_mv(b, px);
-      v[1] = (int16_t)read_mv(b, py);
-      for (int k = 1; k < 4; k++) {
-        v[2 * k] = v[0];
-        v[2 * k + 1] = v[1];
-      }
-      for (int k = 0; k < 4; k++) set_mv(mx, my, k, v[2 * k], v[2 * k + 1]);
+      v[0][0] = (int16_t)read_mv(b, px, fcode);
+      v[0][1] = (int16_t)read_mv(b, py, fcode);
+      for (int k = 0; k < 4; k++) set_mv(mx, my, k, v[0][0], v[0][1]);
+      mc16(last->f, mx, my, v[0][0], v[0][1], 1 - rounding, false);
     } else {
+      cur->four[xy] = 1;
       for (int k = 0; k < 4; k++) {
         int px, py;
         pred_mv(mx, my, k, &px, &py);
-        v[2 * k] = (int16_t)read_mv(b, px);
-        v[2 * k + 1] = (int16_t)read_mv(b, py);
-        set_mv(mx, my, k, v[2 * k], v[2 * k + 1]);
+        v[k][0] = (int16_t)read_mv(b, px, fcode);
+        v[k][1] = (int16_t)read_mv(b, py, fcode);
+        set_mv(mx, my, k, v[k][0], v[k][1]);
       }
+      mc8x8(last->f, mx, my, v, 1 - rounding, false);
     }
-    motion(mx, my, v, q4mv);
     for (int i = 0; i < 6; i++) {
       if (!(cbp & (32 >> i))) continue;
       inter_block(b, blocks[i]);
-      uint8_t* dst;
-      int stride;
-      block_dst(cur, i, mx, my, &dst, &stride);
-      simple_idct(blocks[i], dst, stride, true);
+      idct_put(blocks[i], i, mx, my, true);
     }
+  }
+
+  // a B-VOP's macroblock (mpeg4_decode_mb's B branch)
+  void decode_b_mb(Bits& b, int mx, int my) {
+    static Vlc mb_type_vlc = [] {
+      Vlc v;
+      v.build(4, kMbTypeB, 4);
+      return v;
+    }();
+    const int xy = my * mbw + mx;
+    if (mx == 0) std::memset(last_mv, 0, sizeof(last_mv));
+    if (next->skip[xy]) {  // skipped in the future reference: a copy of the past one
+      mc16(last->f, mx, my, 0, 0, 1, false);
+      return;
+    }
+    int mb_type = 0, cbp = 0;
+    const bool modb1 = b.get1();  // 1: direct, no vectors, no coefficients
+    if (!modb1) {
+      const int modb2 = b.get1();
+      mb_type = mb_type_vlc.read(b, "B macroblock type");
+      if (!modb2) cbp = (int)b.get(6);
+      if (mb_type != 0 && cbp && b.get1()) set_q(qscale + (int)b.get1() * 4 - 2);
+    }
+    int16_t mv[2][4][2] = {};
+    bool four = false;
+    int dirs = 0;  // bit 0 forward, bit 1 backward
+    if (mb_type == 0) {
+      int dx = 0, dy = 0;
+      if (!modb1) {
+        dx = read_mv(b, 0, 1);
+        dy = read_mv(b, 0, 1);
+      }
+      four = set_direct_mv(xy, dx, dy, mv);
+      dirs = 3;
+    } else {
+      if (mb_type == 1 || mb_type == 3) {
+        dirs |= 1;
+        last_mv[0][0] = read_mv(b, last_mv[0][0], fcode);
+        last_mv[0][1] = read_mv(b, last_mv[0][1], fcode);
+        mv[0][0][0] = (int16_t)last_mv[0][0];
+        mv[0][0][1] = (int16_t)last_mv[0][1];
+      }
+      if (mb_type == 1 || mb_type == 2) {
+        dirs |= 2;
+        last_mv[1][0] = read_mv(b, last_mv[1][0], bcode);
+        last_mv[1][1] = read_mv(b, last_mv[1][1], bcode);
+        mv[1][0][0] = (int16_t)last_mv[1][0];
+        mv[1][0][1] = (int16_t)last_mv[1][1];
+      }
+    }
+    bool avg = false;
+    for (int dir = 0; dir < 2; dir++) {
+      if (!(dirs & (1 << dir))) continue;
+      const Frame& ref = dir ? next->f : last->f;
+      if (four) mc8x8(ref, mx, my, mv[dir], 1, avg);
+      else mc16(ref, mx, my, mv[dir][0][0], mv[dir][0][1], 1, avg);
+      avg = true;
+    }
+    int16_t blk[64];
+    for (int i = 0; i < 6; i++) {
+      if (!(cbp & (32 >> i))) continue;
+      std::memset(blk, 0, sizeof(blk));
+      inter_block(b, blk);
+      idct_put(blk, i, mx, my, true);
+    }
+  }
+
+  // ff_mpeg4_set_direct_mv: the co-located P macroblock's one or four
+  // vectors scaled by TRB / TRD (the table for |v| < 32, else the division
+  // on the 16-bit times), plus the delta; true for four vectors
+  bool set_direct_mv(int xy, int dx, int dy, int16_t (*mv)[4][2]) {
+    const int mx = xy % mbw, my = xy / mbw;
+    const bool four = next->four[xy] != 0;
+    const int tpp = pp_time, tpb = pb_time;
+    for (int i = 0; i < (four ? 4 : 1); i++) {
+      const int bx = 2 * mx + (i & 1), by = 2 * my + (i >> 1);
+      const size_t k = ((size_t)by * 2 * mbw + bx) * 2;
+      for (int c = 0; c < 2; c++) {
+        const int p = next->mv[k + c], d = c ? dy : dx;
+        int m0, m1;
+        if ((unsigned)(p + 32) < 64u) {
+          m0 = direct_scale[0][p + 32] + d;
+          m1 = d ? m0 - p : direct_scale[1][p + 32];
+        } else {
+          m0 = p * tpb / tpp + d;
+          m1 = d ? m0 - p : p * (tpb - tpp) / tpp;
+        }
+        mv[0][i][c] = (int16_t)m0;
+        mv[1][i][c] = (int16_t)m1;
+      }
+    }
+    return four;
   }
 
   // motion vectors of the current VOP per luma block (2 mbw x 2 mbh);
@@ -833,8 +1269,8 @@ struct Mpeg4 {
   void set_mv(int mx, int my, int k, int x, int y) {
     int bx = 2 * mx + (k & 1), by = 2 * my + (k >> 1);
     size_t i = ((size_t)by * 2 * mbw + bx) * 2;
-    mvs[i] = (int16_t)x;
-    mvs[i + 1] = (int16_t)y;
+    cur->mv[i] = (int16_t)x;
+    cur->mv[i + 1] = (int16_t)y;
   }
   void mv_at(int bx, int by, int* x, int* y) const {
     if (bx < 0 || by < 0 || bx >= 2 * mbw) {
@@ -842,8 +1278,8 @@ struct Mpeg4 {
       return;
     }
     size_t i = ((size_t)by * 2 * mbw + bx) * 2;
-    *x = mvs[i];
-    *y = mvs[i + 1];
+    *x = cur->mv[i];
+    *y = cur->mv[i + 1];
   }
 
   // ff_h263_pred_motion for a VOP of one slice
@@ -867,11 +1303,12 @@ struct Mpeg4 {
     *py = mid3(ay, by_, cy);
   }
 
-  int read_mv(Bits& b, int pred) {
+  // ff_h263_decode_motion
+  int read_mv(Bits& b, int pred, int f) {
     int code = tables().mv.read(b, "motion vector");
     if (code == 0) return pred;
     int sign = b.get1();
-    int shift = fcode - 1, val = code;
+    int shift = f - 1, val = code;
     if (shift) {
       val = (val - 1) << shift;
       val |= (int)b.get(shift);
@@ -879,65 +1316,166 @@ struct Mpeg4 {
     }
     if (sign) val = -val;
     val += pred;
-    const int nb = 5 + fcode;  // sign_extend(val, 5 + f_code)
+    const int nb = 5 + f;  // sign_extend(val, 5 + f_code)
     val = (int)((unsigned)val << (32 - nb)) >> (32 - nb);
     return val;
   }
 
-  static int round_chroma(int x) {  // ff_h263_round_chroma
-    static const int tab[16] = {0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
+  // ff_h263_round_chroma: the four vectors' sum in sixteenths of a chroma
+  // sample, rounded to halves (0-2 down, 3-13 to a half, 14 and 15 up)
+  static int round_chroma(int x) {
+    static const int tab[16] = {0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2};
     return tab[x & 0xF] + ((x >> 3) & ~1);
   }
 
-  // the prediction of macroblock (mx, my) from the reference, into cur;
-  // the reference's edges are those of its whole macroblocks
-  void motion(int mx, int my, const int16_t* v, bool four) {
-    const int rnd = 1 - rounding;
-    const int W = ref.pw, H = ref.ph, cs = ref.cstride();
-    uint8_t* ydst = &cur.y[(size_t)my * 16 * cur.pw + mx * 16];
-    if (!four) {
-      int x = v[0], y = v[1];
-      hpel_block(ref.y.data(), ref.pw, W, H, mx * 16 + (x >> 1),
-                 my * 16 + (y >> 1), (x & 1) | ((y & 1) << 1), rnd, 16, ydst,
-                 cur.pw);
-      // chroma: the luma vector halved, its quarters rounded to halves
-      int uvdxy = ((x & 1) | ((x & 2) >> 1)) | (((y & 1) | ((y & 2) >> 1)) << 1);
-      int ux = (mx * 16 + (x >> 1)) >> 1, uy = (my * 16 + (y >> 1)) >> 1;
-      chroma(ux, uy, uvdxy, rnd, mx, my, cs, W, H);
-      return;
+  // --- motion compensation, as mpegvideo_motion.c places its reads --------
+
+  // h_edge_pos / v_edge_pos: the whole macroblocks, or (FF_BUG_EDGE) the
+  // display size
+  int hep() const { return edge_bug ? width : mbw * 16; }
+  int vep() const { return edge_bug ? height : mbh * 16; }
+
+  // A bw x bh area at (x, y) of a plane (pw x ph samples, stride): read
+  // straight from the picture (emu false; FFmpeg reads there only inside
+  // its edge), or through emulated_edge_mc, every coordinate clamped into
+  // [0, ew) x [0, eh)
+  static const uint8_t* area(const uint8_t* plane, int stride, int pw, int ph,
+                             int x, int y, int bw, int bh, bool emu, int ew,
+                             int eh, uint8_t* tmp, int* ts) {
+    if (!emu && x >= 0 && y >= 0 && x + bw <= pw && y + bh <= ph) {
+      *ts = stride;
+      return plane + (size_t)y * stride + x;
     }
-    int sx = 0, sy = 0;
-    for (int k = 0; k < 4; k++) {
-      int x = v[2 * k], y = v[2 * k + 1];
-      sx += x;
-      sy += y;
-      hpel_block(ref.y.data(), ref.pw, W, H, mx * 16 + (k & 1) * 8 + (x >> 1),
-                 my * 16 + (k >> 1) * 8 + (y >> 1), (x & 1) | ((y & 1) << 1),
-                 rnd, 8, ydst + (k >> 1) * 8 * cur.pw + (k & 1) * 8, cur.pw);
+    if (!emu) {
+      ew = pw;
+      eh = ph;
     }
-    int cx = round_chroma(sx), cy = round_chroma(sy);
-    chroma(mx * 8 + (cx >> 1), my * 8 + (cy >> 1), (cx & 1) | ((cy & 1) << 1),
-           rnd, mx, my, cs, W, H);
+    for (int r = 0; r < bh; r++) {
+      const int yy = std::min(std::max(y + r, 0), eh - 1);
+      for (int c = 0; c < bw; c++)
+        tmp[r * 24 + c] = plane[(size_t)yy * stride + std::min(std::max(x + c, 0), ew - 1)];
+    }
+    *ts = 24;
+    return tmp;
   }
 
-  void chroma(int ux, int uy, int dxy, int rnd, int mx, int my, int cs, int W,
-              int H) {
+  // hpeldsp as cv2's FFmpeg runs it on x86: put_pixels (rnd 1),
+  // put_no_rnd_pixels (rnd 0) or, avg, avg_pixels (the put with rounding,
+  // then (dst + p + 1) >> 1). Without AV_CODEC_FLAG_BITEXACT the 8-wide
+  // no_rnd half-pel averages in one direction are pavgb(a - 1, b), a - 1
+  // saturating at 0 (x2: a is the left sample; y2: the sample of the
+  // block's odd row), which is (a + b) >> 1 except where that sample is 0;
+  // the 16-wide ones are exact (measured against cv2).
+  static void hpel_op(const uint8_t* s, int ss, int dxy, int rnd, int n, bool avg,
+                      uint8_t* d, int ds) {
+    if (n == 16) rnd |= 2;  // exact: (a + b + (rnd & 1)) >> 1
+    auto approx = [](int a, int b) { return (std::max(a - 1, 0) + b + 1) >> 1; };
+    for (int r = 0; r < n; r++) {
+      const uint8_t* a = s + r * ss;
+      const uint8_t* b = a + ss;
+      uint8_t* o = d + r * ds;
+      for (int c = 0; c < n; c++) {
+        int v;
+        switch (dxy) {
+          case 0: v = a[c]; break;
+          case 1: v = rnd ? (a[c] + a[c + 1] + (rnd & 1)) >> 1 : approx(a[c], a[c + 1]); break;
+          case 2:
+            v = rnd ? (a[c] + b[c] + (rnd & 1)) >> 1
+                    : r & 1 ? approx(a[c], b[c]) : approx(b[c], a[c]);
+            break;
+          default: v = (a[c] + a[c + 1] + b[c] + b[c + 1] + 1 + (rnd & 1)) >> 2;
+        }
+        o[c] = (uint8_t)(avg ? (o[c] + v + 1) >> 1 : v);
+      }
+    }
+  }
+
+  // mpeg_motion: a 16x16 macroblock's luma and 8x8 chroma from one vector
+  void mc16(const Frame& ref, int mx, int my, int vx, int vy, int rnd, bool avg) {
+    const int he = hep(), ve = vep(), cs = ref.cstride();
+    const int dxy = ((vy & 1) << 1) | (vx & 1);
+    const int sx = mx * 16 + (vx >> 1), sy = my * 16 + (vy >> 1);
+    // the chroma vector: the luma one halved, its quarters rounded to
+    // halves (under DivX's FF_BUG_HPEL_CHROMA too: cv2's FFmpeg gives this
+    // vector for DivX 4 and 5 builds, measured)
+    const int uvdxy = dxy | (vy & 2) | ((vx & 2) >> 1), ux = sx >> 1, uy = sy >> 1;
+    const bool emu = (unsigned)sx >= (unsigned)std::max(he - (vx & 1) - 15, 0) ||
+                     (unsigned)sy >= (unsigned)std::max(ve - (vy & 1) - 15, 0);
+    uint8_t tmp[24 * 24];
+    int ts;
+    const uint8_t* s = area(ref.y.data(), ref.pw, ref.pw, ref.ph, sx, sy, 17, 17,
+                            emu, he, ve, tmp, &ts);
+    hpel_op(s, ts, dxy, rnd, 16, avg, &cur->f.y[(size_t)my * 16 * cur->f.pw + mx * 16],
+            cur->f.pw);
     const size_t o = (size_t)my * 8 * cs + mx * 8;
-    hpel_block(ref.cb.data(), cs, W >> 1, H >> 1, ux, uy, dxy, rnd, 8,
-               &cur.cb[o], cs);
-    hpel_block(ref.cr.data(), cs, W >> 1, H >> 1, ux, uy, dxy, rnd, 8,
-               &cur.cr[o], cs);
+    for (int p = 0; p < 2; p++) {
+      const auto& plane = p ? ref.cr : ref.cb;
+      s = area(plane.data(), cs, cs, ref.ph / 2, ux, uy, 9, 9, emu, he >> 1, ve >> 1,
+               tmp, &ts);
+      hpel_op(s, ts, uvdxy, rnd, 8, avg, &(p ? cur->f.cr : cur->f.cb)[o], cs);
+    }
   }
 
-  void block_dst(Frame& f, int n, int mx, int my, uint8_t** dst, int* stride) {
-    if (n < 4) {
-      *stride = f.pw;
-      *dst = &f.y[(size_t)(my * 16 + (n >> 1) * 8) * f.pw + mx * 16 + (n & 1) * 8];
-    } else {
-      *stride = f.cstride();
-      auto& p = n == 4 ? f.cb : f.cr;
-      *dst = &p[(size_t)my * 8 * f.cstride() + mx * 8];
+  // apply_8x8: four 8x8 luma blocks through hpel_motion (each read clipped
+  // to [-16, width] x [-16, height], its half-pel dropped at the far
+  // clip), and chroma_4mv_motion from the four vectors' sum
+  void mc8x8(const Frame& ref, int mx, int my, const int16_t (*v)[2], int rnd, bool avg) {
+    const int he = hep(), ve = vep(), cs = ref.cstride();
+    uint8_t tmp[24 * 24];
+    int ts, sumx = 0, sumy = 0;
+    for (int k = 0; k < 4; k++) {
+      const int vx = v[k][0], vy = v[k][1];
+      sumx += vx;
+      sumy += vy;
+      int dxy = 0;
+      int sx = mx * 16 + (k & 1) * 8 + (vx >> 1), sy = my * 16 + (k >> 1) * 8 + (vy >> 1);
+      sx = std::min(std::max(sx, -16), width);
+      if (sx != width) dxy |= vx & 1;
+      sy = std::min(std::max(sy, -16), height);
+      if (sy != height) dxy |= (vy & 1) << 1;
+      const bool emu = (unsigned)sx >= (unsigned)std::max(he - (vx & 1) - 7, 0) ||
+                       (unsigned)sy >= (unsigned)std::max(ve - (vy & 1) - 7, 0);
+      const uint8_t* s = area(ref.y.data(), ref.pw, ref.pw, ref.ph, sx, sy, 9, 9, emu,
+                              he, ve, tmp, &ts);
+      hpel_op(s, ts, dxy, rnd, 8, avg,
+              &cur->f.y[(size_t)(my * 16 + (k >> 1) * 8) * cur->f.pw + mx * 16 + (k & 1) * 8],
+              cur->f.pw);
     }
+    int cx = round_chroma(sumx), cy = round_chroma(sumy);
+    int dxy = ((cy & 1) << 1) | (cx & 1);
+    int sx = mx * 8 + (cx >> 1), sy = my * 8 + (cy >> 1);
+    sx = std::min(std::max(sx, -8), width >> 1);
+    if (sx == (width >> 1)) dxy &= ~1;
+    sy = std::min(std::max(sy, -8), height >> 1);
+    if (sy == (height >> 1)) dxy &= ~2;
+    const bool emu = (unsigned)sx >= (unsigned)std::max((he >> 1) - (dxy & 1) - 7, 0) ||
+                     (unsigned)sy >= (unsigned)std::max((ve >> 1) - (dxy >> 1) - 7, 0);
+    const size_t o = (size_t)my * 8 * cs + mx * 8;
+    for (int p = 0; p < 2; p++) {
+      const auto& plane = p ? ref.cr : ref.cb;
+      const uint8_t* s = area(plane.data(), cs, cs, ref.ph / 2, sx, sy, 9, 9, emu,
+                              he >> 1, ve >> 1, tmp, &ts);
+      hpel_op(s, ts, dxy, rnd, 8, avg, &(p ? cur->f.cr : cur->f.cb)[o], cs);
+    }
+  }
+
+  // --- blocks -----------------------------------------------------------------
+
+  // the IDCT FFmpeg chose for the stream (Xvid's once the build says
+  // Xvid, else the simple one) put into, or added to, block n's place
+  void idct_put(int16_t* blk, int n, int mx, int my, bool add) {
+    Frame& f = cur->f;
+    uint8_t* dst;
+    int stride;
+    if (n < 4) {
+      stride = f.pw;
+      dst = &f.y[(size_t)(my * 16 + (n >> 1) * 8) * f.pw + mx * 16 + (n & 1) * 8];
+    } else {
+      stride = f.cstride();
+      dst = &(n == 4 ? f.cb : f.cr)[(size_t)my * 8 * stride + mx * 8];
+    }
+    if (use_xvid_idct) xvid_idct(blk, dst, stride, add);
+    else simple_idct(blk, dst, stride, add);
   }
 
   // TCOEF levels into blk (natural order) along `scan` from position i0;
@@ -947,30 +1485,30 @@ struct Mpeg4 {
     int i = i0 - 1;
     while (true) {
       int sym = rl.vlc.read(b, "TCOEF");
-      int run, level, last;
+      int run, level, last_;
       if (sym != 102) {
         run = rl.t->run[sym];
         level = rl.t->level[sym];
-        last = sym >= rl.t->last;
+        last_ = sym >= rl.t->last;
         level = level * qmul + qadd;
         if (b.get1()) level = -level;
       } else if (!b.get1()) {  // escape 1: level + LMAX
         sym = rl.vlc.read(b, "TCOEF");
         if (sym == 102) throw Error("MPEG-4: bad TCOEF escape");
         run = rl.t->run[sym];
-        last = sym >= rl.t->last;
-        level = (rl.t->level[sym] + rl.max_level[last][run]) * qmul + qadd;
+        last_ = sym >= rl.t->last;
+        level = (rl.t->level[sym] + rl.max_level[last_][run]) * qmul + qadd;
         if (b.get1()) level = -level;
       } else if (!b.get1()) {  // escape 2: run + RMAX + 1
         sym = rl.vlc.read(b, "TCOEF");
         if (sym == 102) throw Error("MPEG-4: bad TCOEF escape");
-        last = sym >= rl.t->last;
+        last_ = sym >= rl.t->last;
         level = rl.t->level[sym];
-        run = rl.t->run[sym] + rl.max_run[last][level] + 1;
+        run = rl.t->run[sym] + rl.max_run[last_][level] + 1;
         level = level * qmul + qadd;
         if (b.get1()) level = -level;
       } else {  // escape 3: fixed length
-        last = b.get1();
+        last_ = b.get1();
         run = (int)b.get(6);
         b.marker("escape");
         level = b.sget(12);
@@ -983,7 +1521,7 @@ struct Mpeg4 {
       i += run + 1;
       if (i > 63) throw Error("MPEG-4: run past the end of a block");
       blk[scan[i]] = (int16_t)level;
-      if (last) return;
+      if (last_) return;
     }
   }
 
@@ -994,14 +1532,18 @@ struct Mpeg4 {
       return;
     }
     read_coefs(b, blk, T.inter, kZigzag, 0, 1, 0);
-    // dct_unquantize_mpeg2_inter
+    // dct_unquantize_mpeg2_inter, with its mismatch control: coefficient
+    // 63's low bit flipped when the levels' sum is even
     const int q2 = qscale << 1;
+    int sum = -1;
     for (int k = 0; k < 64; k++) {
       int l = blk[k];
       if (!l) continue;
       int m = (((std::abs(l) << 1) + 1) * q2 * inter_matrix[k]) >> 5;
       blk[k] = (int16_t)(l < 0 ? -m : m);
+      sum += blk[k];
     }
+    blk[63] ^= (int16_t)(sum & 1);
   }
 
   void intra_block(Bits& b, int16_t* blk, int n, int mx, int my, bool coded,
@@ -1020,7 +1562,6 @@ struct Mpeg4 {
     int level = 0;
     if (dc_vlc) {
       int size = (n < 4 ? T.dc_lum : T.dc_chrom).read(b, "DC size");
-      if (size > 9) throw Error("MPEG-4: bad intra DC size");
       if (size) {
         level = (int)b.get(size);
         if (level < (1 << (size - 1))) level -= (1 << size) - 1;
@@ -1030,11 +1571,15 @@ struct Mpeg4 {
     const int* scan = ac_pred ? (dir == 0 ? kAltVertical : kAltHorizontal) : kZigzag;
     if (coded) read_coefs(b, blk, T.intra, scan, dc_vlc ? 1 : 0, 1, 0);
     if (dc_vlc) blk[0] = (int16_t)level;
-    // mpeg4_pred_dc: the DC level with its prediction
+    // mpeg4_pred_dc: the DC level with its prediction; the predictor kept
+    // is clipped to [0, 2047], or (FF_BUG_DC_CLIP) only at 0
     int dcl = blk[0] + pred;
     blk[0] = (int16_t)dcl;
     int stored = dcl * scale;
-    if (stored & ~2047) stored = stored < 0 ? 0 : 2047;
+    if (stored & ~2047) {
+      if (stored < 0) stored = 0;
+      else if (!(bugs & kBugDcClip)) stored = 2047;
+    }
     const int self = blk_index_self(n, bx, by);
     dc[self] = (int16_t)stored;
     // ff_mpeg4_pred_ac
@@ -1083,17 +1628,6 @@ struct Mpeg4 {
     if (n < 4) return by * 2 * mbw + bx;
     return 4 * mbw * mbh + (n - 4) * mbw * mbh + by * mbw + bx;
   }
-
-  void render_intra(int mx, int my, int16_t (*blocks)[64]) {
-    for (int i = 0; i < 6; i++) {
-      uint8_t* dst;
-      int stride;
-      block_dst(cur, i, mx, my, &dst, &stride);
-      simple_idct(blocks[i], dst, stride, false);
-    }
-  }
-
-  const Frame& frame() const { return cur; }
 };
 
 // --- Motion JPEG -------------------------------------------------------------
@@ -1140,9 +1674,9 @@ struct Handle {
   Mjpeg mj;
   std::unique_ptr<h264::Decoder> avc;
   std::unique_ptr<vp9::Decoder> vp9;
-  int64_t tag = -1;  // MPEG-4 / MJPEG: the last sample's tag
+  int64_t tag = -1;  // MJPEG: the last sample's tag
   const Frame* frame() const {
-    if (codec == 1) return m4.have_frame ? &m4.cur : nullptr;
+    if (codec == 1) return m4.out ? &m4.out->f : nullptr;
     if (codec == 3) return avc->have_frame ? &avc->out : nullptr;
     if (codec == 4) return vp9->have_frame ? vp9->out.get() : nullptr;
     return mj.have_frame ? &mj.cur : nullptr;
@@ -1164,17 +1698,26 @@ extern "C" {
 // A decoder of `codec` (1: MPEG-4 Part 2, 2: MJPEG, 3: H.264, 4: VP9, whose
 // samples carry all its headers). For MPEG-4,
 // `extra` holds the headers the container keeps apart (MP4 esds'
-// DecoderSpecificInfo, Matroska CodecPrivate), or is empty; for H.264 the
-// avcC record (samples are then length-prefixed NAL units) or nothing
-// (Annex B samples). Returns the
-// handle, or null with a message in err.
-void* vd_open(int codec, const uint8_t* extra, int64_t n, char* err,
+// DecoderSpecificInfo, Matroska CodecPrivate), or is empty, and `tag` is
+// the codec tag FFmpeg's demuxer gives the track (its four bytes, first
+// in the low byte; 0 for none), whose upper-case form chooses Xvid's
+// workarounds where the stream names no build; for H.264 the avcC record
+// (samples are then length-prefixed NAL units) or nothing (Annex B
+// samples). Returns the handle, or null with a message in err.
+void* vd_open(int codec, const uint8_t* extra, int64_t n, uint32_t tag, char* err,
               int errlen) {
   try {
     if (codec < 1 || codec > 4) throw Error("unknown codec");
     std::unique_ptr<Handle> h(new Handle());
     h->codec = codec;
-    if (codec == 1 && n > 0) h->m4.parse(extra, n);
+    if (codec == 1) {
+      for (int k = 0; k < 4; k++) {  // ff_toupper4
+        uint32_t c = (tag >> (8 * k)) & 0xFF;
+        if (c >= 'a' && c <= 'z') c -= 'a' - 'A';
+        h->m4.codec_tag |= c << (8 * k);
+      }
+      if (n > 0) h->m4.headers(extra, n);  // esds, CodecPrivate: headers only
+    }
     if (codec == 3) {
       h->avc.reset(new h264::Decoder());
       h->avc->open(extra, n);
@@ -1190,17 +1733,19 @@ void* vd_open(int codec, const uint8_t* extra, int64_t n, char* err,
 void vd_close(void* h) { delete static_cast<Handle*>(h); }
 
 // Decodes one sample, tagged `tag`. Returns 1 when a frame is ready (its
-// width and height in wh; an H.264 picture may come out of a later sample,
-// in output order, and its tag says which sample it was), 0 when the
-// sample puts no frame out (an H.264 picture waiting for its turn, or one
-// dropped; a VP9 sample of frames that are not shown), or -1 with a message in err (no picture in the sample, data
-// that ends early or does not parse, a refused feature).
+// width and height in wh; an H.264 picture or an MPEG-4 I- or P-VOP may
+// come out of a later sample, in output order, and its tag says which
+// sample it was), 0 when the sample puts no frame out (an H.264 picture
+// waiting for its turn, or one dropped; a VP9 sample of frames that are
+// not shown; an MPEG-4 VOP held back, not coded, or a B-VOP FFmpeg skips),
+// or -1 with a message in err (no picture in the sample, data that ends
+// early or does not parse, a refused feature).
 int vd_decode(void* hp, const uint8_t* data, int64_t n, int64_t tag, int32_t* wh,
               char* err, int errlen) {
   Handle* h = static_cast<Handle*>(hp);
   try {
     if (h->codec == 1) {
-      if (!h->m4.parse(data, n)) throw Error("MPEG-4 sample without a VOP");
+      if (!h->m4.decode(data, n, tag)) return 0;
     } else if (h->codec == 3) {
       if (!h->avc->decode(data, n, tag)) return 0;
     } else if (h->codec == 4) {
@@ -1220,19 +1765,42 @@ int vd_decode(void* hp, const uint8_t* data, int64_t n, int64_t tag, int32_t* wh
 }
 
 // At the end of the stream: puts out the next H.264 picture still waiting
-// (1, its size in wh), or returns 0 when none waits.
+// or the MPEG-4 reference FFmpeg puts out last (1, its size in wh), or
+// returns 0 when none waits.
 int vd_flush(void* hp, int32_t* wh) {
   Handle* h = static_cast<Handle*>(hp);
-  if (h->codec != 3 || !h->avc->flush()) return 0;
-  wh[0] = h->avc->out.w;
-  wh[1] = h->avc->out.h;
+  if (h->codec == 1 ? !h->m4.flush() : h->codec != 3 || !h->avc->flush()) return 0;
+  const Frame* f = h->frame();
+  wh[0] = f->w;
+  wh[1] = f->h;
   return 1;
 }
 
 // The last frame's tag.
 int64_t vd_tag(void* hp) {
   Handle* h = static_cast<Handle*>(hp);
+  if (h->codec == 1) return h->m4.out ? h->m4.out->tag : -1;
   return h->codec == 3 ? h->avc->out_tag : h->codec == 4 ? h->vp9->out_tag : h->tag;
+}
+
+// MPEG-4: a seek, as avcodec_flush_buffers does it (ff_mpeg_flush: the
+// pictures and any held VOP go; the headers and the encoder's build stay).
+void vd_reset(void* hp) {
+  Handle* h = static_cast<Handle*>(hp);
+  if (h->codec == 1) h->m4.reset();
+}
+
+// MPEG-4: what FFmpeg made of the encoder, in info[0..6]: the Xvid build,
+// the DivX version and build, the Lavc build (-1 where none), the
+// workaround flags (bit 0 FF_BUG_EDGE, 1 DC_CLIP, 2 HPEL_CHROMA, 3
+// DIRECT_BLOCKSIZE, 4 QPEL_CHROMA, 5 QPEL_CHROMA2, 6 STD_QPEL, 7 IEDGE, 8
+// XVID_ILACE, 9 UMP4), the Xvid IDCT (1) and packed bitstreams (1); info[7]
+// the VOL's low delay.
+void vd_mpeg4_info(void* hp, int32_t* info) {
+  const Mpeg4& m = static_cast<Handle*>(hp)->m4;
+  const int32_t v[8] = {m.xvid_build, m.divx_version, m.divx_build, m.lavc_build,
+                        (int32_t)m.bugs, m.use_xvid_idct, m.divx_packed, m.low_delay};
+  std::memcpy(info, v, sizeof(v));
 }
 
 // H.264's reorder delay (FFmpeg's has_b_frames): set where decoding starts
@@ -1274,16 +1842,41 @@ int vd_frame(void* hp, uint8_t* rgb, uint8_t* y, uint8_t* cb, uint8_t* cr) {
 
 // The arithmetic alone, for the tests: the simple IDCT of one block
 // (natural order) put into (add 0) or added to (add 1) dst (8 x 8,
-// stride 8); one n x n half-pel block; the I420/J420 -> RGB conversion.
+// stride 8); one n x n half-pel block (n 8 or 16) of a w x h plane, its
+// coordinates clamped into the plane; the I420/J420 -> RGB conversion.
 void vd_idct(const int16_t* in, int add, uint8_t* dst) {
   int16_t blk[64];
   std::memcpy(blk, in, sizeof(blk));
   simple_idct(blk, dst, 8, add != 0);
 }
 
+// The Xvid IDCT, as vd_idct.
+void vd_xvid_idct(const int16_t* in, int add, uint8_t* dst) {
+  int16_t blk[64];
+  std::memcpy(blk, in, sizeof(blk));
+  xvid_idct(blk, dst, 8, add != 0);
+}
+
+// A B-VOP's bidirectional prediction of an n x n block: the forward block
+// at (x0, y0) + half-pel dxy0 of plane p0 put with rounding, then the
+// backward one of p1 averaged in (avg_pixels); both planes w x h (stride
+// w), read with their coordinates clamped into the plane.
+void vd_mpeg4_bipred(const uint8_t* p0, const uint8_t* p1, int w, int h, int x0,
+                     int y0, int dxy0, int x1, int y1, int dxy1, int n, uint8_t* dst) {
+  uint8_t tmp[24 * 24];
+  int ts;
+  const uint8_t* s = Mpeg4::area(p0, w, w, h, x0, y0, n + 1, n + 1, true, w, h, tmp, &ts);
+  Mpeg4::hpel_op(s, ts, dxy0, 1, n, false, dst, n);
+  s = Mpeg4::area(p1, w, w, h, x1, y1, n + 1, n + 1, true, w, h, tmp, &ts);
+  Mpeg4::hpel_op(s, ts, dxy1, 1, n, true, dst, n);
+}
+
 void vd_hpel(const uint8_t* src, int stride, int w, int h, int x, int y,
              int dxy, int rounding, int n, uint8_t* dst) {
-  hpel_block(src, stride, w, h, x, y, dxy, 1 - rounding, n, dst, n);
+  uint8_t tmp[24 * 24];
+  int ts;
+  const uint8_t* s = Mpeg4::area(src, stride, w, h, x, y, n + 1, n + 1, true, w, h, tmp, &ts);
+  Mpeg4::hpel_op(s, ts, dxy, 1 - rounding, n, false, dst, n);
 }
 
 void vd_yuv_to_rgb(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,

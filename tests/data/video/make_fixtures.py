@@ -10,7 +10,12 @@ AVI, ``vp09`` into MP4) and from the test writer
 through cv2 never writes: hidden frames and ``show_existing_frame``,
 compound prediction, backward adaptation with intra-only and
 error-resilient frames, segmentation with lossless and delta-q, tile
-rows); the H.264 files from the test writer ``tests/torch_h264_writer.py``:
+rows); the MPEG-4 Part 2 files as Xvid and DivX write them from the test writer
+``tests/torch_mpeg4_writer.py`` (its encoder's IBBP pan at 480x640 with
+4MV and AC prediction, the CLI's Xvid clip; random syntax: B-VOPs in MP4
+and in Matroska BlockGroups, a packed DivX AVI, the I/P tools at an odd
+size under an Xvid build FFmpeg gives its edge and DC workarounds);
+the H.264 files from the test writer ``tests/torch_h264_writer.py``:
 random legal syntax from a seed (CAVLC and CABAC, in MP4, Matroska and
 AVI) and its small encoder's pans (a cropped 152x104 clip, a 1920x1080 one
 coded at 1088, and the 640x480 clips of the CLI run and the host timing);
@@ -22,8 +27,9 @@ clip).
     python tests/data/video/make_fixtures.py h264     # the H.264 I/P files
     python tests/data/video/make_fixtures.py h264b    # the H.264 B files
     python tests/data/video/make_fixtures.py vp9      # the VP9 files
+    python tests/data/video/make_fixtures.py mpeg4    # the MPEG-4 writer's files
 
-The last three forms keep the cv2-written files and their digests as they are:
+The last four forms keep the cv2-written files and their digests as they are:
 cv2 rewrites the MP4, MOV and AVI files byte for byte, but FFmpeg's
 Matroska muxer draws a new segment UID and track UID (and the CRC-32s over
 them) each run, so every full run changes ``mp4v.mkv`` and ``mjpg.mkv``
@@ -50,6 +56,7 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[2]))
 sys.path.insert(0, str(HERE.parents[1]))
 import torch_h264_writer as W  # noqa: E402
+import torch_mpeg4_writer as W4  # noqa: E402
 import torch_vp9_writer as W9  # noqa: E402
 
 from mast3r_slam_tpu_torch.data import video  # noqa: E402
@@ -130,6 +137,40 @@ VP9_RANDOM = {
     "vp9_tiles.mp4": ("tiles", 100, 8),
 }
 VP9_NAMES = tuple(VP9_FILES) + tuple(VP9_RANDOM)
+
+# the MPEG-4 Part 2 writer's files, as Xvid and DivX write them: name:
+# (fourcc, random_stream group or "pan", options, muxer options)
+MPEG4_FILES = {
+    "cli_640x480_xvid_b.avi": ("XVID", "pan", dict(n=16, hw=(480, 640), step=(12.0, 4.0)), {}),
+    "xvid_b.mp4": ("mp4v", "b", dict(seed=41, width=64, height=48, frames=12, gop=6,
+                                      gov=True, time_res=7), {}),
+    "xvid_b4mv.mkv": ("XVID", "b4mv", dict(seed=42, width=80, height=48, frames=12, gop=6),
+                      dict(vfw=b"XVID", groups=True)),
+    "divx_packed.avi": ("XVID", "packed", dict(seed=43, width=64, height=48, frames=12, gop=6,
+                                               build="divx_packed"), {}),
+    "xvid_tools_66x50.avi": ("XVID", "inter", dict(seed=44, width=66, height=50, frames=8,
+                                                   gop=4, build="xvid0"), {}),
+}
+
+
+def pan_motion(n, step):
+    """pan_frames' global motion in half-pels from frame b to frame a."""
+    def motion(a, b):
+        pa, pb = min(a, n - 1 - a), min(b, n - 1 - b)
+        return (int(round(2 * step[0] * (pa - pb))), int(round(2 * step[1] * (pa - pb))))
+    return motion
+
+
+def write_mpeg4(path, name):
+    """An MPEG-4 writer fixture; returns its clip."""
+    fourcc, group, opts, mux = MPEG4_FILES[name]
+    if group == "pan":
+        n, hw, step = opts["n"], opts["hw"], opts["step"]
+        clip = W4.encode(pan_frames(n, hw, step=step), motion=pan_motion(n, step))
+    else:
+        clip = W4.random_stream(opts.pop("seed"), group, **opts)
+    W4.MUX[path.suffix[1:]](path, clip, **mux)
+    return clip
 
 
 def pan_frames(n, hw, step=(6.0, 2.0), seed=0):
@@ -237,11 +278,13 @@ def write_vp9(path, name):
 def main(which="all"):
     out = {}
     digests = HERE / "digests.json"
-    names = {"h264": H264_NAMES, "h264b": H264B_NAMES, "vp9": ()}.get(
+    names = {"h264": H264_NAMES, "h264b": H264B_NAMES, "vp9": (), "mpeg4": ()}.get(
         which, H264_NAMES + H264B_NAMES)
     vp9 = which in ("vp9", "all")
-    if which in ("h264", "h264b", "vp9") and digests.exists():
-        drop = VP9_NAMES if which == "vp9" else names
+    mpeg4 = which in ("mpeg4", "all")
+    if which in ("h264", "h264b", "vp9", "mpeg4") and digests.exists():
+        drop = (VP9_NAMES if which == "vp9" else tuple(MPEG4_FILES) if which == "mpeg4"
+                else names)
         out = {k: v for k, v in json.loads(digests.read_text()).items()
                if k not in drop}
     else:
@@ -251,6 +294,9 @@ def main(which="all"):
     for name in VP9_NAMES if vp9 else ():
         fourcc, hw = write_vp9(HERE / name, name)
         out[name] = record(HERE / name, fourcc, hw)
+    for name in MPEG4_FILES if mpeg4 else ():
+        clip = write_mpeg4(HERE / name, name)
+        out[name] = record(HERE / name, MPEG4_FILES[name][0], (clip.height, clip.width))
     for name in names:
         path = HERE / name
         clip = write_h264(path, name)

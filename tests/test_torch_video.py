@@ -4,13 +4,15 @@ backend) and the JAX package's ``MP4Dataset``, on the committed fixtures
 of ``tests/data/video`` (``make_fixtures.py``).
 
 Every fixture's frames equal cv2's bit for bit (``FRAME_TOL`` is 0 for
-both codecs; ``digests.json`` records the measurement): MPEG-4 Part 2 in
+every codec; ``digests.json`` records the measurement): MPEG-4 Part 2 in
 MP4, MOV, AVI and Matroska (I- and P-VOPs over a GOP boundary, a size that
 is not a multiple of 16, a single I-VOP, intra macroblocks in P-VOPs and
-all three TCOEF escapes) and Motion JPEG in AVI and Matroska. FFmpeg's
-encoder under cv2 writes no AC prediction, DQUANT, 4MV or MPEG
-quantisation, so the decoder's paths for those are not held against cv2
-here."""
+all three TCOEF escapes; and the test writer's Xvid clips: B-VOPs, packed
+bitstreams, 4MV and AC prediction), Motion JPEG, H.264 and VP9. The
+MPEG-4 tools FFmpeg's encoder under cv2 never writes (AC prediction,
+DQUANT, 4MV, MPEG quantisation, not-coded VOPs, B-VOPs, the encoders'
+builds and their workarounds) are held against cv2 on the test writer's
+streams in ``tests/test_torch_mpeg4.py``."""
 
 import hashlib
 import json
@@ -249,9 +251,12 @@ def test_refuses_quarter_pel_by_name(tmp_path):
 
 
 def test_refuses_b_vops_by_name(tmp_path, jax_config):
-    """The first P-VOP of an AVI marked a B-VOP: frame 0 reads, frame 1
-    raises the JAX reader's message, from the decoder's naming the
-    feature."""
+    """The first P-VOP of an AVI marked a B-VOP. B-VOPs are decoded (no
+    longer refused), but this one comes before the stream has two
+    references, and FFmpeg skips such a B-VOP: no frame for its sample, so
+    frame 1 is the P-VOP after it (predicted from the I-VOP) and the last
+    frame the container counts cannot be read. Both readers give cv2's 15
+    frames and raise the JAX reader's message for frame 15."""
     data = bytearray((FIXTURES / "xvid.avi").read_bytes())
     i = data.index(b"\x00\x00\x01\xb6")
     i = data.index(b"\x00\x00\x01\xb6", i + 4)  # frame 1's VOP
@@ -259,11 +264,18 @@ def test_refuses_b_vops_by_name(tmp_path, jax_config):
     data[i + 4] = (data[i + 4] & 0x3F) | (2 << 6)
     path = tmp_path / "bvop.avi"
     path.write_bytes(bytes(data))
-    ds = TD.load_dataset(str(path), jax_config)
-    ds[0]
-    with pytest.raises(ValueError, match="failed to decode frame 1") as e:
-        ds[1]
-    assert "B-VOPs are not supported" in str(e.value.__cause__)
+    want = _cv2_frames(path)
+    assert len(want) == 15
+    r = video.VideoReader(path)
+    for k, w in enumerate(want):
+        np.testing.assert_array_equal(r.read(k), w)
+    dt, dj = TD.load_dataset(str(path), jax_config), JD.load_dataset(str(path))
+    assert len(dt) == len(dj) == 16
+    for k in range(15):
+        np.testing.assert_array_equal(dt[k][1], dj[k][1])
+    for ds in (dj, dt):
+        with pytest.raises(ValueError, match=f"failed to decode frame 15 of {path}"):
+            ds[15]
 
 
 def test_avi_opendml_index(tmp_path):
