@@ -3965,6 +3965,17 @@ VIDEO_CLI_XVID_B = "cli_640x480_xvid_b.avi"
 VIDEO_MPEG4_WRITER = (VIDEO_CLI_XVID_B, "xvid_b.mp4", "xvid_b4mv.mkv", "divx_packed.avi",
                       "xvid_tools_66x50.avi")
 VIDEO_VP9_1080 = "vp9_1920x1080.mkv"  # 4 frames of VP9, 4 tile columns
+# HEVC from the test writer: 16 frames of the pan (I, 15 P), 8 of low-delay B
+# pictures at 480x640, 4 at 1920x1080 (coded 1088), all three coded with the
+# loop filters off and one CU a CTB; and random syntax, 6 frames of it (I,
+# 5 P) at 480x640 with deblocking and SAO in every slice
+VIDEO_CLI_HEVC = "cli_640x480_hevc.mp4"
+VIDEO_HEVC_B = "hevc_b_640x480.mp4"
+VIDEO_HEVC_1080 = "hevc_1920x1080.mp4"
+VIDEO_HEVC_LF = "hevc_sao_640x480.mp4"
+VIDEO_HEVC_WRITER = (VIDEO_CLI_HEVC, VIDEO_HEVC_B, VIDEO_HEVC_1080, VIDEO_HEVC_LF,
+                     "hevc_main.mp4", "hevc_tiles.mkv", "hevc_ltr.mov", "hevc_hev1.mp4",
+                     "hevc_ldb.mkv")
 VIDEO_REPS = 10                     # timed passes over each codec's frames
 VIDEO_HW = (480, 640)
 
@@ -3987,6 +3998,8 @@ def video_fixture_reads():
           "video: the VP9 fixtures are not in digests.json")
     check(all(n in rec for n in VIDEO_MPEG4_WRITER),
           "video: the MPEG-4 writer's fixtures are not in digests.json")
+    check(all(n in rec for n in VIDEO_HEVC_WRITER),
+          "video: the HEVC writer's fixtures are not in digests.json")
     n = 0
     for name, want in sorted(rec.items()):
         r = video.VideoReader(VIDEO_FIXTURES / name)
@@ -4030,7 +4043,11 @@ def video_decode_times(smi):
     CAVLC P pictures (the CAVLC clip's samples 1-3); and at 1920x1080 the
     H.264 clip's 4 pictures (IDR and P, coded at 1088, cropped); each beside
     the compiled and the plain numpy converter on the same planes, which
-    must give the same bytes. Then the IBBP clips (480x640 and 1920x1080;
+    must give the same bytes; HEVC likewise (the CLI clip's IDR picture and
+    15 P pictures, the B clip's 6 low-delay B pictures after its I and P
+    pictures, and the 1080p clip's 4 pictures, all with the loop filters
+    off; the filtered random-syntax clip's I picture and 5 P pictures).
+    Then the IBBP clips (480x640 and 1920x1080;
     H.264, and the Xvid one at 480x640 with its I-VOP too): each sample
     decoded in turn with the frame it puts out converted, B pictures and P
     pictures timed apart (a B picture's sample puts out itself, a P
@@ -4047,6 +4064,10 @@ def video_decode_times(smi):
     tk, ks = video_samples(VIDEO_H264_1080)
     _, vs = video_samples(VIDEO_CLI_VP9)
     _, v9 = video_samples(VIDEO_VP9_1080)
+    he, hes = video_samples(VIDEO_CLI_HEVC)
+    hb, hbs = video_samples(VIDEO_HEVC_B)
+    hk, hks = video_samples(VIDEO_HEVC_1080)
+    hf, hfs = video_samples(VIDEO_HEVC_LF)
     jw = _test_writer("torch_jpeg_writer")
     jpeg = jw.encode_jpeg(next(pan_frames(1, VIDEO_HW, (0, 0), seed=7)), 90)
 
@@ -4082,10 +4103,17 @@ def video_decode_times(smi):
             ("vp9_key", video.VP9, b"", [], vs[:1], VIDEO_HW),
             ("vp9_inter", video.VP9, b"", vs[:1], vs[1:12], VIDEO_HW),
             ("vp9_1080_key", video.VP9, b"", [], v9[:1], (1080, 1920)),
-            ("vp9_1080_inter", video.VP9, b"", v9[:1], v9[1:], (1080, 1920))):
+            ("vp9_1080_inter", video.VP9, b"", v9[:1], v9[1:], (1080, 1920)),
+            ("hevc_idr", video.HEVC, he.extradata, [], hes[:1], VIDEO_HW),
+            ("hevc_p", video.HEVC, he.extradata, hes[:1], hes[1:], VIDEO_HW),
+            ("hevc_b", video.HEVC, hb.extradata, hbs[:2], hbs[2:], VIDEO_HW),
+            ("hevc_1080", video.HEVC, hk.extradata, [], hks, (1080, 1920)),
+            ("hevc_lf_i", video.HEVC, hf.extradata, [], hfs[:1], VIDEO_HW),
+            ("hevc_lf_p", video.HEVC, hf.extradata, hfs[:1], hfs[1:], VIDEO_HW)):
         ms, dec = timed(codec, extra, warm, frames, hw)
         y, cb, cr = dec.planes()
         full = codec == video.MJPEG
+        # the HEVC clips timed are BT.601 limited range (no VUI), as the others
         conv, plain = [], []
         pair = ((video.yuv_to_rgb, conv), (video.yuv_to_rgb_ref, plain))
         for k in range(VIDEO_REPS):  # in turns
@@ -4257,6 +4285,91 @@ def vp9_plain_checks():
     return n
 
 
+def hevc_plain_checks():
+    """HEVC's five plain numpy versions against the compiled entries on
+    random inputs: the inverse DCT at 4-32, the 4x4 DST and transform skip
+    (sparse and saturated coefficients), luma and chroma interpolation at
+    every fraction, uni and bi, default and explicit weights, past the
+    plane's edges, the 35 intra modes of luma and chroma at every size with
+    random availability, one deblocking edge of luma and chroma over bS,
+    QPs and offsets, and SAO band and edge offsets of a block with usable
+    and unusable neighbours; the cases held, each equal bit for bit."""
+    import numpy as np
+
+    from mast3r_slam_tpu_torch.data import video
+
+    rng = np.random.default_rng(27)
+    n = 0
+    for log2 in (2, 3, 4, 5):
+        m = 1 << log2
+        for t in range(12):
+            c = rng.integers(-400, 400, (m, m)) * (rng.random((m, m)) < 0.2)
+            if t % 6 == 0:
+                c = rng.integers(-32768, 32768, (m, m))
+            for trtype, skip in ([(0, False), (1, False), (0, True)] if log2 == 2 else
+                                 [(0, False)]):
+                check(np.array_equal(video.hevc_idct(c, log2, trtype, skip),
+                                     video.hevc_idct_ref(c, log2, trtype, skip)),
+                      f"video: hevc_idct {m}x{m} type {trtype} skip {skip} differs "
+                      "from its plain version")
+                n += 1
+    p0 = rng.integers(0, 256, (24, 32)).astype(np.uint8)
+    p1 = rng.integers(0, 256, (24, 32)).astype(np.uint8)
+    for chroma in (False, True):
+        for frac in range(8 if chroma else 4):
+            for pred in (1, 2, 3):
+                for weighted in (False, True):
+                    mv = rng.integers(-96, 96, 4) * (8 if chroma else 4) // 4
+                    mv[0] = (mv[0] & ~(7 if chroma else 3)) | frac
+                    mv[3] = (mv[3] & ~(7 if chroma else 3)) | frac
+                    wt = ((int(rng.integers(6, 14)), int(rng.integers(-128, 256)),
+                           int(rng.integers(-128, 256)), int(rng.integers(-128, 128)),
+                           int(rng.integers(-128, 128))) if weighted else None)
+                    x, y = int(rng.integers(-12, 32)), int(rng.integers(-12, 24))
+                    bw, bh = int(rng.choice([4, 8, 16])), int(rng.choice([4, 8, 12, 16]))
+                    check(np.array_equal(video.hevc_mc(p0, p1, chroma, x, y, mv, pred, bw, bh, wt),
+                                         video.hevc_mc_ref(p0, p1, chroma, x, y, mv, pred, bw,
+                                                           bh, wt)),
+                          f"video: hevc_mc chroma {chroma} pred {pred} weighted {weighted} "
+                          "differs from its plain version")
+                    n += 1
+    for log2 in (2, 3, 4, 5):
+        m = 1 << log2
+        for mode in range(35):
+            ref = rng.integers(0, 256, 4 * m + 1)
+            if mode % 2:
+                ref = np.clip(100 + np.cumsum(rng.integers(-2, 3, 4 * m + 1)), 0, 255)
+            av = rng.random(4 * m + 1) < (0.5, 1.0, 0.0)[mode % 3]
+            for c in (0, 1):
+                check(np.array_equal(video.hevc_intra(ref, av, log2, c, mode, True),
+                                     video.hevc_intra_ref(ref, av, log2, c, mode, True)),
+                      f"video: hevc_intra {m}x{m} mode {mode} c {c} differs from its "
+                      "plain version")
+                n += 1
+    for t in range(200):
+        base = int(rng.integers(40, 216))
+        lines = np.clip(base + rng.integers(-6, 7, (4, 8)) +
+                        np.array([0] * 4 + [1] * 4) * int(rng.integers(-24, 25)), 0, 255)
+        args = (bool(t % 2), int(rng.integers(0, 3)), int(rng.integers(0, 52)),
+                int(rng.integers(-6, 7)), int(rng.integers(-6, 7)), int(rng.integers(-12, 13)),
+                bool(rng.random() < 0.1), bool(rng.random() < 0.1))
+        check(np.array_equal(video.hevc_deblock(lines, *args), video.hevc_deblock_ref(lines, *args)),
+              f"video: hevc_deblock {args} differs from its plain version")
+        n += 1
+    for t in range(40):
+        h, w = int(rng.integers(1, 33)), int(rng.integers(1, 33))
+        pad = rng.integers(0, 256, (h + 2, w + 2)).astype(np.uint8)
+        args = (1 + t % 2, int(rng.integers(0, 32)), int(rng.integers(0, 4)),
+                rng.integers(-7, 8, 4), rng.random(8) < 0.7)
+        check(np.array_equal(video.hevc_sao(pad, *args), video.hevc_sao_ref(pad, *args)),
+              "video: hevc_sao differs from its plain version")
+        n += 1
+    log(f"video: HEVC's plain versions equal the compiled entries on {n} cases "
+        f"(inverse transforms, interpolation and weighting, intra prediction, "
+        f"deblocking edges, SAO)")
+    return n
+
+
 def phase_video(torch, FA, C3, BA, workdir, smi):
     """Video files on this machine: the decoder built here reads every
     committed fixture (MPEG-4 Part 2 in MP4, MOV, AVI and Matroska; MJPEG
@@ -4264,8 +4377,9 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
     cv2.VideoCapture's frames recorded beside them; the host ms a frame of
     each codec (:func:`video_decode_times`) beside the plain converter;
     then the CLI at full ViT-L width on the committed 16-frame 480x640
-    mp4v clip, the H.264 I/P one, the H.264 IBBP one, the VP9 one and the
-    Xvid IBBP one (B-VOPs, 4MV, FFmpeg's Xvid IDCT) under base.yaml with
+    mp4v clip, the H.264 I/P one, the H.264 IBBP one, the VP9 one, the
+    Xvid IBBP one (B-VOPs, 4MV, FFmpeg's Xvid IDCT) and the HEVC one (the
+    test writer's encoder: IDR, 15 P) under base.yaml with
     the services off (bf16: K1, K2 on the implicit GEMM, K4 on the
     tensor cores), each
     checking all 16 frames read, its outputs and its launches as the
@@ -4281,7 +4395,7 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
         f"the committed fixtures (in order and backwards) equal "
         f"cv2.VideoCapture's")
     out = {"decode": video_decode_times(smi), "vp9_plain_cases": vp9_plain_checks(),
-           "mpeg4_plain_cases": mpeg4_plain_checks()}
+           "mpeg4_plain_cases": mpeg4_plain_checks(), "hevc_plain_cases": hevc_plain_checks()}
     out["cli"] = video_cli_run(torch, FA, C3, BA, workdir, smi, VIDEO_CLI,
                                "video")
     out["cli_h264"] = video_cli_run(torch, FA, C3, BA, workdir, smi,
@@ -4292,6 +4406,8 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
                                    VIDEO_CLI_VP9, "video_vp9")
     out["cli_xvid_b"] = video_cli_run(torch, FA, C3, BA, workdir, smi,
                                       VIDEO_CLI_XVID_B, "video_xvid_b")
+    out["cli_hevc"] = video_cli_run(torch, FA, C3, BA, workdir, smi,
+                                    VIDEO_CLI_HEVC, "video_hevc")
     return out
 
 
@@ -6077,7 +6193,8 @@ def main():
                              (VIDEO_CLI_H264, vid["cli_h264"]),
                              (VIDEO_CLI_H264_B, vid["cli_h264_b"]),
                              (VIDEO_CLI_VP9, vid["cli_vp9"]),
-                             (VIDEO_CLI_XVID_B, vid["cli_xvid_b"])))
+                             (VIDEO_CLI_XVID_B, vid["cli_xvid_b"]),
+                             (VIDEO_CLI_HEVC, vid["cli_hevc"])))
         + f"; on {smi}")
 
     k2f = per_frame["K2 f32"]

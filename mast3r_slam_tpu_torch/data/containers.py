@@ -43,9 +43,10 @@ class Track:
 
     ``fourcc`` names the codec as the container does (``mp4v``, ``XVID``,
     ``VP90`` (Matroska's ``V_VP9``, AVI), ``vp09`` (MP4),
-    ``MJPG``, ``avc1``, ...); ``extradata`` holds the decoder headers the
-    container keeps apart from the samples (MP4 ``esds``'
-    DecoderSpecificInfo, Matroska ``CodecPrivate``, AVI ``strf`` bytes
+    ``MJPG``, ``avc1``, ``hvc1`` (MP4's and Matroska's HEVC), ...);
+    ``extradata`` holds the decoder headers the container keeps apart from
+    the samples (MP4 ``esds``' DecoderSpecificInfo, ``avcC`` or ``hvcC``,
+    Matroska ``CodecPrivate``, AVI ``strf`` bytes
     past the BITMAPINFOHEADER), empty where they are in-band. Sample ``i``
     is ``sizes[i]`` bytes at file offset ``offsets[i]``; ``sync[i]`` marks
     the samples a decoder may start from."""
@@ -248,6 +249,9 @@ def _mp4_track(buf, mdia, trak) -> Track:
     avcc = _child(buf, ent + 86, ent + esz, b"avcC")
     if avcc is not None:  # H.264: the AVCDecoderConfigurationRecord
         extradata = bytes(buf[avcc[0]:avcc[1]])
+    hvcc = _child(buf, ent + 86, ent + esz, b"hvcC")
+    if hvcc is not None:  # HEVC: the HEVCDecoderConfigurationRecord
+        extradata = bytes(buf[hvcc[0]:hvcc[1]])
 
     s, _ = box[b"stsz"]
     fixed, count = struct.unpack(">II", buf[s + 4:s + 12])

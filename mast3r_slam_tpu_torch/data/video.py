@@ -1,7 +1,7 @@
 """Video files for the dataset readers: the container demuxers of
 ``data/containers.py`` and a C++ frame decoder (``native/video_decode.cpp``
-with ``native/h264_decode.cpp`` and ``native/vp9_decode.cpp``) bound with
-ctypes.
+with ``native/h264_decode.cpp``, ``native/vp9_decode.cpp`` and
+``native/hevc_decode.cpp``) bound with ctypes.
 
 :class:`VideoReader` reads a file as the JAX package's ``MP4Dataset`` reads
 it through ``cv2.VideoCapture``: the same frame count and frame rate
@@ -14,14 +14,23 @@ matrix where it states them). It reads H.264 (``avc1``, ``avc3``, ``H264``,
 the High profile's tools, in any decode order), VP9 (``VP90``, ``vp09``;
 profile 0 with every tool of it: superframes, hidden frames and
 ``show_existing_frame``, intra-only frames, compound prediction,
-segmentation, backward adaptation, tiles), MPEG-4 Part 2 (``mp4v``,
-``XVID``, ``DIVX``, ``FMP4``, ...) and Motion JPEG (``MJPG``) tracks of
-MP4/MOV, AVI and Matroska files; a track of another codec (HEVC, VP8, AV1,
-FFV1, ...) raises ``ValueError`` naming its fourcc, and an H.264 or VP9
-stream that needs what the decoder leaves out (H.264: fields, 4:2:2 /
-4:4:4, more than 8 bits, FMO, data partitioning, SP/SI slices, ...; VP9:
-profiles 1-3, scaled references, a size change, an odd frame height)
-raises one naming that. VP9 reconstruction is integer arithmetic too: its
+segmentation, backward adaptation, tiles), HEVC (``hvc1``, ``hev1``,
+``HEVC``, ...: the Main and Main Still Picture profiles, pictures put out
+in decode order: I, P and low-delay B pictures with every CTU tool, tiles,
+WPP, dependent slice segments, long-term pictures), MPEG-4 Part 2
+(``mp4v``, ``XVID``, ``DIVX``, ``FMP4``, ...) and Motion JPEG (``MJPG``)
+tracks of MP4/MOV, AVI and Matroska files; a track of another codec (VP8,
+AV1, FFV1, ...) raises ``ValueError`` naming its fourcc, and an H.264,
+VP9 or HEVC stream that needs what the decoder leaves out (H.264: fields,
+4:2:2 / 4:4:4, more than 8 bits, FMO, data partitioning, SP/SI slices,
+...; VP9: profiles 1-3, scaled references, a size change, an odd frame
+height; HEVC: B pictures that need reordering, RASL / RADL pictures,
+profiles other than Main, slices of one picture that differ in their
+deblocking, ...) raises one naming that.
+HEVC reconstruction is exact in the standard, and its frames are FFmpeg's;
+where FFmpeg's deblocking and SAO order departs from the standard's
+arithmetic the decoder follows FFmpeg (``native/hevc_decode.cpp`` marks
+where). VP9 reconstruction is integer arithmetic too: its
 frames are FFmpeg's, and where FFmpeg departs from libvpx the decoder
 follows FFmpeg (``native/vp9_decode.cpp`` marks where). H.264 reconstruction is exact in the standard, so its frames are
 FFmpeg's for every stream the decoder reads; the decoder also follows the
@@ -47,9 +56,10 @@ Beside it are the plain numpy versions of its arithmetic (the MPEG-4
 simple and Xvid IDCTs, half-pel interpolation and B-VOP average, H.264's scaled 4x4 / 8x8 inverse transforms,
 quarter-sample luma and eighth-sample chroma interpolation, one deblocking
 edge, bi-prediction, implicit weights and temporal direct's scaling, VP9's
-inverse transforms, 8-tap prediction and loop-filter edge, and the colour
-converter), which only the tests and chip_smoke.py use: the compiled
-entries must equal them bit for bit.
+inverse transforms, 8-tap prediction and loop-filter edge, HEVC's inverse
+transforms, interpolation and weighting, intra prediction, deblocking
+edge and SAO of a block, and the colour converter), which only the tests
+and chip_smoke.py use: the compiled entries must equal them bit for bit.
 """
 
 from __future__ import annotations
@@ -66,13 +76,13 @@ from mast3r_slam_tpu_torch.data import containers
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 _SRC = _PKG / "native" / "video_decode.cpp"
 _DEPS = (_PKG / "native" / "jpeg_decode.cpp", _PKG / "native" / "h264_decode.cpp",
-         _PKG / "native" / "vp9_decode.cpp")
+         _PKG / "native" / "vp9_decode.cpp", _PKG / "native" / "hevc_decode.cpp")
 _BUILD = _PKG / "build"
 _LOCK = threading.Lock()
 _ERRLEN = 256
 _lib = None
 
-MPEG4, MJPEG, H264, VP9 = 1, 2, 3, 4
+MPEG4, MJPEG, H264, VP9, HEVC = 1, 2, 3, 4, 5
 # fourccs of MPEG-4 Part 2 and of Motion JPEG (one baseline or
 # progressive JPEG a sample) that FFmpeg gives its mpeg4 and mjpeg decoders
 CODECS = {
@@ -81,6 +91,7 @@ CODECS = {
     **{c: MJPEG for c in ("MJPG", "mjpg", "jpeg")},
     **{c: H264 for c in ("avc1", "avc3", "H264", "h264", "X264", "x264")},
     **{c: VP9 for c in ("VP90", "vp90", "vp09")},
+    **{c: HEVC for c in ("hvc1", "hev1", "HEVC", "hevc", "H265", "h265", "X265", "x265")},
 }
 
 
@@ -150,6 +161,17 @@ def load_library() -> ctypes.CDLL:
                                       cint, cint, cint, cint, u8p]
             lib.vd_vp9_lf.restype = None
             lib.vd_vp9_lf.argtypes = [u8p, cint, cint, cint, cint, cint, cint]
+            lib.vd_hevc_idct.restype = None
+            lib.vd_hevc_idct.argtypes = [i16p, cint, cint, cint, i16p]
+            lib.vd_hevc_mc.restype = None
+            lib.vd_hevc_mc.argtypes = [u8p, u8p, cint, cint, cint, cint, cint, i32p, cint,
+                                       cint, i32p, cint, cint, u8p]
+            lib.vd_hevc_intra.restype = None
+            lib.vd_hevc_intra.argtypes = [u8p, u8p, cint, cint, cint, cint, u8p]
+            lib.vd_hevc_deblock.restype = None
+            lib.vd_hevc_deblock.argtypes = [u8p] + [cint] * 10
+            lib.vd_hevc_sao.restype = None
+            lib.vd_hevc_sao.argtypes = [u8p, cint, u8p, cint, cint, cint, cint, cint, i32p, u8p]
             _lib = lib
     return _lib
 
@@ -159,7 +181,9 @@ def _u8(a):
 
 
 class Decoder:
-    """One stream's decoder state (``MPEG4``, ``MJPEG``, ``H264`` or ``VP9``;
+    """One stream's decoder state (``MPEG4``, ``MJPEG``, ``H264``, ``VP9`` or
+    ``HEVC`` (pictures out in FFmpeg's bumping order, extradata the hvcC
+    record or nothing for Annex B samples);
     a VP9 sample of frames that are not shown puts out nothing):
     samples in decode order in, frames in output order out (an H.264
     picture waits in a reorder buffer until its turn, as FFmpeg's decoder
@@ -199,8 +223,8 @@ class Decoder:
         return bool(got)
 
     def flush(self) -> bool:
-        """At the end of the stream: True when one more frame (an H.264
-        picture still waiting) is ready."""
+        """At the end of the stream: True when one more frame (an H.264 or
+        HEVC picture still waiting) is ready."""
         wh = (ctypes.c_int32 * 2)()
         if not self._lib.vd_flush(self._handle, wh):
             return False
@@ -289,23 +313,28 @@ class _Refused(ValueError):
     decode: headers it refuses, a seek it does not make."""
 
 
-def _nal_types(data: bytes, length_size: int):
-    """The NAL unit types of an H.264 sample: length-prefixed NAL units
-    (1, 2 or 4 bytes), or an Annex B byte stream (length_size 0)."""
+def _nal_types(data: bytes, length_size: int, hevc: bool = False):
+    """The NAL unit types of an H.264 (or, with ``hevc``, an HEVC base
+    layer's) sample: length-prefixed NAL units (1, 2 or 4 bytes), or an
+    Annex B byte stream (length_size 0)."""
+    def typ(b0, b1):
+        if not hevc:
+            return b0 & 31
+        return -1 if ((b0 & 1) << 5 | b1 >> 3) else (b0 >> 1) & 63
     out, i, n = [], 0, len(data)
     if length_size:
         while i + length_size < n:
             size = int.from_bytes(data[i:i + length_size], "big")
             i += length_size
-            if i < n:
-                out.append(data[i] & 31)
+            if i + 1 < n:
+                out.append(typ(data[i], data[i + 1]))
             i += size
         return out
     while True:
         j = data.find(b"\x00\x00\x01", i)
-        if j < 0 or j + 3 >= n:
+        if j < 0 or j + 4 >= n:
             return out
-        out.append(data[j + 3] & 31)
+        out.append(typ(data[j + 3], data[j + 4]))
         i = j + 3
 
 
@@ -343,7 +372,7 @@ class VideoReader:
         if codec is None:
             raise ValueError(
                 f"{self.path}: video codec {self.track.fourcc!r} is not "
-                "decoded (H.264, VP9, MPEG-4 Part 2 and MJPEG are)")
+                "decoded (H.264, HEVC, VP9, MPEG-4 Part 2 and MJPEG are)")
         self.codec = codec
         t = self.track
         self._tag = t.fourcc if t.codec_tag is None else t.codec_tag
@@ -363,7 +392,9 @@ class VideoReader:
         self._outputs = 0   # and the frames it put out
         self._idr = {}
         extra = self.track.extradata
-        self._nal_len = (extra[4] & 3) + 1 if extra[:1] == b"\x01" else 0
+        self._nal_len = 0
+        if extra[:1] == b"\x01":  # avcC / hvcC: length-prefixed NAL units
+            self._nal_len = (extra[21 if codec == HEVC else 4] & 3) + 1
 
     def __len__(self):
         return int(self.track.frame_count)
@@ -377,10 +408,14 @@ class VideoReader:
         return data
 
     def _is_idr(self, k):
-        if self.codec != H264:
+        """Whether sample k starts a stream a decoder may start from: an
+        H.264 IDR picture, an HEVC IRAP picture (NAL unit types 16-23)."""
+        if self.codec not in (H264, HEVC):
             return True
         if k not in self._idr:
-            self._idr[k] = 5 in _nal_types(self._sample_data(k), self._nal_len)
+            types = _nal_types(self._sample_data(k), self._nal_len, self.codec == HEVC)
+            self._idr[k] = (any(16 <= t <= 23 for t in types) if self.codec == HEVC
+                            else 5 in types)
         return self._idr[k]
 
     def _probe(self):
@@ -1412,4 +1447,411 @@ def vp9_lf(lines, wd: int, level: int, sharp: int) -> np.ndarray:
     ptr = out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
     edge = ctypes.cast(ctypes.addressof(ptr.contents) + 8, ctypes.POINTER(ctypes.c_uint8))
     lib.vd_vp9_lf(edge, out.shape[1], 1, out.shape[0], int(wd), int(level), int(sharp))
+    return out
+
+
+# --- HEVC's arithmetic in plain numpy (tests only) -------------------------------
+
+def _hevc_dct_matrix() -> np.ndarray:
+    """The standard's 32-point DCT matrix (8.6.4.2): row k, column n is
+    64 sqrt(2) cos((2n + 1) k pi / 64) as the standard rounds it; an
+    N-point transform takes rows 0, 32 / N, ... and the first N columns."""
+    odd32 = (90, 90, 88, 85, 82, 78, 73, 67, 61, 54, 46, 38, 31, 22, 13, 4)
+    odd16 = (90, 87, 80, 70, 57, 43, 25, 9)
+    odd8 = (89, 75, 50, 18)
+
+    def mag(t):
+        if t == 0 or t == 16:
+            return 64
+        if t == 32:
+            return 0
+        if t & 1:
+            return odd32[t >> 1]
+        if t & 2:
+            return odd16[t >> 2]
+        if t & 4:
+            return odd8[t >> 3]
+        return 83 if t == 8 else 36
+    m = np.zeros((32, 32), np.int64)
+    for k in range(32):
+        for n in range(32):
+            t, sign = (k * (2 * n + 1)) % 128, 1
+            if t > 64:
+                t = 128 - t
+            if t > 32:
+                t, sign = 64 - t, -1
+            m[k, n] = 64 if k == 0 else sign * mag(t)
+    return m
+
+
+HEVC_DCT = _hevc_dct_matrix()
+HEVC_DST = np.array([[29, 55, 74, 84], [74, 74, 0, -74], [84, -29, -74, 55],
+                     [55, -84, 74, -29]], np.int64)
+
+
+def hevc_idct_ref(coef: np.ndarray, log2: int, trtype: int = 0,
+                  skip: bool = False) -> np.ndarray:
+    """HEVC's inverse transform of an n x n block (n = 1 << log2) of scaled
+    coefficients (8.6.4.2): the DCT, or the 4x4 DST (trtype 1), columns then
+    rows, each stage's result clipped to 16 bits (the first after >> 7, the
+    second after >> 12); transform skip (``skip``) is (d << 7) through the
+    second stage's rounding. Returns the int16 residual."""
+    n = 1 << log2
+    d = np.asarray(coef, np.int64).reshape(n, n)
+    if skip:
+        return (((d << 7) + 2048) >> 12).astype(np.int16)
+    t = HEVC_DST if trtype else HEVC_DCT[::32 // n, :n]
+    e = t.T @ d                                  # columns: e[y, x] = sum_k t[k, y] d[k, x]
+    g = np.clip((e + 64) >> 7, -32768, 32767)
+    r = g @ t                                    # rows: r[y, x] = sum_k g[y, k] t[k, x]
+    return np.clip((r + 2048) >> 12, -32768, 32767).astype(np.int16)
+
+
+_HEVC_LUMA_TAPS = np.array([[0, 0, 0, 64, 0, 0, 0, 0], [-1, 4, -10, 58, 17, -5, 1, 0],
+                            [-1, 4, -11, 40, 40, -11, 4, -1], [0, 1, -5, 17, 58, -10, 4, -1]],
+                           np.int64)
+_HEVC_CHROMA_TAPS = np.array([[0, 64, 0, 0], [-2, 58, 10, -2], [-4, 54, 16, -2],
+                              [-6, 46, 28, -4], [-4, 36, 36, -4], [-4, 28, 46, -6],
+                              [-2, 16, 54, -4], [-2, 10, 58, -2]], np.int64)
+
+
+def _hevc_pred(plane, chroma, x, y, mvx, mvy, bw, bh):
+    """One list's prediction samples (8.5.3.3.3), 14 bits."""
+    h, w = plane.shape
+    sh, mask = (3, 7) if chroma else (2, 3)
+    taps = _HEVC_CHROMA_TAPS if chroma else _HEVC_LUMA_TAPS
+    half = 1 if chroma else 3
+    nt = taps.shape[1]
+    xi, yi, fx, fy = x + (mvx >> sh), y + (mvy >> sh), mvx & mask, mvy & mask
+    ys = np.clip(np.arange(yi - half, yi + bh + nt - 1 - half), 0, h - 1)
+    xs = np.clip(np.arange(xi - half, xi + bw + nt - 1 - half), 0, w - 1)
+    p = plane.astype(np.int64)[np.ix_(ys, xs)]
+    if not fx and not fy:
+        return p[half:half + bh, half:half + bw] << 6
+    if not fy:
+        return sum(taps[fx, t] * p[half:half + bh, t:t + bw] for t in range(nt))
+    if not fx:
+        return sum(taps[fy, t] * p[t:t + bh, half:half + bw] for t in range(nt))
+    tmp = sum(taps[fx, t] * p[:, t:t + bw] for t in range(nt))
+    return sum(taps[fy, t] * tmp[t:t + bh] for t in range(nt)) >> 6
+
+
+def hevc_mc_ref(src0, src1, chroma: bool, x: int, y: int, mv, pred: int, bw: int,
+                bh: int, weights=None) -> np.ndarray:
+    """HEVC inter prediction of one bw x bh block at (x, y) of a plane
+    (luma, or 4:2:0 chroma with mv in eighth samples): from src0 with
+    mv[0:2] (pred 1), src1 with mv[2:4] (pred 2) or both (pred 3); the
+    default weighting, or ``weights`` = (log2wd, w0, w1, o0, o1) explicit
+    (8.5.3.3.4)."""
+    a = _hevc_pred(np.asarray(src0, np.uint8), chroma, x, y, int(mv[0]), int(mv[1]), bw, bh) \
+        if pred & 1 else None
+    b = _hevc_pred(np.asarray(src1, np.uint8), chroma, x, y, int(mv[2]), int(mv[3]), bw, bh) \
+        if pred & 2 else None
+    if a is None:
+        a, b = b, None
+    if weights is None:
+        v = (a + b + 64) >> 7 if b is not None else (a + 32) >> 6
+    else:
+        lwd, w0, w1, o0, o1 = (int(v) for v in weights)
+        if b is not None:
+            v = (a * w0 + b * w1 + ((o0 + o1 + 1) << lwd)) >> (lwd + 1)
+        elif lwd >= 1:
+            v = ((a * w0 + (1 << (lwd - 1))) >> lwd) + o0
+        else:
+            v = a * w0 + o0
+    return np.clip(v, 0, 255).astype(np.uint8)
+
+
+_HEVC_ANGLE = (0, 0, 32, 26, 21, 17, 13, 9, 5, 2, 0, -2, -5, -9, -13, -17, -21, -26, -32,
+               -26, -21, -17, -13, -9, -5, -2, 0, 2, 5, 9, 13, 17, 21, 26, 32)
+_HEVC_INV_ANGLE = {11: -4096, 12: -1638, 13: -910, 14: -630, 15: -482, 16: -390, 17: -315,
+                   18: -256, 19: -315, 20: -390, 21: -482, 22: -630, 23: -910, 24: -1638,
+                   25: -4096}
+
+
+def hevc_intra_ref(ref, avail, log2: int, c: int, mode: int, strong: bool) -> np.ndarray:
+    """HEVC intra prediction of an n x n block (8.4.4.2) from its references
+    ``ref`` = p[-1][-1], the 2n left samples p[-1][0..2n-1] downwards, then
+    the 2n top samples p[0..2n-1][-1] rightwards, and their availability:
+    substitution, the luma filter (strong: the bilinear 32x32 smoothing),
+    planar / DC / angular with the DC and pure horizontal / vertical edge
+    filters of luma blocks under 32x32."""
+    n = 1 << log2
+    ref = [int(v) for v in ref]
+    av = [bool(v) for v in avail]
+    order = list(range(2 * n, 0, -1)) + [0] + list(range(2 * n + 1, 4 * n + 1))
+    if not any(av):
+        p = [128] * (4 * n + 1)
+    else:
+        p = list(ref)
+        first = next(k for k in order if av[k])
+        p[order[0]] = ref[first]
+        for i in range(1, len(order)):
+            if not av[order[i]]:
+                p[order[i]] = p[order[i - 1]]
+
+    def left(q, k):
+        return q[0] if k < 0 else q[1 + k]
+
+    def top(q, k):
+        return q[0] if k < 0 else q[1 + 2 * n + k]
+    q = p
+    if c == 0 and mode != 1 and n > 4 and \
+            min(abs(mode - 26), abs(mode - 10)) > {8: 7, 16: 1, 32: 0}[n]:
+        if strong and n == 32 and abs(p[0] + top(p, 63) - 2 * top(p, 31)) < 8 and \
+                abs(p[0] + left(p, 63) - 2 * left(p, 31)) < 8:
+            f = [p[0]] + [((63 - k) * p[0] + (k + 1) * left(p, 63) + 32) >> 6 for k in range(63)]
+            f += [left(p, 63)]
+            f += [((63 - k) * p[0] + (k + 1) * top(p, 63) + 32) >> 6 for k in range(63)]
+            f += [top(p, 63)]
+        else:
+            f = [(left(p, 0) + 2 * p[0] + top(p, 0) + 2) >> 2]
+            f += [(left(p, k + 1) + 2 * left(p, k) + left(p, k - 1) + 2) >> 2
+                  for k in range(2 * n - 1)] + [left(p, 2 * n - 1)]
+            f += [(top(p, k + 1) + 2 * top(p, k) + top(p, k - 1) + 2) >> 2
+                  for k in range(2 * n - 1)] + [top(p, 2 * n - 1)]
+        q = f
+    out = np.zeros((n, n), np.int64)
+    yy, xx = np.mgrid[0:n, 0:n]
+    lv = np.array([left(q, k) for k in range(n + 1)], np.int64)
+    tv = np.array([top(q, k) for k in range(n + 1)], np.int64)
+    if mode == 0:
+        out = ((n - 1 - xx) * lv[yy] + (xx + 1) * tv[n] + (n - 1 - yy) * tv[xx] +
+               (yy + 1) * lv[n] + n) >> (log2 + 1)
+        return out.astype(np.uint8)
+    if mode == 1:
+        dc = (int(tv[:n].sum() + lv[:n].sum()) + n) >> (log2 + 1)
+        out[:] = dc
+        if c == 0 and n < 32:
+            out[0, 0] = (lv[0] + 2 * dc + tv[0] + 2) >> 2
+            out[0, 1:] = (tv[1:n] + 3 * dc + 2) >> 2
+            out[1:, 0] = (lv[1:n] + 3 * dc + 2) >> 2
+        return out.astype(np.uint8)
+    angle = _HEVC_ANGLE[mode]
+    vert = mode >= 18
+    main = (lambda k: top(q, k)) if vert else (lambda k: left(q, k))
+    side = (lambda k: left(q, k)) if vert else (lambda k: top(q, k))
+    refa = {x: main(x - 1) for x in range(n + 1)}
+    if angle < 0:
+        if (n * angle) >> 5 < -1:
+            for x in range((n * angle) >> 5, 0):
+                refa[x] = side(-1 + ((x * _HEVC_INV_ANGLE[mode] + 128) >> 8))
+    else:
+        for x in range(n + 1, 2 * n + 1):
+            refa[x] = main(x - 1)
+    for j in range(n):
+        idx, fact = ((j + 1) * angle) >> 5, ((j + 1) * angle) & 31
+        for i in range(n):
+            v = ((32 - fact) * refa[i + idx + 1] + fact * refa[i + idx + 2] + 16) >> 5 \
+                if fact else refa[i + idx + 1]
+            if vert:
+                out[j, i] = v
+            else:
+                out[i, j] = v
+    if c == 0 and n < 32:
+        if mode == 26:
+            out[:, 0] = np.clip(top(q, 0) + ((lv[:n] - q[0]) >> 1), 0, 255)
+        if mode == 10:
+            out[0, :] = np.clip(left(q, 0) + ((tv[:n] - q[0]) >> 1), 0, 255)
+    return out.astype(np.uint8)
+
+
+_HEVC_BETA = (0,) * 16 + tuple(range(6, 19)) + tuple(range(20, 65, 2))
+_HEVC_TC = (0,) * 18 + (1,) * 9 + (2,) * 4 + (3,) * 4 + (4,) * 3 + (5, 5, 6, 6, 7, 8, 9, 10,
+                                                                    11, 13, 14, 16, 18, 20, 22, 24)
+
+
+def _hevc_chroma_qp(qpi):
+    if qpi < 30:
+        return qpi
+    if qpi > 43:
+        return qpi - 6
+    return (29, 30, 31, 32, 33, 33, 34, 34, 35, 35, 36, 36, 37, 37)[qpi - 30]
+
+
+def hevc_deblock_ref(lines: np.ndarray, chroma: bool, bs: int, qp: int, beta_offset: int,
+                     tc_offset: int, pps_offset: int = 0, no_p: bool = False,
+                     no_q: bool = False) -> np.ndarray:
+    """One HEVC deblocking edge segment (8.7.2.5): ``lines`` is 4 x 8 uint8,
+    p3..p0 | q0..q3 along each line; luma decisions (strong / weak, dEp /
+    dEq) from lines 0 and 3, or the chroma filter where bS is 2 (its QpC
+    from the average QpY plus the PPS offset, clipped into [0, 57] first as
+    FFmpeg's chroma_tc does); offsets are the slice's div2 values; no_p /
+    no_q keep a side (PCM without the loop filter, transquant bypass)."""
+    s = np.array(lines, np.int64).reshape(4, 8)
+    out = s.copy()
+    if chroma:
+        if bs != 2:
+            return out.astype(np.uint8)
+        qpc = _hevc_chroma_qp(min(max(qp + pps_offset, 0), 57))
+        tc = _HEVC_TC[min(max(qpc + 2 + 2 * tc_offset, 0), 53)]
+        p1, p0, q0, q1 = s[:, 2], s[:, 3], s[:, 4], s[:, 5]
+        d = np.clip((((q0 - p0) * 4) + p1 - q1 + 4) >> 3, -tc, tc)
+        if not no_p:
+            out[:, 3] = np.clip(p0 + d, 0, 255)
+        if not no_q:
+            out[:, 4] = np.clip(q0 - d, 0, 255)
+        return out.astype(np.uint8)
+    if bs == 0:
+        return out.astype(np.uint8)
+    beta = _HEVC_BETA[min(max(qp + 2 * beta_offset, 0), 51)]
+    tc = _HEVC_TC[min(max(qp + 2 * (bs - 1) + 2 * tc_offset, 0), 53)]
+    P = lambda k, i: int(s[k, 3 - i])  # noqa: E731
+    Q = lambda k, i: int(s[k, 4 + i])  # noqa: E731
+    dp0, dp3 = abs(P(0, 2) - 2 * P(0, 1) + P(0, 0)), abs(P(3, 2) - 2 * P(3, 1) + P(3, 0))
+    dq0, dq3 = abs(Q(0, 2) - 2 * Q(0, 1) + Q(0, 0)), abs(Q(3, 2) - 2 * Q(3, 1) + Q(3, 0))
+    if dp0 + dq0 + dp3 + dq3 >= beta:
+        return out.astype(np.uint8)
+
+    def dsam(k, dpq):
+        return (2 * dpq < (beta >> 2) and abs(P(k, 3) - P(k, 0)) + abs(Q(k, 0) - Q(k, 3)) <
+                (beta >> 3) and abs(P(k, 0) - Q(k, 0)) < ((5 * tc + 1) >> 1))
+    strong = dsam(0, dp0 + dq0) and dsam(3, dp3 + dq3)
+    lim = (beta + (beta >> 1)) >> 3
+    dep, deq = dp0 + dp3 < lim, dq0 + dq3 < lim
+    for k in range(4):
+        p0, p1, p2, p3 = (P(k, i) for i in range(4))
+        q0, q1, q2, q3 = (Q(k, i) for i in range(4))
+        if strong:
+            if not no_p:
+                out[k, 3] = np.clip((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3, p0 - 2 * tc, p0 + 2 * tc)
+                out[k, 2] = np.clip((p2 + p1 + p0 + q0 + 2) >> 2, p1 - 2 * tc, p1 + 2 * tc)
+                out[k, 1] = np.clip((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3, p2 - 2 * tc, p2 + 2 * tc)
+            if not no_q:
+                out[k, 4] = np.clip((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3, q0 - 2 * tc, q0 + 2 * tc)
+                out[k, 5] = np.clip((p0 + q0 + q1 + q2 + 2) >> 2, q1 - 2 * tc, q1 + 2 * tc)
+                out[k, 6] = np.clip((p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3, q2 - 2 * tc, q2 + 2 * tc)
+            continue
+        d = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4
+        if abs(d) >= tc * 10:
+            continue
+        d = min(max(d, -tc), tc)
+        if not no_p:
+            out[k, 3] = min(max(p0 + d, 0), 255)
+        if not no_q:
+            out[k, 4] = min(max(q0 - d, 0), 255)
+        if dep and not no_p:
+            out[k, 2] = min(max(p1 + min(max((((p2 + p0 + 1) >> 1) - p1 + d) >> 1, -(tc >> 1)),
+                                         tc >> 1), 0), 255)
+        if deq and not no_q:
+            out[k, 5] = min(max(q1 + min(max((((q2 + q0 + 1) >> 1) - q1 - d) >> 1, -(tc >> 1)),
+                                         tc >> 1), 0), 255)
+    return out.astype(np.uint8)
+
+
+def hevc_sao_ref(padded: np.ndarray, typ: int, band: int, eo: int, offsets,
+                 usable=(True,) * 8) -> np.ndarray:
+    """HEVC SAO of a block (8.7.3): ``padded`` is the deblocked block with
+    one sample round it; typ 1 band (band position ``band``), 2 edge (class
+    ``eo``); offsets signed; ``usable`` says whether the neighbour blocks
+    left, right, above, below, above-left, above-right, below-left and
+    below-right may be read (an edge-offset sample whose neighbour lies in
+    one that may not is left). Returns the h x w result."""
+    src = np.asarray(padded, np.int64)
+    h, w = src.shape[0] - 2, src.shape[1] - 2
+    cur = src[1:-1, 1:-1]
+    off = [int(v) for v in offsets]
+    if typ == 1:
+        table = np.zeros(32, np.int64)
+        for k in range(4):
+            table[(k + band) & 31] = k + 1
+        idx = table[cur >> 3]
+        vals = np.array([0] + off, np.int64)
+        return np.clip(cur + vals[idx], 0, 255).astype(np.uint8)
+    pos = (((-1, 0), (1, 0)), ((0, -1), (0, 1)), ((-1, -1), (1, 1)), ((1, -1), (-1, 1)))[eo]
+    out = cur.copy()
+    blocks = ((4, 2, 5), (0, -1, 1), (6, 3, 7))
+    for y in range(h):
+        for x in range(w):
+            ok = True
+            nb = []
+            for dx, dy in pos:
+                xx, yy = x + dx, y + dy
+                b = blocks[0 if yy < 0 else 2 if yy >= h else 1][0 if xx < 0 else 2 if xx >= w else 1]
+                if b >= 0 and not usable[b]:
+                    ok = False
+                    break
+                nb.append(int(src[yy + 1, xx + 1]))
+            if not ok:
+                continue
+            v = int(cur[y, x])
+            sgn = lambda a: (a > 0) - (a < 0)  # noqa: E731
+            e = 2 + sgn(v - nb[0]) + sgn(v - nb[1])
+            if e <= 2:
+                e = 0 if e == 2 else e + 1
+            if e:
+                out[y, x] = min(max(v + off[e - 1], 0), 255)
+    return out.astype(np.uint8)
+
+
+def _i16p(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int16))
+
+
+def _i32(values):
+    return (ctypes.c_int32 * len(values))(*[int(v) for v in values])
+
+
+def hevc_idct(coef, log2: int, trtype: int = 0, skip: bool = False) -> np.ndarray:
+    """The compiled ``hevc_idct_ref``."""
+    lib = load_library()
+    n = 1 << log2
+    c = np.ascontiguousarray(np.asarray(coef).reshape(n, n), np.int16)
+    out = np.zeros((n, n), np.int16)
+    lib.vd_hevc_idct(_i16p(c), int(log2), int(trtype), int(bool(skip)), _i16p(out))
+    return out
+
+
+def hevc_mc(src0, src1, chroma: bool, x: int, y: int, mv, pred: int, bw: int, bh: int,
+            weights=None) -> np.ndarray:
+    """The compiled ``hevc_mc_ref`` (planes of one size)."""
+    lib = load_library()
+    a = np.ascontiguousarray(src0, np.uint8)
+    b = np.ascontiguousarray(src1 if src1 is not None else src0, np.uint8)
+    if a.shape != b.shape:
+        raise ValueError(f"planes {a.shape} and {b.shape} differ")
+    out = np.zeros((bh, bw), np.uint8)
+    wt = (0, 0, 0, 0, 0) if weights is None else weights
+    lib.vd_hevc_mc(_u8(a), _u8(b), a.shape[1], a.shape[0], int(bool(chroma)), int(x), int(y),
+                   _i32(mv), int(pred), int(weights is not None), _i32(wt), int(bw), int(bh),
+                   _u8(out))
+    return out
+
+
+def hevc_intra(ref, avail, log2: int, c: int, mode: int, strong: bool) -> np.ndarray:
+    """The compiled ``hevc_intra_ref``."""
+    lib = load_library()
+    n = 1 << log2
+    r = np.ascontiguousarray(ref, np.uint8)
+    a = np.ascontiguousarray(np.asarray(avail, bool).astype(np.uint8))
+    if r.size != 4 * n + 1 or a.size != 4 * n + 1:
+        raise ValueError(f"{4 * n + 1} references for a {n}x{n} block, not {r.size}")
+    out = np.zeros((n, n), np.uint8)
+    lib.vd_hevc_intra(_u8(r), _u8(a), int(log2), int(c), int(mode), int(bool(strong)), _u8(out))
+    return out
+
+
+def hevc_deblock(lines, chroma: bool, bs: int, qp: int, beta_offset: int, tc_offset: int,
+                 pps_offset: int = 0, no_p: bool = False, no_q: bool = False) -> np.ndarray:
+    """The compiled ``hevc_deblock_ref``."""
+    lib = load_library()
+    out = np.array(lines, np.uint8, order="C", copy=True).reshape(4, 8)
+    ptr = out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    edge = ctypes.cast(ctypes.addressof(ptr.contents) + 4, ctypes.POINTER(ctypes.c_uint8))
+    lib.vd_hevc_deblock(edge, 8, 1, int(bool(chroma)), int(bs), int(qp), int(beta_offset),
+                        int(tc_offset), int(pps_offset), int(bool(no_p)), int(bool(no_q)))
+    return out
+
+
+def hevc_sao(padded, typ: int, band: int, eo: int, offsets, usable=(True,) * 8) -> np.ndarray:
+    """The compiled ``hevc_sao_ref``."""
+    lib = load_library()
+    src = np.ascontiguousarray(padded, np.uint8)
+    h, w = src.shape[0] - 2, src.shape[1] - 2
+    out = np.zeros((h, w), np.uint8)
+    ptr = src.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    first = ctypes.cast(ctypes.addressof(ptr.contents) + src.shape[1] + 1,
+                        ctypes.POINTER(ctypes.c_uint8))
+    lib.vd_hevc_sao(first, src.shape[1], _u8(out), w, h, int(typ), int(band), int(eo),
+                    _i32(offsets), _u8(np.asarray(usable, bool).astype(np.uint8)))
     return out

@@ -60,6 +60,7 @@
 
 #include <climits>
 #include <cstdlib>
+#include <deque>
 #include <memory>
 
 #include "jpeg_decode.cpp"
@@ -393,8 +394,24 @@ struct Frame {
   int cstride() const { return pw / 2; }
 };
 
+// What the H.264, VP9 and HEVC decoders share: samples in, frames out in
+// output order, each with its sample's tag and its colour.
+struct FrameDecoder {
+  int64_t out_tag = -1;  // the tag of the sample the last frame came from
+  bool have_frame = false, full_range = false;
+  int matrix = 2;  // the last frame's matrix_coefficients (2: unspecified)
+  virtual ~FrameDecoder() = default;
+  // decodes one sample tagged `tag`; true when it puts out a frame
+  virtual bool decode(const uint8_t* p, int64_t n, int64_t tag) = 0;
+  // at the end of the stream: true when a waiting frame is put out
+  virtual bool flush() { return false; }
+  // the last frame put out, or null
+  virtual const Frame* frame() const = 0;
+};
+
 #include "h264_decode.cpp"
 #include "vp9_decode.cpp"
+#include "hevc_decode.cpp"
 
 // --- MPEG-4 Part 2 ---------------------------------------------------------
 
@@ -1669,22 +1686,19 @@ struct Mjpeg {
 };
 
 struct Handle {
-  int codec;  // 1 MPEG-4 Part 2, 2 MJPEG, 3 H.264, 4 VP9
+  int codec;  // 1 MPEG-4 Part 2, 2 MJPEG, 3 H.264, 4 VP9, 5 HEVC
   Mpeg4 m4;
   Mjpeg mj;
-  std::unique_ptr<h264::Decoder> avc;
-  std::unique_ptr<vp9::Decoder> vp9;
-  int64_t tag = -1;  // MJPEG: the last sample's tag
+  std::unique_ptr<FrameDecoder> dec;  // H.264, VP9, HEVC
+  int64_t tag = -1;                   // MJPEG: the last sample's tag
   const Frame* frame() const {
+    if (dec) return dec->frame();
     if (codec == 1) return m4.out ? &m4.out->f : nullptr;
-    if (codec == 3) return avc->have_frame ? &avc->out : nullptr;
-    if (codec == 4) return vp9->have_frame ? vp9->out.get() : nullptr;
     return mj.have_frame ? &mj.cur : nullptr;
   }
-  bool full_range() const {
-    return codec == 2 || (codec == 3 && avc->full_range) || (codec == 4 && vp9->full_range);
-  }
-  int matrix() const { return codec == 3 ? avc->matrix : codec == 4 ? vp9->matrix : 2; }
+  bool full_range() const { return dec ? dec->full_range : codec == 2; }
+  int matrix() const { return dec ? dec->matrix : 2; }
+  h264::Decoder* avc() const { return static_cast<h264::Decoder*>(dec.get()); }
 };
 
 void set_err(char* err, int errlen, const char* msg) {
@@ -1696,18 +1710,20 @@ void set_err(char* err, int errlen, const char* msg) {
 extern "C" {
 
 // A decoder of `codec` (1: MPEG-4 Part 2, 2: MJPEG, 3: H.264, 4: VP9, whose
-// samples carry all its headers). For MPEG-4,
+// samples carry all its headers, 5: HEVC). For MPEG-4,
 // `extra` holds the headers the container keeps apart (MP4 esds'
 // DecoderSpecificInfo, Matroska CodecPrivate), or is empty, and `tag` is
 // the codec tag FFmpeg's demuxer gives the track (its four bytes, first
 // in the low byte; 0 for none), whose upper-case form chooses Xvid's
 // workarounds where the stream names no build; for H.264 the avcC record
 // (samples are then length-prefixed NAL units) or nothing (Annex B
-// samples). Returns the handle, or null with a message in err.
+// samples); for HEVC the hvcC record (length-prefixed samples) or nothing
+// or Annex B headers (Annex B samples). Returns the handle, or null with a
+// message in err.
 void* vd_open(int codec, const uint8_t* extra, int64_t n, uint32_t tag, char* err,
               int errlen) {
   try {
-    if (codec < 1 || codec > 4) throw Error("unknown codec");
+    if (codec < 1 || codec > 5) throw Error("unknown codec");
     std::unique_ptr<Handle> h(new Handle());
     h->codec = codec;
     if (codec == 1) {
@@ -1719,10 +1735,16 @@ void* vd_open(int codec, const uint8_t* extra, int64_t n, uint32_t tag, char* er
       if (n > 0) h->m4.headers(extra, n);  // esds, CodecPrivate: headers only
     }
     if (codec == 3) {
-      h->avc.reset(new h264::Decoder());
-      h->avc->open(extra, n);
+      auto* d = new h264::Decoder();
+      h->dec.reset(d);
+      d->open(extra, n);
     }
-    if (codec == 4) h->vp9.reset(new vp9::Decoder());
+    if (codec == 4) h->dec.reset(new vp9::Decoder());
+    if (codec == 5) {
+      auto* d = new hevc::Decoder();
+      h->dec.reset(d);
+      d->open(extra, n);
+    }
     return h.release();
   } catch (const std::exception& e) {
     set_err(err, errlen, e.what());
@@ -1744,16 +1766,14 @@ int vd_decode(void* hp, const uint8_t* data, int64_t n, int64_t tag, int32_t* wh
               char* err, int errlen) {
   Handle* h = static_cast<Handle*>(hp);
   try {
-    if (h->codec == 1) {
+    if (h->dec) {
+      if (!h->dec->decode(data, n, tag)) return 0;
+    } else if (h->codec == 1) {
       if (!h->m4.decode(data, n, tag)) return 0;
-    } else if (h->codec == 3) {
-      if (!h->avc->decode(data, n, tag)) return 0;
-    } else if (h->codec == 4) {
-      if (!h->vp9->decode(data, n, tag)) return 0;
     } else {
       h->mj.decode(data, n);
+      h->tag = tag;
     }
-    if (h->codec != 3 && h->codec != 4) h->tag = tag;
     const Frame* f = h->frame();
     wh[0] = f->w;
     wh[1] = f->h;
@@ -1764,12 +1784,12 @@ int vd_decode(void* hp, const uint8_t* data, int64_t n, int64_t tag, int32_t* wh
   }
 }
 
-// At the end of the stream: puts out the next H.264 picture still waiting
-// or the MPEG-4 reference FFmpeg puts out last (1, its size in wh), or
-// returns 0 when none waits.
+// At the end of the stream: puts out the next H.264 or HEVC picture still
+// waiting or the MPEG-4 reference FFmpeg puts out last (1, its size in
+// wh), or returns 0 when none waits.
 int vd_flush(void* hp, int32_t* wh) {
   Handle* h = static_cast<Handle*>(hp);
-  if (h->codec == 1 ? !h->m4.flush() : h->codec != 3 || !h->avc->flush()) return 0;
+  if (h->dec ? !h->dec->flush() : h->codec != 1 || !h->m4.flush()) return 0;
   const Frame* f = h->frame();
   wh[0] = f->w;
   wh[1] = f->h;
@@ -1779,8 +1799,9 @@ int vd_flush(void* hp, int32_t* wh) {
 // The last frame's tag.
 int64_t vd_tag(void* hp) {
   Handle* h = static_cast<Handle*>(hp);
+  if (h->dec) return h->dec->out_tag;
   if (h->codec == 1) return h->m4.out ? h->m4.out->tag : -1;
-  return h->codec == 3 ? h->avc->out_tag : h->codec == 4 ? h->vp9->out_tag : h->tag;
+  return h->tag;
 }
 
 // MPEG-4: a seek, as avcodec_flush_buffers does it (ff_mpeg_flush: the
@@ -1811,13 +1832,14 @@ int vd_delay(void* hp, int delay, int32_t* info) {
   Handle* h = static_cast<Handle*>(hp);
   if (info) info[0] = info[1] = info[2] = 0;
   if (h->codec != 3) return 0;
-  if (delay >= 0) h->avc->has_b = delay;
+  h264::Decoder* avc = h->avc();
+  if (delay >= 0) avc->has_b = delay;
   if (info) {
-    info[0] = h->avc->restriction;
-    info[1] = h->avc->num_reorder;
-    info[2] = h->avc->dropped;
+    info[0] = avc->restriction;
+    info[1] = avc->num_reorder;
+    info[2] = avc->dropped;
   }
-  return h->avc->has_b;
+  return avc->has_b;
 }
 
 // The last decoded frame as H x W x 3 RGB (rgb) and its planes: y (H x W),
@@ -1989,6 +2011,64 @@ void vd_vp9_lf(uint8_t* pix, int along, int across, int n, int wd, int level,
   lut.set(sharp);
   vp9::filter_edge(pix, along, across, n, wd, lut.mblim[level], lut.lim[level],
                    level >> 4);
+}
+
+// HEVC's arithmetic alone, for the tests: one n x n inverse transform
+// (n = 1 << log2; trtype 1 the 4x4 DST; skip: transform skip) of scaled
+// coefficients (raster) into the residual; the prediction of one bw x bh
+// block of a w x h plane (luma, or chroma: mvs in eighth samples) from one
+// list (pred 1: src0 with mv[0..1], 2: src1 with mv[2..3]) or both (3),
+// weighted by default or explicitly (wt: log2wd, w0, w1, o0, o1); the intra
+// prediction of an n x n block from its references and their availability
+// (ref / avail: p[-1][-1], the 2n left samples downwards, the 2n top
+// samples rightwards); one deblocking edge segment of 4 lines through pix
+// (along / across as vd_h264_edge) of luma or chroma (chroma filtered
+// where bS is 2, with the PPS's QP offset); SAO of one w x h block (src:
+// its first sample, the samples round it readable where usable says).
+void vd_hevc_idct(const int16_t* coef, int log2, int trtype, int skip, int16_t* res) {
+  hevc::inverse_transform(coef, log2, trtype, skip != 0, res);
+}
+
+void vd_hevc_mc(const uint8_t* src0, const uint8_t* src1, int w, int h, int chroma, int x,
+                int y, const int32_t* mv, int pred, int weighted, const int32_t* wt, int bw,
+                int bh, uint8_t* out) {
+  std::vector<int16_t> a((size_t)bw * bh), b((size_t)bw * bh);
+  const int s = chroma ? 3 : 2, m = chroma ? 7 : 3;
+  int n = 0;
+  for (int l = 0; l < 2; l++) {
+    if (!(pred >> l & 1)) continue;
+    const int mx = mv[2 * l], my = mv[2 * l + 1];
+    hevc::interpolate(l ? src1 : src0, w, w, h, chroma != 0, x + (mx >> s), y + (my >> s), mx & m,
+                      my & m, bw, bh, n ? b.data() : a.data());
+    n++;
+  }
+  hevc::weight(a.data(), n == 2 ? b.data() : nullptr, bw * bh, weighted != 0, wt[0], wt[1], wt[2],
+               wt[3], wt[4], out);
+}
+
+void vd_hevc_intra(const uint8_t* ref, const uint8_t* avail, int log2, int c, int mode,
+                   int strong, uint8_t* out) {
+  hevc::intra_predict(ref, avail, log2, c, mode, strong != 0, out);
+}
+
+void vd_hevc_deblock(uint8_t* pix, int along, int across, int chroma, int bs, int qp,
+                     int beta_offset, int tc_offset, int pps_offset, int no_p, int no_q) {
+  if (chroma) {
+    if (bs == 2)
+      hevc::filter_chroma(pix, along, across, 4, hevc::chroma_tc(qp, pps_offset, tc_offset),
+                          no_p != 0, no_q != 0);
+  } else if (bs > 0) {
+    hevc::filter_luma(pix, along, across, bs, qp, beta_offset, tc_offset, no_p != 0, no_q != 0);
+  }
+}
+
+void vd_hevc_sao(const uint8_t* src, int stride, uint8_t* dst, int w, int h, int type, int band,
+                 int eo, const int32_t* offsets, const uint8_t* usable) {
+  bool u[8];
+  int off[4];
+  for (int k = 0; k < 8; k++) u[k] = usable[k] != 0;
+  for (int k = 0; k < 4; k++) off[k] = offsets[k];
+  hevc::sao_block(src, stride, dst, w, w, h, type, band, eo, off, u);
 }
 
 }  // extern "C"

@@ -21,15 +21,20 @@ AVI) and its small encoder's pans (a cropped 152x104 clip, a 1920x1080 one
 coded at 1088, and the 640x480 clips of the CLI run and the host timing);
 with B pictures, random syntax in MP4 (``ctts`` with and without ``elst``),
 Matroska and AVI, and IBBP pans at 1920x1080 and 640x480 (the CLI's B
-clip).
+clip); the HEVC files from the test writer ``tests/torch_hevc_writer.py``:
+random syntax by tool group (``hvc1`` and ``hev1`` MP4, MOV, Matroska; a
+640x480 one deblocks and runs SAO in every slice) and its small encoder's
+pans (1920x1080 coded at 1088, the CLI's 640x480
+clip, a 640x480 one of low-delay B pictures).
 
     python tests/data/video/make_fixtures.py          # every file
     python tests/data/video/make_fixtures.py h264     # the H.264 I/P files
     python tests/data/video/make_fixtures.py h264b    # the H.264 B files
     python tests/data/video/make_fixtures.py vp9      # the VP9 files
     python tests/data/video/make_fixtures.py mpeg4    # the MPEG-4 writer's files
+    python tests/data/video/make_fixtures.py hevc     # the HEVC writer's files
 
-The last four forms keep the cv2-written files and their digests as they are:
+The last five forms keep the cv2-written files and their digests as they are:
 cv2 rewrites the MP4, MOV and AVI files byte for byte, but FFmpeg's
 Matroska muxer draws a new segment UID and track UID (and the CRC-32s over
 them) each run, so every full run changes ``mp4v.mkv`` and ``mjpg.mkv``
@@ -56,6 +61,7 @@ HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE.parents[2]))
 sys.path.insert(0, str(HERE.parents[1]))
 import torch_h264_writer as W  # noqa: E402
+import torch_hevc_writer as WH  # noqa: E402
 import torch_mpeg4_writer as W4  # noqa: E402
 import torch_vp9_writer as W9  # noqa: E402
 
@@ -151,6 +157,53 @@ MPEG4_FILES = {
     "xvid_tools_66x50.avi": ("XVID", "inter", dict(seed=44, width=66, height=50, frames=8,
                                                    gop=4, build="xvid0"), {}),
 }
+
+
+# HEVC from the test writer: random syntax (name: tool group, seed, frames,
+# random_stream options, muxer options), chosen so that each file carries
+# its tools (CTB sizes and counts come with the seed)
+HEVC_RANDOM = {
+    "hevc_main.mp4": ("inter", 302, 8, dict(wpp=True, sao=True, amp=True, tmvp=True,
+                                            sign_hiding=True, transform_skip=True,
+                                            scaling="sps"), {}),
+    "hevc_tiles.mkv": ("tiles", 310, 8, dict(tiles=(3, 2), lf_across_tiles=False,
+                                             lf_across_slices=False, dependent_slices=True,
+                                             cuts=6), {}),
+    "hevc_ltr.mov": ("ltr", 312, 12, dict(pcm=(8, 7, 3, 4, True), bypass=True,
+                                          weighted_pred=True), {}),
+    "hevc_hev1.mp4": ("inter", 319, 12, dict(gop=4, irap=21, reorder=1), dict(entry=b"hev1")),
+    "hevc_ldb.mkv": ("ldb", 308, 8, dict(vui=dict(full_range=1, matrix=1)), {}),
+    # deblocking and SAO in every slice at 640x480, CTB 64: the host time
+    # of the loop filters the encoder's pans leave off
+    "hevc_sao_640x480.mp4": ("sao", 404, 6, dict(width=640, height=480, filters=True, cuts=1),
+                             {}),
+}
+# the encoder's pans: name: (frames, (height, width), QP, crop (l, r, t, b),
+# pan step, CTB log2, low-delay B pictures)
+HEVC_PANS = {
+    "hevc_1920x1080.mp4": (4, (1080, 1920), 34, (0, 0, 0, 8), (12.75, 4.5), 5, False),
+    "cli_640x480_hevc.mp4": (16, (480, 640), 28, (0, 0, 0, 0), (12.5, 4.25), 4, False),
+    "hevc_b_640x480.mp4": (8, (480, 640), 30, (0, 0, 0, 0), (6.25, 2.25), 4, True),
+}
+HEVC_NAMES = tuple(HEVC_RANDOM) + tuple(HEVC_PANS)
+
+
+def write_hevc(path, name):
+    """An HEVC writer fixture; returns its clip."""
+    if name in HEVC_RANDOM:
+        group, seed, n, opts, mux = HEVC_RANDOM[name]
+        opts = dict(opts)
+        cuts = opts.pop("cuts", 3)
+        clip = WH.random_stream(seed, group, frames=n, cuts=cuts, **opts)
+    else:
+        n, hw, qp, crop, step, ctb, bframes = HEVC_PANS[name]
+        mot = pan_motion(n, step)
+        motion = [(0, 0)] + [tuple(2 * v for v in mot(i, i - 1)) for i in range(1, n)]
+        clip = WH.encode(pan_frames(n, hw, step=step), qp=qp, crop=crop, motion=motion,
+                         ctb_log2=ctb, bframes=bframes)
+        mux = {}
+    WH.MUX[path.suffix[1:]](path, clip, **mux)
+    return clip
 
 
 def pan_motion(n, step):
@@ -278,13 +331,14 @@ def write_vp9(path, name):
 def main(which="all"):
     out = {}
     digests = HERE / "digests.json"
-    names = {"h264": H264_NAMES, "h264b": H264B_NAMES, "vp9": (), "mpeg4": ()}.get(
-        which, H264_NAMES + H264B_NAMES)
+    names = {"h264": H264_NAMES, "h264b": H264B_NAMES, "vp9": (), "mpeg4": (),
+             "hevc": ()}.get(which, H264_NAMES + H264B_NAMES)
     vp9 = which in ("vp9", "all")
     mpeg4 = which in ("mpeg4", "all")
-    if which in ("h264", "h264b", "vp9", "mpeg4") and digests.exists():
+    hevc = which in ("hevc", "all")
+    if which in ("h264", "h264b", "vp9", "mpeg4", "hevc") and digests.exists():
         drop = (VP9_NAMES if which == "vp9" else tuple(MPEG4_FILES) if which == "mpeg4"
-                else names)
+                else HEVC_NAMES if which == "hevc" else names)
         out = {k: v for k, v in json.loads(digests.read_text()).items()
                if k not in drop}
     else:
@@ -297,6 +351,10 @@ def main(which="all"):
     for name in MPEG4_FILES if mpeg4 else ():
         clip = write_mpeg4(HERE / name, name)
         out[name] = record(HERE / name, MPEG4_FILES[name][0], (clip.height, clip.width))
+    for name in HEVC_NAMES if hevc else ():
+        clip = write_hevc(HERE / name, name)
+        fourcc = video.VideoReader(HERE / name).track.fourcc
+        out[name] = record(HERE / name, fourcc, (clip.height, clip.width))
     for name in names:
         path = HERE / name
         clip = write_h264(path, name)

@@ -8,7 +8,7 @@ every codec; ``digests.json`` records the measurement): MPEG-4 Part 2 in
 MP4, MOV, AVI and Matroska (I- and P-VOPs over a GOP boundary, a size that
 is not a multiple of 16, a single I-VOP, intra macroblocks in P-VOPs and
 all three TCOEF escapes; and the test writer's Xvid clips: B-VOPs, packed
-bitstreams, 4MV and AC prediction), Motion JPEG, H.264 and VP9. The
+bitstreams, 4MV and AC prediction), Motion JPEG, H.264, VP9 and HEVC. The
 MPEG-4 tools FFmpeg's encoder under cv2 never writes (AC prediction,
 DQUANT, 4MV, MPEG quantisation, not-coded VOPs, B-VOPs, the encoders'
 builds and their workarounds) are held against cv2 on the test writer's
@@ -34,7 +34,7 @@ DIGESTS = json.loads((FIXTURES / "digests.json").read_text())
 NAMES = sorted(DIGESTS)
 # max |port - cv2| per codec, in LSB of the RGB frames (measured: 0)
 FRAME_TOL = {"mp4v": 0, "XVID": 0, "MJPG": 0, "avc1": 0, "H264": 0, "VP90": 0,
-             "vp09": 0}
+             "vp09": 0, "hvc1": 0, "hev1": 0}
 RNG = np.random.default_rng(22)
 
 
@@ -195,9 +195,9 @@ def _edit(tmp_path, name, old, new, count=1, after=0):
 
 
 def test_refuses_other_codecs_by_name(tmp_path, jax_config):
-    """An MP4 whose sample entry says hev1 (HEVC): the codec is named."""
-    path = _edit(tmp_path, "mp4v_one.mp4", b"mp4v", b"hev1")
-    with pytest.raises(ValueError, match="'hev1'"):
+    """An MP4 whose sample entry says av01 (AV1): the codec is named."""
+    path = _edit(tmp_path, "mp4v_one.mp4", b"mp4v", b"av01")
+    with pytest.raises(ValueError, match="'av01'"):
         TD.load_dataset(str(path), jax_config)
 
 
