@@ -3973,9 +3973,17 @@ VIDEO_CLI_HEVC = "cli_640x480_hevc.mp4"
 VIDEO_HEVC_B = "hevc_b_640x480.mp4"
 VIDEO_HEVC_1080 = "hevc_1920x1080.mp4"
 VIDEO_HEVC_LF = "hevc_sao_640x480.mp4"
+# and in GOP structures out of decode order: 32 frames of the pan in HM's
+# hierarchical GOPs of 8 (a CRA picture with RASL pictures at frame 16,
+# ctts; the CLI reads every second frame, each read a seek), and random
+# syntax in x265's, HM's (its last picture not put out: its last read
+# fails, as cv2's) and the BLA structures
+VIDEO_CLI_HEVC_GOP = "cli_640x480_hevc_gop.mp4"
+VIDEO_HEVC_GOP_SUBSAMPLE = 2
 VIDEO_HEVC_WRITER = (VIDEO_CLI_HEVC, VIDEO_HEVC_B, VIDEO_HEVC_1080, VIDEO_HEVC_LF,
                      "hevc_main.mp4", "hevc_tiles.mkv", "hevc_ltr.mov", "hevc_hev1.mp4",
-                     "hevc_ldb.mkv")
+                     "hevc_ldb.mkv", VIDEO_CLI_HEVC_GOP, "hevc_x265.mp4", "hevc_hm.mkv",
+                     "hevc_bla.mp4")
 VIDEO_REPS = 10                     # timed passes over each codec's frames
 VIDEO_HW = (480, 640)
 
@@ -3984,8 +3992,9 @@ def video_fixture_reads():
     """Every committed video fixture through ``VideoReader``: its fps,
     frame count and size as cv2 reported them, and every frame (in order,
     then backwards: every seek from its GOP's sync sample) at the SHA-256
-    of cv2.VideoCapture's frame recorded beside it. Returns the frames
-    read."""
+    of cv2.VideoCapture's frame recorded beside it, or failing where cv2
+    read none (the last frames of a file whose last pictures are not put
+    out). Returns the frames read."""
     import hashlib
 
     from mast3r_slam_tpu_torch.data import video
@@ -4010,6 +4019,16 @@ def video_fixture_reads():
               f"{want['frame_count']}, {want['fourcc']!r}")
         order = list(range(len(r))) + list(range(len(r) - 1, -1, -1))
         for i in order:
+            if want["frames"][i] is None:
+                try:
+                    r.read(i)
+                except ValueError as e:
+                    check(str(e) == f"failed to decode frame {i} of {r.path}",
+                          f"video: {name} frame {i} fails as {e}")
+                else:
+                    check(False, f"video: {name} frame {i} reads, cv2 reads none")
+                n += 1
+                continue
             img = r.read(i)
             got = hashlib.sha256(img.tobytes()).hexdigest()
             check(list(img.shape[:2]) == want["hw"]
@@ -4048,8 +4067,11 @@ def video_decode_times(smi):
     pictures, and the 1080p clip's 4 pictures, all with the loop filters
     off; the filtered random-syntax clip's I picture and 5 P pictures).
     Then the IBBP clips (480x640 and 1920x1080;
-    H.264, and the Xvid one at 480x640 with its I-VOP too): each sample
-    decoded in turn with the frame it puts out converted, B pictures and P
+    H.264, and the Xvid one at 480x640 with its I-VOP too) and the HEVC
+    clip of hierarchical GOPs (by picture: the IDR and CRA pictures, the
+    P anchors, the reference and the non-reference B pictures; samples
+    out of presentation order, a sample's frame the one it puts out);
+    each sample decoded in turn with the frame it puts out converted, B pictures and P
     pictures timed apart (a B picture's sample puts out itself, a P
     picture's the B picture before it in display order, an Xvid I- or
     P-VOP's the reference before it)."""
@@ -4163,6 +4185,7 @@ def video_decode_times(smi):
             out[f"{tag}_{'b' if b else 'p'}"] = dict(
                 ms=statistics.median(ms[b]), frames=len(ms[b]) // VIDEO_REPS,
                 hw=list(hw), convert_ms=float("nan"), plain_convert_ms=float("nan"))
+    out.update(hevc_gop_times())
     log("video: host ms a frame, 480x640 unless named (decode + RGB; "
         "converter compiled / plain numpy on the same planes, equal bytes): "
         + ", ".join(f"{k} {v['ms']:.3f} ({v['convert_ms']:.3f} / "
@@ -4174,6 +4197,43 @@ def video_decode_times(smi):
                              if v["convert_ms"] != v["convert_ms"])
         + f"; median of {VIDEO_REPS} passes; on {smi}")
     return out
+
+
+def hevc_gop_times():
+    """Host ms a sample of the HEVC clip of hierarchical GOPs by picture
+    type (NAL unit type, and whether its presentation time is the latest
+    yet): decode, and RGB of the frame it puts out, in decode order from
+    the start, VIDEO_REPS passes on fresh decoders; every frame put out."""
+    from mast3r_slam_tpu_torch.data import video
+
+    tg, gs = video_samples(VIDEO_CLI_HEVC_GOP)
+    nal_len = (tg.extradata[21] & 3) + 1
+    kinds = []
+    for k, data in enumerate(gs):
+        nal = video._nal_types(data, nal_len, True)[0]
+        kinds.append({19: "hevc_gop_idr", 20: "hevc_gop_idr", 21: "hevc_gop_cra"}.get(nal)
+                     or ("hevc_gop_b" if nal in (0, 8) else
+                         "hevc_gop_p" if tg.pts[k] > tg.pts[:k].max() else "hevc_gop_ref_b"))
+    ms = {kind: [] for kind in kinds}
+    for _ in range(VIDEO_REPS):
+        dec = video.Decoder(video.HEVC, tg.extradata)
+        got = 0
+        for k, data in enumerate(gs):
+            t0 = time.perf_counter()
+            if dec.decode(data, k):
+                dec.rgb()
+                got += 1
+            ms[kinds[k]].append((time.perf_counter() - t0) * 1e3)
+        while dec.flush():
+            got += 1
+            check(dec.rgb().shape == (*VIDEO_HW, 3), "video: HEVC GOP frame shape")
+        check(got == len(gs), f"video: {VIDEO_CLI_HEVC_GOP} put out {got} frames of "
+              f"{len(gs)}")
+    check(set(ms) == {"hevc_gop_idr", "hevc_gop_cra", "hevc_gop_p", "hevc_gop_ref_b",
+                      "hevc_gop_b"}, f"video: {VIDEO_CLI_HEVC_GOP} picture types {set(ms)}")
+    return {kind: dict(ms=statistics.median(v), frames=len(v) // VIDEO_REPS,
+                       hw=list(VIDEO_HW), convert_ms=float("nan"),
+                       plain_convert_ms=float("nan")) for kind, v in ms.items()}
 
 
 def mpeg4_plain_checks():
@@ -4378,8 +4438,10 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
     each codec (:func:`video_decode_times`) beside the plain converter;
     then the CLI at full ViT-L width on the committed 16-frame 480x640
     mp4v clip, the H.264 I/P one, the H.264 IBBP one, the VP9 one, the
-    Xvid IBBP one (B-VOPs, 4MV, FFmpeg's Xvid IDCT) and the HEVC one (the
-    test writer's encoder: IDR, 15 P) under base.yaml with
+    Xvid IBBP one (B-VOPs, 4MV, FFmpeg's Xvid IDCT), the HEVC one (the
+    test writer's encoder: IDR, 15 P) and every second frame of the HEVC
+    clip of hierarchical GOPs (32 frames, a CRA picture at frame 16: each
+    read a seek, some across the open GOP) under base.yaml with
     the services off (bf16: K1, K2 on the implicit GEMM, K4 on the
     tensor cores), each
     checking all 16 frames read, its outputs and its launches as the
@@ -4408,19 +4470,23 @@ def phase_video(torch, FA, C3, BA, workdir, smi):
                                       VIDEO_CLI_XVID_B, "video_xvid_b")
     out["cli_hevc"] = video_cli_run(torch, FA, C3, BA, workdir, smi,
                                     VIDEO_CLI_HEVC, "video_hevc")
+    out["cli_hevc_gop"] = video_cli_run(torch, FA, C3, BA, workdir, smi, VIDEO_CLI_HEVC_GOP,
+                                        "video_hevc_gop", subsample=VIDEO_HEVC_GOP_SUBSAMPLE)
     return out
 
 
-def video_cli_run(torch, FA, C3, BA, workdir, smi, name, tag):
-    """The CLI on committed clip ``name`` (16 frames, 480x640) at full
-    ViT-L width under base.yaml with the services off, checked as
-    :func:`phase_video` says; its numbers."""
+def video_cli_run(torch, FA, C3, BA, workdir, smi, name, tag, subsample=1):
+    """The CLI on committed clip ``name`` (16 frames read, 480x640: every
+    ``subsample``-th frame, each read then a seek) at full ViT-L width
+    under base.yaml with the services off, checked as :func:`phase_video`
+    says; its numbers."""
     from mast3r_slam_tpu_torch.data.datasets import load_dataset
     from mast3r_slam_tpu_torch.utils.config import load_config
 
     work = Path(workdir)
     clip = VIDEO_FIXTURES / name
-    cfg_path = write_config(work / f"cli_{tag}.yaml", **SERVICES_OFF)
+    cfg_path = write_config(work / f"cli_{tag}.yaml", **SERVICES_OFF,
+                            dataset={"subsample": subsample})
     cfg = load_config(cfg_path)
     k2_path = C3.conv3x3_path(getattr(torch, cfg["model"]["head_dtype"]),
                               256, 256)
@@ -4460,7 +4526,7 @@ def video_cli_run(torch, FA, C3, BA, workdir, smi, name, tag):
                edges=res["graph"].n_edges(),
                launches={k: launches[k] for k in (
                    "K1", "K2", f"K2 {k2_path}", "K4", f"BA {ba_path}")})
-    log(f"video cli: {clip.name} ({n_frames} frames, {w}x{h} crop, model "
+    log(f"video cli: {clip.name} ({n_frames} frames, subsample {subsample}, {w}x{h} crop, model "
         f"init {init_s:.1f} s): median tracked frame {parts['track']:.1f} ms "
         f"over {len(rec['ms']['track'])} frames, median frame read "
         f"(dataset[i] + create_frame) {out['read_ms']:.2f} ms, median "
@@ -6194,7 +6260,8 @@ def main():
                              (VIDEO_CLI_H264_B, vid["cli_h264_b"]),
                              (VIDEO_CLI_VP9, vid["cli_vp9"]),
                              (VIDEO_CLI_XVID_B, vid["cli_xvid_b"]),
-                             (VIDEO_CLI_HEVC, vid["cli_hevc"])))
+                             (VIDEO_CLI_HEVC, vid["cli_hevc"]),
+                             (VIDEO_CLI_HEVC_GOP, vid["cli_hevc_gop"])))
         + f"; on {smi}")
 
     k2f = per_frame["K2 f32"]

@@ -15,22 +15,24 @@ the High profile's tools, in any decode order), VP9 (``VP90``, ``vp09``;
 profile 0 with every tool of it: superframes, hidden frames and
 ``show_existing_frame``, intra-only frames, compound prediction,
 segmentation, backward adaptation, tiles), HEVC (``hvc1``, ``hev1``,
-``HEVC``, ...: the Main and Main Still Picture profiles, pictures put out
-in decode order: I, P and low-delay B pictures with every CTU tool, tiles,
-WPP, dependent slice segments, long-term pictures), MPEG-4 Part 2
+``HEVC``, ...: the Main and Main Still Picture profiles, I, P and B
+pictures with every CTU tool, tiles, WPP, dependent slice segments,
+long-term pictures, in any order of decoding and output: hierarchical B
+pictures, IDR, CRA and BLA pictures with their RADL and RASL pictures,
+pictures sent with pic_output_flag 0), MPEG-4 Part 2
 (``mp4v``, ``XVID``, ``DIVX``, ``FMP4``, ...) and Motion JPEG (``MJPG``)
 tracks of MP4/MOV, AVI and Matroska files; a track of another codec (VP8,
 AV1, FFV1, ...) raises ``ValueError`` naming its fourcc, and an H.264,
 VP9 or HEVC stream that needs what the decoder leaves out (H.264: fields,
 4:2:2 / 4:4:4, more than 8 bits, FMO, data partitioning, SP/SI slices,
 ...; VP9: profiles 1-3, scaled references, a size change, an odd frame
-height; HEVC: B pictures that need reordering, RASL / RADL pictures,
-profiles other than Main, slices of one picture that differ in their
-deblocking, ...) raises one naming that.
+height; HEVC: profiles other than Main, slices of one picture that
+differ in their deblocking, ...) raises one naming that.
 HEVC reconstruction is exact in the standard, and its frames are FFmpeg's;
 where FFmpeg's deblocking and SAO order departs from the standard's
 arithmetic the decoder follows FFmpeg (``native/hevc_decode.cpp`` marks
-where). VP9 reconstruction is integer arithmetic too: its
+where), and its pictures come out as FFmpeg bumps them and skip the RASL
+pictures FFmpeg skips. VP9 reconstruction is integer arithmetic too: its
 frames are FFmpeg's, and where FFmpeg departs from libvpx the decoder
 follows FFmpeg (``native/vp9_decode.cpp`` marks where). H.264 reconstruction is exact in the standard, so its frames are
 FFmpeg's for every stream the decoder reads; the decoder also follows the
@@ -313,6 +315,11 @@ class _Refused(ValueError):
     decode: headers it refuses, a seek it does not make."""
 
 
+class _End(ValueError):
+    """The stream ended before the frame: cv2's capture stays at its end,
+    and its next read without a seek fails too."""
+
+
 def _nal_types(data: bytes, length_size: int, hevc: bool = False):
     """The NAL unit types of an H.264 (or, with ``hevc``, an HEVC base
     layer's) sample: length-prefixed NAL units (1, 2 or 4 bytes), or an
@@ -363,7 +370,17 @@ class VideoReader:
     reference a seek dropped) and a VOL that is not low delay puts each I-
     or P-VOP out a sample late, so counting from the sync sample does not
     give OpenCV's frame; the decoder keeps its headers and the encoder's
-    build over a seek, as FFmpeg's does."""
+    build over a seek, as FFmpeg's does. HEVC always seeks as OpenCV does
+    too: pictures come out of decode order, the RASL pictures of the CRA
+    picture a seek starts at are skipped (FFmpeg's gate) and a picture
+    sent with pic_output_flag 0 leaves its place in presentation order
+    empty, so counting from the sync sample does not give OpenCV's frame
+    (cv2 with frame threads, its default on more than one core; with one
+    decoder thread its seeks into skipped RASL pictures come out
+    otherwise). A read that runs past the end of the stream leaves the
+    reader there, as it leaves cv2's capture: the next read without a seek
+    fails too. A seek in a Matroska track that flags no keyframe (FFmpeg's
+    demuxer then does not move) raises ``ValueError`` naming it."""
 
     def __init__(self, path):
         self.path = str(path)
@@ -391,6 +408,7 @@ class VideoReader:
         self._start = 0     # the sample the decoder started from
         self._outputs = 0   # and the frames it put out
         self._idr = {}
+        self._end = False   # the last read ran past the end of the stream
         extra = self.track.extradata
         self._nal_len = 0
         if extra[:1] == b"\x01":  # avcC / hvcC: length-prefixed NAL units
@@ -408,14 +426,13 @@ class VideoReader:
         return data
 
     def _is_idr(self, k):
-        """Whether sample k starts a stream a decoder may start from: an
-        H.264 IDR picture, an HEVC IRAP picture (NAL unit types 16-23)."""
-        if self.codec not in (H264, HEVC):
+        """Whether sample k starts a stream an H.264 decoder may start from
+        (an IDR picture); True for the other codecs, whose seeks start at
+        any sync sample."""
+        if self.codec != H264:
             return True
         if k not in self._idr:
-            types = _nal_types(self._sample_data(k), self._nal_len, self.codec == HEVC)
-            self._idr[k] = (any(16 <= t <= 23 for t in types) if self.codec == HEVC
-                            else 5 in types)
+            self._idr[k] = 5 in _nal_types(self._sample_data(k), self._nal_len)
         return self._idr[k]
 
     def _probe(self):
@@ -505,10 +522,12 @@ class VideoReader:
         return int(at[-1]) if len(at) else 0
 
     def _seek(self, i):
-        if self.codec == MPEG4:
+        if self.codec in (MPEG4, HEVC):
             # a VOP may put out no frame (not coded; a B-VOP without its
             # references after a seek) and an I-/P-VOP comes out a sample
-            # late: OpenCV's own seek, always; a fresh reader of frame 0
+            # late; HEVC pictures come out of decode order, and a CRA
+            # picture's RASL pictures are skipped where decoding starts at
+            # it: OpenCV's own seek, always; a fresh reader of frame 0
             # reads on from the start, as a fresh capture does
             if self._dec is None and i == 0:
                 self._restart(0)
@@ -531,7 +550,7 @@ class VideoReader:
             self._pos = start
         while self._pos < i:
             if not self._grab():
-                raise ValueError("the stream ends before the frame")
+                raise _End("the stream ends before the frame")
             self._pos += 1
 
     def _open_gop(self, i, k):
@@ -557,10 +576,10 @@ class VideoReader:
             self._restart(k)
             if i <= 1:
                 if i == 1 and not self._grab():
-                    raise ValueError("the stream ends before the frame")
+                    raise _End("the stream ends before the frame")
                 return
             if not self._grab():
-                raise ValueError("the stream ends before the frame")
+                raise _End("the stream ends before the frame")
             n = -1 if self._num is None else self._num - self._first
             if n < 0 or n > i - 1:
                 if t == 0:
@@ -576,17 +595,28 @@ class VideoReader:
         i = int(i)
         if not 0 <= i < len(self.track.sizes):
             raise ValueError(f"failed to decode frame {i} of {self.path}")
+        if self._end and i == self._pos:  # still at the end, as cv2's capture
+            self._pos = i + 1
+            raise ValueError(f"failed to decode frame {i} of {self.path}")
+        t = self.track
+        if i != (self._pos or 0) and t.dts is None and t.pts is not None and not t.sync.any():
+            raise _Refused(
+                f"a seek in a Matroska track without a keyframe (frame {i}: FFmpeg's "
+                "demuxer does not move, and cv2 reads on from where it was) is not "
+                "supported")
         try:
             if self._dec is None or i != self._pos:
                 self._seek(i)
             if not self._grab():
-                raise ValueError("the stream ends before the frame")
+                raise _End("the stream ends before the frame")
         except _Refused:
             self._dec = None
             raise
         except ValueError as e:
             self._dec = None
+            self._end, self._pos = isinstance(e, _End), i + 1
             raise ValueError(f"failed to decode frame {i} of {self.path}") from e
+        self._end = False
         self._pos = i + 1
         return self._dec.rgb()
 

@@ -7,8 +7,10 @@
 // (which cv2.VideoCapture runs) meets the conformance streams bit for bit,
 // so this file follows the standard; where FFmpeg's own choices show in
 // what it puts out, they are marked "FFmpeg:" below. What is decoded: the
-// Main and Main Still Picture profiles (8-bit 4:2:0), pictures put out in
-// decode order (I, P and low-delay B pictures):
+// Main and Main Still Picture profiles (8-bit 4:2:0), I, P and B pictures
+// in any order of decoding and output (hierarchical B pictures whose lists
+// hold pictures on both sides), RADL pictures, RASL pictures where FFmpeg
+// decodes them, pictures sent with pic_output_flag 0:
 //   - NAL units from length-prefixed samples (hvcC) or an Annex B byte
 //     stream, parameter sets in the hvcC record or in band; AUD, SEI, EOS,
 //     EOB and filler data skipped; slices and SEI of nuh_layer_id > 0
@@ -28,6 +30,12 @@
 //   - slice segment headers: POC, short- and long-term RPS marking of the
 //     DPB, reference lists with modification, pred weight tables, entry
 //     points; several slices and dependent slice segments a picture;
+//   - IRAP pictures of every type (IDR, CRA, BLA: an IDR or BLA picture, and
+//     a CRA picture that starts the stream or follows an end of sequence,
+//     start a coded video sequence) and their leading pictures: RADL
+//     pictures decoded, RASL pictures behind FFmpeg's gate (max_ra: skipped,
+//     neither decoded nor put out, after an IRAP picture decoding starts at
+//     and after a BLA picture; decoded after a CRA picture met mid-stream);
 //   - CABAC with WPP storage and synchronisation, tiles (CTB raster <->
 //     tile scan, availability, context reset), SAO syntax, the coding
 //     quadtree, PCM, transquant bypass, intra (35 modes, MPM, reference
@@ -44,14 +52,14 @@
 //     boundary flags, PCM / bypass samples kept) and SAO (band and edge,
 //     picture, slice and tile boundaries, PCM / bypass samples kept);
 //   - output in FFmpeg's bumping order (sps_max_num_reorder_pics and
-//     sps_max_dec_pic_buffering delay output, a new sequence puts the last
-//     one's pictures out first), each cropped to its own SPS's conformance
+//     sps_max_dec_pic_buffering delay output, the lowest POC first, a
+//     missing reference of the RPS holding a place of the DPB as FFmpeg's
+//     generated picture does, a new sequence puts the last one's pictures
+//     out first), each cropped to its own SPS's conformance
 //     window (FFmpeg leaves the VUI's default display window alone); the
 //     VUI's range (the picture's SPS's) and matrix (the active SPS's) go to
 //     the converter.
-// Refused with a message naming it: pictures put out before a picture that
-// precedes them in decode order (B pictures that need reordering), RASL /
-// RADL leading pictures, pic_output_flag 0, profiles other than Main and
+// Refused with a message naming it: profiles other than Main and
 // Main Still Picture (general_profile_idc named), slices of one picture
 // that differ in their deblocking (FFmpeg's filter carries one slice's
 // offsets into its neighbour's edges there in ways not all followed), a
@@ -877,6 +885,7 @@ struct SliceHeader {
   int pps_id = 0, segment_addr = 0, slice_addr = 0;  // in CTBs (raster)
   int type = 2;  // 0 B, 1 P, 2 I
   int nal_type = 0;
+  bool pic_output = true;
   int poc_lsb = 0;
   StRps rps;
   int num_lt = 0;
@@ -948,7 +957,13 @@ class Decoder : public FrameDecoder {
   int64_t cur_tag = -1;
   int seq = 0;
   bool first_pic = true, after_eos = false;
-  int prev_tid0_poc = 0, cur_poc = 0, last_poc = INT_MIN;
+  int prev_tid0_poc = 0, cur_poc = 0;
+  // FFmpeg's RASL gate (hevcdec.c): max_ra, the POC at or below which a
+  // RASL picture is skipped (INT_MAX: not yet set by an IRAP picture), and
+  // the last IRAP picture's NoRaslOutputFlag; skip_pic: the picture whose
+  // first slice was skipped
+  int max_ra = INT_MAX;
+  bool no_rasl_out = false, skip_pic = false;
   int out_w = -1, out_h = -1;
   bool cur_irap = false;
   // picture layout
@@ -989,11 +1004,12 @@ class Decoder : public FrameDecoder {
   void parse_pps(Bits& b);
   void slice(Bits& b, int type, int tid);
   void parse_slice_header(Bits& b, SliceHeader& h, int nal_type);
-  void start_picture(const SliceHeader& h, int nal_type, int tid);
+  int picture_poc(const SliceHeader& h, bool new_cvs) const;
+  void start_picture(const SliceHeader& h, int nal_type, int tid, bool new_cvs);
   void finish_picture();
   void build_lists();
   void layout();
-  void bump(int max_out, int max_dpb, bool discard);
+  void bump(int max_out, int max_dpb, bool discard, int generated = 0);
   void emit(const std::shared_ptr<Pic>& p);
   // entropy decoding
   void init_contexts();
@@ -1284,7 +1300,7 @@ void Decoder::parse_slice_header(Bits& b, SliceHeader& h, int nal_type) {
     b.skip(p.extra_bits);
     int t = (int)ue_max(b, 2, "slice_type");
     h.type = t;
-    if (p.output_flag_present && !b.u1()) refuse("pic_output_flag 0");
+    h.pic_output = !p.output_flag_present || b.u1();
     h.nal_type = nal_type;
     bool idr = nal_type == 19 || nal_type == 20;
     h.num_lt = 0;
@@ -1557,6 +1573,7 @@ void Decoder::nal(const uint8_t* p, size_t n) {
   if (type == 36 || type == 37) {  // end of sequence / bitstream
     if (cur) finish_picture();
     after_eos = true;
+    max_ra = INT_MAX;
     return;
   }
   if (type > 34 || (type > 21 && type < 32) || (type > 9 && type < 16)) return;
@@ -1572,8 +1589,6 @@ void Decoder::nal(const uint8_t* p, size_t n) {
     parse_pps(b);
     ps_nals++;
   } else {
-    if (type >= 6 && type <= 9) refuse("RASL / RADL leading pictures (NAL unit type " +
-                                       std::to_string(type) + ")");
     slice(b, type, tid);
   }
 }
@@ -1581,10 +1596,31 @@ void Decoder::nal(const uint8_t* p, size_t n) {
 void Decoder::slice(Bits& b, int type, int tid) {
   SliceHeader h;
   // the first bit says whether a picture starts: finish the last one first
-  if (b.end > 0 && (b.buf[0] & 0x80) && cur) finish_picture();
+  const bool first = b.end > 0 && (b.buf[0] & 0x80);
+  if (first && cur) finish_picture();
+  // FFmpeg: the later slices of a skipped picture find no picture started
+  // ("First slice in a frame missing") and are dropped
+  if (!first && skip_pic) return;
   parse_slice_header(b, h, type);
   if (h.first) {
-    start_picture(h, type, tid);
+    const bool irap = type >= 16 && type <= 23, rasl = type == 8 || type == 9;
+    const bool new_cvs = irap && (type <= 20 || first_pic || after_eos);
+    // FFmpeg: an IDR or BLA picture starts its sequence over the gate; the
+    // first CRA or BLA picture after that sets it to its own POC, an IDR
+    // picture opens it; a RASL picture at or below it, or after an IRAP
+    // picture whose NoRaslOutputFlag is 1, is skipped, neither decoded nor
+    // put out (the standard decodes it and leaves it out); a RASL_R picture
+    // above it opens it
+    if (type >= 16 && type <= 20) max_ra = INT_MAX;
+    const int poc = picture_poc(h, new_cvs);
+    if (max_ra == INT_MAX) {
+      if (irap && type != 19 && type != 20) max_ra = poc;
+      else if (type == 19 || type == 20) max_ra = INT_MIN;
+    }
+    skip_pic = rasl && (poc <= max_ra || no_rasl_out);
+    if (skip_pic) return;
+    if (type == 9 && poc > max_ra) max_ra = INT_MIN;
+    start_picture(h, type, tid, new_cvs);
   } else if (ps_nals != pic_ps_nals) {
     fail("a VPS, SPS or PPS NAL unit between two slices of one picture");
   } else if (type != headers.front().nal_type) {
@@ -1609,17 +1645,30 @@ void Decoder::slice(Bits& b, int type, int tid) {
   B = nullptr;
 }
 
-void Decoder::start_picture(const SliceHeader& h, int nal_type, int tid) {
+// PicOrderCntVal (8.3.1) of the picture whose first slice header is h;
+// new_cvs: an IRAP picture whose NoRaslOutputFlag is 1 (its MSB is 0)
+int Decoder::picture_poc(const SliceHeader& h, bool new_cvs) const {
+  const Sps& s = sps[pps[h.pps_id].sps_id];
+  const int max_lsb = 1 << s.log2_max_poc_lsb;
+  int msb = 0;
+  if (!new_cvs) {
+    int prev_lsb = prev_tid0_poc & (max_lsb - 1), prev_msb = prev_tid0_poc - prev_lsb;
+    if (h.poc_lsb < prev_lsb && prev_lsb - h.poc_lsb >= max_lsb / 2) msb = prev_msb + max_lsb;
+    else if (h.poc_lsb > prev_lsb && h.poc_lsb - prev_lsb > max_lsb / 2) msb = prev_msb - max_lsb;
+    else msb = prev_msb;
+  }
+  return msb + h.poc_lsb;
+}
+
+void Decoder::start_picture(const SliceHeader& h, int nal_type, int tid, bool new_cvs) {
   const Pps& p = pps[h.pps_id];
   const Sps& s = sps[p.sps_id];
   const bool irap = nal_type >= 16 && nal_type <= 23;
   const bool idr = nal_type == 19 || nal_type == 20;
-  const bool no_rasl = irap && (idr || nal_type <= 18 || first_pic || after_eos);
   if (first_pic && !irap) fail("the stream does not start with an IRAP picture");
   // FFmpeg forgets every reference when the active SPS changes: only a
   // picture that starts a coded video sequence may change it
-  if (!first_pic && s.gen != S.gen && !(irap && no_rasl))
-    fail("a new SPS within a coded video sequence");
+  if (!first_pic && s.gen != S.gen && !new_cvs) fail("a new SPS within a coded video sequence");
   P = p;
   S = s;
   pic_ps_nals = ps_nals;
@@ -1637,30 +1686,20 @@ void Decoder::start_picture(const SliceHeader& h, int nal_type, int tid) {
            " luma samples (not a multiple of 64)");
   out_w = w;
   out_h = hh;
-  // picture order count (8.3.1)
+  // picture order count (8.3.1); prevTid0Pic is no RASL, RADL or
+  // sub-layer non-reference picture
   const int max_lsb = 1 << s.log2_max_poc_lsb;
-  int msb = 0;
-  if (!(irap && no_rasl)) {
-    int prev_lsb = prev_tid0_poc & (max_lsb - 1), prev_msb = prev_tid0_poc - prev_lsb;
-    if (h.poc_lsb < prev_lsb && prev_lsb - h.poc_lsb >= max_lsb / 2) msb = prev_msb + max_lsb;
-    else if (h.poc_lsb > prev_lsb && h.poc_lsb - prev_lsb > max_lsb / 2) msb = prev_msb - max_lsb;
-    else msb = prev_msb;
-  }
-  cur_poc = msb + h.poc_lsb;
+  cur_poc = picture_poc(h, new_cvs);
   const bool slnr = nal_type <= 14 && !(nal_type & 1);
-  if (tid == 0 && !slnr) prev_tid0_poc = cur_poc;
+  if (tid == 0 && !slnr && !(nal_type >= 6 && nal_type <= 9)) prev_tid0_poc = cur_poc;
+  if (irap) no_rasl_out = new_cvs;
   // a new coded video sequence: FFmpeg puts the last one's pictures out
   // (drops them under no_output_of_prior_pics_flag) and forgets its refs
-  if (irap && no_rasl) {
+  if (new_cvs) {
     if (!first_pic) bump(0, 0, h.no_output_prior || (nal_type == 21 && after_eos));
     for (auto& q : dpb) q->ref_st = q->ref_lt = false;
     seq++;
-    last_poc = INT_MIN;
   }
-  if (cur_poc <= last_poc)
-    refuse("B pictures put out before a picture that precedes them in decode order "
-           "(POC " + std::to_string(cur_poc) + " after " + std::to_string(last_poc) + ")");
-  last_poc = cur_poc;
   first_pic = after_eos = false;
   // reference picture set (8.3.2)
   auto find = [&](int poc, bool full) -> Pic* {
@@ -1669,19 +1708,28 @@ void Decoder::start_picture(const SliceHeader& h, int nal_type, int tid) {
     return nullptr;
   };
   std::vector<std::pair<Pic*, bool>> marks;  // picture, long-term
+  // FFmpeg: an entry of a CRA or BLA picture's RPS missing from the DPB
+  // (the pictures before a CRA picture decoding starts at, kept there for
+  // its RASL pictures) is generated as a picture (generate_missing_ref)
+  // that fills a place of the DPB until the next picture's RPS, so while
+  // this picture bumps; any other picture fails on it ("Error constructing
+  // the frame RPS"), whether it uses the entry or not
+  int generated = 0;
   if (!idr) {
     for (int i = 0; i < h.rps.num(); i++) {
       Pic* q = find(cur_poc + h.rps.delta[i], true);
       if (q) marks.push_back({q, false});
-      else if (h.rps.used[i]) fail("a reference picture is missing (POC " +
-                                   std::to_string(cur_poc + h.rps.delta[i]) + ")");
+      else if (h.rps.used[i] || !irap) fail("a reference picture is missing (POC " +
+                                            std::to_string(cur_poc + h.rps.delta[i]) + ")");
+      else generated++;
     }
     for (int i = 0; i < h.num_lt; i++) {
       int poc = h.lt_poc[i];
       if (h.lt_msb[i]) poc += cur_poc - h.lt_cycle[i] * max_lsb - h.poc_lsb;
       Pic* q = find(poc, h.lt_msb[i]);
       if (q) marks.push_back({q, true});
-      else if (h.lt_used[i]) fail("a long-term reference picture is missing");
+      else if (h.lt_used[i] || !irap) fail("a long-term reference picture is missing");
+      else generated++;
     }
   }
   for (auto& q : dpb) q->ref_st = q->ref_lt = false;
@@ -1705,22 +1753,23 @@ void Decoder::start_picture(const SliceHeader& h, int nal_type, int tid) {
   cur->out_h = hh;
   cur->full_range = s.full_range;
   cur->tag = cur_tag;
-  cur->output = true;
+  cur->output = h.pic_output;
   cur->ref_st = true;
   layout();
   cur->mvf.assign((size_t)W4 * H4, Mvf());
   dpb.push_back(cur);
   headers.clear();
   // FFmpeg's bumping with the new picture in the DPB
-  bump(s.num_reorder, s.max_dec_pic_buffering, false);
+  bump(s.num_reorder, s.max_dec_pic_buffering, false, generated);
 }
 
 // FFmpeg's ff_hevc_output_frames: while more pictures wait for output than
-// max_out, or the DPB holds more than max_dpb, the one of lowest POC goes
-// out (or is dropped under `discard`)
-void Decoder::bump(int max_out, int max_dpb, bool discard) {
+// max_out, or the DPB holds more than max_dpb (with `generated` missing
+// references), the one of lowest POC goes out (or is dropped under
+// `discard`)
+void Decoder::bump(int max_out, int max_dpb, bool discard, int generated) {
   while (true) {
-    int nout = 0, ndpb = 0;
+    int nout = 0, ndpb = generated;
     std::shared_ptr<Pic> best;
     for (auto& q : dpb) {
       if (q->output) {

@@ -25,7 +25,11 @@ clip); the HEVC files from the test writer ``tests/torch_hevc_writer.py``:
 random syntax by tool group (``hvc1`` and ``hev1`` MP4, MOV, Matroska; a
 640x480 one deblocks and runs SAO in every slice) and its small encoder's
 pans (1920x1080 coded at 1088, the CLI's 640x480
-clip, a 640x480 one of low-delay B pictures).
+clip, a 640x480 one of low-delay B pictures); and in GOP structures out of
+decode order, random syntax in x265's, HM's (its last picture not put out)
+and the BLA types' structures and the CLI's 640x480 clip of hierarchical
+GOPs with a CRA picture. A fixture's digests hold null for a frame cv2
+does not read (only at the end).
 
     python tests/data/video/make_fixtures.py          # every file
     python tests/data/video/make_fixtures.py h264     # the H.264 I/P files
@@ -177,6 +181,15 @@ HEVC_RANDOM = {
     # of the loop filters the encoder's pans leave off
     "hevc_sao_640x480.mp4": ("sao", 404, 6, dict(width=640, height=480, filters=True, cuts=1),
                              {}),
+    # GOP structures out of decode order (torch_hevc_writer.GOPS): x265's
+    # pyramid with a CRA picture and RASL pictures, explicit weights and
+    # TMVP from either list; HM's GOP 8 in Matroska, its last picture in
+    # presentation order sent with pic_output_flag 0 (the last read fails,
+    # in any order); BLA_W_LP / BLA_W_RADL with RADL pictures, BLA_N_LP, a
+    # CRA picture with RASL pictures and IDR_W_RADL in hev1
+    "hevc_x265.mp4": ("weights", 410, 26, dict(gop="x265"), {}),
+    "hevc_hm.mkv": ("inter", 410, 28, dict(gop="hm", hidden=(27,)), {}),
+    "hevc_bla.mp4": ("ldb", 412, 36, dict(gop="bla"), dict(entry=b"hev1")),
 }
 # the encoder's pans: name: (frames, (height, width), QP, crop (l, r, t, b),
 # pan step, CTB log2, low-delay B pictures)
@@ -185,7 +198,13 @@ HEVC_PANS = {
     "cli_640x480_hevc.mp4": (16, (480, 640), 28, (0, 0, 0, 0), (12.5, 4.25), 4, False),
     "hevc_b_640x480.mp4": (8, (480, 640), 30, (0, 0, 0, 0), (6.25, 2.25), 4, True),
 }
-HEVC_NAMES = tuple(HEVC_RANDOM) + tuple(HEVC_PANS)
+# the encoder's pans in HM's hierarchical GOPs (frames, (height, width), QP,
+# pan step, GOP size, the CRA picture's place): the CLI clip of B pictures
+# out of decode order, read with subsample 2 across its open GOP
+HEVC_GOP_PANS = {
+    "cli_640x480_hevc_gop.mp4": (32, (480, 640), 28, (12.5, 4.25), 8, 16),
+}
+HEVC_NAMES = tuple(HEVC_RANDOM) + tuple(HEVC_PANS) + tuple(HEVC_GOP_PANS)
 
 
 def write_hevc(path, name):
@@ -195,12 +214,18 @@ def write_hevc(path, name):
         opts = dict(opts)
         cuts = opts.pop("cuts", 3)
         clip = WH.random_stream(seed, group, frames=n, cuts=cuts, **opts)
-    else:
+    elif name in HEVC_PANS:
         n, hw, qp, crop, step, ctb, bframes = HEVC_PANS[name]
         mot = pan_motion(n, step)
         motion = [(0, 0)] + [tuple(2 * v for v in mot(i, i - 1)) for i in range(1, n)]
         clip = WH.encode(pan_frames(n, hw, step=step), qp=qp, crop=crop, motion=motion,
                          ctb_log2=ctb, bframes=bframes)
+        mux = {}
+    else:
+        n, hw, qp, step, gop, cra = HEVC_GOP_PANS[name]
+        mot = pan_motion(n, step)
+        clip = WH.encode(pan_frames(n, hw, step=step), qp=qp, gop=gop, cra=cra,
+                         motion=lambda a, b: tuple(2 * v for v in mot(a, b)))
         mux = {}
     WH.MUX[path.suffix[1:]](path, clip, **mux)
     return clip
@@ -296,12 +321,22 @@ def sha(a):
 
 
 def record(path, fourcc, hw):
+    """cv2's frames of the fixture read in order, and the port's: their
+    digests, or None where cv2 reads no frame (a file whose last pictures
+    are not put out: the port must fail there too, and only at the end)."""
     cap = cv2.VideoCapture(str(path))
     reader = video.VideoReader(path)
     frames = []
     for i in range(int(cap.get(cv2.CAP_PROP_FRAME_COUNT))):
         ok, bgr = cap.read()
-        assert ok, (path.name, i)
+        if not ok:
+            try:
+                reader.read(i)
+            except ValueError:
+                frames.append(None)
+                continue
+            raise AssertionError(f"{path.name}: cv2 reads no frame {i}, the port does")
+        assert not frames or frames[-1] is not None, (path.name, i)
         want = bgr[..., ::-1]
         got = reader.read(i)
         d = np.abs(got.astype(np.int16) - want.astype(np.int16))
@@ -309,7 +344,7 @@ def record(path, fourcc, hw):
                        "max_abs": int(d.max()),
                        "mean_abs": float(d.mean())})
     print(path.name, path.stat().st_size, "bytes,",
-          "max |port - cv2|", max(f["max_abs"] for f in frames))
+          "max |port - cv2|", max(f["max_abs"] for f in frames if f))
     return {"fourcc": fourcc, "hw": list(hw),
             "fps": cap.get(cv2.CAP_PROP_FPS),
             "frame_count": int(cap.get(cv2.CAP_PROP_FRAME_COUNT)),

@@ -4,7 +4,9 @@ inter (merge, AMVP, AMP, TMVP), low-delay B, explicit weights, tiles, WPP,
 long-term pictures with slice-level RPS and list modification, PCM and
 transquant bypass, SAO with deblocking overrides, units a base-layer
 decoder skips) in MP4, Matroska and AVI against ``cv2.VideoCapture`` at 0
-LSB; the plain numpy versions of ``data/video.py`` (inverse transforms,
+LSB; IRAP pictures whose RPS names pictures the stream lacks (FFmpeg's
+generated pictures hold places of the DPB) and a trailing picture that
+does (it fails); the plain numpy versions of ``data/video.py`` (inverse transforms,
 interpolation and weighting, intra prediction, one deblocking edge, SAO of a
 block) against the compiled entries on random inputs, bit for bit; and each
 feature the decoder leaves out refused by name."""
@@ -16,6 +18,7 @@ cv2 = pytest.importorskip("cv2")
 
 import torch_hevc_writer as W  # noqa: E402
 from mast3r_slam_tpu_torch.data import video  # noqa: E402
+from test_torch_hevc_gop import assert_reads, orders  # noqa: E402
 
 FRAME_TOL = 0  # max |port - cv2| in LSB of the RGB frames (measured: 0)
 
@@ -47,6 +50,40 @@ def test_tool_group_matches_cv2(tmp_path, group, mux, seed):
         assert got.shape == w.shape
         d = np.abs(got.astype(np.int16) - w.astype(np.int16))
         assert d.max() <= FRAME_TOL, (group, mux, seed, i, int(d.max()))
+
+
+@pytest.mark.parametrize("group", W.GROUPS)
+def test_tool_group_out_of_decode_order(tmp_path, group):
+    """The group's random syntax in HM's or x265's GOPs (pictures on both
+    sides of B pictures in their lists, which list modification reorders),
+    in Matroska, read in order and then with three seeks: cv2's frames. Between them
+    the groups carry explicit weights and TMVP from list 1's collocated
+    picture toward future references, and mvd_l1_zero_flag."""
+    k = W.GROUPS.index(group)
+    clip = W.random_stream(720 + k, group, frames=24, gop=("hm", "x265")[k % 2], lists_mod=True)
+    b = [i for i in clip.info if i["type"] == 0]
+    assert group == "intra" or any(i["mods"][1] is not None for i in b)
+    if group == "weights":
+        assert any(i["weights"] for i in b) and any(i["mvd_l1_zero"] for i in b)
+        assert any(i["tmvp"] and not i["col_from_l0"] for i in b)
+    path = tmp_path / "gop.mkv"
+    W.write_mkv(path, clip)
+    assert_reads(path, list(range(24)) + [23, 12, 3])
+
+
+@pytest.mark.parametrize("kind", ["hm", "cra_first", "bla"])
+def test_temporal_sub_layers_out_of_decode_order(tmp_path, kind):
+    """HM's temporal sub-layers (each picture's depth in its GOP its
+    TemporalId, so only anchors and IRAP pictures are prevTid0Pic) with a
+    32-value POC LSB that wraps: read in order, backwards and shuffled,
+    cv2's frames."""
+    clip = W.random_stream(810 + ["hm", "cra_first", "bla"].index(kind), "inter", frames=48,
+                           gop=kind, temporal=True, log2_max_poc_lsb=5)
+    assert max(i["poc"] for i in clip.info) >= 32
+    path = tmp_path / "temporal.mp4"
+    W.write_mp4(path, clip)
+    for o in orders(48, 1):
+        assert_reads(path, o)
 
 
 def test_real_encoder_stream_matches_cv2(tmp_path):
@@ -106,6 +143,54 @@ def test_fails_on_parameter_set_inside_a_picture(tmp_path):
         r.read(1)
     assert "a VPS, SPS or PPS NAL unit between two slices of one picture" in \
         str(e.value.__cause__ or e.value)
+
+
+@pytest.mark.parametrize("missing", [0, 4])
+@pytest.mark.parametrize("nal", [21, 16, 17], ids=["CRA", "BLA_W_LP", "BLA_W_RADL"])
+def test_missing_references_hold_places_in_the_dpb(tmp_path, nal, missing):
+    """An IRAP picture that starts the stream with pictures before it left
+    in its RPS: FFmpeg makes a picture for each (generate_missing_ref),
+    which holds a place of the DPB while the IRAP picture bumps, so with
+    four of them (sps_max_dec_pic_buffering 4) the IRAP picture comes out
+    before its RADL pictures; with none they come first."""
+    p = W.Params(width=64, height=48, num_reorder=2, max_dec=4)
+    sw = W.StreamWriter(p, W.RandomChooser(np.random.default_rng(nal), p))
+    n = sw.lay.nctb
+    sw.picture(W.PicPlan(nal, 8, 2, [W.Segment(0, n)],
+                         rps=[(-k, 0) for k in range(5, 5 + missing)]))
+    sw.picture(W.PicPlan(7, 6, 1, [W.Segment(0, n)], rps=[(2, 1)], num_ref=(1, 0)))
+    sw.picture(W.PicPlan(6, 7, 0, [W.Segment(0, n)], rps=[(-1, 1), (1, 1)], num_ref=(1, 1)))
+    sw.picture(W.PicPlan(1, 12, 1, [W.Segment(0, n)], rps=[(-4, 1)], num_ref=(1, 0)))
+    sw.picture(W.PicPlan(0, 10, 1, [W.Segment(0, n)], rps=[(-2, 1), (2, 1)], num_ref=(1, 0)))
+    path = tmp_path / "missing.mkv"
+    W.write_mkv(path, sw.clip())
+    want = _cv2_frames(path)
+    r = video.VideoReader(path)
+    assert len(want) == len(r) == 5
+    tags = []
+    for i, w in enumerate(want):
+        np.testing.assert_array_equal(r.read(i), w)
+        tags.append(r._dec.tag)
+    assert tags == ([0, 1, 2, 4, 3] if missing else [1, 2, 0, 4, 3])
+
+
+def test_fails_on_a_missing_reference_of_a_trailing_picture(tmp_path):
+    """A P picture whose RPS keeps a picture the stream never had (not one
+    it predicts from): FFmpeg fails the picture there ("Error constructing
+    the frame RPS"), and so does the port."""
+    p = W.Params(width=64, height=48)
+    sw = W.StreamWriter(p, W.RandomChooser(np.random.default_rng(3), p))
+    n = sw.lay.nctb
+    sw.picture(W.PicPlan(19, 0, 2, [W.Segment(0, n)]))
+    sw.picture(W.PicPlan(1, 4, 1, [W.Segment(0, n)], rps=[(-4, 1), (-5, 0)], num_ref=(1, 0)))
+    path = tmp_path / "missing.mkv"
+    W.write_mkv(path, sw.clip())
+    assert len(_cv2_frames(path)) == 1
+    r = video.VideoReader(path)
+    r.read(0)
+    with pytest.raises(ValueError) as e:
+        r.read(1)
+    assert "a reference picture is missing (POC -1)" in str(e.value.__cause__ or e.value)
 
 
 def _p_picture(sw, poc, delta=-1):

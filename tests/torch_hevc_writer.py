@@ -21,17 +21,24 @@ Two sources of coding decisions:
 
 - :func:`random_stream`: random legal syntax from a seed, by tool group
   (``GROUPS``), at tiny sizes with odd CTB counts; its pictures are
-  whatever they decode to;
+  whatever they decode to; in decode order, or in a GOP structure of
+  ``GOPS`` as encoders write them (x265's and HM's hierarchical B
+  pictures, CRA pictures with RASL pictures, RADL pictures, BLA
+  pictures, a file cut at a CRA picture; pictures sent with
+  pic_output_flag 0, an end of sequence, temporal sub-layers);
 - :func:`encode`: a small real encoder of uint8 RGB frames: an intra
   picture (planar / DC / horizontal / vertical by SAD), then P pictures
-  predicted with a known global motion, the residual transformed and
+  predicted with a known global motion (or B pictures, low-delay or in
+  HM's hierarchical GOPs with a CRA picture), the residual transformed and
   quantised at a fixed QP. It reconstructs through the port's plain numpy
   versions (``data/video.py``) with the loop filters off, so its
   reconstruction is what a decoder puts out.
 
 Muxers: MP4 / MOV with an ``hvcC`` record under ``hvc1`` (parameter sets in
 ``hvcC`` only) or ``hev1`` (in band too), Matroska ``V_MPEGH/ISO/HEVC``
-with ``hvcC`` as CodecPrivate, AVI under ``HEVC`` (Annex B samples).
+with ``hvcC`` as CodecPrivate, AVI under ``HEVC`` (Annex B samples); a
+clip out of presentation order gets ``ctts`` in MP4 and its presentation
+times as Matroska timecodes.
 
 cv2 (FFmpeg) is the reference that decodes these streams in the tests. This
 module is a test tool: the port never imports it.
@@ -170,6 +177,7 @@ class Params:
     log2_max_poc_lsb: int = 8
     max_dec: int = 5             # sps_max_dec_pic_buffering
     num_reorder: int = 0
+    sub_layers: int = 1          # temporal sub-layers (the same ordering values in each)
     scaling: str = "off"         # off, default, sps (explicit), pps (explicit)
     amp: bool = False
     sao: bool = False
@@ -227,7 +235,7 @@ class Params:
         return -(-self.coded_h // (1 << self.ctb_log2))
 
 
-def _ptl(bw, profile=1, level=93):
+def _ptl(bw, profile=1, level=93, sub_layers=1):
     bw.u(2, 0)
     bw.u(1, 0)
     bw.u(5, profile)
@@ -243,6 +251,20 @@ def _ptl(bw, profile=1, level=93):
     bw.u(32, 0)
     bw.u(12, 0)
     bw.u(8, level)
+    for _ in range(sub_layers - 1):  # no sub-layer profile or level
+        bw.u(2, 0)
+    if sub_layers > 1:
+        for _ in range(sub_layers - 1, 8):
+            bw.u(2, 0)
+
+
+def _sub_layer_ordering(bw, p: Params):
+    """sub_layer_ordering_info_present_flag 1, each sub-layer alike."""
+    bw.u(1, 1)
+    for _ in range(p.sub_layers):
+        bw.ue(p.max_dec - 1)
+        bw.ue(p.num_reorder)
+        bw.ue(0)
 
 
 def write_vps(p: Params):
@@ -251,14 +273,11 @@ def write_vps(p: Params):
     bw.u(1, 1)
     bw.u(1, 1)
     bw.u(6, 0)
-    bw.u(3, 0)
-    bw.u(1, 1)
+    bw.u(3, p.sub_layers - 1)
+    bw.u(1, p.sub_layers == 1)  # temporal_id_nesting_flag
     bw.u(16, 0xFFFF)
-    _ptl(bw, p.profile)
-    bw.u(1, 1)
-    bw.ue(p.max_dec - 1)
-    bw.ue(p.num_reorder)
-    bw.ue(0)
+    _ptl(bw, p.profile, sub_layers=p.sub_layers)
+    _sub_layer_ordering(bw, p)
     bw.u(6, 0)
     bw.ue(0)
     bw.u(1, 0)
@@ -365,9 +384,9 @@ def sorted_rps(rps):
 def write_sps(p: Params):
     bw = BitWriter()
     bw.u(4, 0)
-    bw.u(3, 0)
-    bw.u(1, 1)
-    _ptl(bw, p.profile, 120 if p.coded_w * p.coded_h > 1 << 20 else 93)
+    bw.u(3, p.sub_layers - 1)
+    bw.u(1, p.sub_layers == 1)  # temporal_id_nesting_flag
+    _ptl(bw, p.profile, 120 if p.coded_w * p.coded_h > 1 << 20 else 93, p.sub_layers)
     bw.ue(0)
     bw.ue(p.chroma_format)
     if p.chroma_format == 3:
@@ -383,10 +402,7 @@ def write_sps(p: Params):
     bw.ue(p.bit_depth - 8)
     bw.ue(p.bit_depth - 8)
     bw.ue(p.log2_max_poc_lsb - 4)
-    bw.u(1, 1)
-    bw.ue(p.max_dec - 1)
-    bw.ue(p.num_reorder)
-    bw.ue(0)
+    _sub_layer_ordering(bw, p)
     bw.ue(p.min_cb_log2 - 3)
     bw.ue(p.ctb_log2 - p.min_cb_log2)
     bw.ue(p.min_tb_log2 - 2)
@@ -1224,6 +1240,7 @@ class PicPlan:
     mvd_l1_zero: bool = False
     weights: dict = None
     pic_output: bool = True
+    tid: int = 0               # TemporalId
     extra_nals: list = dataclasses.field(default_factory=list)   # (position, bytes)
     ds_state: tuple = None
     header_ext: bytes = b""
@@ -1239,7 +1256,7 @@ class StreamWriter:
         self.p, self.ch = p, chooser
         self.lay = Layout(p)
         self.vps, self.sps, self.pps = write_vps(p), write_sps(p), write_pps(p)
-        self.pictures, self.sync = [], []
+        self.pictures, self.sync, self.info = [], [], []
 
     def header(self, plan: PicPlan, seg: Segment, first: bool, offsets):
         p, lay = self.p, self.lay
@@ -1396,23 +1413,32 @@ class StreamWriter:
             plan.slice_of = lambda s, f=fields: f[id(s)]
             first = k == 0
             data = coder.segment(seg, lambda offs, s=seg, f=first: self.header(plan, s, f, offs))
-            nals.append(nal_unit(plan.nal_type, data))
+            nals.append(nal_unit(plan.nal_type, data, tid=plan.tid))
         # extra NAL units: position 0 before the picture's slices, -1 after
         nals = ([u for pos, u in plan.extra_nals if pos == 0] + nals +
                 [u for pos, u in plan.extra_nals if pos < 0])
         self.ch.picture_end(self, plan, coder)
         self.pictures.append(nals)
+        self.info.append({"nal": plan.nal_type, "poc": plan.poc, "type": plan.type,
+                          "tmvp": plan.tmvp, "col_from_l0": plan.col_from_l0,
+                          "output": plan.pic_output, "num_ref": tuple(plan.num_ref),
+                          "rps": list(plan.rps), "mods": plan.mods,
+                          "mvd_l1_zero": plan.mvd_l1_zero, "weights": plan.weights is not None})
         self.sync.append(16 <= plan.nal_type <= 23 if sync is None else sync)
 
     def clip(self):
         return Clip(self.p.width, self.p.height, self.vps, self.sps, self.pps,
-                    self.pictures, self.sync)
+                    self.pictures, self.sync, info=self.info)
 
 
 @dataclasses.dataclass
 class Clip:
     """An HEVC stream: its parameter sets and, per picture, its NAL units;
-    ``sync`` marks the sync samples (IRAP pictures)."""
+    ``sync`` marks the sync samples (IRAP pictures), ``display`` each
+    picture's place in presentation order (None: decode order) and
+    ``info`` what each picture's slices say (NAL unit type, POC, slice
+    type, TMVP and its collocated list, pic_output_flag, list sizes, RPS,
+    list modification, mvd_l1_zero_flag, explicit weights)."""
     width: int
     height: int
     vps: bytes
@@ -1421,9 +1447,11 @@ class Clip:
     pictures: list
     sync: list
     display: list = None
+    info: list = None
 
     def shown(self):
-        return list(range(len(self.pictures)))
+        """Each sample's place in presentation order."""
+        return list(range(len(self.pictures))) if self.display is None else list(self.display)
 
     def param_sets(self):
         return [self.vps, self.sps, self.pps]
@@ -1456,10 +1484,12 @@ class Clip:
         return out
 
 
-def write_mp4(path, clip: Clip, entry=b"hvc1", length_size=4, fps=30):
+def write_mp4(path, clip: Clip, entry=b"hvc1", length_size=4, fps=30, **kw):
     """MP4 / MOV with one hvc1 (parameter sets in hvcC only) or hev1
-    (also in band at each sync sample) track."""
-    W264.write_mp4(path, clip, fps=fps, entry=entry,
+    (also in band at each sync sample) track; a clip out of presentation
+    order gets ``ctts`` (``kw``: ``elst``, ``ctts_version``, as the
+    H.264 writer's ``write_mp4``)."""
+    W264.write_mp4(path, clip, fps=fps, entry=entry, **kw,
                    samples=clip.samples(length_size, inband=entry == b"hev1"),
                    config=W264._box(b"hvcC", clip.hvcc(length_size)))
 
@@ -1761,8 +1791,203 @@ def _group_params(rng, group):
     return p
 
 
+# --- GOP structures as encoders write them ----------------------------------------------------
+
+# x265's defaults (--bframes 4 --b-pyramid --open-gop: mini-GOPs of five
+# pictures, the middle B picture a reference, a CRA picture whose mini-GOP
+# before it in presentation order follows it as RASL pictures); HM's
+# random-access configuration (hierarchical GOPs of 8, a CRA picture every
+# 16-32 pictures with RASL pictures); leading pictures that reference no
+# picture before their IRAP picture (RADL after IDR_W_RADL and CRA
+# pictures); the three BLA types (BLA_W_LP first with RADL pictures, later
+# with RASL pictures, which a decoder skips); and HM's stream cut at its
+# first CRA picture (whose RASL pictures reference pictures the file lacks)
+GOPS = ("x265", "hm", "radl", "bla", "cra_first")
+
+
+@dataclasses.dataclass
+class GopPic:
+    """A picture of a GOP structure, in decode order: its NAL unit type, its
+    place in presentation order, the places of the pictures it predicts
+    from (those it may not reference are dropped), whether it stays a
+    reference picture; its POC and RPS are derived (``_gop_rps``)."""
+    nal: int
+    display: int
+    used: list
+    ref: bool = True
+    output: bool = True
+    eos: bool = False      # an end of sequence NAL unit follows it
+    tid: int = 0           # its depth in the hierarchy (TemporalId where asked)
+    poc: int = 0           # from the last IDR picture
+    rps: list = None       # [(delta, used)]
+
+
+def _hier(lo, hi, levels, kind, lo_ok=True, extra=(), depth=1):
+    """The pictures strictly between lo and hi, which are decoded before
+    them: the middle one first (a reference picture while ``levels`` > 1
+    and pictures lie on both its sides), then each half, one level deeper;
+    all of them where ``levels`` is 1. ``kind`` trail / rasl / radl names
+    their NAL unit types; ``lo_ok`` False: lo may not be referenced."""
+    if hi - lo < 2:
+        return []
+    types = {"trail": (0, 1), "rasl": (8, 9), "radl": (6, 7)}[kind]
+    refs = ([lo] if lo_ok else []) + [hi] + list(extra)
+    if levels <= 1:
+        return [GopPic(types[0], d, refs, False, tid=depth) for d in range(lo + 1, hi)]
+    mid = (lo + hi) // 2
+    ref = hi - lo > 2
+    return ([GopPic(types[ref], mid, refs, ref, tid=depth)] +
+            _hier(lo, mid, levels - 1, kind, lo_ok, extra, depth + 1) +
+            _hier(mid, hi, levels - 1, kind, True, extra, depth + 1))
+
+
+def gop_pictures(kind, frames, rng):
+    """The pictures of a ``frames``-picture stream of GOP structure
+    ``kind`` (GOPS) in decode order, with their POCs and RPSs: an IDR
+    picture, then per anchor (every GOP-size pictures, and the last
+    picture) the anchor and the pictures before it, hierarchically. An
+    anchor may be an IRAP picture whose pictures before it are RASL
+    (open: they follow it), RADL (they follow it and reference none
+    before it) or none (closed: they precede it, under an anchor of their
+    own)."""
+    g, levels = {"x265": (5, 2), "hm": (8, 3), "cra_first": (8, 3)}.get(kind, (4, 2))
+    n = frames + (9 if kind == "cra_first" else 0)
+    anchors = list(range(0, n, g))
+    if anchors[-1] != n - 1:
+        anchors.append(n - 1)
+    iraps = {}  # anchor index: (NAL unit type, leading)
+    if kind == "x265":
+        iraps[int(rng.integers(2, max(3, len(anchors) - 1)))] = (21, "rasl")
+    elif kind in ("hm", "cra_first"):
+        k = 2 if kind == "cra_first" else int(rng.integers(2, 5))
+        while k < len(anchors) - 1:
+            iraps[k] = (21, "rasl")
+            k += int(rng.integers(2, 5))
+    elif kind == "radl":
+        order = [(19, "radl"), (21, "radl"), (20, "none")]
+        for j, k in enumerate(range(2, len(anchors) - 1, 2)):
+            iraps[k] = order[(j + int(rng.integers(0, 3))) % 3]
+    elif kind == "bla":
+        order = [(16, "radl"), (17, "radl"), (18, "none"), (21, "rasl"), (16, "rasl")]
+        for j, k in enumerate(range(2, len(anchors) - 1, 2)):
+            iraps[k] = order[j % 5]
+    pics = [GopPic(int(rng.choice([19, 20])), 0, [])]
+    for k in range(1, len(anchors)):
+        p, a = anchors[k - 1], anchors[k]
+        far = [p - g] if p >= g and rng.random() < 0.6 else []
+        if k in iraps:
+            nal, lead = iraps[k]
+            if lead == "none":
+                pics.append(GopPic(1, a - 1, [p] + far))
+                pics += _hier(p, a - 1, levels, "trail")
+                pics.append(GopPic(nal, a, []))
+            else:
+                pics.append(GopPic(nal, a, []))
+                pics += _hier(p, a, levels, lead, lo_ok=lead == "rasl",
+                              extra=[q for q in far if lead == "rasl"])
+        else:
+            pics.append(GopPic(1, a, [p] + far))
+            pics += _hier(p, a, levels, "trail", extra=[q for q in far if rng.random() < 0.5])
+    _gop_rps(pics)
+    if kind == "cra_first":  # the file starts at the first CRA picture
+        start = next(j for j, q in enumerate(pics) if q.nal == 21)
+        pics = pics[start:]
+        first = min(q.display for q in pics)
+        for q in pics:
+            q.display -= first
+            q.used = [r - first for r in q.used]
+    return pics
+
+
+def _gop_rps(pics):
+    """Fills each picture's POC (its place from the last IDR picture), drops
+    the references it may not use (an IRAP picture uses none; a RADL
+    picture only its IRAP picture and that one's RADL pictures; a trailing
+    picture none before its IRAP picture nor any leading picture), and its
+    RPS: every reference picture decoded before it that it or a later
+    picture uses."""
+    idr = 0
+    irap_at = irap_disp = 0
+    seen = {}  # display: (decode index, NAL unit type)
+    for j, q in enumerate(pics):
+        if q.nal in (19, 20):
+            idr = q.display
+            seen = {}
+        if 16 <= q.nal <= 21:
+            irap_at, irap_disp = j, q.display
+        q.poc = q.display - idr
+
+        def ok(r):
+            if r not in seen or 16 <= q.nal <= 21:
+                return False
+            at, nal = seen[r]
+            if q.nal in (8, 9):
+                return True
+            if q.nal in (6, 7):
+                return at >= irap_at and nal not in (8, 9)
+            return at >= irap_at and r >= irap_disp and not 6 <= nal <= 9
+        q.used = list(dict.fromkeys(r for r in q.used if ok(r)))
+        if not 16 <= q.nal <= 21 and not q.used:
+            raise ValueError(f"picture {q.display} references nothing")
+        if q.ref:
+            seen[q.display] = (j, q.nal)
+    idr_at = 0
+    for j, q in enumerate(pics):
+        if q.nal in (19, 20):
+            idr_at = j
+            q.rps = []
+            continue
+        later = {r for k in range(j, len(pics)) for r in pics[k].used}
+        q.rps = sorted_rps([(pics[k].poc - q.poc, int(pics[k].display in q.used))
+                            for k in range(idr_at, j)
+                            if pics[k].ref and pics[k].display in later])
+
+
+def dpb_params(pics):
+    """sps_max_num_reorder_pics of a structure, and the least
+    sps_max_dec_pic_buffering under which FFmpeg's bumping puts its
+    pictures out in presentation order when it is decoded from the start."""
+    shown = [q for q in pics if q.output]
+    reorder = max((sum(1 for r in shown[:j] if r.display > q.display)
+                   for j, q in enumerate(shown)), default=0)
+    want = sorted(q.display for q in shown)
+    for max_dec in range(reorder + 1, 17):
+        if _bumped(pics, reorder, max_dec) == want:
+            return reorder, max_dec
+    raise ValueError("no DPB size puts the structure out in order")
+
+
+def _bumped(pics, reorder, max_dec):
+    """The presentation places in the order FFmpeg's bumping puts them out
+    (every picture decoded: no RASL picture is skipped from the start)."""
+    dpb, out = [], []  # [poc, display, waiting, reference]
+
+    def bump(max_out, max_n):
+        while True:
+            waiting = [e for e in dpb if e[2]]
+            if not (len(waiting) > max_out or (waiting and len(dpb) > max_n)):
+                return
+            e = min(waiting, key=lambda e: e[0])
+            out.append(e[1])
+            e[2] = False
+            dpb[:] = [f for f in dpb if f[2] or f[3]]
+    for q in pics:
+        if q.nal in (16, 17, 18, 19, 20):
+            bump(0, 0)
+            dpb.clear()
+        keep = {q.poc + d for d, _ in q.rps}
+        for e in dpb:
+            e[3] = e[0] in keep
+        dpb[:] = [e for e in dpb if e[2] or e[3]]
+        dpb.append([q.poc, q.display, q.output, True])
+        bump(reorder, max_dec)
+    bump(0, 0)
+    return out
+
+
 def random_stream(seed, group="inter", frames=5, crop=None, prob=None, cuts=3, gop=None,
-                  reorder=0, irap=None, filters=False, **over):
+                  reorder=0, irap=None, filters=False, hidden=0.0, cra_sync=True, eos=False,
+                  temporal=False, **over):
     """A stream of random legal syntax of tool group ``group`` (GROUPS):
     an IRAP picture, then P pictures (B pictures for "ldb" and
     "weights"), each of random slice segments over random CTBs; ``over``
@@ -1770,13 +1995,31 @@ def random_stream(seed, group="inter", frames=5, crop=None, prob=None, cuts=3, g
     or IDR, the RPS emptied; ``irap`` names its NAL unit type) every that
     many pictures, a sync sample; ``reorder``: sps_max_num_reorder_pics
     (output delay, no reordering); ``filters``: every slice deblocks and
-    runs SAO (see ``_segments``)."""
+    runs SAO (see ``_segments``).
+
+    ``gop`` may instead name a structure of GOPS (pictures out of decode
+    order, leading pictures, BLA pictures): its non-IRAP pictures are B
+    pictures (P pictures one in five; every list may hold pictures on
+    either side), sps_max_num_reorder_pics and sps_max_dec_pic_buffering
+    are the structure's (``dpb_params``; at least ``reorder``) and the
+    clip's ``display`` its presentation order. ``hidden``: the share of
+    its non-IRAP pictures sent with pic_output_flag 0 (or a tuple of the
+    presentation places of those); ``cra_sync`` False:
+    only IDR and BLA pictures are sync samples; ``eos``: an end of sequence
+    NAL unit before the first CRA picture; ``temporal``: each picture's
+    depth in the hierarchy is its TemporalId (HM's temporal sub-layers:
+    the anchors and IRAP pictures 0), the SPS's sub-layers as many."""
     rng = np.random.default_rng(seed)
     p = _group_params(rng, group)
     if crop:
         p.crop = crop
+    if isinstance(gop, str):
+        p.log2_max_poc_lsb = int(rng.choice([6, 8]))
     for k, v in over.items():
         setattr(p, k, v)
+    if isinstance(gop, str):
+        return _gop_stream(rng, p, group, gop, frames, prob, cuts, reorder, filters, hidden,
+                           cra_sync, eos, temporal)
     if reorder:
         p.num_reorder = reorder
         p.max_dec = max(p.max_dec, reorder + 4)
@@ -1843,25 +2086,9 @@ def random_stream(seed, group="inter", frames=5, crop=None, prob=None, cuts=3, g
                         plan.rps = derived
             # the pictures the coded RPS keeps (a predicted one may keep fewer)
             keep = sorted(poc + d for d, _ in plan.rps)
-            total = plan.total_curr()
             if typ != 2:
-                if total == 0:
-                    plan.type = typ = 2
-                else:
-                    n0 = int(rng.integers(1, min(4, total + 1) + 1))
-                    n1 = int(rng.integers(1, min(4, total + 1) + 1)) if typ == 0 else 0
-                    plan.num_ref = (n0, n1)
-                    if p.lists_mod and total > 1:
-                        plan.mods = tuple(
-                            [int(v) for v in rng.integers(0, total, plan.num_ref[li])]
-                            if li < (2 if typ == 0 else 1) and rng.random() < 0.6 else None
-                            for li in range(2))
-                    plan.tmvp = p.tmvp and rng.random() < 0.8
-                    plan.col_from_l0 = typ != 0 or rng.random() < 0.5
-                    plan.col_ref = int(rng.integers(0, plan.num_ref[0 if plan.col_from_l0 else 1]))
-                    plan.mvd_l1_zero = typ == 0 and rng.random() < 0.3
-                    if (p.weighted_pred and typ == 1) or (p.weighted_bipred and typ == 0):
-                        plan.weights = _random_weights(rng, plan)
+                _random_lists(rng, p, plan)
+                typ = plan.type
             if p.slice_ext:
                 plan.header_ext = bytes(rng.integers(0, 256, int(rng.integers(0, 3))).tolist())
             if nt == 1 or i == frames - 1:
@@ -1872,6 +2099,70 @@ def random_stream(seed, group="inter", frames=5, crop=None, prob=None, cuts=3, g
             plan.extra_nals = _layer_nals(rng, plan)
         sw.picture(plan)
     return sw.clip()
+
+
+def _gop_stream(rng, p, group, kind, frames, prob, cuts, reorder, filters, hidden, cra_sync,
+                eos, temporal):
+    """random_stream's pictures in a GOP structure of GOPS."""
+    pics = gop_pictures(kind, frames, rng)
+    if hidden:
+        p.output_flag_present = True
+        for q in pics:
+            q.output = (q.display not in hidden if isinstance(hidden, tuple) else
+                        16 <= q.nal <= 21 or rng.random() >= hidden)
+    if eos:
+        at = next((j for j, q in enumerate(pics) if q.nal == 21 and j), None)
+        if at is None:
+            raise ValueError("no CRA picture to send an end of sequence before")
+        pics[at - 1].eos = True
+    nr, md = dpb_params(pics)
+    p.num_reorder, p.max_dec = max(nr, reorder), max(md, reorder + 1)
+    if temporal:
+        p.sub_layers = max(q.tid for q in pics) + 1
+    sw = StreamWriter(p, RandomChooser(rng, p, **(prob or {})))
+    for q in pics:
+        segs = _segments(rng, p, sw.lay, cuts, filters=filters)
+        typ = 2 if 16 <= q.nal <= 21 or group == "intra" else \
+            (1 if rng.random() < 0.2 else 0)
+        plan = PicPlan(q.nal, q.poc, typ, segs, rps=list(q.rps))
+        plan.pic_output = q.output
+        plan.tid = q.tid if temporal else 0
+        if typ != 2:
+            _random_lists(rng, p, plan)
+        if p.slice_ext:
+            plan.header_ext = bytes(rng.integers(0, 256, int(rng.integers(0, 3))).tolist())
+        if group == "layers":
+            plan.extra_nals = _layer_nals(rng, plan)
+        if q.eos:
+            plan.extra_nals.append((-1, nal_unit(36, b"")))
+        sw.picture(plan, sync=q.nal in (16, 17, 18, 19, 20) or (q.nal == 21 and cra_sync))
+    clip = sw.clip()
+    clip.display = [q.display for q in pics]
+    return clip
+
+
+def _random_lists(rng, p, plan):
+    """A P or B picture's reference lists at random (list sizes to one
+    past its references, modification, TMVP's collocated picture,
+    mvd_l1_zero_flag, weights); an I picture where it references none."""
+    typ, total = plan.type, plan.total_curr()
+    if total == 0:
+        plan.type = 2
+        return
+    n0 = int(rng.integers(1, min(4, total + 1) + 1))
+    n1 = int(rng.integers(1, min(4, total + 1) + 1)) if typ == 0 else 0
+    plan.num_ref = (n0, n1)
+    if p.lists_mod and total > 1:
+        plan.mods = tuple(
+            [int(v) for v in rng.integers(0, total, plan.num_ref[li])]
+            if li < (2 if typ == 0 else 1) and rng.random() < 0.6 else None
+            for li in range(2))
+    plan.tmvp = p.tmvp and rng.random() < 0.8
+    plan.col_from_l0 = typ != 0 or rng.random() < 0.5
+    plan.col_ref = int(rng.integers(0, plan.num_ref[0 if plan.col_from_l0 else 1]))
+    plan.mvd_l1_zero = typ == 0 and rng.random() < 0.3
+    if (p.weighted_pred and typ == 1) or (p.weighted_bipred and typ == 0):
+        plan.weights = _random_weights(rng, plan)
 
 
 def _random_weights(rng, plan):
@@ -1928,26 +2219,33 @@ def rgb_to_yuv420(rgb):
 
 class PanEncoder:
     """The decisions of :func:`encode`: one CU a CTB, one TU a CU; intra
-    pictures by the best of planar, DC, horizontal and vertical; P pictures
-    by the known motion of each picture (merge index 0, which is that
-    motion, AMVP from zero for the picture's first CU; skipped where the
-    residual quantises to nothing). It reconstructs with the port's plain
-    numpy versions (``data/video.py``), loop filters off."""
+    pictures by the best of planar, DC, horizontal and vertical; P and B
+    pictures by the known motion of each picture to its references
+    (``plan.refs``: the POCs of the list 0 and list 1 pictures it averages,
+    ``plan.ref1``: the list 1 index of the second; merge index 0, which is
+    that motion, AMVP from zero for the picture's first CU; skipped where
+    the residual quantises to nothing). It reconstructs with the port's
+    plain numpy versions (``data/video.py``), loop filters off."""
 
     def __init__(self, p: Params, qp: int):
         from mast3r_slam_tpu_torch.data import video
         self.V, self.p, self.qp = video, p, qp
-        self.rec = self.ref = None
+        self.rec = None
+        self.recs = {}  # the reconstructions by POC
 
     def picture_start(self, sw, plan, coder):
         self.src = plan.source
         self.mv = plan.motion
-        self.mv2 = getattr(plan, "motion2", None)  # B: to the picture before the last
+        self.mv2 = getattr(plan, "motion2", None)  # B: to the list 1 picture
+        refs = getattr(plan, "refs", ())
+        self.ref = self.recs[refs[0]] if refs else None
+        self.ref2 = self.recs[refs[1]] if len(refs) > 1 else None
+        self.ref1 = getattr(plan, "ref1", 0)
         self.rec = [np.zeros_like(q) for q in self.src]
         self.first = True
 
     def picture_end(self, sw, plan, coder):
-        self.ref2, self.ref = self.ref, self.rec
+        self.recs[plan.poc] = self.rec
 
     def sao(self, rx, ry):
         return None
@@ -2039,7 +2337,7 @@ class PanEncoder:
         if not cu["intra"]:
             coded = any(cu["levels"][c].any() for c in range(3))
             if self.first and self.mv2 is not None:
-                cu["pus"] = [{"dir": 3, "ref": [0, 1], "mvd": [self.mv, self.mv2],
+                cu["pus"] = [{"dir": 3, "ref": [0, self.ref1], "mvd": [self.mv, self.mv2],
                               "mvp": [0, 0]}]
                 cu["root"] = coded
             elif self.first:
@@ -2097,51 +2395,100 @@ class PanEncoder:
             np.asarray(levels, np.int64), lg, c, self.cur["intra"], pr)
 
 
-def encode(frames, qp=30, crop=(0, 0, 0, 0), motion=None, ctb_log2=4, bframes=False):
+def encode(frames, qp=30, crop=(0, 0, 0, 0), motion=None, ctb_log2=4, bframes=False, gop=None,
+           cra=None):
     """Encodes uint8 RGB frames (H, W, 3): an IDR picture, then P pictures
     each referencing the one before, predicted with ``motion[i]`` (frame
     i's content at x is frame i-1's at x + motion, in quarter samples; zero
     where not given). With ``bframes`` the pictures from the third on are
     low-delay B pictures, each block the average of the last picture
     (list 0) and the one before it (list 1, index 1, moved by both
-    motions). One CU a CTB (16x16, or 32x32 with ``ctb_log2`` 5), the loop
-    filters off. The coded size is the frame size plus ``crop`` (left,
-    right, top, bottom)."""
+    motions). With ``gop`` the pictures are HM's hierarchical GOPs of that
+    size out of decode order (``motion(a, b)``: frame a's content at x is
+    frame b's at x + motion): each anchor a P picture of the anchor
+    before, each picture between two decoded ones a B picture averaging
+    them (forward and backward motion), the picture at ``cra`` a CRA
+    picture whose GOP before it follows it as RASL pictures; the clip's
+    ``display`` is its presentation order. One CU a CTB (16x16, or 32x32
+    with ``ctb_log2`` 5), the loop filters off. The coded size is the frame
+    size plus ``crop`` (left, right, top, bottom)."""
     frames = list(frames)
     hgt, wid = frames[0].shape[:2]
+    pics = _pan_gops(len(frames), gop, cra) if gop else None
+    reorder, max_dec = dpb_params(pics) if gop else (0, 3 if bframes else 2)
     p = Params(width=wid, height=hgt, crop=tuple(crop), ctb_log2=ctb_log2, min_cb_log2=ctb_log2,
                min_tb_log2=2, max_tb_log2=min(ctb_log2, 5), max_th_inter=0, max_th_intra=0,
                init_qp=qp, deblock=(False, True, 0, 0), lf_across_slices=False,
-               max_dec=3 if bframes else 2, num_ref_default=(1, 2 if bframes else 1))
+               max_dec=max_dec, num_reorder=reorder,
+               num_ref_default=(1, 2 if bframes else 1))
     enc = PanEncoder(p, qp)
     sw = StreamWriter(p, enc)
     cw, ch = p.coded_w, p.coded_h
-    for i, f in enumerate(frames):
-        padded = np.pad(f, ((crop[2], ch - hgt - crop[2]), (crop[0], cw - wid - crop[0]), (0, 0)),
-                        mode="edge")
-        seg = Segment(0, sw.lay.nctb)
+
+    def source(i):
+        f = frames[i]
+        return rgb_to_yuv420(np.pad(f, ((crop[2], ch - hgt - crop[2]),
+                                        (crop[0], cw - wid - crop[0]), (0, 0)), mode="edge"))
+    if gop:
+        for q in pics:
+            plan = PicPlan(q.nal, q.poc, 2, [Segment(0, sw.lay.nctb)], rps=list(q.rps))
+            plan.motion = (0, 0)
+            if q.used:
+                plan.refs = sorted(q.used, key=lambda r: (r > q.display, abs(r - q.display)))
+                plan.motion = motion(q.display, plan.refs[0])
+                if len(plan.refs) > 1:
+                    plan.type, plan.num_ref, plan.ref1 = 0, (1, 1), 0
+                    plan.motion2 = motion(q.display, plan.refs[1])
+                else:
+                    plan.type, plan.num_ref = 1, (1, 0)
+                plan.refs = [r - (q.display - q.poc) for r in plan.refs]
+            plan.source = source(q.display)
+            sw.picture(plan)
+        clip = sw.clip()
+        clip.display = [q.display for q in pics]
+        return clip
+    for i in range(len(frames)):
         mv = tuple(motion[i]) if motion is not None and i > 0 else (0, 0)
+        seg = Segment(0, sw.lay.nctb)
         if i == 0:
             plan = PicPlan(19, 0, 2, [seg])
         elif bframes and i >= 2:
             plan = PicPlan(1, i, 0, [seg], rps=[(-1, 1), (-2, 1)], num_ref=(1, 2))
             prev = tuple(motion[i - 1]) if motion is not None else (0, 0)
             plan.motion2 = (mv[0] + prev[0], mv[1] + prev[1])
+            plan.refs, plan.ref1 = (i - 1, i - 2), 1
         else:
             plan = PicPlan(1, i, 1, [seg], rps=[(-1, 1)], num_ref=(1, 0))
-        plan.source = rgb_to_yuv420(padded)
+            if i:
+                plan.refs = (i - 1,)
+        plan.source = source(i)
         plan.motion = mv
         sw.picture(plan)
     return sw.clip()
+
+
+def _pan_gops(n, gop, cra):
+    """encode()'s structure: an IDR picture, anchors every ``gop``
+    pictures and at the last, each picture between two decoded ones
+    referencing just them (list 0 the one before it, list 1 the one
+    after); the anchor at ``cra`` a CRA picture with RASL pictures."""
+    anchors = list(range(0, n, gop)) + ([n - 1] if (n - 1) % gop else [])
+    pics = [GopPic(19, 0, [])]
+    for p, a in zip(anchors, anchors[1:]):
+        if a == cra:
+            pics.append(GopPic(21, a, []))
+            pics += _hier(p, a, 3, "rasl")
+        else:
+            pics.append(GopPic(1, a, [p]))
+            pics += _hier(p, a, 3, "trail")
+    _gop_rps(pics)
+    return pics
 
 
 # --- what the port's decoder refuses ------------------------------------------------------
 
 # feature: the message's words
 REFUSED = {
-    "reordered B pictures": "B pictures put out before a picture that precedes them",
-    "leading pictures": "RASL / RADL leading pictures (NAL unit type 7)",
-    "pic_output_flag": "pic_output_flag 0",
     "Main 10": "the Main 10 profile (general_profile_idc 2)",
     "RExt": "the Format Range Extensions profile (general_profile_idc 4)",
     "SCC": "the Screen Content Coding profile (general_profile_idc 9)",
@@ -2157,10 +2504,16 @@ REFUSED = {
 }
 
 
+# refused_clip's streams of features the decoder reads: a picture put out
+# before one that precedes it in decode order, a RADL_R picture after its
+# IDR picture's first trailing picture, a picture sent with pic_output_flag 0
+READ = ("reordered B pictures", "leading pictures", "pic_output_flag")
+
+
 def refused_clip(feature, seed=0):
     """A small stream (an IDR picture, then P pictures, 64x48) that uses
-    ``feature`` of REFUSED: in its parameter sets or its second or third
-    picture."""
+    ``feature`` of REFUSED (or of READ): in its parameter sets or its
+    second or third picture."""
     rng = np.random.default_rng(seed)
     over = {"Main 10": dict(profile=2), "RExt": dict(profile=4), "SCC": dict(profile=9),
             "multiview": dict(profile=6), "4:2:2": dict(chroma_format=2),
